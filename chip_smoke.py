@@ -4,23 +4,29 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
-ops/csrc`` with nvcc, then runs three phases; any failure raises and the
-script exits non-zero without printing a result:
+ops/csrc`` with nvcc (one process per source, all at once), then runs
+three phases; any failure raises and the script exits non-zero without
+printing a result:
 
-1. Kernel against plain version on the card. K1 (pointwise group) and K2
-   (fused stencil group) must give the same bytes as their plain PyTorch
-   versions for every kernel-safe pointwise op, every stencil of the
-   registry at 1080x1920 RGB and at odd shapes, and the reference
-   pipeline's fused group. A small input is also held against the
-   loop-level emulator of the reference program (tests/_c_reference.py).
-2. The main path at full size: the `run` command's computation
+1. Kernel against plain version on the card. K1 (pointwise group), K2
+   (fused stencil group) and K4 (fused plan stage) must give the same
+   bytes as their plain PyTorch versions: every kernel-safe pointwise op,
+   every stencil of the registry at 1080x1920 RGB and at odd shapes, the
+   reference pipeline's fused group; for K4 also multi-stencil stages that
+   mix edge modes, stages that change the channel count mid-stage, a
+   halo-0 stage, the megakernel and plan_ab chains, shapes just above the
+   size gates and tile heights above 48 KB of shared memory. A small input
+   is also held against the loop-level emulator of the reference program
+   (tests/_c_reference.py).
+2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
-   pipeline and for gaussian:5, through the kernels and through the golden
-   ops, byte-equal, with each kernel's launches counted over the run.
+   pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
+   (K1/K2 groups) and ``--plan fused-pallas`` (K4 stages), byte-equal to
+   the golden ops, with each kernel's launches counted over each run.
 3. Numbers: CUDA-event times of each kernel and its plain version at the
-   main path's shapes, the bound from bytes and operations, a PyTorch
+   main paths' shapes, the bound from bytes and operations, a PyTorch
    library call as a yardstick where one computes the same function, and
-   each path end to end.
+   each path end to end under both plans.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -39,7 +45,10 @@ MAIN_H, MAIN_W = 4320, 7680  # the 8K frame of the gaussian5_8k workload
 SPECS = {
     "reference": "grayscale,contrast:3.5,emboss:3",
     "gaussian5_8k": "gaussian:5",
+    # the JAX package's megakernel A/B lane (bench_suite.megakernel_ab_params)
+    "megakernel_ab": "grayscale,contrast:3.5,gaussian:5,sharpen,quantize:6",
 }
+PLANS = ("off", "fused-pallas")
 POINTWISE_CASES = [
     "grayscale", "grayscale601", "sepia", "contrast:3.5", "contrast:3",
     "brightness:20", "brightness:-7.5", "invert", "threshold:100",
@@ -58,6 +67,18 @@ FUSED_CASES = [
     "grayscale,contrast:3.5,emboss:3", "sepia,gaussian:5", "grayscale,gaussian:5",
     "invert,brightness:-20,median:5", "grayscale,gray2rgb,sobel",
     "grayscale601,contrast:3,emboss101:3",
+]
+# K4 stages beyond the one-stencil ones: several stencils with mixed edge
+# modes, channel counts that change mid-stage, halo 0, the main chains
+STAGE_CASES = [
+    "gaussian:5,sharpen", "emboss:3,gaussian:5", "median:3,sobel,box:3",
+    "gaussian:7,gaussian:7,gaussian:7,gaussian:7,gaussian:7",
+    "erode:3,dilate:5,median:5", "emboss:5,emboss:3,emboss101:3",
+    "box:1,invert,box:1", "grayscale,contrast:3.5,emboss:3,gray2rgb,gaussian:5",
+    "grayscale,gaussian:3,gray2rgb,sharpen,sepia", "sepia,gaussian:3,grayscale,sobel",
+    "sepia,median:3,invert,emboss:3", "gray2rgb",
+    "grayscale,contrast:3.5,emboss:3", "grayscale,contrast:3.5,gaussian:5,quantize:6",
+    SPECS["megakernel_ab"],
 ]
 SHAPES = [(1080, 1920), (37, 53), (257, 301)]
 
@@ -126,7 +147,59 @@ def phase1(device) -> int:
                     check_equal(f"K2 {spec} {shape} tile_h={tile_h}",
                                 ck.stream_stencil(pw, st, x, tile_h=tile_h), want)
                     n += 1
+    n += phase1_k4(device)
     print(f"phase 1: {n} kernel cases equal to their plain versions (max_abs_err 0)")
+    return n
+
+
+def k4_tile_heights(ops, c_in) -> list:
+    """Tile heights to hold K4 at: the default, 5, and, for a stage that
+    uses shared memory, the smallest whose shared memory exceeds 48 KB."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+
+    _, _, c_smem, two_pass = ck.fused_stage_program(ops, c_in)
+    if not c_smem:
+        return [None, 5]
+    t = 1
+    while ck.fused_stage_smem_bytes(c_smem, t, chain_halo(ops), two_pass) <= 48 * 1024:
+        t += 1
+    return [None, 5, t]
+
+
+def phase1_k4(device) -> int:
+    """K4 on every stage case against fused_stage_plain, byte-equal."""
+    import ctypes
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+    from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
+
+    lib = kr.load("fused_stage")
+    assert lib.fused_stage_program_bytes() == ctypes.sizeof(kr.FsProgram)
+    for args in [(3, 16, 3, 1), (1, 16, 1, 0), (3, 48, 16, 1), (1, 200, 0, 0)]:
+        assert lib.fused_stage_smem_bytes(*args) == ck.fused_stage_smem_bytes(*args), args
+    n = 0
+    for spec in STENCIL_CASES + STAGE_CASES:
+        ops = make_pipeline_ops(spec)
+        halo = chain_halo(ops)
+        max_op = max(op.halo for op in ops)
+        shapes = list(SHAPES)
+        if halo:  # just above the size gates: height > 2 halo, width > max op halo
+            shapes += [(2 * halo + 1, 301), (257, max_op + 1), (2 * halo + 1, max_op + 1)]
+        for seed, shape in enumerate(shapes):
+            x = input_for(ops, shape, seed, device)
+            c_in = 1 if x.ndim == 2 else 3
+            reason = ck.fused_stage_reject(ops, *shape, c_in)
+            assert reason is None, f"K4 {spec} {shape}: rejected ({reason})"
+            want = ck.fused_stage_plain(ops, x)
+            tiles = k4_tile_heights(ops, c_in) if seed == 0 else [None]
+            for tile_h in tiles:
+                check_equal(f"K4 {spec} {shape} tile_h={tile_h}",
+                            ck.fused_stage(ops, x, tile_h=tile_h), want)
+                n += 1
+    print(f"phase 1: K4 equal to fused_stage_plain in {n} cases")
     return n
 
 
@@ -163,55 +236,71 @@ def phase1_reference(device) -> None:
 
 
 def phase2(device, x8k):
-    """The main path at 8K through the kernels and the golden ops."""
+    """The main paths at 8K under each plan, against the golden ops, with
+    every kernel's launches counted over each run."""
     import torch
 
     from mpi_cuda_imagemanipulation_tpu_torch.cli import run_image
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 
     launches = {}
     for key, spec in SPECS.items():
         pipe = Pipeline.parse(spec)
-        ck.reset_launch_counts()
-        out = run_image(pipe, x8k, impl="cuda", device=device)
-        torch.cuda.synchronize()
-        counts = {"K1": ck.pointwise_group.launches, "K2": ck.stream_stencil.launches}
-        want = run_image(pipe, x8k, impl="torch", device=device)
-        assert out.shape == (MAIN_H, MAIN_W, 3) and out.dtype == torch.uint8, out.shape
-        check_equal(f"main path {spec}", out, want)
-        expected = {"K1", "K2"} if key == "reference" else {"K2"}
-        for k in expected:
-            if counts[k] < 1:
-                raise AssertionError(f"main path {spec}: {k} was never launched")
-        launches[key] = counts
-        print(f"phase 2: {spec} at {MAIN_H}x{MAIN_W} RGB: cuda == torch, launches {counts}")
+        want = run_image(pipe, x8k, impl="torch", device=device, plan="off")
+        for plan in PLANS:
+            ck.reset_launch_counts()
+            plan_metrics.reset()
+            out = run_image(pipe, x8k, impl="cuda", device=device, plan=plan)
+            torch.cuda.synchronize()
+            counts = {"K1": ck.pointwise_group.launches, "K2": ck.stream_stencil.launches,
+                      "K4": ck.fused_stage.launches}
+            fallbacks = sum(plan_metrics.pallas_fallbacks.values())
+            assert out.shape == (MAIN_H, MAIN_W, 3) and out.dtype == torch.uint8, out.shape
+            check_equal(f"main path {spec} plan={plan}", out, want)
+            if plan == "off":
+                expected = {"K2"} if key == "gaussian5_8k" else {"K1", "K2"}
+            else:
+                expected = {"K4"}
+            for k in counts:
+                if k in expected and counts[k] < 1:
+                    raise AssertionError(f"main path {spec} plan={plan}: {k} was never launched")
+                if k not in expected and counts[k]:
+                    raise AssertionError(f"main path {spec} plan={plan}: {k} launched {counts[k]}x")
+            if fallbacks or (plan == "fused-pallas" and plan_metrics.pallas_stages < 1):
+                raise AssertionError(f"main path {spec} plan={plan}: fallbacks "
+                                     f"{dict(plan_metrics.pallas_fallbacks)}")
+            launches[key, plan] = counts
+            print(f"phase 2: {spec} plan={plan} at {MAIN_H}x{MAIN_W} RGB: cuda == golden, "
+                  f"launches {counts}, K4 stages {plan_metrics.pallas_stages}, fallbacks 0")
     return launches
 
 
-def op_count(pointwise, stencil, n_pix: int, c_out: int) -> int:
-    """Float32 operations the group does per image, counted from its ops."""
-    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import MEDIAN_NETWORKS
+def op_count(ops, n_pix: int, c_in: int) -> int:
+    """Float32 operations a group or stage does per image, counted from its
+    ops: each pointwise op per pixel, each stencil per pixel and plane."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import MEDIAN_NETWORKS, StencilOp
 
     per_op = {"grayscale": 8, "grayscale601": 8, "sepia": 27, "gray2rgb": 0,
               "invert": 1, "threshold": 1, "solarize": 2}
-    prologue = 0
-    for op in pointwise:
-        base = op.name.rstrip("0123456789.-")
-        prologue += per_op.get(base, 6)
-    total = prologue * n_pix
-    if stencil is not None:
-        k = 2 * stencil.halo + 1
-        if stencil.reduce == "median":
+    total, c = 0, c_in
+    for op in ops:
+        if not isinstance(op, StencilOp):
+            total += per_op.get(op.name.rstrip("0123456789.-"), 6) * n_pix
+            c = op.out_channels or c
+            continue
+        k = 2 * op.halo + 1
+        if op.reduce == "median":
             st = 2 * len(MEDIAN_NETWORKS[k][0])
-        elif stencil.reduce in ("min", "max"):
+        elif op.reduce in ("min", "max"):
             st = 2 * (k - 1)
-        elif stencil.separable is not None:
+        elif op.separable is not None:
             st = 2 * (2 * k - 1) + 1
         else:
-            nnz = sum(int((w != 0).sum()) for w in stencil.kernels)
-            st = 2 * nnz + (4 if stencil.combine == "magnitude" else 0) + 1
-        total += (st + 3) * n_pix * c_out
+            nnz = sum(int((w != 0).sum()) for w in op.kernels)
+            st = 2 * nnz + (4 if op.combine == "magnitude" else 0) + 1
+        total += (st + 3) * n_pix * c
     return total
 
 
@@ -225,17 +314,20 @@ def phase3(device, x8k, launches):
     import torch
     import torch.nn.functional as F
 
-    from mpi_cuda_imagemanipulation_tpu_torch.cli import run_image
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
     from mpi_cuda_imagemanipulation_tpu_torch.ops import filters
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
     n_pix = MAIN_H * MAIN_W
     mp = n_pix / 1e6
     rows = []
+    k2 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/stream_stencil.cu"
+    k4 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/fused_stage.cu"
 
-    def record(name, source, replaces, launch_count, fn, plain, c_in, c_out, pw, st,
+    def record(name, source, replaces, launch_count, fn, plain, c_in, c_out, ops,
                library=None):
         got, want = fn(), plain()
         err = int((got.int() - want.int()).abs().max().item())
@@ -245,7 +337,7 @@ def phase3(device, x8k, launches):
         plain_ms = device_time_ms(plain, reps=5, inner=2)
         library_ms = device_time_ms(library) if library is not None else None
         nbytes = (c_in + c_out) * n_pix
-        bound_ms, bound_by = bound(nbytes, op_count(pw, st, n_pix, c_out))
+        bound_ms, bound_by = bound(nbytes, op_count(ops, n_pix, c_in))
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launch_count, "max_abs_err": err, "ms": ms,
@@ -260,12 +352,11 @@ def phase3(device, x8k, launches):
     # K2 on the reference group: 8K RGB in, gray out
     pw, st = split_group(SPECS["reference"])
     record(
-        "K2 stream_stencil [grayscale,contrast3.5,emboss3]",
-        "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/stream_stencil.cu",
+        "K2 stream_stencil [grayscale,contrast3.5,emboss3]", k2,
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
-        launches["reference"]["K2"],
+        launches["reference", "off"]["K2"],
         lambda: ck.stream_stencil(pw, st, x8k),
-        lambda: ck.stream_stencil_plain(pw, st, x8k), 3, 1, pw, st,
+        lambda: ck.stream_stencil_plain(pw, st, x8k), 3, 1, pw + [st],
     )
     # K1 on the reference path: the gray result replicated to RGB
     gray = ck.stream_stencil(pw, st, x8k)
@@ -274,52 +365,70 @@ def phase3(device, x8k, launches):
         "K1 pointwise_group [gray2rgb]",
         "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/pointwise.cu",
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:540",
-        launches["reference"]["K1"],
+        launches["reference", "off"]["K1"],
         lambda: ck.pointwise_group(g2r, gray),
-        lambda: ck.pointwise_group_plain(g2r, gray), 1, 3, g2r, None,
+        lambda: ck.pointwise_group_plain(g2r, gray), 1, 3, g2r,
         library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(),
     )
     # K2 on gaussian:5, RGB in and out; the yardstick is a depthwise
     # float32 convolution of the pre-padded planes (TF32 off)
     pw5, st5 = split_group(SPECS["gaussian5_8k"])
-    k2, _ = filters.gaussian_2d(5)
-    weight = torch.from_numpy(k2).to(device).expand(3, 1, 5, 5).contiguous()
+    kern, _ = filters.gaussian_2d(5)
+    weight = torch.from_numpy(kern).to(device).expand(3, 1, 5, 5).contiguous()
     xf = F.pad(x8k.permute(2, 0, 1)[None].float(), (2, 2, 2, 2), mode="reflect")
     record(
-        "K2 stream_stencil [gaussian5]",
-        "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/stream_stencil.cu",
+        "K2 stream_stencil [gaussian5]", k2,
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
-        launches["gaussian5_8k"]["K2"],
+        launches["gaussian5_8k", "off"]["K2"],
         lambda: ck.stream_stencil(pw5, st5, x8k),
-        lambda: ck.stream_stencil_plain(pw5, st5, x8k), 3, 3, pw5, st5,
+        lambda: ck.stream_stencil_plain(pw5, st5, x8k), 3, 3, pw5 + [st5],
         library=lambda: F.conv2d(xf, weight, groups=3),
     )
     del xf
+    # K4 on the first stage of the reference and megakernel paths, 8K RGB
+    # in, gray out; no single PyTorch call computes a fused stage
+    for key in ("reference", "megakernel_ab"):
+        ops = make_pipeline_ops(SPECS[key])
+        record(
+            f"K4 fused_stage [{','.join(op.name for op in ops)}]", k4,
+            "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
+            launches[key, "fused-pallas"]["K4"],
+            lambda ops=ops: ck.fused_stage(ops, x8k),
+            lambda ops=ops: ck.fused_stage_plain(ops, x8k), 3, 1, ops,
+        )
+    # K4 on the halo-0 stage that replicates gray to RGB on the same path
+    record(
+        "K4 fused_stage [gray2rgb]", k4,
+        "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
+        launches["reference", "fused-pallas"]["K4"],
+        lambda: ck.fused_stage(g2r, gray), lambda: ck.fused_stage_plain(g2r, gray), 1, 3, g2r,
+        library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(),
+    )
 
-    # each path's bound: every group reads its input and writes its output
-    # once (reference: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B)
-    path_bytes = {"reference": 8 * n_pix, "gaussian5_8k": 6 * n_pix}
+    # each path's bound: every launch reads its input and writes its output
+    # once (gray paths: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B),
+    # under either plan
+    path_bytes = {"reference": 8 * n_pix, "gaussian5_8k": 6 * n_pix,
+                  "megakernel_ab": 8 * n_pix}
     for key, spec in SPECS.items():
         pipe = Pipeline.parse(spec)
-        t = {}
-        for impl in ("cuda", "torch"):
-            t[impl] = device_time_ms(
-                lambda impl=impl: run_image(pipe, x8k, impl=impl, device=device),
-                reps=5, inner=3,
-            )
         bound_ms = path_bytes[key] / H100_BYTES_PER_S * 1e3
-        print(f"path {key} [{spec}] {MAIN_H}x{MAIN_W} RGB in, RGB out: cuda "
-              f"{t['cuda']:.4f} ms ({mp / t['cuda'] * 1e3:.1f} MP/s), bound "
-              f"{bound_ms:.4f} ms by bytes ({bound_ms / t['cuda']:.1%}), plain (torch) "
-              f"{t['torch']:.4f} ms ({mp / t['torch'] * 1e3:.1f} MP/s), launches "
-              f"{launches[key]}")
+        golden = image_runner(pipe, impl="torch", device=device, plan="off")
+        t_golden = device_time_ms(lambda: golden(x8k), reps=5, inner=3)
+        for plan in PLANS:
+            runner = image_runner(pipe, impl="cuda", device=device, plan=plan)
+            t = device_time_ms(lambda: runner(x8k), reps=5, inner=3)
+            print(f"path {key} [{spec}] plan={plan} {MAIN_H}x{MAIN_W} RGB in, RGB out: "
+                  f"cuda {t:.4f} ms ({mp / t * 1e3:.1f} MP/s), bound {bound_ms:.4f} ms by "
+                  f"bytes ({bound_ms / t:.1%}), golden torch ops {t_golden:.4f} ms "
+                  f"({mp / t_golden * 1e3:.1f} MP/s), launches {launches[key, plan]}")
 
     # every stencil of the registry through K2 at 8K RGB, kernel time only
     for spec in STENCIL_CASES:
         pws, sts = split_group(spec)
         ms = device_time_ms(lambda pws=pws, sts=sts: ck.stream_stencil(pws, sts, x8k),
                             reps=5, inner=5)
-        bms, by = bound(6 * n_pix, op_count(pws, sts, n_pix, 3))
+        bms, by = bound(6 * n_pix, op_count(pws + [sts], n_pix, 3))
         print(f"sweep K2 {spec} 8K RGB: {ms:.4f} ms, bound {bms:.4f} ms by {by} "
               f"({bms / ms:.1%})")
     return rows

@@ -1,10 +1,13 @@
 """Pipeline: an op sequence over an image, with two backends.
 
-* ``backend='torch'``: the golden PyTorch ops, op by op (the oracle).
-* ``backend='cuda'`` : the hand-written kernels, one launch per
-  ``[pointwise*, stencil?]`` group (ops/cuda_kernels.py).
+* ``backend='torch'``: PyTorch ops. ``plan='off'`` runs the golden ops op
+  by op (the oracle); the other plans run the stage walker (plan/exec.py).
+* ``backend='cuda'`` : the hand-written kernels. ``plan='off'`` (and
+  ``'auto'``) runs one launch per ``[pointwise*, stencil?]`` group (K1,
+  K2; ops/cuda_kernels.py); ``plan='fused-pallas'`` runs one launch of K4
+  per eligible fused stage (plan/cuda_exec.py).
 
-Both give the same u8 bytes.
+Every combination gives the same u8 bytes.
 """
 
 from __future__ import annotations
@@ -19,13 +22,19 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
     REFERENCE_PIPELINE_SPEC,
     make_pipeline_ops,
 )
+from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op
+from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
+from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import plan_callable_cuda
+from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import plan_callable
+from mpi_cuda_imagemanipulation_tpu_torch.plan.planner import PLAN_MODES
 from mpi_cuda_imagemanipulation_tpu_torch.utils.device import (
     as_image_tensor,
     resolve_device,
 )
 
 BACKENDS = ("torch", "cuda")
+__all__ = ["BACKENDS", "PLAN_MODES", "Pipeline", "reference_cpu_pipeline", "reference_pipeline"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,16 +66,26 @@ class Pipeline:
 
     # -- entry point -----------------------------------------------------
 
-    def _callable(self, backend: str, block_h: int | None = None):
+    def _planned_callable(self, backend: str, plan: str, block_h: int | None = None):
+        """The plan executor for this (backend, plan) pair, or None when the
+        plan resolves to per-op execution (plan/planner.resolve_plan_mode)."""
+        mode = resolve_plan_mode(self.ops, plan, backend=backend)
+        if mode == "off":
+            return None
+        built = build_plan(self.ops, mode)
+        if backend == "cuda":  # resolution admits only fused-pallas here
+            return plan_callable_cuda(built, block_h=block_h)
+        return plan_callable(built)
+
+    def _callable(self, backend: str, block_h: int | None = None, plan: str = "auto"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+        planned = self._planned_callable(backend, plan, block_h)
+        if planned is not None:
+            return planned
         if backend == "torch":
             return self.apply
-        if backend == "cuda":
-            from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import (
-                pipeline_cuda,
-            )
-
-            return partial(pipeline_cuda, self.ops, block_h=block_h)
-        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+        return partial(pipeline_cuda, self.ops, block_h=block_h)
 
     def jit(
         self,
@@ -74,6 +93,7 @@ class Pipeline:
         block_h: int | None = None,
         *,
         device: str | torch.device | None = None,
+        plan: str = "auto",
     ):
         """An image -> image function on `device` (default CUDA), the
         counterpart of the JAX package's ``Pipeline.jit``. PyTorch runs
@@ -82,9 +102,12 @@ class Pipeline:
 
         The function takes a uint8 numpy array or tensor, moves it to the
         device, and returns a tensor there. `block_h` sets the stencil
-        kernel's tile height. With no CUDA device, the default raises."""
+        kernels' tile height (K2 and K4). `plan` selects the fusion-planner
+        execution structure (PLAN_MODES; see the module docstring for what
+        each backend runs under each). With no CUDA device, the default
+        raises."""
         dev = resolve_device(device)
-        fn = self._callable(backend, block_h)
+        fn = self._callable(backend, block_h, plan)
 
         def run(img) -> torch.Tensor:
             return fn(as_image_tensor(img, dev))

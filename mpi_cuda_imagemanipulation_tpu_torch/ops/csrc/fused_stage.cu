@@ -1,0 +1,352 @@
+// K4: the fused plan-stage megakernel, full-image mode, VPU arm.
+//
+// Replaces: mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py
+//           _stage_kernel (launched by fused_stage_call) with ghosts=False
+//           and every op on the 'vpu' arm, the route plan='fused-pallas'
+//           takes for each eligible stage (plan/pallas_exec.py).
+// Computes: one fused plan stage in one launch: its pointwise runs, its
+//           chained stencils (total halo R <= 16), each stencil's own edge
+//           extension applied to that stencil's input (reflect101 mirrors,
+//           edge clamps, interior and zero write 0), the interior-mode
+//           passthrough at global coordinates, scale and quantizer. The
+//           u8 image is read once and the u8 stage output written once; no
+//           intermediate reaches device memory. Images are interleaved HWC,
+//           (H, W) or (H, W, 3), and the channel count may change inside
+//           the stage (grayscale 3 -> 1, gray2rgb 1 -> 3).
+// Bound on the H100: device memory for the stages of the main path. Each
+//           pixel reads c_in bytes and writes c_out bytes once: the 8K
+//           megakernel chain (3 B in, 1 B out) takes at least 39.6 us at
+//           3.35 TB/s. Deep stages (several 5x5 medians, R near 16) may be
+//           bound by operations instead.
+// Design:   a 2-D grid of independent output tiles (FS_TILE_W columns x
+//           tile_h rows, 256 threads), as K2; the TPU kernel's ordered
+//           walk over full-width row blocks with context strips has no
+//           counterpart. Each block loads a (tile_h + 2R) x (128 + 2R)
+//           window once, runs the leading pointwise ops on it, and keeps
+//           it as u8 planes in shared memory: every core maps exact
+//           integers in 0..255 to exact integers in 0..255 and every
+//           finalize clips, so a u8 carry loses nothing. Each stencil reads
+//           one buffer and writes the other (ping-pong) over a window that
+//           shrinks by its halo; separable and min/max stencils add a
+//           float32 row pass, one plane at a time. Before each stencil with
+//           a halo, the positions of the window that lie outside the image
+//           take their values from in-image positions of the same buffer
+//           (src(y), src(x) in that op's mode): reads touch only in-image
+//           positions and writes only out-of-image ones, so one pass and
+//           one barrier suffice and corners need no ordering. The sources
+//           a kept output reaches lie inside the window because the host
+//           gates height > 2R and width > the largest op halo. Redundant
+//           reads grow with R: (tile_h + 2R)(128 + 2R) / (128 tile_h), 1.44
+//           for 16 x 128 tiles at R = 3, 3.75 at R = 16. Every loop gives a
+//           warp whole window rows and its lanes the columns, so no loop
+//           divides by the run-time window width. Registers are capped so
+//           that six blocks share an SM: the few spills this costs are
+//           cheaper than the occupancy they buy (measured, PERF.md).
+//           Arithmetic: the per-family functions of stencil.cuh, shared
+//           with K2, so both keep the golden float32 order.
+
+#include "stencil.cuh"
+
+#define FS_TILE_W 128
+#define FS_THREADS 256
+#define FS_WARPS (FS_THREADS / 32)
+// at most 40 registers a thread, so that six blocks fit on an SM
+#define FS_MIN_BLOCKS 6
+#define FS_MAX_OPS 24
+#define FS_MAX_STENCILS 8
+#define FS_OP_STENCIL 100  // op[k] = FS_OP_STENCIL + j runs stencil st[j]
+
+// One fused stage, passed by value as a __grid_constant__ parameter (3752
+// bytes, under the 4 KB kernel-parameter limit): its ops in order, each a
+// pointwise opcode (PW_*) with its parameter, or a stencil.
+struct FsProgram {
+  int n_ops;
+  int op[FS_MAX_OPS];
+  float p0[FS_MAX_OPS];
+  int n_stencils;
+  StencilDesc st[FS_MAX_STENCILS];
+};
+
+__device__ __forceinline__ bool fs_is_stencil(int op) { return op >= FS_OP_STENCIL; }
+
+// The channel count after pointwise op `op` on `n` channels (what
+// pw_apply_one returns), for block-uniform bookkeeping.
+__device__ __forceinline__ int fs_channels_after(int op, int n) {
+  switch (op) {
+    case PW_GRAYSCALE:
+    case PW_GRAYSCALE601:
+      return 1;
+    case PW_SEPIA:
+    case PW_GRAY2RGB:
+      return 3;
+    default:
+      return n;
+  }
+}
+
+__host__ __device__ inline size_t fs_align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Dynamic shared memory: two u8 buffers of c_smem planes of the
+// (tile_h + 2R) x (128 + 2R) window, then, if any stencil of the stage is
+// separable or min/max, one float32 window for the row pass.
+__host__ __device__ inline size_t fs_smem_bytes(int c_smem, int tile_h, int halo,
+                                                bool two_pass) {
+  const size_t plane = (size_t)(tile_h + 2 * halo) * (FS_TILE_W + 2 * halo);
+  size_t bytes = 2 * fs_align16((size_t)c_smem * plane);
+  if (two_pass) bytes += plane * sizeof(float);
+  return bytes;
+}
+
+// Geometry of one block's window: window position (wy, wx) is global
+// position (y0 - R + wy, x0 - R + wx).
+struct FsWindow {
+  int H, W;    // image
+  int y0, x0;  // first output row and column of the tile
+  int R;       // stage halo
+  int eh, ew;  // window height and width
+  int plane;   // eh * ew bytes
+};
+
+// Loops over a rectangle of the window without integer division: warp w
+// takes rows y_lo + w, y_lo + w + FS_WARPS, ..., its lanes the columns.
+#define FS_FOR_ROWS(wy, y_lo, y_hi) \
+  for (int wy = (y_lo) + (int)(threadIdx.x >> 5); wy < (y_hi); wy += FS_WARPS)
+#define FS_FOR_COLS(wx, x_lo, x_hi) \
+  for (int wx = (x_lo) + (int)(threadIdx.x & 31); wx < (x_hi); wx += 32)
+
+// Rewrites the out-of-image positions of the current window (rows and
+// columns [off, e - off)) of `n_planes` planes per the edge mode of the
+// next stencil, from in-image positions of the same window.
+__device__ void fs_edge_fix(unsigned char* a, int n_planes, const FsWindow& w,
+                            int off, int mode) {
+  // in-image rows and columns of the current window, in window coordinates
+  const int lo_y = max(off, w.R - w.y0), hi_y = min(w.eh - off, w.H - w.y0 + w.R) - 1;
+  const int lo_x = max(off, w.R - w.x0), hi_x = min(w.ew - off, w.W - w.x0 + w.R) - 1;
+  const bool zero = mode == ST_EDGE_INTERIOR || mode == ST_EDGE_ZERO;
+  FS_FOR_ROWS(wy, off, w.eh - off) {
+    const bool row_in = wy >= lo_y && wy <= hi_y;
+    // the op's source, then kept inside the in-image part of the window
+    // (only positions no kept output reaches would leave it)
+    const int sy = min(max(st_src(w.y0 - w.R + wy, w.H, mode) - w.y0 + w.R, lo_y), hi_y);
+    FS_FOR_COLS(wx, off, w.ew - off) {
+      if (row_in && wx >= lo_x && wx <= hi_x) continue;
+      const int dst = wy * w.ew + wx;
+      if (zero) {
+        for (int c = 0; c < n_planes; ++c) a[c * w.plane + dst] = 0;
+        continue;
+      }
+      const int sx = min(max(st_src(w.x0 - w.R + wx, w.W, mode) - w.x0 + w.R, lo_x), hi_x);
+      const int src = sy * w.ew + sx;
+      for (int c = 0; c < n_planes; ++c) a[c * w.plane + dst] = a[c * w.plane + src];
+    }
+  }
+}
+
+// One stencil from buffer `a` into buffer `b` over the window shrunk by
+// `off` (input) and `off + KS / 2` (output), `n_planes` planes.
+template <int KS>
+__device__ void fs_stencil(const unsigned char* a, unsigned char* b, float* s_row,
+                           int n_planes, const FsWindow& w, int off,
+                           const StencilDesc& st) {
+  constexpr int h = KS / 2;
+  const int o = off + h;
+  const int gy0 = w.y0 - w.R, gx0 = w.x0 - w.R;
+  const bool two_pass = st_two_pass(st.family);
+  for (int c = 0; c < n_planes; ++c) {
+    const unsigned char* ap = a + c * w.plane;
+    if (two_pass) {
+      FS_FOR_ROWS(wy, off, w.eh - off) {
+        FS_FOR_COLS(wx, o, w.ew - o) {
+          s_row[wy * w.ew + wx] = st_row_pass<KS>(ap + wy * w.ew + wx - h, st);
+        }
+      }
+      __syncthreads();
+    }
+    FS_FOR_ROWS(wy, o, w.eh - o) {
+      FS_FOR_COLS(wx, o, w.ew - o) {
+        const int idx = wy * w.ew + wx;
+        float res;
+        if (!st_filtered(gy0 + wy, gx0 + wx, w.H, w.W, h, st.edge_mode)) {
+          res = (float)ap[idx];
+        } else if (two_pass) {
+          res = st_finish(st_col_pass<KS>(s_row + idx - h * w.ew, w.ew, st), st);
+        } else {
+          res = st_finish(st_window<KS>(ap + idx - h * w.ew - h, w.ew, st), st);
+        }
+        b[c * w.plane + idx] = pw_to_u8(res);
+      }
+    }
+    if (two_pass) __syncthreads();  // before the next plane's row pass
+  }
+  __syncthreads();
+}
+
+// A stage with no stencil (gray2rgb alone, a pointwise run): one pixel a
+// thread a step over the flat image, in a kernel of its own so that its
+// few registers keep the SM full (the stencil kernel's register count
+// would halve its occupancy).
+__global__ void __launch_bounds__(FS_THREADS)
+fused_stage_pointwise_kernel(const unsigned char* __restrict__ in,
+                             unsigned char* __restrict__ out, long long n_pix,
+                             int c_in, int c_out, const __grid_constant__ FsProgram prog) {
+  const long long stride = (long long)gridDim.x * FS_THREADS;
+  for (long long p = (long long)blockIdx.x * FS_THREADS + threadIdx.x; p < n_pix;
+       p += stride) {
+    float v[3];
+    pw_load(in + p * c_in, v, c_in);
+    int n = c_in;
+    for (int k = 0; k < prog.n_ops; ++k) n = pw_apply_one(prog.op[k], prog.p0[k], v, n);
+    for (int c = 0; c < c_out; ++c) out[p * c_out + c] = pw_to_u8(v[c]);
+  }
+}
+
+__global__ void __launch_bounds__(FS_THREADS, FS_MIN_BLOCKS)
+fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out,
+                   int H, int W, int c_in, int c_smem, int c_out, int halo,
+                   int tile_h, const __grid_constant__ FsProgram prog) {
+  const int n_ops = prog.n_ops;
+  const int x0 = blockIdx.x * FS_TILE_W;
+  const int y0 = blockIdx.y * tile_h;
+  const int rows = min(tile_h, H - y0), cols = min(FS_TILE_W, W - x0);
+
+  // the first stencil (stages without one go to fused_stage_pointwise_kernel)
+  int first = 0;
+  while (first < n_ops && !fs_is_stencil(prog.op[first])) ++first;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  FsWindow w;
+  w.H = H;
+  w.W = W;
+  w.y0 = y0;
+  w.x0 = x0;
+  w.R = halo;
+  w.eh = tile_h + 2 * halo;
+  w.ew = FS_TILE_W + 2 * halo;
+  w.plane = w.eh * w.ew;
+  unsigned char* a = smem;
+  unsigned char* b = smem + fs_align16((size_t)c_smem * w.plane);
+  float* s_row = reinterpret_cast<float*>(b + fs_align16((size_t)c_smem * w.plane));
+
+  // 1. Window load (indices clamped into the image: the values outside it
+  // are replaced by the first stencil's edge fix), leading pointwise ops,
+  // u8 planes into shared memory.
+  int n_cur = c_in;
+  for (int k = 0; k < first; ++k) n_cur = fs_channels_after(prog.op[k], n_cur);
+  FS_FOR_ROWS(wy, 0, w.eh) {
+    const long long row = (long long)min(max(y0 - halo + wy, 0), H - 1) * W;
+    FS_FOR_COLS(wx, 0, w.ew) {
+      const int gx = min(max(x0 - halo + wx, 0), W - 1);
+      float v[3];
+      pw_load(in + (row + gx) * c_in, v, c_in);
+      int n = c_in;
+      for (int k = 0; k < first; ++k) n = pw_apply_one(prog.op[k], prog.p0[k], v, n);
+      for (int c = 0; c < n_cur; ++c) a[c * w.plane + wy * w.ew + wx] = pw_to_u8(v[c]);
+    }
+  }
+  __syncthreads();
+
+  // 2. The stage walk: each stencil with its edge fix, then the pointwise
+  // run up to the next stencil, in place.
+  int off = 0;  // halo consumed so far
+  int k = first;
+  while (k < n_ops) {
+    const StencilDesc& st = prog.st[prog.op[k] - FS_OP_STENCIL];
+    if (st.halo > 0) {
+      // blocks whose window lies inside the image skip the fix (uniform)
+      const bool inside = y0 - halo + off >= 0 && y0 + tile_h + halo - off <= H &&
+                          x0 - halo + off >= 0 && x0 + FS_TILE_W + halo - off <= W;
+      if (!inside) {
+        fs_edge_fix(a, n_cur, w, off, st.edge_mode);
+        __syncthreads();
+      }
+    }
+    switch (st.ksize) {
+      case 1: fs_stencil<1>(a, b, s_row, n_cur, w, off, st); break;
+      case 3: fs_stencil<3>(a, b, s_row, n_cur, w, off, st); break;
+      case 5: fs_stencil<5>(a, b, s_row, n_cur, w, off, st); break;
+      case 7: fs_stencil<7>(a, b, s_row, n_cur, w, off, st); break;
+      default: break;  // rejected on the host
+    }
+    unsigned char* t = a;
+    a = b;
+    b = t;
+    off += st.halo;
+    ++k;
+    int end = k;
+    while (end < n_ops && !fs_is_stencil(prog.op[end])) ++end;
+    if (end == n_ops) break;  // the trailing run rides the store
+    if (end > k) {
+      int n_next = n_cur;
+      for (int j = k; j < end; ++j) n_next = fs_channels_after(prog.op[j], n_next);
+      FS_FOR_ROWS(wy, off, w.eh - off) {
+        FS_FOR_COLS(wx, off, w.ew - off) {
+          const int idx = wy * w.ew + wx;
+          float v[3] = {0.0f, 0.0f, 0.0f};
+          for (int c = 0; c < n_cur; ++c) v[c] = (float)a[c * w.plane + idx];
+          int n = n_cur;
+          for (int j = k; j < end; ++j) n = pw_apply_one(prog.op[j], prog.p0[j], v, n);
+          for (int c = 0; c < n_next; ++c) a[c * w.plane + idx] = pw_to_u8(v[c]);
+        }
+      }
+      n_cur = n_next;
+      k = end;
+      __syncthreads();
+    }
+  }
+
+  // 3. Store the tile (off == halo here), through the trailing pointwise run.
+  FS_FOR_ROWS(ly, 0, rows) {
+    FS_FOR_COLS(lx, 0, cols) {
+      const int idx = (ly + halo) * w.ew + lx + halo;
+      float v[3] = {0.0f, 0.0f, 0.0f};
+      for (int c = 0; c < n_cur; ++c) v[c] = (float)a[c * w.plane + idx];
+      int n = n_cur;
+      for (int j = k; j < n_ops; ++j) n = pw_apply_one(prog.op[j], prog.p0[j], v, n);
+      unsigned char* q = out + ((long long)(y0 + ly) * W + x0 + lx) * c_out;
+      for (int c = 0; c < c_out; ++c) q[c] = pw_to_u8(v[c]);
+    }
+  }
+}
+
+static bool fs_any_two_pass(const FsProgram* prog) {
+  for (int j = 0; j < prog->n_stencils; ++j) {
+    if (st_two_pass(prog->st[j].family)) return true;
+  }
+  return false;
+}
+
+// Launches K4 on `stream`. `c_smem` is the most channels the stage holds
+// in shared memory. Returns cudaGetLastError() after the launch.
+extern "C" int fused_stage_launch(const unsigned char* in, unsigned char* out, int H,
+                                  int W, int c_in, int c_smem, int c_out, int halo,
+                                  int tile_h, const FsProgram* prog, void* stream) {
+  if (H <= 0 || W <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (prog->n_stencils == 0) {
+    const long long n_pix = (long long)H * W;
+    long long blocks = (n_pix + FS_THREADS - 1) / FS_THREADS;
+    if (blocks > 132LL * 16) blocks = 132LL * 16;  // 16 resident blocks per SM, as K1
+    fused_stage_pointwise_kernel<<<(unsigned)blocks, FS_THREADS, 0, s>>>(
+        in, out, n_pix, c_in, c_out, *prog);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = fs_smem_bytes(c_smem, tile_h, halo, fs_any_two_pass(prog));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((W + FS_TILE_W - 1) / FS_TILE_W, (H + tile_h - 1) / tile_h);
+  fused_stage_kernel<<<grid, FS_THREADS, smem, s>>>(
+      in, out, H, W, c_in, c_smem, c_out, halo, tile_h, *prog);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory one launch needs, and the program's size, for the
+// host-side checks.
+extern "C" long long fused_stage_smem_bytes(int c_smem, int tile_h, int halo,
+                                            int two_pass) {
+  return (long long)fs_smem_bytes(c_smem, tile_h, halo, two_pass != 0);
+}
+
+extern "C" long long fused_stage_program_bytes() { return (long long)sizeof(FsProgram); }

@@ -1,6 +1,7 @@
 // Per-pixel interpreter of a pointwise op chain, shared by the pointwise
-// group kernel (pointwise.cu, K1) and the fused stencil kernel
-// (stream_stencil.cu, K2).
+// group kernel (pointwise.cu, K1), the fused stencil kernel
+// (stream_stencil.cu, K2) and the fused plan-stage megakernel
+// (fused_stage.cu, K4).
 //
 // A chain is a small program passed by value as a kernel parameter: an
 // opcode and up to two float32 parameters per op, at most PW_MAX_OPS ops.
@@ -58,76 +59,75 @@ __device__ __forceinline__ float pw_sepia_row(float r, float g, float b,
   return pw_rint_clip(__fmul_rn(acc, 0.001f));
 }
 
+// Applies one op (opcode `op`, parameter `a`) to one pixel. `v` holds `n`
+// channel values; returns the channel count after the op.
+__device__ __forceinline__ int pw_apply_one(int op, float a, float v[3], int n) {
+  switch (op) {
+    case PW_GRAYSCALE: {
+      const float tr = floorf(__fmul_rn(v[0], 0.3f));
+      const float tg = floorf(__fmul_rn(v[1], 0.59f));
+      const float tb = floorf(__fmul_rn(v[2], 0.11f));
+      v[0] = __fadd_rn(__fadd_rn(tr, tg), tb);
+      return 1;
+    }
+    case PW_GRAYSCALE601: {
+      float acc = __fadd_rn(__fmul_rn(v[0], 4899.0f), __fmul_rn(v[1], 9617.0f));
+      acc = __fadd_rn(acc, __fmul_rn(v[2], 1868.0f));
+      acc = __fadd_rn(acc, 8192.0f);
+      v[0] = floorf(__fmul_rn(acc, 0.00006103515625f));  // 2^-14, exact
+      return 1;
+    }
+    case PW_SEPIA: {
+      const float r = v[0], g = v[1], b = v[2];
+      v[0] = pw_sepia_row(r, g, b, 393.0f, 769.0f, 189.0f);
+      v[1] = pw_sepia_row(r, g, b, 349.0f, 686.0f, 168.0f);
+      v[2] = pw_sepia_row(r, g, b, 272.0f, 534.0f, 131.0f);
+      return 3;
+    }
+    case PW_GRAY2RGB:
+      v[1] = v[0];
+      v[2] = v[0];
+      return 3;
+    default:
+      // elementwise ops act identically on every channel
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (c >= n) break;
+        const float x = v[c];
+        float y = x;
+        switch (op) {
+          case PW_CONTRAST:
+            y = pw_trunc_clip(__fadd_rn(__fmul_rn(a, __fsub_rn(x, 128.0f)), 128.0f));
+            break;
+          case PW_BRIGHTNESS:
+            y = pw_trunc_clip(__fadd_rn(x, a));
+            break;
+          case PW_INVERT:
+            y = __fsub_rn(255.0f, x);
+            break;
+          case PW_THRESHOLD:
+            y = x >= a ? 255.0f : 0.0f;
+            break;
+          case PW_POSTERIZE:
+            y = __fmul_rn(floorf(__fdiv_rn(x, a)), a);
+            break;
+          case PW_SOLARIZE:
+            y = x >= a ? __fsub_rn(255.0f, x) : x;
+            break;
+          default:
+            break;
+        }
+        v[c] = y;
+      }
+      return n;
+  }
+}
+
 // Applies `prog` to one pixel. `v` holds `n` channel values; returns the
 // channel count after the chain. The wrapper has checked that the chain's
 // channel counts agree.
 __device__ __forceinline__ int pw_apply(const PwProgram& prog, float v[3], int n) {
-  for (int k = 0; k < prog.n_ops; ++k) {
-    const float a = prog.p0[k];
-    switch (prog.op[k]) {
-      case PW_GRAYSCALE: {
-        const float tr = floorf(__fmul_rn(v[0], 0.3f));
-        const float tg = floorf(__fmul_rn(v[1], 0.59f));
-        const float tb = floorf(__fmul_rn(v[2], 0.11f));
-        v[0] = __fadd_rn(__fadd_rn(tr, tg), tb);
-        n = 1;
-        break;
-      }
-      case PW_GRAYSCALE601: {
-        float acc = __fadd_rn(__fmul_rn(v[0], 4899.0f), __fmul_rn(v[1], 9617.0f));
-        acc = __fadd_rn(acc, __fmul_rn(v[2], 1868.0f));
-        acc = __fadd_rn(acc, 8192.0f);
-        v[0] = floorf(__fmul_rn(acc, 0.00006103515625f));  // 2^-14, exact
-        n = 1;
-        break;
-      }
-      case PW_SEPIA: {
-        const float r = v[0], g = v[1], b = v[2];
-        v[0] = pw_sepia_row(r, g, b, 393.0f, 769.0f, 189.0f);
-        v[1] = pw_sepia_row(r, g, b, 349.0f, 686.0f, 168.0f);
-        v[2] = pw_sepia_row(r, g, b, 272.0f, 534.0f, 131.0f);
-        n = 3;
-        break;
-      }
-      case PW_GRAY2RGB:
-        v[1] = v[0];
-        v[2] = v[0];
-        n = 3;
-        break;
-      default:
-        // elementwise ops act identically on every channel
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          if (c >= n) break;
-          const float x = v[c];
-          float y = x;
-          switch (prog.op[k]) {
-            case PW_CONTRAST:
-              y = pw_trunc_clip(__fadd_rn(__fmul_rn(a, __fsub_rn(x, 128.0f)), 128.0f));
-              break;
-            case PW_BRIGHTNESS:
-              y = pw_trunc_clip(__fadd_rn(x, a));
-              break;
-            case PW_INVERT:
-              y = __fsub_rn(255.0f, x);
-              break;
-            case PW_THRESHOLD:
-              y = x >= a ? 255.0f : 0.0f;
-              break;
-            case PW_POSTERIZE:
-              y = __fmul_rn(floorf(__fdiv_rn(x, a)), a);
-              break;
-            case PW_SOLARIZE:
-              y = x >= a ? __fsub_rn(255.0f, x) : x;
-              break;
-            default:
-              break;
-          }
-          v[c] = y;
-        }
-        break;
-    }
-  }
+  for (int k = 0; k < prog.n_ops; ++k) n = pw_apply_one(prog.op[k], prog.p0[k], v, n);
   return n;
 }
 

@@ -15,6 +15,7 @@
 //           at least 39.6 us at 3.35 TB/s, the 8K RGB gaussian:5 (3 + 3 B)
 //           59.4 us. A 5x5 median runs 113 min/max pairs per pixel and
 //           plane and may be bound by operations instead.
+// Arithmetic: the per-family functions of stencil.cuh, shared with K4.
 // Design:   a 2-D grid of output tiles (ST_TILE_W columns x tile_h rows,
 //           256 threads). The TPU kernel walks row blocks in order and
 //           carries the row pass in scratch memory; Hopper blocks run in
@@ -27,122 +28,10 @@
 //           memory. Arithmetic repeats the golden float32 order with IEEE
 //           rounding (built with -fmad=false; __fsqrt_rn for magnitude).
 
-#include "pointwise.cuh"
+#include "stencil.cuh"
 
 #define ST_TILE_W 128
 #define ST_THREADS 256
-#define ST_MAX_K 7
-
-enum StFamily {
-  ST_CORR = 0,
-  ST_MAGNITUDE = 1,
-  ST_SEPARABLE = 2,
-  ST_MIN = 3,
-  ST_MAX = 4,
-  ST_MEDIAN = 5,
-};
-
-enum StEdge { ST_EDGE_INTERIOR = 0, ST_EDGE_REFLECT101 = 1, ST_EDGE_EDGE = 2 };
-
-enum StQuant { ST_TRUNC_CLIP = 0, ST_RINT_CLIP = 1 };
-
-struct StencilDesc {
-  int family;
-  int halo;
-  int ksize;  // 2 * halo + 1
-  int edge_mode;
-  int quantize;
-  float scale;
-  float w0[ST_MAX_K * ST_MAX_K];  // first kernel, w0[dy * ksize + dx]
-  float w1[ST_MAX_K * ST_MAX_K];  // second kernel (magnitude), same layout
-  float sep[ST_MAX_K];            // separable 1-D weights
-};
-
-// The median selection networks: the same pair lists as
-// spec.MEDIAN_NETWORKS (a test holds them equal). X(i, j) puts min into
-// wire i and max into wire j; the median ends on wire 4 (3x3) or 12 (5x5).
-#define ST_MEDIAN9_PAIRS(X)                                                 \
-  X(1,2) X(4,5) X(7,8) X(0,1) X(3,4) X(6,7) X(1,2) X(4,5) X(7,8) X(0,3)     \
-  X(5,8) X(4,7) X(3,6) X(1,4) X(2,5) X(4,7) X(4,2) X(6,4) X(4,2)
-
-#define ST_MEDIAN25_PAIRS(X)                                                \
-  X(0,1) X(2,3) X(4,5) X(6,7) X(8,9) X(10,11) X(12,13) X(14,15) X(16,17)    \
-  X(18,19) X(20,21) X(22,23) X(0,2) X(1,3) X(4,6) X(5,7) X(8,10) X(9,11)    \
-  X(12,14) X(13,15) X(16,18) X(17,19) X(20,22) X(21,23) X(1,2) X(5,6)       \
-  X(9,10) X(13,14) X(17,18) X(21,22) X(0,4) X(1,5) X(2,6) X(3,7) X(8,12)    \
-  X(9,13) X(10,14) X(11,15) X(16,20) X(17,21) X(18,22) X(19,23) X(2,4)      \
-  X(3,5) X(10,12) X(11,13) X(18,20) X(19,21) X(1,2) X(3,4) X(5,6) X(9,10)   \
-  X(11,12) X(13,14) X(17,18) X(19,20) X(21,22) X(0,8) X(1,9) X(2,10)        \
-  X(3,11) X(4,12) X(5,13) X(6,14) X(7,15) X(16,24) X(4,8) X(5,9) X(6,10)    \
-  X(7,11) X(20,24) X(2,4) X(3,5) X(6,8) X(7,9) X(10,12) X(11,13) X(18,20)   \
-  X(19,21) X(22,24) X(1,2) X(3,4) X(5,6) X(7,8) X(9,10) X(11,12) X(13,14)   \
-  X(17,18) X(19,20) X(21,22) X(23,24) X(0,16) X(1,17) X(2,18) X(3,19)       \
-  X(4,20) X(5,21) X(6,22) X(7,23) X(8,24) X(8,16) X(9,17) X(10,18)          \
-  X(11,19) X(12,20) X(13,21) X(6,10) X(7,11) X(12,16) X(13,17) X(10,12)     \
-  X(11,13) X(11,12)
-
-#define ST_EXCHANGE(i, j)               \
-  {                                     \
-    const float lo = fminf(p[i], p[j]); \
-    const float hi = fmaxf(p[i], p[j]); \
-    p[i] = lo;                          \
-    p[j] = hi;                          \
-  }
-
-// Source index of coordinate c on an axis of length n: the same rule as
-// _src_col in the TPU kernel for reflect101 and edge. Interior mode, and
-// reflected indices that no valid output reads, clamp into the image.
-__device__ __forceinline__ int st_src(int c, int n, int mode) {
-  if (mode == ST_EDGE_REFLECT101 && (c < 0 || c >= n)) {
-    c = c < 0 ? -c : 2 * (n - 1) - c;
-  }
-  return min(max(c, 0), n - 1);
-}
-
-// Valid-mode correlation at one output: taps in row-major order, zero taps
-// skipped, the first nonzero tap starting the sum (spec.corr_valid).
-template <int KS>
-__device__ __forceinline__ float st_corr(const unsigned char* win, int ew,
-                                         const float* w) {
-  float acc = 0.0f;
-  bool first = true;
-#pragma unroll
-  for (int dy = 0; dy < KS; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < KS; ++dx) {
-      const float wt = w[dy * KS + dx];
-      if (wt == 0.0f) continue;
-      const float v = (float)win[dy * ew + dx];
-      const float t = wt == 1.0f ? v : __fmul_rn(v, wt);
-      acc = first ? t : __fadd_rn(acc, t);
-      first = false;
-    }
-  }
-  return acc;
-}
-
-template <int KS>
-__device__ __forceinline__ float st_median(const unsigned char* win, int ew) {
-  float p[KS * KS];
-#pragma unroll
-  for (int dy = 0; dy < KS; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < KS; ++dx) p[dy * KS + dx] = (float)win[dy * ew + dx];
-  }
-  if constexpr (KS == 3) {
-    ST_MEDIAN9_PAIRS(ST_EXCHANGE)
-    return p[4];
-  } else if constexpr (KS == 5) {
-    ST_MEDIAN25_PAIRS(ST_EXCHANGE)
-    return p[12];
-  } else {
-    return p[KS * KS / 2];  // no median network of this size; rejected on the host
-  }
-}
-
-__device__ __forceinline__ float st_quantize(float x, int mode) {
-  return mode == ST_TRUNC_CLIP ? pw_trunc_clip(x) : pw_rint_clip(x);
-}
 
 // Shared memory: the post-pointwise u8 window per output plane, then (for
 // separable and min/max) the float32 row pass per plane.
@@ -151,7 +40,7 @@ __host__ __device__ inline size_t st_smem_bytes(int c_out, int tile_h, int halo,
   const size_t eh = tile_h + 2 * halo, ew = ST_TILE_W + 2 * halo;
   size_t bytes = (size_t)c_out * eh * ew;
   bytes = (bytes + 15) & ~(size_t)15;
-  if (family == ST_SEPARABLE || family == ST_MIN || family == ST_MAX) {
+  if (st_two_pass(family)) {
     bytes += (size_t)c_out * eh * ST_TILE_W * sizeof(float);
   }
   return bytes;
@@ -193,33 +82,12 @@ stream_stencil_kernel(const unsigned char* __restrict__ in,
   __syncthreads();
 
   // 4a. Row pass of separable and min/max stencils.
-  const bool two_pass = fam == ST_SEPARABLE || fam == ST_MIN || fam == ST_MAX;
+  const bool two_pass = st_two_pass(fam);
   if (two_pass) {
     for (int i = threadIdx.x; i < c_out * eh * ST_TILE_W; i += ST_THREADS) {
       const int x = i % ST_TILE_W;
       const int r = i / ST_TILE_W;  // plane * eh + row
-      const unsigned char* row = s_pix + r * ew + x;
-      float acc = 0.0f;
-      if (fam == ST_SEPARABLE) {
-        bool first = true;
-#pragma unroll
-        for (int k = 0; k < KS; ++k) {
-          const float wt = st.sep[k];
-          if (wt == 0.0f) continue;
-          const float v = (float)row[k];
-          const float t = wt == 1.0f ? v : __fmul_rn(v, wt);
-          acc = first ? t : __fadd_rn(acc, t);
-          first = false;
-        }
-      } else {
-        acc = (float)row[0];
-#pragma unroll
-        for (int k = 1; k < KS; ++k) {
-          const float v = (float)row[k];
-          acc = fam == ST_MIN ? fminf(acc, v) : fmaxf(acc, v);
-        }
-      }
-      s_row[r * ST_TILE_W + x] = acc;
+      s_row[r * ST_TILE_W + x] = st_row_pass<KS>(s_pix + r * ew + x, st);
     }
     __syncthreads();
   }
@@ -232,10 +100,7 @@ stream_stencil_kernel(const unsigned char* __restrict__ in,
     const int gy = y0 + ly;
     const int gx = x0 + lx;
     if (gy >= H || gx >= W) continue;
-    bool filtered = true;
-    if (st.edge_mode == ST_EDGE_INTERIOR) {
-      filtered = gx > h && gx <= W - 1 - h && gy > h && gy <= H - 1 - h;
-    }
+    const bool filtered = st_filtered(gy, gx, H, W, h, st.edge_mode);
     unsigned char* q = out + ((long long)gy * W + gx) * c_out;
     for (int c = 0; c < c_out; ++c) {
       const unsigned char* win = s_pix + (c * eh + ly) * ew + lx;
@@ -243,41 +108,11 @@ stream_stencil_kernel(const unsigned char* __restrict__ in,
       if (!filtered) {
         res = (float)win[h * ew + h];
       } else {
-        float acc;
-        if (two_pass) {
-          const float* col = s_row + (c * eh + ly) * ST_TILE_W + lx;
-          if (fam == ST_SEPARABLE) {
-            acc = 0.0f;
-            bool first = true;
-#pragma unroll
-            for (int k = 0; k < KS; ++k) {
-              const float wt = st.sep[k];
-              if (wt == 0.0f) continue;
-              const float v = col[k * ST_TILE_W];
-              const float t = wt == 1.0f ? v : __fmul_rn(v, wt);
-              acc = first ? t : __fadd_rn(acc, t);
-              first = false;
-            }
-          } else {
-            acc = col[0];
-#pragma unroll
-            for (int k = 1; k < KS; ++k) {
-              const float v = col[k * ST_TILE_W];
-              acc = fam == ST_MIN ? fminf(acc, v) : fmaxf(acc, v);
-            }
-          }
-        } else if (fam == ST_MEDIAN) {
-          acc = st_median<KS>(win, ew);
-        } else {
-          acc = st_corr<KS>(win, ew, st.w0);
-          if (fam == ST_MAGNITUDE) {
-            const float b = st_corr<KS>(win, ew, st.w1);
-            acc = __fsqrt_rn(__fadd_rn(__fmul_rn(acc, acc), __fmul_rn(b, b)));
-          }
-        }
-        // min/max/median results are never scaled (spec.StencilOp.valid)
-        if (fam <= ST_SEPARABLE && st.scale != 1.0f) acc = __fmul_rn(acc, st.scale);
-        res = st_quantize(acc, st.quantize);
+        const float acc =
+            two_pass ? st_col_pass<KS>(s_row + (c * eh + ly) * ST_TILE_W + lx,
+                                       ST_TILE_W, st)
+                     : st_window<KS>(win, ew, st);
+        res = st_finish(acc, st);
       }
       q[c] = pw_to_u8(res);
     }

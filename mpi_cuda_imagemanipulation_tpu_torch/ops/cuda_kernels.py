@@ -11,7 +11,11 @@ each group is one kernel launch:
 Lookup-table ops have no kernel program and run as their own group, a
 plain gather on the device.
 
-Both kernels read and write interleaved HWC u8 images in place: (H, W) for
+A fused plan stage (``plan='fused-pallas'``, plan/cuda_exec.py) runs as
+one launch of K4, ``fused_stage`` (``csrc/fused_stage.cu``): pointwise
+runs and several chained stencils, with no intermediate in device memory.
+
+The kernels read and write interleaved HWC u8 images in place: (H, W) for
 one channel, (H, W, 3) for three. Each wrapper takes its plain version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or
 raises. Each wrapper counts its launches in its ``launches`` attribute.
@@ -30,7 +34,10 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     U8,
     PointwiseOp,
     StencilOp,
+    chain_halo,
 )
+from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import run_stage_full
+from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Stage
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
 # Launch geometry of K2; ST_TILE_W and ST_THREADS in stream_stencil.cu.
@@ -42,7 +49,7 @@ MAX_SMEM_BYTES = 232448
 _MAX_GRID_Y = 65535
 
 _FAMILIES = {"corr": 0, "magnitude": 1, "separable": 2, "min": 3, "max": 4, "median": 5}
-_EDGE_MODES = {"interior": 0, "reflect101": 1, "edge": 2}
+_EDGE_MODES = {"interior": 0, "reflect101": 1, "edge": 2, "zero": 3}
 _QUANTIZERS = {"trunc_clip": 0, "rint_clip": 1}
 
 
@@ -283,6 +290,11 @@ def stream_stencil(
 ) -> torch.Tensor:
     """K2 wrapper: one launch runs the pointwise prologue and the stencil.
     `tile_h` is the output tile height (default 16 rows)."""
+    if stencil.edge_mode == "zero":
+        raise NotImplementedError(
+            "zero-mode stencils would need post-pointwise padding in K2; "
+            "none exist in the registry"
+        )
     prog, c_out = pointwise_program(pointwise, _channels(img))
     desc = stencil_desc(stencil)
     tile_h = tile_h or DEFAULT_TILE_H
@@ -307,9 +319,167 @@ def stream_stencil(
 stream_stencil.launches = 0
 
 
+# --------------------------------------------------------------------------
+# K4: one fused plan stage
+# --------------------------------------------------------------------------
+
+FS_DEFAULT_TILE_H = 16
+# Largest stage halo K4 takes: beyond it the window's context rows would be
+# most of the block's read (the same limit as the TPU megakernel's)
+STAGE_MAX_HALO = 16
+
+
+def _stage_channels(ops, c_in: int) -> tuple[int, int, bool]:
+    """Walk a stage's channel counts from `c_in`, checking that they chain.
+    Returns (c_out, c_smem, two_pass): `c_smem` is the most channels the
+    stage holds in K4's shared memory (its channel count at each stencil),
+    `two_pass` whether any stencil needs the float32 row pass."""
+    if c_in not in (1, 3):
+        raise ValueError(f"the kernels take 1- or 3-channel images, got {c_in} channels")
+    n, c_smem, two_pass = c_in, 0, False
+    for op in ops:
+        if op.in_channels and op.in_channels != n:
+            raise ValueError(f"op {op.name!r} expects {op.in_channels} channels, got {n}")
+        if isinstance(op, StencilOp):
+            c_smem = max(c_smem, n)
+            two_pass = two_pass or _family(op) in ("separable", "min", "max")
+        else:
+            n = op.out_channels or n
+    return n, c_smem, two_pass
+
+
+def fused_stage_program(ops, c_in: int) -> tuple[kr.FsProgram, int, int, bool]:
+    """Encode a fused stage for K4. Returns (program, c_out, c_smem,
+    two_pass), the last three as `_stage_channels` gives them."""
+    c_out, c_smem, two_pass = _stage_channels(ops, c_in)
+    stencils = [op for op in ops if isinstance(op, StencilOp)]
+    if len(ops) > kr.FS_MAX_OPS or len(stencils) > kr.FS_MAX_STENCILS:
+        raise ValueError(
+            f"K4 takes at most {kr.FS_MAX_OPS} ops and {kr.FS_MAX_STENCILS} "
+            f"stencils per stage, got {len(ops)} and {len(stencils)}"
+        )
+    prog = kr.FsProgram()
+    prog.n_ops = len(ops)
+    prog.n_stencils = len(stencils)
+    j = 0
+    for k, op in enumerate(ops):
+        if isinstance(op, StencilOp):
+            prog.st[j] = stencil_desc(op)
+            prog.op[k] = kr.FS_OP_STENCIL + j
+            j += 1
+            continue
+        if op.program is None:
+            raise ValueError(f"op {op.name!r} has no kernel program")
+        opcode, p0, p1 = op.program
+        if p1 != 0.0:
+            raise ValueError(f"op {op.name!r}: K4 carries one parameter per op")
+        prog.op[k], prog.p0[k] = opcode, p0
+    return prog, c_out, c_smem, two_pass
+
+
+def fused_stage_smem_bytes(c_smem: int, tile_h: int, halo: int, two_pass: bool) -> int:
+    """Dynamic shared memory of one K4 block (fs_smem_bytes in the source):
+    two u8 buffers of `c_smem` planes of the (tile_h + 2 halo) x
+    (128 + 2 halo) window, then one float32 window for the row pass of
+    separable and min/max stencils."""
+    plane = (tile_h + 2 * halo) * (TILE_W + 2 * halo)
+    nbytes = 2 * ((c_smem * plane + 15) & ~15)
+    if two_pass:
+        nbytes += plane * 4
+    return nbytes
+
+
+def edge_src(c: int, n: int, mode: str) -> int | None:
+    """The in-image index position `c` of an axis of length `n` takes its
+    value from in K4's per-op edge fix (st_src in the source), as the
+    golden ``pad2d`` extends: reflect101 mirrors without repeating the
+    edge, edge clamps; None where 'interior' and 'zero' write 0."""
+    if 0 <= c < n:
+        return c
+    if mode == "reflect101":
+        c = -c if c < 0 else 2 * (n - 1) - c
+        return min(max(c, 0), n - 1)
+    if mode == "edge":
+        return min(max(c, 0), n - 1)
+    return None
+
+
+def fused_stage_reject(ops, height: int, width: int, channels: int,
+                       tile_h: int | None = None) -> str | None:
+    """Why K4 cannot run this stage on a (height, width, channels) image,
+    or None when it can: 'lut-op', 'no-f32-core', 'halo-too-large',
+    'image-too-small' (the edge fix needs height > 2 * halo and width
+    greater than the largest op halo), 'program-too-long' (more ops or
+    stencils than the kernel's parameter holds) or 'smem-budget' (the tile
+    needs more shared memory than a block has)."""
+    for op in ops:
+        if isinstance(op, StencilOp):
+            continue
+        if not op.kernel_safe:
+            return "lut-op"
+        if op.core is None and op.planes_core is None and op.name != "gray2rgb":
+            return "no-f32-core"
+    halo = chain_halo(ops)
+    if halo > STAGE_MAX_HALO:
+        return "halo-too-large"
+    max_op_halo = max((op.halo for op in ops), default=0)
+    if (halo and height <= 2 * halo) or (max_op_halo and width <= max_op_halo):
+        return "image-too-small"
+    n_stencils = sum(isinstance(op, StencilOp) for op in ops)
+    if len(ops) > kr.FS_MAX_OPS or n_stencils > kr.FS_MAX_STENCILS:
+        return "program-too-long"
+    _, c_smem, two_pass = _stage_channels(ops, channels)
+    if fused_stage_smem_bytes(c_smem, tile_h or FS_DEFAULT_TILE_H, halo, two_pass) > MAX_SMEM_BYTES:
+        return "smem-budget"
+    return None
+
+
+def fused_stage_plain(ops, img: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: the stage walker (plan/exec.py) over the
+    whole image, which is the golden per-op chain."""
+    _stage_channels(ops, _channels(img))
+    return run_stage_full(Stage("fused", tuple(ops), chain_halo(ops)), img)
+
+
+def fused_stage(ops, img: torch.Tensor, *, tile_h: int | None = None) -> torch.Tensor:
+    """K4 wrapper: one launch runs a whole fused plan stage. `tile_h` is the
+    output tile height (default 16 rows). Raises for a stage that
+    `fused_stage_reject` rejects."""
+    ops = tuple(ops)
+    c_in = _channels(img)
+    height, width = img.shape[:2]
+    tile_h = tile_h or FS_DEFAULT_TILE_H
+    if tile_h < 1:
+        raise ValueError(f"tile height must be >= 1, got {tile_h}")
+    reason = fused_stage_reject(ops, height, width, c_in, tile_h)
+    if reason is not None:
+        raise ValueError(f"K4 cannot run stage {[op.name for op in ops]}: {reason}")
+    if stencil_grid(height, width, tile_h)[1] > _MAX_GRID_Y:
+        raise ValueError(f"image height {height} needs a taller tile than {tile_h}")
+    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in)
+    if img.device.type == "cpu":
+        return fused_stage_plain(ops, img)
+    _check_cuda_input(img)
+    out = _out_like(img, c_out)
+    lib = kr.load("fused_stage")
+    with torch.cuda.device(img.device):
+        rc = lib.fused_stage_launch(
+            img.data_ptr(), out.data_ptr(), height, width, c_in, c_smem, c_out,
+            chain_halo(ops), tile_h, ctypes.byref(prog),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "fused_stage")
+    fused_stage.launches += 1
+    return out
+
+
+fused_stage.launches = 0
+
+
 def reset_launch_counts() -> None:
     pointwise_group.launches = 0
     stream_stencil.launches = 0
+    fused_stage.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -330,11 +500,6 @@ def run_group(
         return pointwise[0](img)
     if stencil is None:
         return pointwise_group(pointwise, img)
-    if stencil.edge_mode == "zero":
-        raise NotImplementedError(
-            "zero-mode stencils would need post-pointwise padding in the "
-            "kernel path; none exist in the registry"
-        )
     height, width = img.shape[:2]
     h = stencil.halo
     if stencil.edge_mode == "reflect101" and (height <= h or width <= h):

@@ -516,6 +516,23 @@ for _name in (
 del _name
 
 
+FAMILIES = ("pointwise", "stencil", "geometric", "global-stat")
+
+
+def op_family(op: Op) -> str:
+    """The op's explicit family: 'pointwise', 'stencil', 'geometric' or
+    'global-stat' (the `family` class attribute every op spec declares,
+    ops/spec.py). The fusion planner (plan/) reads this, not isinstance
+    checks, so a new op kind fails loudly here instead of mis-planning."""
+    fam = getattr(op, "family", None)
+    if fam not in FAMILIES:
+        raise TypeError(
+            f"op {getattr(op, 'name', op)!r} declares no known family "
+            f"(got {fam!r}; known: {FAMILIES})"
+        )
+    return fam
+
+
 def make_op(spec: str) -> Op:
     """Parse ``name`` or ``name:arg`` into an op instance."""
     name, _, arg = spec.strip().partition(":")

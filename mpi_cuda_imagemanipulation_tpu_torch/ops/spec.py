@@ -368,6 +368,15 @@ class StencilOp:
 Op = PointwiseOp | StencilOp
 
 
+def chain_halo(ops) -> int:
+    """Total row context a chain of ops needs on each side of a region to
+    reproduce the whole-image result there exactly: the sum of the per-op
+    halos (op k's halo-h output row depends on op k-1's output h rows
+    further out, and so on down the chain). A fused plan stage grows its
+    halo once by this amount instead of extending the image per op."""
+    return sum(op.halo for op in ops)
+
+
 def _check_channels(name: str, want: int, img: torch.Tensor) -> None:
     got = img.shape[2] if img.ndim == 3 else 1
     if want and got != want:

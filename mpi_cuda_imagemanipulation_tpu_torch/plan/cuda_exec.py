@@ -1,0 +1,68 @@
+"""The fused-pallas stage executor on the card: ``plan='fused-pallas'``
+under the ``cuda`` backend. The counterpart of the JAX package's
+``plan/pallas_exec.py``, with the CUDA megakernel K4
+(``ops/cuda_kernels.fused_stage``, ``ops/csrc/fused_stage.cu``) in place
+of the Pallas megakernel.
+
+Each eligible fused stage runs as one K4 launch: its pointwise runs, every
+member stencil, the per-op edge extension and the finalize, reading the u8
+image once and writing the u8 stage output once. The routing is decided
+per stage and image shape before any launch, as in the JAX package:
+
+  * a stage K4 rejects runs its ops through the K1/K2 group runner
+    (``pipeline_cuda``, lookup tables as plain gathers), never through
+    plain PyTorch ops on the card, and is counted by reason in
+    ``plan_metrics.pallas_fallbacks``;
+  * barrier stages run their golden op.
+
+The closed reason vocabulary is the JAX package's (`stage_pallas_reject`)
+with ``smem-budget`` in place of ``vmem-budget`` and one reason of its own,
+``program-too-long``, for a stage longer than K4's parameter holds.
+"""
+
+from __future__ import annotations
+
+from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan, Stage
+from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+REJECT_REASONS = (
+    "barrier", "lut-op", "no-f32-core", "halo-too-large", "image-too-small",
+    "program-too-long", "smem-budget",
+)
+
+
+def stage_kernel_reject(
+    stage: Stage, height: int, width: int, channels: int, tile_h: int | None = None
+) -> str | None:
+    """Why this stage cannot run as one K4 launch on a (height, width,
+    channels) image with output tiles `tile_h` rows high, or None when it
+    can (one of REJECT_REASONS)."""
+    if stage.kind != "fused":
+        return "barrier"
+    return ck.fused_stage_reject(stage.ops, height, width, channels, tile_h)
+
+
+def plan_callable_cuda(plan: Plan, *, block_h: int | None = None):
+    """The full-image fused-pallas executor: an image -> image function.
+    Eligible fused stages run as one K4 launch each (`block_h` sets K4's
+    and K2's tile height); rejected stages run through the K1/K2 group
+    runner; barrier stages run their golden op. Every decision is counted
+    in `plan_metrics`."""
+
+    def run(img):
+        for stage in plan.stages:
+            if stage.kind in ("geometric", "global"):
+                img = stage.ops[0](img)
+                continue
+            ch = img.shape[2] if img.ndim == 3 else 1
+            reason = stage_kernel_reject(stage, img.shape[0], img.shape[1], ch, block_h)
+            if reason is None:
+                plan_metrics.pallas_stages += 1
+                img = ck.fused_stage(stage.ops, img, tile_h=block_h)
+            else:
+                plan_metrics.pallas_fallbacks[reason] += 1
+                img = ck.pipeline_cuda(stage.ops, img, block_h=block_h)
+        return img
+
+    return run

@@ -1,0 +1,136 @@
+"""Plan execution in PyTorch ops: the stage walker. The counterpart of the
+JAX package's ``plan/exec.py``.
+
+A fused stage runs over an *extended region*: a buffer that covers its
+output rows plus up to `Stage.halo` rows of real context on each interior
+side. The walker applies the stage's ops in order on a float32 carry
+holding exact u8 integer values (every core maps exact integers to exact
+integers, so one u8 materialisation per stage gives the bytes of one per
+op):
+
+  * pointwise ops run their `core`/`planes_core` on the carry (fn-only
+    ops, the lookup tables and gray2rgb, round-trip through u8, which is
+    exact);
+  * each stencil consumes `op.halo` context rows per side while real
+    context remains and pads (`pad2d`, the op's own edge mode) where the
+    side is the true image edge, then finalizes at global row offsets so
+    'interior' masks see image coordinates.
+
+Over a whole image (`run_stage_full`, lead = tail = 0) this is the golden
+per-op computation, staged. Run over one stage it is the plain version
+of the megakernel K4 (``ops/cuda_kernels.fused_stage_plain``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import op_family
+from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
+    U8,
+    StencilOp,
+    _check_channels,
+    exact_f32,
+    pad2d,
+)
+from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan
+
+
+def apply_pointwise_f32(op, cur: torch.Tensor) -> torch.Tensor:
+    """One pointwise op on the f32 exact-integer carry."""
+    _check_channels(op.name, op.in_channels, cur)
+    if op.planes_core is not None and cur.ndim == 3:
+        planes = op.planes_core(cur[..., 0], cur[..., 1], cur[..., 2])
+        if isinstance(planes, (list, tuple)):
+            return torch.stack(list(planes), dim=-1)
+        return planes
+    if op.core is not None:
+        return op.core(cur)
+    # fn-only op (lookup table, gray2rgb): the u8 round trip is exact on
+    # integer-valued f32
+    return exact_f32(op.fn(cur.to(U8)))
+
+
+def _stencil_region(
+    op: StencilOp,
+    buf: torch.Tensor,
+    take_top: int,
+    take_bot: int,
+    y0: int,
+    global_h: int,
+    global_w: int,
+) -> torch.Tensor:
+    """One stencil over an extended f32 region: consume `take_*` real
+    context rows, pad the rest per the op's edge mode, finalize at global
+    coordinates."""
+    h = op.halo
+    pad_top, pad_bot = h - take_top, h - take_bot
+
+    def plane(x: torch.Tensor) -> torch.Tensor:
+        xpad = pad2d(x, op.edge_mode, pad_top, pad_bot, h, h)
+        orig = x[take_top : x.shape[0] - take_bot]
+        return op.finalize_f32(op.valid(xpad), orig, y0, 0, global_h, global_w)
+
+    if buf.ndim == 3:
+        return torch.stack([plane(buf[..., c]) for c in range(buf.shape[2])], dim=-1)
+    return plane(buf)
+
+
+def walk_stage(
+    ops,
+    cur: torch.Tensor,
+    *,
+    y_lo: int,
+    lead_rem: int,
+    tail_rem: int,
+    global_h: int,
+    global_w: int,
+):
+    """Apply one fused stage's ops over the f32 region `cur`, whose first
+    row sits at global row `y_lo` with `lead_rem`/`tail_rem` real context
+    rows still unconsumed at each end. A stencil consumes context only
+    while `*_rem > 0` and pads otherwise.
+
+    Returns ``(cur, y_lo, lead_rem, tail_rem)`` so a tiled caller can
+    thread the context budget across consecutive stages."""
+    for op in ops:
+        fam = op_family(op)
+        if fam == "pointwise":
+            cur = apply_pointwise_f32(op, cur)
+            continue
+        if fam != "stencil":
+            raise ValueError(f"op {op.name!r} ({fam}) cannot appear inside a fused stage")
+        _check_channels(op.name, op.in_channels, cur)
+        h = op.halo
+        take_top = h if lead_rem > 0 else 0
+        take_bot = h if tail_rem > 0 else 0
+        y0 = y_lo + take_top
+        cur = _stencil_region(op, cur, take_top, take_bot, y0, global_h, global_w)
+        lead_rem -= take_top
+        tail_rem -= take_bot
+        y_lo = y0
+    return cur, y_lo, lead_rem, tail_rem
+
+
+def run_stage_full(stage, img: torch.Tensor) -> torch.Tensor:
+    """One fused stage over a whole u8 image (lead = tail = 0)."""
+    cur, _, _, _ = walk_stage(
+        stage.ops, exact_f32(img), y_lo=0, lead_rem=0, tail_rem=0,
+        global_h=img.shape[0], global_w=img.shape[1],
+    )
+    return cur.to(U8)
+
+
+def plan_callable(plan: Plan):
+    """The full-image executor for a plan: an image -> image function.
+    Barrier stages run their golden op; fused stages run as one walk each."""
+
+    def run(img: torch.Tensor) -> torch.Tensor:
+        for stage in plan.stages:
+            if stage.kind in ("geometric", "global"):
+                img = stage.ops[0](img)
+            else:
+                img = run_stage_full(stage, img)
+        return img
+
+    return run

@@ -1,0 +1,58 @@
+"""Planner instrumentation: plain integer counters.
+
+The counterpart of the JAX package's ``plan/metrics.py``, with the same
+``snapshot()`` keys. One module-level instance (`plan_metrics`) counts
+every plan built and every stage the fused-pallas executor routes, from
+whichever entry point built it; `--json-metrics` reports its snapshot.
+Counters are plain integers: the port has no metrics registry yet.
+
+Under ``plan='fused-pallas'`` the port's megakernel is the CUDA kernel K4
+(plan/cuda_exec.py), so ``pallas_stages`` counts K4 stage launches and
+``pallas_fallbacks`` counts the stages K4 rejected, by reason.
+"""
+
+from __future__ import annotations
+
+import collections
+
+
+class PlanMetrics:
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.builds: collections.Counter = collections.Counter()  # by build mode
+        self.stages: collections.Counter = collections.Counter()  # by stage kind
+        self.fused_ops = 0
+        self.passes_saved = 0
+        # fused-pallas stages run as one K4 launch, and those rejected to
+        # the K1/K2 group runner by closed reason (plan/cuda_exec.py)
+        self.pallas_stages = 0
+        self.pallas_fallbacks: collections.Counter = collections.Counter()
+        # in-stage tensor-core contractions (K5): not ported, always 0
+        self.mxu_stage_ops = 0
+
+    def on_build(self, plan) -> None:
+        self.builds[plan.mode] += 1
+        for s in plan.stages:
+            self.stages[s.kind] += 1
+        self.fused_ops += plan.n_absorbed_ops
+        self.passes_saved += plan.hbm_passes_saved
+
+    def snapshot(self) -> dict:
+        return {
+            "builds_fused": self.builds["fused"],
+            "builds_pointwise": self.builds["pointwise"],
+            "builds_off": self.builds["off"],
+            "builds_fused_pallas": self.builds["fused-pallas"],
+            "builds_fused_pallas_mxu": self.builds["fused-pallas-mxu"],
+            "stages_fused": self.stages["fused"],
+            "fused_ops": self.fused_ops,
+            "hbm_passes_saved": self.passes_saved,
+            "pallas_stages": self.pallas_stages,
+            "mxu_stage_ops": self.mxu_stage_ops,
+        }
+
+
+# the shared instance every build reports into
+plan_metrics = PlanMetrics()

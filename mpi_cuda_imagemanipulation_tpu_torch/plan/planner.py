@@ -1,0 +1,155 @@
+"""The fusion planner: op chain -> `Plan`, and the plan-mode resolution
+every entry point shares. The counterpart of the JAX package's
+``plan/planner.py``.
+
+Build modes, all byte-identical in output; they differ only in execution
+structure:
+
+  * ``off``          - one stage per op: the per-op golden execution.
+  * ``pointwise``    - each stage carries at most one stencil with its
+                       adjacent pointwise run.
+  * ``fused``        - maximal pointwise/stencil runs become one stage
+                       whose halo is the run's chain_halo.
+  * ``fused-pallas`` - partitions like ``fused``; under the ``cuda``
+                       backend each eligible stage runs as one launch of
+                       the megakernel K4 (plan/cuda_exec.py). A distinct
+                       build mode, so the plan fingerprint tells the two
+                       executions apart.
+
+``fused-pallas-mxu`` (K4 with in-stage tensor-core contractions, K5) is a
+plan mode of the JAX package that the port refuses until K5 is ported.
+
+Backend mapping for ``plan='auto'`` (no calibration store in the port;
+it resolves as the JAX package does when nothing was recorded):
+
+  * ``torch`` plays the JAX package's ``xla``: ``auto`` -> ``fused``.
+  * ``cuda`` plays the JAX package's ``auto``: ``auto`` -> ``off``, so the
+    K1/K2 group route stays the default.
+
+Under ``cuda``, the stage-walker modes ``pointwise`` and ``fused`` are
+refused: the walker is plain PyTorch, which the ``cuda`` backend never
+runs on the card. They run under ``torch``.
+"""
+
+from __future__ import annotations
+
+from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import op_family
+from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan, Stage
+from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+# the user-facing knob ('on' is an alias for 'fused'), as in the JAX package
+PLAN_MODES = ("auto", "off", "pointwise", "fused", "fused-pallas",
+              "fused-pallas-mxu")
+BUILD_MODES = ("off", "pointwise", "fused", "fused-pallas")
+BACKENDS = ("torch", "cuda")
+
+# geometric ops that are pure pixel permutations with unchanged (H, W): a
+# per-pixel op commutes with them exactly, so fusing modes hoist them left
+# past pointwise runs
+_COMMUTE_GEOMS = ("rot180", "fliph", "flipv")
+
+
+def _refuse_mxu(mode: str) -> None:
+    if mode == "fused-pallas-mxu":
+        raise ValueError(
+            "plan 'fused-pallas-mxu' needs the in-stage tensor-core "
+            "contraction (K5, stage_valid_mxu), which the port has not "
+            "ported yet; use 'fused-pallas'"
+        )
+
+
+def _norm_mode(plan: str) -> str:
+    mode = (plan or "auto").strip().lower()
+    if mode == "on":
+        mode = "fused"
+    if mode not in PLAN_MODES:
+        raise ValueError(f"unknown plan mode {plan!r}; known: {PLAN_MODES}")
+    _refuse_mxu(mode)
+    return mode
+
+
+def resolve_plan_mode(ops, plan: str = "auto", *, backend: str = "torch") -> str:
+    """The build mode for this (pipeline, backend): see the module
+    docstring for the mapping. Raises for a mode the backend does not run."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    mode = _norm_mode(plan)
+    if mode == "auto":
+        return "off" if backend == "cuda" else "fused"
+    if backend == "cuda" and mode in ("pointwise", "fused"):
+        raise ValueError(
+            f"plan {mode!r} is a stage-walker mode, which runs in plain "
+            "PyTorch; in the port it runs under backend 'torch' "
+            "(--impl torch). Under 'cuda' use 'off' or 'fused-pallas'"
+        )
+    return mode
+
+
+def commute_geometrics(ops) -> tuple:
+    """Bubble commuting geometric ops (rot180/flips) left past adjacent
+    pointwise ops, so a permutation between pointwise runs stops splitting
+    a fusable stage. Each swap is exact: a per-pixel op commutes with a
+    pixel permutation."""
+    out = list(ops)
+    for i in range(1, len(out)):
+        if op_family(out[i]) == "geometric" and out[i].name in _COMMUTE_GEOMS:
+            j = i
+            while j > 0 and op_family(out[j - 1]) == "pointwise":
+                out[j - 1], out[j] = out[j], out[j - 1]
+                j -= 1
+    return tuple(out)
+
+
+def build_plan(ops, mode: str = "fused") -> Plan:
+    """Partition `ops` into execution stages per `mode` (a build mode:
+    resolve 'auto' with resolve_plan_mode first). Fusing modes first hoist
+    commuting geometric ops; 'off' keeps the user's op order."""
+    ops = tuple(ops)
+    _refuse_mxu(mode)
+    if mode not in BUILD_MODES:
+        raise ValueError(f"unknown build mode {mode!r}; known: {BUILD_MODES}")
+    if mode != "off":
+        ops = commute_geometrics(ops)
+    stages: list[Stage] = []
+    run: list = []  # current pointwise/stencil run
+
+    def flush_run() -> None:
+        if not run:
+            return
+        if mode == "off":
+            for op in run:
+                stages.append(Stage("fused", (op,), op.halo))
+        elif mode == "pointwise":
+            # a stencil closes its stage, absorbing the pointwise run before
+            # it; a trailing pointwise run rides the last stage's write
+            cur: list = []
+            for op in run:
+                cur.append(op)
+                if op_family(op) == "stencil":
+                    stages.append(Stage("fused", tuple(cur), chain_halo(cur)))
+                    cur = []
+            if cur:
+                if stages and stages[-1].kind == "fused" and run[0] is not cur[0]:
+                    prev = stages.pop()
+                    stages.append(Stage("fused", prev.ops + tuple(cur), prev.halo))
+                else:
+                    stages.append(Stage("fused", tuple(cur), 0))
+        else:  # fused / fused-pallas: the whole run is one stage
+            stages.append(Stage("fused", tuple(run), chain_halo(run)))
+        run.clear()
+
+    for op in ops:
+        fam = op_family(op)
+        if fam == "geometric":
+            flush_run()
+            stages.append(Stage("geometric", (op,), 0))
+        elif fam == "global-stat":
+            flush_run()
+            stages.append(Stage("global", (op,), 0))
+        else:
+            run.append(op)
+    flush_run()
+    plan = Plan(stages=tuple(stages), mode=mode)
+    plan_metrics.on_build(plan)
+    return plan

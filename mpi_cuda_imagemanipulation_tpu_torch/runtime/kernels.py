@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("pointwise", "stream_stencil")
+SOURCES = ("pointwise", "stream_stencil", "fused_stage")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -39,9 +39,15 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-# Layouts shared with the C sources (pointwise.cuh, stream_stencil.cu).
+# Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
+# fused_stage.cu).
 PW_MAX_OPS = 8
 ST_MAX_K = 7
+FS_MAX_OPS = 24
+FS_MAX_STENCILS = 8
+FS_OP_STENCIL = 100
+# CUDA's limit on a kernel's parameters; K4 takes its stage program by value
+KERNEL_PARAM_BYTES = 4096
 
 
 class PwProgram(ctypes.Structure):
@@ -64,6 +70,19 @@ class StencilDesc(ctypes.Structure):
         ("w0", ctypes.c_float * (ST_MAX_K * ST_MAX_K)),
         ("w1", ctypes.c_float * (ST_MAX_K * ST_MAX_K)),
         ("sep", ctypes.c_float * ST_MAX_K),
+    ]
+
+
+class FsProgram(ctypes.Structure):
+    """One fused plan stage for K4: ops in order, each a pointwise opcode
+    with its parameter or ``FS_OP_STENCIL + j`` for stencil ``st[j]``."""
+
+    _fields_ = [
+        ("n_ops", ctypes.c_int),
+        ("op", ctypes.c_int * FS_MAX_OPS),
+        ("p0", ctypes.c_float * FS_MAX_OPS),
+        ("n_stencils", ctypes.c_int),
+        ("st", StencilDesc * FS_MAX_STENCILS),
     ]
 
 
@@ -154,4 +173,13 @@ def load(name: str) -> ctypes.CDLL:
         lib.stream_stencil_launch.restype = ci
         lib.stream_stencil_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.stream_stencil_smem_bytes.restype = ll
+    elif name == "fused_stage":
+        lib.fused_stage_launch.argtypes = [
+            vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.POINTER(FsProgram), vp,
+        ]
+        lib.fused_stage_launch.restype = ci
+        lib.fused_stage_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.fused_stage_smem_bytes.restype = ll
+        lib.fused_stage_program_bytes.argtypes = []
+        lib.fused_stage_program_bytes.restype = ll
     return lib

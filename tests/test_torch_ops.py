@@ -157,7 +157,7 @@ def _macro_pairs(source: str, macro: str) -> tuple:
 
 
 def test_median_networks_match_cuda_source():
-    with open(os.path.join(PORT, "ops", "csrc", "stream_stencil.cu")) as f:
+    with open(os.path.join(PORT, "ops", "csrc", "stencil.cuh")) as f:
         src = f.read()
     assert _macro_pairs(src, "ST_MEDIAN9_PAIRS") == spec.MEDIAN_NETWORKS[3][0]
     assert _macro_pairs(src, "ST_MEDIAN25_PAIRS") == spec.MEDIAN_NETWORKS[5][0]
