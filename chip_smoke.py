@@ -15,18 +15,28 @@ printing a result:
    reference pipeline's fused group; for K4 also multi-stencil stages that
    mix edge modes, stages that change the channel count mid-stage, a
    halo-0 stage, the megakernel and plan_ab chains, shapes just above the
-   size gates and tile heights above 48 KB of shared memory. A small input
-   is also held against the loop-level emulator of the reference program
-   (tests/_c_reference.py).
+   size gates and tile heights above 48 KB of shared memory. The ghost
+   modes of the row-sharded runner, K2g (fused group over a shard with
+   ghost strips), K3 (stencil over a pre-extended tile) and K4g (fused
+   stage over an extended tile), run the same cases on tiles cut as the
+   first, a middle and the last of three shards; K3 also on a tile with
+   pad rows. A small input is also held against the loop-level emulator of
+   the reference program (tests/_c_reference.py).
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
    (K1/K2 groups) and ``--plan fused-pallas`` (K4 stages), byte-equal to
-   the golden ops, with each kernel's launches counted over each run.
+   the golden ops, with each kernel's launches counted over each run. Then
+   the row-sharded paths: ``Pipeline.sharded`` on the same frame over a
+   4-slot mesh (slot i on card i modulo the number of cards, so all on the
+   one card here), under both plans and both halo modes, and once at 4323
+   rows (one pad row) to drive K3, byte-equal to golden, with the launches
+   and strip exchanges the code implies and no full-mode launch.
 3. Numbers: CUDA-event times of each kernel and its plain version at the
-   main paths' shapes, the bound from bytes and operations, a PyTorch
-   library call as a yardstick where one computes the same function, and
-   each path end to end under both plans.
+   main paths' shapes (the ghost modes at the 1080x7680 shard), the bound
+   from bytes and operations, a PyTorch library call as a yardstick where
+   one computes the same function, the strip exchange, and each path end
+   to end under both plans, sharded beside unsharded.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -49,6 +59,9 @@ SPECS = {
     "megakernel_ab": "grayscale,contrast:3.5,gaussian:5,sharpen,quantize:6",
 }
 PLANS = ("off", "fused-pallas")
+HALO_MODES = ("serial", "overlap")
+N_SHARDS = 4  # 1080 x 7680 shards of the 8K frame
+PAD_H = 4323  # over 4 shards: 1081 rows each, one pad row in the last
 POINTWISE_CASES = [
     "grayscale", "grayscale601", "sepia", "contrast:3.5", "contrast:3",
     "brightness:20", "brightness:-7.5", "invert", "threshold:100",
@@ -148,6 +161,7 @@ def phase1(device) -> int:
                                 ck.stream_stencil(pw, st, x, tile_h=tile_h), want)
                     n += 1
     n += phase1_k4(device)
+    n += phase1_ghost(device)
     print(f"phase 1: {n} kernel cases equal to their plain versions (max_abs_err 0)")
     return n
 
@@ -201,6 +215,78 @@ def phase1_k4(device) -> int:
                 n += 1
     print(f"phase 1: K4 equal to fused_stage_plain in {n} cases")
     return n
+
+
+def shard_cut(ops, shape, k, seed, device, halo):
+    """The tile of shard `k` of three of a seeded image `shape[0] // 3 * 3`
+    rows high, with its raw ghost strips (zeros where there is no
+    neighbour), its y0 and the image height."""
+    import torch
+
+    local_h = shape[0] // 3
+    img = input_for(ops, (3 * local_h, shape[1]), seed, device)
+    y0 = k * local_h
+    zeros = torch.zeros_like(img[:halo])
+    top = img[y0 - halo:y0] if k else zeros
+    bottom = img[y0 + local_h:y0 + local_h + halo] if k < 2 else zeros
+    return img[y0:y0 + local_h].contiguous(), top.contiguous(), bottom.contiguous(), y0, 3 * local_h
+
+
+def phase1_ghost(device) -> int:
+    """K2g, K3 and K4g against their plain versions on tiles cut as the
+    first, a middle and the last of three shards."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import api
+
+    n2 = n3 = n4 = 0
+    for spec in STENCIL_CASES + FUSED_CASES:
+        pw, st = split_group(spec)
+        h = st.halo
+        for i, shape in enumerate(SHAPES):
+            for k in range(3):
+                tile, top, bottom, y0, image_h = shard_cut(pw, shape, k, i + k, device, h)
+                kw = dict(y0=y0, image_h=image_h, image_w=shape[1])
+                if h >= 1 and tile.shape[0] > h:  # the gates of the fused-ghost path
+                    ftop, fbot = api._fix_edge_strips(top, bottom, tile, st, y0, image_h)
+                    want = ck.stream_stencil_ghost_plain(pw, st, tile, ftop, fbot, **kw)
+                    for tile_h in ((None, 5, 48) if i == 0 and k == 1 else (None,)):
+                        check_equal(
+                            f"K2g {spec} {shape} shard {k} tile_h={tile_h}",
+                            ck.stream_stencil_ghost(pw, st, tile, ftop, fbot, tile_h=tile_h, **kw),
+                            want)
+                        n2 += 1
+                # K3 over the materialised tile, as the runner builds it; once
+                # more with a pad row at the end of the last shard
+                post = ck.pointwise_group_plain(pw, torch.cat([top, tile, bottom])) if pw else (
+                    torch.cat([top, tile, bottom]))
+                for pad in ((0, 1) if k == 2 else (0,)):
+                    ext = api._fix_edge_rows(post, st, y0, image_h - pad).contiguous()
+                    check_equal(f"K3 {spec} {shape} shard {k} pad={pad}",
+                                ck.stencil_tile(st, ext), ck.stencil_tile_plain(st, ext))
+                    n3 += 1
+    for spec in STENCIL_CASES + STAGE_CASES:
+        ops = make_pipeline_ops(spec)
+        H = chain_halo(ops)
+        for i, shape in enumerate(SHAPES):
+            for k in range(3):
+                tile, top, bottom, y0, image_h = shard_cut(ops, shape, k, i + k, device, H)
+                c_in = 1 if tile.ndim == 2 else 3
+                if ck.fused_stage_reject(ops, tile.shape[0], shape[1], c_in) is not None:
+                    continue  # the tile is lower than 2 H + 1 rows: the runner's gate
+                ext = torch.cat([top, tile, bottom]).contiguous()
+                kw = dict(y0=y0, image_h=image_h, image_w=shape[1])
+                want = ck.fused_stage_ext_plain(ops, ext, **kw)
+                for tile_h in ((None, 5) if i == 0 and k == 1 else (None,)):
+                    check_equal(f"K4g {spec} {shape} shard {k} tile_h={tile_h}",
+                                ck.fused_stage_ext(ops, ext, tile_h=tile_h, **kw), want)
+                    n4 += 1
+    assert n2 and n3 and n4
+    print(f"phase 1: ghost modes equal to their plain versions: K2g {n2}, K3 {n3}, K4g {n4} cases")
+    return n2 + n3 + n4
 
 
 def phase1_reference(device) -> None:
@@ -277,6 +363,105 @@ def phase2(device, x8k):
     return launches
 
 
+def sharded_mesh():
+    """Four slots, slot i on card i modulo the number of cards: all on the
+    one card here, spread over the cards where there are more."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import make_mesh
+
+    cards = torch.cuda.device_count()
+    return make_mesh(N_SHARDS, devices=[f"cuda:{i % cards}" for i in range(N_SHARDS)])
+
+
+def expected_sharded(ops, plan, halo_mode, padded=False) -> tuple[dict, int]:
+    """The launches and exchange rounds parallel/api.py implies for a
+    one-stage pipeline over N_SHARDS shards: under 'off' a K2g per stencil
+    group and shard (K3 after a K1 flush on padded tiles), a K1 per
+    pointwise-only group; under 'fused-pallas' one K4g per shard; under
+    'overlap' (either plan) a K1 flush of the prologue and three K3 per
+    group and shard."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+
+    want = dict.fromkeys(ck.KERNEL_WRAPPERS, 0)
+    groups = ck.group_ops(ops)
+    stencils = sum(st is not None for _, st in groups)
+    if plan == "fused-pallas" and halo_mode == "serial" and not padded:
+        want["K4g"] = N_SHARDS
+        return want, 1
+    for pw, st in groups:
+        if st is None:
+            want["K1"] += N_SHARDS
+        elif halo_mode == "overlap" and not padded:
+            want["K1"] += N_SHARDS if pw else 0
+            want["K3"] += 3 * N_SHARDS
+        elif padded:
+            want["K1"] += N_SHARDS if pw else 0
+            want["K3"] += N_SHARDS
+        else:
+            want["K2g"] += N_SHARDS
+    return want, stencils
+
+
+def phase2_sharded(device, x8k):
+    """`Pipeline.sharded` at 8K over the 4-slot mesh under each plan and
+    halo mode, and at 4323 rows, against the golden ops; launches and
+    exchanges as `expected_sharded` implies."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+    mesh = sharded_mesh()
+    launches = {}
+
+    def drive(key, pipe, x, want, plan, halo_mode, padded):
+        fn = pipe.sharded(mesh, backend="cuda", plan=plan, halo_mode=halo_mode)
+        ck.reset_launch_counts()
+        halo.exchanges.reset()
+        plan_metrics.reset()
+        out = fn(x)
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+        counts = ck.launch_counts()
+        rounds = halo.exchanges.rounds
+        tag = f"sharded path {key} plan={plan} halo_mode={halo_mode} {x.shape[0]}x{x.shape[1]}"
+        assert out.dtype == torch.uint8 and out.device == mesh.devices[0], tag
+        check_equal(tag, out, want)
+        exp_counts, exp_rounds = expected_sharded(pipe.ops, plan, halo_mode, padded)
+        if counts != exp_counts:
+            raise AssertionError(f"{tag}: launches {counts}, expected {exp_counts}")
+        if rounds != exp_rounds:
+            raise AssertionError(f"{tag}: {rounds} exchange rounds, expected {exp_rounds}")
+        mega = plan == "fused-pallas" and halo_mode == "serial"
+        want_fallbacks = {"image-too-small": 1} if mega and padded else {}
+        if dict(plan_metrics.pallas_fallbacks) != want_fallbacks or (
+                plan_metrics.pallas_stages != (1 if mega and not padded else 0)):
+            raise AssertionError(f"{tag}: K4g stages {plan_metrics.pallas_stages}, fallbacks "
+                                 f"{dict(plan_metrics.pallas_fallbacks)}")
+        launches[key, plan, halo_mode, padded] = counts
+        used = {k: v for k, v in counts.items() if v}
+        print(f"phase 2: {tag}: sharded cuda == golden, launches {used}, {rounds} exchange "
+              f"round(s) over {N_SHARDS - 1} boundaries, full-mode K2/K4 launches 0")
+
+    for key, spec in SPECS.items():
+        pipe = Pipeline.parse(spec)
+        want = pipe.jit("torch", device=device, plan="off")(x8k)
+        for plan in PLANS:
+            for halo_mode in HALO_MODES:
+                drive(key, pipe, x8k, want, plan, halo_mode, False)
+    xpad = torch.from_numpy(synthetic_image(PAD_H, MAIN_W, seed=1)).to(device)
+    for key in ("reference", "gaussian5_8k"):
+        pipe = Pipeline.parse(SPECS[key])
+        want = pipe.jit("torch", device=device, plan="off")(xpad)
+        for plan in PLANS:
+            drive(key, pipe, xpad, want, plan, "serial", True)
+    return launches
+
+
 def op_count(ops, n_pix: int, c_in: int) -> int:
     """Float32 operations a group or stage does per image, counted from its
     ops: each pointwise op per pixel, each stencil per pixel and plane."""
@@ -310,14 +495,29 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase3(device, x8k, launches):
+def conv_library(op, x, pad_rows: bool):
+    """One PyTorch call that computes a lone correlation stencil: a
+    depthwise float32 `F.conv2d` (TF32 off) over the planes of the u8 image
+    or pre-extended tile `x`, padded by the op's halo beforehand (columns
+    always, rows unless the tile already carries them). The yardstick for
+    `library_ms`; it leaves out the rounding to u8 and pads by reflection
+    whatever the op's edge mode (border pixels only, the same work)."""
     import torch
     import torch.nn.functional as F
 
+    h, k = op.halo, 2 * op.halo + 1
+    c = x.shape[2] if x.ndim == 3 else 1
+    planes = x.reshape(x.shape[0], x.shape[1], c).permute(2, 0, 1)[None].float()
+    xf = F.pad(planes, (h, h, h if pad_rows else 0, h if pad_rows else 0), mode="reflect")
+    weight = torch.as_tensor(op.kernels[0] * op.scale, dtype=torch.float32, device=x.device)
+    weight = weight.expand(c, 1, k, k).contiguous()
+    return lambda: F.conv2d(xf, weight, groups=c)
+
+
+def phase3(device, x8k, launches, sharded_launches):
     from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
-    from mpi_cuda_imagemanipulation_tpu_torch.ops import filters
     from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
@@ -328,15 +528,18 @@ def phase3(device, x8k, launches):
     k4 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/fused_stage.cu"
 
     def record(name, source, replaces, launch_count, fn, plain, c_in, c_out, ops,
-               library=None):
+               library=None, n_pix=n_pix, strip_bytes=0):
+        """Time one kernel beside its plain version. The bound counts
+        `n_pix` pixels read at c_in and written at c_out bytes, plus
+        `strip_bytes` of ghost rows read once."""
         got, want = fn(), plain()
         err = int((got.int() - want.int()).abs().max().item())
         if err:
-            raise AssertionError(f"{name}: kernel != plain at 8K, max abs err {err}")
-        ms = device_time_ms(fn)
-        plain_ms = device_time_ms(plain, reps=5, inner=2)
-        library_ms = device_time_ms(library) if library is not None else None
-        nbytes = (c_in + c_out) * n_pix
+            raise AssertionError(f"{name}: kernel != plain, max abs err {err}")
+        ms = device_time_ms(fn, reps=7)
+        plain_ms = device_time_ms(plain, reps=3, inner=2)
+        library_ms = device_time_ms(library, reps=7) if library is not None else None
+        nbytes = (c_in + c_out) * n_pix + strip_bytes
         bound_ms, bound_by = bound(nbytes, op_count(ops, n_pix, c_in))
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -345,7 +548,7 @@ def phase3(device, x8k, launches):
             "library_ms": library_ms,
         }
         rows.append(row)
-        print(f"kernel {name}: {ms:.4f} ms ({mp / ms * 1e3:.1f} MP/s), bound "
+        print(f"kernel {name}: {ms:.4f} ms ({n_pix / 1e6 / ms * 1e3:.1f} MP/s), bound "
               f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%}), plain "
               f"{plain_ms:.4f} ms, library {library_ms}, launches {launch_count}")
 
@@ -373,18 +576,44 @@ def phase3(device, x8k, launches):
     # K2 on gaussian:5, RGB in and out; the yardstick is a depthwise
     # float32 convolution of the pre-padded planes (TF32 off)
     pw5, st5 = split_group(SPECS["gaussian5_8k"])
-    kern, _ = filters.gaussian_2d(5)
-    weight = torch.from_numpy(kern).to(device).expand(3, 1, 5, 5).contiguous()
-    xf = F.pad(x8k.permute(2, 0, 1)[None].float(), (2, 2, 2, 2), mode="reflect")
+    conv5 = conv_library(st5, x8k, pad_rows=True)
     record(
         "K2 stream_stencil [gaussian5]", k2,
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
         launches["gaussian5_8k", "off"]["K2"],
         lambda: ck.stream_stencil(pw5, st5, x8k),
         lambda: ck.stream_stencil_plain(pw5, st5, x8k), 3, 3, pw5 + [st5],
-        library=lambda: F.conv2d(xf, weight, groups=3),
+        library=conv5,
     )
-    del xf
+    # K4 on the gaussian:5 path's one stage, RGB in and out, beside the same
+    # convolution
+    record(
+        "K4 fused_stage [gaussian5]", k4,
+        "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
+        launches["gaussian5_8k", "fused-pallas"]["K4"],
+        lambda: ck.fused_stage([st5], x8k), lambda: ck.fused_stage_plain([st5], x8k),
+        3, 3, [st5], library=conv5,
+    )
+    del conv5
+    # the two K2 launches of the megakernel chain under plan off: the
+    # prologue fused into gaussian:5 (RGB in, gray out), then sharpen on gray
+    (pwm, stm), (pws, sts), _ = ck.group_ops(make_pipeline_ops(SPECS["megakernel_ab"]))
+    graym = ck.stream_stencil(pwm, stm, x8k)
+    record(
+        "K2 stream_stencil [grayscale,contrast3.5,gaussian5]", k2,
+        "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
+        launches["megakernel_ab", "off"]["K2"],
+        lambda: ck.stream_stencil(pwm, stm, x8k),
+        lambda: ck.stream_stencil_plain(pwm, stm, x8k), 3, 1, pwm + [stm],
+    )
+    record(
+        "K2 stream_stencil [sharpen] gray", k2,
+        "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
+        launches["megakernel_ab", "off"]["K2"],
+        lambda: ck.stream_stencil(pws, sts, graym),
+        lambda: ck.stream_stencil_plain(pws, sts, graym), 1, 1, [sts],
+        library=conv_library(sts, graym, pad_rows=True),
+    )
     # K4 on the first stage of the reference and megakernel paths, 8K RGB
     # in, gray out; no single PyTorch call computes a fused stage
     for key in ("reference", "megakernel_ab"):
@@ -404,6 +633,9 @@ def phase3(device, x8k, launches):
         lambda: ck.fused_stage(g2r, gray), lambda: ck.fused_stage_plain(g2r, gray), 1, 3, g2r,
         library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(),
     )
+
+    phase3_sharded(device, x8k, graym, sharded_launches, record)
+    del graym
 
     # each path's bound: every launch reads its input and writes its output
     # once (gray paths: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B),
@@ -427,11 +659,185 @@ def phase3(device, x8k, launches):
     for spec in STENCIL_CASES:
         pws, sts = split_group(spec)
         ms = device_time_ms(lambda pws=pws, sts=sts: ck.stream_stencil(pws, sts, x8k),
-                            reps=5, inner=5)
+                            reps=3, inner=5)
         bms, by = bound(6 * n_pix, op_count(pws + [sts], n_pix, 3))
         print(f"sweep K2 {spec} 8K RGB: {ms:.4f} ms, bound {bms:.4f} ms by {by} "
               f"({bms / ms:.1%})")
     return rows
+
+
+def host_enqueue_ms(fn, reps: int = 7) -> float:
+    """Host milliseconds one call of `fn` takes to enqueue its work (no
+    synchronise inside the timed region; the device is idle when it starts):
+    the median of `reps` samples. Not a device time."""
+    import statistics
+
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
+    """Times of K2g, K3, K4g and the per-shard K1 at the shapes the sharded
+    main paths give them (a middle 1080 x 7680 shard of the 8K frame; the
+    interior and one boundary band of the overlap mode), each held against
+    its plain version, then of one strip exchange and of each sharded path
+    end to end beside the unsharded one. `gray8k` is the megakernel chain's
+    gray intermediate, the input of its second group. `record` appends the
+    kernels' rows."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    k1 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/pointwise.cu"
+    k2 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/stream_stencil.cu"
+    k4 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/fused_stage.cu"
+    pk = "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py"
+    local_h = MAIN_H // N_SHARDS
+    y0 = local_h  # the second of four shards: neither edge
+    n_pix = local_h * MAIN_W
+    kw = dict(y0=y0, image_h=MAIN_H, image_w=MAIN_W)
+
+    def cut(img, h):
+        """The shard's tile of `img` and its two h-row ghost strips."""
+        return (img[y0:y0 + local_h].contiguous(), img[y0 - h:y0].contiguous(),
+                img[y0 + local_h:y0 + local_h + h].contiguous())
+
+    def names(ops):
+        return ",".join(op.name for op in ops)
+
+    # K2g on every stencil group of the three paths: the tile and two
+    # (halo, W[, 3]) strips in. A lone stencil on a middle shard is one
+    # convolution of the extended tile; a fused group has no single call
+    groups = [(key, src, pw, st)
+              for key, src in (("reference", x8k), ("gaussian5_8k", x8k))
+              for pw, st in [split_group(SPECS[key])]]
+    (pwm, stm), (pws, sts), (pwq, _) = ck.group_ops(make_pipeline_ops(SPECS["megakernel_ab"]))
+    groups += [("megakernel_ab", x8k, pwm, stm), ("megakernel_ab", gray8k, pws, sts)]
+    for key, src, pw, st in groups:
+        tile, top, bottom = cut(src, st.halo)
+        c_in = src.shape[2] if src.ndim == 3 else 1
+        c_out = next((op.out_channels for op in reversed(pw) if op.out_channels), c_in)
+        library = None if pw else conv_library(st, torch.cat([top, tile, bottom]), pad_rows=False)
+        record(
+            f"K2g stream_stencil_ghost [{names(pw + [st])}]" + ("" if c_in == 3 else " gray"),
+            k2, f"{pk}:377", sharded_launches[key, "off", "serial", False]["K2g"],
+            lambda pw=pw, st=st, t=(tile, top, bottom): ck.stream_stencil_ghost(pw, st, *t, **kw),
+            lambda pw=pw, st=st, t=(tile, top, bottom): ck.stream_stencil_ghost_plain(
+                pw, st, *t, **kw),
+            c_in, c_out, pw + [st], library=library, n_pix=n_pix,
+            strip_bytes=2 * st.halo * MAIN_W * c_in,
+        )
+        del library
+    # K1 on the megakernel chain's trailing pointwise run, one gray shard
+    gtile = gray8k[y0:y0 + local_h].contiguous()
+    record(
+        f"K1 pointwise_group [{names(pwq)}] gray shard", k1, f"{pk}:540",
+        sharded_launches["megakernel_ab", "off", "serial", False]["K1"],
+        lambda: ck.pointwise_group(pwq, gtile), lambda: ck.pointwise_group_plain(pwq, gtile),
+        1, 1, pwq, n_pix=n_pix,
+    )
+    del gtile
+    # K3 on gaussian:5 over the materialised (1084, W, 3) tile, as the padded
+    # 4323-row run launches it
+    _, st5 = split_group(SPECS["gaussian5_8k"])
+    tile, top, bottom = cut(x8k, 2)
+    ext = torch.cat([top, tile, bottom]).contiguous()
+    record(
+        "K3 stencil_tile [gaussian5]", k2, f"{pk}:787",
+        sharded_launches["gaussian5_8k", "off", "serial", True]["K3"],
+        lambda: ck.stencil_tile(st5, ext), lambda: ck.stencil_tile_plain(st5, ext),
+        3, 3, [st5], library=conv_library(st5, ext, pad_rows=False), n_pix=n_pix,
+        strip_bytes=4 * MAIN_W * 3,
+    )
+    # K3 as the overlap mode launches it, three times per group and shard:
+    # the tile itself as the extended input of its interior (1076 rows out),
+    # and a (3h, W, 3) boundary band (h rows out)
+    k3_overlap = sharded_launches["gaussian5_8k", "off", "overlap", False]["K3"]
+    record(
+        "K3 stencil_tile [gaussian5] overlap interior", k2, f"{pk}:787", k3_overlap,
+        lambda: ck.stencil_tile(st5, tile), lambda: ck.stencil_tile_plain(st5, tile),
+        3, 3, [st5], library=conv_library(st5, tile, pad_rows=False),
+        n_pix=(local_h - 4) * MAIN_W, strip_bytes=4 * MAIN_W * 3,
+    )
+    band = ext[:6].contiguous()
+    record(
+        "K3 stencil_tile [gaussian5] overlap band", k2, f"{pk}:787", k3_overlap,
+        lambda: ck.stencil_tile(st5, band), lambda: ck.stencil_tile_plain(st5, band),
+        3, 3, [st5], library=conv_library(st5, band, pad_rows=False),
+        n_pix=2 * MAIN_W, strip_bytes=4 * MAIN_W * 3,
+    )
+    # K3 on the reference path's emboss:3 over the gray (1082, W) tile
+    pwr, str_ = split_group(SPECS["reference"])
+    tile1, top, bottom = cut(x8k, 1)
+    ext1 = ck.pointwise_group(pwr, torch.cat([top, tile1, bottom]).contiguous())
+    record(
+        "K3 stencil_tile [emboss3] gray", k2, f"{pk}:787",
+        sharded_launches["reference", "off", "serial", True]["K3"],
+        lambda: ck.stencil_tile(str_, ext1), lambda: ck.stencil_tile_plain(str_, ext1),
+        1, 1, [str_], library=conv_library(str_, ext1, pad_rows=False), n_pix=n_pix,
+        strip_bytes=2 * MAIN_W,
+    )
+    del ext, ext1, band, tile1
+    # K4g on the one stage of each path, over the (1080 + 2H, W, 3) tile;
+    # the lone gaussian:5 stage is the same convolution as K3's
+    for key, c_out in (("reference", 1), ("gaussian5_8k", 3), ("megakernel_ab", 1)):
+        ops = make_pipeline_ops(SPECS[key])
+        H = chain_halo(ops)
+        tile, top, bottom = cut(x8k, H)
+        ext = torch.cat([top, tile, bottom]).contiguous()
+        library = conv_library(ops[0], ext, pad_rows=False) if len(ops) == 1 else None
+        record(
+            f"K4g fused_stage_ext [{names(ops)}]", k4, f"{pk}:993",
+            sharded_launches[key, "fused-pallas", "serial", False]["K4g"],
+            lambda ops=ops, ext=ext: ck.fused_stage_ext(ops, ext, **kw),
+            lambda ops=ops, ext=ext: ck.fused_stage_ext_plain(ops, ext, **kw),
+            3, c_out, ops, library=library, n_pix=n_pix, strip_bytes=2 * H * MAIN_W * 3,
+        )
+        del ext, library
+    del tile, top, bottom
+
+    # one exchange round of halo-1 and halo-3 RGB strips over the mesh
+    mesh = sharded_mesh()
+    tiles = [x8k[k * local_h:(k + 1) * local_h].to(mesh.devices[k]) for k in range(N_SHARDS)]
+    for h in (1, 3):
+        ms = device_time_ms(lambda h=h: halo.exchange_halo_strips(tiles, h, mesh), reps=5)
+        print(f"exchange: one round of ({h}, {MAIN_W}, 3) strips over {N_SHARDS - 1} "
+              f"boundaries ({6 * h * MAIN_W * 3} B copied): {ms:.4f} ms")
+    del tiles
+
+    # each sharded path end to end beside the unsharded one, no gray -> RGB
+    mp = MAIN_H * MAIN_W / 1e6
+    for key, spec in SPECS.items():
+        pipe = Pipeline.parse(spec)
+        for plan in PLANS:
+            one = pipe.jit("cuda", device=device, plan=plan)
+            t_one = device_time_ms(lambda: one(x8k), reps=5, inner=3)
+            times, enqueue = {}, {}
+            for halo_mode in HALO_MODES:
+                fn = pipe.sharded(mesh, backend="cuda", plan=plan, halo_mode=halo_mode)
+                times[halo_mode] = device_time_ms(lambda: fn(x8k), reps=5, inner=3)
+                enqueue[halo_mode] = host_enqueue_ms(lambda: fn(x8k))
+            used = {k: v for k, v in
+                    sharded_launches[key, plan, "serial", False].items() if v}
+            print(f"sharded path {key} [{spec}] plan={plan} {MAIN_H}x{MAIN_W} RGB over "
+                  f"{N_SHARDS} slots on {len(set(mesh.devices))} card(s): serial "
+                  f"{times['serial']:.4f} ms ({mp / times['serial'] * 1e3:.1f} MP/s), overlap "
+                  f"{times['overlap']:.4f} ms, unsharded {t_one:.4f} ms; host time to enqueue "
+                  f"one call: serial {enqueue['serial']:.4f} ms, overlap "
+                  f"{enqueue['overlap']:.4f} ms; serial launches {used}")
 
 
 def main() -> int:
@@ -463,7 +869,8 @@ def main() -> int:
     phase1_reference(device)
     x8k = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
     launches = phase2(device, x8k)
-    rows = phase3(device, x8k, launches)
+    sharded_launches = phase2_sharded(device, x8k)
+    rows = phase3(device, x8k, launches, sharded_launches)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -7,6 +7,9 @@
   K2; ops/cuda_kernels.py); ``plan='fused-pallas'`` runs one launch of K4
   per eligible fused stage (plan/cuda_exec.py).
 
+``Pipeline.sharded`` runs the same pipeline row-sharded over a mesh of
+devices with ghost-strip exchange (parallel/api.py).
+
 Every combination gives the same u8 bytes.
 """
 
@@ -24,6 +27,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
 )
 from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op
+from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import sharded_pipeline
 from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
 from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import plan_callable_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import plan_callable
@@ -113,6 +117,33 @@ class Pipeline:
             return fn(as_image_tensor(img, dev))
 
         return run
+
+    def sharded(
+        self, mesh, backend: str = "cuda", halo_mode: str = "serial", plan: str = "auto"
+    ):
+        """A function running this pipeline row-sharded over `mesh`
+        (parallel/mesh.make_mesh) with ghost-strip halo exchange, the
+        counterpart of the JAX package's ``Pipeline.sharded`` on a 1-D
+        ('rows',) mesh.
+
+        The function takes a whole uint8 image (numpy array or tensor),
+        scatters row blocks to the mesh's devices, runs every op on the
+        local tiles and gathers the result on the first slot's device,
+        where it returns a tensor. Under ``torch.distributed`` every rank
+        calls it with the same image; the rank that holds slot 0 returns the
+        whole image, the others their own rows.
+
+        `backend` is 'cuda' (the hand-written ghost-mode kernels K2g, K3,
+        K4g and K1), 'torch' (the golden ops per tile) or 'auto' (every
+        eligible group takes its kernel: 'cuda'). `halo_mode='overlap'`
+        computes interior rows while the ghost strips are in flight
+        (parallel.api.HALO_MODES). `plan` (PLAN_MODES) engages the fusion
+        planner: a fused stage exchanges one `Stage.halo`-row ghost strip
+        pair instead of one per stencil op, and under 'cuda'
+        `plan='fused-pallas'` runs each eligible stage as one K4g launch per
+        shard over that same pre-exchanged halo. Byte-identical output in
+        every combination."""
+        return sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
 
 
 def reference_pipeline() -> Pipeline:

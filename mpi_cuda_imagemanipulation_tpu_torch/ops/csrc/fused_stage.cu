@@ -1,9 +1,13 @@
-// K4: the fused plan-stage megakernel, full-image mode, VPU arm.
+// K4 and K4g: the fused plan-stage megakernel, VPU arm, in its full-image
+// mode and in its ghost mode over one row-shard. One kernel, two entry
+// points.
 //
 // Replaces: mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py
-//           _stage_kernel (launched by fused_stage_call) with ghosts=False
-//           and every op on the 'vpu' arm, the route plan='fused-pallas'
-//           takes for each eligible stage (plan/pallas_exec.py).
+//           _stage_kernel (launched by fused_stage_call) with every op on
+//           the 'vpu' arm: with ghosts=False (K4), the route
+//           plan='fused-pallas' takes for each eligible stage
+//           (plan/pallas_exec.py), and with ghosts=True (K4g), the route
+//           the row-sharded runner takes (run_stage_pallas_ext).
 // Computes: one fused plan stage in one launch: its pointwise runs, its
 //           chained stencils (total halo R <= 16), each stencil's own edge
 //           extension applied to that stencil's input (reflect101 mirrors,
@@ -13,11 +17,21 @@
 //           intermediate reaches device memory. Images are interleaved HWC,
 //           (H, W) or (H, W, 3), and the channel count may change inside
 //           the stage (grayscale 3 -> 1, gray2rgb 1 -> 3).
+//           Ghost mode (K4g) runs the stage over a (local_h + 2R, W) shard
+//           tile already extended by the stage's one ghost exchange, whose
+//           row R is global row `out_row0` of an image H rows high. The
+//           window is laid out in global coordinates as in full mode; a
+//           window row is read from array row `global row - in_row0`, is
+//           out of image by its global row against H, and the per-op edge
+//           rewrite therefore fires only on the shards whose tile touches
+//           the image's first or last row. Context rows that are real
+//           neighbour rows are never rewritten. It writes local_h rows.
 // Bound on the H100: device memory for the stages of the main path. Each
 //           pixel reads c_in bytes and writes c_out bytes once: the 8K
 //           megakernel chain (3 B in, 1 B out) takes at least 39.6 us at
 //           3.35 TB/s. Deep stages (several 5x5 medians, R near 16) may be
-//           bound by operations instead.
+//           bound by operations instead. K4g runs per shard: a quarter of
+//           those bytes on a 1080 x 7680 shard, plus 2R ghost rows.
 // Design:   a 2-D grid of independent output tiles (FS_TILE_W columns x
 //           tile_h rows, 256 threads), as K2; the TPU kernel's ordered
 //           walk over full-width row blocks with context strips has no
@@ -203,11 +217,15 @@ fused_stage_pointwise_kernel(const unsigned char* __restrict__ in,
 __global__ void __launch_bounds__(FS_THREADS, FS_MIN_BLOCKS)
 fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out,
                    int H, int W, int c_in, int c_smem, int c_out, int halo,
-                   int tile_h, const __grid_constant__ FsProgram prog) {
+                   int tile_h, const __grid_constant__ FsProgram prog, int in_row0,
+                   int in_rows, int out_row0, int out_rows) {
+  // `in` holds global rows [in_row0, in_row0 + in_rows) and `out` global
+  // rows [out_row0, out_row0 + out_rows) of an image H rows high: the whole
+  // image in full mode, one extended shard tile and its shard in ghost mode.
   const int n_ops = prog.n_ops;
   const int x0 = blockIdx.x * FS_TILE_W;
-  const int y0 = blockIdx.y * tile_h;
-  const int rows = min(tile_h, H - y0), cols = min(FS_TILE_W, W - x0);
+  const int y0 = out_row0 + blockIdx.y * tile_h;
+  const int rows = min(tile_h, out_row0 + out_rows - y0), cols = min(FS_TILE_W, W - x0);
 
   // the first stencil (stages without one go to fused_stage_pointwise_kernel)
   int first = 0;
@@ -227,13 +245,15 @@ fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restri
   unsigned char* b = smem + fs_align16((size_t)c_smem * w.plane);
   float* s_row = reinterpret_cast<float*>(b + fs_align16((size_t)c_smem * w.plane));
 
-  // 1. Window load (indices clamped into the image: the values outside it
-  // are replaced by the first stencil's edge fix), leading pointwise ops,
-  // u8 planes into shared memory.
+  // 1. Window load (indices clamped into the array: the values outside the
+  // image are replaced by the first stencil's edge fix, and rows past the
+  // array feed only outputs that are not stored), leading pointwise ops, u8
+  // planes into shared memory.
   int n_cur = c_in;
   for (int k = 0; k < first; ++k) n_cur = fs_channels_after(prog.op[k], n_cur);
   FS_FOR_ROWS(wy, 0, w.eh) {
-    const long long row = (long long)min(max(y0 - halo + wy, 0), H - 1) * W;
+    const long long row =
+        (long long)min(max(y0 - halo + wy - in_row0, 0), in_rows - 1) * W;
     FS_FOR_COLS(wx, 0, w.ew) {
       const int gx = min(max(x0 - halo + wx, 0), W - 1);
       float v[3];
@@ -302,7 +322,7 @@ fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restri
       for (int c = 0; c < n_cur; ++c) v[c] = (float)a[c * w.plane + idx];
       int n = n_cur;
       for (int j = k; j < n_ops; ++j) n = pw_apply_one(prog.op[j], prog.p0[j], v, n);
-      unsigned char* q = out + ((long long)(y0 + ly) * W + x0 + lx) * c_out;
+      unsigned char* q = out + ((long long)(y0 - out_row0 + ly) * W + x0 + lx) * c_out;
       for (int c = 0; c < c_out; ++c) q[c] = pw_to_u8(v[c]);
     }
   }
@@ -315,15 +335,17 @@ static bool fs_any_two_pass(const FsProgram* prog) {
   return false;
 }
 
-// Launches K4 on `stream`. `c_smem` is the most channels the stage holds
-// in shared memory. Returns cudaGetLastError() after the launch.
-extern "C" int fused_stage_launch(const unsigned char* in, unsigned char* out, int H,
-                                  int W, int c_in, int c_smem, int c_out, int halo,
-                                  int tile_h, const FsProgram* prog, void* stream) {
-  if (H <= 0 || W <= 0) return 0;
+// Launches the stage on `stream` over the rows described at the kernel.
+// `c_smem` is the most channels the stage holds in shared memory. Returns
+// cudaGetLastError() after the launch.
+static int fs_launch(const unsigned char* in, unsigned char* out, int H, int W,
+                     int c_in, int c_smem, int c_out, int halo, int tile_h,
+                     const FsProgram* prog, int in_row0, int in_rows, int out_row0,
+                     int out_rows, void* stream) {
+  if (out_rows <= 0 || W <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (prog->n_stencils == 0) {
-    const long long n_pix = (long long)H * W;
+  if (prog->n_stencils == 0) {  // halo 0: `in` and `out` hold the same rows
+    const long long n_pix = (long long)out_rows * W;
     long long blocks = (n_pix + FS_THREADS - 1) / FS_THREADS;
     if (blocks > 132LL * 16) blocks = 132LL * 16;  // 16 resident blocks per SM, as K1
     fused_stage_pointwise_kernel<<<(unsigned)blocks, FS_THREADS, 0, s>>>(
@@ -336,10 +358,31 @@ extern "C" int fused_stage_launch(const unsigned char* in, unsigned char* out, i
         fused_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((W + FS_TILE_W - 1) / FS_TILE_W, (H + tile_h - 1) / tile_h);
+  const dim3 grid((W + FS_TILE_W - 1) / FS_TILE_W, (out_rows + tile_h - 1) / tile_h);
   fused_stage_kernel<<<grid, FS_THREADS, smem, s>>>(
-      in, out, H, W, c_in, c_smem, c_out, halo, tile_h, *prog);
+      in, out, H, W, c_in, c_smem, c_out, halo, tile_h, *prog, in_row0, in_rows,
+      out_row0, out_rows);
   return (int)cudaGetLastError();
+}
+
+// K4: one fused stage over a whole (H, W) image.
+extern "C" int fused_stage_launch(const unsigned char* in, unsigned char* out, int H,
+                                  int W, int c_in, int c_smem, int c_out, int halo,
+                                  int tile_h, const FsProgram* prog, void* stream) {
+  return fs_launch(in, out, H, W, c_in, c_smem, c_out, halo, tile_h, prog, 0, H, 0, H,
+                   stream);
+}
+
+// K4g: one fused stage over a (local_h + 2 halo, W) extended shard tile
+// whose shard starts at global row `row0` of an image `image_h` rows high;
+// writes the shard's (local_h, W) rows.
+extern "C" int fused_stage_ext_launch(const unsigned char* ext, unsigned char* out,
+                                      int local_h, int W, int c_in, int c_smem,
+                                      int c_out, int halo, int tile_h,
+                                      const FsProgram* prog, int row0, int image_h,
+                                      void* stream) {
+  return fs_launch(ext, out, image_h, W, c_in, c_smem, c_out, halo, tile_h, prog,
+                   row0 - halo, local_h + 2 * halo, row0, local_h, stream);
 }
 
 // Dynamic shared memory one launch needs, and the program's size, for the

@@ -1,20 +1,40 @@
-// K2: the fused [pointwise*, stencil] group kernel, full-image mode.
+// K2, K2g and K3: the fused [pointwise*, stencil] group kernel in its
+// full-image mode, its ghost mode over one row-shard, and the stencil over
+// a pre-extended shard tile. One kernel template, three entry points.
 //
 // Replaces: mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py
-//           _stream_kernel with ghosts=False (the pallas_call in run_group
-//           for groups that end in a stencil).
+//           K2:  _stream_kernel with ghosts=False (the pallas_call in
+//                run_group for groups that end in a stencil);
+//           K2g: _stream_kernel with ghosts=True (run_group(ghosts=...),
+//                stencil_tile_pallas_fused), the row-sharded fast path;
+//           K3:  stencil_tile_pallas, the row-sharded fallback over a
+//                materialised extended tile.
 // Computes: the group's pointwise prologue (pointwise.cuh), then one
 //           stencil with in-kernel edge extension (reflect101 / edge; the
 //           interior mode clamps, since its border outputs pass through),
 //           the interior-mode passthrough at global coordinates, the
 //           scale multiply and the quantizer. Families: corr, magnitude,
 //           separable, min, max, median (3x3 and 5x5 networks).
+//           Ghost mode (K2g) runs the same group over a (local_h, W) shard
+//           tile whose first row is global row `row0`: rows above and below
+//           the tile come from two raw (halo, W) ghost strips (the
+//           neighbours' rows, or the edge extension the host synthesised on
+//           the first and last shard), the pointwise chain runs on strip
+//           pixels as on tile pixels, and the interior passthrough follows
+//           global rows against the true image height. K3 is ghost mode
+//           over one (local_h + 2 halo, W) array (its first and last halo
+//           rows are the strips), with an empty pointwise program, zero-mode
+//           columns read as 0, and no passthrough: its caller applies the
+//           interior mask.
 // Bound on the H100: device memory for every family but the 5x5 median.
 //           Each pixel reads c_in bytes and writes c_out bytes once from
 //           device memory: the 8K reference group (3 B in, 1 B out) takes
 //           at least 39.6 us at 3.35 TB/s, the 8K RGB gaussian:5 (3 + 3 B)
 //           59.4 us. A 5x5 median runs 113 min/max pairs per pixel and
-//           plane and may be bound by operations instead.
+//           plane and may be bound by operations instead. The ghost modes
+//           run per shard: on one 1080 x 7680 shard of that frame the
+//           reference group moves 33.2 MB (9.9 us), gaussian:5 49.8 MB
+//           (14.9 us), K3 the same bytes as K2g on the same stencil.
 // Arithmetic: the per-family functions of stencil.cuh, shared with K4.
 // Design:   a 2-D grid of output tiles (ST_TILE_W columns x tile_h rows,
 //           256 threads). The TPU kernel walks row blocks in order and
@@ -46,12 +66,20 @@ __host__ __device__ inline size_t st_smem_bytes(int c_out, int tile_h, int halo,
   return bytes;
 }
 
-template <int KS>
+// The three modes of the kernel, a template parameter so that each compiles
+// without the others' branches: the whole image (K2), one row-shard with
+// ghost strips (K2g), a pre-extended tile (K3).
+enum StMode { ST_FULL = 0, ST_GHOST = 1, ST_TILE = 2 };
+
+template <int KS, int MODE>
 __global__ void __launch_bounds__(ST_THREADS)
 stream_stencil_kernel(const unsigned char* __restrict__ in,
                       unsigned char* __restrict__ out, int H, int W, int c_in,
                       int c_out, const __grid_constant__ PwProgram prog,
-                      const __grid_constant__ StencilDesc st, int tile_h) {
+                      const __grid_constant__ StencilDesc st, int tile_h,
+                      const unsigned char* __restrict__ top,
+                      const unsigned char* __restrict__ bot, int row0,
+                      int image_h) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int h = KS / 2;
   const int ew = ST_TILE_W + 2 * h;
@@ -64,15 +92,35 @@ stream_stencil_kernel(const unsigned char* __restrict__ in,
       smem + (((size_t)c_out * eh * ew + 15) & ~(size_t)15));
 
   // 1-3. Window load with edge extension by index, pointwise chain, u8
-  // planes into shared memory.
+  // planes into shared memory. Full mode extends rows by index; the ghost
+  // modes take the rows beyond the tile from the strips (rows past a strip
+  // feed only outputs below the tile, which are not stored).
+  constexpr bool ghosts = MODE != ST_FULL;
+  // K3 pads columns as the golden pad2d does: zeros for zero mode and for
+  // interior mode (whose border outputs its caller then passes through)
+  const bool zero_cols =
+      MODE == ST_TILE &&
+      (st.edge_mode == ST_EDGE_ZERO || st.edge_mode == ST_EDGE_INTERIOR);
   for (int i = threadIdx.x; i < eh * ew; i += ST_THREADS) {
     const int wy = i / ew;
     const int wx = i - wy * ew;
-    const int gy = st_src(y0 + wy - h, H, st.edge_mode);
-    const int gx = st_src(x0 + wx - h, W, st.edge_mode);
+    const int ty = y0 + wy - h;  // row of the tile
+    const unsigned char* row;
+    if (!ghosts) {
+      row = in + (long long)st_src(ty, H, st.edge_mode) * W * c_in;
+    } else if (h > 0 && ty < 0) {
+      row = top + (long long)(h + ty) * W * c_in;
+    } else if (h > 0 && ty >= H) {
+      row = bot + (long long)min(ty - H, h - 1) * W * c_in;
+    } else {
+      row = in + (long long)min(ty, H - 1) * W * c_in;
+    }
+    const int cx = x0 + wx - h;
+    const int gx = st_src(cx, W, st.edge_mode);
     float v[3];
-    pw_load(in + ((long long)gy * W + gx) * c_in, v, c_in);
+    pw_load(row + (long long)gx * c_in, v, c_in);
     pw_apply(prog, v, c_in);
+    if (zero_cols && (cx < 0 || cx >= W)) v[0] = v[1] = v[2] = 0.0f;
     s_pix[wy * ew + wx] = pw_to_u8(v[0]);
     if (c_out > 1) {
       s_pix[(eh + wy) * ew + wx] = pw_to_u8(v[1]);
@@ -100,7 +148,11 @@ stream_stencil_kernel(const unsigned char* __restrict__ in,
     const int gy = y0 + ly;
     const int gx = x0 + lx;
     if (gy >= H || gx >= W) continue;
-    const bool filtered = st_filtered(gy, gx, H, W, h, st.edge_mode);
+    // the interior passthrough at global rows; K3 leaves it to its caller
+    const bool filtered =
+        MODE == ST_TILE ||
+        (MODE == ST_FULL ? st_filtered(gy, gx, H, W, h, st.edge_mode)
+                         : st_filtered(row0 + gy, gx, image_h, W, h, st.edge_mode));
     unsigned char* q = out + ((long long)gy * W + gx) * c_out;
     for (int c = 0; c < c_out; ++c) {
       const unsigned char* win = s_pix + (c * eh + ly) * ew + lx;
@@ -119,38 +171,84 @@ stream_stencil_kernel(const unsigned char* __restrict__ in,
   }
 }
 
-template <int KS>
+template <int KS, int MODE>
 static int st_launch(const unsigned char* in, unsigned char* out, int H, int W,
                      int c_in, int c_out, const PwProgram* prog,
-                     const StencilDesc* st, int tile_h, cudaStream_t stream) {
+                     const StencilDesc* st, int tile_h, const unsigned char* top,
+                     const unsigned char* bot, int row0, int image_h,
+                     cudaStream_t stream) {
   const size_t smem = st_smem_bytes(c_out, tile_h, st->halo, st->family);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        stream_stencil_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stream_stencil_kernel<KS, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((W + ST_TILE_W - 1) / ST_TILE_W, (H + tile_h - 1) / tile_h);
-  stream_stencil_kernel<KS><<<grid, ST_THREADS, smem, stream>>>(
-      in, out, H, W, c_in, c_out, *prog, *st, tile_h);
+  stream_stencil_kernel<KS, MODE><<<grid, ST_THREADS, smem, stream>>>(
+      in, out, H, W, c_in, c_out, *prog, *st, tile_h, top, bot, row0, image_h);
   return (int)cudaGetLastError();
 }
 
-// Launches K2 on `stream`. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a kernel size this source has no instance of.
+// Launches the kernel for the stencil's size. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a kernel size this source
+// has no instance of.
+template <int MODE>
+static int st_dispatch(const unsigned char* in, unsigned char* out, int H, int W,
+                       int c_in, int c_out, const PwProgram* prog,
+                       const StencilDesc* st, int tile_h, const unsigned char* top,
+                       const unsigned char* bot, int row0, int image_h, void* stream) {
+  if (H <= 0 || W <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define ST_CASE(KS)                                                         \
+  case KS:                                                                  \
+    return st_launch<KS, MODE>(in, out, H, W, c_in, c_out, prog, st, tile_h, \
+                               top, bot, row0, image_h, s);
+  switch (st->ksize) {
+    ST_CASE(1)
+    ST_CASE(3)
+    ST_CASE(5)
+    ST_CASE(7)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ST_CASE
+}
+
+// K2: the group over a whole (H, W) image, on `stream`.
 extern "C" int stream_stencil_launch(const unsigned char* in, unsigned char* out,
                                      int H, int W, int c_in, int c_out,
                                      const PwProgram* prog, const StencilDesc* st,
                                      int tile_h, void* stream) {
-  if (H <= 0 || W <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (st->ksize) {
-    case 1: return st_launch<1>(in, out, H, W, c_in, c_out, prog, st, tile_h, s);
-    case 3: return st_launch<3>(in, out, H, W, c_in, c_out, prog, st, tile_h, s);
-    case 5: return st_launch<5>(in, out, H, W, c_in, c_out, prog, st, tile_h, s);
-    case 7: return st_launch<7>(in, out, H, W, c_in, c_out, prog, st, tile_h, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return st_dispatch<ST_FULL>(in, out, H, W, c_in, c_out, prog, st, tile_h, nullptr,
+                              nullptr, 0, H, stream);
+}
+
+// K2g: the group over a (local_h, W) row-shard whose first row is global
+// row `row0` of an image `image_h` rows high, with its raw (halo, W) ghost
+// strips `top` and `bot`. The stencil's halo must be at least 1.
+extern "C" int stream_stencil_ghost_launch(const unsigned char* tile,
+                                           const unsigned char* top,
+                                           const unsigned char* bot,
+                                           unsigned char* out, int local_h, int W,
+                                           int c_in, int c_out, const PwProgram* prog,
+                                           const StencilDesc* st, int tile_h, int row0,
+                                           int image_h, void* stream) {
+  if (st->halo < 1 || top == nullptr || bot == nullptr) return (int)cudaErrorInvalidValue;
+  return st_dispatch<ST_GHOST>(tile, out, local_h, W, c_in, c_out, prog, st, tile_h,
+                               top, bot, row0, image_h, stream);
+}
+
+// K3: the stencil alone (valid rows, quantized, no passthrough) over a
+// pre-extended (local_h + 2 halo, W) array of `c` interleaved channels;
+// writes (local_h, W).
+extern "C" int stencil_tile_launch(const unsigned char* ext, unsigned char* out,
+                                   int local_h, int W, int c, const StencilDesc* st,
+                                   int tile_h, void* stream) {
+  PwProgram none = {};  // no pointwise ops
+  const long long strip = (long long)st->halo * W * c;
+  return st_dispatch<ST_TILE>(ext + strip, out, local_h, W, c, c, &none, st, tile_h,
+                              ext, ext + strip + (long long)local_h * W * c, 0, local_h,
+                              stream);
 }
 
 // Dynamic shared memory one launch needs, for the host-side check.

@@ -15,6 +15,18 @@ A fused plan stage (``plan='fused-pallas'``, plan/cuda_exec.py) runs as
 one launch of K4, ``fused_stage`` (``csrc/fused_stage.cu``): pointwise
 runs and several chained stencils, with no intermediate in device memory.
 
+The row-sharded runner (parallel/api.py) launches the ghost modes of the
+same sources on each shard's tile:
+
+* K2g, ``stream_stencil_ghost``: K2's group over one row-shard, its rows
+  above and below the tile read from two raw ghost strips, the interior
+  passthrough at global rows.
+* K3, ``stencil_tile``: one stencil over a tile the caller already
+  extended with ghost rows; no pointwise chain and no passthrough.
+* K4g, ``fused_stage_ext``: K4's stage over a tile extended by the stage's
+  one ghost exchange, edges rewritten per op where the tile touches the
+  image's first or last row.
+
 The kernels read and write interleaved HWC u8 images in place: (H, W) for
 one channel, (H, W, 3) for three. Each wrapper takes its plain version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or
@@ -31,10 +43,12 @@ import torch
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     F32,
     PW_GRAY2RGB,
+    QUANTIZERS_F32,
     U8,
     PointwiseOp,
     StencilOp,
     chain_halo,
+    pad2d,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import run_stage_full
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Stage
@@ -206,10 +220,18 @@ def _check_cuda_input(img: torch.Tensor) -> None:
         raise ValueError("the kernels take contiguous images")
 
 
-def _out_like(img: torch.Tensor, c_out: int) -> torch.Tensor:
+def _out_like(img: torch.Tensor, c_out: int, height: int | None = None) -> torch.Tensor:
     h, w = img.shape[:2]
+    h = h if height is None else height
     shape = (h, w) if c_out == 1 else (h, w, c_out)
     return torch.empty(shape, dtype=U8, device=img.device)
+
+
+def _per_plane(fn, img: torch.Tensor) -> torch.Tensor:
+    """`fn` on each channel plane of an (H, W) or (H, W, C) image."""
+    if img.ndim == 3:
+        return torch.stack([fn(img[..., c]) for c in range(img.shape[2])], dim=-1)
+    return fn(img)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -317,6 +339,179 @@ def stream_stencil(
 
 
 stream_stencil.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2g: the fused group over one row-shard, with ghost strips
+# --------------------------------------------------------------------------
+
+
+def ghost_row_source(t: int, local_h: int, halo: int) -> tuple[str, int]:
+    """Where K2g's window load reads row `t` of the tile from
+    (stream_stencil.cu): ('top', row) of the top strip above the tile,
+    ('bottom', row) of the bottom strip below it (rows past the strip, which
+    only outputs below the tile read, clamp to its last row), else ('tile',
+    row)."""
+    if halo > 0 and t < 0:
+        return "top", halo + t
+    if halo > 0 and t >= local_h:
+        return "bottom", min(t - local_h, halo - 1)
+    return "tile", min(t, local_h - 1)
+
+
+def _check_ghost_args(stencil, tile, top, bottom, image_w) -> None:
+    """The gates of K2g's caller (parallel/api.py keeps the same ones): a
+    real halo, no zero mode, more tile rows than the halo, full-width tiles
+    and (halo, W[, C]) strips beside the tile."""
+    h = stencil.halo
+    if h < 1:
+        raise ValueError(f"stencil {stencil.name!r} has halo 0: no ghost strips to read")
+    if stencil.edge_mode == "zero":
+        raise NotImplementedError(
+            "zero-mode stencils would need post-pointwise padding in K2g; "
+            "none exist in the registry"
+        )
+    if tile.shape[0] <= h:
+        raise ValueError(f"tile of {tile.shape[0]} rows too small for halo {h}")
+    if tile.shape[1] != image_w:
+        raise ValueError(f"row-shards are full width: tile {tile.shape[1]}, image {image_w}")
+    want = (h,) + tuple(tile.shape[1:])
+    for name, strip in (("top", top), ("bottom", bottom)):
+        if tuple(strip.shape) != want or strip.dtype != tile.dtype or strip.device != tile.device:
+            raise ValueError(
+                f"{name} strip {tuple(strip.shape)} {strip.dtype} on {strip.device}; "
+                f"the tile needs {want} {tile.dtype} on {tile.device}"
+            )
+
+
+def stream_stencil_ghost_plain(
+    pointwise: list[PointwiseOp],
+    stencil: StencilOp,
+    tile: torch.Tensor,
+    top: torch.Tensor,
+    bottom: torch.Tensor,
+    *,
+    y0: int,
+    image_h: int,
+    image_w: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2g: the pointwise chain on the
+    strip-extended tile, then the golden stencil over it (columns padded per
+    the op's mode, valid rows, finalize at global row `y0`)."""
+    stencil_desc(stencil)
+    _check_ghost_args(stencil, tile, top, bottom, image_w)
+    ext = torch.cat([top, tile, bottom], dim=0)
+    post = pointwise_group_plain(pointwise, ext) if pointwise else ext
+    h = stencil.halo
+
+    def plane(x: torch.Tensor) -> torch.Tensor:
+        xpad = pad2d(x.to(F32), stencil.edge_mode, 0, 0, h, h)
+        return stencil.finalize(
+            stencil.valid(xpad), x[h : x.shape[0] - h], y0, 0, image_h, image_w
+        )
+
+    return _per_plane(plane, post)
+
+
+def stream_stencil_ghost(
+    pointwise: list[PointwiseOp],
+    stencil: StencilOp,
+    tile: torch.Tensor,
+    top: torch.Tensor,
+    bottom: torch.Tensor,
+    *,
+    y0: int,
+    image_h: int,
+    image_w: int,
+    tile_h: int | None = None,
+) -> torch.Tensor:
+    """K2g wrapper: one launch runs the pointwise prologue and the stencil
+    over the row-shard `tile`, whose first row is global row `y0` of an
+    (image_h, image_w) image. `top` and `bottom` are its raw, pre-pointwise
+    (halo, W[, C]) ghost strips: the neighbours' rows, or on the first and
+    last shard the edge extension the caller made of them
+    (parallel.api._fix_edge_strips)."""
+    prog, c_out = pointwise_program(pointwise, _channels(tile))
+    desc = stencil_desc(stencil)
+    _check_ghost_args(stencil, tile, top, bottom, image_w)
+    tile_h = tile_h or DEFAULT_TILE_H
+    local_h, width = tile.shape[:2]
+    _check_geometry(local_h, width, c_out, desc, tile_h)
+    if tile.device.type == "cpu":
+        return stream_stencil_ghost_plain(
+            pointwise, stencil, tile, top, bottom, y0=y0, image_h=image_h, image_w=image_w
+        )
+    for t in (tile, top, bottom):
+        _check_cuda_input(t)
+    out = _out_like(tile, c_out)
+    lib = kr.load("stream_stencil")
+    with torch.cuda.device(tile.device):
+        rc = lib.stream_stencil_ghost_launch(
+            tile.data_ptr(), top.data_ptr(), bottom.data_ptr(), out.data_ptr(),
+            local_h, width, _channels(tile), c_out, ctypes.byref(prog), ctypes.byref(desc),
+            tile_h, y0, image_h, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stream_stencil_ghost")
+    stream_stencil_ghost.launches += 1
+    return out
+
+
+stream_stencil_ghost.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K3: one stencil over a pre-extended shard tile
+# --------------------------------------------------------------------------
+
+
+def stencil_tile_plain(stencil: StencilOp, ext: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: columns padded per the op's mode, the
+    golden valid stencil over the rows given, the quantizer; no interior
+    passthrough."""
+    stencil_desc(stencil)
+    h = stencil.halo
+
+    def plane(x: torch.Tensor) -> torch.Tensor:
+        xpad = pad2d(x.to(F32), stencil.edge_mode, 0, 0, h, h)
+        return QUANTIZERS_F32[stencil.quantize](stencil.valid(xpad)).to(U8)
+
+    return _per_plane(plane, ext)
+
+
+def stencil_tile(
+    stencil: StencilOp, ext: torch.Tensor, *, tile_h: int | None = None
+) -> torch.Tensor:
+    """K3 wrapper: one launch runs `stencil` (valid rows, quantized) over
+    `ext`, a (local_h + 2 halo, W[, C]) tile whose ghost rows the caller
+    already made, all channels at once. Columns are extended per the op's
+    mode inside. The interior passthrough is the caller's
+    (parallel.api._stencil_on_ext). Returns (local_h, W[, C])."""
+    desc = stencil_desc(stencil)
+    h = stencil.halo
+    local_h, width = ext.shape[0] - 2 * h, ext.shape[1]
+    if local_h < 1:
+        raise ValueError(f"extended tile of {ext.shape[0]} rows holds no row for halo {h}")
+    if stencil.edge_mode == "reflect101" and width <= h:
+        raise ValueError(f"tile width {width} too small for halo {h}")
+    tile_h = tile_h or DEFAULT_TILE_H
+    c = _channels(ext)
+    _check_geometry(local_h, width, c, desc, tile_h)
+    if ext.device.type == "cpu":
+        return stencil_tile_plain(stencil, ext)
+    _check_cuda_input(ext)
+    out = _out_like(ext, c, local_h)
+    lib = kr.load("stream_stencil")
+    with torch.cuda.device(ext.device):
+        rc = lib.stencil_tile_launch(
+            ext.data_ptr(), out.data_ptr(), local_h, width, c, ctypes.byref(desc),
+            tile_h, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "stencil_tile")
+    stencil_tile.launches += 1
+    return out
+
+
+stencil_tile.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -476,10 +671,96 @@ def fused_stage(ops, img: torch.Tensor, *, tile_h: int | None = None) -> torch.T
 fused_stage.launches = 0
 
 
+# --------------------------------------------------------------------------
+# K4g: one fused plan stage over an extended shard tile
+# --------------------------------------------------------------------------
+
+
+def fused_stage_ext_plain(
+    ops, ext: torch.Tensor, *, y0: int, image_h: int, image_w: int
+) -> torch.Tensor:
+    """Plain PyTorch version of K4g: the stage walker under the sharded
+    convention (plan/exec.walk_stage with the per-op edge fix of
+    parallel/api.py) over the extended tile."""
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import _plan_walk
+
+    ops = tuple(ops)
+    _stage_channels(ops, _channels(ext))
+    halo = chain_halo(ops)
+    return _plan_walk(Stage("fused", ops, halo), ext, y0 - halo, image_h, image_w)
+
+
+def fused_stage_ext(
+    ops,
+    ext: torch.Tensor,
+    *,
+    y0: int,
+    image_h: int,
+    image_w: int,
+    tile_h: int | None = None,
+) -> torch.Tensor:
+    """K4g wrapper: one launch runs a whole fused plan stage over `ext`, the
+    (local_h + 2 halo, W[, C]) tile of the row-shard that starts at global
+    row `y0` of an (image_h, image_w) image, extended by the stage's one
+    ghost exchange (halo = chain_halo(ops)). Rows of `ext` outside the image
+    may hold anything: each stencil's edge mode rewrites them in the kernel.
+    Returns the shard's (local_h, W[, C']) rows. Raises for a stage that
+    `fused_stage_reject` rejects at height local_h."""
+    ops = tuple(ops)
+    c_in = _channels(ext)
+    halo = chain_halo(ops)
+    local_h, width = ext.shape[0] - 2 * halo, ext.shape[1]
+    tile_h = tile_h or FS_DEFAULT_TILE_H
+    if tile_h < 1:
+        raise ValueError(f"tile height must be >= 1, got {tile_h}")
+    if local_h < 1:
+        raise ValueError(f"extended tile of {ext.shape[0]} rows holds no row for halo {halo}")
+    if width != image_w:
+        raise ValueError(f"row-shards are full width: tile {width}, image {image_w}")
+    if not 0 <= y0 <= image_h - local_h:
+        raise ValueError(f"shard rows [{y0}, {y0 + local_h}) lie outside an image of {image_h}")
+    reason = fused_stage_reject(ops, local_h, width, c_in, tile_h)
+    if reason is not None:
+        raise ValueError(f"K4g cannot run stage {[op.name for op in ops]}: {reason}")
+    if stencil_grid(local_h, width, tile_h)[1] > _MAX_GRID_Y:
+        raise ValueError(f"tile height {local_h} needs a taller tile than {tile_h}")
+    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in)
+    if ext.device.type == "cpu":
+        return fused_stage_ext_plain(ops, ext, y0=y0, image_h=image_h, image_w=image_w)
+    _check_cuda_input(ext)
+    out = _out_like(ext, c_out, local_h)
+    lib = kr.load("fused_stage")
+    with torch.cuda.device(ext.device):
+        rc = lib.fused_stage_ext_launch(
+            ext.data_ptr(), out.data_ptr(), local_h, width, c_in, c_smem, c_out,
+            halo, tile_h, ctypes.byref(prog), y0, image_h,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "fused_stage_ext")
+    fused_stage_ext.launches += 1
+    return out
+
+
+fused_stage_ext.launches = 0
+
+KERNEL_WRAPPERS = {
+    "K1": pointwise_group,
+    "K2": stream_stencil,
+    "K2g": stream_stencil_ghost,
+    "K3": stencil_tile,
+    "K4": fused_stage,
+    "K4g": fused_stage_ext,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
-    pointwise_group.launches = 0
-    stream_stencil.launches = 0
-    fused_stage.launches = 0
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
 
 
 # --------------------------------------------------------------------------

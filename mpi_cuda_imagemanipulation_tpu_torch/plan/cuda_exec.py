@@ -43,6 +43,25 @@ def stage_kernel_reject(
     return ck.fused_stage_reject(stage.ops, height, width, channels, tile_h)
 
 
+def run_stage_cuda_ext(
+    stage: Stage,
+    ext,
+    *,
+    y0: int,
+    image_h: int,
+    image_w: int,
+    block_h: int | None = None,
+):
+    """One K4g launch over a (local_h + 2 * Stage.halo, W[, C]) tile whose
+    context rows came from the stage's one ghost exchange (parallel/api.py);
+    `y0` is the global row of the shard's first row. The counterpart of the
+    JAX package's ``run_stage_pallas_ext``. The caller has asked
+    `stage_kernel_reject` with the shard's local height."""
+    return ck.fused_stage_ext(
+        stage.ops, ext, y0=y0, image_h=image_h, image_w=image_w, tile_h=block_h
+    )
+
+
 def plan_callable_cuda(plan: Plan, *, block_h: int | None = None):
     """The full-image fused-pallas executor: an image -> image function.
     Eligible fused stages run as one K4 launch each (`block_h` sets K4's

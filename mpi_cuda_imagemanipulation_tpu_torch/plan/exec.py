@@ -16,9 +16,18 @@ op):
     side is the true image edge, then finalizes at global row offsets so
     'interior' masks see image coordinates.
 
-Over a whole image (`run_stage_full`, lead = tail = 0) this is the golden
-per-op computation, staged. Run over one stage it is the plain version
-of the megakernel K4 (``ops/cuda_kernels.fused_stage_plain``).
+Two context conventions, one walker:
+
+  * full image (`run_stage_full`, lead = tail = 0): every stencil pads both
+    sides per its mode. This is the golden per-op computation, staged, and
+    the plain version of the megakernel K4
+    (``ops/cuda_kernels.fused_stage_plain``).
+  * sharded tiles (parallel/api.py): context rows are always present (the
+    stage's one ghost exchange), and an `edge_fix` callback rewrites the
+    out-of-image rows per op before that op reads them
+    (`parallel.api._fix_edge_axis`), so no assumption is made that an op's
+    output commutes with the next op's border extension. This is the plain
+    version of K4's ghost mode (``ops/cuda_kernels.fused_stage_ext_plain``).
 """
 
 from __future__ import annotations
@@ -85,11 +94,17 @@ def walk_stage(
     tail_rem: int,
     global_h: int,
     global_w: int,
+    edge_fix=None,
 ):
     """Apply one fused stage's ops over the f32 region `cur`, whose first
     row sits at global row `y_lo` with `lead_rem`/`tail_rem` real context
-    rows still unconsumed at each end. A stencil consumes context only
-    while `*_rem > 0` and pads otherwise.
+    rows still unconsumed at each end.
+
+    With `edge_fix(cur, op, y_lo)`, the sharded convention, context is
+    always present: every stencil consumes its full halo, and the callback
+    first rewrites the out-of-image rows per that op's edge mode. Without
+    it, a stencil consumes context only while `*_rem > 0` and pads
+    otherwise.
 
     Returns ``(cur, y_lo, lead_rem, tail_rem)`` so a tiled caller can
     thread the context budget across consecutive stages."""
@@ -102,8 +117,15 @@ def walk_stage(
             raise ValueError(f"op {op.name!r} ({fam}) cannot appear inside a fused stage")
         _check_channels(op.name, op.in_channels, cur)
         h = op.halo
-        take_top = h if lead_rem > 0 else 0
-        take_bot = h if tail_rem > 0 else 0
+        if h == 0:  # degenerate stencil (box:1): keeps the shape, no context
+            cur = _stencil_region(op, cur, 0, 0, y_lo, global_h, global_w)
+            continue
+        if edge_fix is not None:
+            cur = edge_fix(cur, op, y_lo)
+            take_top = take_bot = h
+        else:
+            take_top = h if lead_rem > 0 else 0
+            take_bot = h if tail_rem > 0 else 0
         y0 = y_lo + take_top
         cur = _stencil_region(op, cur, take_top, take_bot, y0, global_h, global_w)
         lead_rem -= take_top

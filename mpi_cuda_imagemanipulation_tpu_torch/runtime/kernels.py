@@ -171,6 +171,15 @@ def load(name: str) -> ctypes.CDLL:
             ctypes.POINTER(PwProgram), ctypes.POINTER(StencilDesc), ci, vp,
         ]
         lib.stream_stencil_launch.restype = ci
+        lib.stream_stencil_ghost_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci,
+            ctypes.POINTER(PwProgram), ctypes.POINTER(StencilDesc), ci, ci, ci, vp,
+        ]
+        lib.stream_stencil_ghost_launch.restype = ci
+        lib.stencil_tile_launch.argtypes = [
+            vp, vp, ci, ci, ci, ctypes.POINTER(StencilDesc), ci, vp,
+        ]
+        lib.stencil_tile_launch.restype = ci
         lib.stream_stencil_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.stream_stencil_smem_bytes.restype = ll
     elif name == "fused_stage":
@@ -178,6 +187,10 @@ def load(name: str) -> ctypes.CDLL:
             vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.POINTER(FsProgram), vp,
         ]
         lib.fused_stage_launch.restype = ci
+        lib.fused_stage_ext_launch.argtypes = [
+            vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.POINTER(FsProgram), ci, ci, vp,
+        ]
+        lib.fused_stage_ext_launch.restype = ci
         lib.fused_stage_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.fused_stage_smem_bytes.restype = ll
         lib.fused_stage_program_bytes.argtypes = []

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_k4_emulator import emulate_k4 as _emulate_k4
 
 from mpi_cuda_imagemanipulation_tpu.ops import registry as jax_registry
 from mpi_cuda_imagemanipulation_tpu.plan import build_plan as jax_build_plan
@@ -325,7 +326,7 @@ def test_fused_stage_program_encoding():
         1:] == (3, 3, False)
     assert ck.fused_stage_program(make_pipeline_ops("gray2rgb"), 1)[1:] == (3, 0, False)
     # the program and the launch's other parameters fit CUDA's 4 KB limit
-    other = 2 * ctypes.sizeof(ctypes.c_void_p) + 7 * ctypes.sizeof(ctypes.c_int)
+    other = 2 * ctypes.sizeof(ctypes.c_void_p) + 11 * ctypes.sizeof(ctypes.c_int)
     assert ctypes.sizeof(kr.FsProgram) == 3752
     assert ctypes.sizeof(kr.FsProgram) + other <= kr.KERNEL_PARAM_BYTES
 
@@ -369,79 +370,6 @@ def test_edge_src_matches_pad2d(mode):
                     sy, sx = ck.edge_src(i, n, mode), ck.edge_src(j, m, mode)
                     want = 0.0 if sy is None or sx is None else float(x[sy, sx])
                     assert float(padded[i + p, j + p]) == want, (mode, n, m, p, i, j)
-
-
-def _emulate_k4(ops, img: np.ndarray, tile_h: int) -> np.ndarray:
-    """fused_stage.cu's algorithm on the CPU, tile by tile: window load with
-    clamped indices, leading pointwise ops, per stencil the edge fix of the
-    out-of-image window positions (sources clamped into the in-image part
-    of the window) and the stencil over the shrunk window into the other
-    buffer, pointwise runs in place, and the store through the trailing
-    run. Unwritten buffer positions hold a marker, so a read of one shows."""
-    H, W = img.shape[:2]
-    R, tw = chain_halo(ops), ck.TILE_W
-    eh, ew = tile_h + 2 * R, tw + 2 * R
-    x = torch.from_numpy(img)
-    first = next((k for k, op in enumerate(ops) if isinstance(op, StencilOp)), len(ops))
-    out = None
-    for y0 in range(0, H, tile_h):
-        for x0 in range(0, W, tw):
-            rows = np.clip(np.arange(y0 - R, y0 - R + eh), 0, H - 1)
-            cols = np.clip(np.arange(x0 - R, x0 - R + ew), 0, W - 1)
-            a = x[rows][:, cols]
-            for op in ops[:first]:
-                a = op(a)
-            off, k = 0, first
-            while k < len(ops):
-                st = ops[k]
-                h = st.halo
-                planes = [a] if a.ndim == 2 else [a[..., c] for c in range(a.shape[2])]
-                lo_y, hi_y = max(off, R - y0), min(eh - off, H - y0 + R) - 1
-                lo_x, hi_x = max(off, R - x0), min(ew - off, W - x0 + R) - 1
-                if h:
-                    def src(wc, y_axis):
-                        g0, n, lo, hi = (y0, H, lo_y, hi_y) if y_axis else (x0, W, lo_x, hi_x)
-                        if lo <= wc <= hi:
-                            return wc
-                        s = ck.edge_src(g0 - R + wc, n, st.edge_mode)
-                        return None if s is None else min(max(s - g0 + R, lo), hi)
-                    sy = [src(r, True) for r in range(eh)]
-                    sx = [src(c, False) for c in range(ew)]
-                    r_idx, c_idx = torch.arange(eh)[:, None], torch.arange(ew)[None, :]
-                    fix = ((r_idx >= off) & (r_idx < eh - off) & (c_idx >= off)
-                           & (c_idx < ew - off)
-                           & ~((r_idx >= lo_y) & (r_idx <= hi_y) & (c_idx >= lo_x)
-                               & (c_idx <= hi_x)))
-                    zero = torch.tensor([v is None for v in sy])[:, None] | torch.tensor(
-                        [v is None for v in sx])[None, :]
-                    rows_src = torch.tensor([0 if v is None else v for v in sy])
-                    cols_src = torch.tensor([0 if v is None else v for v in sx])
-                    planes = [
-                        torch.where(fix, torch.where(zero, 0, p[rows_src][:, cols_src]), p)
-                        .to(p.dtype)
-                        for p in planes
-                    ]
-                o = off + h
-                new = []
-                for p in planes:
-                    q = torch.full_like(p, 77)
-                    xin = p[off:eh - off, off:ew - off].to(F32)
-                    acc = st.valid(xin)
-                    orig = xin[h:xin.shape[0] - h, h:xin.shape[1] - h]
-                    res = st.finalize_f32(acc, orig, y0 - R + o, x0 - R + o, H, W)
-                    q[o:eh - o, o:ew - o] = res.to(torch.uint8)
-                    new.append(q)
-                a = new[0] if len(new) == 1 else torch.stack(new, dim=-1)
-                off, k = o, k + 1
-                while k < len(ops) and not isinstance(ops[k], StencilOp):
-                    a = ops[k](a)
-                    k += 1
-            tile = a[R:R + tile_h, R:R + tw]
-            if out is None:
-                out = torch.zeros((H, W) + tuple(tile.shape[2:]), dtype=torch.uint8)
-            hh, ww = min(tile_h, H - y0), min(tw, W - x0)
-            out[y0:y0 + hh, x0:x0 + ww] = tile[:hh, :ww]
-    return out.numpy()
 
 
 @pytest.mark.parametrize(
