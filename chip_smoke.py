@@ -20,8 +20,15 @@ printing a result:
    ghost strips), K3 (stencil over a pre-extended tile) and K4g (fused
    stage over an extended tile), run the same cases on tiles cut as the
    first, a middle and the last of three shards; K3 also on a tile with
-   pad rows. A small input is also held against the loop-level emulator of
-   the reference program (tests/_c_reference.py).
+   pad rows. K5, the tensor-core arm of K4/K4g, in both forms (bf16 and
+   int8) against its plain version and the VPU arm: every eligible stencil
+   of the registry, multi-stencil stages under the settings 'on' and
+   'f32', the boundary filters of the exactness argument (255 * sum|w| =
+   2^24 - 1; |w| = 127 and 128) on the extreme inputs where the sums are
+   largest (all 0, all 255, 0/255 checkerboards), the three main stages at
+   8K and on the first, a middle and the last 1080x7680 shard tile. A small
+   input is also held against the loop-level emulator of the reference
+   program (tests/_c_reference.py).
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -36,7 +43,8 @@ printing a result:
    main paths' shapes (the ghost modes at the 1080x7680 shard), the bound
    from bytes and operations, a PyTorch library call as a yardstick where
    one computes the same function, the strip exchange, and each path end
-   to end under both plans, sharded beside unsharded.
+   to end under both plans, sharded beside unsharded; K5 per form beside
+   the VPU arm, and the tensor-core paths end to end.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -51,6 +59,8 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# dense tensor-core peaks, H100 SXM data sheet: bf16 operations, int8
+H100_TC_OPS_PER_S = {"mxu": 989e12, "mxu-int8": 1979e12}
 MAIN_H, MAIN_W = 4320, 7680  # the 8K frame of the gaussian5_8k workload
 SPECS = {
     "reference": "grayscale,contrast:3.5,emboss:3",
@@ -94,6 +104,24 @@ STAGE_CASES = [
     SPECS["megakernel_ab"],
 ]
 SHAPES = [(1080, 1920), (37, 53), (257, 301)]
+# the JAX package's boundary filters (tests/test_mxu_backend.py): 255 *
+# sum|w| = 2^24 - 1, the largest exact sum; |w| = 127, the int8 operand
+# bound, and 128, just past it (the bf16 form only); then taps that cancel,
+# whose sum on a plane constant along rows is the pixel itself, inside
+# 0..255, after partial sums of 255 * 32640 (bf16) or 255 * 127 (int8)
+BOUNDARY_FILTERS = [
+    "filter:65280/512/1/0/0/0/0/0/0:1.0", "filter:127/1/0/0/0/0/0/0/0:1.0",
+    "filter:128/1/0/0/0/0/0/0/0:1.0", "filter:32640/-32640/1/0/0/0/0/0/0:1.0",
+    "filter:127/-127/1/0/0/0/0/0/0:1.0",
+]
+# the stencils whose raw sums the probe holds against the exact ones
+PROBE_CASES = BOUNDARY_FILTERS + ["gaussian:7", "gaussian:5", "sobel", "laplacian:8",
+                                  "emboss:5", "sharpen"]
+# a fused stage K4 rejects ('lut-op')
+REJECTED_SPEC = "gamma:2.2,gaussian:5"
+K5_SOURCE = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/mma_stage.cuh"
+K5_REPLACES = "mpi_cuda_imagemanipulation_tpu/ops/mxu_kernels.py:853"
+K5_KEYS = {"mxu": "K5-bf16", "mxu-int8": "K5-int8"}
 
 
 def nvidia_smi() -> str:
@@ -289,6 +317,204 @@ def phase1_ghost(device) -> int:
     return n2 + n3 + n4
 
 
+def k5_forms(op) -> list:
+    """The K5 forms `op` has: bf16 for every eligible correlation, int8 too
+    where its taps are proven to fit."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import mxu_eligible, mxu_int8_ok
+
+    if getattr(op, "reduce", None) != "corr" or not mxu_eligible(op):
+        return []
+    return ["mxu", "mxu-int8"] if mxu_int8_ok(op) else ["mxu"]
+
+
+def extreme_inputs(shape, channels, device):
+    """The inputs at which a stencil's sums reach 255 * sum|w| or its
+    negative: all 0, all 255, and the two 0/255 checkerboards; then a plane
+    constant along rows, on which the cancelling boundary filters give the
+    pixel itself."""
+    import torch
+
+    h, w = shape
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    board = ((yy + xx) % 2 * 255).to(torch.uint8)
+    planes = [torch.zeros(h, w, dtype=torch.uint8), torch.full((h, w), 255, dtype=torch.uint8),
+              board, 255 - board, (yy * 37 % 256).to(torch.uint8)]
+    out = []
+    for p in planes:
+        x = p if channels == 1 else p[..., None].expand(h, w, channels)
+        out.append(x.contiguous().to(device))
+    return out
+
+
+def phase1_k5(device) -> int:
+    """K5 in each form against its plain version (stage_valid_mxu_plain in
+    the walker) and against the VPU arm: every eligible stencil of the
+    registry and the boundary filters, on the seeded shapes and on the
+    extreme inputs; multi-op stages under the settings 'on' and 'f32'; and
+    K4g's form of each on tiles cut as the first, a middle and the last of
+    three shards."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+
+    cases = []  # (label, ops, arms)
+    for spec in STENCIL_CASES + BOUNDARY_FILTERS:
+        ops = make_pipeline_ops(spec)
+        for arm in k5_forms(ops[0]):
+            cases.append((f"{spec} {arm}", ops, (arm,)))
+    for spec in STAGE_CASES:
+        ops = make_pipeline_ops(spec)
+        for setting in ("on", "f32"):
+            arms = ck.stage_arms(ops, setting)
+            if any(a != "vpu" for a in arms):
+                cases.append((f"{spec} {setting}", ops, arms))
+    n = n_ext = n_g = 0
+    for label, ops, arms in cases:
+        vpu = ("vpu",) * len(ops)
+        inputs = [input_for(ops, shape, seed, device) for seed, shape in enumerate(SHAPES)]
+        c = 3 if inputs[0].ndim == 3 else 1
+        extremes = extreme_inputs((257, 301), c, device)
+        for i, x in enumerate(inputs + extremes):
+            want = ck.fused_stage_plain(ops, x, arms=arms)
+            check_equal(f"K5 plain {label} input {i}", want, ck.fused_stage_plain(ops, x, arms=vpu))
+            # other tile heights, including one above 48 KB of shared memory
+            for tile_h in (k4_tile_heights(ops, c) if i == 0 else (None,)):
+                check_equal(f"K5 {label} input {i} tile_h={tile_h}",
+                            ck.fused_stage(ops, x, tile_h=tile_h, arms=arms), want)
+                n += 1
+            n_ext += i >= len(inputs)
+        H = chain_halo(ops)
+        for i, shape in enumerate(SHAPES[:1] + SHAPES[2:]):
+            for k in range(3):
+                tile, top, bottom, y0, image_h = shard_cut(ops, shape, k, i + k, device, H)
+                if ck.fused_stage_reject(ops, tile.shape[0], shape[1], c) is not None:
+                    continue
+                ext = torch.cat([top, tile, bottom]).contiguous()
+                kw = dict(y0=y0, image_h=image_h, image_w=shape[1])
+                want = ck.fused_stage_ext_plain(ops, ext, arms=arms, **kw)
+                check_equal(f"K5 (K4g) plain {label} {shape} shard {k}", want,
+                            ck.fused_stage_ext_plain(ops, ext, arms=("vpu",) * len(ops), **kw))
+                check_equal(f"K5 (K4g) {label} {shape} shard {k}",
+                            ck.fused_stage_ext(ops, ext, arms=arms, **kw), want)
+                n_g += 1
+    assert n and n_ext and n_g
+    print(f"phase 1: K5 equal to its plain version and to the VPU arm in {n} K4 cases "
+          f"({n_ext} on extreme inputs) and {n_g} K4g cases")
+    return n + n_g
+
+
+def phase1_k5_main(device, x8k) -> int:
+    """K5 at the main paths' shapes: the three stages at 8K and on the
+    first, a middle and the last 1080x7680 shard tile, in both forms, and
+    gaussian:5 and the 2^24 - 1 boundary filter on the extreme 8K inputs,
+    each against its plain version and the VPU arm."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+
+    n = 0
+    local_h = MAIN_H // N_SHARDS
+    for key, spec in SPECS.items():
+        ops = make_pipeline_ops(spec)
+        H = chain_halo(ops)
+        vpu = ck.fused_stage(ops, x8k, arms=("vpu",) * len(ops))
+        for setting in ("on", "f32"):
+            arms = ck.stage_arms(ops, setting)
+            want = ck.fused_stage_plain(ops, x8k, arms=arms)
+            check_equal(f"K5 plain {key} {setting} 8K", want, vpu)
+            check_equal(f"K5 {key} {setting} 8K", ck.fused_stage(ops, x8k, arms=arms), want)
+            n += 1
+            for k in (0, 1, N_SHARDS - 1):
+                y0 = k * local_h
+                ext = x8k[max(y0 - H, 0):y0 + local_h + H]
+                if k == 0:
+                    ext = torch.cat([torch.zeros_like(x8k[:H]), ext])
+                if k == N_SHARDS - 1:
+                    ext = torch.cat([ext, torch.zeros_like(x8k[:H])])
+                ext = ext.contiguous()
+                kw = dict(y0=y0, image_h=MAIN_H, image_w=MAIN_W)
+                want = ck.fused_stage_ext_plain(ops, ext, arms=arms, **kw)
+                check_equal(f"K5 (K4g) plain {key} {setting} shard {k}", want,
+                            vpu[y0:y0 + local_h])
+                check_equal(f"K5 (K4g) {key} {setting} shard {k}",
+                            ck.fused_stage_ext(ops, ext, arms=arms, **kw), want)
+                n += 1
+        del vpu
+    for spec in ("gaussian:5", BOUNDARY_FILTERS[0], BOUNDARY_FILTERS[3]):
+        ops = make_pipeline_ops(spec)
+        for x in extreme_inputs((MAIN_H, MAIN_W), 3, device):
+            vpu = ck.fused_stage(ops, x, arms=("vpu",))
+            for arm in k5_forms(ops[0]):
+                want = ck.fused_stage_plain(ops, x, arms=(arm,))
+                check_equal(f"K5 plain {spec} {arm} extreme 8K", want, vpu)
+                check_equal(f"K5 {spec} {arm} extreme 8K", ck.fused_stage(ops, x, arms=(arm,)), want)
+                n += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: K5 at 8K and on 1080x7680 shard tiles: {n} cases equal to the plain "
+          "version and the VPU arm")
+    return n
+
+
+def exact_sums(plane, w2d):
+    """Valid-mode correlation of a u8 plane in int64 on the card: the sums K5
+    must keep bit for bit."""
+    import torch
+
+    w = torch.as_tensor(w2d, dtype=torch.float64).round().long().tolist()
+    ks = len(w)
+    rows, cols = plane.shape[0] - ks + 1, plane.shape[1] - ks + 1
+    x = plane.long()
+    out = torch.zeros((rows, cols), dtype=torch.long, device=plane.device)
+    for d in range(ks):
+        for i in range(ks):
+            if w[d][i]:
+                out += w[d][i] * x[d:d + rows, i:i + cols]
+    return out
+
+
+def phase1_k5_sums(device, x8k) -> int:
+    """K5's raw f32 sums, read through its exactness probe (k5_sums: the tile
+    functions K5 runs, before any combine, scale or rounding to u8), against
+    the exact int64 sums: the boundary filters and several registry
+    stencils in each form, on the extreme inputs and a seeded random plane
+    at 257x301 and at 8K (a plane of the 8K frame, all 255, the row
+    ramp). The u8 output of K5 hides the low bits of sums that leave
+    0..255; this does not. Returns the largest sum checked."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+
+    gen = torch.Generator().manual_seed(3)
+    small = extreme_inputs((257, 301), 1, device) + [
+        torch.randint(0, 256, (257, 301), generator=gen, dtype=torch.uint8).to(device)]
+    big = [x8k[..., 0].contiguous()] + [extreme_inputs((MAIN_H, MAIN_W), 1, device)[i]
+                                        for i in (1, 4)]
+    n, top = 0, 0
+    for spec in PROBE_CASES:
+        op = make_op(spec)
+        for arm in k5_forms(op):
+            planes = small + big if spec in (BOUNDARY_FILTERS[0], BOUNDARY_FILTERS[3]) else small
+            for i, plane in enumerate(planes):
+                for k, w2d in enumerate(op.kernels):
+                    want = exact_sums(plane, w2d)
+                    got = ck.k5_sums(op, plane, arm, kernel=k)
+                    if got.shape != want.shape or not torch.equal(got.double(), want.double()):
+                        err = (got.double() - want.double()).abs().max().item()
+                        raise AssertionError(f"K5 sums {spec} {arm} input {i} kernel {k}: "
+                                             f"max abs err {err}")
+                    top = max(top, int(want.abs().max().item()))
+                    n += 1
+    assert top == (1 << 24) - 1, top
+    print(f"phase 1: K5's raw sums equal the exact int64 sums in {n} cases, up to |sum| = {top} "
+          "(2^24 - 1)")
+    return top
+
+
 def phase1_reference(device) -> None:
     """The reference program on a small input against the repo's loop-level
     emulator of kernel.cu (float64, tests/_c_reference.py)."""
@@ -383,7 +609,7 @@ def expected_sharded(ops, plan, halo_mode, padded=False) -> tuple[dict, int]:
     group and shard."""
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
 
-    want = dict.fromkeys(ck.KERNEL_WRAPPERS, 0)
+    want = dict.fromkeys(ck.launch_counts(), 0)
     groups = ck.group_ops(ops)
     stencils = sum(st is not None for _, st in groups)
     if plan == "fused-pallas" and halo_mode == "serial" and not padded:
@@ -462,6 +688,128 @@ def phase2_sharded(device, x8k):
     return launches
 
 
+def expected_mxu(ops, impl, plan, *, gray_to_rgb=True, shards=1, halo_mode="serial") -> dict:
+    """The launches a tensor-core path implies for one of the main chains
+    (one fused stage; every stencil of them has an int8 K5 form): under
+    'fused-pallas-mxu' one K4 (or, sharded, one K4g per shard) running
+    K5-int8, and a halo-0 K4 stage for gray -> RGB; under 'mxu' with plan
+    'off' no kernel for the stencils (banded products) and one K1 per
+    pointwise run (per shard), gray -> RGB included. Sharded under
+    halo_mode='overlap' no stage takes K4g: a fused-pallas-mxu run is the
+    plan 'off' run of its backend."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+
+    want = dict.fromkeys(ck.launch_counts(), 0)
+    gray = any(op.out_channels == 1 for op in ops)
+    if plan == "fused-pallas-mxu" and (shards == 1 or halo_mode == "serial"):
+        want["K4g" if shards > 1 else "K4"] = shards
+        want["K5-int8"] = shards
+        want["K4"] += int(gray and gray_to_rgb)
+        return want
+    if impl == "cuda":
+        assert shards == N_SHARDS and halo_mode == "overlap" and not gray_to_rgb
+        return expected_sharded(ops, "off", "overlap")[0]
+    assert impl == "mxu" and (plan == "off" or halo_mode == "overlap")
+    runs = [pw for pw, st in ck.group_ops(ops) if pw]
+    want["K1"] = shards * len(runs) + int(gray and gray_to_rgb)
+    return want
+
+
+def phase2_mxu(device, x8k):
+    """The tensor-core paths at 8K against the golden ops: `run` under
+    --plan fused-pallas-mxu (impl cuda and mxu) and --impl mxu --plan off,
+    the stage executor with the in-stage setting 'f32' (K5 bf16), a stage
+    K4 rejects under both impls, and Pipeline.sharded over the 4-slot mesh
+    under fused-pallas-mxu (backends cuda and mxu, both halo modes) and
+    mxu + off (both halo modes); launches, arm counts, K4 fallbacks and
+    exchange rounds asserted."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import run_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import StencilOp
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import plan_callable_cuda
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+    mesh = sharded_mesh()
+    launches = {}
+
+    def drive(tag, fn, x, want, exp, arms=None, rounds=None, fallbacks=None):
+        ck.reset_launch_counts()
+        plan_metrics.reset()
+        halo.exchanges.reset()
+        out = fn(x)
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+        counts = ck.launch_counts()
+        assert out.dtype == torch.uint8 and out.shape == want.shape, (tag, out.shape)
+        check_equal(tag, out, want)
+        if counts != exp:
+            raise AssertionError(f"{tag}: launches {counts}, expected {exp}")
+        if dict(plan_metrics.mxu_stage_ops) != (arms or {}) or plan_metrics.mxu_stage_fallbacks:
+            raise AssertionError(f"{tag}: arms {dict(plan_metrics.mxu_stage_ops)}, expected "
+                                 f"{arms or {}}; fallbacks {dict(plan_metrics.mxu_stage_fallbacks)}")
+        if dict(plan_metrics.pallas_fallbacks) != (fallbacks or {}):
+            raise AssertionError(f"{tag}: K4 fallbacks {dict(plan_metrics.pallas_fallbacks)}, "
+                                 f"expected {fallbacks or {}}")
+        if rounds is not None and halo.exchanges.rounds != rounds:
+            raise AssertionError(f"{tag}: {halo.exchanges.rounds} exchange rounds, expected {rounds}")
+        used = {k: v for k, v in counts.items() if v}
+        print(f"phase 2: {tag}: == golden, launches {used}, in-stage arms "
+              f"{dict(plan_metrics.mxu_stage_ops)}")
+        return counts
+
+    for key, spec in SPECS.items():
+        pipe = Pipeline.parse(spec)
+        n_st = sum(isinstance(op, StencilOp) for op in pipe.ops)
+        int8 = {"mxu-int8": n_st}
+        want = run_image(pipe, x8k, impl="torch", device=device, plan="off")
+        for impl, plan in (("cuda", "fused-pallas-mxu"), ("mxu", "fused-pallas-mxu"), ("mxu", "off")):
+            launches[key, impl, plan] = drive(
+                f"main path {spec} impl={impl} plan={plan} {MAIN_H}x{MAIN_W} RGB",
+                lambda x, impl=impl, plan=plan: run_image(pipe, x, impl=impl, device=device,
+                                                          plan=plan),
+                x8k, want, expected_mxu(pipe.ops, impl, plan),
+                arms=int8 if plan == "fused-pallas-mxu" else None)
+        # the bf16 form at 8K: the stage executor with the setting 'f32'
+        gray = pipe.jit("torch", device=device, plan="off")(x8k)
+        f32 = plan_callable_cuda(build_plan(pipe.ops, "fused-pallas-mxu"), mxu_stage="f32")
+        exp = dict.fromkeys(ck.launch_counts(), 0)
+        exp.update({"K4": 1, "K5-bf16": 1})
+        launches[key, "cuda", "f32"] = drive(
+            f"main path {spec} fused-pallas-mxu mxu_stage=f32 {MAIN_H}x{MAIN_W} RGB", f32, x8k,
+            gray, exp, arms={"mxu": n_st})
+        # sharded, no gray -> RGB step; under overlap no stage takes K4g
+        for backend, plan, halo_mode in (
+                ("cuda", "fused-pallas-mxu", "serial"), ("cuda", "fused-pallas-mxu", "overlap"),
+                ("mxu", "fused-pallas-mxu", "serial"), ("mxu", "fused-pallas-mxu", "overlap"),
+                ("mxu", "off", "serial"), ("mxu", "off", "overlap")):
+            fn = pipe.sharded(mesh, backend=backend, plan=plan, halo_mode=halo_mode)
+            mega = plan == "fused-pallas-mxu" and halo_mode == "serial"
+            launches[key, "sharded", backend, plan, halo_mode] = drive(
+                f"sharded path {spec} backend={backend} plan={plan} halo_mode={halo_mode}",
+                fn, x8k, gray,
+                expected_mxu(pipe.ops, backend, plan, gray_to_rgb=False, shards=N_SHARDS,
+                             halo_mode=halo_mode),
+                arms=int8 if mega else None, rounds=1 if mega else n_st)
+    # a stage K4 rejects (a lookup table: 'lut-op'): K1/K2 groups under cuda,
+    # pipeline_mxu under mxu (the gather, then the banded products)
+    pipe = Pipeline.parse(REJECTED_SPEC)
+    want = pipe.jit("torch", device=device, plan="off")(x8k)
+    for impl in ("cuda", "mxu"):
+        exp = dict.fromkeys(ck.launch_counts(), 0)
+        exp["K2"] = int(impl == "cuda")
+        launches["rejected", impl] = drive(
+            f"main path {REJECTED_SPEC} impl={impl} plan=fused-pallas-mxu {MAIN_H}x{MAIN_W} RGB",
+            lambda x, impl=impl: run_image(pipe, x, impl=impl, device=device,
+                                           plan="fused-pallas-mxu"),
+            x8k, want, exp, fallbacks={"lut-op": 1})
+    return launches
+
+
 def op_count(ops, n_pix: int, c_in: int) -> int:
     """Float32 operations a group or stage does per image, counted from its
     ops: each pointwise op per pixel, each stencil per pixel and plane."""
@@ -489,10 +837,30 @@ def op_count(ops, n_pix: int, c_in: int) -> int:
     return total
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_ms: float | None = None) -> tuple[float, str]:
+    """The least time for `nbytes` of device memory traffic and `ops`
+    float32 operations (or, given, `ops_ms` for the operations)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3 if ops_ms is None else ops_ms
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_ops_ms(ops, arms, n_pix: int, c_in: int) -> float:
+    """Least time for a stage's operations with its stencils on the given
+    in-stage arms: each tensor-core stencil's useful multiply-adds (two
+    operations per nonzero tap, per pixel and plane) at the dense peak of
+    its form, the rest as `op_count` counts it at the float32 rate."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import StencilOp
+
+    tc_ms, c = 0.0, c_in
+    for op, arm in zip(ops, arms):
+        if isinstance(op, StencilOp) and arm != "vpu":
+            nnz = sum(int((w != 0).sum()) for w in op.kernels)
+            tc_ms += 2 * nnz * n_pix * c / H100_TC_OPS_PER_S[arm] * 1e3
+        elif not isinstance(op, StencilOp):
+            c = op.out_channels or c
+    rest = [op for op, arm in zip(ops, arms) if arm == "vpu"]
+    return tc_ms + op_count(rest, n_pix, c_in) / H100_F32_OPS_PER_S * 1e3
 
 
 def conv_library(op, x, pad_rows: bool):
@@ -514,7 +882,7 @@ def conv_library(op, x, pad_rows: bool):
     return lambda: F.conv2d(xf, weight, groups=c)
 
 
-def phase3(device, x8k, launches, sharded_launches):
+def phase3(device, x8k, launches, sharded_launches, mxu_launches):
     from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
@@ -528,10 +896,11 @@ def phase3(device, x8k, launches, sharded_launches):
     k4 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/fused_stage.cu"
 
     def record(name, source, replaces, launch_count, fn, plain, c_in, c_out, ops,
-               library=None, n_pix=n_pix, strip_bytes=0):
+               library=None, n_pix=n_pix, strip_bytes=0, ops_ms=None):
         """Time one kernel beside its plain version. The bound counts
         `n_pix` pixels read at c_in and written at c_out bytes, plus
-        `strip_bytes` of ghost rows read once."""
+        `strip_bytes` of ghost rows read once, and the operations `ops`
+        does (or `ops_ms` for them)."""
         got, want = fn(), plain()
         err = int((got.int() - want.int()).abs().max().item())
         if err:
@@ -540,7 +909,7 @@ def phase3(device, x8k, launches, sharded_launches):
         plain_ms = device_time_ms(plain, reps=3, inner=2)
         library_ms = device_time_ms(library, reps=7) if library is not None else None
         nbytes = (c_in + c_out) * n_pix + strip_bytes
-        bound_ms, bound_by = bound(nbytes, op_count(ops, n_pix, c_in))
+        bound_ms, bound_by = bound(nbytes, op_count(ops, n_pix, c_in), ops_ms)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launch_count, "max_abs_err": err, "ms": ms,
@@ -636,6 +1005,7 @@ def phase3(device, x8k, launches, sharded_launches):
 
     phase3_sharded(device, x8k, graym, sharded_launches, record)
     del graym
+    phase3_k5(device, x8k, mxu_launches, record)
 
     # each path's bound: every launch reads its input and writes its output
     # once (gray paths: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B),
@@ -664,6 +1034,79 @@ def phase3(device, x8k, launches, sharded_launches):
         print(f"sweep K2 {spec} 8K RGB: {ms:.4f} ms, bound {bms:.4f} ms by {by} "
               f"({bms / ms:.1%})")
     return rows
+
+
+def phase3_k5(device, x8k, mxu_launches, record):
+    """K5's times in each form at the main stages' shapes (8K, and K4g on a
+    middle 1080 x 7680 shard), each held against its plain version and
+    printed beside the VPU arm's time in the same run, then each
+    tensor-core path end to end. `record` appends the kernels' rows."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    n_pix = MAIN_H * MAIN_W
+    local_h = MAIN_H // N_SHARDS
+    y0 = local_h
+    kw = dict(y0=y0, image_h=MAIN_H, image_w=MAIN_W)
+    # form -> (setting, label, the phase-2 run whose launches count)
+    forms = {"mxu-int8": ("on", "int8", ("cuda", "fused-pallas-mxu")),
+             "mxu": ("f32", "bf16", ("cuda", "f32"))}
+    for key, c_out in (("reference", 1), ("gaussian5_8k", 3), ("megakernel_ab", 1)):
+        ops = make_pipeline_ops(SPECS[key])
+        names = ",".join(op.name for op in ops)
+        H = chain_halo(ops)
+        ext = x8k[y0 - H:y0 + local_h + H].contiguous()
+        library = conv_library(ops[0], x8k, pad_rows=True) if len(ops) == 1 else None
+        library_g = conv_library(ops[0], ext, pad_rows=False) if len(ops) == 1 else None
+        vpu = ("vpu",) * len(ops)
+        t_vpu = device_time_ms(lambda ops=ops: ck.fused_stage(ops, x8k, arms=vpu), reps=7)
+        t_vpu_g = device_time_ms(lambda ops=ops: ck.fused_stage_ext(ops, ext, arms=vpu, **kw), reps=7)
+        for arm, (setting, label, lkey) in forms.items():
+            arms = ck.stage_arms(ops, setting)
+            ck_key = K5_KEYS[arm]
+            ops_ms = k5_ops_ms(ops, arms, n_pix, 3)
+            record(
+                f"K5 {label} in fused_stage [{names}]", K5_SOURCE, K5_REPLACES,
+                mxu_launches[(key, *lkey)][ck_key],
+                lambda ops=ops, arms=arms: ck.fused_stage(ops, x8k, arms=arms),
+                lambda ops=ops, arms=arms: ck.fused_stage_plain(ops, x8k, arms=arms),
+                3, c_out, ops, library=library, ops_ms=ops_ms,
+            )
+            print(f"  operations bound {ops_ms:.4f} ms; the VPU arm of K4 on the same stage "
+                  f"in this run: {t_vpu:.4f} ms")
+        # K4g's form on one shard: the int8 form, which the sharded main path
+        # launches
+        arms = ck.stage_arms(ops, "on")
+        ops_ms = k5_ops_ms(ops, arms, local_h * MAIN_W, 3)
+        record(
+            f"K5 int8 in fused_stage_ext [{names}]", K5_SOURCE, K5_REPLACES,
+            mxu_launches[key, "sharded", "cuda", "fused-pallas-mxu", "serial"]["K5-int8"],
+            lambda ops=ops, arms=arms, ext=ext: ck.fused_stage_ext(ops, ext, arms=arms, **kw),
+            lambda ops=ops, arms=arms, ext=ext: ck.fused_stage_ext_plain(
+                ops, ext, arms=arms, **kw),
+            3, c_out, ops, library=library_g, n_pix=local_h * MAIN_W,
+            strip_bytes=2 * H * MAIN_W * 3, ops_ms=ops_ms,
+        )
+        print(f"  operations bound {ops_ms:.4f} ms; the VPU arm of K4g on the same shard in "
+              f"this run: {t_vpu_g:.4f} ms")
+        del ext, library, library_g
+    torch.cuda.synchronize()
+
+    mp = n_pix / 1e6
+    for key, spec in SPECS.items():
+        pipe = Pipeline.parse(spec)
+        for impl, plan in (("cuda", "fused-pallas-mxu"), ("mxu", "off")):
+            runner = image_runner(pipe, impl=impl, device=device, plan=plan)
+            t = device_time_ms(lambda: runner(x8k), reps=5, inner=3)
+            used = {k: v for k, v in mxu_launches[key, impl, plan].items() if v}
+            print(f"path {key} [{spec}] impl={impl} plan={plan} {MAIN_H}x{MAIN_W} RGB in, RGB "
+                  f"out: {t:.4f} ms ({mp / t * 1e3:.1f} MP/s), launches {used}")
 
 
 def host_enqueue_ms(fn, reps: int = 7) -> float:
@@ -862,15 +1305,19 @@ def main() -> int:
     for name, path in paths.items():
         log = path.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
     phase1(device)
+    phase1_k5(device)
     phase1_reference(device)
     x8k = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
+    phase1_k5_main(device, x8k)
+    phase1_k5_sums(device, x8k)
     launches = phase2(device, x8k)
     sharded_launches = phase2_sharded(device, x8k)
-    rows = phase3(device, x8k, launches, sharded_launches)
+    mxu_launches = phase2_mxu(device, x8k)
+    rows = phase3(device, x8k, launches, sharded_launches, mxu_launches)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -1,8 +1,9 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch run|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
-through the hand-written kernels (``--impl cuda``) or PyTorch ops
-(``--impl torch``), in the execution structure ``--plan`` selects
+through the hand-written kernels (``--impl cuda``), the tensor-core route
+(``--impl mxu``) or PyTorch ops (``--impl torch``), in the execution
+structure ``--plan`` selects
 (models/pipeline.py says what each pair runs). ``--shards N`` row-shards
 the image over N devices with ghost-strip exchange (parallel/api.py); under
 ``torchrun`` every rank runs the same command and holds its share of the
@@ -39,22 +40,25 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument(
         "--impl",
-        choices=("cuda", "torch"),
+        choices=("cuda", "mxu", "torch"),
         default="cuda",
         help="cuda: the hand-written kernels, one launch per op group; "
-        "torch: the golden PyTorch ops",
+        "mxu: eligible stencils as banded matrix products (torch.matmul), "
+        "the other ops as under cuda; torch: the golden PyTorch ops",
     )
     run.add_argument(
         "--plan",
         choices=PLAN_MODES,
         default="auto",
         help="fusion-planner execution structure: 'off' runs op groups (cuda: "
-        "K1/K2 launches; torch: the golden ops op by op); 'pointwise' and "
-        "'fused' run the PyTorch stage walker (torch only); 'fused-pallas' "
-        "runs each eligible fused stage as one launch of the megakernel K4 "
-        "(cuda; torch runs the walker); 'auto' is 'off' under cuda and "
-        "'fused' under torch; 'fused-pallas-mxu' is refused (needs K5). "
-        "Byte-identical output in every mode",
+        "K1/K2 launches; mxu: banded products and K1/K2; torch: the golden "
+        "ops op by op); 'pointwise' and 'fused' run the PyTorch stage walker "
+        "(torch and mxu); 'fused-pallas' runs each eligible fused stage as "
+        "one launch of the megakernel K4 (cuda and mxu; torch runs the "
+        "walker); 'fused-pallas-mxu' does the same with every eligible "
+        "stencil on K4's tensor-core arm K5 (torch: the walker with K5's "
+        "plain version); 'auto' is 'off' under cuda and 'fused' under torch "
+        "and mxu. Byte-identical output in every mode",
     )
     run.add_argument(
         "--device", default="cuda", help="torch device (default cuda; cpu runs the "
@@ -208,6 +212,8 @@ def cmd_run(args: argparse.Namespace) -> int:
             "halo_exchanges": exchange_rounds,
             "plan_metrics": plan_metrics.snapshot(),
             "plan_fallbacks": dict(plan_metrics.pallas_fallbacks),
+            "mxu_stage_ops": dict(plan_metrics.mxu_stage_ops),
+            "mxu_stage_fallbacks": dict(plan_metrics.mxu_stage_fallbacks),
             "device": str(dev),
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "clock": clock,

@@ -1,11 +1,21 @@
-"""Pipeline: an op sequence over an image, with two backends.
+"""Pipeline: an op sequence over an image, with three backends.
 
 * ``backend='torch'``: PyTorch ops. ``plan='off'`` runs the golden ops op
-  by op (the oracle); the other plans run the stage walker (plan/exec.py).
+  by op (the oracle); the other plans run the stage walker (plan/exec.py),
+  under ``'fused-pallas-mxu'`` with K5's plain version for every eligible
+  stencil.
 * ``backend='cuda'`` : the hand-written kernels. ``plan='off'`` (and
   ``'auto'``) runs one launch per ``[pointwise*, stencil?]`` group (K1,
   K2; ops/cuda_kernels.py); ``plan='fused-pallas'`` runs one launch of K4
-  per eligible fused stage (plan/cuda_exec.py).
+  per eligible fused stage (plan/cuda_exec.py), and ``'fused-pallas-mxu'``
+  the same with every eligible stencil on K5, K4's tensor-core arm.
+  Rejected stages run as K1/K2 groups.
+* ``backend='mxu'``  : the tensor-core route (ops/mxu_kernels.py).
+  ``plan='off'`` runs `pipeline_mxu`: eligible stencils as banded
+  products, every other op through the K1/K2 group runner; ``'pointwise'``,
+  ``'fused'`` and ``'auto'`` run the walker with the banded products;
+  ``'fused-pallas[-mxu]'`` run K4 stages as under ``cuda``, and a rejected
+  stage walks with the banded products.
 
 ``Pipeline.sharded`` runs the same pipeline row-sharded over a mesh of
 devices with ghost-strip exchange (parallel/api.py).
@@ -26,6 +36,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
     make_pipeline_ops,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
+from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import pipeline_mxu
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import sharded_pipeline
 from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
@@ -37,7 +48,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import (
     resolve_device,
 )
 
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "mxu")
 __all__ = ["BACKENDS", "PLAN_MODES", "Pipeline", "reference_cpu_pipeline", "reference_pipeline"]
 
 
@@ -77,9 +88,11 @@ class Pipeline:
         if mode == "off":
             return None
         built = build_plan(self.ops, mode)
-        if backend == "cuda":  # resolution admits only fused-pallas here
-            return plan_callable_cuda(built, block_h=block_h)
-        return plan_callable(built)
+        mxu_stage = "on" if mode == "fused-pallas-mxu" else None
+        if mode in ("fused-pallas", "fused-pallas-mxu") and backend != "torch":
+            return plan_callable_cuda(built, block_h=block_h, mxu_stage=mxu_stage, impl=backend)
+        impl = "mxu" if backend == "mxu" else "torch"
+        return plan_callable(built, impl=impl, mxu_stage=mxu_stage)
 
     def _callable(self, backend: str, block_h: int | None = None, plan: str = "auto"):
         if backend not in BACKENDS:
@@ -89,6 +102,8 @@ class Pipeline:
             return planned
         if backend == "torch":
             return self.apply
+        if backend == "mxu":
+            return partial(pipeline_mxu, self.ops, block_h=block_h)
         return partial(pipeline_cuda, self.ops, block_h=block_h)
 
     def jit(
@@ -134,15 +149,18 @@ class Pipeline:
         whole image, the others their own rows.
 
         `backend` is 'cuda' (the hand-written ghost-mode kernels K2g, K3,
-        K4g and K1), 'torch' (the golden ops per tile) or 'auto' (every
-        eligible group takes its kernel: 'cuda'). `halo_mode='overlap'`
+        K4g and K1), 'mxu' (the banded products for eligible stencils on
+        the extended tile, the 'cuda' kernels otherwise), 'torch' (the
+        golden ops per tile) or 'auto' (every eligible group takes its
+        kernel: 'cuda'). `halo_mode='overlap'`
         computes interior rows while the ghost strips are in flight
         (parallel.api.HALO_MODES). `plan` (PLAN_MODES) engages the fusion
         planner: a fused stage exchanges one `Stage.halo`-row ghost strip
         pair instead of one per stencil op, and under 'cuda'
         `plan='fused-pallas'` runs each eligible stage as one K4g launch per
-        shard over that same pre-exchanged halo. Byte-identical output in
-        every combination."""
+        shard over that same pre-exchanged halo ('fused-pallas-mxu': with
+        every eligible stencil on K5). Byte-identical output in every
+        combination."""
         return sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
 
 

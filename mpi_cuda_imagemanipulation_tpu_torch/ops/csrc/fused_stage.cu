@@ -1,6 +1,10 @@
-// K4 and K4g: the fused plan-stage megakernel, VPU arm, in its full-image
-// mode and in its ghost mode over one row-shard. One kernel, two entry
-// points.
+// K4 and K4g: the fused plan-stage megakernel, in its full-image mode and
+// in its ghost mode over one row-shard. One kernel, two entry points, two
+// instantiations: the VPU instantiation runs every stencil on the VPU arm
+// (the per-family functions of stencil.cuh); the tensor-core instantiation
+// also runs the stencils the stage program puts on a tensor-core arm as K5
+// (mma_stage.cuh). A stage launches the second only when one of its
+// stencils has such an arm.
 //
 // Replaces: mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py
 //           _stage_kernel (launched by fused_stage_call) with every op on
@@ -58,7 +62,11 @@
 //           cheaper than the occupancy they buy (measured, PERF.md).
 //           Arithmetic: the per-family functions of stencil.cuh, shared
 //           with K2, so both keep the golden float32 order.
+//           The tensor-core instantiation has its own register cap: the
+//           VPU instantiation's code, and so its time, stays that of K4
+//           alone.
 
+#include "mma_stage.cuh"
 #include "stencil.cuh"
 
 #define FS_TILE_W 128
@@ -66,19 +74,23 @@
 #define FS_WARPS (FS_THREADS / 32)
 // at most 40 registers a thread, so that six blocks fit on an SM
 #define FS_MIN_BLOCKS 6
+// the tensor-core instantiation: at most 64 registers a thread
+#define FS_MMA_MIN_BLOCKS 4
 #define FS_MAX_OPS 24
 #define FS_MAX_STENCILS 8
 #define FS_OP_STENCIL 100  // op[k] = FS_OP_STENCIL + j runs stencil st[j]
 
-// One fused stage, passed by value as a __grid_constant__ parameter (3752
+// One fused stage, passed by value as a __grid_constant__ parameter (3784
 // bytes, under the 4 KB kernel-parameter limit): its ops in order, each a
-// pointwise opcode (PW_*) with its parameter, or a stencil.
+// pointwise opcode (PW_*) with its parameter, or a stencil, and each
+// stencil's in-stage arm (FS_ARM_*, mma_stage.cuh).
 struct FsProgram {
   int n_ops;
   int op[FS_MAX_OPS];
   float p0[FS_MAX_OPS];
   int n_stencils;
   StencilDesc st[FS_MAX_STENCILS];
+  int arm[FS_MAX_STENCILS];
 };
 
 __device__ __forceinline__ bool fs_is_stencil(int op) { return op >= FS_OP_STENCIL; }
@@ -195,6 +207,55 @@ __device__ void fs_stencil(const unsigned char* a, unsigned char* b, float* s_ro
   __syncthreads();
 }
 
+// K5: one stencil on a tensor-core arm, with the contract of fs_stencil:
+// from buffer `a` into buffer `b` over the window shrunk by `off` (input)
+// and `off + KS / 2` (output), `n_planes` planes. Each warp takes 16 x 8
+// tiles of the output region in turn (mma_stage.cuh); each lane finalizes
+// and stores the four outputs it holds that lie in the region.
+template <int KS>
+__device__ void fs_stencil_mma(const unsigned char* a, unsigned char* b, int n_planes,
+                               const FsWindow& w, int off, const StencilDesc& st, int arm) {
+  constexpr int h = KS / 2;
+  const int o = off + h;
+  const int gy0 = w.y0 - w.R, gx0 = w.x0 - w.R;
+  const int y_end = w.eh - o, x_end = w.ew - o;  // the output region [o, y_end) x [o, x_end)
+  const int n_tx = (x_end - o + 7) / 8;
+  const int n_tiles = (y_end - o + 15) / 16 * n_tx;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const bool two = st.family == ST_MAGNITUDE;
+  const bool int8 = arm == FS_ARM_INT8;
+  const float corr0 = int8 ? mma_corr128<KS>(st.w0) : 0.0f;
+  const float corr1 = int8 && two ? mma_corr128<KS>(st.w1) : 0.0f;
+  for (int c = 0; c < n_planes; ++c) {
+    const MmaSrc src = {a + c * w.plane, w.ew, off, w.eh - off, off, w.ew - off};
+    for (int tile = threadIdx.x >> 5; tile < n_tiles; tile += FS_WARPS) {
+      const int r0 = o + tile / n_tx * 16, c0 = o + tile % n_tx * 8;
+      float acc0[4], acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (int8) {
+        mma_tile_int8<KS>(acc0, src, st.w0, corr0, r0, c0, g, t);
+        if (two) mma_tile_int8<KS>(acc1, src, st.w1, corr1, r0, c0, g, t);
+      } else {
+        mma_tile_bf16<KS>(acc0, src, st.w0, r0, c0, g, t);
+        if (two) mma_tile_bf16<KS>(acc1, src, st.w1, r0, c0, g, t);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int wy = r0 + g + (i >> 1) * 8, wx = c0 + 2 * t + (i & 1);
+        if (wy >= y_end || wx >= x_end) continue;
+        const int idx = wy * w.ew + wx;
+        float res;
+        if (!st_filtered(gy0 + wy, gx0 + wx, w.H, w.W, h, st.edge_mode)) {
+          res = (float)src.p[idx];
+        } else {
+          res = st_finish(two ? mma_magnitude(acc0[i], acc1[i]) : acc0[i], st);
+        }
+        b[c * w.plane + idx] = pw_to_u8(res);
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // A stage with no stencil (gray2rgb alone, a pointwise run): one pixel a
 // thread a step over the flat image, in a kernel of its own so that its
 // few registers keep the SM full (the stencil kernel's register count
@@ -214,7 +275,8 @@ fused_stage_pointwise_kernel(const unsigned char* __restrict__ in,
   }
 }
 
-__global__ void __launch_bounds__(FS_THREADS, FS_MIN_BLOCKS)
+template <bool kMma>
+__global__ void __launch_bounds__(FS_THREADS, kMma ? FS_MMA_MIN_BLOCKS : FS_MIN_BLOCKS)
 fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out,
                    int H, int W, int c_in, int c_smem, int c_out, int halo,
                    int tile_h, const __grid_constant__ FsProgram prog, int in_row0,
@@ -270,7 +332,8 @@ fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restri
   int off = 0;  // halo consumed so far
   int k = first;
   while (k < n_ops) {
-    const StencilDesc& st = prog.st[prog.op[k] - FS_OP_STENCIL];
+    const int j = prog.op[k] - FS_OP_STENCIL;
+    const StencilDesc& st = prog.st[j];
     if (st.halo > 0) {
       // blocks whose window lies inside the image skip the fix (uniform)
       const bool inside = y0 - halo + off >= 0 && y0 + tile_h + halo - off <= H &&
@@ -280,12 +343,26 @@ fused_stage_kernel(const unsigned char* __restrict__ in, unsigned char* __restri
         __syncthreads();
       }
     }
-    switch (st.ksize) {
-      case 1: fs_stencil<1>(a, b, s_row, n_cur, w, off, st); break;
-      case 3: fs_stencil<3>(a, b, s_row, n_cur, w, off, st); break;
-      case 5: fs_stencil<5>(a, b, s_row, n_cur, w, off, st); break;
-      case 7: fs_stencil<7>(a, b, s_row, n_cur, w, off, st); break;
-      default: break;  // rejected on the host
+    bool on_mma = false;
+    if constexpr (kMma) {
+      const int arm = prog.arm[j];  // block-uniform
+      on_mma = arm != FS_ARM_VPU;
+      switch (on_mma ? st.ksize : 0) {
+        case 1: fs_stencil_mma<1>(a, b, n_cur, w, off, st, arm); break;
+        case 3: fs_stencil_mma<3>(a, b, n_cur, w, off, st, arm); break;
+        case 5: fs_stencil_mma<5>(a, b, n_cur, w, off, st, arm); break;
+        case 7: fs_stencil_mma<7>(a, b, n_cur, w, off, st, arm); break;
+        default: break;
+      }
+    }
+    if (!on_mma) {
+      switch (st.ksize) {
+        case 1: fs_stencil<1>(a, b, s_row, n_cur, w, off, st); break;
+        case 3: fs_stencil<3>(a, b, s_row, n_cur, w, off, st); break;
+        case 5: fs_stencil<5>(a, b, s_row, n_cur, w, off, st); break;
+        case 7: fs_stencil<7>(a, b, s_row, n_cur, w, off, st); break;
+        default: break;  // rejected on the host
+      }
     }
     unsigned char* t = a;
     a = b;
@@ -335,6 +412,21 @@ static bool fs_any_two_pass(const FsProgram* prog) {
   return false;
 }
 
+// Whether any stencil takes a tensor-core arm (then the tensor-core
+// instantiation runs the stage), or -1 when an arm is unknown or given to a
+// family K5 has no form for (the host never encodes either).
+static int fs_any_mma(const FsProgram* prog) {
+  int any = 0;
+  for (int j = 0; j < prog->n_stencils; ++j) {
+    const int arm = prog->arm[j], fam = prog->st[j].family;
+    if (arm == FS_ARM_VPU) continue;
+    if (arm != FS_ARM_BF16 && arm != FS_ARM_INT8) return -1;
+    if (fam != ST_CORR && fam != ST_MAGNITUDE && fam != ST_SEPARABLE) return -1;
+    any = 1;
+  }
+  return any;
+}
+
 // Launches the stage on `stream` over the rows described at the kernel.
 // `c_smem` is the most channels the stage holds in shared memory. Returns
 // cudaGetLastError() after the launch.
@@ -352,14 +444,17 @@ static int fs_launch(const unsigned char* in, unsigned char* out, int H, int W,
         in, out, n_pix, c_in, c_out, *prog);
     return (int)cudaGetLastError();
   }
+  const int mma = fs_any_mma(prog);
+  if (mma < 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = mma ? fused_stage_kernel<true> : fused_stage_kernel<false>;
   const size_t smem = fs_smem_bytes(c_smem, tile_h, halo, fs_any_two_pass(prog));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((W + FS_TILE_W - 1) / FS_TILE_W, (out_rows + tile_h - 1) / tile_h);
-  fused_stage_kernel<<<grid, FS_THREADS, smem, s>>>(
+  kernel<<<grid, FS_THREADS, smem, s>>>(
       in, out, H, W, c_in, c_smem, c_out, halo, tile_h, *prog, in_row0, in_rows,
       out_row0, out_rows);
   return (int)cudaGetLastError();
@@ -383,6 +478,57 @@ extern "C" int fused_stage_ext_launch(const unsigned char* ext, unsigned char* o
                                       void* stream) {
   return fs_launch(ext, out, image_h, W, c_in, c_smem, c_out, halo, tile_h, prog,
                    row0 - halo, local_h + 2 * halo, row0, local_h, stream);
+}
+
+// K5's exactness probe: the raw f32 sums of one kernel of stencil `st`
+// (w0, or w1 when `second`) over a (rows, cols) u8 plane in device memory,
+// valid mode, into a (rows - KS + 1, cols - KS + 1) f32 array. One warp a
+// 16 x 8 output tile, through the tile functions K5 runs (mma_stage.cuh),
+// so the sums are those K5 finalizes; the u8 rounding and clip of K5's
+// output hide their low bits wherever the result leaves 0..255, which
+// this output does not.
+template <int KS>
+__global__ void __launch_bounds__(FS_THREADS)
+k5_sums_kernel(const unsigned char* __restrict__ in, float* __restrict__ out, int rows,
+               int cols, const __grid_constant__ StencilDesc st, int second, int arm) {
+  constexpr int h = KS / 2;
+  const int out_rows = rows - 2 * h, out_cols = cols - 2 * h;
+  const int n_tx = (out_cols + 7) / 8;
+  const int tile = blockIdx.x * FS_WARPS + (int)(threadIdx.x >> 5);
+  if (tile >= (out_rows + 15) / 16 * n_tx) return;  // the whole warp
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const MmaSrc src = {in, cols, 0, rows, 0, cols};
+  const int r0 = h + tile / n_tx * 16, c0 = h + tile % n_tx * 8;
+  const float* w = second ? st.w1 : st.w0;
+  float acc[4];
+  if (arm == FS_ARM_INT8) {
+    mma_tile_int8<KS>(acc, src, w, mma_corr128<KS>(w), r0, c0, g, t);
+  } else {
+    mma_tile_bf16<KS>(acc, src, w, r0, c0, g, t);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = r0 - h + g + (i >> 1) * 8, x = c0 - h + 2 * t + (i & 1);
+    if (y < out_rows && x < out_cols) out[(long long)y * out_cols + x] = acc[i];
+  }
+}
+
+extern "C" int k5_sums_launch(const unsigned char* in, float* out, int rows, int cols,
+                              const StencilDesc* st, int second, int arm, void* stream) {
+  const int h = st->ksize / 2;
+  if (arm != FS_ARM_BF16 && arm != FS_ARM_INT8) return (int)cudaErrorInvalidValue;
+  if (rows <= 2 * h || cols <= 2 * h) return 0;
+  const long long tiles = (long long)(rows - 2 * h + 15) / 16 * ((cols - 2 * h + 7) / 8);
+  const unsigned blocks = (unsigned)((tiles + FS_WARPS - 1) / FS_WARPS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (st->ksize) {
+    case 1: k5_sums_kernel<1><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
+    case 3: k5_sums_kernel<3><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
+    case 5: k5_sums_kernel<5><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
+    case 7: k5_sums_kernel<7><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory one launch needs, and the program's size, for the

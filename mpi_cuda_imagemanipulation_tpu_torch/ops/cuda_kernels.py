@@ -27,6 +27,15 @@ same sources on each shard's tile:
   one ghost exchange, edges rewritten per op where the tile touches the
   image's first or last row.
 
+K5 is an arm of K4 and K4g, not a kernel of its own: a stencil of a stage
+given a tensor-core in-stage arm (``arms``, or ``mxu_stage`` resolved by
+ops/mxu_kernels.stage_arm_for) contracts as ``mma.sync`` products inside
+the launch (``csrc/mma_stage.cuh``), in bf16 ('mxu') or int8 ('mxu-int8').
+A stage with such an arm launches the kernel's tensor-core instantiation;
+the others launch the VPU instantiation, whose code is that of K4 alone.
+``launch_counts`` counts, besides each wrapper's launches, the K4/K4g
+launches that ran each form ('K5-bf16', 'K5-int8').
+
 The kernels read and write interleaved HWC u8 images in place: (H, W) for
 one channel, (H, W, 3) for three. Each wrapper takes its plain version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or
@@ -50,7 +59,12 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     chain_halo,
     pad2d,
 )
-from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import run_stage_full
+from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
+    check_stage_arm,
+    stage_arms,
+    stage_sums_mxu_plain,
+)
+from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import acc_fns_for, run_stage_full
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Stage
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
@@ -65,6 +79,10 @@ _MAX_GRID_Y = 65535
 _FAMILIES = {"corr": 0, "magnitude": 1, "separable": 2, "min": 3, "max": 4, "median": 5}
 _EDGE_MODES = {"interior": 0, "reflect101": 1, "edge": 2, "zero": 3}
 _QUANTIZERS = {"trunc_clip": 0, "rint_clip": 1}
+# in-stage arms as FsProgram.arm codes (FS_ARM_* in fused_stage.cu), and
+# the launch-count key of each tensor-core form
+_ARM_CODES = {"vpu": 0, "mxu": 1, "mxu-int8": 2}
+_K5_FORMS = {"mxu": "K5-bf16", "mxu-int8": "K5-int8"}
 
 
 # --------------------------------------------------------------------------
@@ -543,9 +561,15 @@ def _stage_channels(ops, c_in: int) -> tuple[int, int, bool]:
     return n, c_smem, two_pass
 
 
-def fused_stage_program(ops, c_in: int) -> tuple[kr.FsProgram, int, int, bool]:
-    """Encode a fused stage for K4. Returns (program, c_out, c_smem,
+def fused_stage_program(ops, c_in: int, arms=None) -> tuple[kr.FsProgram, int, int, bool]:
+    """Encode a fused stage for K4, each stencil with its in-stage arm from
+    `arms` (one per op, default all 'vpu'; a tensor-core arm must be proven
+    for its op). A separable stencil on a tensor-core arm carries its 2-D
+    kernel too, which K5 contracts. Returns (program, c_out, c_smem,
     two_pass), the last three as `_stage_channels` gives them."""
+    arms = tuple(arms) if arms is not None else ("vpu",) * len(ops)
+    if len(arms) != len(ops):
+        raise ValueError(f"{len(arms)} arms for a stage of {len(ops)} ops")
     c_out, c_smem, two_pass = _stage_channels(ops, c_in)
     stencils = [op for op in ops if isinstance(op, StencilOp)]
     if len(ops) > kr.FS_MAX_OPS or len(stencils) > kr.FS_MAX_STENCILS:
@@ -557,9 +581,16 @@ def fused_stage_program(ops, c_in: int) -> tuple[kr.FsProgram, int, int, bool]:
     prog.n_ops = len(ops)
     prog.n_stencils = len(stencils)
     j = 0
-    for k, op in enumerate(ops):
+    for k, (op, arm) in enumerate(zip(ops, arms)):
+        check_stage_arm(op, arm)
         if isinstance(op, StencilOp):
             prog.st[j] = stencil_desc(op)
+            if arm != "vpu" and op.separable is not None:
+                ks = 2 * op.halo + 1
+                prog.st[j].w0[: ks * ks] = [
+                    float(v) for v in np.asarray(op.kernels[0], np.float32).reshape(-1)
+                ]
+            prog.arm[j] = _ARM_CODES[arm]
             prog.op[k] = kr.FS_OP_STENCIL + j
             j += 1
             continue
@@ -629,18 +660,50 @@ def fused_stage_reject(ops, height: int, width: int, channels: int,
     return None
 
 
-def fused_stage_plain(ops, img: torch.Tensor) -> torch.Tensor:
+def _resolve_arms(ops, mxu_stage, arms) -> tuple[str, ...]:
+    """The stage's in-stage arms: `arms` as given, else resolved from the
+    `mxu_stage` setting now (ops/mxu_kernels.stage_arm_for counts them)."""
+    if arms is not None:
+        return tuple(arms)
+    return stage_arms(ops, mxu_stage)
+
+
+def _count_k5(arms) -> None:
+    for form in {_K5_FORMS[a] for a in arms if a != "vpu"}:
+        K5_LAUNCHES[form] += 1
+
+
+def fused_stage_plain(
+    ops, img: torch.Tensor, *, mxu_stage: str | None = None, arms=None
+) -> torch.Tensor:
     """Plain PyTorch version of K4: the stage walker (plan/exec.py) over the
-    whole image, which is the golden per-op chain."""
-    _stage_channels(ops, _channels(img))
-    return run_stage_full(Stage("fused", tuple(ops), chain_halo(ops)), img)
-
-
-def fused_stage(ops, img: torch.Tensor, *, tile_h: int | None = None) -> torch.Tensor:
-    """K4 wrapper: one launch runs a whole fused plan stage. `tile_h` is the
-    output tile height (default 16 rows). Raises for a stage that
-    `fused_stage_reject` rejects."""
+    whole image, which is the golden per-op chain, each stencil on a
+    tensor-core arm running K5's plain version (ops/mxu_kernels
+    .stage_valid_mxu_plain). Arms as `fused_stage` takes them."""
     ops = tuple(ops)
+    arms = _resolve_arms(ops, mxu_stage, arms)
+    _stage_channels(ops, _channels(img))
+    return run_stage_full(
+        Stage("fused", ops, chain_halo(ops)), img, acc_fns_for(ops, "torch", arms)
+    )
+
+
+def fused_stage(
+    ops,
+    img: torch.Tensor,
+    *,
+    tile_h: int | None = None,
+    mxu_stage: str | None = None,
+    arms=None,
+) -> torch.Tensor:
+    """K4 wrapper: one launch runs a whole fused plan stage. `tile_h` is the
+    output tile height (default 16 rows). Each stencil's in-stage arm is
+    `arms[k]` (one per op) when given, else resolved from the `mxu_stage`
+    setting once per call (ops/mxu_kernels.MXU_STAGE_SETTINGS; None is
+    'auto', the VPU arm); a stencil on a tensor-core arm runs K5. Raises for
+    a stage that `fused_stage_reject` rejects."""
+    ops = tuple(ops)
+    arms = _resolve_arms(ops, mxu_stage, arms)
     c_in = _channels(img)
     height, width = img.shape[:2]
     tile_h = tile_h or FS_DEFAULT_TILE_H
@@ -651,9 +714,9 @@ def fused_stage(ops, img: torch.Tensor, *, tile_h: int | None = None) -> torch.T
         raise ValueError(f"K4 cannot run stage {[op.name for op in ops]}: {reason}")
     if stencil_grid(height, width, tile_h)[1] > _MAX_GRID_Y:
         raise ValueError(f"image height {height} needs a taller tile than {tile_h}")
-    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in)
+    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in, arms)
     if img.device.type == "cpu":
-        return fused_stage_plain(ops, img)
+        return fused_stage_plain(ops, img, arms=arms)
     _check_cuda_input(img)
     out = _out_like(img, c_out)
     lib = kr.load("fused_stage")
@@ -665,6 +728,7 @@ def fused_stage(ops, img: torch.Tensor, *, tile_h: int | None = None) -> torch.T
         )
     _raise_on(rc, "fused_stage")
     fused_stage.launches += 1
+    _count_k5(arms)
     return out
 
 
@@ -677,17 +741,29 @@ fused_stage.launches = 0
 
 
 def fused_stage_ext_plain(
-    ops, ext: torch.Tensor, *, y0: int, image_h: int, image_w: int
+    ops,
+    ext: torch.Tensor,
+    *,
+    y0: int,
+    image_h: int,
+    image_w: int,
+    mxu_stage: str | None = None,
+    arms=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K4g: the stage walker under the sharded
     convention (plan/exec.walk_stage with the per-op edge fix of
-    parallel/api.py) over the extended tile."""
+    parallel/api.py) over the extended tile, each stencil on a tensor-core
+    arm running K5's plain version. Arms as `fused_stage` takes them."""
     from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import _plan_walk
 
     ops = tuple(ops)
+    arms = _resolve_arms(ops, mxu_stage, arms)
     _stage_channels(ops, _channels(ext))
     halo = chain_halo(ops)
-    return _plan_walk(Stage("fused", ops, halo), ext, y0 - halo, image_h, image_w)
+    return _plan_walk(
+        Stage("fused", ops, halo), ext, y0 - halo, image_h, image_w,
+        acc_fns_for(ops, "torch", arms),
+    )
 
 
 def fused_stage_ext(
@@ -698,15 +774,19 @@ def fused_stage_ext(
     image_h: int,
     image_w: int,
     tile_h: int | None = None,
+    mxu_stage: str | None = None,
+    arms=None,
 ) -> torch.Tensor:
     """K4g wrapper: one launch runs a whole fused plan stage over `ext`, the
     (local_h + 2 halo, W[, C]) tile of the row-shard that starts at global
     row `y0` of an (image_h, image_w) image, extended by the stage's one
     ghost exchange (halo = chain_halo(ops)). Rows of `ext` outside the image
     may hold anything: each stencil's edge mode rewrites them in the kernel.
-    Returns the shard's (local_h, W[, C']) rows. Raises for a stage that
-    `fused_stage_reject` rejects at height local_h."""
+    Returns the shard's (local_h, W[, C']) rows. In-stage arms as
+    `fused_stage` takes them. Raises for a stage that `fused_stage_reject`
+    rejects at height local_h."""
     ops = tuple(ops)
+    arms = _resolve_arms(ops, mxu_stage, arms)
     c_in = _channels(ext)
     halo = chain_halo(ops)
     local_h, width = ext.shape[0] - 2 * halo, ext.shape[1]
@@ -724,9 +804,11 @@ def fused_stage_ext(
         raise ValueError(f"K4g cannot run stage {[op.name for op in ops]}: {reason}")
     if stencil_grid(local_h, width, tile_h)[1] > _MAX_GRID_Y:
         raise ValueError(f"tile height {local_h} needs a taller tile than {tile_h}")
-    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in)
+    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in, arms)
     if ext.device.type == "cpu":
-        return fused_stage_ext_plain(ops, ext, y0=y0, image_h=image_h, image_w=image_w)
+        return fused_stage_ext_plain(
+            ops, ext, y0=y0, image_h=image_h, image_w=image_w, arms=arms
+        )
     _check_cuda_input(ext)
     out = _out_like(ext, c_out, local_h)
     lib = kr.load("fused_stage")
@@ -738,10 +820,39 @@ def fused_stage_ext(
         )
     _raise_on(rc, "fused_stage_ext")
     fused_stage_ext.launches += 1
+    _count_k5(arms)
     return out
 
 
 fused_stage_ext.launches = 0
+
+
+def k5_sums(op: StencilOp, plane: torch.Tensor, arm: str, kernel: int = 0) -> torch.Tensor:
+    """K5's exactness probe: the raw f32 sums K5 forms for `op`'s kernel
+    number `kernel` over a (rows, cols) u8 plane, valid mode, (rows - 2h,
+    cols - 2h), through the same tile functions, before any combine, scale
+    or rounding to u8. Not a path's kernel: no launch is counted."""
+    check_stage_arm(op, arm)
+    if plane.ndim != 2 or plane.dtype != U8:
+        raise ValueError(f"expected a 2-D uint8 plane, got {tuple(plane.shape)} {plane.dtype}")
+    if kernel >= len(op.kernels):
+        raise ValueError(f"op {op.name!r} has {len(op.kernels)} kernel(s), not {kernel + 1}")
+    if plane.device.type == "cpu":
+        return stage_sums_mxu_plain(op, plane, arm=arm, kernel=kernel)
+    _check_cuda_input(plane)
+    h = op.halo
+    rows, cols = plane.shape
+    out = torch.empty((rows - 2 * h, cols - 2 * h), dtype=torch.float32, device=plane.device)
+    desc = fused_stage_program([op], 1, (arm,))[0].st[0]
+    lib = kr.load("fused_stage")
+    with torch.cuda.device(plane.device):
+        rc = lib.k5_sums_launch(
+            plane.data_ptr(), out.data_ptr(), rows, cols, ctypes.byref(desc), kernel,
+            _ARM_CODES[arm], torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "k5_sums")
+    return out
+
 
 KERNEL_WRAPPERS = {
     "K1": pointwise_group,
@@ -753,14 +864,21 @@ KERNEL_WRAPPERS = {
 }
 
 
+# K4 and K4g launches that ran K5 in each form (one per launch, however
+# many of its stencils took the form)
+K5_LAUNCHES = {"K5-bf16": 0, "K5-int8": 0}
+
+
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last reset."""
-    return {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    """Launches of each kernel since the last reset, and of each K5 form."""
+    return {**{k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}, **K5_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for form in K5_LAUNCHES:
+        K5_LAUNCHES[form] = 0
 
 
 # --------------------------------------------------------------------------

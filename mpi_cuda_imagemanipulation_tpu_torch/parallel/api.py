@@ -25,8 +25,14 @@ the hand-written kernels, where the JAX package's ``pallas`` runs Pallas
 kernels: a ``[pointwise*, stencil]`` group is one K2g launch per shard, a
 group on tiles with pad rows (or a halo-0 stencil) one K3 launch over the
 materialised extended tile, a flushed pointwise run one K1 launch, and
-under ``plan='fused-pallas'`` a fused stage one K4g launch. On a CPU tile
-each kernel wrapper takes its plain version.
+under ``plan='fused-pallas'`` a fused stage one K4g launch
+(``'fused-pallas-mxu'``: with every eligible stencil on K5, its
+tensor-core arm). ``mxu`` runs every eligible stencil as the whole-op
+banded products (``ops/mxu_kernels.mxu_valid``) on the materialised
+extended tile, and every other op as ``cuda`` does; under plan 'pointwise'
+or 'fused' its stages walk with those products, and under
+'fused-pallas[-mxu]' a stage that takes no K4g launch runs as under plan
+'off'. On a CPU tile each kernel wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -39,6 +45,11 @@ import torch
 import torch.distributed as dist
 
 from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
+    mxu_eligible,
+    mxu_valid,
+    stage_arms,
+)
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import op_family
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     F32,
@@ -59,7 +70,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import (
     run_stage_cuda_ext,
     stage_kernel_reject,
 )
-from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import walk_stage
+from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import acc_fns_for, walk_stage
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 
 # Halo execution modes for the sharded stencil runners. 'serial' exchanges
@@ -69,10 +80,9 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 # group's boundary outputs (cross-group prefetch). Output is byte-identical
 # either way.
 HALO_MODES = ("serial", "overlap")
-BACKENDS = ("torch", "cuda", "auto")
+BACKENDS = ("torch", "cuda", "mxu", "auto")
 _NOT_PORTED_BACKENDS = {
     "swar": "the SWAR kernels K6-K8 (ops/swar_kernels.py)",
-    "mxu": "the tensor-core route and K5 (ops/mxu_kernels.py)",
 }
 _GLOBAL_NOT_PORTED = (
     "global-statistics ops (equalize, autocontrast, otsu) and their sharded "
@@ -187,7 +197,7 @@ class _Region:
     the decomposition, and each local shard's global row offset."""
 
     mesh: Mesh
-    backend: str  # 'torch' | 'cuda'
+    backend: str  # 'torch' | 'cuda' | 'mxu'
     halo_mode: str
     n: int
     local_h: int
@@ -322,10 +332,11 @@ def _join_exchange(region: _Region, strips) -> None:
 
 def _apply_pointwise(region: _Region, chain, tile: torch.Tensor) -> torch.Tensor:
     """A pointwise chain on one tile: the golden ops under 'torch'; under
-    'cuda' one K1 launch per kernel-safe run (lookup tables as gathers)."""
+    'cuda' and 'mxu' one K1 launch per kernel-safe run (lookup tables as
+    gathers)."""
     if not chain:
         return tile
-    if region.backend == "cuda":
+    if region.backend in ("cuda", "mxu"):
         return ck.pipeline_cuda(chain, tile)
     for p in chain:
         tile = p.fn(tile)
@@ -354,8 +365,12 @@ def _stencil_on_ext(
     backend: str,
 ) -> torch.Tensor:
     """Run one stencil over a (rows + 2h, W[, C]) pre-exchanged tile; `tile`
-    holds the rows the output replaces and `y0` their global offset."""
+    holds the rows the output replaces and `y0` their global offset. Under
+    'mxu' an eligible op takes the banded products and any other op K3, as
+    under 'cuda'."""
     h = op.halo
+    if backend == "mxu" and not mxu_eligible(op):
+        backend = "cuda"
     if backend == "cuda":
         q = ck.stencil_tile(op, ext.contiguous())  # K3, every channel at once
         if op.edge_mode != "interior":
@@ -375,9 +390,11 @@ def _stencil_on_ext(
             q[r0:r1, c1:] = tile[r0:r1, c1:]
         return q
 
+    acc_fn = functools.partial(mxu_valid, op) if backend == "mxu" else op.valid
+
     def plane(e: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         xpad = pad2d(e.to(F32), op.edge_mode, 0, 0, h, h)  # width halo is local
-        return op.finalize(op.valid(xpad), t, y0, 0, global_h, global_w)
+        return op.finalize(acc_fn(xpad), t, y0, 0, global_h, global_w)
 
     if ext.ndim == 3:  # colour: filter each channel plane independently
         return torch.stack(
@@ -578,9 +595,12 @@ def _walk_groups(region: _Region, ops, tiles):
         # Fused-ghost fast path: no pad rows inside the tile
         # (pad-to-multiple needs position-dependent edge fixes), halo >= 1,
         # a mode the streaming kernel supports, and enough local rows for
-        # strip synthesis.
+        # strip synthesis. Under 'mxu' only ops without banded products.
+        kernel_group = region.backend == "cuda" or (
+            region.backend == "mxu" and not mxu_eligible(op)
+        )
         fusible = (
-            region.backend == "cuda"
+            kernel_group
             and op.halo >= 1
             and op.edge_mode != "zero"  # K2g rejects zero mode
             and not region.padded
@@ -616,25 +636,28 @@ def _plan_stage_fused_ok(stage, n: int, local_h: int, global_h: int, overlap: bo
     return local_h > H
 
 
-def _plan_walk(stage, ext: torch.Tensor, y_lo: int, global_h: int, global_w: int):
+def _plan_walk(stage, ext: torch.Tensor, y_lo: int, global_h: int, global_w: int,
+               acc_fns=None):
     """One fused stage over a materialised extended tile: the shared stage
     walker (plan/exec.walk_stage) with the sharded edge convention. Context
     rows are always present (the stage's single exchange), and out-of-image
     rows are rewritten per op by _fix_edge_axis before that op reads them,
     so unsent strips and global-edge extension resolve exactly as the
-    per-op serial path's fixups do, one op at a time."""
+    per-op serial path's fixups do, one op at a time. `acc_fns`
+    (plan/exec.acc_fns_for) routes each stencil's accumulator."""
 
     def fix(cur, op, row_lo):
         return _fix_edge_axis(cur, op, row_lo + op.halo, global_h, 0)
 
     cur, _, _, _ = walk_stage(
         stage.ops, exact_f32(ext), y_lo=y_lo, lead_rem=stage.halo,
-        tail_rem=stage.halo, global_h=global_h, global_w=global_w, edge_fix=fix,
+        tail_rem=stage.halo, global_h=global_h, global_w=global_w, acc_fns=acc_fns,
+        edge_fix=fix,
     )
     return cur.to(U8)
 
 
-def _apply_stage_serial(region: _Region, stage, tiles):
+def _apply_stage_serial(region: _Region, stage, tiles, acc_fns=None):
     """Temporally blocked serial execution of one fused stage: one ghost
     strip pair sized to the stage's grown halo (`Stage.halo`, the
     chain_halo of the member stencils), then the whole stage walks the
@@ -643,12 +666,12 @@ def _apply_stage_serial(region: _Region, stage, tiles):
     H = stage.halo
     gh, gw = region.global_h, region.global_w
     if H == 0:
-        return [_plan_walk(stage, t, y0, gh, gw) for t, y0 in zip(tiles, region.y0s)]
+        return [_plan_walk(stage, t, y0, gh, gw, acc_fns) for t, y0 in zip(tiles, region.y0s)]
     exts = exchange_halo(tiles, H, region.mesh)
-    return [_plan_walk(stage, e, y0 - H, gh, gw) for e, y0 in zip(exts, region.y0s)]
+    return [_plan_walk(stage, e, y0 - H, gh, gw, acc_fns) for e, y0 in zip(exts, region.y0s)]
 
 
-def _apply_stage_overlap(region: _Region, stage, tiles):
+def _apply_stage_overlap(region: _Region, stage, tiles, acc_fns=None):
     """Stage-granular interior-first execution: the stage's single exchange
     is started first, the interior (every output row the local tile can
     produce alone, all but H per side) walks the stage with no dependence
@@ -660,47 +683,59 @@ def _apply_stage_overlap(region: _Region, stage, tiles):
     strips = _exchange_async(
         region, lambda: exchange_halo_strips(tiles, H, region.mesh), tiles
     )
-    interiors = [_plan_walk(stage, t, y0, gh, gw) for t, y0 in zip(tiles, region.y0s)]
+    interiors = [
+        _plan_walk(stage, t, y0, gh, gw, acc_fns) for t, y0 in zip(tiles, region.y0s)
+    ]
     _join_exchange(region, strips)
     out = []
     for tile, top, bottom, y0, interior in zip(tiles, *strips, region.y0s, interiors):
         local_h = tile.shape[0]
-        top_out = _plan_walk(stage, torch.cat([top, tile[: 2 * H]], dim=0), y0 - H, gh, gw)
+        top_out = _plan_walk(
+            stage, torch.cat([top, tile[: 2 * H]], dim=0), y0 - H, gh, gw, acc_fns
+        )
         bottom_out = _plan_walk(
             stage, torch.cat([tile[local_h - 2 * H :], bottom], dim=0),
-            y0 + local_h - 2 * H, gh, gw,
+            y0 + local_h - 2 * H, gh, gw, acc_fns,
         )
         out.append(torch.cat([top_out, interior, bottom_out], dim=0))
     return out
 
 
-def _apply_stage_megakernel(region: _Region, stage, tiles):
+def _apply_stage_megakernel(region: _Region, stage, tiles, arms):
     """Fused-pallas execution of one stage on every shard: the stage's one
     ghost strip pair (the same wire structure as _apply_stage_serial), then
     one K4g launch per shard over the pre-exchanged tile, with every
-    member-op intermediate in shared memory. Strips ride raw: the unsent
-    rows on the edge shards are rewritten per op inside the kernel, keyed on
-    the shard's `y0`."""
+    member-op intermediate in shared memory and each stencil on its
+    in-stage arm. Strips ride raw: the unsent rows on the edge shards are
+    rewritten per op inside the kernel, keyed on the shard's `y0`."""
     exts = exchange_halo(tiles, stage.halo, region.mesh)
     return [
         run_stage_cuda_ext(
-            stage, ext, y0=y0, image_h=region.global_h, image_w=region.global_w
+            stage, ext, y0=y0, image_h=region.global_h, image_w=region.global_w, arms=arms
         )
         for ext, y0 in zip(exts, region.y0s)
     ]
 
 
-def _run_segment_planned(plan, mesh: Mesh, backend: str, img, halo_mode: str, mega: bool):
+def _run_segment_planned(
+    plan, mesh: Mesh, backend: str, img, halo_mode: str, mega: bool,
+    mxu_stage: str | None = None, arms: dict | None = None,
+):
     """One sharded region executed stage by stage from a fused plan.
 
     Under 'torch', stages the decomposition gate rejects (pad rows in the
     tile, sub-halo tiles) fall back to per-op execution inside the same
     region, so the output contract is unchanged. `mega` (plan mode
-    'fused-pallas' under 'cuda') routes eligible fused stages through K4g,
-    one launch consuming the stage's single pre-exchanged halo. A stage
-    K4g rejects, or that fails the decomposition gate, runs through the
-    per-group walk (K2g, or K3 on pad tiles; K1 for pointwise runs) and is
-    counted by reason; halo-0 stages take the same walk uncounted.
+    'fused-pallas[-mxu]' under 'cuda' and 'mxu') routes eligible fused
+    stages through K4g, one launch consuming the stage's single
+    pre-exchanged halo, each stencil on the in-stage arm `mxu_stage` sets;
+    `arms` caches each stage's arms, resolved at its first K4g launch. A
+    stage K4g rejects, or that fails the decomposition gate, is counted by
+    reason and runs through the per-group walk, and so do halo-0 stages,
+    uncounted, and every stage under halo_mode='overlap': K2g (or K3 on pad
+    tiles and in the overlap structure), K1 for pointwise runs, and under
+    'mxu' the banded products for each eligible stencil. No stage of a
+    `mega` run walks in plain ops on the card.
 
     K4g's eligibility is asked with the channels each stage reads, which
     after a `grayscale` in an earlier stage is 1. The JAX runner asks with
@@ -735,18 +770,28 @@ def _run_segment_planned(plan, mesh: Mesh, backend: str, img, halo_mode: str, me
             else:
                 plan_metrics.pallas_fallbacks[reason] += 1
 
+    impl = "mxu" if backend == "mxu" else "torch"
+    arms = {} if arms is None else arms
     for si, stage in enumerate(plan.stages):
         if stage.kind == "global":
             raise NotImplementedError(_GLOBAL_NOT_PORTED)
         if si in mega_stages:
-            tiles = _apply_stage_megakernel(region, stage, tiles)
+            if si not in arms:
+                arms[si] = stage_arms(stage.ops, mxu_stage)
+            tiles = _apply_stage_megakernel(region, stage, tiles, arms[si])
         elif mega:
             tiles = _walk_groups(region, stage.ops, tiles)
         elif _plan_stage_fused_ok(stage, n, local_h, global_h, overlap):
+            walk_arms = None
+            if backend == "torch" and mxu_stage is not None:  # K5's plain version
+                if si not in arms:
+                    arms[si] = stage_arms(stage.ops, mxu_stage)
+                walk_arms = arms[si]
+            acc_fns = acc_fns_for(stage.ops, impl, walk_arms)
             if overlap and stage.halo >= 1:
-                tiles = _apply_stage_overlap(region, stage, tiles)
+                tiles = _apply_stage_overlap(region, stage, tiles, acc_fns)
             else:
-                tiles = _apply_stage_serial(region, stage, tiles)
+                tiles = _apply_stage_serial(region, stage, tiles, acc_fns)
         else:
             # fallback: per-op execution for this stage only (the golden
             # contract the fused path is gated against)
@@ -805,13 +850,18 @@ def sharded_pipeline(
     `plan` engages the fusion planner (plan/): a fused plan exchanges one
     stage-halo ghost-strip pair per fused stage, temporal blocking over the
     wire, instead of one per stencil op. 'auto' resolves as
-    plan/planner.resolve_plan_mode says ('fused' under 'torch', 'off' under
-    'cuda') and stays 'off' under halo_mode='overlap', whose per-group
-    prefetch structure only an explicit plan request restructures."""
+    plan/planner.resolve_plan_mode says ('fused' under 'torch' and 'mxu',
+    'off' under 'cuda') and stays 'off' under halo_mode='overlap', whose
+    per-group prefetch structure only an explicit plan request
+    restructures. Under 'fused-pallas-mxu' each stencil's in-stage arm is
+    forced on (K5 under 'cuda' and 'mxu', its plain version in the walker
+    under 'torch'); a stage's arms are resolved, and counted in
+    `plan_metrics`, once per built function, at the stage's first
+    launch."""
     if backend in _NOT_PORTED_BACKENDS:
         raise ValueError(
             f"backend {backend!r} needs {_NOT_PORTED_BACKENDS[backend]}, which "
-            "the port has not ported yet; use 'cuda' or 'torch'"
+            "the port has not ported yet; use 'cuda', 'mxu' or 'torch'"
         )
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
@@ -828,17 +878,21 @@ def sharded_pipeline(
     seg_plans = [
         build_plan(ops, plan_mode) if plan_mode != "off" else None for _, ops in segments
     ]
-    mega = plan_mode == "fused-pallas" and backend == "cuda"
+    mega = plan_mode in ("fused-pallas", "fused-pallas-mxu") and backend in ("cuda", "mxu")
+    mxu_stage = "on" if plan_mode == "fused-pallas-mxu" else None
+    seg_arms = [{} for _ in segments]  # per segment: stage index -> arms
 
     def run(img) -> torch.Tensor:
         img = torch.as_tensor(img)
         if img.dtype != U8:
             raise TypeError(f"expected a uint8 image, got {img.dtype}")
-        for (_, ops), seg_plan in zip(segments, seg_plans):
+        for (_, ops), seg_plan, arms in zip(segments, seg_plans, seg_arms):
             if seg_plan is None:
                 img = _run_segment(ops, mesh, backend, img, halo_mode)
             else:
-                img = _run_segment_planned(seg_plan, mesh, backend, img, halo_mode, mega)
+                img = _run_segment_planned(
+                    seg_plan, mesh, backend, img, halo_mode, mega, mxu_stage, arms
+                )
         return img
 
     return run

@@ -5,9 +5,12 @@ backend dispatches: pointwise runs are absorbed into their neighbouring
 stencil's pass, and consecutive stencils share one stage whose halo is
 grown once (`ops.spec.chain_halo`). Executors:
 
-  * ``plan/exec.py``      - the stage walker in PyTorch ops;
+  * ``plan/exec.py``      - the stage walker in PyTorch ops, each stencil's
+                            accumulator the golden one, the whole-op banded
+                            products (impl 'mxu') or K5's plain version;
   * ``plan/cuda_exec.py`` - one launch of the megakernel K4 per eligible
-                            stage (``plan='fused-pallas'`` under ``cuda``).
+                            stage (``plan='fused-pallas'`` under ``cuda``
+                            and ``mxu``; ``'fused-pallas-mxu'`` with K5).
 
 Every plan is byte-identical to the per-op golden chain (``plan='off'``).
 """

@@ -9,11 +9,19 @@ member stencil, the per-op edge extension and the finalize, reading the u8
 image once and writing the u8 stage output once. The routing is decided
 per stage and image shape before any launch, as in the JAX package:
 
-  * a stage K4 rejects runs its ops through the K1/K2 group runner
-    (``pipeline_cuda``, lookup tables as plain gathers), never through
-    plain PyTorch ops on the card, and is counted by reason in
-    ``plan_metrics.pallas_fallbacks``;
+  * a stage K4 rejects is counted by reason in
+    ``plan_metrics.pallas_fallbacks`` and runs, under the ``cuda`` backend,
+    through the K1/K2 group runner (``pipeline_cuda``, lookup tables as
+    plain gathers), never through plain PyTorch ops on the card; under the
+    ``mxu`` backend through ``pipeline_mxu``, which keeps the whole-op
+    banded products for its eligible stencils (where the JAX package's
+    rejected stage re-enters its walker under the pipeline's impl) and
+    runs the rest through the same group runner;
   * barrier stages run their golden op.
+
+``mxu_stage`` (ops/mxu_kernels.MXU_STAGE_SETTINGS; 'on' under
+``plan='fused-pallas-mxu'``) sets each stencil's in-stage arm: on a
+tensor-core arm the stencil runs K5, the ``mma.sync`` arm of K4/K4g.
 
 The closed reason vocabulary is the JAX package's (`stage_pallas_reject`)
 with ``smem-budget`` in place of ``vmem-budget`` and one reason of its own,
@@ -23,6 +31,7 @@ with ``smem-budget`` in place of ``vmem-budget`` and one reason of its own,
 from __future__ import annotations
 
 from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import pipeline_mxu
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan, Stage
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 
@@ -51,26 +60,44 @@ def run_stage_cuda_ext(
     image_h: int,
     image_w: int,
     block_h: int | None = None,
+    mxu_stage: str | None = None,
+    arms=None,
 ):
     """One K4g launch over a (local_h + 2 * Stage.halo, W[, C]) tile whose
     context rows came from the stage's one ghost exchange (parallel/api.py);
     `y0` is the global row of the shard's first row. The counterpart of the
     JAX package's ``run_stage_pallas_ext``. The caller has asked
-    `stage_kernel_reject` with the shard's local height."""
+    `stage_kernel_reject` with the shard's local height. `arms` are the
+    stage's in-stage arms if the caller resolved them, else they are
+    resolved from `mxu_stage` for this call."""
     return ck.fused_stage_ext(
-        stage.ops, ext, y0=y0, image_h=image_h, image_w=image_w, tile_h=block_h
+        stage.ops, ext, y0=y0, image_h=image_h, image_w=image_w, tile_h=block_h,
+        mxu_stage=mxu_stage, arms=arms,
     )
 
 
-def plan_callable_cuda(plan: Plan, *, block_h: int | None = None):
+def plan_callable_cuda(
+    plan: Plan,
+    *,
+    block_h: int | None = None,
+    mxu_stage: str | None = None,
+    impl: str = "cuda",
+):
     """The full-image fused-pallas executor: an image -> image function.
     Eligible fused stages run as one K4 launch each (`block_h` sets K4's
-    and K2's tile height); rejected stages run through the K1/K2 group
-    runner; barrier stages run their golden op. Every decision is counted
-    in `plan_metrics`."""
+    and K2's tile height), with each stencil's in-stage arm from
+    `mxu_stage`, resolved once per stage at its first launch; rejected
+    stages run through the K1/K2 group runner under `impl` 'cuda' and
+    through `pipeline_mxu` (the banded products, K1/K2 for the rest) under
+    'mxu';
+    barrier stages run their golden op. Every decision is counted in
+    `plan_metrics`."""
+    if impl not in ("cuda", "mxu"):
+        raise ValueError(f"unknown impl {impl!r}; known: ('cuda', 'mxu')")
+    arms: dict[int, tuple] = {}  # stage index -> its arms, at its first launch
 
     def run(img):
-        for stage in plan.stages:
+        for si, stage in enumerate(plan.stages):
             if stage.kind in ("geometric", "global"):
                 img = stage.ops[0](img)
                 continue
@@ -78,10 +105,15 @@ def plan_callable_cuda(plan: Plan, *, block_h: int | None = None):
             reason = stage_kernel_reject(stage, img.shape[0], img.shape[1], ch, block_h)
             if reason is None:
                 plan_metrics.pallas_stages += 1
-                img = ck.fused_stage(stage.ops, img, tile_h=block_h)
+                if si not in arms:
+                    arms[si] = ck.stage_arms(stage.ops, mxu_stage)
+                img = ck.fused_stage(stage.ops, img, tile_h=block_h, arms=arms[si])
             else:
                 plan_metrics.pallas_fallbacks[reason] += 1
-                img = ck.pipeline_cuda(stage.ops, img, block_h=block_h)
+                if impl == "mxu":
+                    img = pipeline_mxu(stage.ops, img, block_h=block_h)
+                else:
+                    img = ck.pipeline_cuda(stage.ops, img, block_h=block_h)
         return img
 
     return run

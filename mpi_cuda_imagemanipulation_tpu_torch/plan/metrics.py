@@ -8,7 +8,17 @@ Counters are plain integers: the port has no metrics registry yet.
 
 Under ``plan='fused-pallas'`` the port's megakernel is the CUDA kernel K4
 (plan/cuda_exec.py), so ``pallas_stages`` counts K4 stage launches and
-``pallas_fallbacks`` counts the stages K4 rejected, by reason.
+``pallas_fallbacks`` counts the stages K4 rejected, by reason. Under
+``plan='fused-pallas-mxu'`` (and the ``mxu_stage`` argument of the K4/K4g
+wrappers) each stencil of a stage takes an in-stage arm
+(ops/mxu_kernels.stage_arm_for): ``mxu_stage_ops`` counts the stencils put
+on a tensor-core arm of K5, by arm, and ``mxu_stage_fallbacks`` the
+stencils with a banded formulation that stayed on the VPU arm, by closed
+reason. Arms are resolved, and counted, once per stage when a plan
+executor is built (plan/exec.plan_callable, plan/cuda_exec.plan_callable_cuda
+at a stage's first K4 launch, the sharded runner at a stage's first K4g
+launch) and once per call of a K4/K4g wrapper or plain version that is
+not handed its arms.
 """
 
 from __future__ import annotations
@@ -29,8 +39,10 @@ class PlanMetrics:
         # the K1/K2 group runner by closed reason (plan/cuda_exec.py)
         self.pallas_stages = 0
         self.pallas_fallbacks: collections.Counter = collections.Counter()
-        # in-stage tensor-core contractions (K5): not ported, always 0
-        self.mxu_stage_ops = 0
+        # in-stage tensor-core arms (K5), by arm, and the VPU landings of
+        # ops that have one, by reason (ops/mxu_kernels.stage_arm_for)
+        self.mxu_stage_ops: collections.Counter = collections.Counter()
+        self.mxu_stage_fallbacks: collections.Counter = collections.Counter()
 
     def on_build(self, plan) -> None:
         self.builds[plan.mode] += 1
@@ -50,7 +62,7 @@ class PlanMetrics:
             "fused_ops": self.fused_ops,
             "hbm_passes_saved": self.passes_saved,
             "pallas_stages": self.pallas_stages,
-            "mxu_stage_ops": self.mxu_stage_ops,
+            "mxu_stage_ops": self.mxu_stage_ops["mxu"] + self.mxu_stage_ops["mxu-int8"],
         }
 
 

@@ -10,25 +10,28 @@ structure:
                        adjacent pointwise run.
   * ``fused``        - maximal pointwise/stencil runs become one stage
                        whose halo is the run's chain_halo.
-  * ``fused-pallas`` - partitions like ``fused``; under the ``cuda``
-                       backend each eligible stage runs as one launch of
-                       the megakernel K4 (plan/cuda_exec.py). A distinct
-                       build mode, so the plan fingerprint tells the two
-                       executions apart.
-
-``fused-pallas-mxu`` (K4 with in-stage tensor-core contractions, K5) is a
-plan mode of the JAX package that the port refuses until K5 is ported.
+  * ``fused-pallas`` - partitions like ``fused``; under the ``cuda`` and
+                       ``mxu`` backends each eligible stage runs as one
+                       launch of the megakernel K4 (plan/cuda_exec.py). A
+                       distinct build mode, so the plan fingerprint tells
+                       the two executions apart.
+  * ``fused-pallas-mxu`` - the same, with every eligible stencil forced onto
+                       the tensor-core in-stage arm K5 (ops/mxu_kernels
+                       .stage_arm_for, setting 'on'); under ``torch`` the
+                       walker runs K5's plain version for those stencils.
 
 Backend mapping for ``plan='auto'`` (no calibration store in the port;
 it resolves as the JAX package does when nothing was recorded):
 
   * ``torch`` plays the JAX package's ``xla``: ``auto`` -> ``fused``.
+  * ``mxu`` is the JAX package's ``mxu``: ``auto`` -> ``fused`` (the walker
+    with the whole-op banded products).
   * ``cuda`` plays the JAX package's ``auto``: ``auto`` -> ``off``, so the
     K1/K2 group route stays the default.
 
 Under ``cuda``, the stage-walker modes ``pointwise`` and ``fused`` are
 refused: the walker is plain PyTorch, which the ``cuda`` backend never
-runs on the card. They run under ``torch``.
+runs on the card. They run under ``torch`` and ``mxu``.
 """
 
 from __future__ import annotations
@@ -41,22 +44,13 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 # the user-facing knob ('on' is an alias for 'fused'), as in the JAX package
 PLAN_MODES = ("auto", "off", "pointwise", "fused", "fused-pallas",
               "fused-pallas-mxu")
-BUILD_MODES = ("off", "pointwise", "fused", "fused-pallas")
-BACKENDS = ("torch", "cuda")
+BUILD_MODES = ("off", "pointwise", "fused", "fused-pallas", "fused-pallas-mxu")
+BACKENDS = ("torch", "cuda", "mxu")
 
 # geometric ops that are pure pixel permutations with unchanged (H, W): a
 # per-pixel op commutes with them exactly, so fusing modes hoist them left
 # past pointwise runs
 _COMMUTE_GEOMS = ("rot180", "fliph", "flipv")
-
-
-def _refuse_mxu(mode: str) -> None:
-    if mode == "fused-pallas-mxu":
-        raise ValueError(
-            "plan 'fused-pallas-mxu' needs the in-stage tensor-core "
-            "contraction (K5, stage_valid_mxu), which the port has not "
-            "ported yet; use 'fused-pallas'"
-        )
 
 
 def _norm_mode(plan: str) -> str:
@@ -65,7 +59,6 @@ def _norm_mode(plan: str) -> str:
         mode = "fused"
     if mode not in PLAN_MODES:
         raise ValueError(f"unknown plan mode {plan!r}; known: {PLAN_MODES}")
-    _refuse_mxu(mode)
     return mode
 
 
@@ -80,8 +73,9 @@ def resolve_plan_mode(ops, plan: str = "auto", *, backend: str = "torch") -> str
     if backend == "cuda" and mode in ("pointwise", "fused"):
         raise ValueError(
             f"plan {mode!r} is a stage-walker mode, which runs in plain "
-            "PyTorch; in the port it runs under backend 'torch' "
-            "(--impl torch). Under 'cuda' use 'off' or 'fused-pallas'"
+            "PyTorch; in the port it runs under backends 'torch' "
+            "(--impl torch) and 'mxu'. Under 'cuda' use 'off', 'fused-pallas' "
+            "or 'fused-pallas-mxu'"
         )
     return mode
 
@@ -106,7 +100,6 @@ def build_plan(ops, mode: str = "fused") -> Plan:
     resolve 'auto' with resolve_plan_mode first). Fusing modes first hoist
     commuting geometric ops; 'off' keeps the user's op order."""
     ops = tuple(ops)
-    _refuse_mxu(mode)
     if mode not in BUILD_MODES:
         raise ValueError(f"unknown build mode {mode!r}; known: {BUILD_MODES}")
     if mode != "off":
@@ -135,7 +128,7 @@ def build_plan(ops, mode: str = "fused") -> Plan:
                     stages.append(Stage("fused", prev.ops + tuple(cur), prev.halo))
                 else:
                     stages.append(Stage("fused", tuple(cur), 0))
-        else:  # fused / fused-pallas: the whole run is one stage
+        else:  # fused / fused-pallas[-mxu]: the whole run is one stage
             stages.append(Stage("fused", tuple(run), chain_halo(run)))
         run.clear()
 

@@ -48,6 +48,8 @@ FS_MAX_STENCILS = 8
 FS_OP_STENCIL = 100
 # CUDA's limit on a kernel's parameters; K4 takes its stage program by value
 KERNEL_PARAM_BYTES = 4096
+# FsProgram.arm: each stencil's in-stage arm (FS_ARM_* in fused_stage.cu)
+FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
 
 
 class PwProgram(ctypes.Structure):
@@ -75,7 +77,8 @@ class StencilDesc(ctypes.Structure):
 
 class FsProgram(ctypes.Structure):
     """One fused plan stage for K4: ops in order, each a pointwise opcode
-    with its parameter or ``FS_OP_STENCIL + j`` for stencil ``st[j]``."""
+    with its parameter or ``FS_OP_STENCIL + j`` for stencil ``st[j]``, which
+    runs on in-stage arm ``arm[j]`` (FS_ARM_*). 3784 bytes."""
 
     _fields_ = [
         ("n_ops", ctypes.c_int),
@@ -83,6 +86,7 @@ class FsProgram(ctypes.Structure):
         ("p0", ctypes.c_float * FS_MAX_OPS),
         ("n_stencils", ctypes.c_int),
         ("st", StencilDesc * FS_MAX_STENCILS),
+        ("arm", ctypes.c_int * FS_MAX_STENCILS),
     ]
 
 
@@ -193,6 +197,8 @@ def load(name: str) -> ctypes.CDLL:
         lib.fused_stage_ext_launch.restype = ci
         lib.fused_stage_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.fused_stage_smem_bytes.restype = ll
+        lib.k5_sums_launch.argtypes = [vp, vp, ci, ci, ctypes.POINTER(StencilDesc), ci, ci, vp]
+        lib.k5_sums_launch.restype = ci
         lib.fused_stage_program_bytes.argtypes = []
         lib.fused_stage_program_bytes.restype = ll
     return lib

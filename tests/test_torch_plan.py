@@ -177,11 +177,11 @@ def test_resolve_plan_mode_backend_mapping(no_calibration):
     for mode in ("pointwise", "fused"):
         with pytest.raises(ValueError, match="stage-walker mode"):
             resolve_plan_mode(ops, mode, backend="cuda")
-    for backend in ("torch", "cuda"):
-        with pytest.raises(ValueError, match="K5"):
-            resolve_plan_mode(ops, "fused-pallas-mxu", backend=backend)
-    with pytest.raises(ValueError, match="K5"):
-        build_plan(ops, "fused-pallas-mxu")
+    for backend in ("torch", "cuda", "mxu"):  # K5 is ported: every backend resolves it
+        assert resolve_plan_mode(ops, "fused-pallas-mxu", backend=backend) == "fused-pallas-mxu"
+    assert jax_resolve(jax_ops, "fused-pallas-mxu", backend="xla") == "fused-pallas-mxu"
+    assert build_plan(ops, "fused-pallas-mxu").fingerprint == jax_build_plan(
+        jax_ops, "fused-pallas-mxu").fingerprint
     with pytest.raises(ValueError, match="unknown plan mode"):
         resolve_plan_mode(ops, "fastest", backend="torch")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -327,7 +327,7 @@ def test_fused_stage_program_encoding():
     assert ck.fused_stage_program(make_pipeline_ops("gray2rgb"), 1)[1:] == (3, 0, False)
     # the program and the launch's other parameters fit CUDA's 4 KB limit
     other = 2 * ctypes.sizeof(ctypes.c_void_p) + 11 * ctypes.sizeof(ctypes.c_int)
-    assert ctypes.sizeof(kr.FsProgram) == 3752
+    assert ctypes.sizeof(kr.FsProgram) == 3784
     assert ctypes.sizeof(kr.FsProgram) + other <= kr.KERNEL_PARAM_BYTES
 
 
@@ -484,13 +484,18 @@ def test_cli_run_refuses_plans_the_backend_does_not_run(tmp_path, capsys):
     src = tmp_path / "in.png"
     save_image(src, _img(8, 8, 3, seed=37))
     for impl, plan, msg in (("cuda", "fused", "stage-walker"),
-                            ("cuda", "fused-pallas-mxu", "K5"),
-                            ("torch", "fused-pallas-mxu", "K5")):
+                            ("cuda", "pointwise", "stage-walker")):
         rc = cli.main(["run", "--input", str(src), "--output", str(tmp_path / "o.png"),
                        "--impl", impl, "--plan", plan, "--device", "cpu"])
         assert rc == 2
         assert msg in capsys.readouterr().err
     assert not (tmp_path / "o.png").exists()
+    # K5 is ported: fused-pallas-mxu runs under every backend
+    for impl in ("cuda", "torch", "mxu"):
+        out = tmp_path / f"{impl}.png"
+        rc = cli.main(["run", "--input", str(src), "--output", str(out),
+                       "--impl", impl, "--plan", "fused-pallas-mxu", "--device", "cpu"])
+        assert rc == 0 and out.exists()
 
 
 # --------------------------------------------------------------------------

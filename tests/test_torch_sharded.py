@@ -373,7 +373,7 @@ def test_kernel_wrappers_per_call(wrapper_calls):
     # the torch backend never reaches a kernel wrapper
     for plan in ("off", "fused", "fused-pallas"):
         assert run(MIXED, backend="torch", plan=plan) == none
-    assert ck.launch_counts() == none  # and nothing launched on the CPU
+    assert ck.launch_counts() == dict.fromkeys(ck.launch_counts(), 0)  # nothing on the CPU
 
 
 # --------------------------------------------------------------------------
@@ -447,12 +447,12 @@ def test_sharded_validation():
         pipe.sharded(cpu_mesh(2), backend="xla")
     with pytest.raises(ValueError, match="K6-K8"):
         pipe.sharded(cpu_mesh(2), backend="swar")
-    with pytest.raises(ValueError, match="K5"):
-        pipe.sharded(cpu_mesh(2), backend="mxu")
+    img = synthetic_image(16, 24, channels=1, seed=3)  # K5 is ported: the mxu backend runs
+    assert torch.equal(pipe.sharded(cpu_mesh(2), backend="mxu")(img), pipe(torch.from_numpy(img)))
     with pytest.raises(ValueError, match="stage-walker mode"):
         pipe.sharded(cpu_mesh(2), backend="cuda", plan="fused")
-    with pytest.raises(ValueError, match="K5"):
-        pipe.sharded(cpu_mesh(2), backend="cuda", plan="fused-pallas-mxu")
+    assert torch.equal(pipe.sharded(cpu_mesh(2), backend="cuda", plan="fused-pallas-mxu")(img),
+                       pipe(torch.from_numpy(img)))
     with pytest.raises(TypeError, match="uint8"):
         pipe.sharded(cpu_mesh(2), backend="torch")(np.zeros((8, 8), np.float32))
     assert api.HALO_MODES == ("serial", "overlap")

@@ -405,7 +405,8 @@ def test_k4g_tile_algorithm_matches_plain(spec, channels):
 
 def test_launch_counts_cover_every_kernel():
     ck.reset_launch_counts()
-    assert ck.launch_counts() == {"K1": 0, "K2": 0, "K2g": 0, "K3": 0, "K4": 0, "K4g": 0}
+    assert ck.launch_counts() == {"K1": 0, "K2": 0, "K2g": 0, "K3": 0, "K4": 0, "K4g": 0,
+                                  "K5-bf16": 0, "K5-int8": 0}
     ck.stencil_tile.launches = 3
     assert ck.launch_counts()["K3"] == 3
     ck.reset_launch_counts()
