@@ -26,9 +26,15 @@ printing a result:
    'f32', the boundary filters of the exactness argument (255 * sum|w| =
    2^24 - 1; |w| = 127 and 128) on the extreme inputs where the sums are
    largest (all 0, all 255, 0/255 checkerboards), the three main stages at
-   8K and on the first, a middle and the last 1080x7680 shard tile. A small
-   input is also held against the loop-level emulator of the reference
-   program (tests/_c_reference.py).
+   8K and on the first, a middle and the last 1080x7680 shard tile. K6
+   (narrow and wide), K7 and K8, the SWAR kernels, in full and ghost mode:
+   every eligible stencil of the registry and two custom integer filters
+   (scale != 1; sum|w| = 128 with large negative taps), with no chain, a
+   pre-chain, a post-chain and both, on seeded, all-0, all-255,
+   checkerboard and row-ramp planes and on the first, a middle and the last
+   1080x7680 shard tile of the 8K gray frame. A small input is also held
+   against the loop-level emulator of the reference program
+   (tests/_c_reference.py).
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -38,13 +44,20 @@ printing a result:
    4-slot mesh (slot i on card i modulo the number of cards, so all on the
    one card here), under both plans and both halo modes, and once at 4323
    rows (one pad row) to drive K3, byte-equal to golden, with the launches
-   and strip exchanges the code implies and no full-mode launch.
+   and strip exchanges the code implies and no full-mode launch. Then the
+   SWAR backend (``--impl swar``): the five 8K workloads of its slice with
+   their launches (K1, K6, K7, K8, and K2 for the colour gaussian:5), and
+   ``Pipeline.sharded(backend='swar')`` on the 8K gray frame: one K7g, K6g
+   or K8g per shard and one exchange round per group, no SWAR launch at
+   4323 rows or under overlap.
 3. Numbers: CUDA-event times of each kernel and its plain version at the
    main paths' shapes (the ghost modes at the 1080x7680 shard), the bound
    from bytes and operations, a PyTorch library call as a yardstick where
    one computes the same function, the strip exchange, and each path end
    to end under both plans, sharded beside unsharded; K5 per form beside
-   the VPU arm, and the tensor-core paths end to end.
+   the VPU arm, and the tensor-core paths end to end; K6, K7 and K8 on the
+   SWAR paths' groups (8K gray plane, and ghost mode on one shard) beside
+   K2 on the same group, and the SWAR paths end to end.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -119,6 +132,30 @@ PROBE_CASES = BOUNDARY_FILTERS + ["gaussian:7", "gaussian:5", "sobel", "laplacia
                                   "emboss:5", "sharpen"]
 # a fused stage K4 rejects ('lut-op')
 REJECTED_SPEC = "gamma:2.2,gaussian:5"
+# the SWAR slice's 8K workloads: (pipeline, the launches of one `run`)
+SWAR_SPECS = {
+    "reference": (SPECS["reference"], {"K1": 2, "K7": 1}),
+    "megakernel_ab": (SPECS["megakernel_ab"], {"K1": 3, "K6-narrow": 1, "K7": 1}),
+    "gaussian7_gray": ("grayscale,gaussian:7", {"K1": 2, "K6-wide": 1}),
+    "sobel_gray": ("grayscale,sobel", {"K1": 2, "K8": 1}),
+    "gaussian5_8k": (SPECS["gaussian5_8k"], {"K2": 1}),  # colour: the whole group falls back
+}
+# the sharded SWAR paths on the 8K gray frame: pipeline -> ghost kernel
+SWAR_SHARDED = {"contrast:3.5,emboss:3": "K7g", "gaussian:5": "K6g-narrow", "sobel": "K8g"}
+# every stencil a SWAR kernel takes: the registry's, a K8 filter with scale
+# != 1 and a K7 filter at its bias bound (sum|w| = 128, large negative taps)
+SWAR_STENCILS = [
+    "gaussian:3", "gaussian:5", "gaussian:7", "box:3", "box:5", "box:9", "emboss:3",
+    "emboss:5", "emboss101:3", "emboss101:5", "sharpen", "laplacian:4", "laplacian:8",
+    "sobel", "prewitt", "scharr", "unsharp", "filter:1/2/1/2/4/2/1/2/1:0.0625",
+    "filter:-60/-4/0/0/1/0/0/0/63",
+]
+SWAR_CHAINS = [((), ()), (("contrast:3.5",), ()), ((), ("brightness:-20",)),
+               (("invert", "brightness:-20"), ("contrast:3.5",))]
+SWAR_SOURCE = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/swar_stencil.cu"
+SWAR_REPLACES = {"K6": "mpi_cuda_imagemanipulation_tpu/ops/swar_kernels.py:454",
+                 "K7": "mpi_cuda_imagemanipulation_tpu/ops/swar_kernels.py:798",
+                 "K8": "mpi_cuda_imagemanipulation_tpu/ops/swar_kernels.py:652"}
 K5_SOURCE = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/mma_stage.cuh"
 K5_REPLACES = "mpi_cuda_imagemanipulation_tpu/ops/mxu_kernels.py:853"
 K5_KEYS = {"mxu": "K5-bf16", "mxu-int8": "K5-int8"}
@@ -810,6 +847,253 @@ def phase2_mxu(device, x8k):
     return launches
 
 
+def swar_case(spec, chain):
+    """(stencil op, pre ops, post ops, pre chain, post chain) of one SWAR
+    case: the stencil of `spec` with the pointwise ops of `chain` fused."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+
+    pre = tuple(make_op(s) for s in chain[0])
+    post = tuple(make_op(s) for s in chain[1])
+    return (make_op(spec), pre, post, tuple(map(sk.swar_fusable, pre)),
+            tuple(map(sk.swar_fusable, post)))
+
+
+def gray_tile(plane, y0, rows, h, op):
+    """The tile of `rows` rows at `y0` of a gray plane with the ghost strips
+    the sharded runner gives it: the neighbours' rows, the op's edge
+    extension at the plane's first and last row."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import api
+
+    H = plane.shape[0]
+    tile = plane[y0:y0 + rows].contiguous()
+    top = plane[y0 - h:y0] if y0 else torch.zeros_like(plane[:h])
+    bottom = plane[y0 + rows:y0 + rows + h] if y0 + rows < H else torch.zeros_like(plane[:h])
+    top, bottom = api._fix_edge_strips(top, bottom, tile, op, y0, H)
+    return tile, top.contiguous(), bottom.contiguous()
+
+
+def phase1_swar(device, gray8k) -> int:
+    """K6 (narrow and wide), K7 and K8 against their plain versions (run on
+    the card): every SWAR stencil with each chain, full mode on a seeded
+    plane, all 0, all 255, two checkerboards and a row ramp at 257x300 (tile
+    heights 32, 7 and 33), seeded planes at 37x128 and 48x64; ghost mode on
+    tiles cut as the first, a middle and the last of three shards of the
+    seeded plane and of the 8K gray frame (1080x7680, the main path's
+    shards); full mode on the 8K gray frame."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+
+    def plane(h, w, seed):
+        return torch.from_numpy(synthetic_image(h, w, channels=1, seed=seed)).to(device)
+
+    seeded = plane(257, 300, 1)
+    full = [seeded] + extreme_inputs((257, 300), 1, device) + [plane(37, 128, 2), plane(48, 64, 3)]
+    local_h = MAIN_H // N_SHARDS
+    n_full = n_ghost = n8k = 0
+    kinds = set()
+    for spec in SWAR_STENCILS:
+        for ci, chain in enumerate(SWAR_CHAINS):
+            st, pre, post, pc, qc = swar_case(spec, chain)
+            kinds.add(sk.swar_kind(st))
+            kw = dict(pre_ops=pre, post_ops=post)
+            label = f"{sk.swar_kind(st)} {spec} chain {chain}"
+            for i, x in enumerate(full):
+                want = sk.swar_stencil_plain(st, x, pre_chain=pc, post_chain=qc)
+                for tile_h in ((None, 7, 33) if i == 0 else (None,)):
+                    check_equal(f"{label} input {i} tile_h={tile_h}",
+                                sk.swar_stencil(st, x, block_h=tile_h, **kw), want)
+                    n_full += 1
+            h = st.halo
+            for src, rows, ys in ((seeded, 85, (0, 85, 170)),
+                                  (gray8k, local_h, (0, local_h, MAIN_H - local_h))):
+                if src is gray8k and ci not in (0, 3):
+                    continue
+                H = src.shape[0]
+                for y0 in ys:
+                    tile, top, bottom = gray_tile(src[:3 * rows] if src is seeded else src,
+                                                  y0, rows, h, st)
+                    gkw = dict(ghosts=(top, bottom), y0=y0, global_h=3 * rows if src is seeded else H)
+                    want = sk.swar_stencil_plain(st, tile, pre_chain=pc, post_chain=qc, **gkw)
+                    check_equal(f"{label} ghost {tuple(src.shape)} y0={y0}",
+                                sk.swar_stencil(st, tile, **gkw, **kw), want)
+                    n_ghost += 1
+            if ci in (0, 3):
+                want = sk.swar_stencil_plain(st, gray8k, pre_chain=pc, post_chain=qc)
+                check_equal(f"{label} 8K", sk.swar_stencil(st, gray8k, **kw), want)
+                n8k += 1
+    assert kinds == set(sk.KINDS), kinds
+    torch.cuda.synchronize()
+    print(f"phase 1: K6 narrow/wide, K7, K8 equal to their plain versions (max_abs_err 0): "
+          f"{n_full} full-mode cases, {n_ghost} ghost-mode cases ({len(SWAR_STENCILS)} "
+          f"stencils x {len(SWAR_CHAINS)} chains), {n8k} on the 8K gray frame")
+    return n_full + n_ghost + n8k
+
+
+def phase2_swar(device, x8k, gray8k):
+    """The SWAR backend's paths against the golden ops: `run --impl swar`
+    (cli.run_image) on the five 8K workloads with exactly their launches,
+    and Pipeline.sharded(backend='swar') on the 8K gray frame over the
+    4-slot mesh: one ghost-mode launch per shard and one exchange round per
+    group; at 4323 rows and under overlap no SWAR launch, the 'cuda'
+    route's launches instead."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import run_image
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo
+
+    launches = {}
+    for key, (spec, exp) in SWAR_SPECS.items():
+        pipe = Pipeline.parse(spec)
+        want = run_image(pipe, x8k, impl="torch", device=device, plan="off")
+        ck.reset_launch_counts()
+        out = run_image(pipe, x8k, impl="swar", device=device, plan="off")
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        assert out.shape == (MAIN_H, MAIN_W, 3) and out.dtype == torch.uint8, out.shape
+        check_equal(f"swar path {spec}", out, want)
+        expected = {**dict.fromkeys(counts, 0), **exp}
+        if counts != expected:
+            raise AssertionError(f"swar path {spec}: launches {counts}, expected {expected}")
+        launches[key] = counts
+        print(f"phase 2: {spec} impl=swar at {MAIN_H}x{MAIN_W} RGB: swar == golden, launches "
+              f"{exp}")
+    mesh = sharded_mesh()
+    to_gray = Pipeline.parse("grayscale").jit("torch", device=device, plan="off")
+    gray_pad = to_gray(torch.from_numpy(synthetic_image(PAD_H, MAIN_W, seed=1)).to(device))
+    for spec, kernel in SWAR_SHARDED.items():
+        pipe = Pipeline.parse(spec)
+        for x, halo_mode, padded in ((gray8k, "serial", False), (gray8k, "overlap", False),
+                                     (gray_pad, "serial", True)):
+            want = pipe.jit("torch", device=device, plan="off")(x)
+            fn = pipe.sharded(mesh, backend="swar", halo_mode=halo_mode)
+            ck.reset_launch_counts()
+            halo.exchanges.reset()
+            out = fn(x)
+            for d in set(mesh.devices):
+                torch.cuda.synchronize(d)
+            counts, rounds = ck.launch_counts(), halo.exchanges.rounds
+            tag = f"sharded swar path {spec} halo_mode={halo_mode} {x.shape[0]}x{x.shape[1]} gray"
+            assert out.dtype == torch.uint8 and out.device == mesh.devices[0], tag
+            check_equal(tag, out, want)
+            if halo_mode == "serial" and not padded:
+                exp, exp_rounds = dict.fromkeys(counts, 0), 1
+                exp[kernel] = N_SHARDS
+            else:
+                exp, exp_rounds = expected_sharded(pipe.ops, "off", halo_mode, padded)
+            if counts != exp or rounds != exp_rounds:
+                raise AssertionError(f"{tag}: launches {counts}, {rounds} rounds; expected "
+                                     f"{exp}, {exp_rounds}")
+            launches[spec, halo_mode, padded] = counts
+            used = {k: v for k, v in counts.items() if v}
+            print(f"phase 2: {tag}: == golden, launches {used}, {rounds} exchange round(s)")
+    return launches
+
+
+def phase3_swar(device, x8k, gray8k, swar_launches, record):
+    """K6, K7 and K8 at the SWAR paths' shapes (the 8K gray plane; ghost
+    mode on a middle 1080x7680 shard), each held against its plain version,
+    with K2 (K2g) on the same group and plane, the route `--impl cuda`
+    takes, timed beside it; then the SWAR paths end to end beside `--impl
+    cuda`. `record` appends the kernels' rows."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    local_h = MAIN_H // N_SHARDS
+    y0 = local_h
+    # the gray input of the megakernel chain's sharpen group
+    _, pre, _, pc, _ = swar_case("gaussian:5", (("contrast:3.5",), ()))
+    blurred = sk.swar_stencil(swar_case("gaussian:5", ((), ()))[0], gray8k, pre_ops=pre)
+    # (label, spec, chain, plane, phase-2 run and key, library call?)
+    groups = [
+        ("K6 narrow", "gaussian:5", (("contrast:3.5",), ()), gray8k, ("megakernel_ab", "K6-narrow"),
+         False),
+        ("K6 wide", "gaussian:7", ((), ()), gray8k, ("gaussian7_gray", "K6-wide"), True),
+        ("K7", "emboss:3", (("contrast:3.5",), ()), gray8k, ("reference", "K7"), False),
+        ("K7", "sharpen", ((), ()), blurred, ("megakernel_ab", "K7"), True),
+        ("K8", "sobel", ((), ()), gray8k, ("sobel_gray", "K8"), False),
+    ]
+    for label, spec, chain, x, (key, count), lib in groups:
+        st, pre, post, pc, qc = swar_case(spec, chain)
+        names = ",".join(op.name for op in pre + (st,) + post)
+        record(
+            f"{label} swar_stencil [{names}] gray", SWAR_SOURCE, SWAR_REPLACES[label[:2]],
+            swar_launches[key][count],
+            lambda st=st, x=x, pre=pre: sk.swar_stencil(st, x, pre_ops=pre),
+            lambda st=st, x=x, pc=pc: sk.swar_stencil_plain(st, x, pre_chain=pc), 1, 1,
+            list(pre) + [st], library=conv_library(st, x, pad_rows=True) if lib else None,
+        )
+        t_k2 = device_time_ms(lambda st=st, x=x, pre=pre: ck.stream_stencil(list(pre), st, x),
+                              reps=7)
+        print(f"  K2 on the same group and plane (the --impl cuda route) in this run: "
+              f"{t_k2:.4f} ms")
+    ghost = [("K6g narrow", "gaussian:5", "K6g-narrow", True),
+             ("K7g", "contrast:3.5,emboss:3", "K7g", False), ("K8g", "sobel", "K8g", False)]
+    for label, spec, count, lib in ghost:
+        parts = spec.split(",")
+        st, pre, post, pc, qc = swar_case(parts[-1], (tuple(parts[:-1]), ()))
+        h = st.halo
+        tile, top, bottom = gray_tile(gray8k, y0, local_h, h, st)
+        kw = dict(ghosts=(top, bottom), y0=y0, global_h=MAIN_H)
+        ext = torch.cat([top, tile, bottom])
+        record(
+            f"{label} swar_stencil ghost [{spec}] gray shard", SWAR_SOURCE,
+            SWAR_REPLACES[label[:2]], swar_launches[spec, "serial", False][count],
+            lambda st=st, t=tile, pre=pre, kw=kw: sk.swar_stencil(st, t, pre_ops=pre, **kw),
+            lambda st=st, t=tile, pc=pc, kw=kw: sk.swar_stencil_plain(st, t, pre_chain=pc, **kw),
+            1, 1, list(pre) + [st], library=conv_library(st, ext, pad_rows=False) if lib else None,
+            n_pix=local_h * MAIN_W, strip_bytes=2 * h * MAIN_W,
+        )
+        gk = dict(y0=y0, image_h=MAIN_H, image_w=MAIN_W)
+
+        def k2g(st=st, t=(tile, top, bottom), pre=pre):
+            return ck.stream_stencil_ghost(list(pre), st, *t, **gk)
+
+        t_k2 = device_time_ms(k2g, reps=7)
+        # host time per call of each wrapper: where it exceeds the device
+        # time, back-to-back launches wait on the host
+        h_swar = host_enqueue_ms(lambda st=st, t=tile, pre=pre, kw=kw: sk.swar_stencil(
+            st, t, pre_ops=pre, **kw))
+        print(f"  K2g on the same group and shard (the --impl cuda route) in this run: "
+              f"{t_k2:.4f} ms; host time to enqueue one call: {label} {h_swar:.4f} ms, K2g "
+              f"{host_enqueue_ms(k2g):.4f} ms")
+        del ext
+    torch.cuda.synchronize()
+
+    mp = MAIN_H * MAIN_W / 1e6
+    for key, (spec, _) in SWAR_SPECS.items():
+        pipe = Pipeline.parse(spec)
+        times = {}
+        for impl in ("swar", "cuda", "swar"):
+            runner = image_runner(pipe, impl=impl, device=device, plan="off")
+            times[impl] = device_time_ms(lambda: runner(x8k), reps=5, inner=3)
+        used = {k: v for k, v in swar_launches[key].items() if v}
+        print(f"path {key} [{spec}] impl=swar {MAIN_H}x{MAIN_W} RGB in, RGB out: "
+              f"{times['swar']:.4f} ms ({mp / times['swar'] * 1e3:.1f} MP/s), impl=cuda "
+              f"plan=off in this run {times['cuda']:.4f} ms; launches {used}")
+    mesh = sharded_mesh()
+    for spec in SWAR_SHARDED:
+        pipe = Pipeline.parse(spec)
+        times = {}
+        for backend in ("swar", "cuda"):
+            fn = pipe.sharded(mesh, backend=backend)
+            times[backend] = device_time_ms(lambda: fn(gray8k), reps=5, inner=3)
+        print(f"sharded path [{spec}] {MAIN_H}x{MAIN_W} gray over {N_SHARDS} slots, serial: "
+              f"swar {times['swar']:.4f} ms, cuda {times['cuda']:.4f} ms")
+
+
 def op_count(ops, n_pix: int, c_in: int) -> int:
     """Float32 operations a group or stage does per image, counted from its
     ops: each pointwise op per pixel, each stencil per pixel and plane."""
@@ -882,7 +1166,7 @@ def conv_library(op, x, pad_rows: bool):
     return lambda: F.conv2d(xf, weight, groups=c)
 
 
-def phase3(device, x8k, launches, sharded_launches, mxu_launches):
+def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches):
     from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
@@ -1006,6 +1290,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches):
     phase3_sharded(device, x8k, graym, sharded_launches, record)
     del graym
     phase3_k5(device, x8k, mxu_launches, record)
+    phase3_swar(device, x8k, gray8k, swar_launches, record)
 
     # each path's bound: every launch reads its input and writes its output
     # once (gray paths: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B),
@@ -1291,6 +1576,7 @@ def main() -> int:
               "a CUDA device", file=sys.stderr)
         return 1
     from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1314,10 +1600,13 @@ def main() -> int:
     x8k = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
     phase1_k5_main(device, x8k)
     phase1_k5_sums(device, x8k)
+    gray8k = Pipeline.parse("grayscale").jit("torch", device=device, plan="off")(x8k)
+    phase1_swar(device, gray8k)
     launches = phase2(device, x8k)
     sharded_launches = phase2_sharded(device, x8k)
     mxu_launches = phase2_mxu(device, x8k)
-    rows = phase3(device, x8k, launches, sharded_launches, mxu_launches)
+    swar_launches = phase2_swar(device, x8k, gray8k)
+    rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

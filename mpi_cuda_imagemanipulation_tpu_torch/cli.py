@@ -2,12 +2,13 @@
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl cuda``), the tensor-core route
-(``--impl mxu``) or PyTorch ops (``--impl torch``), in the execution
-structure ``--plan`` selects
+(``--impl mxu``), the SWAR kernels (``--impl swar``) or PyTorch ops
+(``--impl torch``), in the execution structure ``--plan`` selects
 (models/pipeline.py says what each pair runs). ``--shards N`` row-shards
 the image over N devices with ghost-strip exchange (parallel/api.py); under
 ``torchrun`` every rank runs the same command and holds its share of the
-shards. ``info`` prints the toolchain and the devices.
+shards. ``info`` prints the toolchain, the devices, the backends and the
+kernels.
 """
 
 from __future__ import annotations
@@ -40,11 +41,14 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument(
         "--impl",
-        choices=("cuda", "mxu", "torch"),
+        choices=("cuda", "mxu", "swar", "torch"),
         default="cuda",
         help="cuda: the hand-written kernels, one launch per op group; "
         "mxu: eligible stencils as banded matrix products (torch.matmul), "
-        "the other ops as under cuda; torch: the golden PyTorch ops",
+        "the other ops as under cuda; swar: eligible stencils on a gray plane, "
+        "with fusable contrast/brightness/invert neighbours, as one launch of "
+        "the SWAR kernels K6-K8 (every plan is then 'off'), the other ops as "
+        "under cuda; torch: the golden PyTorch ops",
     )
     run.add_argument(
         "--plan",
@@ -80,8 +84,8 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument(
         "--block", type=int, default=None,
-        help="row height of the stencil kernels' output tiles (K2 and K4; "
-        "default 16)",
+        help="row height of the stencil kernels' output tiles (K2 and K4, "
+        "default 16; under --impl swar K6-K8 only, default 32)",
     )
     run.add_argument(
         "--gray-output", action="store_true",
@@ -232,6 +236,17 @@ def cmd_run(args: argparse.Namespace) -> int:
     return 0
 
 
+# The hand-written kernels: name, source, what runs it.
+KERNELS = (
+    "K1 pointwise group (pointwise.cu)",
+    "K2/K2g/K3 stencil group (stream_stencil.cu)",
+    "K4/K4g fused plan stage (fused_stage.cu), with K5 its tensor-core arm (mma_stage.cuh)",
+    "K6 separable SWAR stencil, narrow and wide (swar_stencil.cu)",
+    "K7 SWAR 2-D correlation on 16-bit fields (swar_stencil.cu)",
+    "K8 SWAR 2-D correlation on 32-bit lanes (swar_stencil.cu)",
+)
+
+
 def _tool_output(cmd: list[str]) -> str:
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=30)
@@ -244,6 +259,7 @@ def cmd_info(args: argparse.Namespace) -> int:
     import torch
 
     from mpi_cuda_imagemanipulation_tpu_torch._version import __version__
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import BACKENDS
     from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels
 
     print(f"mpi_cuda_imagemanipulation_tpu_torch {__version__}")
@@ -268,6 +284,10 @@ def cmd_info(args: argparse.Namespace) -> int:
                 ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
             )
         )
+    print(f"backends: {', '.join(BACKENDS)}")
+    print("kernels:")
+    for k in KERNELS:
+        print(f"  {k}")
     try:
         nvcc = kernels.find_nvcc()
         version = _tool_output([nvcc, "--version"]).splitlines()[-1]

@@ -16,6 +16,10 @@
   ``'fused'`` and ``'auto'`` run the walker with the banded products;
   ``'fused-pallas[-mxu]'`` run K4 stages as under ``cuda``, and a rejected
   stage walks with the banded products.
+* ``backend='swar'`` : the SWAR kernels (ops/swar_kernels.py). Every plan
+  resolves to ``'off'``: `pipeline_swar` runs each eligible
+  ``[pre*, stencil, post*]`` group on a gray plane as one launch of K6, K7
+  or K8, and every other op through the K1/K2 group runner.
 
 ``Pipeline.sharded`` runs the same pipeline row-sharded over a mesh of
 devices with ghost-strip exchange (parallel/api.py).
@@ -38,6 +42,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
 from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import pipeline_mxu
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op
+from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import pipeline_swar
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import sharded_pipeline
 from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
 from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import plan_callable_cuda
@@ -48,7 +53,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import (
     resolve_device,
 )
 
-BACKENDS = ("torch", "cuda", "mxu")
+BACKENDS = ("torch", "cuda", "mxu", "swar")
 __all__ = ["BACKENDS", "PLAN_MODES", "Pipeline", "reference_cpu_pipeline", "reference_pipeline"]
 
 
@@ -104,6 +109,8 @@ class Pipeline:
             return self.apply
         if backend == "mxu":
             return partial(pipeline_mxu, self.ops, block_h=block_h)
+        if backend == "swar":
+            return partial(pipeline_swar, self.ops, block_h=block_h)
         return partial(pipeline_cuda, self.ops, block_h=block_h)
 
     def jit(
@@ -121,7 +128,7 @@ class Pipeline:
 
         The function takes a uint8 numpy array or tensor, moves it to the
         device, and returns a tensor there. `block_h` sets the stencil
-        kernels' tile height (K2 and K4). `plan` selects the fusion-planner
+        kernels' tile height (K2 and K4; under 'swar' K6-K8 only). `plan` selects the fusion-planner
         execution structure (PLAN_MODES; see the module docstring for what
         each backend runs under each). With no CUDA device, the default
         raises."""
@@ -150,9 +157,10 @@ class Pipeline:
 
         `backend` is 'cuda' (the hand-written ghost-mode kernels K2g, K3,
         K4g and K1), 'mxu' (the banded products for eligible stencils on
-        the extended tile, the 'cuda' kernels otherwise), 'torch' (the
-        golden ops per tile) or 'auto' (every eligible group takes its
-        kernel: 'cuda'). `halo_mode='overlap'`
+        the extended tile, the 'cuda' kernels otherwise), 'swar' (K6g, K7g
+        or K8g for each eligible group on gray tiles without pad rows, the
+        'cuda' kernels otherwise), 'torch' (the golden ops per tile) or
+        'auto' (every eligible group takes its kernel: 'cuda'). `halo_mode='overlap'`
         computes interior rows while the ghost strips are in flight
         (parallel.api.HALO_MODES). `plan` (PLAN_MODES) engages the fusion
         planner: a fused stage exchanges one `Stage.halo`-row ghost strip

@@ -34,7 +34,9 @@ the launch (``csrc/mma_stage.cuh``), in bf16 ('mxu') or int8 ('mxu-int8').
 A stage with such an arm launches the kernel's tensor-core instantiation;
 the others launch the VPU instantiation, whose code is that of K4 alone.
 ``launch_counts`` counts, besides each wrapper's launches, the K4/K4g
-launches that ran each form ('K5-bf16', 'K5-int8').
+launches that ran each form ('K5-bf16', 'K5-int8'), and the launches of
+the SWAR kernels K6-K8 by kernel and mode (``SWAR_LAUNCHES``, counted by
+ops/swar_kernels.swar_stencil).
 
 The kernels read and write interleaved HWC u8 images in place: (H, W) for
 one channel, (H, W, 3) for three. Each wrapper takes its plain version only
@@ -867,18 +869,27 @@ KERNEL_WRAPPERS = {
 # K4 and K4g launches that ran K5 in each form (one per launch, however
 # many of its stencils took the form)
 K5_LAUNCHES = {"K5-bf16": 0, "K5-int8": 0}
+# launches of the SWAR kernels by kernel and mode, full and ghost
+# (ops/swar_kernels.swar_stencil counts them)
+SWAR_LAUNCHES = dict.fromkeys(
+    ("K6-narrow", "K6-wide", "K7", "K8", "K6g-narrow", "K6g-wide", "K7g", "K8g"), 0
+)
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last reset, and of each K5 form."""
-    return {**{k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}, **K5_LAUNCHES}
+    """Launches of each kernel since the last reset, of each K5 form, and of
+    each SWAR kernel and mode."""
+    return {
+        **{k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}, **K5_LAUNCHES, **SWAR_LAUNCHES
+    }
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
-    for form in K5_LAUNCHES:
-        K5_LAUNCHES[form] = 0
+    for counts in (K5_LAUNCHES, SWAR_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 # --------------------------------------------------------------------------

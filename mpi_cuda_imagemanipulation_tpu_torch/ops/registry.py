@@ -11,6 +11,7 @@ message instead of "unknown op".
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import numpy as np
@@ -111,8 +112,18 @@ def make_brightness_core(delta: float) -> Callable[[torch.Tensor], torch.Tensor]
     return brightness
 
 
+def make_brightness_lut(delta: float) -> np.ndarray:
+    """256-entry brightness table: the core's f32 add, clip and trunc."""
+    v = np.arange(256, dtype=np.float32) + np.float32(delta)
+    return np.floor(np.clip(v, 0.0, 255.0)).astype(np.uint8)
+
+
 def invert_core(x: torch.Tensor) -> torch.Tensor:
     return _f32(255.0) - x
+
+
+def invert_lut() -> np.ndarray:
+    return (255 - np.arange(256)).astype(np.uint8)
 
 
 def make_threshold_core(t: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -406,7 +417,9 @@ _GRAYSCALE601 = PointwiseOp(
     "grayscale601", 3, 1, fn=grayscale601_u8, planes_core=grayscale601_core,
     program=(PW_GRAYSCALE601, 0.0, 0.0),
 )
-_INVERT = pointwise_from_core("invert", 0, 0, invert_core, (PW_INVERT, 0.0, 0.0))
+_INVERT = pointwise_from_core(
+    "invert", 0, 0, invert_core, (PW_INVERT, 0.0, 0.0), lut_host=invert_lut
+)
 _GRAY2RGB = PointwiseOp(
     "gray2rgb", 1, 3, fn=gray2rgb_u8, program=(PW_GRAY2RGB, 0.0, 0.0)
 )
@@ -426,11 +439,13 @@ def _int_arg(arg: str | None, default: int) -> int:
 
 def _make_contrast(f: float) -> PointwiseOp:
     """Rounding-free factors (3.5, 3, any short binary fraction) use the f32
-    core the kernels interpret; other factors use a host-built table."""
+    core the kernels interpret, with the table it equals as `lut_host`;
+    other factors use a host-built table."""
     name = f"contrast{f:g}"
     if _contrast_rounding_free(f):
         return pointwise_from_core(
-            name, 1, 1, make_contrast_core(f), (PW_CONTRAST, _f32(f), 0.0)
+            name, 1, 1, make_contrast_core(f), (PW_CONTRAST, _f32(f), 0.0),
+            lut_host=partial(make_contrast_lut, f),
         )
     return make_lut_op(name, make_contrast_lut(f), in_channels=1, out_channels=1)
 
@@ -438,7 +453,8 @@ def _make_contrast(f: float) -> PointwiseOp:
 def _brightness(a: str | None) -> PointwiseOp:
     d = _float_arg(a, 0)
     return pointwise_from_core(
-        f"brightness{d:g}", 0, 0, make_brightness_core(d), (PW_BRIGHTNESS, _f32(d), 0.0)
+        f"brightness{d:g}", 0, 0, make_brightness_core(d), (PW_BRIGHTNESS, _f32(d), 0.0),
+        lut_host=partial(make_brightness_lut, d),
     )
 
 

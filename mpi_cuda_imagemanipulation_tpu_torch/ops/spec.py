@@ -240,6 +240,7 @@ class PointwiseOp:
     core: Callable[[torch.Tensor], torch.Tensor] | None = None
     planes_core: Callable | None = None
     program: tuple[int, float, float] | None = None
+    lut_host: Callable[[], np.ndarray] | None = None
 
     @property
     def kernel_safe(self) -> bool:
@@ -256,6 +257,7 @@ def pointwise_from_core(
     out_channels: int,
     core: Callable,
     program: tuple[int, float, float],
+    lut_host: Callable[[], np.ndarray] | None = None,
 ) -> PointwiseOp:
     """A PointwiseOp whose u8 path is cast -> core -> cast (lossless: core
     maps exact u8 integers to exact u8 integers)."""
@@ -264,7 +266,8 @@ def pointwise_from_core(
         return core(img.to(F32)).to(U8)
 
     return PointwiseOp(
-        name, in_channels, out_channels, fn=fn, core=core, program=program
+        name, in_channels, out_channels, fn=fn, core=core, program=program,
+        lut_host=lut_host,
     )
 
 

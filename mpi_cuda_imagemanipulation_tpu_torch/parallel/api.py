@@ -32,7 +32,11 @@ banded products (``ops/mxu_kernels.mxu_valid``) on the materialised
 extended tile, and every other op as ``cuda`` does; under plan 'pointwise'
 or 'fused' its stages walk with those products, and under
 'fused-pallas[-mxu]' a stage that takes no K4g launch runs as under plan
-'off'. On a CPU tile each kernel wrapper takes its plain version.
+'off'. ``swar`` (every plan resolves to 'off') runs each
+``[pre*, stencil, post*]`` group that ``_swar_group_ok`` admits on a gray
+tile as one K6g, K7g or K8g launch per shard (ops/swar_kernels.py ghost
+mode), and every other group as ``cuda`` does. On a CPU tile each kernel
+wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -59,6 +63,13 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     exact_f32,
     pad2d,
 )
+from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import (
+    _chain_fixes_zero,
+    post_chain_end,
+    swar_any_eligible,
+    swar_fusable,
+    swar_stencil,
+)
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.halo import (
     exchange_edge_strips,
     exchange_halo,
@@ -80,10 +91,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 # group's boundary outputs (cross-group prefetch). Output is byte-identical
 # either way.
 HALO_MODES = ("serial", "overlap")
-BACKENDS = ("torch", "cuda", "mxu", "auto")
-_NOT_PORTED_BACKENDS = {
-    "swar": "the SWAR kernels K6-K8 (ops/swar_kernels.py)",
-}
+BACKENDS = ("torch", "cuda", "mxu", "swar", "auto")
 _GLOBAL_NOT_PORTED = (
     "global-statistics ops (equalize, autocontrast, otsu) and their sharded "
     "all-reduce are not ported yet (ROADMAP.md, modules to port, item 5)"
@@ -197,7 +205,7 @@ class _Region:
     the decomposition, and each local shard's global row offset."""
 
     mesh: Mesh
-    backend: str  # 'torch' | 'cuda' | 'mxu'
+    backend: str  # 'torch' | 'cuda' | 'mxu' | 'swar'
     halo_mode: str
     n: int
     local_h: int
@@ -332,11 +340,11 @@ def _join_exchange(region: _Region, strips) -> None:
 
 def _apply_pointwise(region: _Region, chain, tile: torch.Tensor) -> torch.Tensor:
     """A pointwise chain on one tile: the golden ops under 'torch'; under
-    'cuda' and 'mxu' one K1 launch per kernel-safe run (lookup tables as
-    gathers)."""
+    'cuda', 'mxu' and 'swar' one K1 launch per kernel-safe run (lookup
+    tables as gathers)."""
     if not chain:
         return tile
-    if region.backend in ("cuda", "mxu"):
+    if region.backend in ("cuda", "mxu", "swar"):
         return ck.pipeline_cuda(chain, tile)
     for p in chain:
         tile = p.fn(tile)
@@ -367,9 +375,11 @@ def _stencil_on_ext(
     """Run one stencil over a (rows + 2h, W[, C]) pre-exchanged tile; `tile`
     holds the rows the output replaces and `y0` their global offset. Under
     'mxu' an eligible op takes the banded products and any other op K3, as
-    under 'cuda'."""
+    under 'cuda'; under 'swar' every op takes K3 (the materialised tiles of
+    pad rows and of the overlap structure have no SWAR form, as in the JAX
+    package)."""
     h = op.halo
-    if backend == "mxu" and not mxu_eligible(op):
+    if backend == "swar" or (backend == "mxu" and not mxu_eligible(op)):
         backend = "cuda"
     if backend == "cuda":
         q = ck.stencil_tile(op, ext.contiguous())  # K3, every channel at once
@@ -435,6 +445,41 @@ def _apply_group_fused(region: _Region, pointwise, stencil: StencilOp, tiles):
         out.append(ck.stream_stencil_ghost(
             list(pointwise), stencil, tile, top.contiguous(), bottom.contiguous(),
             y0=y0, image_h=region.global_h, image_w=region.global_w,
+        ))
+    return out
+
+
+def _swar_group_ok(region: _Region, pointwise, op: StencilOp, tiles) -> bool:
+    """Whether one [pointwise*, stencil] group can take the SWAR ghost path
+    on these tiles: a single u8 plane the op is shape-eligible on, no pad
+    rows inside the tile (strip edge synthesis is whole-strip), every
+    buffered pointwise op fits an exact affine chain, and (zero mode only)
+    the composed chain fixes 0, so that chain and padding commute."""
+    return (
+        tiles[0].ndim == 2
+        and not region.padded
+        and region.local_h > op.halo
+        and swar_any_eligible(op, (region.local_h, tiles[0].shape[1]))
+        and all(swar_fusable(p) is not None for p in pointwise)
+        and (op.edge_mode != "zero" or _chain_fixes_zero(pointwise))
+    )
+
+
+def _apply_group_swar(region: _Region, pointwise, stencil: StencilOp, tiles, post=()):
+    """Run one [pointwise*, stencil, pointwise*] group as a single SWAR
+    ghost-mode launch per shard (K6g, K7g or K8g): the ghost strips are
+    exchanged raw (per-pixel chains commute with strip selection), and the
+    fitted chains run inside the kernel, on the strips too, so the shard's
+    tile streams exactly as the unsharded SWAR path does, post-chain
+    included. The caller gates with _swar_group_ok."""
+    tops, bottoms = exchange_halo_strips(tiles, stencil.halo, region.mesh)
+    out = []
+    for tile, top, bottom, y0 in zip(tiles, tops, bottoms, region.y0s):
+        top, bottom = _fix_edge_strips(top, bottom, tile, stencil, y0, region.global_h)
+        out.append(swar_stencil(
+            stencil, tile, pre_ops=tuple(pointwise), post_ops=tuple(post),
+            ghosts=(top.contiguous(), bottom.contiguous()), y0=y0,
+            global_h=region.global_h,
         ))
     return out
 
@@ -592,11 +637,21 @@ def _walk_groups(region: _Region, ops, tiles):
                 prefetch = (pre[0], pre[1], nxt.halo)
             tiles = [torch.cat(p, dim=0) for p in pieces]
             continue
+        # SWAR ghost path: an eligible group runs as one K6g/K7g/K8g launch
+        # per shard, with its post-chain as pipeline_swar takes it. Other
+        # groups fall through to the 'cuda' paths below.
+        if region.backend == "swar" and _swar_group_ok(region, pending, op, tiles):
+            group = list(pending)
+            pending.clear()
+            end = post_chain_end(ops, i)
+            tiles = _apply_group_swar(region, group, op, tiles, ops[i:end])
+            i = end
+            continue
         # Fused-ghost fast path: no pad rows inside the tile
         # (pad-to-multiple needs position-dependent edge fixes), halo >= 1,
         # a mode the streaming kernel supports, and enough local rows for
         # strip synthesis. Under 'mxu' only ops without banded products.
-        kernel_group = region.backend == "cuda" or (
+        kernel_group = region.backend in ("cuda", "swar") or (
             region.backend == "mxu" and not mxu_eligible(op)
         )
         fusible = (
@@ -851,18 +906,14 @@ def sharded_pipeline(
     stage-halo ghost-strip pair per fused stage, temporal blocking over the
     wire, instead of one per stencil op. 'auto' resolves as
     plan/planner.resolve_plan_mode says ('fused' under 'torch' and 'mxu',
-    'off' under 'cuda') and stays 'off' under halo_mode='overlap', whose
+    'off' under 'cuda'; every plan is 'off' under 'swar') and stays 'off'
+    under halo_mode='overlap', whose
     per-group prefetch structure only an explicit plan request
     restructures. Under 'fused-pallas-mxu' each stencil's in-stage arm is
     forced on (K5 under 'cuda' and 'mxu', its plain version in the walker
     under 'torch'); a stage's arms are resolved, and counted in
     `plan_metrics`, once per built function, at the stage's first
     launch."""
-    if backend in _NOT_PORTED_BACKENDS:
-        raise ValueError(
-            f"backend {backend!r} needs {_NOT_PORTED_BACKENDS[backend]}, which "
-            "the port has not ported yet; use 'cuda', 'mxu' or 'torch'"
-        )
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     if halo_mode not in HALO_MODES:

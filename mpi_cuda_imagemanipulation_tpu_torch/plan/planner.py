@@ -28,6 +28,9 @@ it resolves as the JAX package does when nothing was recorded):
     with the whole-op banded products).
   * ``cuda`` plays the JAX package's ``auto``: ``auto`` -> ``off``, so the
     K1/K2 group route stays the default.
+  * ``swar`` is the JAX package's ``swar``, a self-fusing backend: its
+    kernels fuse each group in-stream, so every plan resolves to ``off``
+    (an explicit one is logged and ignored).
 
 Under ``cuda``, the stage-walker modes ``pointwise`` and ``fused`` are
 refused: the walker is plain PyTorch, which the ``cuda`` backend never
@@ -35,6 +38,8 @@ runs on the card. They run under ``torch`` and ``mxu``.
 """
 
 from __future__ import annotations
+
+import logging
 
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import op_family
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
@@ -45,7 +50,10 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 PLAN_MODES = ("auto", "off", "pointwise", "fused", "fused-pallas",
               "fused-pallas-mxu")
 BUILD_MODES = ("off", "pointwise", "fused", "fused-pallas", "fused-pallas-mxu")
-BACKENDS = ("torch", "cuda", "mxu")
+BACKENDS = ("torch", "cuda", "mxu", "swar")
+# backends whose kernels fuse their own groups in-stream: the planner must
+# not restructure what they already fused (ops/swar_kernels.swar_stencil)
+_SELF_FUSING_BACKENDS = ("swar",)
 
 # geometric ops that are pure pixel permutations with unchanged (H, W): a
 # per-pixel op commutes with them exactly, so fusing modes hoist them left
@@ -68,6 +76,13 @@ def resolve_plan_mode(ops, plan: str = "auto", *, backend: str = "torch") -> str
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     mode = _norm_mode(plan)
+    if backend in _SELF_FUSING_BACKENDS:
+        if mode not in ("auto", "off"):
+            logging.getLogger(__name__).info(
+                "plan=%s ignored for backend %r (its kernels fuse groups in-stream "
+                "already); running per-op", mode, backend,
+            )
+        return "off"
     if mode == "auto":
         return "off" if backend == "cuda" else "fused"
     if backend == "cuda" and mode in ("pointwise", "fused"):

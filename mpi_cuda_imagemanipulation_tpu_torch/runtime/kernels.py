@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("pointwise", "stream_stencil", "fused_stage")
+SOURCES = ("pointwise", "stream_stencil", "fused_stage", "swar_stencil")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 # Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
-# fused_stage.cu).
+# fused_stage.cu, swar_stencil.cu).
 PW_MAX_OPS = 8
 ST_MAX_K = 7
 FS_MAX_OPS = 24
@@ -50,6 +50,8 @@ FS_OP_STENCIL = 100
 KERNEL_PARAM_BYTES = 4096
 # FsProgram.arm: each stencil's in-stage arm (FS_ARM_* in fused_stage.cu)
 FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
+SW_MAX_CHAIN = 16
+SW_MAX_TAPS = 512
 
 
 class PwProgram(ctypes.Structure):
@@ -87,6 +89,31 @@ class FsProgram(ctypes.Structure):
         ("n_stencils", ctypes.c_int),
         ("st", StencilDesc * FS_MAX_STENCILS),
         ("arm", ctypes.c_int * FS_MAX_STENCILS),
+    ]
+
+
+class SwarDesc(ctypes.Structure):
+    """One SWAR stencil (K6, K7 or K8) with its fused affine chains:
+    ``chain`` holds the ``n_pre`` pre-chain steps, then the ``n_post``
+    post-chain steps, each (neg, A, C, m); ``taps`` K6's 1-D taps, or K7's
+    and K8's nonzero taps as (dy * (2 halo + 1) + dx, weight) pairs, kernel
+    0 first. 2612 bytes."""
+
+    _fields_ = [
+        ("kind", ctypes.c_int),
+        ("halo", ctypes.c_int),
+        ("edge_mode", ctypes.c_int),
+        ("quantize", ctypes.c_int),
+        ("combine", ctypes.c_int),
+        ("interior", ctypes.c_int),
+        ("scale", ctypes.c_float),
+        ("shift", ctypes.c_int),
+        ("bias", ctypes.c_int),
+        ("n_taps", ctypes.c_int * 2),
+        ("n_pre", ctypes.c_int),
+        ("n_post", ctypes.c_int),
+        ("chain", (ctypes.c_int * 4) * (2 * SW_MAX_CHAIN)),
+        ("taps", ctypes.c_int * SW_MAX_TAPS),
     ]
 
 
@@ -201,4 +228,13 @@ def load(name: str) -> ctypes.CDLL:
         lib.k5_sums_launch.restype = ci
         lib.fused_stage_program_bytes.argtypes = []
         lib.fused_stage_program_bytes.restype = ll
+    elif name == "swar_stencil":
+        lib.swar_stencil_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ci, vp,
+        ]
+        lib.swar_stencil_launch.restype = ci
+        lib.swar_smem_bytes.argtypes = [ci, ci, ci]
+        lib.swar_smem_bytes.restype = ll
+        lib.swar_desc_bytes.argtypes = []
+        lib.swar_desc_bytes.restype = ll
     return lib

@@ -532,7 +532,8 @@ def test_wrappers_with_k5_arms_match_golden_on_cpu(spec):
             assert torch.equal(ck.fused_stage_plain(ops, img, arms=arms), golden)
     ck.reset_launch_counts()
     assert ck.launch_counts() == dict.fromkeys(
-        ["K1", "K2", "K2g", "K3", "K4", "K4g", "K5-bf16", "K5-int8"], 0)
+        ["K1", "K2", "K2g", "K3", "K4", "K4g", "K5-bf16", "K5-int8", "K6-narrow", "K6-wide",
+         "K7", "K8", "K6g-narrow", "K6g-wide", "K7g", "K8g"], 0)
 
 
 # --------------------------------------------------------------------------

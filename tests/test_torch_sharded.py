@@ -445,9 +445,8 @@ def test_sharded_validation():
         pipe.sharded(cpu_mesh(2), halo_mode="pipelined")
     with pytest.raises(ValueError, match="unknown backend"):
         pipe.sharded(cpu_mesh(2), backend="xla")
-    with pytest.raises(ValueError, match="K6-K8"):
-        pipe.sharded(cpu_mesh(2), backend="swar")
-    img = synthetic_image(16, 24, channels=1, seed=3)  # K5 is ported: the mxu backend runs
+    img = synthetic_image(16, 24, channels=1, seed=3)  # K5 to K8 are ported: mxu and swar run
+    assert torch.equal(pipe.sharded(cpu_mesh(2), backend="swar")(img), pipe(torch.from_numpy(img)))
     assert torch.equal(pipe.sharded(cpu_mesh(2), backend="mxu")(img), pipe(torch.from_numpy(img)))
     with pytest.raises(ValueError, match="stage-walker mode"):
         pipe.sharded(cpu_mesh(2), backend="cuda", plan="fused")

@@ -406,11 +406,14 @@ def test_k4g_tile_algorithm_matches_plain(spec, channels):
 def test_launch_counts_cover_every_kernel():
     ck.reset_launch_counts()
     assert ck.launch_counts() == {"K1": 0, "K2": 0, "K2g": 0, "K3": 0, "K4": 0, "K4g": 0,
-                                  "K5-bf16": 0, "K5-int8": 0}
+                                  "K5-bf16": 0, "K5-int8": 0, "K6-narrow": 0, "K6-wide": 0,
+                                  "K7": 0, "K8": 0, "K6g-narrow": 0, "K6g-wide": 0, "K7g": 0,
+                                  "K8g": 0}
     ck.stencil_tile.launches = 3
-    assert ck.launch_counts()["K3"] == 3
+    ck.SWAR_LAUNCHES["K7g"] = 2
+    assert ck.launch_counts()["K3"] == 3 and ck.launch_counts()["K7g"] == 2
     ck.reset_launch_counts()
-    assert ck.stencil_tile.launches == 0
+    assert ck.stencil_tile.launches == 0 and ck.SWAR_LAUNCHES["K7g"] == 0
 
 
 # --------------------------------------------------------------------------
