@@ -34,7 +34,15 @@ printing a result:
    checkerboard and row-ramp planes and on the first, a middle and the last
    1080x7680 shard tile of the 8K gray frame. A small input is also held
    against the loop-level emulator of the reference program
-   (tests/_c_reference.py).
+   (tests/_c_reference.py). The tools' kernels: T4's copies (u8, f32, u32
+   words, u32 at full element count, f32 at the packed size) at every
+   block height, its shared-memory copy and its bitcast pair, on the 8K
+   plane, on 36/44/37-row planes (one 100 wide: the element path) and on
+   all-0, all-255 and checkerboard planes; T2 and T3 on their JAX
+   self-tests' shapes and tile heights (ragged ones too), on those planes
+   and at 8K, T3 also against the golden gaussian:5. Then the SWAR chains
+   past the old limits: K6 after 17 and 40 fused steps, K8 with a 23x23
+   filter (1058 tap words), and `run --impl swar` on a 17-step chain at 8K.
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -49,7 +57,9 @@ printing a result:
    their launches (K1, K6, K7, K8, and K2 for the colour gaussian:5), and
    ``Pipeline.sharded(backend='swar')`` on the 8K gray frame: one K7g, K6g
    or K8g per shard and one exchange round per group, no SWAR launch at
-   4323 rows or under overlap.
+   4323 rows or under overlap. Then the tools' entry points in-process
+   (`roofline_probe --quick`, the `packed_proto` self-test, `swar_proto
+   --quick`), each with its launches counted, their records printed.
 3. Numbers: CUDA-event times of each kernel and its plain version at the
    main paths' shapes (the ghost modes at the 1080x7680 shard), the bound
    from bytes and operations, a PyTorch library call as a yardstick where
@@ -57,7 +67,10 @@ printing a result:
    to end under both plans, sharded beside unsharded; K5 per form beside
    the VPU arm, and the tensor-core paths end to end; K6, K7 and K8 on the
    SWAR paths' groups (8K gray plane, and ghost mode on one shard) beside
-   K2 on the same group, and the SWAR paths end to end.
+   K2 on the same group, and the SWAR paths end to end; T4's kernels at the
+   probe's 8K shapes beside `copy_`, the probe's copy rates as a share of
+   3.35 TB/s, T2 at 8K beside K1 on the same group, T3 at 8K beside K6
+   narrow and K2 on the same plane.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1094,6 +1107,297 @@ def phase3_swar(device, x8k, gray8k, swar_launches, record):
               f"swar {times['swar']:.4f} ms, cuda {times['cuda']:.4f} ms")
 
 
+# --------------------------------------------------------------------------
+# The tools' kernels: T4 (roofline_probe), T2 (packed_proto), T3 (swar_proto)
+# --------------------------------------------------------------------------
+
+
+def tool_planes(shape, device, seed=1):
+    """A seeded u8 plane of `shape`, then all 0 and all 255 and a 0/255
+    checkerboard."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+
+    seeded = torch.from_numpy(synthetic_image(*shape, channels=1, seed=seed)).to(device)
+    return [seeded] + extreme_inputs(shape, 1, device)[:3]
+
+
+def phase1_tools(device, gray8k) -> int:
+    """T4's copies and bitcasts, T2 and T3 against their plain versions, byte
+    for byte; T3 unpacked against the golden gaussian:5; then the SWAR
+    chains past the old 16-step limit (17 and 40 steps) and a filter past
+    the old 512 tap words, on K6 and K8. Returns the case count."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_proto as pp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import roofline_probe as rp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
+
+    n = 0
+    probe8k = torch.from_numpy(synthetic_image(rp.H, rp.W, channels=1, seed=99)).to(device)
+    # T4: the probe's five arrays at its block heights on the 8K plane, then
+    # small and odd shapes (W = 100: no 16-byte rows, the element path) and
+    # flat planes at every block height
+    arrays = [probe8k, probe8k.float(), pp.pack_u8(probe8k), probe8k.to(torch.int32),
+              probe8k.float()[:, : rp.W // 4].contiguous()]
+    small = [p for shape in ((36, 96), (44, 96), (37, 100)) for p in tool_planes(shape, device)]
+    for x in arrays + small + [p.float() for p in small] + [p.to(torch.int32) for p in small]:
+        for bh in rp.BLOCK_HEIGHTS + (1, 7):
+            check_equal(f"T4 copy {tuple(x.shape)} {x.dtype} bh={bh}", rp.copy_probe(x, bh),
+                        rp.copy_probe_plain(x))
+            n += 1
+    for x in [probe8k] + [p for p in small if p.shape[1] % 16 == 0]:
+        for bh in rp.BLOCK_HEIGHTS + (5,):
+            check_equal(f"T4 smem copy {tuple(x.shape)} bh={bh}", rp.smem_copy(x, bh), x)
+            n += 1
+    for x in [probe8k] + [p for p in small if p.shape[0] % 4 == 0 and p.shape[1] % 4 == 0]:
+        for bh in rp.BLOCK_HEIGHTS + (8, 12):
+            words = rp.bitcast_store(x, bh)
+            check_equal(f"T4 bitcast store {tuple(x.shape)} bh={bh}", words,
+                        rp.bitcast_store_plain(x))
+            for lbh in (bh // 4, bh, 3):
+                check_equal(f"T4 bitcast load {tuple(words.shape)} bh={lbh}",
+                            rp.bitcast_load(words, lbh), x)
+            n += 4
+    # T2: the JAX self-test's shape and tile heights (24 leaves a ragged last
+    # block), odd shapes, flat and checkerboard planes, the 8K frame
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+
+    chain = make_pipeline_ops(pp.CHAIN)
+    for shape, bhs in (((64, 256), (24, 128)), ((37, 128), (16, 5)), ((36, 96), (128,)),
+                       ((MAIN_H, MAIN_W), (128, 96))):
+        planes = tool_planes(shape, device, seed=shape[0])
+        for i, p in enumerate(planes):
+            rgb = [p, planes[(i + 1) % len(planes)], planes[(i + 2) % len(planes)]]
+            words = [pp.pack_u8(q) for q in rgb]
+            golden = torch.stack(rgb, dim=-1)
+            for op in chain:
+                golden = op(golden)
+            for bh in bhs:
+                got = pp.packed_gray_contrast(*words, block_h=bh)
+                check_equal(f"T2 {shape} plane {i} bh={bh}", got,
+                            pp.packed_gray_contrast_plain(*words))
+                check_equal(f"T2 {shape} plane {i} bh={bh} vs golden", pp.unpack_u32(got), golden)
+                n += 1
+    pp.selftest(device)
+    # T3: the JAX gate's shapes and ragged heights, flat and checkerboard
+    # planes, the 8K plane at the timed block heights; unpacked == golden
+    golden5 = Pipeline.parse("gaussian:5")
+    for shape, bhs in (((48, 64), (16,)), ((37, 64), (16, 5)), ((50, 64), (24,)),
+                       ((130, 256), (120, 7)), ((MAIN_H, MAIN_W), sp.BLOCK_HEIGHTS)):
+        for i, p in enumerate(tool_planes(shape, device, seed=shape[0])):
+            ext = sp.pack_quarters(sp.reflect_pad(p))
+            want = sp.swar_words_plain(ext)
+            for bh in bhs:
+                got = sp.swar_proto(ext, bh)
+                check_equal(f"T3 {shape} plane {i} bh={bh}", got, want)
+                check_equal(f"T3 {shape} plane {i} bh={bh} vs golden", sp.unpack_quarters(got),
+                            golden5(p))
+                n += 1
+    sp.bitexact_gate(device)
+    n += phase1_swar_chains(device, gray8k)
+    torch.cuda.synchronize()
+    print(f"phase 1: T4 copies and bitcasts, T2, T3 and the long SWAR chains equal to their "
+          f"plain versions (max_abs_err 0): {n} cases")
+    return n
+
+
+def phase1_swar_chains(device, gray8k) -> int:
+    """K6 with 17 and 40 pre-chain steps (and a post-chain), K8 with a 23x23
+    integer filter (1058 tap words), against their plain versions; and the
+    17-step pipeline through `run --impl swar` at 8K, equal to golden with
+    one K6 launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import run_image
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op, make_pipeline_ops
+
+    n = 0
+    plane = torch.from_numpy(synthetic_image(257, 300, channels=1, seed=4)).to(device)
+    st = make_op("gaussian:5")
+    for steps, post in ((17, ()), (40, ("invert", "brightness:-3"))):
+        pre = make_pipeline_ops(",".join(["brightness:1"] * steps))
+        post_ops = tuple(make_op(s) for s in post)
+        pc, qc = tuple(map(sk.swar_fusable, pre)), tuple(map(sk.swar_fusable, post_ops))
+        for x in (plane, gray8k):
+            want = sk.swar_stencil_plain(st, x, pre_chain=pc, post_chain=qc)
+            for tile_h in (None, 7):
+                check_equal(f"K6 gaussian:5 after {steps} steps {tuple(x.shape)} tile_h={tile_h}",
+                            sk.swar_stencil(st, x, pre_ops=pre, post_ops=post_ops,
+                                            block_h=tile_h), want)
+                n += 1
+    big = dataclasses.replace(make_op("sobel"), name="ones23", halo=11,
+                              kernels=(np.ones((23, 23), np.float32),), combine="single",
+                              scale=1.0 / 529)
+    assert sk.swar_kind(big) == "K8"
+    for x in (plane, gray8k[:1080]):
+        check_equal(f"K8 23x23 filter {tuple(x.shape)}", sk.swar_stencil(big, x),
+                    sk.swar_stencil_plain(big, x))
+        n += 1
+    spec = "grayscale," + ",".join(["brightness:1"] * 17) + ",gaussian:5"
+    pipe = Pipeline.parse(spec)
+    x8k = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
+    want = run_image(pipe, x8k, impl="torch", device=device, plan="off")
+    ck.reset_launch_counts()
+    out = run_image(pipe, x8k, impl="swar", device=device, plan="off")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    check_equal("swar path with a 17-step chain", out, want)
+    if counts != {"K1": 2, "K6-narrow": 1}:
+        raise AssertionError(f"swar path with a 17-step chain: launches {counts}")
+    print(f"phase 1: {spec.split(',')[0]} + 17 x brightness:1 + gaussian:5 impl=swar at "
+          f"{MAIN_H}x{MAIN_W}: == golden, launches {counts}")
+    return n + 1
+
+
+def phase2_tools(device) -> dict:
+    """The tools' entry points on the card, in-process: `roofline_probe
+    --quick`, the `packed_proto` self-test and `swar_proto --quick`, each
+    with the launch counts set to 0 before it and read after it. Prints
+    their records; fails if a tool's kernels were not launched or a record
+    is missing. Returns {tool: (launch counts, best records)}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_proto as pp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import roofline_probe as rp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
+
+    # tool -> (entry point, arguments, kernels it must launch, best records wanted)
+    tools = {
+        "roofline_probe": (rp.main, ["--quick"],
+                           ("T4-copy", "T4-smem-copy", "T4-bitcast-store", "T4-bitcast-load",
+                            "K2"), 11),
+        "packed_proto": (pp.main, [], ("T2",), 0),
+        "swar_proto": (sp.main, ["--quick"], ("T3", "K2", "K6-narrow"), 8),
+    }
+    runs = {}
+    name = torch.cuda.get_device_name(0)
+    for tool, (entry, argv, kernels, n_best) in tools.items():
+        buf = io.StringIO()
+        ck.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = entry(argv)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"  {tool}: {line}")
+        best = [json.loads(ln) for ln in lines if ln.startswith("{") and '"stat"' in ln]
+        missing = [k for k in kernels if not counts.get(k)]
+        if rc != 0 or missing or len(best) != n_best:
+            raise AssertionError(f"{' '.join([tool] + argv)}: rc {rc}, launches {counts}, "
+                                 f"kernels not launched {missing}, {len(best)} best records")
+        if any(r["device"] != name or r["clock"] != "cuda events" for r in best):
+            raise AssertionError(f"{tool}: records not from the card: {best}")
+        runs[tool] = (counts, best)
+        print(f"phase 2: {' '.join([tool] + argv)} on the card: launches {counts}")
+    return runs
+
+
+def phase3_tools(device, gray8k, tool_runs, record):
+    """T4's kernels, T2 and T3 at their tools' shapes (the 8K plane or
+    frame), each held against its plain version with `record`; K1 on T2's
+    group and frame, and K2 and K6 narrow on T3's plane, timed beside them
+    in the same run; the probe's copy rates as a share of the data sheet's
+    3.35 TB/s."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op, make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_proto as pp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import roofline_probe as rp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    csrc = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/"
+    probe = "tools/roofline_probe.py"
+    n_pix = rp.H * rp.W
+    t4 = tool_runs["roofline_probe"][0]
+    x = torch.from_numpy(synthetic_image(rp.H, rp.W, channels=1, seed=99)).to(device)
+    for label, arr, c in (("u8", x, 1), ("f32", x.float(), 4), ("u32 packed", pp.pack_u8(x), 4)):
+        out = torch.empty_like(arr)
+        record(f"T4 copy_probe [{label} {tuple(arr.shape)}, block_h 128]", csrc + "copy_probe.cu",
+               f"{probe}:88", t4["T4-copy"], lambda arr=arr: rp.copy_probe(arr, 128),
+               lambda arr=arr: rp.copy_probe_plain(arr), c, c, [], n_pix=arr.numel(),
+               library=lambda out=out, arr=arr: out.copy_(arr))
+    out = torch.empty_like(x)
+    record(f"T4 smem_copy [u8 {tuple(x.shape)}, block_h 128] for the lagged copy",
+           csrc + "copy_probe.cu", f"{probe}:158", t4["T4-smem-copy"],
+           lambda: rp.smem_copy(x, 128), lambda: rp.copy_probe_plain(x), 1, 1, [],
+           library=lambda: out.copy_(x))
+    words = rp.bitcast_store(x, 128)
+    pack_view = x.view(rp.H // 4, 4, rp.W).transpose(1, 2)
+    unpack_view = words.view(torch.uint8).view(rp.H // 4, rp.W, 4).transpose(1, 2)
+    record("T4 bitcast_store [u8 -> u32 sublane words, block_h 128]", csrc + "copy_probe.cu",
+           f"{probe}:217", t4["T4-bitcast-store"], lambda: rp.bitcast_store(x, 128),
+           lambda: rp.bitcast_store_plain(x), 1, 1, [], library=lambda: pack_view.contiguous())
+    record("T4 bitcast_load [u32 sublane words -> u8, block_h 128]", csrc + "copy_probe.cu",
+           f"{probe}:232", t4["T4-bitcast-load"], lambda: rp.bitcast_load(words, 128),
+           lambda: rp.bitcast_load_plain(words), 1, 1, [],
+           library=lambda: unpack_view.contiguous())
+    del words, out
+    sweep = []
+    for label, arr in (("u8", x), ("f32", x.float())):
+        for bh in rp.BLOCK_HEIGHTS:
+            ms = device_time_ms(lambda arr=arr, bh=bh: rp.copy_probe(arr, bh), reps=7)
+            sweep.append(f"{label} bh {bh}: {ms:.4f} ms "
+                         f"({2 * arr.numel() * arr.element_size() / ms / 1e6:.0f} GB/s)")
+    for bh in rp.BLOCK_HEIGHTS:
+        ms = device_time_ms(lambda bh=bh: rp.smem_copy(x, bh), reps=7)
+        sweep.append(f"shared-memory u8 bh {bh}: {ms:.4f} ms ({2 * x.numel() / ms / 1e6:.0f} GB/s)")
+    print("  T4 copies by block height in this run: " + "; ".join(sweep))
+    for rec in tool_runs["roofline_probe"][1]:
+        if rec.get("gb_s") and "copy" in rec["case"]:
+            print(f"  copy rate {rec['case']} block_h {rec.get('block_h')}: {rec['gb_s']:.1f} "
+                  f"GB/s, {rec['gb_s'] / (H100_BYTES_PER_S / 1e9):.1%} of 3.35 TB/s "
+                  f"({rec['device']}, {rec['power_limit']})")
+
+    # T2 at 8K beside K1 on the same group and frame
+    rgb = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
+    planes = [pp.pack_u8(rgb[..., c].contiguous()) for c in range(3)]
+    chain = list(make_pipeline_ops(pp.CHAIN))
+    record("T2 packed_gray_contrast [grayscale,contrast3.5] 8K, block_h 128",
+           csrc + "packed_proto.cu", "tools/packed_proto.py:141",
+           tool_runs["packed_proto"][0]["T2"], lambda: pp.packed_gray_contrast(*planes),
+           lambda: pp.packed_gray_contrast_plain(*planes), 3, 1, chain, n_pix=MAIN_H * MAIN_W)
+    t_k1 = device_time_ms(lambda: ck.pointwise_group(chain, rgb), reps=7)
+    t_bh = {bh: device_time_ms(lambda bh=bh: pp.packed_gray_contrast(*planes, block_h=bh), reps=7)
+            for bh in (8, 32, 512)}
+    print(f"  K1 on the same group and frame ((H, W, 3) u8 in, gray out) in this run: "
+          f"{t_k1:.4f} ms; T2 at block_h " +
+          ", ".join(f"{bh}: {t:.4f} ms" for bh, t in t_bh.items()))
+    del planes, rgb
+
+    # T3 at 8K (bh 240) beside K6 narrow and K2 on the same plane
+    g5 = make_op("gaussian:5")
+    ext = sp.pack_quarters(sp.reflect_pad(x))
+    record("T3 swar_proto [gaussian5] quarter-strip words 8K, bh 240", csrc + "swar_proto.cu",
+           "tools/swar_proto.py:122", tool_runs["swar_proto"][0]["T3"],
+           lambda: sp.swar_proto(ext, 240), lambda: sp.swar_words_plain(ext), 1, 1, [g5],
+           strip_bytes=ext.numel() * 4 - n_pix, library=conv_library(g5, x, pad_rows=True))
+    t_k6 = device_time_ms(lambda: sk.swar_stencil(g5, x), reps=7)
+    t_k2 = device_time_ms(lambda: ck.stream_stencil([], g5, x), reps=7)
+    t_e2e = device_time_ms(lambda: sp.gaussian5(x, 240), reps=7)
+    print(f"  on the same 8K gray plane in this run: K6 narrow {t_k6:.4f} ms, K2 {t_k2:.4f} ms, "
+          f"T3 with pad, pack and unpack {t_e2e:.4f} ms")
+
+
 def op_count(ops, n_pix: int, c_in: int) -> int:
     """Float32 operations a group or stage does per image, counted from its
     ops: each pointwise op per pixel, each stencil per pixel and plane."""
@@ -1166,7 +1470,8 @@ def conv_library(op, x, pad_rows: bool):
     return lambda: F.conv2d(xf, weight, groups=c)
 
 
-def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches):
+def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
+           tool_runs):
     from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
@@ -1291,6 +1596,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
     del graym
     phase3_k5(device, x8k, mxu_launches, record)
     phase3_swar(device, x8k, gray8k, swar_launches, record)
+    phase3_tools(device, gray8k, tool_runs, record)
 
     # each path's bound: every launch reads its input and writes its output
     # once (gray paths: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B),
@@ -1602,11 +1908,14 @@ def main() -> int:
     phase1_k5_sums(device, x8k)
     gray8k = Pipeline.parse("grayscale").jit("torch", device=device, plan="off")(x8k)
     phase1_swar(device, gray8k)
+    phase1_tools(device, gray8k)
     launches = phase2(device, x8k)
     sharded_launches = phase2_sharded(device, x8k)
     mxu_launches = phase2_mxu(device, x8k)
     swar_launches = phase2_swar(device, x8k, gray8k)
-    rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches)
+    tool_runs = phase2_tools(device)
+    rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
+                  tool_runs)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

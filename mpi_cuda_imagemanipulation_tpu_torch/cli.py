@@ -1,7 +1,8 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch run|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
-through the hand-written kernels (``--impl cuda``), the tensor-core route
+through the hand-written kernels (``--impl auto``, the default, runs what
+``--impl cuda`` runs), the tensor-core route
 (``--impl mxu``), the SWAR kernels (``--impl swar``) or PyTorch ops
 (``--impl torch``), in the execution structure ``--plan`` selects
 (models/pipeline.py says what each pair runs). ``--shards N`` row-shards
@@ -41,9 +42,11 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument(
         "--impl",
-        choices=("cuda", "mxu", "swar", "torch"),
-        default="cuda",
-        help="cuda: the hand-written kernels, one launch per op group; "
+        choices=("auto", "cuda", "mxu", "swar", "torch"),
+        default="auto",
+        help="auto (default): every eligible op group on its hand-written "
+        "kernel, which is what cuda runs; "
+        "cuda: the hand-written kernels, one launch per op group; "
         "mxu: eligible stencils as banded matrix products (torch.matmul), "
         "the other ops as under cuda; swar: eligible stencils on a gray plane, "
         "with fusable contrast/brightness/invert neighbours, as one launch of "
@@ -244,6 +247,10 @@ KERNELS = (
     "K6 separable SWAR stencil, narrow and wide (swar_stencil.cu)",
     "K7 SWAR 2-D correlation on 16-bit fields (swar_stencil.cu)",
     "K8 SWAR 2-D correlation on 32-bit lanes (swar_stencil.cu)",
+    "T4 copy-rate probe: tiled, shared-memory and bitcast copies (copy_probe.cu; "
+    "tools.roofline_probe)",
+    "T2 pointwise chain on packed words (packed_proto.cu; tools.packed_proto)",
+    "T3 5x5 Gaussian on quarter-strip words (swar_proto.cu; tools.swar_proto)",
 )
 
 

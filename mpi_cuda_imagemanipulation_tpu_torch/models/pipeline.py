@@ -20,6 +20,8 @@
   resolves to ``'off'``: `pipeline_swar` runs each eligible
   ``[pre*, stencil, post*]`` group on a gray plane as one launch of K6, K7
   or K8, and every other op through the K1/K2 group runner.
+* ``backend='auto'`` : every eligible group takes its hand kernel, which
+  is ``'cuda'`` (the port has no calibration store to route by).
 
 ``Pipeline.sharded`` runs the same pipeline row-sharded over a mesh of
 devices with ghost-strip exchange (parallel/api.py).
@@ -53,8 +55,15 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import (
     resolve_device,
 )
 
-BACKENDS = ("torch", "cuda", "mxu", "swar")
+BACKENDS = ("torch", "cuda", "mxu", "swar", "auto")
 __all__ = ["BACKENDS", "PLAN_MODES", "Pipeline", "reference_cpu_pipeline", "reference_pipeline"]
+
+
+def _resolve_backend(backend: str) -> str:
+    """`backend` checked against BACKENDS, with 'auto' resolved to 'cuda'."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    return "cuda" if backend == "auto" else backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +98,7 @@ class Pipeline:
     def _planned_callable(self, backend: str, plan: str, block_h: int | None = None):
         """The plan executor for this (backend, plan) pair, or None when the
         plan resolves to per-op execution (plan/planner.resolve_plan_mode)."""
+        backend = _resolve_backend(backend)
         mode = resolve_plan_mode(self.ops, plan, backend=backend)
         if mode == "off":
             return None
@@ -100,8 +110,7 @@ class Pipeline:
         return plan_callable(built, impl=impl, mxu_stage=mxu_stage)
 
     def _callable(self, backend: str, block_h: int | None = None, plan: str = "auto"):
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+        backend = _resolve_backend(backend)
         planned = self._planned_callable(backend, plan, block_h)
         if planned is not None:
             return planned

@@ -55,6 +55,10 @@
 //           (__vsubus2, __vminu2) replace the TPU kernel's sign-probe
 //           helpers: they give the same field values under the < 2^15
 //           bound the host's affine fitter and eligibility gates keep.
+//           The chains and the taps, of any length (the TPU kernels bake
+//           them into the traced program), come from a table in device
+//           memory that the host builds once per group; each block copies
+//           it into shared memory ahead of its window.
 
 #include <stdint.h>
 
@@ -63,8 +67,6 @@
 #define SW_TILE_W 128
 #define SW_PAIRS (SW_TILE_W / 2)
 #define SW_THREADS 256
-#define SW_MAX_CHAIN 16
-#define SW_MAX_TAPS 512
 
 enum SwKind { SW_K6_NARROW = 0, SW_K6_WIDE = 1, SW_K7 = 2, SW_K8 = 3 };
 enum SwEdge {
@@ -75,7 +77,7 @@ enum SwEdge {
 };
 
 // One SWAR stencil with its fused chains (ops/swar_kernels.swar_desc
-// builds it; runtime/kernels.SwarDesc has the same layout).
+// builds it and its table; runtime/kernels.SwarDesc has the same layout).
 struct SwarDesc {
   int kind;       // SwKind
   int halo;
@@ -89,19 +91,31 @@ struct SwarDesc {
   int n_taps[2];  // K6: the 1-D taps' length; K7, K8: nonzero taps per kernel
   int n_pre;
   int n_post;
-  int chain[2 * SW_MAX_CHAIN][4];  // pre steps, then post steps: neg, A, C, m
-  // K6: the 1-D taps. K7, K8: (offset, weight) pairs of each kernel's
-  // nonzero taps, kernel 0 first, offset = dy * (2 halo + 1) + dx.
-  int taps[SW_MAX_TAPS];
+  // Device memory, sw_table_words(*this) ints: the pre steps, then the post
+  // steps, four each (neg, A, C, m); then the taps: K6's 1-D taps, or K7's
+  // and K8's nonzero taps as (offset, weight) pairs, kernel 0 first,
+  // offset = dy * (2 halo + 1) + dx.
+  const int* table;
 };
 
 __host__ __device__ inline int sw_words(int halo) { return SW_PAIRS + halo; }
 
-// Dynamic shared memory: the window as pre-chained pair words, then (K6)
-// the row pass.
-__host__ __device__ inline size_t sw_smem_bytes(int kind, int tile_h, int halo) {
+__host__ __device__ inline int sw_tap_words(const SwarDesc& d) {
+  return (d.kind == SW_K6_NARROW || d.kind == SW_K6_WIDE) ? d.n_taps[0]
+                                                          : 2 * (d.n_taps[0] + d.n_taps[1]);
+}
+
+__host__ __device__ inline int sw_table_words(const SwarDesc& d) {
+  return 4 * (d.n_pre + d.n_post) + sw_tap_words(d);
+}
+
+// Dynamic shared memory: the table (rounded up to 16 bytes), the window as
+// pre-chained pair words, then (K6) the row pass.
+__host__ __device__ inline size_t sw_smem_bytes(int kind, int tile_h, int halo,
+                                                int table_words) {
   const size_t eh = (size_t)tile_h + 2 * halo;
-  size_t bytes = eh * sw_words(halo) * sizeof(uint32_t);
+  size_t bytes = (size_t)((table_words + 3) & ~3) * sizeof(int);
+  bytes += eh * sw_words(halo) * sizeof(uint32_t);
   if (kind == SW_K6_NARROW || kind == SW_K6_WIDE) bytes += eh * SW_PAIRS * sizeof(uint32_t);
   return bytes;
 }
@@ -189,30 +203,32 @@ swar_stencil_kernel(const unsigned char* __restrict__ in,
                     unsigned char* __restrict__ out, int H, int W, int row0,
                     int image_h, const __grid_constant__ SwarDesc d, int tile_h) {
   extern __shared__ __align__(16) uint32_t smem[];
-  __shared__ int s_chain[2 * SW_MAX_CHAIN * 4];
-  __shared__ int s_taps[SW_MAX_TAPS];
   const int h = d.halo;
   const int nw = sw_words(h);
   const int eh = tile_h + 2 * h;
   const int x0 = blockIdx.x * SW_TILE_W;
   const int y0 = blockIdx.y * tile_h;
-  uint32_t* s_win = smem;
-  uint32_t* s_row = smem + eh * nw;
+  const int n_chain = 4 * (d.n_pre + d.n_post);
+  const int n_table = sw_table_words(d);
+  int* s_chain = reinterpret_cast<int*>(smem);
+  int* s_taps = s_chain + n_chain;
+  uint32_t* s_win = smem + ((n_table + 3) & ~3);
+  uint32_t* s_row = s_win + eh * nw;
 
   // The chains, and the taps: K6's as given; K7's and K8's as (word
   // offset in the window, column parity, weight) from (offset, weight).
   const int ks = 2 * h + 1;
-  const int n_chain = 4 * (d.n_pre + d.n_post);
   const int n_nz = d.n_taps[0] + d.n_taps[1];
-  for (int i = threadIdx.x; i < n_chain; i += SW_THREADS) s_chain[i] = (&d.chain[0][0])[i];
+  const int* taps = d.table + n_chain;
+  for (int i = threadIdx.x; i < n_chain; i += SW_THREADS) s_chain[i] = d.table[i];
   if (KIND == SW_K6_NARROW || KIND == SW_K6_WIDE) {
-    for (int i = threadIdx.x; i < d.n_taps[0]; i += SW_THREADS) s_taps[i] = d.taps[i];
+    for (int i = threadIdx.x; i < d.n_taps[0]; i += SW_THREADS) s_taps[i] = taps[i];
   } else {
     for (int t = threadIdx.x; t < n_nz; t += SW_THREADS) {
-      const int off = d.taps[2 * t];
+      const int off = taps[2 * t];
       const int dy = off / ks, dx = off - dy * ks;
       s_taps[2 * t] = ((dy * nw + (dx >> 1)) << 1) | (dx & 1);
-      s_taps[2 * t + 1] = d.taps[2 * t + 1];
+      s_taps[2 * t + 1] = taps[2 * t + 1];
     }
   }
   const int* pre = s_chain;
@@ -353,7 +369,7 @@ static int sw_launch(const unsigned char* in, const unsigned char* top,
                      const unsigned char* bot, unsigned char* out, int H, int W,
                      int row0, int image_h, const SwarDesc* d, int tile_h,
                      cudaStream_t stream) {
-  const size_t smem = sw_smem_bytes(KIND, tile_h, d->halo);
+  const size_t smem = sw_smem_bytes(KIND, tile_h, d->halo, sw_table_words(*d));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         swar_stencil_kernel<KIND, GHOST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -397,7 +413,8 @@ extern "C" int swar_stencil_launch(const unsigned char* in, const unsigned char*
                                    int tile_h, void* stream) {
   if (H <= 0 || W <= 0) return 0;
   if (W % 4 || tile_h < 1 || d->halo < 0 || d->n_pre < 0 || d->n_post < 0 ||
-      d->n_pre + d->n_post > 2 * SW_MAX_CHAIN || (top == nullptr) != (bot == nullptr)) {
+      d->n_taps[0] < 0 || d->n_taps[1] < 0 || (d->table == nullptr && sw_table_words(*d) > 0) ||
+      (top == nullptr) != (bot == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
@@ -410,8 +427,8 @@ extern "C" int swar_stencil_launch(const unsigned char* in, const unsigned char*
 
 // Dynamic shared memory one launch needs, and the descriptor's size, for
 // the host-side checks.
-extern "C" long long swar_smem_bytes(int kind, int tile_h, int halo) {
-  return (long long)sw_smem_bytes(kind, tile_h, halo);
+extern "C" long long swar_smem_bytes(int kind, int tile_h, int halo, int table_words) {
+  return (long long)sw_smem_bytes(kind, tile_h, halo, table_words);
 }
 
 extern "C" long long swar_desc_bytes() { return (long long)sizeof(SwarDesc); }

@@ -874,20 +874,27 @@ K5_LAUNCHES = {"K5-bf16": 0, "K5-int8": 0}
 SWAR_LAUNCHES = dict.fromkeys(
     ("K6-narrow", "K6-wide", "K7", "K8", "K6g-narrow", "K6g-wide", "K7g", "K8g"), 0
 )
+# launches of the tools' kernels (the tools/ subpackage counts them): T4's
+# four copies (tools/roofline_probe.py), T2 (packed_proto.py), T3
+# (swar_proto.py)
+TOOL_LAUNCHES = dict.fromkeys(
+    ("T4-copy", "T4-smem-copy", "T4-bitcast-store", "T4-bitcast-load", "T2", "T3"), 0
+)
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last reset, of each K5 form, and of
-    each SWAR kernel and mode."""
+    """Launches of each kernel since the last reset, of each K5 form, of
+    each SWAR kernel and mode, and of each tools kernel."""
     return {
-        **{k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}, **K5_LAUNCHES, **SWAR_LAUNCHES
+        **{k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}, **K5_LAUNCHES, **SWAR_LAUNCHES,
+        **TOOL_LAUNCHES,
     }
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
-    for counts in (K5_LAUNCHES, SWAR_LAUNCHES):
+    for counts in (K5_LAUNCHES, SWAR_LAUNCHES, TOOL_LAUNCHES):
         for key in counts:
             counts[key] = 0
 

@@ -197,11 +197,34 @@ def pad2d(
     right: int,
 ) -> torch.Tensor:
     """Pad a float32 (H, W) tile on each side per the op's edge mode.
-    ``F.pad``'s reflect/replicate modes need a leading batch dimension."""
+    ``F.pad``'s reflect/replicate modes need a leading batch dimension.
+
+    ``F.pad`` refuses a reflection at least as wide as the side it
+    reflects; ``jnp.pad`` (the JAX package's golden padding) reflects
+    again and again. Such pads take the same indices here, by
+    ``reflect101_index``."""
     if (top, bottom, left, right) == (0, 0, 0, 0):
         return xf
+    height, width = xf.shape
+    if edge_mode == "reflect101" and (max(top, bottom) >= height or max(left, right) >= width):
+        rows = reflect101_index(height, top, bottom, xf.device)
+        cols = reflect101_index(width, left, right, xf.device)
+        return xf[rows][:, cols]
     out = F.pad(xf[None, None], (left, right, top, bottom), mode=_PAD_MODES[edge_mode])
     return out[0, 0]
+
+
+def reflect101_index(n: int, before: int, after: int, device=None) -> torch.Tensor:
+    """Source indices of an axis of length `n` padded by `before` and
+    `after` in reflect-101 (numpy's 'reflect'), for pads of any width:
+    reflection is periodic with period 2 (n - 1), and a single sample
+    repeats."""
+    c = torch.arange(-before, n + after, device=device)
+    if n == 1:
+        return torch.zeros_like(c)
+    period = 2 * (n - 1)
+    c = torch.remainder(c, period)
+    return torch.where(c >= n, period - c, c)
 
 
 # --------------------------------------------------------------------------

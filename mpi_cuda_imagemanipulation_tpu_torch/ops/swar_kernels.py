@@ -336,14 +336,12 @@ def affine_int(x: torch.Tensor, chain) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> kr.SwarDesc:
-    """Encode an eligible op with its fitted chains for the kernels."""
+def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> tuple[kr.SwarDesc, np.ndarray]:
+    """Encode an eligible op with its fitted chains for the kernels: the
+    descriptor and its int32 table (the chain steps, pre then post, then
+    the taps), of any length. The wrapper points ``table`` at the table's
+    copy on the card."""
     kind = swar_kind(op)
-    if len(pre_chain) > kr.SW_MAX_CHAIN or len(post_chain) > kr.SW_MAX_CHAIN:
-        raise ValueError(
-            f"a SWAR kernel fuses at most {kr.SW_MAX_CHAIN} pointwise ops on each "
-            f"side, got {len(pre_chain)} and {len(post_chain)}"
-        )
     d = kr.SwarDesc()
     d.kind = KINDS[kind]
     d.halo = op.halo
@@ -353,8 +351,7 @@ def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> kr.SwarDesc:
     d.interior = int(op.edge_mode == "interior")
     d.scale = _f32(op.scale)
     d.n_pre, d.n_post = len(pre_chain), len(post_chain)
-    for i, step in enumerate(tuple(pre_chain) + tuple(post_chain)):
-        d.chain[i][:] = [int(v) for v in step]
+    chain = [int(v) for step in tuple(pre_chain) + tuple(post_chain) for v in step]
     if kind.startswith("K6"):
         taps, k = _taps_shift(op)
         flat = list(taps)
@@ -368,12 +365,24 @@ def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> kr.SwarDesc:
             flat += [x for pair in nz for x in pair]
         if kind == "K7":
             d.bias = 255 * sum(-w for row in _corr2d_weights(op) for w in row if w < 0)
-    if len(flat) > kr.SW_MAX_TAPS:
-        raise ValueError(
-            f"op {op.name!r}: {len(flat)} tap words, the kernels hold {kr.SW_MAX_TAPS}"
-        )
-    d.taps[: len(flat)] = flat
-    return d
+    return d, np.asarray(chain + flat, dtype=np.int32)
+
+
+# the descriptors' tables on each card, by content: built once per group
+_DEVICE_TABLES: dict[tuple[bytes, str], torch.Tensor] = {}
+
+
+def device_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The int32 `table` on `device`, copied there at its first use. The
+    copy completes before this returns, so a launch on any stream reads
+    it."""
+    key = (table.tobytes(), str(device))
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = torch.from_numpy(table).to(device)
+        torch.cuda.current_stream(device).synchronize()
+        _DEVICE_TABLES[key] = t
+    return t
 
 
 def window_words(halo: int) -> int:
@@ -382,11 +391,12 @@ def window_words(halo: int) -> int:
     return PAIRS + halo
 
 
-def swar_smem_bytes(kind: str, tile_h: int, halo: int) -> int:
+def swar_smem_bytes(kind: str, tile_h: int, halo: int, table_words: int = 0) -> int:
     """Dynamic shared memory of one block (sw_smem_bytes in the source): the
-    (tile_h + 2 halo) rows of window words, then K6's row pass."""
+    descriptor's table rounded up to 16 bytes, the (tile_h + 2 halo) rows of
+    window words, then K6's row pass."""
     eh = tile_h + 2 * halo
-    nbytes = eh * window_words(halo) * 4
+    nbytes = ((table_words + 3) & ~3) * 4 + eh * window_words(halo) * 4
     if kind.startswith("K6"):
         nbytes += eh * PAIRS * 4
     return nbytes
@@ -397,22 +407,23 @@ def swar_grid(height: int, width: int, tile_h: int) -> tuple[int, int]:
     return -(-width // TILE_W), -(-height // tile_h)
 
 
-def pick_tile_h(kind: str, halo: int, block_h: int | None = None) -> int:
+def pick_tile_h(kind: str, halo: int, block_h: int | None = None, table_words: int = 0) -> int:
     """The output tile height: `block_h` when given (raising if its shared
     memory exceeds a block's), else DEFAULT_TILE_H halved until it fits."""
     if block_h is not None:
         if block_h < 1:
             raise ValueError(f"tile height must be >= 1, got {block_h}")
-        if swar_smem_bytes(kind, block_h, halo) > ck.MAX_SMEM_BYTES:
+        nbytes = swar_smem_bytes(kind, block_h, halo, table_words)
+        if nbytes > ck.MAX_SMEM_BYTES:
             raise ValueError(
-                f"tile height {block_h} needs {swar_smem_bytes(kind, block_h, halo)} B of "
-                f"shared memory (at most {ck.MAX_SMEM_BYTES})"
+                f"tile height {block_h} needs {nbytes} B of shared memory "
+                f"(at most {ck.MAX_SMEM_BYTES})"
             )
         return block_h
     tile_h = DEFAULT_TILE_H
-    while tile_h > 1 and swar_smem_bytes(kind, tile_h, halo) > ck.MAX_SMEM_BYTES:
+    while tile_h > 1 and swar_smem_bytes(kind, tile_h, halo, table_words) > ck.MAX_SMEM_BYTES:
         tile_h //= 2
-    if swar_smem_bytes(kind, tile_h, halo) > ck.MAX_SMEM_BYTES:
+    if swar_smem_bytes(kind, tile_h, halo, table_words) > ck.MAX_SMEM_BYTES:
         raise ValueError(f"halo {halo} needs more shared memory than a block has")
     return tile_h
 
@@ -529,10 +540,10 @@ def swar_stencil(
     pre_chain = tuple(_require_fusable(o) for o in pre_ops)
     post_chain = tuple(_require_fusable(o) for o in post_ops)
     kind = swar_kind(op)
-    desc = swar_desc(op, pre_chain, post_chain)
+    desc, table = swar_desc(op, pre_chain, post_chain)
     _check_args(op, img, ghosts)
     height, width = img.shape
-    tile_h = pick_tile_h(kind, op.halo, block_h)
+    tile_h = pick_tile_h(kind, op.halo, block_h, table.size)
     if swar_grid(height, width, tile_h)[1] > ck._MAX_GRID_Y:
         raise ValueError(f"plane height {height} needs a taller tile than {tile_h}")
     if global_h is not None and y0 is not None and not 0 <= y0 <= global_h - height:
@@ -550,6 +561,7 @@ def swar_stencil(
             ck._check_cuda_input(t)
     out = torch.empty_like(img)
     lib = kr.load("swar_stencil")
+    desc.table = device_table(table, img.device).data_ptr()
     with torch.cuda.device(img.device):
         rc = lib.swar_stencil_launch(
             img.data_ptr(), None if top is None else top.data_ptr(),

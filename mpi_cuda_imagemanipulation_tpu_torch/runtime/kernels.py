@@ -28,7 +28,11 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("pointwise", "stream_stencil", "fused_stage", "swar_stencil")
+SOURCES = (
+    "pointwise", "stream_stencil", "fused_stage", "swar_stencil",
+    # the tools' kernels (tools/: roofline_probe T4, packed_proto T2, swar_proto T3)
+    "copy_probe", "packed_proto", "swar_proto",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -40,7 +44,7 @@ NVCC_FLAGS = (
 )
 
 # Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
-# fused_stage.cu, swar_stencil.cu).
+# fused_stage.cu, swar_stencil.cu, copy_probe.cu).
 PW_MAX_OPS = 8
 ST_MAX_K = 7
 FS_MAX_OPS = 24
@@ -50,8 +54,8 @@ FS_OP_STENCIL = 100
 KERNEL_PARAM_BYTES = 4096
 # FsProgram.arm: each stencil's in-stage arm (FS_ARM_* in fused_stage.cu)
 FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
-SW_MAX_CHAIN = 16
-SW_MAX_TAPS = 512
+# copy_probe_launch's element types (CpType in copy_probe.cu)
+CP_U8, CP_F32, CP_U32 = 0, 1, 2
 
 
 class PwProgram(ctypes.Structure):
@@ -93,11 +97,11 @@ class FsProgram(ctypes.Structure):
 
 
 class SwarDesc(ctypes.Structure):
-    """One SWAR stencil (K6, K7 or K8) with its fused affine chains:
-    ``chain`` holds the ``n_pre`` pre-chain steps, then the ``n_post``
-    post-chain steps, each (neg, A, C, m); ``taps`` K6's 1-D taps, or K7's
-    and K8's nonzero taps as (dy * (2 halo + 1) + dx, weight) pairs, kernel
-    0 first. 2612 bytes."""
+    """One SWAR stencil (K6, K7 or K8) with its fused affine chains.
+    ``table`` points at int32 device memory: the ``n_pre`` pre-chain steps,
+    then the ``n_post`` post-chain steps, each (neg, A, C, m); then K6's 1-D
+    taps, or K7's and K8's nonzero taps as (dy * (2 halo + 1) + dx, weight)
+    pairs, kernel 0 first. 64 bytes."""
 
     _fields_ = [
         ("kind", ctypes.c_int),
@@ -112,8 +116,7 @@ class SwarDesc(ctypes.Structure):
         ("n_taps", ctypes.c_int * 2),
         ("n_pre", ctypes.c_int),
         ("n_post", ctypes.c_int),
-        ("chain", (ctypes.c_int * 4) * (2 * SW_MAX_CHAIN)),
-        ("taps", ctypes.c_int * SW_MAX_TAPS),
+        ("table", ctypes.c_void_p),
     ]
 
 
@@ -233,8 +236,25 @@ def load(name: str) -> ctypes.CDLL:
             vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ci, vp,
         ]
         lib.swar_stencil_launch.restype = ci
-        lib.swar_smem_bytes.argtypes = [ci, ci, ci]
+        lib.swar_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.swar_smem_bytes.restype = ll
         lib.swar_desc_bytes.argtypes = []
         lib.swar_desc_bytes.restype = ll
+    elif name == "copy_probe":
+        lib.copy_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        for fn in ("smem_copy_launch", "bitcast_store_launch", "bitcast_load_launch"):
+            getattr(lib, fn).argtypes = [vp, vp, ci, ci, ci, vp]
+        for fn in ("copy_probe_launch", "smem_copy_launch", "bitcast_store_launch",
+                   "bitcast_load_launch"):
+            getattr(lib, fn).restype = ci
+    elif name == "packed_proto":
+        lib.packed_pointwise_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(PwProgram), vp,
+        ]
+        lib.packed_pointwise_launch.restype = ci
+    elif name == "swar_proto":
+        lib.swar_proto_launch.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.swar_proto_launch.restype = ci
+        lib.swar_proto_smem_bytes.argtypes = [ci]
+        lib.swar_proto_smem_bytes.restype = ll
     return lib

@@ -73,7 +73,8 @@ def test_cli_run_metrics_and_timing(tmp_path, capsys):
     assert "steady-state" in capsys.readouterr().out
     rec = json.loads(metrics.read_text().strip())
     assert rec["ops"] == "grayscale,contrast3.5,emboss3"
-    assert rec["impl"] == "cuda" and rec["device"] == "cpu" and rec["clock"] == "host"
+    # the default --impl is auto, which runs what cuda runs
+    assert rec["impl"] == "auto" and rec["device"] == "cpu" and rec["clock"] == "host"
     out = load_image(tmp_path / "o.png")
     assert out.shape == (20, 30, 3)
     np.testing.assert_array_equal(out[..., 0], out[..., 2])

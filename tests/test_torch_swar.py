@@ -312,21 +312,22 @@ def test_emulator_on_zero_mode_and_edge_mode():
 @pytest.mark.parametrize("spec", sorted(KIND))
 def test_swar_desc_encoding(spec):
     op = make_op(spec)
-    d = sk.swar_desc(op, (sk.swar_fusable(make_op("contrast:3.5")),),
-                     (sk.swar_fusable(make_op("invert")),))
+    d, table = sk.swar_desc(op, (sk.swar_fusable(make_op("contrast:3.5")),),
+                            (sk.swar_fusable(make_op("invert")),))
     kind = sk.swar_kind(op)
     assert d.kind == sk.KINDS[kind] and d.halo == op.halo
-    assert (d.n_pre, d.n_post) == (1, 1)
-    assert list(d.chain[0]) == [0, 7, 640, 1] and list(d.chain[1]) == [1, 1, 0, 0]
+    assert (d.n_pre, d.n_post) == (1, 1) and table.dtype == np.int32
+    assert list(table[:4]) == [0, 7, 640, 1] and list(table[4:8]) == [1, 1, 0, 0]
     assert d.edge_mode == ck._EDGE_MODES[op.edge_mode]
     assert d.interior == int(op.edge_mode == "interior")
     if kind.startswith("K6"):
         taps, k = sk._taps_shift(op)
-        assert d.n_taps[0] == len(taps) and list(d.taps[: len(taps)]) == list(taps)
+        assert d.n_taps[0] == len(taps) and list(table[8:]) == list(taps)
         assert d.shift == k
         return
     ks = 2 * op.halo + 1
-    flat, j = list(d.taps), 0
+    flat, j = list(table[8:]), 0
+    assert len(flat) == 2 * sum(d.n_taps)
     for n_k, w in zip(d.n_taps, list(op.kernels) + [None]):
         if w is None:
             assert n_k == 0
@@ -341,12 +342,24 @@ def test_swar_desc_encoding(spec):
 
 
 def test_desc_layout_and_limits():
+    """The descriptor is 64 bytes of scalars and a table pointer; the table
+    holds chains and taps of any length (the JAX SWAR kernels have no
+    limit): 40 pre-chain steps and 40 post-chain steps, and a 23x23 integer
+    kernel on K8 (529 nonzero taps, 1058 tap words)."""
     import ctypes
 
-    assert ctypes.sizeof(kr.SwarDesc) == 2612 < kr.KERNEL_PARAM_BYTES
-    chain = (sk.swar_fusable(make_op("invert")),) * (kr.SW_MAX_CHAIN + 1)
-    with pytest.raises(ValueError, match="at most"):
-        sk.swar_desc(make_op("gaussian:5"), chain, ())
+    assert ctypes.sizeof(kr.SwarDesc) == 64 < kr.KERNEL_PARAM_BYTES
+    step = sk.swar_fusable(make_op("invert"))
+    d, table = sk.swar_desc(make_op("gaussian:5"), (step,) * 40, (step,) * 40)
+    assert (d.n_pre, d.n_post) == (40, 40) and table.size == 4 * 80 + 5
+    assert list(table[:4]) == list(step) and list(table[-5:]) == [1, 4, 6, 4, 1]
+    big = dataclasses.replace(make_op("sobel"), name="ones23", halo=11,
+                              kernels=(np.ones((23, 23), np.float32),), combine="single",
+                              scale=1.0 / 529)
+    assert sk.swar_kind(big) == "K8"
+    d, table = sk.swar_desc(big)
+    assert d.n_taps[0] == 529 and table.size == 1058
+    assert sk.pick_tile_h("K8", 11, table_words=table.size) == sk.DEFAULT_TILE_H
 
 
 @pytest.mark.parametrize("kind,tile_h,halo", [("K6-narrow", 32, 2), ("K6-wide", 32, 3),
@@ -356,6 +369,8 @@ def test_shared_memory_and_grid(kind, tile_h, halo):
     words = eh * (sk.PAIRS + halo) * 4
     assert sk.swar_smem_bytes(kind, tile_h, halo) == words + (
         eh * sk.PAIRS * 4 if kind.startswith("K6") else 0)
+    # the table ahead of the window, rounded up to 16 bytes
+    assert sk.swar_smem_bytes(kind, tile_h, halo, 9) == sk.swar_smem_bytes(kind, tile_h, halo) + 48
     assert sk.window_words(halo) == 64 + halo
     assert sk.swar_grid(4320, 7680, tile_h) == (60, -(-4320 // tile_h))
     assert sk.swar_grid(37, 200, tile_h) == (2, -(-37 // tile_h))
@@ -600,5 +615,6 @@ def test_swar_layout_matches_source(cuda_device):
     lib = kr.load("swar_stencil")
     assert lib.swar_desc_bytes() == ctypes.sizeof(kr.SwarDesc)
     for kind, code in sk.KINDS.items():
-        for tile_h, halo in ((32, 2), (5, 3), (1, 63)):
-            assert lib.swar_smem_bytes(code, tile_h, halo) == sk.swar_smem_bytes(kind, tile_h, halo)
+        for tile_h, halo, words in ((32, 2, 0), (5, 3, 9), (1, 63, 1058)):
+            assert lib.swar_smem_bytes(code, tile_h, halo, words) == sk.swar_smem_bytes(
+                kind, tile_h, halo, words)
