@@ -43,6 +43,12 @@ printing a result:
    and at 8K, T3 also against the golden gaussian:5. Then the SWAR chains
    past the old limits: K6 after 17 and 40 fused steps, K8 with a 23x23
    filter (1058 tap words), and `run --impl swar` on a 17-step chain at 8K.
+   T1, the packed-word group runner, in its three forms (T1-pw, T1, T1g):
+   every group it takes in tests/test_packed.py's 33 specs at odd shapes
+   (97x384, ragged heights, last blocks shorter than the halo, W/4 = 8 and
+   W/4 < 128) and tile heights, flat and checkerboard planes, the first, a
+   middle and the last 1080x7680 shard tile in ghost mode, the 8K gray
+   gaussian:5 and the 8K RGB reference group.
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -57,9 +63,13 @@ printing a result:
    their launches (K1, K6, K7, K8, and K2 for the colour gaussian:5), and
    ``Pipeline.sharded(backend='swar')`` on the 8K gray frame: one K7g, K6g
    or K8g per shard and one exchange round per group, no SWAR launch at
-   4323 rows or under overlap. Then the tools' entry points in-process
-   (`roofline_probe --quick`, the `packed_proto` self-test, `swar_proto
-   --quick`), each with its launches counted, their records printed.
+   4323 rows or under overlap. The whole-op `--impl mxu` route on images
+   within a median's halo: the golden op, counted. Then the tools' entry
+   points in-process (`roofline_probe --quick`, with T1 on gaussian:5, the
+   `packed_proto` self-test, `swar_proto --quick`, `packed_ab`, which drives
+   T1-pw, T1, T2, K1 and K2), each with its launches counted, their records
+   printed; and T1g's path, the 8K gray gaussian:5 as four packed shards with
+   ghost strips, stitched and equal to golden.
 3. Numbers: CUDA-event times of each kernel and its plain version at the
    main paths' shapes (the ghost modes at the 1080x7680 shard), the bound
    from bytes and operations, a PyTorch library call as a yardstick where
@@ -70,7 +80,9 @@ printing a result:
    K2 on the same group, and the SWAR paths end to end; T4's kernels at the
    probe's 8K shapes beside `copy_`, the probe's copy rates as a share of
    3.35 TB/s, T2 at 8K beside K1 on the same group, T3 at 8K beside K6
-   narrow and K2 on the same plane.
+   narrow and K2 on the same plane; T1 on the 8K gray gaussian:5 beside K2
+   and `F.conv2d`, T1g on one shard beside K2g, T1-pw on packed_ab's group
+   beside K1.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -787,7 +799,7 @@ def phase2_mxu(device, x8k):
     mesh = sharded_mesh()
     launches = {}
 
-    def drive(tag, fn, x, want, exp, arms=None, rounds=None, fallbacks=None):
+    def drive(tag, fn, x, want, exp, arms=None, rounds=None, fallbacks=None, golden=None):
         ck.reset_launch_counts()
         plan_metrics.reset()
         halo.exchanges.reset()
@@ -807,9 +819,12 @@ def phase2_mxu(device, x8k):
                                  f"expected {fallbacks or {}}")
         if rounds is not None and halo.exchanges.rounds != rounds:
             raise AssertionError(f"{tag}: {halo.exchanges.rounds} exchange rounds, expected {rounds}")
+        if dict(plan_metrics.mxu_golden_ops) != (golden or {}):
+            raise AssertionError(f"{tag}: golden ops {dict(plan_metrics.mxu_golden_ops)}, "
+                                 f"expected {golden or {}}")
         used = {k: v for k, v in counts.items() if v}
         print(f"phase 2: {tag}: == golden, launches {used}, in-stage arms "
-              f"{dict(plan_metrics.mxu_stage_ops)}")
+              f"{dict(plan_metrics.mxu_stage_ops)}, golden ops {dict(plan_metrics.mxu_golden_ops)}")
         return counts
 
     for key, spec in SPECS.items():
@@ -857,6 +872,22 @@ def phase2_mxu(device, x8k):
             lambda x, impl=impl: run_image(pipe, x, impl=impl, device=device,
                                            plan="fused-pallas-mxu"),
             x8k, want, exp, fallbacks={"lut-op": 1})
+    # a median on images within its halo: no banded form, and the K2 runner
+    # refuses the shape, so the whole-op route runs its golden op, counted
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+
+    # (K1: the grayscale step, and gray -> RGB after a gray result)
+    for spec, shape, channels, k1 in (("median:5", (2, 3), 1, 1), ("median:5", (3, 2), 3, 0),
+                                      ("grayscale,median:5", (2, 3), 3, 2),
+                                      ("median:3", (1, 40), 1, 1)):
+        pipe = Pipeline.parse(spec)
+        x = torch.from_numpy(synthetic_image(*shape, channels=channels, seed=5)).to(device)
+        exp = dict.fromkeys(ck.launch_counts(), 0)
+        exp["K1"] = k1
+        drive(f"main path {spec} impl=mxu plan=off {shape[0]}x{shape[1]}x{channels}",
+              lambda x, pipe=pipe: run_image(pipe, x, impl="mxu", device=device, plan="off"),
+              x, run_image(pipe, x, impl="torch", device=device, plan="off"), exp,
+              golden={spec.split(",")[-1].replace(":", ""): 1})
     return launches
 
 
@@ -1262,16 +1293,19 @@ def phase1_swar_chains(device, gray8k) -> int:
 
 def phase2_tools(device) -> dict:
     """The tools' entry points on the card, in-process: `roofline_probe
-    --quick`, the `packed_proto` self-test and `swar_proto --quick`, each
-    with the launch counts set to 0 before it and read after it. Prints
-    their records; fails if a tool's kernels were not launched or a record
-    is missing. Returns {tool: (launch counts, best records)}."""
+    --quick`, the `packed_proto` self-test, `swar_proto --quick` and
+    `packed_ab`, each with the launch counts set to 0 before it and read
+    after it. Prints their records; fails if a tool's kernels were not
+    launched or a record is missing. Returns {tool: (launch counts, best
+    records)}; packed_ab's records are all its cases (it reports no
+    bests)."""
     import contextlib
     import io
 
     import torch
 
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_ab as pab
     from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_proto as pp
     from mpi_cuda_imagemanipulation_tpu_torch.tools import roofline_probe as rp
     from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
@@ -1280,9 +1314,10 @@ def phase2_tools(device) -> dict:
     tools = {
         "roofline_probe": (rp.main, ["--quick"],
                            ("T4-copy", "T4-smem-copy", "T4-bitcast-store", "T4-bitcast-load",
-                            "K2"), 11),
+                            "K2", "T1"), 12),
         "packed_proto": (pp.main, [], ("T2",), 0),
         "swar_proto": (sp.main, ["--quick"], ("T3", "K2", "K6-narrow"), 8),
+        "packed_ab": (pab.main, [], ("T1-pw", "T1", "T2", "K1", "K2"), 8),
     }
     runs = {}
     name = torch.cuda.get_device_name(0)
@@ -1296,7 +1331,8 @@ def phase2_tools(device) -> dict:
         lines = buf.getvalue().splitlines()
         for line in lines:
             print(f"  {tool}: {line}")
-        best = [json.loads(ln) for ln in lines if ln.startswith("{") and '"stat"' in ln]
+        best = [json.loads(ln) for ln in lines
+                if ln.startswith("{") and ('"stat"' in ln or tool == "packed_ab")]
         missing = [k for k in kernels if not counts.get(k)]
         if rc != 0 or missing or len(best) != n_best:
             raise AssertionError(f"{' '.join([tool] + argv)}: rc {rc}, launches {counts}, "
@@ -1396,6 +1432,217 @@ def phase3_tools(device, gray8k, tool_runs, record):
     t_e2e = device_time_ms(lambda: sp.gaussian5(x, 240), reps=7)
     print(f"  on the same 8K gray plane in this run: K6 narrow {t_k6:.4f} ms, K2 {t_k2:.4f} ms, "
           f"T3 with pad, pack and unpack {t_e2e:.4f} ms")
+
+
+# --------------------------------------------------------------------------
+# T1 (tools/packed_kernels.py): the packed-word group runner
+# --------------------------------------------------------------------------
+
+# tests/test_packed.py's specs: every one runs fully or partly on T1
+PACKED_SPECS = [
+    "gaussian:3", "gaussian:5", "gaussian:7", "box:3", "box:5", "box:7",
+    "invert,gaussian:5", "brightness:25,gaussian:3", "grayscale,gaussian:5",
+    "grayscale,contrast:3.5", "grayscale601,box:3", "sepia", "threshold:99,gaussian:5,invert",
+    "erode:3", "erode:5", "erode:7", "dilate:5", "invert,dilate:3", "sobel", "prewitt",
+    "scharr", "laplacian:8", "sharpen", "unsharp", "emboss101:3", "emboss101:5", "median:3",
+    "median:5", "filter:1/2/1/2/4/2/1/2/1:0.0625", "grayscale,sobel", "emboss:3", "emboss:5",
+    "grayscale,contrast:3.5,emboss:3",
+]
+# odd shapes: the JAX test's 97x384 and its ragged heights (block_h 32), the
+# last block shorter than the halo (33 and 34 rows), W/4 = 8 words, and
+# W/4 < 128 (75 words), where the JAX docstring records a compiled-TPU
+# miscompare
+T1_SHAPES = [(97, 384), (33, 256), (64, 256), (65, 256), (95, 256), (129, 256), (34, 128),
+             (40, 32), (37, 300)]
+T1_GHOST_SPECS = ["gaussian:5", "sobel", "emboss:3", "median:5", "erode:3",
+                  "grayscale,contrast:3.5,emboss:3"]
+
+
+def t1_words(img):
+    """The word planes of an (H, W) or (H, W, C) u8 image."""
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+
+    planes = [img] if img.ndim == 2 else [img[..., c].contiguous() for c in range(img.shape[2])]
+    return [pk.pack_words(p) for p in planes]
+
+
+def t1_ghost_tile(img, k, n_shards, halo):
+    """Shard `k` of `n_shards` row-shards of `img` with its raw ghost strips:
+    the neighbours' rows, or the reflect101 extension at the image's first
+    and last rows (as tests/test_packed.py builds them); y0."""
+    h = img.shape[0]
+    local_h = h // n_shards
+    y0 = k * local_h
+    top = img[y0 - halo:y0] if k else img[1:1 + halo].flip(0)
+    bot = (img[y0 + local_h:y0 + local_h + halo] if k < n_shards - 1
+           else img[h - 1 - halo:h - 1].flip(0))
+    return img[y0:y0 + local_h], top.contiguous(), bot.contiguous(), y0
+
+
+def check_t1(tag, pointwise, stencil, words, height, width, **kw) -> int:
+    """One T1 launch against its plain version on the same card."""
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+
+    got = pk.run_group_packed_words(pointwise, stencil, words, height, width, **kw)
+    want = pk.run_group_packed_words_plain(pointwise, stencil, words, height, width, **kw)
+    for c, (g, w) in enumerate(zip(got, want)):
+        check_equal(f"{tag} plane {c}", g, w)
+    return 1
+
+
+def phase1_t1(device, gray8k, x8k) -> int:
+    """T1-pw, T1 and T1g against their plain versions: every group T1 takes
+    in the 33 specs at the odd shapes and block heights (the flat and
+    checkerboard planes too at 97x384), block_h 32/64/96 at 130x512, the
+    first, a middle and the last 1080x7680 shard tile of the 8K frame in
+    ghost mode, the 8K gray gaussian:5 and the 8K RGB reference group, which
+    runs fully packed. Returns the case count."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+
+    n = 0
+    for spec in PACKED_SPECS:
+        groups = ck.group_ops(make_pipeline_ops(spec))
+        channels = 3 if spec.startswith(("grayscale", "sepia")) else 1
+        for shape in T1_SHAPES:
+            imgs = [torch.from_numpy(synthetic_image(*shape, channels=channels, seed=41))
+                    .to(device)]
+            if shape == T1_SHAPES[0]:
+                imgs += extreme_inputs(shape, channels, device)[:4]
+            for img in imgs:
+                for pw, st in groups:
+                    if pk.packed_supported(pw, st, shape[1]):
+                        for bh in (None, 32, 5):
+                            n += check_t1(f"T1 {spec} group {[op.name for op in pw]} {st and st.name} "
+                                          f"{tuple(img.shape)} block_h={bh}", pw, st, t1_words(img),
+                                          *shape, block_h=bh)
+                    img = ck.run_group(pw, st, img)
+    for spec, channels in (("gaussian:5", 1), ("sepia,gaussian:3", 3)):
+        img = torch.from_numpy(synthetic_image(130, 512, channels=channels, seed=44)).to(device)
+        for pw, st in ck.group_ops(make_pipeline_ops(spec)):
+            for bh in (32, 64, 96):
+                n += check_t1(f"T1 {spec} 130x512 block_h={bh}", pw, st, t1_words(img), 130, 512,
+                              block_h=bh)
+            img = ck.run_group(pw, st, img)
+    # ghost mode on the 8K frame's shard tiles: first, a middle, the last
+    for spec in T1_GHOST_SPECS:
+        (pw, st), = ck.group_ops(make_pipeline_ops(spec))
+        img = x8k if spec.startswith("grayscale") else gray8k
+        for k in (0, 1, N_SHARDS - 1):
+            tile, top, bot, y0 = t1_ghost_tile(img, k, N_SHARDS, st.halo)
+            for bh in (None, 32):
+                n += check_t1(f"T1g {spec} shard {k} block_h={bh}", pw, st, t1_words(tile),
+                              tile.shape[0], MAIN_W, block_h=bh,
+                              ghosts=(t1_words(top), t1_words(bot)), y0=y0, image_h=MAIN_H)
+    # the 8K gray gaussian:5 and the 8K RGB reference group
+    for spec, img in (("gaussian:5", gray8k), ("grayscale,contrast:3.5,emboss:3", x8k)):
+        (pw, st), = ck.group_ops(make_pipeline_ops(spec))
+        for bh in (None, 32):
+            n += check_t1(f"T1 {spec} 8K block_h={bh}", pw, st, t1_words(img), MAIN_H, MAIN_W,
+                          block_h=bh)
+    pw, _ = split_group("grayscale,contrast:3.5")
+    n += check_t1("T1-pw grayscale,contrast:3.5 8K", pw, None, t1_words(x8k), MAIN_H, MAIN_W)
+    torch.cuda.synchronize()
+    print(f"phase 1: T1-pw, T1 and T1g equal to their plain versions (max_abs_err 0): {n} cases")
+    return n
+
+
+def phase2_t1_ghost(device, gray8k) -> dict:
+    """T1g's path: the 8K gray frame's gaussian:5 as four 1080-row shards,
+    each through ``run_group_packed(ghosts=...)`` with its neighbours' rows
+    (reflect101 at the image's edges) as strips, stitched, equal to the
+    golden ops; the launch counts set to 0 before and read after. Returns
+    the counts."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+
+    pipe = Pipeline.parse("gaussian:5")
+    want = pipe.jit("torch", device=device, plan="off")(gray8k)
+    (pw, st), = ck.group_ops(pipe.ops)
+    ck.reset_launch_counts()
+    outs = []
+    for k in range(N_SHARDS):
+        tile, top, bot, y0 = t1_ghost_tile(gray8k, k, N_SHARDS, st.halo)
+        outs += pk.run_group_packed(pw, st, [tile.contiguous()], ghosts=([top], [bot]), y0=y0,
+                                    image_h=MAIN_H)
+    out = torch.cat(outs, dim=0)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    check_equal("T1g stitch of four shards, gaussian:5 8K gray", out, want)
+    if counts != {"T1g": N_SHARDS}:
+        raise AssertionError(f"T1g stitch: launches {counts}")
+    print(f"phase 2: gaussian:5 on the 8K gray frame as {N_SHARDS} packed shards with ghost "
+          f"strips: == golden, launches {counts}")
+    return counts
+
+
+def phase3_t1(device, gray8k, tool_runs, record):
+    """T1 on the 8K gray gaussian:5 and T1-pw on packed_ab's group (2160 x
+    3840 RGB, seed 31), launches from packed_ab's run; T1g on one 1080-row
+    shard of the same gaussian:5, launches from the ghost path. Each is
+    held against its plain version with `record`; K2 / K1 on the same input
+    are timed beside them in the same run, with `F.conv2d` for gaussian:5.
+    T1 returns a list of word planes: the records time it whole and compare
+    its one plane."""
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_ab as pab
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    import torch
+
+    src = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/packed_stream.cu"
+    ab = tool_runs["packed_ab"][0]
+    pw5, st5 = split_group("gaussian:5")
+    words = t1_words(gray8k)
+    record("T1 packed_stream [gaussian5] 8K gray words", src, "tools/packed_kernels.py:752",
+           ab["T1"], lambda: pk.run_group_packed_words(pw5, st5, words, MAIN_H, MAIN_W)[0],
+           lambda: pk.run_group_packed_words_plain(pw5, st5, words, MAIN_H, MAIN_W)[0], 1, 1,
+           [st5], library=conv_library(st5, gray8k, pad_rows=True))
+    t_k2 = device_time_ms(lambda: ck.stream_stencil(pw5, st5, gray8k), reps=7)
+    t_bh = {bh: device_time_ms(lambda bh=bh: pk.run_group_packed_words(
+        pw5, st5, words, MAIN_H, MAIN_W, block_h=bh), reps=7) for bh in (8, 32, 64)}
+    print(f"  K2 on the same 8K gray plane in this run: {t_k2:.4f} ms; T1 at block_h " +
+          ", ".join(f"{bh}: {t:.4f} ms" for bh, t in t_bh.items()))
+    tile, top, bot, y0 = t1_ghost_tile(gray8k, 1, N_SHARDS, st5.halo)
+    tw, ghosts = t1_words(tile.contiguous()), (t1_words(top), t1_words(bot))
+    rows = tile.shape[0]
+    ext = torch.cat([top, tile, bot])
+    record("T1g packed_stream [gaussian5] one 1080x7680 gray shard", src,
+           "tools/packed_kernels.py:752", tool_runs["t1_ghost"][0]["T1g"],
+           lambda: pk.run_group_packed_words(pw5, st5, tw, rows, MAIN_W, ghosts=ghosts, y0=y0,
+                                             image_h=MAIN_H)[0],
+           lambda: pk.run_group_packed_words_plain(pw5, st5, tw, rows, MAIN_W, ghosts=ghosts,
+                                                   y0=y0, image_h=MAIN_H)[0],
+           1, 1, [st5], n_pix=rows * MAIN_W, strip_bytes=2 * st5.halo * MAIN_W,
+           library=conv_library(st5, ext, pad_rows=False))
+    t_k2g = device_time_ms(lambda: ck.stream_stencil_ghost(
+        pw5, st5, tile.contiguous(), top, bot, y0=y0, image_h=MAIN_H, image_w=MAIN_W), reps=7)
+    print(f"  K2g on the same shard in this run: {t_k2g:.4f} ms")
+    del words, tw, ext
+    h, w = 2160, 3840
+    rgb = torch.from_numpy(synthetic_image(h, w, channels=3, seed=31)).to(device)
+    pw, _ = split_group(pab.CHAIN)
+    planes = t1_words(rgb)
+    record(f"T1-pw packed_stream [grayscale,contrast3.5] {h}x{w} RGB words", src,
+           "tools/packed_kernels.py:676", ab["T1-pw"],
+           lambda: pk.run_group_packed_words(pw, None, planes, h, w)[0],
+           lambda: pk.run_group_packed_words_plain(pw, None, planes, h, w)[0], 3, 1, pw,
+           n_pix=h * w)
+    t_k1 = device_time_ms(lambda: ck.pointwise_group(pw, rgb), reps=7)
+    print(f"  K1 on the same group and frame ((H, W, 3) u8 in, gray out) in this run: "
+          f"{t_k1:.4f} ms")
+    for rec in tool_runs["packed_ab"][1]:
+        print(f"  packed_ab {rec['case']}: {rec['ms']:.4f} ms, {rec['mp_s']:.1f} MP/s, "
+              f"{rec['gb_s']:.1f} GB/s ({rec['device']}, {rec['power_limit']})")
 
 
 def op_count(ops, n_pix: int, c_in: int) -> int:
@@ -1597,6 +1844,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
     phase3_k5(device, x8k, mxu_launches, record)
     phase3_swar(device, x8k, gray8k, swar_launches, record)
     phase3_tools(device, gray8k, tool_runs, record)
+    phase3_t1(device, gray8k, tool_runs, record)
 
     # each path's bound: every launch reads its input and writes its output
     # once (gray paths: 3 -> 1 B, then 1 -> 3 B; gaussian:5: 3 -> 3 B),
@@ -1909,11 +2157,13 @@ def main() -> int:
     gray8k = Pipeline.parse("grayscale").jit("torch", device=device, plan="off")(x8k)
     phase1_swar(device, gray8k)
     phase1_tools(device, gray8k)
+    phase1_t1(device, gray8k, x8k)
     launches = phase2(device, x8k)
     sharded_launches = phase2_sharded(device, x8k)
     mxu_launches = phase2_mxu(device, x8k)
     swar_launches = phase2_swar(device, x8k, gray8k)
     tool_runs = phase2_tools(device)
+    tool_runs["t1_ghost"] = (phase2_t1_ghost(device, gray8k), [])
     rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
                   tool_runs)
     torch.cuda.synchronize()

@@ -221,6 +221,7 @@ def cmd_run(args: argparse.Namespace) -> int:
             "plan_fallbacks": dict(plan_metrics.pallas_fallbacks),
             "mxu_stage_ops": dict(plan_metrics.mxu_stage_ops),
             "mxu_stage_fallbacks": dict(plan_metrics.mxu_stage_fallbacks),
+            "mxu_golden_ops": dict(plan_metrics.mxu_golden_ops),
             "device": str(dev),
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "clock": clock,
@@ -251,6 +252,8 @@ KERNELS = (
     "tools.roofline_probe)",
     "T2 pointwise chain on packed words (packed_proto.cu; tools.packed_proto)",
     "T3 5x5 Gaussian on quarter-strip words (swar_proto.cu; tools.swar_proto)",
+    "T1/T1g/T1-pw group on packed words, stencil, ghost and pointwise forms "
+    "(packed_stream.cu; tools.packed_kernels, tools.packed_ab)",
 )
 
 

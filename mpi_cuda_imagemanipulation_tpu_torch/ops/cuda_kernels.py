@@ -876,9 +876,10 @@ SWAR_LAUNCHES = dict.fromkeys(
 )
 # launches of the tools' kernels (the tools/ subpackage counts them): T4's
 # four copies (tools/roofline_probe.py), T2 (packed_proto.py), T3
-# (swar_proto.py)
+# (swar_proto.py), T1's pointwise, stencil and ghost forms (packed_kernels.py)
 TOOL_LAUNCHES = dict.fromkeys(
-    ("T4-copy", "T4-smem-copy", "T4-bitcast-store", "T4-bitcast-load", "T2", "T3"), 0
+    ("T4-copy", "T4-smem-copy", "T4-bitcast-store", "T4-bitcast-load", "T2", "T3",
+     "T1-pw", "T1", "T1g"), 0
 )
 
 

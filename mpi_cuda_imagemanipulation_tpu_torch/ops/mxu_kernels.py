@@ -452,6 +452,14 @@ def mxu_stencil(
     return plane(img)
 
 
+def _within_halo(op: StencilOp, img: torch.Tensor) -> bool:
+    """Whether the K1/K2 group runner refuses `op` on `img` from its shape
+    alone: a reflect101 stencil on an image no taller or wider than its halo
+    (cuda_kernels.run_group)."""
+    height, width = img.shape[:2]
+    return op.edge_mode == "reflect101" and (height <= op.halo or width <= op.halo)
+
+
 def pipeline_mxu(
     ops,
     img: torch.Tensor,
@@ -463,17 +471,25 @@ def pipeline_mxu(
     """A pipeline with every eligible stencil on the banded products and
     every other op, in runs between them, through the K1/K2 group runner
     (`pipeline_cuda`: its kernels on a CUDA tensor, their plain versions on
-    a CPU one), byte-equal to the golden ops. `block_h` sets K2's tile
+    a CPU one), byte-equal to the golden ops. A stencil with no banded form
+    on an image the group runner refuses (`_within_halo`) runs its golden
+    op instead, as the JAX package's pipeline_mxu runs every such op,
+    counted in ``plan_metrics.mxu_golden_ops``. `block_h` sets K2's tile
     height."""
     from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
 
     run: list = []
     for op in ops:
-        if isinstance(op, StencilOp) and mxu_eligible(op):
+        eligible = isinstance(op, StencilOp) and mxu_eligible(op)
+        if eligible or (isinstance(op, StencilOp) and _within_halo(op, img)):
             if run:
                 img = pipeline_cuda(run, img, block_h=block_h)
                 run = []
-            img = mxu_stencil(op, img, mode=mode, col_variant=col_variant)
+            if eligible:
+                img = mxu_stencil(op, img, mode=mode, col_variant=col_variant)
+            else:
+                img = op(img)
+                plan_metrics.mxu_golden_ops[op.name] += 1
         else:
             run.append(op)
     if run:

@@ -43,6 +43,10 @@ class PlanMetrics:
         # ops that have one, by reason (ops/mxu_kernels.stage_arm_for)
         self.mxu_stage_ops: collections.Counter = collections.Counter()
         self.mxu_stage_fallbacks: collections.Counter = collections.Counter()
+        # stencils with no banded form that the whole-op route ran as their
+        # golden op, on an image within their halo, by op name
+        # (ops/mxu_kernels.pipeline_mxu)
+        self.mxu_golden_ops: collections.Counter = collections.Counter()
 
     def on_build(self, plan) -> None:
         self.builds[plan.mode] += 1

@@ -30,8 +30,9 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "pointwise", "stream_stencil", "fused_stage", "swar_stencil",
-    # the tools' kernels (tools/: roofline_probe T4, packed_proto T2, swar_proto T3)
-    "copy_probe", "packed_proto", "swar_proto",
+    # the tools' kernels (tools/: roofline_probe T4, packed_proto T2, swar_proto T3,
+    # packed_kernels T1)
+    "copy_probe", "packed_proto", "swar_proto", "packed_stream",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,7 +45,7 @@ NVCC_FLAGS = (
 )
 
 # Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
-# fused_stage.cu, swar_stencil.cu, copy_probe.cu).
+# fused_stage.cu, swar_stencil.cu, copy_probe.cu, packed_stream.cu).
 PW_MAX_OPS = 8
 ST_MAX_K = 7
 FS_MAX_OPS = 24
@@ -56,6 +57,8 @@ KERNEL_PARAM_BYTES = 4096
 FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
 # copy_probe_launch's element types (CpType in copy_probe.cu)
 CP_U8, CP_F32, CP_U32 = 0, 1, 2
+# planes per launch of T1 (PK_MAX_PLANES in packed_stream.cu)
+PK_MAX_PLANES = 3
 
 
 class PwProgram(ctypes.Structure):
@@ -117,6 +120,19 @@ class SwarDesc(ctypes.Structure):
         ("n_pre", ctypes.c_int),
         ("n_post", ctypes.c_int),
         ("table", ctypes.c_void_p),
+    ]
+
+
+class PkPlanes(ctypes.Structure):
+    """The word planes of one T1 launch (packed_stream.cu): the input
+    planes, their top and bottom ghost strips (ghost mode only), the output
+    planes; unused entries are null. 96 bytes."""
+
+    _fields_ = [
+        ("in_", ctypes.c_void_p * PK_MAX_PLANES),
+        ("top", ctypes.c_void_p * PK_MAX_PLANES),
+        ("bot", ctypes.c_void_p * PK_MAX_PLANES),
+        ("out", ctypes.c_void_p * PK_MAX_PLANES),
     ]
 
 
@@ -252,6 +268,16 @@ def load(name: str) -> ctypes.CDLL:
             vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(PwProgram), vp,
         ]
         lib.packed_pointwise_launch.restype = ci
+    elif name == "packed_stream":
+        pk, pw, st = (ctypes.POINTER(t) for t in (PkPlanes, PwProgram, StencilDesc))
+        lib.packed_pointwise_group_launch.argtypes = [pk, ci, ci, ci, ci, pw, ci, vp]
+        lib.packed_stream_launch.argtypes = [pk, ci, ci, ci, ci, pw, st, ci, vp]
+        lib.packed_stream_ghost_launch.argtypes = [pk, ci, ci, ci, ci, pw, st, ci, ci, ci, vp]
+        for fn in ("packed_pointwise_group_launch", "packed_stream_launch",
+                   "packed_stream_ghost_launch"):
+            getattr(lib, fn).restype = ci
+        lib.packed_stream_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.packed_stream_smem_bytes.restype = ll
     elif name == "swar_proto":
         lib.swar_proto_launch.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.swar_proto_launch.restype = ci

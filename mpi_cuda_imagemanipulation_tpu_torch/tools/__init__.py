@@ -7,6 +7,10 @@ each runnable as ``python -m mpi_cuda_imagemanipulation_tpu_torch.tools.<name>``
   (``ops/csrc/packed_proto.cu``), with the packed-lane helpers.
 * ``swar_proto``: T3, the 5x5 Gaussian on quarter-strip words, SWAR
   (``ops/csrc/swar_proto.cu``).
+* ``packed_ab``: times T1 against K1/K2 and T2; T1 itself, one
+  ``[pointwise*, stencil?]`` group on packed words in its pointwise,
+  stencil and ghost forms (``ops/csrc/packed_stream.cu``), and the archived
+  runner ``pipeline_packed`` live in the module ``packed_kernels``.
 
 Each runs on the card unless ``--device cpu`` is given, which runs the plain
 versions. Records name the card and its power limit; times on the card come

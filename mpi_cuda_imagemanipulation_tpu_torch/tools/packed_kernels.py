@@ -1,0 +1,379 @@
+"""T1: one ``[pointwise*, stencil?]`` group on packed word planes, four u8
+pixels per 32-bit word; the counterpart of the JAX repository's
+``tools/packed_kernels.py``.
+
+The JAX repository demoted this design from its production paths after
+measuring it on its own hardware, and kept the module as the record of the
+design and for its A/B tools. The port keeps it for the same tools
+(``tools.packed_ab`` and the probe's ``gaussian5_8k_packed`` case) and adds
+no production route to it. It holds:
+
+* ``pack_words`` / ``unpack_words``: (H, W) u8 <-> (H, W/4) int32, byte k
+  of word j = column 4j + k (little-endian); free views of a contiguous
+  plane.
+* ``packed_supported``: which groups the kernel takes, rule for rule the
+  JAX module's; ``pipeline_packed`` sends the others to the K1/K2 group
+  runner (``ops/cuda_kernels.run_group``).
+* ``run_group_packed_words``: T1, a hand-written CUDA kernel
+  (``ops/csrc/packed_stream.cu``) in three forms: the pointwise form
+  ('T1-pw'), the stencil form over a whole image ('T1') and its ghost mode
+  over one row-shard with ghost word strips ('T1g'). Beside it the plain
+  version ``run_group_packed_words_plain``: unpack, the port's plain group
+  (``pointwise_group_plain``, ``stream_stencil_plain`` or
+  ``stream_stencil_ghost_plain``), pack. ``run_group_packed`` takes and
+  returns u8 planes.
+* ``pipeline_packed``: the word-carrying group loop, consecutive eligible
+  groups staying in word form.
+
+The kernel's host geometry (tiles, window words and their column sources,
+shared memory) is plain Python here, so that the CPU tests can check it.
+Each wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches the kernel or raises, and counts the launch in
+``cuda_kernels.TOOL_LAUNCHES`` under 'T1-pw', 'T1' or 'T1g'.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import U8, PointwiseOp, StencilOp
+from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
+
+I32 = torch.int32
+# Launch geometry; PK_TILE_WORDS in packed_stream.cu. A tile is tile_h rows
+# of TILE_WORDS words; a stencil block's window adds halo rows above and
+# below and one word left and right.
+TILE_WORDS = 32
+WIN_WORDS = TILE_WORDS + 2
+DEFAULT_TILE_H = 16
+
+
+# --------------------------------------------------------------------------
+# Views: u8 plane <-> int32 word plane (the same bytes)
+# --------------------------------------------------------------------------
+
+
+def pack_words(plane: torch.Tensor) -> torch.Tensor:
+    """(H, W) u8 -> (H, W/4) int32; word j's byte k is column 4j + k. A
+    view of the plane (a copy first only if it is not contiguous)."""
+    if plane.ndim != 2 or plane.dtype != U8:
+        raise ValueError(f"pack_words takes an (H, W) uint8 plane, got "
+                         f"{tuple(plane.shape)} {plane.dtype}")
+    height, width = plane.shape
+    if width % 4:
+        raise ValueError(f"packed words need a width that is a multiple of 4, got {width}")
+    return plane.contiguous().view(I32).view(height, width // 4)
+
+
+def unpack_words(words: torch.Tensor, width: int) -> torch.Tensor:
+    """(H, W/4) int32 -> (H, W) u8, the inverse of pack_words; a view."""
+    if words.ndim != 2 or words.dtype != I32:
+        raise ValueError(f"unpack_words takes (H, W/4) int32 words, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if width != 4 * words.shape[1]:
+        raise ValueError(f"{words.shape[1]} words per row hold width {4 * words.shape[1]}, "
+                         f"not {width}")
+    return words.contiguous().view(U8).view(words.shape[0], width)
+
+
+# --------------------------------------------------------------------------
+# Eligibility
+# --------------------------------------------------------------------------
+
+
+def packed_supported(
+    pointwise: list[PointwiseOp], stencil: StencilOp | None, width: int
+) -> bool:
+    """Whether this [pointwise*, stencil?] group can run packed; callers
+    send the others to the u8 group runner. The JAX module's rules: width a
+    multiple of 4 with at least 8 words, kernel-safe pointwise ops, a
+    pointwise-only group with at least one op, or a stencil that reduces by
+    corr, min, max or median with a single or magnitude combine, in
+    reflect101 or edge mode (interior mode for non-separable correlations
+    only), of halo 1-3 with 2 halo < W/4."""
+    if width % 4 or width // 4 < 8:
+        return False
+    if any(not op.kernel_safe for op in pointwise):
+        return False
+    if stencil is None:
+        return bool(pointwise)
+    if stencil.reduce not in ("corr", "min", "max", "median"):
+        return False
+    if stencil.combine not in ("single", "magnitude"):
+        return False
+    if stencil.edge_mode == "interior":
+        if stencil.separable is not None or stencil.reduce != "corr":
+            return False
+    elif stencil.edge_mode not in ("reflect101", "edge"):
+        return False
+    if not 1 <= stencil.halo <= 3:
+        return False
+    if 2 * stencil.halo >= width // 4:
+        return False
+    return True
+
+
+# --------------------------------------------------------------------------
+# Host-side geometry (packed_stream.cu)
+# --------------------------------------------------------------------------
+
+
+def packed_grid(height: int, wp: int, tile_h: int) -> tuple[int, int]:
+    """T1's grid: (word tiles, row tiles)."""
+    return -(-wp // TILE_WORDS), -(-height // tile_h)
+
+
+def packed_smem_bytes(n_out: int, tile_h: int, halo: int, family: int) -> int:
+    """Dynamic shared memory of one stencil block (pk_smem_bytes in the
+    source): the window of (tile_h + 2 halo) rows x WIN_WORDS words per
+    output plane, then for separable and min/max the float32 row pass of
+    (tile_h + 2 halo) rows x 4 TILE_WORDS columns per plane."""
+    eh = tile_h + 2 * halo
+    nbytes = n_out * eh * WIN_WORDS * 4
+    if family in (ck._FAMILIES["separable"], ck._FAMILIES["min"], ck._FAMILIES["max"]):
+        nbytes += n_out * eh * TILE_WORDS * 4 * 4
+    return nbytes
+
+
+def _st_src(c: int, n: int, mode: str) -> int:
+    """stencil.cuh's st_src: the golden padding's source (ck.edge_src),
+    clamped into the axis where that has none (interior mode)."""
+    src = ck.edge_src(c, n, mode)
+    return min(max(c, 0), n - 1) if src is None else src
+
+
+def window_word_sources(gw: int, wp: int, mode: str) -> list[int]:
+    """The image columns the four bytes of window word `gw` hold
+    (pk_load_word): word gw's own columns inside the row, else each byte's
+    st_src column."""
+    if 0 <= gw < wp:
+        return [4 * gw + k for k in range(4)]
+    return [_st_src(4 * gw + k, 4 * wp, mode) for k in range(4)]
+
+
+def window_row_source(ty: int, height: int, halo: int, mode: str,
+                      ghost: bool) -> tuple[str, int]:
+    """Where a window row `ty` (a row of the image, or of the tile in ghost
+    mode) comes from: ('image', row) by the row source st_src in full mode;
+    in ghost mode ('top', row) or ('bottom', row) of the strips (rows past
+    the bottom strip clamp to its last row) or ('tile', row)."""
+    if not ghost:
+        return "image", _st_src(ty, height, mode)
+    return ck.ghost_row_source(ty, height, halo)
+
+
+# --------------------------------------------------------------------------
+# Checks shared by the wrappers and the plain versions
+# --------------------------------------------------------------------------
+
+
+def _check_planes(what: str, planes, shape, device) -> None:
+    for p in planes:
+        if p.ndim != 2 or tuple(p.shape) != shape or p.dtype != I32 or p.device != device:
+            raise ValueError(
+                f"T1 takes {what} as {shape} int32 word planes on {device}, got "
+                f"{[(tuple(q.shape), q.dtype, str(q.device)) for q in planes]}"
+            )
+
+
+def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h):
+    """Validate one T1 call. Returns (program, n_out, stencil descriptor or
+    None, tile_h)."""
+    if len(words) not in (1, 3):
+        raise ValueError(f"T1 takes 1 or 3 word planes, got {len(words)}")
+    if width % 4:
+        raise ValueError(f"packed words need a width that is a multiple of 4, got {width}")
+    wp = width // 4
+    _check_planes("the input", words, (height, wp), words[0].device)
+    if not packed_supported(list(pointwise), stencil, width):
+        names = [op.name for op in pointwise] + ([stencil.name] if stencil else [])
+        raise ValueError(f"T1 does not take group {names} at width {width} (packed_supported)")
+    prog, n_out = ck.pointwise_program(list(pointwise), len(words))
+    tile_h = block_h or DEFAULT_TILE_H
+    if tile_h < 1:
+        raise ValueError(f"tile height must be >= 1, got {tile_h}")
+    if packed_grid(height, wp, tile_h)[1] > ck._MAX_GRID_Y:
+        raise ValueError(f"image height {height} needs a taller tile than {tile_h}")
+    if stencil is None:
+        if ghosts is not None:
+            raise ValueError("ghost mode needs a stencil")
+        return prog, n_out, None, tile_h
+    desc = ck.stencil_desc(stencil)
+    h = stencil.halo
+    if height <= h:
+        raise ValueError(f"image height {height} too small for halo {h}")
+    smem = packed_smem_bytes(n_out, tile_h, h, desc.family)
+    if smem > ck.MAX_SMEM_BYTES:
+        raise ValueError(f"tile height {tile_h} needs {smem} B of shared memory "
+                         f"(at most {ck.MAX_SMEM_BYTES})")
+    if ghosts is not None:
+        tops, bots = ghosts
+        if len(tops) != len(words) or len(bots) != len(words):
+            raise ValueError(f"ghost mode needs one top and one bottom strip per input plane, "
+                             f"got {len(tops)} and {len(bots)} for {len(words)}")
+        _check_planes("ghost strips", list(tops) + list(bots), (h, wp), words[0].device)
+        if y0 is None or image_h is None:
+            raise ValueError("ghost mode needs the tile's first global row y0 and image_h")
+        if not 0 <= int(y0) <= image_h - height:
+            raise ValueError(f"tile rows [{int(y0)}, {int(y0) + height}) lie outside an image "
+                             f"of {image_h} rows")
+    return prog, n_out, desc, tile_h
+
+
+def _hwc(planes: list[torch.Tensor]) -> torch.Tensor:
+    return planes[0] if len(planes) == 1 else torch.stack(planes, dim=-1)
+
+
+def _planes(img: torch.Tensor) -> list[torch.Tensor]:
+    return [img] if img.ndim == 2 else [img[..., c] for c in range(img.shape[2])]
+
+
+# --------------------------------------------------------------------------
+# T1: plain version and wrapper
+# --------------------------------------------------------------------------
+
+
+def run_group_packed_words_plain(
+    pointwise: list[PointwiseOp],
+    stencil: StencilOp | None,
+    words: list[torch.Tensor],
+    height: int,
+    width: int,
+    *,
+    block_h: int | None = None,
+    ghosts: tuple[list[torch.Tensor], list[torch.Tensor]] | None = None,
+    y0=None,
+    image_h: int | None = None,
+) -> list[torch.Tensor]:
+    """Plain version of T1, all three forms: unpack the words (views), the
+    port's plain group (``pointwise_group_plain``, ``stream_stencil_plain``,
+    or ``stream_stencil_ghost_plain`` at global row `y0` of `image_h` in
+    ghost mode), pack each output plane. `block_h` is checked, and changes
+    no byte."""
+    _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
+    img = _hwc([unpack_words(w, width) for w in words])
+    if stencil is None:
+        out = ck.pointwise_group_plain(list(pointwise), img)
+    elif ghosts is None:
+        out = ck.stream_stencil_plain(list(pointwise), stencil, img)
+    else:
+        tops, bots = ([unpack_words(s, width) for s in strips] for strips in ghosts)
+        out = ck.stream_stencil_ghost_plain(
+            list(pointwise), stencil, img, _hwc(tops), _hwc(bots), y0=int(y0),
+            image_h=image_h, image_w=width,
+        )
+    return [pack_words(p) for p in _planes(out)]
+
+
+def run_group_packed_words(
+    pointwise: list[PointwiseOp],
+    stencil: StencilOp | None,
+    words: list[torch.Tensor],
+    height: int,
+    width: int,
+    *,
+    block_h: int | None = None,
+    ghosts: tuple[list[torch.Tensor], list[torch.Tensor]] | None = None,
+    y0=None,
+    image_h: int | None = None,
+) -> list[torch.Tensor]:
+    """T1: one group on (height, width/4) int32 word planes, one per
+    channel, into word planes of the channel count after the chain; one
+    launch. `block_h` is the tile height in rows (default 16).
+    ``ghosts=(tops, bots)`` runs ghost mode over a row-shard: raw,
+    pre-pointwise (halo, width/4) word strips per input plane, the tile's
+    first row being global row `y0` of an image `image_h` rows high. The
+    caller keeps to `packed_supported`; a group outside it raises."""
+    prog, n_out, desc, tile_h = _check_group(
+        pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
+    device = words[0].device
+    if device.type == "cpu":
+        return run_group_packed_words_plain(
+            pointwise, stencil, words, height, width, block_h=block_h, ghosts=ghosts, y0=y0,
+            image_h=image_h,
+        )
+    tops, bots = ghosts if ghosts is not None else ([], [])
+    for p in [*words, *tops, *bots]:
+        if not p.is_contiguous():
+            raise ValueError("T1 takes contiguous word planes")
+    wp = width // 4
+    outs = [torch.empty((height, wp), dtype=I32, device=device) for _ in range(n_out)]
+    planes = kr.PkPlanes()
+    for field, tensors in (("in_", words), ("top", tops), ("bot", bots), ("out", outs)):
+        getattr(planes, field)[: len(tensors)] = [t.data_ptr() for t in tensors]
+    lib = kr.load("packed_stream")
+    n_in = len(words)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if stencil is None:
+            key = "T1-pw"
+            rc = lib.packed_pointwise_group_launch(
+                ctypes.byref(planes), height, wp, n_in, n_out, ctypes.byref(prog), tile_h, stream)
+        elif ghosts is None:
+            key = "T1"
+            rc = lib.packed_stream_launch(
+                ctypes.byref(planes), height, wp, n_in, n_out, ctypes.byref(prog),
+                ctypes.byref(desc), tile_h, stream)
+        else:
+            key = "T1g"
+            rc = lib.packed_stream_ghost_launch(
+                ctypes.byref(planes), height, wp, n_in, n_out, ctypes.byref(prog),
+                ctypes.byref(desc), tile_h, int(y0), image_h, stream)
+    ck._raise_on(rc, "packed_stream")
+    ck.TOOL_LAUNCHES[key] += 1
+    return outs
+
+
+def run_group_packed(
+    pointwise: list[PointwiseOp],
+    stencil: StencilOp | None,
+    planes: list[torch.Tensor],
+    *,
+    block_h: int | None = None,
+    ghosts: tuple[list[torch.Tensor], list[torch.Tensor]] | None = None,
+    y0=None,
+    image_h: int | None = None,
+) -> list[torch.Tensor]:
+    """T1 on (H, W) u8 planes in and out; the words are views at the call's
+    boundary. ``ghosts=(tops, bots)``: raw (halo, W) u8 strips per input
+    plane, packed like the planes."""
+    height, width = planes[0].shape
+    gw = None
+    if ghosts is not None:
+        gw = tuple([pack_words(s) for s in strips] for strips in ghosts)
+    outs = run_group_packed_words(
+        pointwise, stencil, [pack_words(p) for p in planes], height, width, block_h=block_h,
+        ghosts=gw, y0=y0, image_h=image_h,
+    )
+    return [unpack_words(o, width) for o in outs]
+
+
+def pipeline_packed(ops, img: torch.Tensor, *, block_h: int | None = None) -> torch.Tensor:
+    """The archival packed runner: each group `packed_supported` takes runs
+    on T1 in word form, consecutive ones staying words; the others run on
+    the u8 group runner (K1/K2, ``cuda_kernels.run_group``), as the JAX
+    runner sends them to its u8 streaming path. `block_h` is the tile
+    height of both. Same bytes as the golden ops; on a CPU tensor every
+    group takes its plain version."""
+    planes = _planes(img)
+    words = None  # not None: the planes live as packed words
+    height = width = None
+    for pointwise, stencil in ck.group_ops(ops):
+        if words is None:
+            height, width = planes[0].shape
+        if packed_supported(pointwise, stencil, width):
+            if words is None:
+                words = [pack_words(p) for p in planes]
+            words = run_group_packed_words(pointwise, stencil, words, height, width,
+                                           block_h=block_h)
+            continue
+        if words is not None:
+            planes = [unpack_words(w, width) for w in words]
+            words = None
+        planes = _planes(ck.run_group(pointwise, stencil, _hwc(planes), block_h=block_h))
+    if words is not None:
+        planes = [unpack_words(w, width) for w in words]
+    return _hwc(planes)

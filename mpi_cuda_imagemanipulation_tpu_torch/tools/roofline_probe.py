@@ -20,13 +20,14 @@ kernels of the same shape, beside that figure, on the 8K gray plane
      PyTorch, recorded as such, with no time;
   f) ``cuda_u8load_u32store_bitcast`` / ``cuda_u32load_u8store_bitcast``:
      the sublane bitcast pair (byte k of word (i, j) = u8 row 4i + k);
-  g) ``gaussian5_8k_cuda``: the port's K2 on the same plane, same process.
+  g) ``gaussian5_8k_cuda`` / ``gaussian5_8k_packed``: the port's K2 and the
+     archived packed runner's T1 (``tools/packed_kernels.pipeline_packed``)
+     on the same plane, same process.
 
 Names map the JAX tool's ``pallas_*`` to ``cuda_*`` and ``xla_*`` to
 ``torch_*``. Every case is measured ``--rounds`` times round-robin, then
 each case's best is emitted with ``stat: best_of_N_rounds``; each record
-carries the card's name and power limit. The JAX tool's
-``gaussian5_8k_packed`` case needs T1, which is not ported yet.
+carries the card's name and power limit.
 
 Usage: python -m mpi_cuda_imagemanipulation_tpu_torch.tools.roofline_probe
        [--quick] [--rounds N] [--device cuda|cpu]
@@ -214,10 +215,14 @@ def probe_cases(img_u8: torch.Tensor, *, quick: bool) -> tuple[list, list[dict]]
                   lambda: bitcast_store(img_u8, 128)))
     cases.append(({"case": "cuda_u32load_u8store_bitcast", "block_h": 128, "_nbytes": 2 * h * w},
                   lambda: bitcast_load(words, 128)))
-    # g) the port's K2 on the same plane
+    # g) the port's K2 and the archived packed runner's T1 on the same plane
+    from mpi_cuda_imagemanipulation_tpu_torch.tools.packed_kernels import pipeline_packed
+
     ops = make_pipeline_ops("gaussian:5")
-    cases.append(({"case": "gaussian5_8k_cuda", "_nbytes": 2 * h * w, "_mp": h * w},
-                  lambda: pipeline_cuda(ops, img_u8)))
+    for name, runner in (("gaussian5_8k_cuda", pipeline_cuda),
+                         ("gaussian5_8k_packed", pipeline_packed)):
+        cases.append(({"case": name, "_nbytes": 2 * h * w, "_mp": h * w},
+                      lambda runner=runner: runner(ops, img_u8)))
     return cases, untimed
 
 

@@ -534,7 +534,7 @@ def test_wrappers_with_k5_arms_match_golden_on_cpu(spec):
     assert ck.launch_counts() == dict.fromkeys(
         ["K1", "K2", "K2g", "K3", "K4", "K4g", "K5-bf16", "K5-int8", "K6-narrow", "K6-wide",
          "K7", "K8", "K6g-narrow", "K6g-wide", "K7g", "K8g", "T4-copy", "T4-smem-copy",
-         "T4-bitcast-store", "T4-bitcast-load", "T2", "T3"], 0)
+         "T4-bitcast-store", "T4-bitcast-load", "T2", "T3", "T1-pw", "T1", "T1g"], 0)
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Three repairs to the PyTorch/CUDA port, each held against the JAX package:
+"""Repairs to the PyTorch/CUDA port, each held against the JAX package:
 
 * ``backend='auto'`` in ``Pipeline.jit`` and ``run --impl`` (the default),
   running what ``'cuda'`` runs, as ``Pipeline.sharded`` already did;
 * the golden reflect-101 padding on images no wider or taller than the
   halo (``spec.pad2d``), which reflects repeatedly as ``jnp.pad`` does;
+* the whole-op ``mxu`` route on images within a stencil's halo: a stencil
+  with no banded form (median) runs its golden op there, as the JAX
+  ``pipeline_mxu`` does, where the K2 group runner refuses the image;
 * SWAR chains of any length (``swar_desc``'s table): a plain registry
   pipeline with 17 or 40 fusable steps before a stencil runs fused on K6,
   routed as the JAX SWAR path routes it.
@@ -145,6 +148,51 @@ def test_mxu_route_on_images_within_the_halo_matches_jax(spec):
         want = np.asarray(jax.jit(lambda x, ops=ops: jax_mxu(ops, x))(jnp.asarray(img)))
         got = Pipeline.parse(spec).jit("mxu", device="cpu", plan="off")(img).numpy()
         np.testing.assert_array_equal(got, want, err_msg=str(shape))
+
+
+SMALL_MXU_CASES = [
+    ("median:5", (2, 3), 1), ("median:5", (3, 2), 1), ("median:5", (2, 3), 3),
+    ("median:5", (3, 2), 3), ("grayscale,median:5", (2, 3), 3),
+    ("grayscale,median:5", (3, 2), 3),
+] + [("median:3", (1, n), 1) for n in (1, 2, 5, 40)]
+
+
+@pytest.mark.parametrize("spec,shape,channels", SMALL_MXU_CASES)
+def test_mxu_route_runs_golden_stencils_on_images_within_the_halo(spec, shape, channels):
+    """A stencil with no banded form on an image no taller or wider than its
+    halo runs its golden op under --impl mxu, as the JAX pipeline_mxu runs
+    every such op; the group runner refused it before. Counted, by name."""
+    from mpi_cuda_imagemanipulation_tpu.ops.mxu_kernels import pipeline_mxu as jax_mxu
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import pipeline_mxu
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+    img = synthetic_image(*shape, channels=channels, seed=sum(shape))
+    ops = jax_registry.make_pipeline_ops(spec)
+    want = np.asarray(jax.jit(lambda x: jax_mxu(ops, x))(jnp.asarray(img)))
+    plan_metrics.reset()
+    got = Pipeline.parse(spec).jit("mxu", device="cpu", plan="off")(img).numpy()
+    np.testing.assert_array_equal(got, want)
+    stencil = spec.split(",")[-1].replace(":", "")
+    assert dict(plan_metrics.mxu_golden_ops) == {stencil: 1}
+    direct = pipeline_mxu(make_pipeline_ops(spec), torch.from_numpy(img))
+    np.testing.assert_array_equal(direct.numpy(), want)
+
+
+def test_mxu_route_keeps_the_group_runner_elsewhere(monkeypatch):
+    """Ops other than such stencils keep the K1/K2 route, with no golden op
+    counted: a median on an image past its halo goes to K2."""
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+    seen = []
+    real = ck.stream_stencil
+    monkeypatch.setattr(ck, "stream_stencil",
+                        lambda pw, st, img, **kw: seen.append(st.name) or real(pw, st, img, **kw))
+    plan_metrics.reset()
+    img = synthetic_image(3, 40, channels=3, seed=1)
+    got = Pipeline.parse("grayscale,median:3").jit("mxu", device="cpu", plan="off")(img)
+    want = Pipeline.parse("grayscale,median:3")(torch.from_numpy(img))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert seen == ["median3"] and not plan_metrics.mxu_golden_ops
 
 
 def test_kernel_paths_keep_refusing_narrow_reflect101():

@@ -410,7 +410,7 @@ def test_launch_counts_cover_every_kernel():
                                   "K7": 0, "K8": 0, "K6g-narrow": 0, "K6g-wide": 0, "K7g": 0,
                                   "K8g": 0, "T4-copy": 0, "T4-smem-copy": 0,
                                   "T4-bitcast-store": 0, "T4-bitcast-load": 0, "T2": 0,
-                                  "T3": 0}
+                                  "T3": 0, "T1-pw": 0, "T1": 0, "T1g": 0}
     ck.stencil_tile.launches = 3
     ck.SWAR_LAUNCHES["K7g"] = 2
     assert ck.launch_counts()["K3"] == 3 and ck.launch_counts()["K7g"] == 2

@@ -185,7 +185,7 @@ NAMES = {
     "xla_pack_bitcast": "torch_pack_bitcast", "xla_unpack_bitcast": "torch_unpack_bitcast",
     "pallas_u8load_u32store_bitcast": "cuda_u8load_u32store_bitcast",
     "pallas_u32load_u8store_bitcast": "cuda_u32load_u8store_bitcast",
-    "gaussian5_8k_pallas": "gaussian5_8k_cuda",
+    "gaussian5_8k_pallas": "gaussian5_8k_cuda", "gaussian5_8k_packed": "gaussian5_8k_packed",
 }
 
 
@@ -202,7 +202,7 @@ def test_record_names_map_the_jax_probe():
     with open(os.path.join(REPO, "tools", "roofline_probe.py")) as f:
         src = f.read()
     jax_names = set(re.findall(r'"((?:xla|pallas|gaussian5)_[a-z0-9_]+)"', src))
-    assert jax_names == set(NAMES) | {"gaussian5_8k_packed"}  # T1 is not ported yet
+    assert jax_names == set(NAMES)
 
 
 @pytest.mark.parametrize("quick,rounds", [(True, None), (False, 2)])
@@ -221,12 +221,15 @@ def test_records_and_rates(monkeypatch, quick, rounds):
     nbytes = {"torch_copy_u8": 2 * 64 * 256, "torch_copy_f32": 8 * 64 * 256,
               "cuda_copy_u32_packed": 2 * 64 * 256, "cuda_copy_u32_fullelems": 8 * 64 * 256,
               "cuda_copy_f32_packedsize": 2 * 64 * 256, "cuda_smem_copy_u8": 2 * 64 * 256,
-              "cuda_u8load_u32store_bitcast": 2 * 64 * 256, "gaussian5_8k_cuda": 2 * 64 * 256}
+              "cuda_u8load_u32store_bitcast": 2 * 64 * 256, "gaussian5_8k_cuda": 2 * 64 * 256,
+              "gaussian5_8k_packed": 2 * 64 * 256}
     for r in timed:
         if r["case"] in nbytes:
             assert r["gb_s"] == nbytes[r["case"]] / (0.5 / 1e3) / 1e9
-    g5 = next(r for r in timed if r["case"] == "gaussian5_8k_cuda")
-    assert g5["mp_s"] == 64 * 256 / 1e6 / (0.5 / 1e3)
+    for case in ("gaussian5_8k_cuda", "gaussian5_8k_packed"):
+        g5 = next(r for r in timed if r["case"] == case)
+        assert g5["mp_s"] == 64 * 256 / 1e6 / (0.5 / 1e3)
+        assert g5["gb_s"] == 2 * 64 * 256 / (0.5 / 1e3) / 1e9
     smem = [r for r in timed if r["case"] == "cuda_smem_copy_u8"]
     assert all(r["stands_for"] == "pallas_lagged_copy_u8" for r in smem)
     views = [r for r in best if r.get("free_view")]
