@@ -48,7 +48,13 @@ printing a result:
    (97x384, ragged heights, last blocks shorter than the halo, W/4 = 8 and
    W/4 < 128) and tile heights, flat and checkerboard planes, the first, a
    middle and the last 1080x7680 shard tile in ghost mode, the 8K gray
-   gaussian:5 and the 8K RGB reference group.
+   gaussian:5 and the 8K RGB reference group. The stream-stencil kernel's
+   tile shapes: K3 on overlap bands of 1 to 2h + 1 output rows, K2g on
+   shard tiles of h + 1 to 2h + 1 rows, K2 on short images and ragged last
+   tiles, for a stencil of every family (the 5x5 median too) in every edge
+   mode, gray and RGB, at widths that are no multiple of 16. Pointwise
+   chains of 9, 17 and 40 ops (past the first design's 8) on K1, K2, K2g
+   and T1 in its three forms.
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -82,7 +88,10 @@ printing a result:
    3.35 TB/s, T2 at 8K beside K1 on the same group, T3 at 8K beside K6
    narrow and K2 on the same plane; T1 on the 8K gray gaussian:5 beside K2
    and `F.conv2d`, T1g on one shard beside K2g, T1-pw on packed_ab's group
-   beside K1.
+   beside K1. For the stream-stencil rows (K2 on the 8K groups, K2g, K3 on
+   the band and on emboss:3) and T4's copies also the split of one call:
+   device time from torch.profiler, the wrapper's host time, CUDA events
+   back to back, and the same for the library call; K2 by tile height.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -227,8 +236,15 @@ def check_equal(name, got, want):
 
 def phase1(device) -> int:
     """Every kernel case against its plain version; returns the case count."""
+    import torch
+
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
 
+    # the wrappers' stream handle is the current stream's, on a side stream too
+    side = torch.cuda.Stream(device)
+    for stream in (torch.cuda.current_stream(device), side):
+        with torch.cuda.stream(stream):
+            assert ck.stream_handle(device) == torch.cuda.current_stream(device).cuda_stream
     n = 0
     for spec in POINTWISE_CASES:
         pw, st = split_group(spec)
@@ -252,7 +268,144 @@ def phase1(device) -> int:
                     n += 1
     n += phase1_k4(device)
     n += phase1_ghost(device)
+    n += phase1_stencil_shapes(device)
+    n += phase1_long_chains(device)
     print(f"phase 1: {n} kernel cases equal to their plain versions (max_abs_err 0)")
+    return n
+
+
+# the stream-stencil kernel's tile shapes: one stencil of every family (the
+# 5x5 median too) and halo 0..3, in every edge mode, gray and RGB, at
+# widths that are no multiple of 16 and at the frame's width
+SHAPE_STENCILS = ["gaussian:5", "emboss:3", "sobel", "erode:5", "dilate:3", "median:3",
+                  "median:5", "gaussian:7", "box:1", "sharpen"]
+SHAPE_WIDTHS = (301, 7677, MAIN_W)
+EDGE_MODES = ("interior", "reflect101", "edge", "zero")
+
+
+def phase1_stencil_shapes(device) -> int:
+    """K2, K2g and K3 on the redesigned kernel's tile shapes against their
+    plain versions: K3 on overlap bands of 1 to 2h + 1 output rows (the
+    2- and 32-column tiles of a band), K2g on shard tiles of h + 1 to
+    2h + 1 rows at the first, a middle and the last shard, K2 on images of
+    1 to 2h + 1 rows and on ragged last tiles (37 and 130 rows); every
+    stencil of SHAPE_STENCILS in every edge mode K2/K2g take (K3 also
+    zero), gray and RGB, at SHAPE_WIDTHS. Returns the case count."""
+    import dataclasses
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import api
+
+    def img(h, w, c, seed):
+        return torch.from_numpy(synthetic_image(h, w, channels=c, seed=seed)).to(device)
+
+    n = 0
+    for spec in SHAPE_STENCILS:
+        base = make_op(spec)
+        h = base.halo
+        for mode in EDGE_MODES:
+            op = dataclasses.replace(base, edge_mode=mode)
+            for c in (1, 3):
+                for width in SHAPE_WIDTHS:
+                    for rows in range(1, 2 * h + 2):
+                        ext = img(rows + 2 * h, width, c, seed=rows + width)
+                        check_equal(f"K3 {spec} {mode} band {tuple(ext.shape)}",
+                                    ck.stencil_tile(op, ext), ck.stencil_tile_plain(op, ext))
+                        n += 1
+                    if mode == "zero" or width == MAIN_W:
+                        continue
+                    for rows in range(1, 2 * h + 2):  # K2 on short images
+                        if mode == "reflect101" and rows <= h:
+                            continue
+                        x = img(rows, width, c, seed=rows)
+                        check_equal(f"K2 {spec} {mode} {tuple(x.shape)}",
+                                    ck.stream_stencil([], op, x), ck.stream_stencil_plain([], op, x))
+                        n += 1
+                    for rows, tile_h in ((37, None), (130, 48), (37, 5)):  # ragged last tiles
+                        x = img(rows, width, c, seed=rows + 1)
+                        check_equal(f"K2 {spec} {mode} {tuple(x.shape)} tile_h={tile_h}",
+                                    ck.stream_stencil([], op, x, tile_h=tile_h),
+                                    ck.stream_stencil_plain([], op, x))
+                        n += 1
+                    if h == 0:
+                        continue
+                    for local_h in range(h + 1, 2 * h + 2):  # K2g on short shard tiles
+                        frame = img(3 * local_h, width, c, seed=local_h + width)
+                        for k in range(3):
+                            y0 = k * local_h
+                            zeros = torch.zeros_like(frame[:h])
+                            tile = frame[y0:y0 + local_h].contiguous()
+                            top = frame[y0 - h:y0].contiguous() if k else zeros
+                            bottom = frame[y0 + local_h:y0 + local_h + h].contiguous() if k < 2 \
+                                else zeros
+                            top, bottom = api._fix_edge_strips(top, bottom, tile, op, y0,
+                                                               3 * local_h)
+                            kw = dict(y0=y0, image_h=3 * local_h, image_w=width)
+                            check_equal(f"K2g {spec} {mode} {tuple(tile.shape)} shard {k}",
+                                        ck.stream_stencil_ghost([], op, tile, top, bottom, **kw),
+                                        ck.stream_stencil_ghost_plain([], op, tile, top, bottom,
+                                                                      **kw))
+                            n += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: K2, K2g and K3 on bands, short tiles and ragged tiles equal to their plain "
+          f"versions: {n} cases")
+    return n
+
+
+# pointwise chains past the first design's 8-op limit
+LONG_CHAINS = (9, 17, 40)
+LONG_STEPS = ("brightness:3", "invert", "brightness:-5", "solarize:200")
+
+
+def long_chain(n: int) -> str:
+    return ",".join(LONG_STEPS[k % len(LONG_STEPS)] for k in range(n))
+
+
+def phase1_long_chains(device) -> int:
+    """K1, K2, K2g and T1 in its three forms (T1-pw, T1, T1g) on chains of
+    9, 17 and 40 pointwise ops, alone and before gaussian:5, against their
+    plain versions: 1080 x 1920 RGB and the 8K frame for K1/K2, the middle
+    shard tile of a 3-shard 1080 x 1920 frame for K2g, 1080 x 1920 gray
+    words for T1 and T1-pw, its second of four shard tiles for T1g.
+    Returns the case count."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+
+    n = 0
+    rgb = torch.from_numpy(synthetic_image(1080, 1920, seed=9)).to(device)
+    rgb8k = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=10)).to(device)
+    for steps in LONG_CHAINS:
+        pw = list(make_pipeline_ops(long_chain(steps)))
+        (pw5, st5), = ck.group_ops(make_pipeline_ops(long_chain(steps) + ",gaussian:5"))
+        for x in (rgb, rgb8k):
+            check_equal(f"K1 {steps} ops {tuple(x.shape)}", ck.pointwise_group(pw, x),
+                        ck.pointwise_group_plain(pw, x))
+            check_equal(f"K2 {steps} ops + gaussian:5 {tuple(x.shape)}",
+                        ck.stream_stencil(pw5, st5, x), ck.stream_stencil_plain(pw5, st5, x))
+            n += 2
+        tile, top, bottom, y0, image_h = shard_cut(pw5, (1080, 1920), 1, steps, device, 2)
+        kw = dict(y0=y0, image_h=image_h, image_w=1920)
+        check_equal(f"K2g {steps} ops + gaussian:5", ck.stream_stencil_ghost(
+            pw5, st5, tile, top, bottom, **kw), ck.stream_stencil_ghost_plain(
+            pw5, st5, tile, top, bottom, **kw))
+        gray = rgb[..., 1].contiguous()
+        words = t1_words(gray)
+        n += 1 + check_t1(f"T1 {steps} ops + gaussian:5", pw5, st5, words, 1080, 1920)
+        n += check_t1(f"T1-pw {steps} ops", pw, None, words, 1080, 1920)
+        gtile, gtop, gbot, gy0 = t1_ghost_tile(gray, 1, N_SHARDS, st5.halo)
+        n += check_t1(f"T1g {steps} ops + gaussian:5", pw5, st5, t1_words(gtile.contiguous()),
+                      gtile.shape[0], 1920, ghosts=(t1_words(gtop), t1_words(gbot)), y0=gy0,
+                      image_h=1080)
+    torch.cuda.synchronize()
+    print(f"phase 1: K1, K2, K2g and T1 (T1-pw, T1, T1g) on chains of {LONG_CHAINS} pointwise "
+          f"ops equal to their plain versions: {n} cases")
     return n
 
 
@@ -1371,12 +1524,12 @@ def phase3_tools(device, gray8k, tool_runs, record):
         record(f"T4 copy_probe [{label} {tuple(arr.shape)}, block_h 128]", csrc + "copy_probe.cu",
                f"{probe}:88", t4["T4-copy"], lambda arr=arr: rp.copy_probe(arr, 128),
                lambda arr=arr: rp.copy_probe_plain(arr), c, c, [], n_pix=arr.numel(),
-               library=lambda out=out, arr=arr: out.copy_(arr))
+               library=lambda out=out, arr=arr: out.copy_(arr), split=True)
     out = torch.empty_like(x)
     record(f"T4 smem_copy [u8 {tuple(x.shape)}, block_h 128] for the lagged copy",
            csrc + "copy_probe.cu", f"{probe}:158", t4["T4-smem-copy"],
            lambda: rp.smem_copy(x, 128), lambda: rp.copy_probe_plain(x), 1, 1, [],
-           library=lambda: out.copy_(x))
+           library=lambda: out.copy_(x), split=True)
     words = rp.bitcast_store(x, 128)
     pack_view = x.view(rp.H // 4, 4, rp.W).transpose(1, 2)
     unpack_view = words.view(torch.uint8).view(rp.H // 4, rp.W, 4).transpose(1, 2)
@@ -1732,11 +1885,12 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
     k4 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/fused_stage.cu"
 
     def record(name, source, replaces, launch_count, fn, plain, c_in, c_out, ops,
-               library=None, n_pix=n_pix, strip_bytes=0, ops_ms=None):
+               library=None, n_pix=n_pix, strip_bytes=0, ops_ms=None, split=False):
         """Time one kernel beside its plain version. The bound counts
         `n_pix` pixels read at c_in and written at c_out bytes, plus
         `strip_bytes` of ghost rows read once, and the operations `ops`
-        does (or `ops_ms` for them)."""
+        does (or `ops_ms` for them). `split`: also print its device, host
+        and back-to-back times and the library call's (`split_ms`)."""
         got, want = fn(), plain()
         err = int((got.int() - want.int()).abs().max().item())
         if err:
@@ -1756,6 +1910,14 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         print(f"kernel {name}: {ms:.4f} ms ({n_pix / 1e6 / ms * 1e3:.1f} MP/s), bound "
               f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%}), plain "
               f"{plain_ms:.4f} ms, library {library_ms}, launches {launch_count}")
+        if split:
+            parts = {"kernel": split_ms(fn)}
+            if library is not None:
+                parts["library"] = split_ms(library)
+            print(f"  split {name}: " + "; ".join(
+                f"{k} device {v['device_ms']:.4f} ms ({v['device_source']}), host "
+                f"{v['host_ms']:.4f} ms, back-to-back {v['b2b_ms']:.4f} ms"
+                for k, v in parts.items()) + f"; bound {bound_ms:.4f} ms by {bound_by}")
 
     # K2 on the reference group: 8K RGB in, gray out
     pw, st = split_group(SPECS["reference"])
@@ -1764,7 +1926,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
         launches["reference", "off"]["K2"],
         lambda: ck.stream_stencil(pw, st, x8k),
-        lambda: ck.stream_stencil_plain(pw, st, x8k), 3, 1, pw + [st],
+        lambda: ck.stream_stencil_plain(pw, st, x8k), 3, 1, pw + [st], split=True,
     )
     # K1 on the reference path: the gray result replicated to RGB
     gray = ck.stream_stencil(pw, st, x8k)
@@ -1788,7 +1950,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         launches["gaussian5_8k", "off"]["K2"],
         lambda: ck.stream_stencil(pw5, st5, x8k),
         lambda: ck.stream_stencil_plain(pw5, st5, x8k), 3, 3, pw5 + [st5],
-        library=conv5,
+        library=conv5, split=True,
     )
     # K4 on the gaussian:5 path's one stage, RGB in and out, beside the same
     # convolution
@@ -1809,7 +1971,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
         launches["megakernel_ab", "off"]["K2"],
         lambda: ck.stream_stencil(pwm, stm, x8k),
-        lambda: ck.stream_stencil_plain(pwm, stm, x8k), 3, 1, pwm + [stm],
+        lambda: ck.stream_stencil_plain(pwm, stm, x8k), 3, 1, pwm + [stm], split=True,
     )
     record(
         "K2 stream_stencil [sharpen] gray", k2,
@@ -1817,7 +1979,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         launches["megakernel_ab", "off"]["K2"],
         lambda: ck.stream_stencil(pws, sts, graym),
         lambda: ck.stream_stencil_plain(pws, sts, graym), 1, 1, [sts],
-        library=conv_library(sts, graym, pad_rows=True),
+        library=conv_library(sts, graym, pad_rows=True), split=True,
     )
     # K4 on the first stage of the reference and megakernel paths, 8K RGB
     # in, gray out; no single PyTorch call computes a fused stage
@@ -1863,6 +2025,13 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
                   f"cuda {t:.4f} ms ({mp / t * 1e3:.1f} MP/s), bound {bound_ms:.4f} ms by "
                   f"bytes ({bound_ms / t:.1%}), golden torch ops {t_golden:.4f} ms "
                   f"({mp / t_golden * 1e3:.1f} MP/s), launches {launches[key, plan]}")
+
+    # K2's block rows on the 8K gaussian:5 and reference group
+    for label, (pwt, stt) in (("gaussian5", (pw5, st5)), ("reference", (pw, st))):
+        t_rows = {rows: device_time_ms(lambda rows=rows, pwt=pwt, stt=stt: ck.stream_stencil(
+            pwt, stt, x8k, tile_h=rows), reps=5) for rows in (8, 16, 32, 64)}
+        print(f"sweep K2 [{label}] 8K by tile_h: " +
+              ", ".join(f"{r}: {t:.4f} ms" for r, t in t_rows.items()))
 
     # every stencil of the registry through K2 at 8K RGB, kernel time only
     for spec in STENCIL_CASES:
@@ -1966,6 +2135,54 @@ def host_enqueue_ms(fn, reps: int = 7) -> float:
     return statistics.median(samples)
 
 
+def profiler_device_ms(fn, calls: int = 20) -> tuple[float, str]:
+    """Device milliseconds one call of `fn` keeps the card busy: the CUDA
+    kernels' own time in ``torch.profiler``'s ``key_averages()`` over
+    `calls` calls, per call. Where the profiler shows no device time, CUDA
+    events around a single call after a synchronise instead (the median of
+    7). Returns (ms, source)."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if us > 0:
+        return us / 1e3 / calls, "profiler"
+    samples = []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples), "events"
+
+
+def split_ms(fn) -> dict:
+    """One call of `fn` three ways: the device time its kernels take
+    (`profiler_device_ms`), the host time it takes to enqueue
+    (`host_enqueue_ms`), and CUDA events around calls back to back
+    (`device_time_ms`, which reads host time where a call's host work is
+    longer than its kernels)."""
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    device, source = profiler_device_ms(fn)
+    return {"device_ms": device, "device_source": source, "host_ms": host_enqueue_ms(fn),
+            "b2b_ms": device_time_ms(fn, reps=7)}
+
+
 def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
     """Times of K2g, K3, K4g and the per-shard K1 at the shapes the sharded
     main paths give them (a middle 1080 x 7680 shard of the 8K frame; the
@@ -2020,7 +2237,7 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
             lambda pw=pw, st=st, t=(tile, top, bottom): ck.stream_stencil_ghost_plain(
                 pw, st, *t, **kw),
             c_in, c_out, pw + [st], library=library, n_pix=n_pix,
-            strip_bytes=2 * st.halo * MAIN_W * c_in,
+            strip_bytes=2 * st.halo * MAIN_W * c_in, split=True,
         )
         del library
     # K1 on the megakernel chain's trailing pointwise run, one gray shard
@@ -2042,7 +2259,7 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
         sharded_launches["gaussian5_8k", "off", "serial", True]["K3"],
         lambda: ck.stencil_tile(st5, ext), lambda: ck.stencil_tile_plain(st5, ext),
         3, 3, [st5], library=conv_library(st5, ext, pad_rows=False), n_pix=n_pix,
-        strip_bytes=4 * MAIN_W * 3,
+        strip_bytes=4 * MAIN_W * 3, split=True,
     )
     # K3 as the overlap mode launches it, three times per group and shard:
     # the tile itself as the extended input of its interior (1076 rows out),
@@ -2052,14 +2269,14 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
         "K3 stencil_tile [gaussian5] overlap interior", k2, f"{pk}:787", k3_overlap,
         lambda: ck.stencil_tile(st5, tile), lambda: ck.stencil_tile_plain(st5, tile),
         3, 3, [st5], library=conv_library(st5, tile, pad_rows=False),
-        n_pix=(local_h - 4) * MAIN_W, strip_bytes=4 * MAIN_W * 3,
+        n_pix=(local_h - 4) * MAIN_W, strip_bytes=4 * MAIN_W * 3, split=True,
     )
     band = ext[:6].contiguous()
     record(
         "K3 stencil_tile [gaussian5] overlap band", k2, f"{pk}:787", k3_overlap,
         lambda: ck.stencil_tile(st5, band), lambda: ck.stencil_tile_plain(st5, band),
         3, 3, [st5], library=conv_library(st5, band, pad_rows=False),
-        n_pix=2 * MAIN_W, strip_bytes=4 * MAIN_W * 3,
+        n_pix=2 * MAIN_W, strip_bytes=4 * MAIN_W * 3, split=True,
     )
     # K3 on the reference path's emboss:3 over the gray (1082, W) tile
     pwr, str_ = split_group(SPECS["reference"])
@@ -2070,7 +2287,7 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
         sharded_launches["reference", "off", "serial", True]["K3"],
         lambda: ck.stencil_tile(str_, ext1), lambda: ck.stencil_tile_plain(str_, ext1),
         1, 1, [str_], library=conv_library(str_, ext1, pad_rows=False), n_pix=n_pix,
-        strip_bytes=2 * MAIN_W,
+        strip_bytes=2 * MAIN_W, split=True,
     )
     del ext, ext1, band, tile1
     # K4g on the one stage of each path, over the (1080 + 2H, W, 3) tile;

@@ -19,15 +19,30 @@
 //           computes nothing else. An 8K gray plane (33.18 MB) read and
 //           written cannot take less than 19.8 us at 3.35 TB/s, the f32
 //           plane 79.2 us. The probe measures how near the card comes.
-// Design:   `copy_tiled` gives each block `block_h` rows of one column
-//           chunk (256 threads x 16 bytes), the TPU block's counterpart;
-//           each thread copies 16-byte vectors down its column where the
-//           row pitch is a multiple of 16 bytes, else one element of the
-//           type at a time. The TPU's scratch carry has no counterpart
-//           here (blocks run in parallel, in no order): `smem_copy`
-//           stands in for the lagged copy by staging each block through
-//           shared memory with cp.async, eight rows of the chunk at a time,
-//           then storing from there. The bitcasts give each thread four
+// Design:   the first design gave each CTA block_h rows of one 4 KB
+//           column chunk, one 16-byte vector per thread and row: 68 CTAs
+//           for 132 SMs on the 8K gray plane at block height 128, one load
+//           in flight per thread, 1.11-1.54x `copy_`'s device time. Here
+//           block_h stays the rows of one unit of work (the TPU's grid
+//           step) and no longer sets the CTA:
+//           - the copies (`copy_tiled_kernel`, one template over 16-byte
+//             vectors where the row pitch is a multiple of 16 bytes, else
+//             over elements) cut each unit into CTAs of CP_CTA_ROWS rows
+//             by CP_LANES vectors: each warp covers 32 neighbouring
+//             vectors of a row (512 contiguous bytes), each thread loads
+//             CP_ROWS_PER_THREAD rows, all its loads issued before its
+//             stores. The 8K u8 plane gets 15 x 135-144 CTAs at every
+//             swept block height, some 15 per SM;
+//           - the shared-memory copy moves each unit's bytes (contiguous:
+//             whole rows) with the Tensor Memory Accelerator: one thread
+//             per CTA issues `cp.async.bulk` loads of CP_STAGE_BYTES into
+//             two shared-memory buffers, each completing on its own
+//             `mbarrier`, and `cp.async.bulk` stores from the buffer that
+//             has arrived while the other one loads; CTAs of
+//             CP_BULK_CTA_BYTES of a unit each.
+//           The TPU's scratch carry has no counterpart here (blocks run in
+//           parallel, in no order): the shared-memory copy stands in for
+//           the lagged copy. The bitcasts give each thread four
 //           neighbouring columns of four rows: four 4-byte loads, a 4 x 4
 //           byte transpose in registers (__byte_perm), one 16-byte store,
 //           and the reverse for the load side; the last block is ragged.
@@ -35,69 +50,113 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 #define CP_THREADS 256
-#define CP_VEC 16                          // bytes per vector access
-#define CP_CHUNK (CP_THREADS * CP_VEC)     // bytes of one block's column chunk
-#define CP_STAGE_ROWS 8                    // rows staged at once by smem_copy
+#define CP_VEC 16                 // bytes per vector access
+#define CP_LANES 32               // vectors (or elements) of a row per CTA
+#define CP_ROWS_PER_THREAD 4      // loads in flight per thread before its stores
+#define CP_CTA_ROWS (CP_THREADS / CP_LANES * CP_ROWS_PER_THREAD)  // 32 rows per CTA
+#define CP_STAGE_BYTES 16384      // one bulk copy of the shared-memory copy
+#define CP_BULK_CTA_BYTES 65536   // bytes of a unit per shared-memory-copy CTA
+#define CP_BULK_THREADS 32
 
 enum CpType { CP_U8 = 0, CP_F32 = 1, CP_U32 = 2 };
 
-// Rows [y0, y1) of a chunk of 16-byte vectors: vector `c` of every row.
-__global__ void __launch_bounds__(CP_THREADS)
-copy_vec_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, int H,
-                int row_vecs, int block_h) {
-  const int c = blockIdx.x * CP_THREADS + threadIdx.x;
-  if (c >= row_vecs) return;
-  const int y0 = blockIdx.y * block_h;
-  const int y1 = min(y0 + block_h, H);
-#pragma unroll 4
-  for (int y = y0; y < y1; ++y) {
-    out[(long long)y * row_vecs + c] = in[(long long)y * row_vecs + c];
-  }
-}
-
-// The same over elements of T, for a row pitch that is no multiple of 16.
+// CTA (blockIdx.x, blockIdx.y) of the copies: column units
+// [32 blockIdx.x, +32) of rows [y0, y1): block_h-row unit blockIdx.y /
+// ctas_per_unit, its CTA blockIdx.y % ctas_per_unit of CP_CTA_ROWS rows.
 template <typename T>
 __global__ void __launch_bounds__(CP_THREADS)
-copy_elem_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W,
-                 int block_h) {
-  const int c = blockIdx.x * CP_THREADS + threadIdx.x;
-  if (c >= W) return;
-  const int y0 = blockIdx.y * block_h;
-  const int y1 = min(y0 + block_h, H);
-#pragma unroll 4
-  for (int y = y0; y < y1; ++y) out[(long long)y * W + c] = in[(long long)y * W + c];
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// A u8 plane with a row pitch that is a multiple of 16 bytes, each block's
-// rows staged through shared memory: cp.async of CP_STAGE_ROWS rows of the
-// chunk, wait, barrier, store from shared memory, barrier.
-__global__ void __launch_bounds__(CP_THREADS)
-smem_copy_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, int H,
-                 int row_vecs, int block_h) {
-  __shared__ __align__(16) uint4 stage[CP_STAGE_ROWS][CP_THREADS];
-  const int c = blockIdx.x * CP_THREADS + threadIdx.x;
-  const bool live = c < row_vecs;
-  const int y0 = blockIdx.y * block_h;
-  const int y1 = min(y0 + block_h, H);
-  for (int y = y0; y < y1; y += CP_STAGE_ROWS) {
-    const int n = min(CP_STAGE_ROWS, y1 - y);
-    if (live) {
-      for (int r = 0; r < n; ++r) cp_async16(&stage[r][threadIdx.x], in + (long long)(y + r) * row_vecs + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    if (live) {
-      for (int r = 0; r < n; ++r) out[(long long)(y + r) * row_vecs + c] = stage[r][threadIdx.x];
-    }
-    __syncthreads();
+copy_tiled_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int row_units,
+                  int block_h, int ctas_per_unit) {
+  const int c = blockIdx.x * CP_LANES + (threadIdx.x & (CP_LANES - 1));
+  if (c >= row_units) return;
+  const int unit = blockIdx.y / ctas_per_unit;
+  const int u0 = unit * block_h;
+  const int y0 = u0 + (blockIdx.y - unit * ctas_per_unit) * CP_CTA_ROWS +
+                 threadIdx.x / CP_LANES;
+  const int y1 = min(u0 + block_h, H);
+  constexpr int step = CP_THREADS / CP_LANES;
+  T v[CP_ROWS_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < CP_ROWS_PER_THREAD; ++i) {
+    const int y = y0 + step * i;
+    if (y < y1) v[i] = in[(long long)y * row_units + c];
   }
+#pragma unroll
+  for (int i = 0; i < CP_ROWS_PER_THREAD; ++i) {
+    const int y = y0 + step * i;
+    if (y < y1) out[(long long)y * row_units + c] = v[i];
+  }
+}
+
+__device__ __forceinline__ unsigned cp_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A u8 plane's rows as contiguous bytes, each block_h-row unit split into
+// CTAs of CP_BULK_CTA_BYTES; thread 0 of each CTA streams its range
+// through two CP_STAGE_BYTES buffers with bulk copies: the load of stage
+// s + 1 is in flight while stage s is stored.
+__global__ void __launch_bounds__(CP_BULK_THREADS)
+smem_copy_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out,
+                 long long unit_bytes, long long total_bytes, int ctas_per_unit) {
+  __shared__ __align__(128) unsigned char stage[2][CP_STAGE_BYTES];
+  __shared__ __align__(8) unsigned long long bar[2];
+  if (threadIdx.x != 0) return;
+  const int unit = blockIdx.x / ctas_per_unit;
+  const long long u0 = (long long)unit * unit_bytes;
+  const long long b0 = u0 + (long long)(blockIdx.x - unit * ctas_per_unit) * CP_BULK_CTA_BYTES;
+  const long long b1 = min(min(u0 + unit_bytes, b0 + CP_BULK_CTA_BYTES), total_bytes);
+  if (b0 >= b1) return;
+  const unsigned bars[2] = {cp_smem_addr(&bar[0]), cp_smem_addr(&bar[1])};
+  const unsigned bufs[2] = {cp_smem_addr(stage[0]), cp_smem_addr(stage[1])};
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars[0]));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars[1]));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const int n = (int)((b1 - b0 + CP_STAGE_BYTES - 1) / CP_STAGE_BYTES);
+  auto load = [&](int s) {
+    const long long off = b0 + (long long)s * CP_STAGE_BYTES;
+    const unsigned bytes = (unsigned)min((long long)CP_STAGE_BYTES, b1 - off);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bars[s & 1]), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(bufs[s & 1]), "l"(in + off), "r"(bytes), "r"(bars[s & 1])
+        : "memory");
+  };
+  load(0);
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) {
+      // the store of stage s - 1 must have read the buffer stage s + 1 takes
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      load(s + 1);
+    }
+    cp_mbar_wait(bars[s & 1], (unsigned)(s >> 1) & 1u);
+    const long long off = b0 + (long long)s * CP_STAGE_BYTES;
+    const unsigned bytes = (unsigned)min((long long)CP_STAGE_BYTES, b1 - off);
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 ::"l"(out + off), "r"(bufs[s & 1]), "r"(bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // 4 x 4 byte transpose: a[k] holds four bytes j = 0..3 of row k; returns
@@ -153,40 +212,62 @@ static dim3 cp_grid(int units, int rows, int rows_per_block) {
   return dim3((units + CP_THREADS - 1) / CP_THREADS, (rows + rows_per_block - 1) / rows_per_block);
 }
 
-// Copies an (H, W) array of `dtype` (CpType) in blocks of `block_h` rows on
-// `stream`. Returns cudaGetLastError() after the launch, or
+// The copies' grid: column chunks of CP_LANES units, then per block_h-row
+// unit ceil(block_h / CP_CTA_ROWS) CTAs.
+static dim3 cp_copy_grid(int row_units, int H, int block_h, int* ctas_per_unit) {
+  *ctas_per_unit = (block_h + CP_CTA_ROWS - 1) / CP_CTA_ROWS;
+  const int n_units = (H + block_h - 1) / block_h;
+  return dim3((row_units + CP_LANES - 1) / CP_LANES, n_units * *ctas_per_unit);
+}
+
+template <typename T>
+static void cp_launch_tiled(const void* in, void* out, int H, int row_units, int block_h,
+                            cudaStream_t s) {
+  int per_unit = 0;
+  const dim3 grid = cp_copy_grid(row_units, H, block_h, &per_unit);
+  copy_tiled_kernel<T><<<grid, CP_THREADS, 0, s>>>((const T*)in, (T*)out, H, row_units,
+                                                   block_h, per_unit);
+}
+
+// Copies an (H, W) array of `dtype` (CpType) in units of `block_h` rows on
+// `stream` of `device`. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int copy_probe_launch(const void* in, void* out, int H, int W, int dtype,
-                                 int block_h, void* stream) {
+                                 int block_h, int device, void* stream) {
   if (H <= 0 || W <= 0) return 0;
   if (block_h < 1 || dtype < CP_U8 || dtype > CP_U32) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err) return scope.err;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long row_bytes = (long long)W * (dtype == CP_U8 ? 1 : 4);
-  if (row_bytes % CP_VEC == 0) {
-    const int row_vecs = (int)(row_bytes / CP_VEC);
-    copy_vec_kernel<<<cp_grid(row_vecs, H, block_h), CP_THREADS, 0, s>>>(
-        (const uint4*)in, (uint4*)out, H, row_vecs, block_h);
+  const bool aligned = ((uintptr_t)in % CP_VEC) == 0 && ((uintptr_t)out % CP_VEC) == 0;
+  if (row_bytes % CP_VEC == 0 && aligned) {
+    cp_launch_tiled<uint4>(in, out, H, (int)(row_bytes / CP_VEC), block_h, s);
   } else if (dtype == CP_U8) {
-    copy_elem_kernel<unsigned char><<<cp_grid(W, H, block_h), CP_THREADS, 0, s>>>(
-        (const unsigned char*)in, (unsigned char*)out, H, W, block_h);
+    cp_launch_tiled<unsigned char>(in, out, H, W, block_h, s);
   } else if (dtype == CP_F32) {
-    copy_elem_kernel<float><<<cp_grid(W, H, block_h), CP_THREADS, 0, s>>>(
-        (const float*)in, (float*)out, H, W, block_h);
+    cp_launch_tiled<float>(in, out, H, W, block_h, s);
   } else {
-    copy_elem_kernel<uint32_t><<<cp_grid(W, H, block_h), CP_THREADS, 0, s>>>(
-        (const uint32_t*)in, (uint32_t*)out, H, W, block_h);
+    cp_launch_tiled<uint32_t>(in, out, H, W, block_h, s);
   }
   return (int)cudaGetLastError();
 }
 
-// Copies an (H, W) u8 plane, W a multiple of 16, through shared memory.
+// Copies an (H, W) u8 plane, W a multiple of 16 and both pointers 16-byte
+// aligned, through shared memory with bulk copies, in units of block_h rows.
 extern "C" int smem_copy_launch(const unsigned char* in, unsigned char* out, int H, int W,
-                                int block_h, void* stream) {
+                                int block_h, int device, void* stream) {
   if (H <= 0 || W <= 0) return 0;
-  if (block_h < 1 || W % CP_VEC) return (int)cudaErrorInvalidValue;
-  const int row_vecs = W / CP_VEC;
-  smem_copy_kernel<<<cp_grid(row_vecs, H, block_h), CP_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint4*)in, (uint4*)out, H, row_vecs, block_h);
+  if (block_h < 1 || W % CP_VEC || (uintptr_t)in % CP_VEC || (uintptr_t)out % CP_VEC) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DeviceScope scope(device);
+  if (scope.err) return scope.err;
+  const long long unit_bytes = (long long)block_h * W;
+  const int per_unit = (int)((unit_bytes + CP_BULK_CTA_BYTES - 1) / CP_BULK_CTA_BYTES);
+  const long long n_units = (H + block_h - 1) / block_h;
+  smem_copy_kernel<<<(unsigned)(n_units * per_unit), CP_BULK_THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, unit_bytes, (long long)H * W, per_unit);
   return (int)cudaGetLastError();
 }
 

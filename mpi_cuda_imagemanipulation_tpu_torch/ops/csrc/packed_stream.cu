@@ -69,12 +69,14 @@ struct PkPlanes {
 
 enum PkMode { PK_FULL = 0, PK_GHOST = 1 };
 
-// Shared memory of one stencil block: the post-pointwise window per output
-// plane as words, then (separable, min, max) the float32 row pass per
-// plane, tile_h + 2 halo rows of 4 PK_TILE_WORDS columns.
-__host__ __device__ inline size_t pk_smem_bytes(int n_out, int tile_h, int halo, int family) {
+// Shared memory of one stencil block: the chain's table (n_ops PwOp), the
+// post-pointwise window per output plane as words, then (separable, min,
+// max) the float32 row pass per plane, tile_h + 2 halo rows of 4
+// PK_TILE_WORDS columns.
+__host__ __device__ inline size_t pk_smem_bytes(int n_out, int tile_h, int halo, int family,
+                                                int n_ops) {
   const size_t eh = tile_h + 2 * halo;
-  size_t bytes = (size_t)n_out * eh * PK_WIN_WORDS * 4;
+  size_t bytes = (size_t)n_ops * sizeof(PwOp) + (size_t)n_out * eh * PK_WIN_WORDS * 4;
   if (st_two_pass(family)) bytes += (size_t)n_out * eh * PK_TILE_WORDS * 4 * sizeof(float);
   return bytes;
 }
@@ -92,10 +94,10 @@ __device__ __forceinline__ uint32_t pk_load_word(const uint32_t* row, int gw, in
   return word;
 }
 
-// The chain on the four pixels of one word position: n_in words in, n_out
-// words out.
-__device__ __forceinline__ void pk_chain(const PwProgram& prog, const uint32_t* w_in, int n_in,
-                                         uint32_t* w_out, int n_out) {
+// The chain (its table in shared memory) on the four pixels of one word
+// position: n_in words in, n_out words out.
+__device__ __forceinline__ void pk_chain(const PwOp* ops, int n_ops, const uint32_t* w_in,
+                                         int n_in, uint32_t* w_out, int n_out) {
 #pragma unroll
   for (int c = 0; c < PK_MAX_PLANES; ++c) w_out[c] = 0;
 #pragma unroll
@@ -105,7 +107,7 @@ __device__ __forceinline__ void pk_chain(const PwProgram& prog, const uint32_t* 
     for (int c = 0; c < PK_MAX_PLANES; ++c) {
       v[c] = c < n_in ? (float)((w_in[c] >> (8 * k)) & 0xFFu) : 0.0f;
     }
-    pw_apply(prog, v, n_in);
+    pw_apply(ops, n_ops, v, n_in);
 #pragma unroll
     for (int c = 0; c < PK_MAX_PLANES; ++c) {
       if (c < n_out) w_out[c] |= (uint32_t)pw_to_u8(v[c]) << (8 * k);
@@ -113,10 +115,15 @@ __device__ __forceinline__ void pk_chain(const PwProgram& prog, const uint32_t* 
   }
 }
 
-// T1-pw: the chain alone, one word per thread and plane.
+// T1-pw: the chain alone, one word per thread and plane. Dynamic shared
+// memory: the chain's table.
 __global__ void __launch_bounds__(PK_THREADS)
 packed_pointwise_group_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_in,
-                              int n_out, int tile_h, const __grid_constant__ PwProgram prog) {
+                              int n_out, int tile_h, const PwOp* __restrict__ chain,
+                              int n_ops) {
+  extern __shared__ __align__(16) PwOp s_ops[];
+  pw_copy_chain(s_ops, chain, n_ops);
+  __syncthreads();
   const int w0 = blockIdx.x * PK_TILE_WORDS;
   const int y0 = blockIdx.y * tile_h;
   for (int i = threadIdx.x; i < tile_h * PK_TILE_WORDS; i += PK_THREADS) {
@@ -128,7 +135,7 @@ packed_pointwise_group_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp
     uint32_t w_in[PK_MAX_PLANES], w_out[PK_MAX_PLANES];
 #pragma unroll
     for (int c = 0; c < PK_MAX_PLANES; ++c) w_in[c] = c < n_in ? pl.in[c][o] : 0u;
-    pk_chain(prog, w_in, n_in, w_out, n_out);
+    pk_chain(s_ops, n_ops, w_in, n_in, w_out, n_out);
 #pragma unroll
     for (int c = 0; c < PK_MAX_PLANES; ++c) {
       if (c < n_out) pl.out[c][o] = w_out[c];
@@ -140,7 +147,7 @@ packed_pointwise_group_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp
 template <int KS, int MODE>
 __global__ void __launch_bounds__(PK_THREADS)
 packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_in, int n_out,
-                     const __grid_constant__ PwProgram prog,
+                     const PwOp* __restrict__ chain, int n_ops,
                      const __grid_constant__ StencilDesc st, int tile_h, int row0,
                      int image_h) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -151,9 +158,14 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
   const int eh = tile_h + 2 * h;
   const int w0 = blockIdx.x * PK_TILE_WORDS;
   const int y0 = blockIdx.y * tile_h;
-  uint32_t* s_words = reinterpret_cast<uint32_t*>(smem);
-  const unsigned char* s_pix = smem;
-  float* s_row = reinterpret_cast<float*>(smem + (size_t)n_out * eh * ew);
+  // the chain's table, then the windows, then the row pass
+  PwOp* s_ops = reinterpret_cast<PwOp*>(smem);
+  unsigned char* s_win = smem + (size_t)n_ops * sizeof(PwOp);
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_win);
+  const unsigned char* s_pix = s_win;
+  float* s_row = reinterpret_cast<float*>(s_win + (size_t)n_out * eh * ew);
+  pw_copy_chain(s_ops, chain, n_ops);
+  __syncthreads();
 
   // 1. The window: word loads with edge words by column source, rows by
   // the row source (full) or from the strips (ghost: rows past a strip
@@ -183,7 +195,7 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
       }
       w_in[c] = pk_load_word(row, gw, Wp, st.edge_mode);
     }
-    pk_chain(prog, w_in, n_in, w_out, n_out);
+    pk_chain(s_ops, n_ops, w_in, n_in, w_out, n_out);
 #pragma unroll
     for (int c = 0; c < PK_MAX_PLANES; ++c) {
       if (c < n_out) s_words[(c * eh + wy) * PK_WIN_WORDS + ww] = w_out[c];
@@ -239,10 +251,10 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
 }
 
 template <int KS, int MODE>
-static int pk_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out,
-                     const PwProgram* prog, const StencilDesc* st, int tile_h, int row0,
-                     int image_h, cudaStream_t stream) {
-  const size_t smem = pk_smem_bytes(n_out, tile_h, st->halo, st->family);
+static int pk_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, const PwOp* chain,
+                     int n_ops, const StencilDesc* st, int tile_h, int row0, int image_h,
+                     cudaStream_t stream) {
+  const size_t smem = pk_smem_bytes(n_out, tile_h, st->halo, st->family, n_ops);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         packed_stream_kernel<KS, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -250,67 +262,82 @@ static int pk_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out,
   }
   const dim3 grid((Wp + PK_TILE_WORDS - 1) / PK_TILE_WORDS, (H + tile_h - 1) / tile_h);
   packed_stream_kernel<KS, MODE><<<grid, PK_THREADS, smem, stream>>>(
-      *pl, H, Wp, n_in, n_out, *prog, *st, tile_h, row0, image_h);
+      *pl, H, Wp, n_in, n_out, chain, n_ops, *st, tile_h, row0, image_h);
   return (int)cudaGetLastError();
 }
 
-static bool pk_args_ok(int n_in, int n_out, int tile_h, const PwProgram* prog) {
+static bool pk_args_ok(int n_in, int n_out, int tile_h, const PwOp* chain, int n_ops) {
   return n_in >= 1 && n_in <= PK_MAX_PLANES && n_out >= 1 && n_out <= PK_MAX_PLANES &&
-         tile_h >= 1 && prog->n_ops >= 0 && prog->n_ops <= PW_MAX_OPS;
+         tile_h >= 1 && n_ops >= 0 && (n_ops == 0 || chain != nullptr);
 }
 
 // Launches the stencil form for the stencil's size (halo 1-3). Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments the kernel does not take.
 template <int MODE>
-static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out,
-                       const PwProgram* prog, const StencilDesc* st, int tile_h, int row0,
-                       int image_h, void* stream) {
+static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, const PwOp* chain,
+                       int n_ops, const StencilDesc* st, int tile_h, int row0, int image_h,
+                       void* stream) {
   if (H <= 0 || Wp <= 0) return 0;
-  if (!pk_args_ok(n_in, n_out, tile_h, prog) || H <= st->halo) return (int)cudaErrorInvalidValue;
+  if (!pk_args_ok(n_in, n_out, tile_h, chain, n_ops) || H <= st->halo) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
+#define PK_CASE(KS)                                                                          \
+  case KS:                                                                                   \
+    return pk_launch<KS, MODE>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_h, row0, image_h, \
+                               s);
   switch (st->ksize) {
-    case 3: return pk_launch<3, MODE>(pl, H, Wp, n_in, n_out, prog, st, tile_h, row0, image_h, s);
-    case 5: return pk_launch<5, MODE>(pl, H, Wp, n_in, n_out, prog, st, tile_h, row0, image_h, s);
-    case 7: return pk_launch<7, MODE>(pl, H, Wp, n_in, n_out, prog, st, tile_h, row0, image_h, s);
+    PK_CASE(3)
+    PK_CASE(5)
+    PK_CASE(7)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PK_CASE
 }
 
-// T1-pw: `prog` over the (H, Wp) planes of `pl`, in tiles of tile_h rows.
+// T1-pw: the chain table `chain` (n_ops PwOp in device memory) over the
+// (H, Wp) planes of `pl`, in tiles of tile_h rows.
 extern "C" int packed_pointwise_group_launch(const PkPlanes* pl, int H, int Wp, int n_in,
-                                             int n_out, const PwProgram* prog, int tile_h,
+                                             int n_out, const PwOp* chain, int n_ops, int tile_h,
                                              void* stream) {
   if (H <= 0 || Wp <= 0) return 0;
-  if (!pk_args_ok(n_in, n_out, tile_h, prog)) return (int)cudaErrorInvalidValue;
+  if (!pk_args_ok(n_in, n_out, tile_h, chain, n_ops)) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)n_ops * sizeof(PwOp);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        packed_pointwise_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const dim3 grid((Wp + PK_TILE_WORDS - 1) / PK_TILE_WORDS, (H + tile_h - 1) / tile_h);
-  packed_pointwise_group_kernel<<<grid, PK_THREADS, 0, (cudaStream_t)stream>>>(
-      *pl, H, Wp, n_in, n_out, tile_h, *prog);
+  packed_pointwise_group_kernel<<<grid, PK_THREADS, smem, (cudaStream_t)stream>>>(
+      *pl, H, Wp, n_in, n_out, tile_h, chain, n_ops);
   return (int)cudaGetLastError();
 }
 
 // T1: the group over whole (H, Wp) planes.
 extern "C" int packed_stream_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out,
-                                    const PwProgram* prog, const StencilDesc* st, int tile_h,
-                                    void* stream) {
-  return pk_dispatch<PK_FULL>(pl, H, Wp, n_in, n_out, prog, st, tile_h, 0, H, stream);
+                                    const PwOp* chain, int n_ops, const StencilDesc* st,
+                                    int tile_h, void* stream) {
+  return pk_dispatch<PK_FULL>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_h, 0, H, stream);
 }
 
 // T1g: the group over a (local_h, Wp) row-shard whose first row is global
 // row `row0` of an image `image_h` rows high, with its raw (halo, Wp) ghost
 // strips in `pl->top` and `pl->bot`.
 extern "C" int packed_stream_ghost_launch(const PkPlanes* pl, int local_h, int Wp, int n_in,
-                                          int n_out, const PwProgram* prog,
+                                          int n_out, const PwOp* chain, int n_ops,
                                           const StencilDesc* st, int tile_h, int row0,
                                           int image_h, void* stream) {
   for (int c = 0; c < n_in && c < PK_MAX_PLANES; ++c) {
     if (pl->top[c] == nullptr || pl->bot[c] == nullptr) return (int)cudaErrorInvalidValue;
   }
-  return pk_dispatch<PK_GHOST>(pl, local_h, Wp, n_in, n_out, prog, st, tile_h, row0, image_h,
-                               stream);
+  return pk_dispatch<PK_GHOST>(pl, local_h, Wp, n_in, n_out, chain, n_ops, st, tile_h, row0,
+                               image_h, stream);
 }
 
 // Dynamic shared memory one stencil launch needs, for the host-side check.
-extern "C" long long packed_stream_smem_bytes(int n_out, int tile_h, int halo, int family) {
-  return (long long)pk_smem_bytes(n_out, tile_h, halo, family);
+extern "C" long long packed_stream_smem_bytes(int n_out, int tile_h, int halo, int family,
+                                              int n_ops) {
+  return (long long)pk_smem_bytes(n_out, tile_h, halo, family, n_ops);
 }

@@ -1,11 +1,14 @@
 // Per-pixel interpreter of a pointwise op chain, shared by the pointwise
 // group kernel (pointwise.cu, K1), the fused stencil kernel
-// (stream_stencil.cu, K2) and the fused plan-stage megakernel
-// (fused_stage.cu, K4).
+// (stream_stencil.cu, K2), the fused plan-stage megakernel
+// (fused_stage.cu, K4) and the tools' packed kernels (packed_stream.cu T1,
+// packed_proto.cu T2).
 //
-// A chain is a small program passed by value as a kernel parameter: an
-// opcode and up to two float32 parameters per op, at most PW_MAX_OPS ops.
-// Each op repeats its golden PyTorch core (ops/registry.py) operation for
+// A chain is a table of PwOp in device memory, an opcode and up to two
+// float32 parameters per op, of any length: the wrapper builds it once per
+// chain (ops/cuda_kernels.chain_table) and each block copies it into
+// shared memory before its load loop (pw_copy_chain). T2's fixed
+// two-op chain alone still comes by value, as a PwProgram. Each op repeats its golden PyTorch core (ops/registry.py) operation for
 // operation: every product and sum is one IEEE-rounded float32 step
 // (__fmul_rn / __fadd_rn, and the sources are built with -fmad=false), so
 // the results are the golden bytes. Values entering and leaving every op
@@ -31,6 +34,15 @@ enum PwOpcode {
   PW_SOLARIZE = 9,      // p0 = threshold
 };
 
+// One op of a chain table: 16 bytes, the layout of chain_table's rows.
+struct PwOp {
+  int op;
+  float p0;
+  float p1;
+  int pad;
+};
+
+// T2's chain (packed_proto.cu), passed by value: at most PW_MAX_OPS ops.
 struct PwProgram {
   int n_ops;
   int op[PW_MAX_OPS];
@@ -59,76 +71,109 @@ __device__ __forceinline__ float pw_sepia_row(float r, float g, float b,
   return pw_rint_clip(__fmul_rn(acc, 0.001f));
 }
 
-// Applies one op (opcode `op`, parameter `a`) to one pixel. `v` holds `n`
-// channel values; returns the channel count after the op.
-__device__ __forceinline__ int pw_apply_one(int op, float a, float v[3], int n) {
+// Each channel c < n of each of the N pixels as x, replaced by EXPR.
+#define PW_EACH(EXPR)                      \
+  _Pragma("unroll") for (int j = 0; j < N; ++j) { \
+    _Pragma("unroll") for (int c = 0; c < 3; ++c) { \
+      if (c < n) {                         \
+        const float x = v[j][c];           \
+        v[j][c] = (EXPR);                  \
+      }                                    \
+    }                                      \
+  }                                        \
+  return n;
+
+// Applies one op (opcode `op`, parameter `a`) to N pixels: `v[j]` holds
+// pixel j's `n` channel values; returns the channel count after the op. The
+// opcode's dispatch runs once for the N pixels; each pixel's arithmetic is
+// the same as alone.
+template <int N>
+__device__ __forceinline__ int pw_apply_lanes(int op, float a, float (*v)[3], int n) {
   switch (op) {
-    case PW_GRAYSCALE: {
-      const float tr = floorf(__fmul_rn(v[0], 0.3f));
-      const float tg = floorf(__fmul_rn(v[1], 0.59f));
-      const float tb = floorf(__fmul_rn(v[2], 0.11f));
-      v[0] = __fadd_rn(__fadd_rn(tr, tg), tb);
-      return 1;
-    }
-    case PW_GRAYSCALE601: {
-      float acc = __fadd_rn(__fmul_rn(v[0], 4899.0f), __fmul_rn(v[1], 9617.0f));
-      acc = __fadd_rn(acc, __fmul_rn(v[2], 1868.0f));
-      acc = __fadd_rn(acc, 8192.0f);
-      v[0] = floorf(__fmul_rn(acc, 0.00006103515625f));  // 2^-14, exact
-      return 1;
-    }
-    case PW_SEPIA: {
-      const float r = v[0], g = v[1], b = v[2];
-      v[0] = pw_sepia_row(r, g, b, 393.0f, 769.0f, 189.0f);
-      v[1] = pw_sepia_row(r, g, b, 349.0f, 686.0f, 168.0f);
-      v[2] = pw_sepia_row(r, g, b, 272.0f, 534.0f, 131.0f);
-      return 3;
-    }
-    case PW_GRAY2RGB:
-      v[1] = v[0];
-      v[2] = v[0];
-      return 3;
-    default:
-      // elementwise ops act identically on every channel
+    case PW_GRAYSCALE:
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        if (c >= n) break;
-        const float x = v[c];
-        float y = x;
-        switch (op) {
-          case PW_CONTRAST:
-            y = pw_trunc_clip(__fadd_rn(__fmul_rn(a, __fsub_rn(x, 128.0f)), 128.0f));
-            break;
-          case PW_BRIGHTNESS:
-            y = pw_trunc_clip(__fadd_rn(x, a));
-            break;
-          case PW_INVERT:
-            y = __fsub_rn(255.0f, x);
-            break;
-          case PW_THRESHOLD:
-            y = x >= a ? 255.0f : 0.0f;
-            break;
-          case PW_POSTERIZE:
-            y = __fmul_rn(floorf(__fdiv_rn(x, a)), a);
-            break;
-          case PW_SOLARIZE:
-            y = x >= a ? __fsub_rn(255.0f, x) : x;
-            break;
-          default:
-            break;
-        }
-        v[c] = y;
+      for (int j = 0; j < N; ++j) {
+        const float tr = floorf(__fmul_rn(v[j][0], 0.3f));
+        const float tg = floorf(__fmul_rn(v[j][1], 0.59f));
+        const float tb = floorf(__fmul_rn(v[j][2], 0.11f));
+        v[j][0] = __fadd_rn(__fadd_rn(tr, tg), tb);
       }
+      return 1;
+    case PW_GRAYSCALE601:
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float acc = __fadd_rn(__fmul_rn(v[j][0], 4899.0f), __fmul_rn(v[j][1], 9617.0f));
+        acc = __fadd_rn(acc, __fmul_rn(v[j][2], 1868.0f));
+        acc = __fadd_rn(acc, 8192.0f);
+        v[j][0] = floorf(__fmul_rn(acc, 0.00006103515625f));  // 2^-14, exact
+      }
+      return 1;
+    case PW_SEPIA:
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float r = v[j][0], g = v[j][1], b = v[j][2];
+        v[j][0] = pw_sepia_row(r, g, b, 393.0f, 769.0f, 189.0f);
+        v[j][1] = pw_sepia_row(r, g, b, 349.0f, 686.0f, 168.0f);
+        v[j][2] = pw_sepia_row(r, g, b, 272.0f, 534.0f, 131.0f);
+      }
+      return 3;
+    case PW_GRAY2RGB:
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j][1] = v[j][2] = v[j][0];
+      return 3;
+    // elementwise ops act identically on every channel
+    case PW_CONTRAST:
+      PW_EACH(pw_trunc_clip(__fadd_rn(__fmul_rn(a, __fsub_rn(x, 128.0f)), 128.0f)))
+    case PW_BRIGHTNESS:
+      PW_EACH(pw_trunc_clip(__fadd_rn(x, a)))
+    case PW_INVERT:
+      PW_EACH(__fsub_rn(255.0f, x))
+    case PW_THRESHOLD:
+      PW_EACH(x >= a ? 255.0f : 0.0f)
+    case PW_POSTERIZE:
+      PW_EACH(__fmul_rn(floorf(__fdiv_rn(x, a)), a))
+    case PW_SOLARIZE:
+      PW_EACH(x >= a ? __fsub_rn(255.0f, x) : x)
+    default:
       return n;
   }
 }
 
-// Applies `prog` to one pixel. `v` holds `n` channel values; returns the
-// channel count after the chain. The wrapper has checked that the chain's
-// channel counts agree.
+#undef PW_EACH
+
+// Applies one op (opcode `op`, parameter `a`) to one pixel. `v` holds `n`
+// channel values; returns the channel count after the op.
+__device__ __forceinline__ int pw_apply_one(int op, float a, float v[3], int n) {
+  return pw_apply_lanes<1>(op, a, reinterpret_cast<float(*)[3]>(v), n);
+}
+
+// Applies the chain `ops[0 .. n_ops)` (in shared memory) to N pixels at
+// once, each op dispatched once for all N.
+template <int N>
+__device__ __forceinline__ int pw_apply_n(const PwOp* ops, int n_ops, float (*v)[3], int n) {
+  for (int k = 0; k < n_ops; ++k) n = pw_apply_lanes<N>(ops[k].op, ops[k].p0, v, n);
+  return n;
+}
+
+// Applies the chain `ops[0 .. n_ops)` (in shared memory) to one pixel. `v`
+// holds `n` channel values; returns the channel count after the chain. The
+// wrapper has checked that the chain's channel counts agree.
+__device__ __forceinline__ int pw_apply(const PwOp* ops, int n_ops, float v[3], int n) {
+  for (int k = 0; k < n_ops; ++k) n = pw_apply_one(ops[k].op, ops[k].p0, v, n);
+  return n;
+}
+
+// The same for T2's by-value program.
 __device__ __forceinline__ int pw_apply(const PwProgram& prog, float v[3], int n) {
   for (int k = 0; k < prog.n_ops; ++k) n = pw_apply_one(prog.op[k], prog.p0[k], v, n);
   return n;
+}
+
+// The block's threads copy the chain table into shared memory `s_ops`; the
+// caller synchronises before the first pw_apply.
+__device__ __forceinline__ void pw_copy_chain(PwOp* s_ops, const PwOp* __restrict__ ops,
+                                              int n_ops) {
+  for (int k = threadIdx.x; k < n_ops; k += blockDim.x) s_ops[k] = ops[k];
 }
 
 // Loads `n` interleaved u8 channels of one pixel.

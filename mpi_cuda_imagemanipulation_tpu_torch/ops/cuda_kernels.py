@@ -47,6 +47,7 @@ raises. Each wrapper counts its launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -70,10 +71,16 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import acc_fns_for, run_stag
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Stage
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
-# Launch geometry of K2; ST_TILE_W and ST_THREADS in stream_stencil.cu.
+# Launch geometry of K2, K2g and K3 (stream_stencil.cu): ST_THREADS threads
+# a block, a tile of tile_h rows (16 by default, or the launch's height if
+# lower) by one of ST_TILE_WIDTHS columns (ST_MAX_TILE_W down to
+# ST_MIN_TILE_W), narrowed until the grid has N_SMS blocks where the image
+# allows. TILE_W is also K4's tile width (fused_stage.cu).
 TILE_W = 128
+ST_TILE_WIDTHS = (128, 64, 32)
 THREADS = 256
 DEFAULT_TILE_H = 16
+N_SMS = 132  # streaming multiprocessors of an H100 SXM
 # Largest dynamic shared memory one block may use on Hopper.
 MAX_SMEM_BYTES = 232448
 _MAX_GRID_Y = 65535
@@ -129,17 +136,14 @@ def _channels(img: torch.Tensor) -> int:
 # --------------------------------------------------------------------------
 
 
-def pointwise_program(pointwise: list[PointwiseOp], c_in: int) -> tuple[kr.PwProgram, int]:
-    """Encode a pointwise chain for the kernels' interpreter, checking that
-    its channel counts chain from `c_in`. Returns (program, c_out)."""
+def pointwise_program(pointwise: list[PointwiseOp], c_in: int) -> tuple[np.ndarray, int]:
+    """Encode a pointwise chain of any length for the kernels' interpreter,
+    checking that its channel counts chain from `c_in`. Returns (table,
+    c_out): an (n_ops, 4) int32 table, one ``PwOp`` (pointwise.cuh) a row,
+    the opcode, then p0 and p1 as float32 bits, then 0."""
     if c_in not in (1, 3):
         raise ValueError(f"the kernels take 1- or 3-channel images, got {c_in} channels")
-    if len(pointwise) > kr.PW_MAX_OPS:
-        raise ValueError(
-            f"a kernel group holds at most {kr.PW_MAX_OPS} pointwise ops, got {len(pointwise)}"
-        )
-    prog = kr.PwProgram()
-    prog.n_ops = len(pointwise)
+    table = np.zeros((len(pointwise), 4), dtype=np.int32)
     n = c_in
     for k, op in enumerate(pointwise):
         if op.program is None:
@@ -147,8 +151,79 @@ def pointwise_program(pointwise: list[PointwiseOp], c_in: int) -> tuple[kr.PwPro
         if op.in_channels and op.in_channels != n:
             raise ValueError(f"op {op.name!r} expects {op.in_channels} channels, got {n}")
         n = op.out_channels or n
-        prog.op[k], prog.p0[k], prog.p1[k] = op.program
-    return prog, n
+        opcode, p0, p1 = op.program
+        table[k, 0] = opcode
+        table[k, 1:3] = np.asarray([p0, p1], dtype=np.float32).view(np.int32)
+    return table, n
+
+
+# the kernels' tables on each card, by content: copied once per table
+_DEVICE_TABLES: dict[tuple[bytes, str], torch.Tensor] = {}
+
+
+def device_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The int32 `table` on `device`, copied there at its first use. The
+    copy completes before this returns, so a launch on any stream reads
+    it."""
+    key = (table.tobytes(), str(device))
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(table)).to(device)
+        if t.device.type == "cuda":
+            torch.cuda.current_stream(t.device).synchronize()
+        _DEVICE_TABLES[key] = t
+    return t
+
+
+class PointwiseChain:
+    """One chain as the kernels take it, built once (``chain_for``): its
+    ops, table and output channels, and the table's address on each card."""
+
+    def __init__(self, ops: tuple, c_in: int):
+        self.ops = ops  # held, so that the ids in the cache's key stay theirs
+        self.table, self.c_out = pointwise_program(list(ops), c_in)
+        self.n_ops = len(ops)
+        self._ptrs: dict[torch.device, int] = {}
+
+    def ptr(self, device: torch.device) -> int | None:
+        """The table's address on `device` (None for an empty chain)."""
+        if not self.n_ops:
+            return None
+        p = self._ptrs.get(device)
+        if p is None:
+            p = self._ptrs[device] = device_table(self.table, device).data_ptr()
+        return p
+
+
+# chains and stencil descriptors by the identity of their ops (frozen
+# dataclasses, held by the entries), so that a launch builds neither
+_CHAINS: dict[tuple, PointwiseChain] = {}
+_DESCS: dict[int, tuple[StencilOp, kr.StencilDesc]] = {}
+_CACHE_LIMIT = 4096
+
+
+def chain_for(pointwise, c_in: int) -> PointwiseChain:
+    """The encoded chain of `pointwise` from `c_in` channels, cached."""
+    key = (c_in, *map(id, pointwise))
+    chain = _CHAINS.get(key)
+    if chain is None:
+        chain = PointwiseChain(tuple(pointwise), c_in)
+        if len(_CHAINS) >= _CACHE_LIMIT:
+            _CHAINS.clear()
+        _CHAINS[key] = chain
+    return chain
+
+
+def desc_for(stencil: StencilOp) -> kr.StencilDesc:
+    """`stencil_desc(stencil)`, cached on the op's identity."""
+    hit = _DESCS.get(id(stencil))
+    if hit is not None and hit[0] is stencil:
+        return hit[1]
+    desc = stencil_desc(stencil)
+    if len(_DESCS) >= _CACHE_LIMIT:
+        _DESCS.clear()
+    _DESCS[id(stencil)] = (stencil, desc)
+    return desc
 
 
 def _family(stencil: StencilOp) -> str:
@@ -202,33 +277,68 @@ def stencil_desc(stencil: StencilOp) -> kr.StencilDesc:
     return d
 
 
-def stencil_smem_bytes(c_out: int, tile_h: int, halo: int, family: int) -> int:
-    """Dynamic shared memory of one K2 block (st_smem_bytes in the source):
-    the u8 window per plane, then for separable and min/max the float32
-    row pass per plane."""
-    eh, ew = tile_h + 2 * halo, TILE_W + 2 * halo
-    nbytes = (c_out * eh * ew + 15) & ~15
-    if family in (_FAMILIES["separable"], _FAMILIES["min"], _FAMILIES["max"]):
-        nbytes += c_out * eh * TILE_W * 4
-    return nbytes
+# families with a float32 row pass (st_two_pass in the source)
+_TWO_PASS = (_FAMILIES["separable"], _FAMILIES["min"], _FAMILIES["max"])
 
 
-def stencil_grid(height: int, width: int, tile_h: int) -> tuple[int, int]:
-    """K2's grid: (column tiles, row tiles)."""
-    return -(-width // TILE_W), -(-height // tile_h)
+def stencil_smem_bytes(c_in: int, c_out: int, tile_h: int, tile_w: int, halo: int,
+                       family: int, n_ops: int = 0) -> int:
+    """Dynamic shared memory of one K2 block (st_layout in the source): the
+    chain table, one 16-byte source per window row, the post-pointwise u8
+    window per output plane (rows padded to 16 bytes), then one scratch
+    region: the raw interleaved window, or for separable and min/max the
+    float32 row pass per plane if that is larger."""
+    eh, ew = tile_h + 2 * halo, tile_w + 2 * halo
+    plane_pitch = -(-ew // 16) * 16
+    raw = eh * (-(-(ew * c_in + 15) // 16) * 16)
+    row_pass = c_out * eh * tile_w * 4 if family in _TWO_PASS else 0
+    return n_ops * 16 + eh * 16 + c_out * eh * plane_pitch + max(raw, row_pass)
 
 
-def _check_geometry(height, width, c_out, desc, tile_h) -> None:
-    if tile_h < 1:
+def stencil_tile_shape(height: int, width: int, tile_h: int | None = None) -> tuple[int, int]:
+    """K2's block of outputs for a launch over (height, width): `tile_h`
+    rows (default 16, or `height` if lower) by the widest of ST_TILE_WIDTHS
+    that gives the grid N_SMS blocks, narrowing only while that adds
+    blocks."""
+    rows = tile_h or min(DEFAULT_TILE_H, height)
+    cols = ST_TILE_WIDTHS[0]
+    for narrower in ST_TILE_WIDTHS[1:]:
+        if stencil_blocks(height, width, rows, cols) >= N_SMS:
+            break
+        if -(-width // narrower) > -(-width // cols):
+            cols = narrower
+    return rows, cols
+
+
+def stencil_grid(height: int, width: int, tile_h: int, tile_w: int = TILE_W) -> tuple[int, int]:
+    """K2's grid (and K4's, with its 128-column tiles): (column tiles, row
+    tiles)."""
+    return -(-width // tile_w), -(-height // tile_h)
+
+
+def stencil_blocks(height: int, width: int, tile_h: int, tile_w: int) -> int:
+    gx, gy = stencil_grid(height, width, tile_h, tile_w)
+    return gx * gy
+
+
+@functools.lru_cache(maxsize=4096)
+def stencil_launch_shape(height: int, width: int, c_in: int, c_out: int, halo: int,
+                         family: int, n_ops: int, tile_h: int | None) -> tuple[int, int]:
+    """The (rows, cols) block of one K2/K2g/K3 launch, checked: shared
+    memory within a block's and the grid within CUDA's. Cached, so that a
+    call repeats no shape arithmetic."""
+    if tile_h is not None and tile_h < 1:
         raise ValueError(f"tile height must be >= 1, got {tile_h}")
-    smem = stencil_smem_bytes(c_out, tile_h, desc.halo, desc.family)
+    rows, cols = stencil_tile_shape(height, width, tile_h)
+    smem = stencil_smem_bytes(c_in, c_out, rows, cols, halo, family, n_ops)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"tile height {tile_h} needs {smem} B of shared memory "
+            f"tile of {rows} x {cols} needs {smem} B of shared memory "
             f"(at most {MAX_SMEM_BYTES})"
         )
-    if stencil_grid(height, width, tile_h)[1] > _MAX_GRID_Y:
-        raise ValueError(f"image height {height} needs a taller tile than {tile_h}")
+    if stencil_grid(height, width, rows, cols)[1] > _MAX_GRID_Y:
+        raise ValueError(f"image height {height} needs a taller tile than {rows}")
+    return rows, cols
 
 
 def _check_cuda_input(img: torch.Tensor) -> None:
@@ -241,10 +351,10 @@ def _check_cuda_input(img: torch.Tensor) -> None:
 
 
 def _out_like(img: torch.Tensor, c_out: int, height: int | None = None) -> torch.Tensor:
+    """A fresh u8 output beside the u8 input `img` (same device)."""
     h, w = img.shape[:2]
     h = h if height is None else height
-    shape = (h, w) if c_out == 1 else (h, w, c_out)
-    return torch.empty(shape, dtype=U8, device=img.device)
+    return img.new_empty((h, w) if c_out == 1 else (h, w, c_out))
 
 
 def _per_plane(fn, img: torch.Tensor) -> torch.Tensor:
@@ -252,6 +362,20 @@ def _per_plane(fn, img: torch.Tensor) -> torch.Tensor:
     if img.ndim == 3:
         return torch.stack([fn(img[..., c]) for c in range(img.shape[2])], dim=-1)
     return fn(img)
+
+
+# the current stream's handle on a device, without building a Stream object
+# (where this PyTorch build has the call)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(device: torch.device) -> int:
+    """The handle of the current CUDA stream of `device`, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it."""
+    if _RAW_STREAM is not None:
+        index = device.index
+        return _RAW_STREAM(torch.cuda.current_device() if index is None else index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -287,17 +411,18 @@ def pointwise_group_plain(pointwise: list[PointwiseOp], img: torch.Tensor) -> to
 
 
 def pointwise_group(pointwise: list[PointwiseOp], img: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper: one launch applies the whole pointwise chain."""
-    prog, c_out = pointwise_program(pointwise, _channels(img))
+    """K1 wrapper: one launch applies the whole pointwise chain, of any
+    length."""
+    chain = chain_for(pointwise, _channels(img))
     if img.device.type == "cpu":
         return pointwise_group_plain(pointwise, img)
     _check_cuda_input(img)
-    out = _out_like(img, c_out)
+    out = _out_like(img, chain.c_out)
     lib = kr.load("pointwise")
     with torch.cuda.device(img.device):
         rc = lib.pointwise_launch(
             img.data_ptr(), out.data_ptr(), img.shape[0] * img.shape[1],
-            _channels(img), c_out, ctypes.byref(prog),
+            _channels(img), chain.c_out, chain.ptr(img.device), chain.n_ops,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "pointwise")
@@ -330,29 +455,29 @@ def stream_stencil(
     *,
     tile_h: int | None = None,
 ) -> torch.Tensor:
-    """K2 wrapper: one launch runs the pointwise prologue and the stencil.
-    `tile_h` is the output tile height (default 16 rows)."""
+    """K2 wrapper: one launch runs the pointwise prologue (any length) and
+    the stencil. `tile_h` is the block's output rows (default 16, or the
+    image's height if lower); the columns follow (`stencil_tile_shape`)."""
     if stencil.edge_mode == "zero":
         raise NotImplementedError(
             "zero-mode stencils would need post-pointwise padding in K2; "
             "none exist in the registry"
         )
-    prog, c_out = pointwise_program(pointwise, _channels(img))
-    desc = stencil_desc(stencil)
-    tile_h = tile_h or DEFAULT_TILE_H
+    c_in = _channels(img)
+    chain = chain_for(pointwise, c_in)
+    desc = desc_for(stencil)
     height, width = img.shape[:2]
-    _check_geometry(height, width, c_out, desc, tile_h)
-    if img.device.type == "cpu":
+    rows, cols = stencil_launch_shape(height, width, c_in, chain.c_out, desc.halo, desc.family,
+                                      chain.n_ops, tile_h)
+    dev = img.device
+    if dev.type == "cpu":
         return stream_stencil_plain(pointwise, stencil, img)
     _check_cuda_input(img)
-    out = _out_like(img, c_out)
-    lib = kr.load("stream_stencil")
-    with torch.cuda.device(img.device):
-        rc = lib.stream_stencil_launch(
-            img.data_ptr(), out.data_ptr(), height, width, _channels(img), c_out,
-            ctypes.byref(prog), ctypes.byref(desc), tile_h,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    out = _out_like(img, chain.c_out)
+    rc = kr.load("stream_stencil").stream_stencil_launch(
+        img.data_ptr(), out.data_ptr(), height, width, c_in, chain.c_out, chain.ptr(dev),
+        chain.n_ops, desc, rows, cols, dev.index, stream_handle(dev),
+    )
     _raise_on(rc, "stream_stencil")
     stream_stencil.launches += 1
     return out
@@ -451,26 +576,26 @@ def stream_stencil_ghost(
     (halo, W[, C]) ghost strips: the neighbours' rows, or on the first and
     last shard the edge extension the caller made of them
     (parallel.api._fix_edge_strips)."""
-    prog, c_out = pointwise_program(pointwise, _channels(tile))
-    desc = stencil_desc(stencil)
+    c_in = _channels(tile)
+    chain = chain_for(pointwise, c_in)
+    desc = desc_for(stencil)
     _check_ghost_args(stencil, tile, top, bottom, image_w)
-    tile_h = tile_h or DEFAULT_TILE_H
     local_h, width = tile.shape[:2]
-    _check_geometry(local_h, width, c_out, desc, tile_h)
+    rows, cols = stencil_launch_shape(local_h, width, c_in, chain.c_out, desc.halo, desc.family,
+                                      chain.n_ops, tile_h)
     if tile.device.type == "cpu":
         return stream_stencil_ghost_plain(
             pointwise, stencil, tile, top, bottom, y0=y0, image_h=image_h, image_w=image_w
         )
     for t in (tile, top, bottom):
         _check_cuda_input(t)
-    out = _out_like(tile, c_out)
-    lib = kr.load("stream_stencil")
-    with torch.cuda.device(tile.device):
-        rc = lib.stream_stencil_ghost_launch(
-            tile.data_ptr(), top.data_ptr(), bottom.data_ptr(), out.data_ptr(),
-            local_h, width, _channels(tile), c_out, ctypes.byref(prog), ctypes.byref(desc),
-            tile_h, y0, image_h, torch.cuda.current_stream().cuda_stream,
-        )
+    out = _out_like(tile, chain.c_out)
+    dev = tile.device
+    rc = kr.load("stream_stencil").stream_stencil_ghost_launch(
+        tile.data_ptr(), top.data_ptr(), bottom.data_ptr(), out.data_ptr(), local_h, width,
+        c_in, chain.c_out, chain.ptr(dev), chain.n_ops, desc, rows, cols, y0, image_h,
+        dev.index, stream_handle(dev),
+    )
     _raise_on(rc, "stream_stencil_ghost")
     stream_stencil_ghost.launches += 1
     return out
@@ -506,26 +631,24 @@ def stencil_tile(
     already made, all channels at once. Columns are extended per the op's
     mode inside. The interior passthrough is the caller's
     (parallel.api._stencil_on_ext). Returns (local_h, W[, C])."""
-    desc = stencil_desc(stencil)
+    desc = desc_for(stencil)
     h = stencil.halo
     local_h, width = ext.shape[0] - 2 * h, ext.shape[1]
     if local_h < 1:
         raise ValueError(f"extended tile of {ext.shape[0]} rows holds no row for halo {h}")
     if stencil.edge_mode == "reflect101" and width <= h:
         raise ValueError(f"tile width {width} too small for halo {h}")
-    tile_h = tile_h or DEFAULT_TILE_H
     c = _channels(ext)
-    _check_geometry(local_h, width, c, desc, tile_h)
-    if ext.device.type == "cpu":
+    rows, cols = stencil_launch_shape(local_h, width, c, c, h, desc.family, 0, tile_h)
+    dev = ext.device
+    if dev.type == "cpu":
         return stencil_tile_plain(stencil, ext)
     _check_cuda_input(ext)
     out = _out_like(ext, c, local_h)
-    lib = kr.load("stream_stencil")
-    with torch.cuda.device(ext.device):
-        rc = lib.stencil_tile_launch(
-            ext.data_ptr(), out.data_ptr(), local_h, width, c, ctypes.byref(desc),
-            tile_h, torch.cuda.current_stream().cuda_stream,
-        )
+    rc = kr.load("stream_stencil").stencil_tile_launch(
+        ext.data_ptr(), out.data_ptr(), local_h, width, c, desc, rows, cols, dev.index,
+        stream_handle(dev),
+    )
     _raise_on(rc, "stencil_tile")
     stencil_tile.launches += 1
     return out

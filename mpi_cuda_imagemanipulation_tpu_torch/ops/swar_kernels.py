@@ -368,23 +368,6 @@ def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> tuple[kr.SwarDesc, 
     return d, np.asarray(chain + flat, dtype=np.int32)
 
 
-# the descriptors' tables on each card, by content: built once per group
-_DEVICE_TABLES: dict[tuple[bytes, str], torch.Tensor] = {}
-
-
-def device_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The int32 `table` on `device`, copied there at its first use. The
-    copy completes before this returns, so a launch on any stream reads
-    it."""
-    key = (table.tobytes(), str(device))
-    t = _DEVICE_TABLES.get(key)
-    if t is None:
-        t = torch.from_numpy(table).to(device)
-        torch.cuda.current_stream(device).synchronize()
-        _DEVICE_TABLES[key] = t
-    return t
-
-
 def window_words(halo: int) -> int:
     """Pair words per window row: output pair p reads words p .. p + halo
     (sw_words in the source)."""
@@ -561,7 +544,7 @@ def swar_stencil(
             ck._check_cuda_input(t)
     out = torch.empty_like(img)
     lib = kr.load("swar_stencil")
-    desc.table = device_table(table, img.device).data_ptr()
+    desc.table = ck.device_table(table, img.device).data_ptr()
     with torch.cuda.device(img.device):
         rc = lib.swar_stencil_launch(
             img.data_ptr(), None if top is None else top.data_ptr(),

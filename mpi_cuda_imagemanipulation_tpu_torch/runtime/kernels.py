@@ -45,7 +45,10 @@ NVCC_FLAGS = (
 )
 
 # Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
-# fused_stage.cu, swar_stencil.cu, copy_probe.cu, packed_stream.cu).
+# fused_stage.cu, swar_stencil.cu, copy_probe.cu, packed_stream.cu). A
+# pointwise chain goes to K1, K2/K2g and T1 as a table of any length on the
+# card (ops/cuda_kernels.pointwise_program); PW_MAX_OPS bounds T2's fixed
+# by-value PwProgram only.
 PW_MAX_OPS = 8
 ST_MAX_K = 7
 FS_MAX_OPS = 24
@@ -62,6 +65,8 @@ PK_MAX_PLANES = 3
 
 
 class PwProgram(ctypes.Structure):
+    """T2's by-value chain (packed_proto.cu)."""
+
     _fields_ = [
         ("n_ops", ctypes.c_int),
         ("op", ctypes.c_int * PW_MAX_OPS),
@@ -213,24 +218,21 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build((name,))[name]))
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "pointwise":
-        lib.pointwise_launch.argtypes = [vp, vp, ll, ci, ci, ctypes.POINTER(PwProgram), vp]
+        lib.pointwise_launch.argtypes = [vp, vp, ll, ci, ci, vp, ci, vp]
         lib.pointwise_launch.restype = ci
     elif name == "stream_stencil":
-        lib.stream_stencil_launch.argtypes = [
-            vp, vp, ci, ci, ci, ci,
-            ctypes.POINTER(PwProgram), ctypes.POINTER(StencilDesc), ci, vp,
-        ]
+        st = ctypes.POINTER(StencilDesc)
+        # ... the chain table and its length, the descriptor, the block's
+        # rows and columns, (ghost: row0, image_h,) the device, the stream
+        lib.stream_stencil_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, vp]
         lib.stream_stencil_launch.restype = ci
         lib.stream_stencil_ghost_launch.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci,
-            ctypes.POINTER(PwProgram), ctypes.POINTER(StencilDesc), ci, ci, ci, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, ci, vp,
         ]
         lib.stream_stencil_ghost_launch.restype = ci
-        lib.stencil_tile_launch.argtypes = [
-            vp, vp, ci, ci, ci, ctypes.POINTER(StencilDesc), ci, vp,
-        ]
+        lib.stencil_tile_launch.argtypes = [vp, vp, ci, ci, ci, st, ci, ci, ci, vp]
         lib.stencil_tile_launch.restype = ci
-        lib.stream_stencil_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.stream_stencil_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci, ci]
         lib.stream_stencil_smem_bytes.restype = ll
     elif name == "fused_stage":
         lib.fused_stage_launch.argtypes = [
@@ -257,8 +259,10 @@ def load(name: str) -> ctypes.CDLL:
         lib.swar_desc_bytes.argtypes = []
         lib.swar_desc_bytes.restype = ll
     elif name == "copy_probe":
-        lib.copy_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]
-        for fn in ("smem_copy_launch", "bitcast_store_launch", "bitcast_load_launch"):
+        # the copies take the device index before the stream
+        lib.copy_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.smem_copy_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        for fn in ("bitcast_store_launch", "bitcast_load_launch"):
             getattr(lib, fn).argtypes = [vp, vp, ci, ci, ci, vp]
         for fn in ("copy_probe_launch", "smem_copy_launch", "bitcast_store_launch",
                    "bitcast_load_launch"):
@@ -269,14 +273,15 @@ def load(name: str) -> ctypes.CDLL:
         ]
         lib.packed_pointwise_launch.restype = ci
     elif name == "packed_stream":
-        pk, pw, st = (ctypes.POINTER(t) for t in (PkPlanes, PwProgram, StencilDesc))
-        lib.packed_pointwise_group_launch.argtypes = [pk, ci, ci, ci, ci, pw, ci, vp]
-        lib.packed_stream_launch.argtypes = [pk, ci, ci, ci, ci, pw, st, ci, vp]
-        lib.packed_stream_ghost_launch.argtypes = [pk, ci, ci, ci, ci, pw, st, ci, ci, ci, vp]
+        pk, st = (ctypes.POINTER(t) for t in (PkPlanes, StencilDesc))
+        # the chain as a table on the card and its length (vp, ci)
+        lib.packed_pointwise_group_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, ci, vp]
+        lib.packed_stream_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, st, ci, vp]
+        lib.packed_stream_ghost_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, vp]
         for fn in ("packed_pointwise_group_launch", "packed_stream_launch",
                    "packed_stream_ghost_launch"):
             getattr(lib, fn).restype = ci
-        lib.packed_stream_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.packed_stream_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
         lib.packed_stream_smem_bytes.restype = ll
     elif name == "swar_proto":
         lib.swar_proto_launch.argtypes = [vp, vp, ci, ci, ci, vp]

@@ -126,13 +126,14 @@ def packed_grid(height: int, wp: int, tile_h: int) -> tuple[int, int]:
     return -(-wp // TILE_WORDS), -(-height // tile_h)
 
 
-def packed_smem_bytes(n_out: int, tile_h: int, halo: int, family: int) -> int:
+def packed_smem_bytes(n_out: int, tile_h: int, halo: int, family: int, n_ops: int = 0) -> int:
     """Dynamic shared memory of one stencil block (pk_smem_bytes in the
-    source): the window of (tile_h + 2 halo) rows x WIN_WORDS words per
-    output plane, then for separable and min/max the float32 row pass of
-    (tile_h + 2 halo) rows x 4 TILE_WORDS columns per plane."""
+    source): the chain's table (16 bytes an op), the window of (tile_h + 2
+    halo) rows x WIN_WORDS words per output plane, then for separable and
+    min/max the float32 row pass of (tile_h + 2 halo) rows x 4 TILE_WORDS
+    columns per plane."""
     eh = tile_h + 2 * halo
-    nbytes = n_out * eh * WIN_WORDS * 4
+    nbytes = 16 * n_ops + n_out * eh * WIN_WORDS * 4
     if family in (ck._FAMILIES["separable"], ck._FAMILIES["min"], ck._FAMILIES["max"]):
         nbytes += n_out * eh * TILE_WORDS * 4 * 4
     return nbytes
@@ -191,7 +192,7 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
     if not packed_supported(list(pointwise), stencil, width):
         names = [op.name for op in pointwise] + ([stencil.name] if stencil else [])
         raise ValueError(f"T1 does not take group {names} at width {width} (packed_supported)")
-    prog, n_out = ck.pointwise_program(list(pointwise), len(words))
+    chain = ck.chain_for(pointwise, len(words))
     tile_h = block_h or DEFAULT_TILE_H
     if tile_h < 1:
         raise ValueError(f"tile height must be >= 1, got {tile_h}")
@@ -200,12 +201,12 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
     if stencil is None:
         if ghosts is not None:
             raise ValueError("ghost mode needs a stencil")
-        return prog, n_out, None, tile_h
+        return chain, None, tile_h
     desc = ck.stencil_desc(stencil)
     h = stencil.halo
     if height <= h:
         raise ValueError(f"image height {height} too small for halo {h}")
-    smem = packed_smem_bytes(n_out, tile_h, h, desc.family)
+    smem = packed_smem_bytes(chain.c_out, tile_h, h, desc.family, chain.n_ops)
     if smem > ck.MAX_SMEM_BYTES:
         raise ValueError(f"tile height {tile_h} needs {smem} B of shared memory "
                          f"(at most {ck.MAX_SMEM_BYTES})")
@@ -220,7 +221,7 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
         if not 0 <= int(y0) <= image_h - height:
             raise ValueError(f"tile rows [{int(y0)}, {int(y0) + height}) lie outside an image "
                              f"of {image_h} rows")
-    return prog, n_out, desc, tile_h
+    return chain, desc, tile_h
 
 
 def _hwc(planes: list[torch.Tensor]) -> torch.Tensor:
@@ -287,7 +288,7 @@ def run_group_packed_words(
     pre-pointwise (halo, width/4) word strips per input plane, the tile's
     first row being global row `y0` of an image `image_h` rows high. The
     caller keeps to `packed_supported`; a group outside it raises."""
-    prog, n_out, desc, tile_h = _check_group(
+    chain, desc, tile_h = _check_group(
         pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
     device = words[0].device
     if device.type == "cpu":
@@ -300,27 +301,30 @@ def run_group_packed_words(
         if not p.is_contiguous():
             raise ValueError("T1 takes contiguous word planes")
     wp = width // 4
+    n_out = chain.c_out
     outs = [torch.empty((height, wp), dtype=I32, device=device) for _ in range(n_out)]
     planes = kr.PkPlanes()
     for field, tensors in (("in_", words), ("top", tops), ("bot", bots), ("out", outs)):
         getattr(planes, field)[: len(tensors)] = [t.data_ptr() for t in tensors]
     lib = kr.load("packed_stream")
     n_in = len(words)
+    table = chain.ptr(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         if stencil is None:
             key = "T1-pw"
             rc = lib.packed_pointwise_group_launch(
-                ctypes.byref(planes), height, wp, n_in, n_out, ctypes.byref(prog), tile_h, stream)
+                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops, tile_h,
+                stream)
         elif ghosts is None:
             key = "T1"
             rc = lib.packed_stream_launch(
-                ctypes.byref(planes), height, wp, n_in, n_out, ctypes.byref(prog),
+                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
                 ctypes.byref(desc), tile_h, stream)
         else:
             key = "T1g"
             rc = lib.packed_stream_ghost_launch(
-                ctypes.byref(planes), height, wp, n_in, n_out, ctypes.byref(prog),
+                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
                 ctypes.byref(desc), tile_h, int(y0), image_h, stream)
     ck._raise_on(rc, "packed_stream")
     ck.TOOL_LAUNCHES[key] += 1

@@ -132,8 +132,7 @@ def packed_gray_contrast(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,
     for p in (r, g, b):
         if not p.is_contiguous():
             raise ValueError("T2 takes contiguous planes")
-    prog, c_out = ck.pointwise_program(list(make_pipeline_ops(CHAIN)), 3)
-    assert c_out == 1
+    prog = t2_program()
     out = torch.empty_like(r)
     lib = kr.load("packed_proto")
     with torch.cuda.device(r.device):
@@ -144,6 +143,20 @@ def packed_gray_contrast(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,
     ck._raise_on(rc, "packed_proto")
     ck.TOOL_LAUNCHES["T2"] += 1
     return out
+
+
+def t2_program() -> kr.PwProgram:
+    """T2's fixed chain (grayscale, then contrast 3.5) as the by-value
+    program packed_proto.cu takes."""
+    table, c_out = ck.pointwise_program(list(make_pipeline_ops(CHAIN)), 3)
+    assert c_out == 1 and len(table) <= kr.PW_MAX_OPS
+    prog = kr.PwProgram()
+    prog.n_ops = len(table)
+    prog.op[: len(table)] = [int(v) for v in table[:, 0]]
+    params = table[:, 1:3].view(np.float32)
+    prog.p0[: len(table)] = [float(v) for v in params[:, 0]]
+    prog.p1[: len(table)] = [float(v) for v in params[:, 1]]
+    return prog
 
 
 def selftest(device: torch.device) -> None:

@@ -49,6 +49,29 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
 H, W = 4320, 7680
 BLOCK_HEIGHTS = (64, 128, 256, 512)
 _DTYPES = {torch.uint8: kr.CP_U8, torch.float32: kr.CP_F32, torch.int32: kr.CP_U32}
+# the copies' CTA (copy_probe.cu): CP_LANES vectors or elements of a row by
+# CP_CTA_ROWS rows, each thread CP_ROWS_PER_THREAD rows; the shared-memory
+# copy's CTA: CP_BULK_CTA_BYTES of a unit's rows
+CP_VEC, CP_LANES, CP_ROWS_PER_THREAD, CP_CTA_ROWS = 16, 32, 4, 32
+CP_BULK_CTA_BYTES = 65536
+
+
+def copy_grid(height: int, width: int, itemsize: int, block_h: int,
+              aligned: bool = True) -> tuple[int, int, int]:
+    """The copies' grid (cp_copy_grid in the source): (column chunks, CTAs
+    down the rows, CTAs per block_h-row unit). 16-byte vectors where the row
+    pitch is a multiple of 16 bytes and both buffers are aligned, else
+    elements."""
+    row_bytes = width * itemsize
+    units = row_bytes // CP_VEC if row_bytes % CP_VEC == 0 and aligned else width
+    per_unit = -(-block_h // CP_CTA_ROWS)
+    return -(-units // CP_LANES), -(-height // block_h) * per_unit, per_unit
+
+
+def smem_copy_grid(height: int, width: int, block_h: int) -> tuple[int, int]:
+    """The shared-memory copy's grid: (CTAs, CTAs per block_h-row unit)."""
+    per_unit = -(-(block_h * width) // CP_BULK_CTA_BYTES)
+    return -(-height // block_h) * per_unit, per_unit
 
 
 # --------------------------------------------------------------------------
@@ -78,16 +101,17 @@ def copy_probe_plain(x: torch.Tensor) -> torch.Tensor:
 
 def copy_probe(x: torch.Tensor, block_h: int) -> torch.Tensor:
     """T4's tiled copy of a 2-D u8, f32 or int32 (the u32 words) array in
-    blocks of `block_h` rows; 16-byte vectors where the row pitch allows.
-    CPU tensors take the plain version."""
-    _check(x, block_h, tuple(_DTYPES), -(-x.shape[0] // max(block_h, 1)))
+    units of `block_h` rows, each cut into CTAs of 32 rows (`copy_grid`);
+    16-byte vectors where the row pitch allows. CPU tensors take the plain
+    version."""
+    _check(x, block_h, tuple(_DTYPES),
+           copy_grid(*x.shape, x.element_size(), max(block_h, 1))[1])
     if x.device.type == "cpu":
         return copy_probe_plain(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = kr.load("copy_probe").copy_probe_launch(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], _DTYPES[x.dtype], block_h,
-            _stream(x))
+    rc = kr.load("copy_probe").copy_probe_launch(
+        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], _DTYPES[x.dtype], block_h,
+        x.device.index, ck.stream_handle(x.device))
     ck._raise_on(rc, "copy_probe")
     ck.TOOL_LAUNCHES["T4-copy"] += 1
     return out
@@ -95,18 +119,21 @@ def copy_probe(x: torch.Tensor, block_h: int) -> torch.Tensor:
 
 def smem_copy(x: torch.Tensor, block_h: int) -> torch.Tensor:
     """T4's copy of a u8 plane (width a multiple of 16) staged through
-    shared memory, in blocks of `block_h` rows; the stand-in for the TPU's
-    lagged copy. CPU tensors take the plain version."""
-    _check(x, block_h, (torch.uint8,), -(-x.shape[0] // max(block_h, 1)))
+    shared memory by bulk copies (TMA), in units of `block_h` rows, each cut
+    into CTAs of 64 KB (`smem_copy_grid`); the stand-in for the TPU's lagged
+    copy. CPU tensors take the plain version."""
+    _check(x, block_h, (torch.uint8,), 1)
     if x.shape[1] % 16:
         raise ValueError(f"the shared-memory copy takes widths that are multiples of 16, "
                          f"got {x.shape[1]}")
+    if x.data_ptr() % 16:
+        raise ValueError("the shared-memory copy takes 16-byte aligned planes")
     if x.device.type == "cpu":
         return copy_probe_plain(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = kr.load("copy_probe").smem_copy_launch(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], block_h, _stream(x))
+    rc = kr.load("copy_probe").smem_copy_launch(
+        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], block_h, x.device.index,
+        ck.stream_handle(x.device))
     ck._raise_on(rc, "smem_copy")
     ck.TOOL_LAUNCHES["T4-smem-copy"] += 1
     return out

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Split the time of the stream-stencil kernel (K2, K2g, K3) and of T4's
+copies three ways on one NVIDIA GPU: the kernels' device time
+(``torch.profiler``), the wrapper's host time per call, and CUDA events
+around calls back to back, beside the PyTorch call that computes the same
+function. The helpers are ``chip_smoke.split_ms``'s, read from the checkout
+this file lies in; the port is imported from ``--root`` (default the same
+checkout), so that two trees can be timed with one clock:
+
+    python3 tests/_torch_split_timing.py [--root DIR] [--label NAME]
+
+Prints the card's name and power limit, then one JSON object per case.
+The cases are the rows of PERF.md that the stream-stencil redesign is
+measured on: K3 on an overlap band of gaussian:5 ((6, 7680, 3) in), K3 on
+the reference path's emboss:3 over a gray (1082, 7680) tile, K2g on
+sharpen over a gray 1080x7680 shard, K2 on the three 8K groups and on
+sharpen over the 8K gray plane, and T4's copies at block height 128.
+Needs a card; builds the kernels of the tree at ``--root``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    cs = _chip_smoke()
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import roofline_probe as rp
+    from mpi_cuda_imagemanipulation_tpu_torch.tools.packed_proto import pack_u8
+
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"gpu: {cs.nvidia_smi()}; tree: {args.label} ({ck.__file__})")
+    H, W = cs.MAIN_H, cs.MAIN_W
+    x8k = torch.from_numpy(synthetic_image(H, W, seed=0)).cuda()
+    local_h = H // cs.N_SHARDS
+    y0 = local_h
+    kw = dict(y0=y0, image_h=H, image_w=W)
+
+    def cut(img, h):
+        return (img[y0:y0 + local_h].contiguous(), img[y0 - h:y0].contiguous(),
+                img[y0 + local_h:y0 + local_h + h].contiguous())
+
+    cases = []
+    pw5, st5 = cs.split_group("gaussian:5")
+    tile, top, bot = cut(x8k, 2)
+    band = torch.cat([top, tile, bot])[:6].contiguous()
+    cases.append(("K3 stencil_tile [gaussian5] overlap band (6, 7680, 3)",
+                  lambda: ck.stencil_tile(st5, band), cs.conv_library(st5, band, pad_rows=False)))
+    pwr, str_ = cs.split_group(cs.SPECS["reference"])
+    tile1, top1, bot1 = cut(x8k, 1)
+    ext1 = ck.pointwise_group(pwr, torch.cat([top1, tile1, bot1]).contiguous())
+    cases.append(("K3 stencil_tile [emboss3] gray (1082, 7680)",
+                  lambda: ck.stencil_tile(str_, ext1), cs.conv_library(str_, ext1, pad_rows=False)))
+    (pwm, stm), (pws, sts), _ = ck.group_ops(make_pipeline_ops(cs.SPECS["megakernel_ab"]))
+    graym = ck.stream_stencil(pwm, stm, x8k)
+    gt, gtop, gbot = cut(graym, 1)
+    cases.append(("K2g stream_stencil_ghost [sharpen] gray shard",
+                  lambda: ck.stream_stencil_ghost(pws, sts, gt, gtop, gbot, **kw),
+                  cs.conv_library(sts, torch.cat([gtop, gt, gbot]), pad_rows=False)))
+    cases.append(("K2 stream_stencil [grayscale,contrast3.5,emboss3] 8K",
+                  lambda: ck.stream_stencil(pwr, str_, x8k), None))
+    cases.append(("K2 stream_stencil [gaussian5] 8K", lambda: ck.stream_stencil(pw5, st5, x8k),
+                  cs.conv_library(st5, x8k, pad_rows=True)))
+    cases.append(("K2 stream_stencil [grayscale,contrast3.5,gaussian5] 8K",
+                  lambda: ck.stream_stencil(pwm, stm, x8k), None))
+    cases.append(("K2 stream_stencil [sharpen] 8K gray", lambda: ck.stream_stencil(pws, sts, graym),
+                  cs.conv_library(sts, graym, pad_rows=True)))
+    probe = torch.from_numpy(synthetic_image(rp.H, rp.W, channels=1, seed=99)).cuda()
+    for label, arr in (("u8", probe), ("f32", probe.float()), ("u32 words", pack_u8(probe))):
+        out = torch.empty_like(arr)
+        cases.append((f"T4 copy_probe [{label}] block_h 128",
+                      lambda arr=arr: rp.copy_probe(arr, 128),
+                      lambda arr=arr, out=out: out.copy_(arr)))
+    out8 = torch.empty_like(probe)
+    cases.append(("T4 smem_copy [u8] block_h 128", lambda: rp.smem_copy(probe, 128),
+                  lambda: out8.copy_(probe)))
+    for name, fn, library in cases:
+        row = {"case": name, "tree": args.label, **cs.split_ms(fn)}
+        if library is not None:
+            lib = cs.split_ms(library)
+            row.update({f"library_{k}": v for k, v in lib.items()})
+        print(json.dumps(row))
+    print(json.dumps({"case": "host parts of the K3 band call, us per call enqueued back to back",
+                      "tree": args.label, **host_parts(ck, st5, band)}))
+    return 0
+
+
+def host_parts(ck, stencil, band, calls: int = 2000) -> dict:
+    """Host microseconds per call, enqueued back to back with no
+    synchronise (the card keeps up with these tiny launches), of the K3
+    wrapper on the band and of the pieces of its work: the output's
+    allocation, the current stream's handle, and F.conv2d's call for
+    comparison."""
+    import time
+
+    import torch
+    import torch.nn.functional as F
+
+    weight = torch.ones((3, 1, 5, 5), device=band.device)
+    planes = band.permute(2, 0, 1)[None].float()
+    parts = {
+        "stencil_tile": lambda: ck.stencil_tile(stencil, band),
+        "torch.empty": lambda: torch.empty((2, band.shape[1], 3), dtype=torch.uint8,
+                                           device=band.device),
+        "stream handle": lambda: torch.cuda.current_stream(band.device).cuda_stream,
+        "F.conv2d": lambda: F.conv2d(planes, weight, groups=3),
+    }
+    if hasattr(ck, "stream_handle"):
+        parts["ck.stream_handle"] = lambda: ck.stream_handle(band.device)
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -106,15 +106,18 @@ def test_group_split_matches_jax():
 
 def test_pointwise_program_encoding():
     ops = list(Pipeline.parse("grayscale,contrast:3.5,gray2rgb,posterize:3").ops)
-    prog, c_out = ck.pointwise_program(ops, 3)
+    table, c_out = ck.pointwise_program(ops, 3)
     assert c_out == 3
-    assert prog.n_ops == 4
-    assert list(prog.op)[:4] == [op.program[0] for op in ops]
-    assert prog.p0[1] == 3.5 and prog.p0[3] == 32.0
+    assert table.shape == (4, 4) and table.dtype == np.int32
+    assert list(table[:, 0]) == [op.program[0] for op in ops]
+    params = table[:, 1:3].view(np.float32)
+    assert params[1, 0] == 3.5 and params[3, 0] == 32.0
+    assert not table[:, 3].any()
     with pytest.raises(ValueError, match="expects 3 channels"):
         ck.pointwise_program(ops, 1)
-    with pytest.raises(ValueError, match="at most 8"):
-        ck.pointwise_program([registry.make_op("invert")] * 9, 3)
+    # no length limit: a chain of 9 (the old by-value limit was 8) encodes
+    long_table, _ = ck.pointwise_program([registry.make_op("invert")] * 9, 3)
+    assert long_table.shape == (9, 4)
     with pytest.raises(ValueError, match="no kernel program"):
         ck.pointwise_program([registry.make_op("gamma:2")], 1)
     with pytest.raises(ValueError, match="1- or 3-channel"):
@@ -168,21 +171,25 @@ def test_run_group_rejections_match_jax():
     [(3, 16, 2, 2), (1, 16, 1, 0), (3, 48, 3, 2), (1, 1, 0, 2), (3, 16, 2, 5)],
 )
 def test_stencil_shared_memory_sizes(c_out, tile_h, halo, family):
-    nbytes = ck.stencil_smem_bytes(c_out, tile_h, halo, family)
-    window = c_out * (tile_h + 2 * halo) * (ck.TILE_W + 2 * halo)
-    assert nbytes >= window
-    if family in (2, 3, 4):
-        assert nbytes == -(-window // 16) * 16 + 4 * c_out * (tile_h + 2 * halo) * ck.TILE_W
-    else:
-        assert nbytes == -(-window // 16) * 16
-    assert nbytes <= ck.MAX_SMEM_BYTES
+    # the layout of stream_stencil.cu's st_layout: the chain table, a source
+    # per window row, the u8 planes (rows padded to 16 bytes), then the raw
+    # window or the float32 row pass, whichever is larger
+    for c_in, tile_w, n_ops in ((c_out, 128, 0), (3, 32, 9)):
+        nbytes = ck.stencil_smem_bytes(c_in, c_out, tile_h, tile_w, halo, family, n_ops)
+        eh, ew = tile_h + 2 * halo, tile_w + 2 * halo
+        planes = c_out * eh * (-(-ew // 16) * 16)
+        raw = eh * (-(-(ew * c_in + 15) // 16) * 16)
+        scratch = max(raw, 4 * c_out * eh * tile_w) if family in (2, 3, 4) else raw
+        assert nbytes == 16 * n_ops + 16 * eh + planes + scratch
+        assert nbytes >= c_out * eh * ew
+        assert nbytes <= ck.MAX_SMEM_BYTES
 
 
 def test_stencil_geometry_checks():
     op = registry.make_op("gaussian:7")
     img = torch.from_numpy(synthetic_image(64, 64, seed=2))
     with pytest.raises(ValueError, match="shared memory"):
-        ck.stream_stencil([], op, img, tile_h=400)
+        ck.stream_stencil([], op, img, tile_h=1000)
     assert ck.stencil_grid(4320, 7680, 16) == (60, 270)
     assert ck.stencil_grid(37, 53, 16) == (1, 3)
 
@@ -275,5 +282,6 @@ def test_kernels_match_plain_on_card(cuda_device, spec_str):
 @pytest.mark.cuda
 def test_shared_memory_formula_matches_source(cuda_device):
     lib = kr.load("stream_stencil")
-    for args in [(3, 16, 2, 2), (1, 16, 1, 0), (3, 48, 3, 2)]:
+    for args in [(3, 3, 16, 128, 2, 2, 0), (1, 1, 16, 32, 1, 0, 0), (3, 3, 48, 64, 3, 2, 0),
+                 (3, 1, 2, 32, 2, 5, 40)]:
         assert lib.stream_stencil_smem_bytes(*args) == ck.stencil_smem_bytes(*args)

@@ -10,6 +10,11 @@
 * SWAR chains of any length (``swar_desc``'s table): a plain registry
   pipeline with 17 or 40 fusable steps before a stencil runs fused on K6,
   routed as the JAX SWAR path routes it.
+* pointwise chains of any length on K1, K2, K2g and T1 (a table on the
+  card in place of the 8-op by-value program): chains of 9, 17 and 40 ops,
+  alone and before a stencil, through ``--impl cuda --plan off``,
+  ``Pipeline.sharded`` and T1, equal to the JAX Pallas kernels in interpret
+  mode.
 
 Every tolerance is 0: bytes must be equal.
 """
@@ -33,6 +38,9 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
 from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import pad2d, reflect101_index
+from mpi_cuda_imagemanipulation_tpu_torch.parallel import mesh as pmesh
+from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+from tools import packed_kernels as jax_pk
 
 # --------------------------------------------------------------------------
 # backend='auto'
@@ -278,3 +286,80 @@ def test_swar_filter_past_512_tap_words_runs():
     got = sk.swar_stencil(big, img)
     np.testing.assert_array_equal(got.numpy(), big(img).numpy())
     assert sk.swar_kind(big) == "K8"
+
+
+# --------------------------------------------------------------------------
+# Pointwise chains of any length (K1, K2, K2g, T1)
+# --------------------------------------------------------------------------
+
+_STEPS = ("brightness:3", "invert", "brightness:-5", "solarize:200")
+
+
+def _chain(n: int) -> str:
+    """n pointwise ops, the steps in turn."""
+    return ",".join(_STEPS[k % len(_STEPS)] for k in range(n))
+
+
+def _jax_pallas(spec, img):
+    return np.asarray(jax_pallas.pipeline_pallas(
+        jax_registry.make_pipeline_ops(spec), jnp.asarray(img), interpret=True))
+
+
+@pytest.mark.parametrize("n", [9, 17, 40])
+@pytest.mark.parametrize("tail", ["", ",gaussian:5", ",sobel"])
+def test_long_pointwise_chain_through_cuda_off_matches_jax(n, tail):
+    """``--impl cuda --plan off``: one K1 group (chain alone) or one K2
+    group (chain, then the stencil) of n ops; the parent refused any group
+    of more than 8."""
+    spec = _chain(n) + tail
+    img = synthetic_image(40, 56, channels=3, seed=n)
+    want = _jax_pallas(spec, img)
+    pipe = Pipeline.parse(spec)
+    ck.reset_launch_counts()
+    got = cli.run_image(pipe, torch.from_numpy(img), impl="cuda", device="cpu", plan="off")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, pipe(torch.from_numpy(img)).numpy())
+
+
+@pytest.mark.parametrize("n", [12, 40])
+def test_long_pointwise_chain_past_k4_falls_back_to_k1_k2(n):
+    """Under ``--plan fused-pallas`` a stage longer than K4's 24 ops
+    ('program-too-long') runs as K1/K2 groups, which now take it."""
+    spec = "grayscale," + _chain(n) + ",gaussian:5," + _chain(n)
+    ops = make_pipeline_ops(spec)
+    assert ck.fused_stage_reject(ops, 36, 48, 3) == "program-too-long"
+    img = synthetic_image(36, 48, channels=3, seed=3)
+    got = Pipeline.parse(spec).jit("cuda", device="cpu", plan="fused-pallas")(img)
+    np.testing.assert_array_equal(got.numpy(), _jax_pallas(spec, img))
+
+
+@pytest.mark.parametrize("n", [9, 17, 40])
+@pytest.mark.parametrize("tail", ["", ",gaussian:5"])
+def test_long_pointwise_chain_sharded_matches_jax(n, tail):
+    """``Pipeline.sharded`` over four CPU slots: K2g per shard (or K1 for
+    the chain alone), both halo modes."""
+    spec = _chain(n) + tail
+    img = synthetic_image(48, 40, channels=3, seed=n + 1)
+    want = _jax_pallas(spec, img)
+    mesh = pmesh.make_mesh(4, devices=["cpu"] * 4)
+    for halo_mode in ("serial", "overlap"):
+        got = Pipeline.parse(spec).sharded(mesh, backend="cuda", plan="off",
+                                           halo_mode=halo_mode)(img)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=halo_mode)
+
+
+@pytest.mark.parametrize("n", [9, 17, 40])
+@pytest.mark.parametrize("tail", ["", ",gaussian:5", ",emboss:3"])
+def test_long_pointwise_chain_on_t1_matches_jax(n, tail):
+    """T1-pw and T1 on word planes against the JAX packed-word runner in
+    interpret mode."""
+    spec = _chain(n) + tail
+    img = synthetic_image(40, 128, channels=1, seed=n + 2)
+    (pw, st), = ck.group_ops(make_pipeline_ops(spec))
+    (jpw, jst), = jax_pallas.group_ops(jax_registry.make_pipeline_ops(spec))
+    assert pk.packed_supported(pw, st, 128)
+    want = jax_pk.run_group_packed_words(jpw, jst, [jax_pk.pack_words(jnp.asarray(img))], 40,
+                                         128, interpret=True, block_h=16)
+    got = pk.run_group_packed_words(pw, st, [pk.pack_words(torch.from_numpy(img))], 40, 128,
+                                    block_h=16)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))

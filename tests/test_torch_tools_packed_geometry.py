@@ -164,5 +164,5 @@ def cuda_device():
 @pytest.mark.cuda
 def test_shared_memory_formula_matches_source(cuda_device):
     lib = kr.load("packed_stream")
-    for args in [(3, 16, 2, 2), (1, 16, 1, 0), (3, 96, 3, 3), (1, 7, 2, 5)]:
+    for args in [(3, 16, 2, 2, 0), (1, 16, 1, 0, 9), (3, 96, 3, 3, 40), (1, 7, 2, 5, 0)]:
         assert lib.packed_stream_smem_bytes(*args) == pk.packed_smem_bytes(*args)
