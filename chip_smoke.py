@@ -54,7 +54,12 @@ printing a result:
    tiles, for a stencil of every family (the 5x5 median too) in every edge
    mode, gray and RGB, at widths that are no multiple of 16. Pointwise
    chains of 9, 17 and 40 ops (past the first design's 8) on K1, K2, K2g
-   and T1 in its three forms.
+   and T1 in its three forms. The redesigned K1 on 3 -> 1, 1 -> 3, 1 -> 1
+   and 3 -> 3 chains at every input offset 0..15 and on tiny, ragged and
+   8K images; K4 and K4g on stages of every halo 0..16, RGB rows and
+   extended tiles at every start byte, and the long stages (26 and 82 ops,
+   nine box:3, twelve box:1, twelve box:1 and a box:3, past the first
+   K4's 24 ops and 8 stencils) with VPU and tensor-core arms.
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -75,7 +80,10 @@ printing a result:
    `packed_proto` self-test, `swar_proto --quick`, `packed_ab`, which drives
    T1-pw, T1, T2, K1 and K2), each with its launches counted, their records
    printed; and T1g's path, the 8K gray gaussian:5 as four packed shards with
-   ghost strips, stitched and equal to golden.
+   ghost strips, stitched and equal to golden. The long stages through
+   `run --plan fused-pallas` (one K4 launch each, and the gray -> RGB
+   stage) and sharded (one K4g per shard; a halo-0 stage goes to the
+   per-group path, uncounted, as in the JAX runner).
 3. Numbers: CUDA-event times of each kernel and its plain version at the
    main paths' shapes (the ghost modes at the 1080x7680 shard), the bound
    from bytes and operations, a PyTorch library call as a yardstick where
@@ -88,10 +96,12 @@ printing a result:
    3.35 TB/s, T2 at 8K beside K1 on the same group, T3 at 8K beside K6
    narrow and K2 on the same plane; T1 on the 8K gray gaussian:5 beside K2
    and `F.conv2d`, T1g on one shard beside K2g, T1-pw on packed_ab's group
-   beside K1. For the stream-stencil rows (K2 on the 8K groups, K2g, K3 on
-   the band and on emboss:3) and T4's copies also the split of one call:
-   device time from torch.profiler, the wrapper's host time, CUDA events
-   back to back, and the same for the library call; K2 by tile height.
+   beside K1. For the K1, K4, K4g and K5 rows (K1 also on quantize:6 over
+   the 8K gray plane), the stream-stencil rows (K2 on the 8K groups, K2g,
+   K3 on the band and on emboss:3) and T4's copies also the split of one
+   call: device time from CUDA events around one call queued behind a spin
+   kernel, the wrapper's host time, CUDA events back to back, and the same
+   for the library call; K2 by tile height.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -116,6 +126,9 @@ SPECS = {
     "megakernel_ab": "grayscale,contrast:3.5,gaussian:5,sharpen,quantize:6",
 }
 PLANS = ("off", "fused-pallas")
+# quantize:6 keeps the top six bits of a u8: x & 0xFC, the library yardstick
+# of K1's quantize:6 rows
+QUANTIZE6_MASK = 0xFC
 HALO_MODES = ("serial", "overlap")
 N_SHARDS = 4  # 1080 x 7680 shards of the 8K frame
 PAD_H = 4323  # over 4 shards: 1081 rows each, one pad row in the last
@@ -270,6 +283,7 @@ def phase1(device) -> int:
     n += phase1_ghost(device)
     n += phase1_stencil_shapes(device)
     n += phase1_long_chains(device)
+    n += phase1_redesign(device)
     print(f"phase 1: {n} kernel cases equal to their plain versions (max_abs_err 0)")
     return n
 
@@ -365,6 +379,202 @@ def long_chain(n: int) -> str:
     return ",".join(LONG_STEPS[k % len(LONG_STEPS)] for k in range(n))
 
 
+# stages K4 takes whatever their length (the first K4 held 24 ops and 8
+# stencils); K1's chains by channel counts
+LONG_STAGES = {
+    "26 ops": "grayscale," + long_chain(12) + ",gaussian:5," + long_chain(12),
+    "82 ops": "grayscale," + long_chain(40) + ",gaussian:5," + long_chain(40),
+    "nine box:3": ",".join(["box:3"] * 9),
+    "twelve box:1": ",".join(["box:1"] * 12),
+    "twelve box:1 and box:3": ",".join(["box:1"] * 12 + ["box:3"]),
+}
+K1_CHAINS = {"3->1": "grayscale,contrast:3.5", "1->3": "gray2rgb", "1->1": "quantize:6",
+             "3->3": "sepia,invert,brightness:-20"}
+
+
+def halo_stage(r: int) -> str:
+    """A stage of total halo r: 7x7 Gaussians (separable), then a 5x5 median
+    or a 3x3 emboss for the rest; r = 0: two box:1 around an invert."""
+    if r == 0:
+        return "box:1,invert,box:1"
+    ops = ["gaussian:7"] * (r // 3) + {0: [], 1: ["emboss:3"], 2: ["median:5"]}[r % 3]
+    return ",".join(ops)
+
+
+def unaligned(x, offset: int):
+    """`x` copied into a fresh buffer at byte `offset`: a contiguous view
+    whose first byte lies `offset` bytes past the allocation's start, as a
+    shard view or a flushed region may."""
+    import torch
+
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def phase1_redesign(device) -> int:
+    """The redesigned K1, K4 and K4g (and K5 in both forms on the long
+    stages) against their plain versions: K1 on 3 -> 1, 1 -> 3, 1 -> 1 and
+    3 -> 3 chains at every input offset 0..15 and on 1x1, 1x15, 3x17, 37x53,
+    1080x1920 and 8K images; K4 on stages of every halo 0..16, gray and
+    RGB, just above the height gate and at 257 x 1920, on RGB rows at every
+    start byte; K4 and K4g on the long stages (26 and 82 ops, nine box:3,
+    twelve box:1, twelve box:1 and a box:3) with VPU and tensor-core arms;
+    K4g on the first, a middle and the last shard at every halo and on
+    extended tiles at every start byte. Returns the case count."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+
+    def img(h, w, c, seed):
+        return torch.from_numpy(synthetic_image(h, w, channels=c, seed=seed)).to(device)
+
+    # K1's split (pw_split in pointwise_run.cuh) is the host's mirror of it
+    import ctypes
+
+    from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
+
+    lib = kr.load("pointwise")
+    split = (ctypes.c_longlong * 4)()
+    for c_in, c_out in ((1, 1), (1, 3), (3, 1), (3, 3)):
+        for n_pix in (1, 17, 4320 * 7680):
+            for in_off in range(16):
+                for out_off in (0, 7):
+                    args = (4096 + in_off, 8192 + out_off, n_pix, c_in, c_out)
+                    lib.pointwise_split(*args, split)
+                    assert tuple(split) == ck.pointwise_split(*args), args
+    n = 0
+    for label, spec in K1_CHAINS.items():
+        pw = list(make_pipeline_ops(spec))
+        c_in = int(label[0])
+        for seed, shape in enumerate([(1, 1), (1, 15), (3, 17), (37, 53), (1080, 1920),
+                                      (MAIN_H, MAIN_W)]):
+            x = img(*shape, c_in, seed)
+            offsets = range(16) if shape == (37, 53) else (0, 3)
+            for off in offsets:
+                xo = unaligned(x, off)
+                check_equal(f"K1 {label} {shape} offset {off}", ck.pointwise_group(pw, xo),
+                            ck.pointwise_group_plain(pw, xo))
+                n += 1
+    for r in range(17):
+        ops = make_pipeline_ops(halo_stage(r))
+        for c in (1, 3):
+            for seed, shape in enumerate([(2 * r + 1, 301), (257, 1920)]):
+                x = img(*shape, c, r + seed)
+                assert ck.fused_stage_reject(ops, *shape, c) is None, (r, shape)
+                check_equal(f"K4 halo {r} {shape} c={c}", ck.fused_stage(ops, x),
+                            ck.fused_stage_plain(ops, x))
+                n += 1
+            if not r:
+                continue
+            for k in range(3):
+                tile, top, bottom, y0, image_h = shard_cut(ops, (3 * (2 * r + 3), 777), k, r + k,
+                                                           device, r)
+                if c == 1 and tile.ndim == 3:
+                    tile, top, bottom = (t[..., 0].contiguous() for t in (tile, top, bottom))
+                ext = torch.cat([top, tile, bottom]).contiguous()
+                kw = dict(y0=y0, image_h=image_h, image_w=777)
+                check_equal(f"K4g halo {r} shard {k} c={c}", ck.fused_stage_ext(ops, ext, **kw),
+                            ck.fused_stage_ext_plain(ops, ext, **kw))
+                n += 1
+    for spec in (SPECS["megakernel_ab"], SPECS["gaussian5_8k"], SPECS["reference"],
+                 "sepia,median:3,invert,emboss:3"):
+        ops = make_pipeline_ops(spec)
+        H = chain_halo(ops)
+        x = img(37, 53, 3, 5)
+        want = ck.fused_stage_plain(ops, x)
+        tile, top, bottom, y0, image_h = shard_cut(ops, (3 * 40, 301), 1, 6, device, H)
+        ext = torch.cat([top, tile, bottom]).contiguous()
+        kw = dict(y0=y0, image_h=image_h, image_w=301)
+        want_g = ck.fused_stage_ext_plain(ops, ext, **kw)
+        for off in range(16):
+            check_equal(f"K4 {spec} RGB rows at offset {off}",
+                        ck.fused_stage(ops, unaligned(x, off)), want)
+            check_equal(f"K4g {spec} extended tile at offset {off}",
+                        ck.fused_stage_ext(ops, unaligned(ext, off), **kw), want_g)
+            n += 2
+    for label, spec in LONG_STAGES.items():
+        ops = make_pipeline_ops(spec)
+        H = chain_halo(ops)
+        x = img(1080, 1920, 3, len(spec))
+        for setting in ("vpu", "on", "f32"):
+            arms = ("vpu",) * len(ops) if setting == "vpu" else ck.stage_arms(ops, setting)
+            check_equal(f"K4 {label} arms={setting}", ck.fused_stage(ops, x, arms=arms),
+                        ck.fused_stage_plain(ops, x, arms=arms))
+            n += 1
+            if not H:
+                continue
+            for k in range(3):
+                tile, top, bottom, y0, image_h = shard_cut(ops, (1080, 1920), k, k, device, H)
+                ext = torch.cat([top, tile, bottom]).contiguous()
+                kw = dict(y0=y0, image_h=image_h, image_w=1920)
+                check_equal(f"K4g {label} shard {k} arms={setting}",
+                            ck.fused_stage_ext(ops, ext, arms=arms, **kw),
+                            ck.fused_stage_ext_plain(ops, ext, arms=arms, **kw))
+                n += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: the redesigned K1, K4, K4g (and K5 on the long stages) equal to their "
+          f"plain versions in {n} cases (max_abs_err 0)")
+    return n
+
+
+def phase2_long_stages(device) -> dict:
+    """The long stages through the `run` computation under --plan
+    fused-pallas at 1080 x 1920 RGB (one K4 launch each, and one more for
+    the gray -> RGB stage after a gray result; no K1/K2, no fallback) and
+    through `Pipeline.sharded` over the 4-slot mesh (one K4g per shard for a
+    stage with a halo; a halo-0 stage is left to the per-group path,
+    uncounted, as the JAX runner leaves it), equal to the golden ops.
+    Returns the launches by case."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import run_image
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+
+    mesh = sharded_mesh()
+    launches = {}
+    x = torch.from_numpy(synthetic_image(1080, 1920, seed=21)).to(device)
+    for label, spec in LONG_STAGES.items():
+        pipe = Pipeline.parse(spec)
+        halo0 = label == "twelve box:1"
+        # `run` replicates a gray result to RGB: a second, halo-0 K4 stage
+        stages = 2 if ck.stage_program(pipe.ops, 3).c_out == 1 else 1
+        for sharded in (False, True):
+            ck.reset_launch_counts()
+            plan_metrics.reset()
+            if sharded:
+                want = pipe.jit("torch", device=device, plan="off")(x)
+                out = pipe.sharded(mesh, backend="cuda", plan="fused-pallas")(x)
+            else:
+                want = run_image(pipe, x, impl="torch", device=device, plan="off")
+                out = run_image(pipe, x, impl="cuda", device=device, plan="fused-pallas")
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ck.launch_counts().items() if v}
+            tag = f"{label} plan=fused-pallas{' sharded' if sharded else ''}"
+            check_equal(tag, out, want)
+            if sharded and halo0:
+                expected_ok = "K4g" not in counts and plan_metrics.pallas_stages == 0
+            elif sharded:
+                expected_ok = counts == {"K4g": N_SHARDS} and plan_metrics.pallas_stages == 1
+            else:
+                expected_ok = counts == {"K4": stages} and plan_metrics.pallas_stages == stages
+            if not expected_ok or plan_metrics.pallas_fallbacks:
+                raise AssertionError(f"{tag}: launches {counts}, K4 stages "
+                                     f"{plan_metrics.pallas_stages}, fallbacks "
+                                     f"{dict(plan_metrics.pallas_fallbacks)}")
+            launches[label, sharded] = counts
+            print(f"phase 2: {tag} 1080x1920 RGB: cuda == golden, launches {counts}, "
+                  f"K4 stages {plan_metrics.pallas_stages}, fallbacks 0")
+    return launches
+
+
 def phase1_long_chains(device) -> int:
     """K1, K2, K2g and T1 in its three forms (T1-pw, T1, T1g) on chains of
     9, 17 and 40 pointwise ops, alone and before gaussian:5, against their
@@ -411,32 +621,37 @@ def phase1_long_chains(device) -> int:
 
 def k4_tile_heights(ops, c_in) -> list:
     """Tile heights to hold K4 at: the default, 5, and, for a stage that
-    uses shared memory, the smallest whose shared memory exceeds 48 KB."""
+    uses shared memory, the smallest whose 128-column block's shared memory
+    exceeds 48 KB."""
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
-    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
 
-    _, _, c_smem, two_pass = ck.fused_stage_program(ops, c_in)
-    if not c_smem:
+    prog = ck.stage_program(ops, c_in)
+    if not prog.c_smem:
         return [None, 5]
     t = 1
-    while ck.fused_stage_smem_bytes(c_smem, t, chain_halo(ops), two_pass) <= 48 * 1024:
+    while ck.fused_stage_smem_bytes(c_in, prog.c_smem, t, 128, prog.halo, prog.table_bytes,
+                                    prog.two_pass) <= 48 * 1024:
         t += 1
     return [None, 5, t]
 
 
 def phase1_k4(device) -> int:
     """K4 on every stage case against fused_stage_plain, byte-equal."""
-    import ctypes
-
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
     from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
     from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
     from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
+    # the host's table and shared-memory layout are the source's
     lib = kr.load("fused_stage")
-    assert lib.fused_stage_program_bytes() == ctypes.sizeof(kr.FsProgram)
-    for args in [(3, 16, 3, 1), (1, 16, 1, 0), (3, 48, 16, 1), (1, 200, 0, 0)]:
-        assert lib.fused_stage_smem_bytes(*args) == ck.fused_stage_smem_bytes(*args), args
+    for spec, c_in, tile_h, tile_w in ((SPECS["megakernel_ab"], 3, 16, 128), ("emboss:3", 1, 16, 32),
+                                       (",".join(["box:3"] * 9), 3, 48, 64), ("box:1", 3, 200, 128)):
+        prog = ck.stage_program(make_pipeline_ops(spec), c_in)
+        assert lib.fused_stage_table_bytes(prog.n_ops, prog.n_stencils) == prog.table_bytes
+        got = lib.fused_stage_smem_bytes(c_in, prog.c_smem, tile_h, tile_w, prog.halo,
+                                         prog.n_ops, prog.n_stencils, int(prog.two_pass))
+        assert got == ck.fused_stage_smem_bytes(c_in, prog.c_smem, tile_h, tile_w, prog.halo,
+                                                prog.table_bytes, prog.two_pass), spec
     n = 0
     for spec in STENCIL_CASES + STAGE_CASES:
         ops = make_pipeline_ops(spec)
@@ -1872,6 +2087,8 @@ def conv_library(op, x, pad_rows: bool):
 
 def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
            tool_runs):
+    import torch
+
     from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
@@ -1915,7 +2132,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
             if library is not None:
                 parts["library"] = split_ms(library)
             print(f"  split {name}: " + "; ".join(
-                f"{k} device {v['device_ms']:.4f} ms ({v['device_source']}), host "
+                f"{k} device {v['device_ms']:.4f} ms, host "
                 f"{v['host_ms']:.4f} ms, back-to-back {v['b2b_ms']:.4f} ms"
                 for k, v in parts.items()) + f"; bound {bound_ms:.4f} ms by {bound_by}")
 
@@ -1938,7 +2155,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         launches["reference", "off"]["K1"],
         lambda: ck.pointwise_group(g2r, gray),
         lambda: ck.pointwise_group_plain(g2r, gray), 1, 3, g2r,
-        library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(),
+        library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(), split=True,
     )
     # K2 on gaussian:5, RGB in and out; the yardstick is a depthwise
     # float32 convolution of the pre-padded planes (TF32 off)
@@ -1959,7 +2176,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
         launches["gaussian5_8k", "fused-pallas"]["K4"],
         lambda: ck.fused_stage([st5], x8k), lambda: ck.fused_stage_plain([st5], x8k),
-        3, 3, [st5], library=conv5,
+        3, 3, [st5], library=conv5, split=True,
     )
     del conv5
     # the two K2 launches of the megakernel chain under plan off: the
@@ -1981,6 +2198,23 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         lambda: ck.stream_stencil_plain(pws, sts, graym), 1, 1, [sts],
         library=conv_library(sts, graym, pad_rows=True), split=True,
     )
+    # K1 on the same path's quantize:6 over the sharpened 8K gray plane;
+    # posterize to 6 bits keeps the top bits, so the yardstick is one
+    # bitwise_and with 0xFC (held equal to the plain version here)
+    (pwq, _), = ck.group_ops(make_pipeline_ops("quantize:6"))
+    sharp = ck.stream_stencil(pws, sts, graym)
+    if not torch.equal(torch.bitwise_and(sharp, QUANTIZE6_MASK),
+                       ck.pointwise_group_plain(pwq, sharp)):
+        raise AssertionError("quantize:6 != bitwise_and with 0xFC")
+    record(
+        "K1 pointwise_group [quantize6] 8K gray",
+        "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/pointwise.cu",
+        "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:540",
+        launches["megakernel_ab", "off"]["K1"],
+        lambda: ck.pointwise_group(pwq, sharp), lambda: ck.pointwise_group_plain(pwq, sharp),
+        1, 1, pwq, library=lambda: torch.bitwise_and(sharp, QUANTIZE6_MASK), split=True,
+    )
+    del sharp
     # K4 on the first stage of the reference and megakernel paths, 8K RGB
     # in, gray out; no single PyTorch call computes a fused stage
     for key in ("reference", "megakernel_ab"):
@@ -1990,7 +2224,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
             "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
             launches[key, "fused-pallas"]["K4"],
             lambda ops=ops: ck.fused_stage(ops, x8k),
-            lambda ops=ops: ck.fused_stage_plain(ops, x8k), 3, 1, ops,
+            lambda ops=ops: ck.fused_stage_plain(ops, x8k), 3, 1, ops, split=True,
         )
     # K4 on the halo-0 stage that replicates gray to RGB on the same path
     record(
@@ -1998,7 +2232,7 @@ def phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_l
         "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
         launches["reference", "fused-pallas"]["K4"],
         lambda: ck.fused_stage(g2r, gray), lambda: ck.fused_stage_plain(g2r, gray), 1, 3, g2r,
-        library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(),
+        library=lambda: gray[..., None].expand(-1, -1, 3).contiguous(), split=True,
     )
 
     phase3_sharded(device, x8k, graym, sharded_launches, record)
@@ -2084,7 +2318,7 @@ def phase3_k5(device, x8k, mxu_launches, record):
                 mxu_launches[(key, *lkey)][ck_key],
                 lambda ops=ops, arms=arms: ck.fused_stage(ops, x8k, arms=arms),
                 lambda ops=ops, arms=arms: ck.fused_stage_plain(ops, x8k, arms=arms),
-                3, c_out, ops, library=library, ops_ms=ops_ms,
+                3, c_out, ops, library=library, ops_ms=ops_ms, split=True,
             )
             print(f"  operations bound {ops_ms:.4f} ms; the VPU arm of K4 on the same stage "
                   f"in this run: {t_vpu:.4f} ms")
@@ -2099,7 +2333,7 @@ def phase3_k5(device, x8k, mxu_launches, record):
             lambda ops=ops, arms=arms, ext=ext: ck.fused_stage_ext_plain(
                 ops, ext, arms=arms, **kw),
             3, c_out, ops, library=library_g, n_pix=local_h * MAIN_W,
-            strip_bytes=2 * H * MAIN_W * 3, ops_ms=ops_ms,
+            strip_bytes=2 * H * MAIN_W * 3, ops_ms=ops_ms, split=True,
         )
         print(f"  operations bound {ops_ms:.4f} ms; the VPU arm of K4g on the same shard in "
               f"this run: {t_vpu_g:.4f} ms")
@@ -2135,51 +2369,45 @@ def host_enqueue_ms(fn, reps: int = 7) -> float:
     return statistics.median(samples)
 
 
-def profiler_device_ms(fn, calls: int = 20) -> tuple[float, str]:
-    """Device milliseconds one call of `fn` keeps the card busy: the CUDA
-    kernels' own time in ``torch.profiler``'s ``key_averages()`` over
-    `calls` calls, per call. Where the profiler shows no device time, CUDA
-    events around a single call after a synchronise instead (the median of
-    7). Returns (ms, source)."""
+# cycles of the spin kernel that keeps the stream busy while the host
+# enqueues a timed call (about 2.5 ms at the H100's clock, longer than any
+# wrapper's host time)
+SPIN_CYCLES = 5_000_000
+
+
+def padded_device_ms(fn, reps: int = 7) -> float:
+    """Device milliseconds of one call of `fn`: CUDA events around it, the
+    stream held busy beforehand by a spin kernel (`torch.cuda._sleep`) so
+    that the call's kernels are queued before the start event runs and no
+    host time falls between the events; the median of `reps`."""
     import statistics
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if us > 0:
-        return us / 1e3 / calls, "profiler"
     samples = []
-    for _ in range(7):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end))
-    return statistics.median(samples), "events"
+    return statistics.median(samples)
 
 
 def split_ms(fn) -> dict:
     """One call of `fn` three ways: the device time its kernels take
-    (`profiler_device_ms`), the host time it takes to enqueue
+    (`padded_device_ms`), the host time it takes to enqueue
     (`host_enqueue_ms`), and CUDA events around calls back to back
     (`device_time_ms`, which reads host time where a call's host work is
     longer than its kernels)."""
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
-    device, source = profiler_device_ms(fn)
-    return {"device_ms": device, "device_source": source, "host_ms": host_enqueue_ms(fn),
+    return {"device_ms": padded_device_ms(fn), "host_ms": host_enqueue_ms(fn),
             "b2b_ms": device_time_ms(fn, reps=7)}
 
 
@@ -2246,7 +2474,8 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
         f"K1 pointwise_group [{names(pwq)}] gray shard", k1, f"{pk}:540",
         sharded_launches["megakernel_ab", "off", "serial", False]["K1"],
         lambda: ck.pointwise_group(pwq, gtile), lambda: ck.pointwise_group_plain(pwq, gtile),
-        1, 1, pwq, n_pix=n_pix,
+        1, 1, pwq, library=lambda: torch.bitwise_and(gtile, QUANTIZE6_MASK), n_pix=n_pix,
+        split=True,
     )
     del gtile
     # K3 on gaussian:5 over the materialised (1084, W, 3) tile, as the padded
@@ -2304,6 +2533,7 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
             lambda ops=ops, ext=ext: ck.fused_stage_ext(ops, ext, **kw),
             lambda ops=ops, ext=ext: ck.fused_stage_ext_plain(ops, ext, **kw),
             3, c_out, ops, library=library, n_pix=n_pix, strip_bytes=2 * H * MAIN_W * 3,
+            split=True,
         )
         del ext, library
     del tile, top, bottom
@@ -2377,6 +2607,7 @@ def main() -> int:
     phase1_t1(device, gray8k, x8k)
     launches = phase2(device, x8k)
     sharded_launches = phase2_sharded(device, x8k)
+    phase2_long_stages(device)
     mxu_launches = phase2_mxu(device, x8k)
     swar_launches = phase2_swar(device, x8k, gray8k)
     tool_runs = phase2_tools(device)

@@ -3,60 +3,47 @@
 // Replaces: mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py
 //           _pointwise_kernel (the pallas_call in run_group for groups
 //           with no stencil).
-// Computes: a chain of pointwise ops (pointwise.cuh) over an interleaved
-//           HWC u8 image with c_in channels, writing an interleaved u8
-//           image with c_out channels. One read and one write per pixel.
+// Computes: a chain of pointwise ops (pointwise.cuh), a table of any
+//           length, over an interleaved HWC u8 image with c_in channels,
+//           writing an interleaved u8 image with c_out channels. One read
+//           and one write per pixel.
 // Bound on the H100: device memory. Each pixel moves (c_in + c_out) bytes
 //           and costs at most a few tens of float32 operations, far below
 //           the card's operations-per-byte balance; at 3.35 TB/s an 8K
 //           gray -> RGB pass (4 B/px) takes at least 39.6 us.
-// Design:   a grid-stride loop, one pixel per thread per step, reading
-//           the HWC layout in place (the TPU kernel's planar split was for
-//           its (8, 128) lanes and would cost extra copies here). Each
-//           block first copies the chain's table (any length) into shared
-//           memory; no other shared memory or synchronisation.
+// Design:   the first design (a grid-stride loop capped at 132 x 16
+//           blocks, one pixel a thread a step, c_in one-byte loads and
+//           c_out one-byte stores at stride c_out, the chain dispatched per
+//           pixel) ran the 8K gray -> RGB pass at 34% of its bytes bound
+//           where a copy of the plane reaches 84%. This one is K1's body in
+//           pointwise_run.cuh: sixteen pixels a thread as whole 16-byte
+//           words in and out, de-interleaved in registers, each chain op
+//           dispatched once for the sixteen, the misaligned head and the
+//           ragged tail one pixel a thread, the grid sized from the work.
 
-#include "pointwise.cuh"
+#include "device_scope.cuh"
+#include "pointwise_run.cuh"
 
-__global__ void __launch_bounds__(256)
-pointwise_kernel(const unsigned char* __restrict__ in,
-                 unsigned char* __restrict__ out, long long n_pix, int c_in,
-                 int c_out, const PwOp* __restrict__ chain, int n_ops) {
-  extern __shared__ PwOp s_ops[];
-  pw_copy_chain(s_ops, chain, n_ops);
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_pix;
-       i += stride) {
-    float v[3];
-    pw_load(in + i * c_in, v, c_in);
-    pw_apply(s_ops, n_ops, v, c_in);
-    unsigned char* q = out + i * c_out;
-    q[0] = pw_to_u8(v[0]);
-    if (c_out > 1) {
-      q[1] = pw_to_u8(v[1]);
-      q[2] = pw_to_u8(v[2]);
-    }
-  }
+// Launches K1 on `device` and `stream` with the chain table `chain`
+// (n_ops PwOp in device memory). Returns cudaGetLastError() after the
+// launch.
+extern "C" int pointwise_launch(const unsigned char* in, unsigned char* out, long long n_pix,
+                                int c_in, int c_out, const PwOp* chain, int n_ops, int device,
+                                void* stream) {
+  if (n_pix <= 0) return 0;
+  if (device < 0) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err) return scope.err;
+  return pw_run_launch(in, out, n_pix, c_in, c_out, chain, n_ops, (cudaStream_t)stream);
 }
 
-// Launches K1 on `stream` with the chain table `chain` (n_ops PwOp in
-// device memory). Returns cudaGetLastError() after the launch.
-extern "C" int pointwise_launch(const unsigned char* in, unsigned char* out,
-                                long long n_pix, int c_in, int c_out,
-                                const PwOp* chain, int n_ops, void* stream) {
-  if (n_pix <= 0) return 0;
-  const size_t smem = (size_t)n_ops * sizeof(PwOp);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pointwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = 256;
-  long long blocks = (n_pix + threads - 1) / threads;
-  const long long max_blocks = 132LL * 16;  // 16 resident blocks per SM
-  if (blocks > max_blocks) blocks = max_blocks;
-  pointwise_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      in, out, n_pix, c_in, c_out, chain, n_ops);
-  return (int)cudaGetLastError();
+// The split of one launch (pw_split), for the host-side check: head, runs,
+// tail and the input shift in `split[0..3]`.
+extern "C" void pointwise_split(unsigned long long in, unsigned long long out, long long n_pix,
+                                int c_in, int c_out, long long* split) {
+  const PwSplit s = pw_split((uintptr_t)in, (uintptr_t)out, n_pix, c_in, c_out);
+  split[0] = s.head;
+  split[1] = s.runs;
+  split[2] = s.tail;
+  split[3] = s.in_shift;
 }

@@ -130,8 +130,13 @@ __device__ __forceinline__ int pw_apply_lanes(int op, float a, float (*v)[3], in
       PW_EACH(__fsub_rn(255.0f, x))
     case PW_THRESHOLD:
       PW_EACH(x >= a ? 255.0f : 0.0f)
-    case PW_POSTERIZE:
-      PW_EACH(__fmul_rn(floorf(__fdiv_rn(x, a)), a))
+    case PW_POSTERIZE: {
+      // the step is a power of two (2^(8 - bits), checked by the host's
+      // encoder): then 1 / a is exact and x * (1 / a) equals x / a, without
+      // the division's slow path
+      const float inv = __fdiv_rn(1.0f, a);
+      PW_EACH(__fmul_rn(floorf(__fmul_rn(x, inv)), a))
+    }
     case PW_SOLARIZE:
       PW_EACH(x >= a ? __fsub_rn(255.0f, x) : x)
     default:

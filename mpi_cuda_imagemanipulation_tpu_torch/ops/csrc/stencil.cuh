@@ -13,6 +13,8 @@
 
 #pragma once
 
+#include <stdint.h>
+
 #include "pointwise.cuh"
 
 #define ST_MAX_K 7
@@ -214,4 +216,164 @@ __device__ __forceinline__ bool st_filtered(int gy, int gx, int H, int W, int h,
                                             int mode) {
   if (mode != ST_EDGE_INTERIOR) return true;
   return gx > h && gx <= W - 1 - h && gy > h && gy <= H - 1 - h;
+}
+
+// The strip forms, shared by K2 and K4: four adjacent outputs per thread,
+// each window row's 4 + KS - 1 bytes read as words once and reused for
+// all four, each output's taps in the order of the one-output functions
+// above.
+
+// The first NB bytes at `p` (4-byte aligned, in shared memory) as floats,
+// read as words.
+template <int NB>
+__device__ __forceinline__ void st_row_bytes(const unsigned char* p, float f[NB]) {
+  constexpr int NW = (NB + 3) / 4;
+  uint32_t w[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) w[k] = reinterpret_cast<const uint32_t*>(p)[k];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) f[b] = (float)((w[b >> 2] >> (8 * (b & 3))) & 0xFFu);
+}
+
+// Four adjacent outputs of a one-pass family (corr, magnitude, median)
+// from the window rows at `win` (`pitch` bytes apart), each output's taps
+// in stencil.cuh's order; `center` gets the four window centres.
+template <int KS>
+__device__ __forceinline__ void st_strip_window(const unsigned char* win, int pitch,
+                                                const StencilDesc& st, float acc[4],
+                                                float center[4]) {
+  constexpr int h = KS / 2;
+  constexpr int NB = 4 + KS - 1;
+  if constexpr (KS == 3 || KS == 5) {
+    if (st.family == ST_MEDIAN) {
+      // each row's 4 + KS - 1 bytes kept as two words; one output at a time
+      // (a 25-value network is live per output), its row bytes shifted out
+      // of the words, so the network's registers are not held four times
+      static_assert(NB <= 8, "a median row fits two words");
+      uint64_t w[KS];
+#pragma unroll
+      for (int dy = 0; dy < KS; ++dy) {
+        const uint32_t* r = reinterpret_cast<const uint32_t*>(win + dy * pitch);
+        w[dy] = (uint64_t)r[1] << 32 | r[0];
+      }
+#pragma unroll 1
+      for (int j = 0; j < 4; ++j) {
+        float p[KS * KS];
+#pragma unroll
+        for (int dy = 0; dy < KS; ++dy) {
+          const uint64_t row = w[dy] >> (8 * j);
+#pragma unroll
+          for (int dx = 0; dx < KS; ++dx) p[dy * KS + dx] = (float)((row >> (8 * dx)) & 0xFFu);
+        }
+        const float c = p[h * KS + h];
+        if constexpr (KS == 3) {
+          ST_MEDIAN9_PAIRS(ST_EXCHANGE)
+        } else {
+          ST_MEDIAN25_PAIRS(ST_EXCHANGE)
+        }
+        // static indices into the results (a dynamic one would put them in
+        // local memory)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (k == j) {
+            acc[k] = p[KS * KS / 2];
+            center[k] = c;
+          }
+        }
+      }
+      return;
+    }
+  }
+  const bool magnitude = st.family == ST_MAGNITUDE;
+  float b[4];
+  bool first_a = true, first_b = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = b[j] = 0.0f;
+#pragma unroll
+  for (int dy = 0; dy < KS; ++dy) {
+    float f[NB];
+    st_row_bytes<NB>(win + dy * pitch, f);
+    if (dy == h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) center[j] = f[j + h];
+    }
+#pragma unroll
+    for (int dx = 0; dx < KS; ++dx) {
+      const float wa = st.w0[dy * KS + dx];
+      if (wa != 0.0f) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float t = wa == 1.0f ? f[j + dx] : __fmul_rn(f[j + dx], wa);
+          acc[j] = first_a ? t : __fadd_rn(acc[j], t);
+        }
+        first_a = false;
+      }
+      if (!magnitude) continue;
+      const float wb = st.w1[dy * KS + dx];
+      if (wb != 0.0f) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float t = wb == 1.0f ? f[j + dx] : __fmul_rn(f[j + dx], wb);
+          b[j] = first_b ? t : __fadd_rn(b[j], t);
+        }
+        first_b = false;
+      }
+    }
+  }
+  if (magnitude) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[j] = __fsqrt_rn(__fadd_rn(__fmul_rn(acc[j], acc[j]), __fmul_rn(b[j], b[j])));
+    }
+  }
+}
+
+// One tap of a separable sum or a min/max reduction over four lanes.
+__device__ __forceinline__ void st_tap4(float acc[4], const float* v, float wt, bool& first,
+                                        int family) {
+  if (family == ST_SEPARABLE) {
+    if (wt == 0.0f) return;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float t = wt == 1.0f ? v[j] : __fmul_rn(v[j], wt);
+      acc[j] = first ? t : __fadd_rn(acc[j], t);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[j] = first ? v[j] : (family == ST_MIN ? fminf(acc[j], v[j]) : fmaxf(acc[j], v[j]));
+    }
+  }
+  first = false;
+}
+
+// Four adjacent row-pass values of a two-pass family from the u8 row at
+// `row` (st_row_pass's taps).
+template <int KS>
+__device__ __forceinline__ float4 st_strip_row_pass(const unsigned char* row,
+                                                    const StencilDesc& st) {
+  constexpr int NB = 4 + KS - 1;
+  float f[NB];
+  st_row_bytes<NB>(row, f);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  bool first = true;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) st_tap4(acc, f + k, st.sep[k], first, st.family);
+  return make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// Four adjacent column-pass values from the float32 row pass at `col`
+// (`pitch` floats a row; st_col_pass's taps).
+template <int KS>
+__device__ __forceinline__ void st_strip_col_pass(const float* col, int pitch,
+                                                  const StencilDesc& st, float acc[4]) {
+  bool first = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    const float4 r = *reinterpret_cast<const float4*>(col + k * pitch);
+    const float v[4] = {r.x, r.y, r.z, r.w};
+    st_tap4(acc, v, st.sep[k], first, st.family);
+  }
 }

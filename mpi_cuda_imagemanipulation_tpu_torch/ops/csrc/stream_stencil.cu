@@ -75,22 +75,12 @@
 
 #include "device_scope.cuh"
 #include "stencil.cuh"
+#include "window_load.cuh"
 
 #define ST_THREADS 256
 #define ST_MAX_TILE_W 128
 #define ST_MIN_TILE_W 32
 #define ST_MAX_DEVICES 16
-
-// One window row's source, resolved once per block: the 16-byte aligned
-// address of its first granule, the bytes from there to the row's first
-// window byte, and the granules to load. 16 bytes.
-struct StRow {
-  const unsigned char* src;
-  int shift;
-  int granules;
-};
-
-__host__ __device__ inline size_t st_round16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 // The block's shared memory, in order: the chain table (n_ops PwOp), the
 // window rows' sources, the post-pointwise u8 planes (c_out planes of
@@ -120,233 +110,6 @@ __host__ __device__ inline StLayout st_layout(int c_in, int c_out, int tile_h, i
   const size_t row_pass = st_two_pass(family) ? (size_t)c_out * eh * tile_w * sizeof(float) : 0;
   L.total = L.scratch_off + (raw > row_pass ? raw : row_pass);
   return L;
-}
-
-// floor(n / d) as one high multiply by m = st_magic(d): exact for
-// n < 2^16 and 2 <= d <= 2^16 (m = floor(2^32 / d) + 1, or 2^32 / d for a
-// power of two); the host keeps every loop's n below 2^16.
-__device__ __forceinline__ unsigned st_magic(unsigned d) { return 0xFFFFFFFFu / d + 1u; }
-__device__ __forceinline__ unsigned st_div(unsigned n, unsigned m) { return __umulhi(n, m); }
-
-__device__ __forceinline__ void st_cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// The first NB bytes at `p` (4-byte aligned, in shared memory) as floats,
-// read as words.
-template <int NB>
-__device__ __forceinline__ void st_row_bytes(const unsigned char* p, float f[NB]) {
-  constexpr int NW = (NB + 3) / 4;
-  uint32_t w[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) w[k] = reinterpret_cast<const uint32_t*>(p)[k];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) f[b] = (float)((w[b >> 2] >> (8 * (b & 3))) & 0xFFu);
-}
-
-// Four adjacent outputs of a one-pass family (corr, magnitude, median)
-// from the window rows at `win` (`pitch` bytes apart), each output's taps
-// in stencil.cuh's order; `center` gets the four window centres.
-template <int KS>
-__device__ __forceinline__ void st_strip_window(const unsigned char* win, int pitch,
-                                                const StencilDesc& st, float acc[4],
-                                                float center[4]) {
-  constexpr int h = KS / 2;
-  constexpr int NB = 4 + KS - 1;
-  if constexpr (KS == 3 || KS == 5) {
-    if (st.family == ST_MEDIAN) {
-      // each row's 4 + KS - 1 bytes kept as two words; one output at a time
-      // (a 25-value network is live per output), its row bytes shifted out
-      // of the words, so the network's registers are not held four times
-      static_assert(NB <= 8, "a median row fits two words");
-      uint64_t w[KS];
-#pragma unroll
-      for (int dy = 0; dy < KS; ++dy) {
-        const uint32_t* r = reinterpret_cast<const uint32_t*>(win + dy * pitch);
-        w[dy] = (uint64_t)r[1] << 32 | r[0];
-      }
-#pragma unroll 1
-      for (int j = 0; j < 4; ++j) {
-        float p[KS * KS];
-#pragma unroll
-        for (int dy = 0; dy < KS; ++dy) {
-          const uint64_t row = w[dy] >> (8 * j);
-#pragma unroll
-          for (int dx = 0; dx < KS; ++dx) p[dy * KS + dx] = (float)((row >> (8 * dx)) & 0xFFu);
-        }
-        const float c = p[h * KS + h];
-        if constexpr (KS == 3) {
-          ST_MEDIAN9_PAIRS(ST_EXCHANGE)
-        } else {
-          ST_MEDIAN25_PAIRS(ST_EXCHANGE)
-        }
-        // static indices into the results (a dynamic one would put them in
-        // local memory)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (k == j) {
-            acc[k] = p[KS * KS / 2];
-            center[k] = c;
-          }
-        }
-      }
-      return;
-    }
-  }
-  const bool magnitude = st.family == ST_MAGNITUDE;
-  float b[4];
-  bool first_a = true, first_b = true;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j] = b[j] = 0.0f;
-#pragma unroll
-  for (int dy = 0; dy < KS; ++dy) {
-    float f[NB];
-    st_row_bytes<NB>(win + dy * pitch, f);
-    if (dy == h) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) center[j] = f[j + h];
-    }
-#pragma unroll
-    for (int dx = 0; dx < KS; ++dx) {
-      const float wa = st.w0[dy * KS + dx];
-      if (wa != 0.0f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float t = wa == 1.0f ? f[j + dx] : __fmul_rn(f[j + dx], wa);
-          acc[j] = first_a ? t : __fadd_rn(acc[j], t);
-        }
-        first_a = false;
-      }
-      if (!magnitude) continue;
-      const float wb = st.w1[dy * KS + dx];
-      if (wb != 0.0f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float t = wb == 1.0f ? f[j + dx] : __fmul_rn(f[j + dx], wb);
-          b[j] = first_b ? t : __fadd_rn(b[j], t);
-        }
-        first_b = false;
-      }
-    }
-  }
-  if (magnitude) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[j] = __fsqrt_rn(__fadd_rn(__fmul_rn(acc[j], acc[j]), __fmul_rn(b[j], b[j])));
-    }
-  }
-}
-
-// One tap of a separable sum or a min/max reduction over four lanes.
-__device__ __forceinline__ void st_tap4(float acc[4], const float* v, float wt, bool& first,
-                                        int family) {
-  if (family == ST_SEPARABLE) {
-    if (wt == 0.0f) return;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float t = wt == 1.0f ? v[j] : __fmul_rn(v[j], wt);
-      acc[j] = first ? t : __fadd_rn(acc[j], t);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[j] = first ? v[j] : (family == ST_MIN ? fminf(acc[j], v[j]) : fmaxf(acc[j], v[j]));
-    }
-  }
-  first = false;
-}
-
-// Four adjacent row-pass values of a two-pass family from the u8 row at
-// `row` (st_row_pass's taps).
-template <int KS>
-__device__ __forceinline__ float4 st_strip_row_pass(const unsigned char* row,
-                                                    const StencilDesc& st) {
-  constexpr int NB = 4 + KS - 1;
-  float f[NB];
-  st_row_bytes<NB>(row, f);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  bool first = true;
-#pragma unroll
-  for (int k = 0; k < KS; ++k) st_tap4(acc, f + k, st.sep[k], first, st.family);
-  return make_float4(acc[0], acc[1], acc[2], acc[3]);
-}
-
-// Four adjacent column-pass values from the float32 row pass at `col`
-// (`pitch` floats a row; st_col_pass's taps).
-template <int KS>
-__device__ __forceinline__ void st_strip_col_pass(const float* col, int pitch,
-                                                  const StencilDesc& st, float acc[4]) {
-  bool first = true;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < KS; ++k) {
-    const float4 r = *reinterpret_cast<const float4*>(col + k * pitch);
-    const float v[4] = {r.x, r.y, r.z, r.w};
-    st_tap4(acc, v, st.sep[k], first, st.family);
-  }
-}
-
-// The three modes of the kernel, a template parameter so that each compiles
-// without the others' branches: the whole image (K2), one row-shard with
-// ghost strips (K2g), a pre-extended tile (K3).
-enum StMode { ST_FULL = 0, ST_GHOST = 1, ST_TILE = 2 };
-
-// The column bounds of tile column `x0`: the columns the window needs
-// from the image, all of them in a tile that touches no border, else the
-// part inside the image (border columns then take their value from the
-// edge mode's source column).
-struct StCols {
-  bool border;
-  int lo;
-  int hi;
-};
-
-__device__ __forceinline__ StCols st_cols(int x0, int tile_w, int h, int W) {
-  return StCols{x0 - h < 0 || x0 + tile_w + h > W, max(x0 - h, 0), min(x0 + tile_w + h, W)};
-}
-
-// Each window row's source for the tile at (x0, y0): the row source in
-// full mode; in the ghost modes the strips (rows past a strip feed only
-// outputs below the tile, which are not stored). Threads < eh write one.
-template <int MODE>
-__device__ __forceinline__ void st_row_sources(StRow* rows, int eh, int h, int x0, int y0,
-                                               int tile_w, const unsigned char* in,
-                                               const unsigned char* top,
-                                               const unsigned char* bot, int H, int W,
-                                               int c_in, int edge_mode) {
-  const StCols cols = st_cols(x0, tile_w, h, W);
-  const int seg = (cols.hi - cols.lo) * c_in;
-  for (int r = threadIdx.x; r < eh; r += ST_THREADS) {
-    const int ty = y0 + r - h;  // row of the image (full) or of the tile
-    const unsigned char* row;
-    if (MODE == ST_FULL) {
-      row = in + (long long)st_src(ty, H, edge_mode) * W * c_in;
-    } else if (h > 0 && ty < 0) {
-      row = top + (long long)(h + ty) * W * c_in;
-    } else if (h > 0 && ty >= H) {
-      row = bot + (long long)min(ty - H, h - 1) * W * c_in;
-    } else {
-      row = in + (long long)min(ty, H - 1) * W * c_in;
-    }
-    const unsigned char* p = row + (long long)cols.lo * c_in;
-    const int shift = (int)((uintptr_t)p & 15);
-    rows[r] = StRow{p - shift, shift, (shift + seg + 15) >> 4};
-  }
-}
-
-// Issues the cp.async granules of a tile's raw window (its rows' sources
-// in `rows`); the caller commits the group.
-__device__ __forceinline__ void st_load_window(unsigned char* raw, const StRow* rows, int eh,
-                                               int rp) {
-  const unsigned ga = rp >> 4;
-  const unsigned ma = st_magic(ga);
-  for (unsigned i = threadIdx.x; i < (unsigned)eh * ga; i += ST_THREADS) {
-    const unsigned r = st_div(i, ma);
-    const unsigned g = i - r * ga;
-    if ((int)g < rows[r].granules) st_cp_async16(raw + r * rp + 16 * g, rows[r].src + 16 * g);
-  }
 }
 
 // Registers a thread, set so that blocks fit on an SM: four for the 5x5
@@ -388,11 +151,10 @@ stream_stencil_kernel(const unsigned char* __restrict__ in, unsigned char* __res
   // window: the rows' segments as 16-byte granules, cp.async straight
   // into shared memory.
   pw_copy_chain(s_ops, chain, n_ops);
-  st_row_sources<MODE>(rows, eh, h, x0, y0, tile_w, in, top, bot, H, W, c_in, st.edge_mode);
+  st_row_sources<MODE, ST_THREADS>(rows, eh, h, x0, y0, tile_w, in, top, bot, H, W, c_in, st.edge_mode);
   __syncthreads();
-  st_load_window(smem + L.scratch_off, rows, eh, RP);
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  st_load_window<ST_THREADS>(smem + L.scratch_off, rows, eh, RP);
+  st_load_wait();
   __syncthreads();
 
   // 2. Four window pixels per thread: edge extension by column source

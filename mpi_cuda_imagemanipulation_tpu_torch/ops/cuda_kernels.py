@@ -55,6 +55,7 @@ import torch
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     F32,
     PW_GRAY2RGB,
+    PW_POSTERIZE,
     QUANTIZERS_F32,
     U8,
     PointwiseOp,
@@ -75,7 +76,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 # a block, a tile of tile_h rows (16 by default, or the launch's height if
 # lower) by one of ST_TILE_WIDTHS columns (ST_MAX_TILE_W down to
 # ST_MIN_TILE_W), narrowed until the grid has N_SMS blocks where the image
-# allows. TILE_W is also K4's tile width (fused_stage.cu).
+# allows. K4 (fused_stage.cu) takes the same widths (FS_TILE_WIDTHS).
 TILE_W = 128
 ST_TILE_WIDTHS = (128, 64, 32)
 THREADS = 256
@@ -88,7 +89,7 @@ _MAX_GRID_Y = 65535
 _FAMILIES = {"corr": 0, "magnitude": 1, "separable": 2, "min": 3, "max": 4, "median": 5}
 _EDGE_MODES = {"interior": 0, "reflect101": 1, "edge": 2, "zero": 3}
 _QUANTIZERS = {"trunc_clip": 0, "rint_clip": 1}
-# in-stage arms as FsProgram.arm codes (FS_ARM_* in fused_stage.cu), and
+# in-stage arms as the stage table's arm codes (FS_ARM_* in mma_stage.cuh), and
 # the launch-count key of each tensor-core form
 _ARM_CODES = {"vpu": 0, "mxu": 1, "mxu-int8": 2}
 _K5_FORMS = {"mxu": "K5-bf16", "mxu-int8": "K5-int8"}
@@ -136,6 +137,20 @@ def _channels(img: torch.Tensor) -> int:
 # --------------------------------------------------------------------------
 
 
+def kernel_program(op: PointwiseOp) -> tuple[int, float, float]:
+    """`op`'s (opcode, p0, p1) as the kernels' interpreter takes them. Its
+    posterize multiplies by the step's reciprocal, exact only for a step
+    that is a power of two."""
+    if op.program is None:
+        raise ValueError(f"op {op.name!r} has no kernel program")
+    opcode, p0, p1 = op.program
+    if opcode == PW_POSTERIZE:
+        mantissa, _ = np.frexp(np.float32(p0))
+        if p0 < 1.0 or mantissa != 0.5:
+            raise ValueError(f"op {op.name!r}: posterize step {p0} is not a power of two")
+    return opcode, p0, p1
+
+
 def pointwise_program(pointwise: list[PointwiseOp], c_in: int) -> tuple[np.ndarray, int]:
     """Encode a pointwise chain of any length for the kernels' interpreter,
     checking that its channel counts chain from `c_in`. Returns (table,
@@ -146,12 +161,10 @@ def pointwise_program(pointwise: list[PointwiseOp], c_in: int) -> tuple[np.ndarr
     table = np.zeros((len(pointwise), 4), dtype=np.int32)
     n = c_in
     for k, op in enumerate(pointwise):
-        if op.program is None:
-            raise ValueError(f"op {op.name!r} has no kernel program")
+        opcode, p0, p1 = kernel_program(op)
         if op.in_channels and op.in_channels != n:
             raise ValueError(f"op {op.name!r} expects {op.in_channels} channels, got {n}")
         n = op.out_channels or n
-        opcode, p0, p1 = op.program
         table[k, 0] = opcode
         table[k, 1:3] = np.asarray([p0, p1], dtype=np.float32).view(np.int32)
     return table, n
@@ -410,21 +423,40 @@ def pointwise_group_plain(pointwise: list[PointwiseOp], img: torch.Tensor) -> to
     return out[0] if len(out) == 1 else torch.stack(out, dim=-1)
 
 
+# K1's body (pointwise_run.cuh): PW_RUN pixels a thread
+PW_RUN = 16
+
+
+def pointwise_split(in_addr: int, out_addr: int, n_pix: int, c_in: int,
+                    c_out: int) -> tuple[int, int, int, int]:
+    """How K1's body splits a launch (pw_split in the source): (head, runs,
+    tail, in_shift). Pixels [0, head) and the `tail` after the body run one
+    a thread; the body is `runs` runs of PW_RUN pixels from `head`, the
+    first pixel whose output is 16-byte aligned, so every run's output
+    span is whole 16-byte words and its input starts `in_shift` bytes past
+    a 16-byte boundary."""
+    head = 0
+    while head < PW_RUN and (out_addr + head * c_out) % 16:
+        head += 1
+    head = min(head, n_pix)
+    runs = (n_pix - head) // PW_RUN
+    tail = n_pix - head - runs * PW_RUN
+    return head, runs, tail, (in_addr + head * c_in) % 16
+
+
 def pointwise_group(pointwise: list[PointwiseOp], img: torch.Tensor) -> torch.Tensor:
     """K1 wrapper: one launch applies the whole pointwise chain, of any
     length."""
     chain = chain_for(pointwise, _channels(img))
-    if img.device.type == "cpu":
+    dev = img.device
+    if dev.type == "cpu":
         return pointwise_group_plain(pointwise, img)
     _check_cuda_input(img)
     out = _out_like(img, chain.c_out)
-    lib = kr.load("pointwise")
-    with torch.cuda.device(img.device):
-        rc = lib.pointwise_launch(
-            img.data_ptr(), out.data_ptr(), img.shape[0] * img.shape[1],
-            _channels(img), chain.c_out, chain.ptr(img.device), chain.n_ops,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = kr.load("pointwise").pointwise_launch(
+        img.data_ptr(), out.data_ptr(), img.shape[0] * img.shape[1], _channels(img),
+        chain.c_out, chain.ptr(dev), chain.n_ops, dev.index, stream_handle(dev),
+    )
     _raise_on(rc, "pointwise")
     pointwise_group.launches += 1
     return out
@@ -661,10 +693,13 @@ stencil_tile.launches = 0
 # K4: one fused plan stage
 # --------------------------------------------------------------------------
 
-FS_DEFAULT_TILE_H = 16
 # Largest stage halo K4 takes: beyond it the window's context rows would be
 # most of the block's read (the same limit as the TPU megakernel's)
 STAGE_MAX_HALO = 16
+FS_TILE_WIDTHS = ST_TILE_WIDTHS
+# bytes of one op row and one stencil row of a stage table (PwOp, FsStencil)
+FS_OP_BYTES = 16
+FS_STENCIL_BYTES = 448
 
 
 def _stage_channels(ops, c_in: int) -> tuple[int, int, bool]:
@@ -686,58 +721,204 @@ def _stage_channels(ops, c_in: int) -> tuple[int, int, bool]:
     return n, c_smem, two_pass
 
 
-def fused_stage_program(ops, c_in: int, arms=None) -> tuple[kr.FsProgram, int, int, bool]:
-    """Encode a fused stage for K4, each stencil with its in-stage arm from
-    `arms` (one per op, default all 'vpu'; a tensor-core arm must be proven
-    for its op). A separable stencil on a tensor-core arm carries its 2-D
-    kernel too, which K5 contracts. Returns (program, c_out, c_smem,
-    two_pass), the last three as `_stage_channels` gives them."""
-    arms = tuple(arms) if arms is not None else ("vpu",) * len(ops)
-    if len(arms) != len(ops):
-        raise ValueError(f"{len(arms)} arms for a stage of {len(ops)} ops")
-    c_out, c_smem, two_pass = _stage_channels(ops, c_in)
-    stencils = [op for op in ops if isinstance(op, StencilOp)]
-    if len(ops) > kr.FS_MAX_OPS or len(stencils) > kr.FS_MAX_STENCILS:
-        raise ValueError(
-            f"K4 takes at most {kr.FS_MAX_OPS} ops and {kr.FS_MAX_STENCILS} "
-            f"stencils per stage, got {len(ops)} and {len(stencils)}"
+def stage_stencil_desc(op: StencilOp, arm: str) -> kr.StencilDesc:
+    """The descriptor of `op` in a stage table on in-stage arm `arm`: a
+    separable stencil on a tensor-core arm carries its 2-D kernel in w0 too,
+    which K5 contracts."""
+    d = desc_for(op)
+    if arm != "vpu" and op.separable is not None:
+        d = kr.StencilDesc.from_buffer_copy(d)
+        ks = 2 * op.halo + 1
+        d.w0[: ks * ks] = [float(v) for v in np.asarray(op.kernels[0], np.float32).reshape(-1)]
+    return d
+
+
+def _stencil_class(ksize: int) -> int:
+    """The K4 instantiation a stencil of side `ksize` needs (3, 5 or 7)."""
+    return max(3, ksize)
+
+
+class StageProgram:
+    """One fused stage as K4 and K4g take it, built once (``stage_program``):
+    its ops and arms, channel counts, halo, the instantiation it needs, and
+    its table, an int32 array: one 16-byte ``PwOp`` row per op (a pointwise
+    opcode and its parameter's float32 bits, or ``FS_OP_STENCIL + j`` for
+    stencil j), then one 448-byte ``FsStencil`` row per stencil (its
+    descriptor and arm code). The table has no length limit; each block
+    copies it into shared memory."""
+
+    def __init__(self, ops: tuple, c_in: int, arms: tuple):
+        if len(arms) != len(ops):
+            raise ValueError(f"{len(arms)} arms for a stage of {len(ops)} ops")
+        self.ops, self.arms, self.c_in = ops, arms, c_in  # held: the cache's ids stay theirs
+        self.c_out, self.c_smem, self.two_pass = _stage_channels(ops, c_in)
+        self.halo = chain_halo(ops)
+        op_rows = np.zeros((len(ops), 4), dtype=np.int32)
+        stencils = []
+        for k, (op, arm) in enumerate(zip(ops, arms)):
+            check_stage_arm(op, arm)
+            if isinstance(op, StencilOp):
+                row = kr.FsStencil()
+                row.st = stage_stencil_desc(op, arm)
+                row.arm = _ARM_CODES[arm]
+                op_rows[k, 0] = kr.FS_OP_STENCIL + len(stencils)
+                stencils.append(row)
+                continue
+            opcode, p0, p1 = kernel_program(op)
+            if p1 != 0.0:
+                raise ValueError(f"op {op.name!r}: K4 carries one parameter per op")
+            op_rows[k, 0] = opcode
+            op_rows[k, 1] = np.asarray(p0, dtype=np.float32).view(np.int32)
+        self.n_ops, self.n_stencils = len(ops), len(stencils)
+        # the last stencil's descriptor once more, passed by value at each
+        # launch (its weights become kernel parameters in the store-fused
+        # last step)
+        self.last = ctypes.byref(stencils[-1].st) if stencils else None
+        self._stencils = stencils
+        self.table = np.concatenate(
+            [op_rows.reshape(-1)] + [np.frombuffer(bytes(r), dtype=np.int32) for r in stencils]
         )
-    prog = kr.FsProgram()
-    prog.n_ops = len(ops)
-    prog.n_stencils = len(stencils)
-    j = 0
-    for k, (op, arm) in enumerate(zip(ops, arms)):
-        check_stage_arm(op, arm)
-        if isinstance(op, StencilOp):
-            prog.st[j] = stencil_desc(op)
-            if arm != "vpu" and op.separable is not None:
-                ks = 2 * op.halo + 1
-                prog.st[j].w0[: ks * ks] = [
-                    float(v) for v in np.asarray(op.kernels[0], np.float32).reshape(-1)
-                ]
-            prog.arm[j] = _ARM_CODES[arm]
-            prog.op[k] = kr.FS_OP_STENCIL + j
-            j += 1
-            continue
-        if op.program is None:
-            raise ValueError(f"op {op.name!r} has no kernel program")
-        opcode, p0, p1 = op.program
-        if p1 != 0.0:
-            raise ValueError(f"op {op.name!r}: K4 carries one parameter per op")
-        prog.op[k], prog.p0[k] = opcode, p0
-    return prog, c_out, c_smem, two_pass
+        self.kmax = max((_stencil_class(2 * op.halo + 1) for op in ops
+                         if isinstance(op, StencilOp)), default=0)
+        self.mma = any(a != "vpu" for a in arms)
+        self._ptrs: dict[torch.device, int] = {}
+
+    @property
+    def table_bytes(self) -> int:
+        return self.table.nbytes
+
+    def stencil_rows(self) -> list:
+        """The table's stencil rows as ``FsStencil`` structures."""
+        base = self.n_ops * FS_OP_BYTES
+        raw = self.table.tobytes()
+        return [kr.FsStencil.from_buffer_copy(raw, base + j * FS_STENCIL_BYTES)
+                for j in range(self.n_stencils)]
+
+    def ptr(self, device: torch.device) -> int:
+        """The table's address on `device`."""
+        p = self._ptrs.get(device)
+        if p is None:
+            p = self._ptrs[device] = device_table(self.table, device).data_ptr()
+        return p
 
 
-def fused_stage_smem_bytes(c_smem: int, tile_h: int, halo: int, two_pass: bool) -> int:
-    """Dynamic shared memory of one K4 block (fs_smem_bytes in the source):
-    two u8 buffers of `c_smem` planes of the (tile_h + 2 halo) x
-    (128 + 2 halo) window, then one float32 window for the row pass of
-    separable and min/max stencils."""
-    plane = (tile_h + 2 * halo) * (TILE_W + 2 * halo)
-    nbytes = 2 * ((c_smem * plane + 15) & ~15)
-    if two_pass:
-        nbytes += plane * 4
-    return nbytes
+_STAGES: dict[tuple, StageProgram] = {}
+
+
+def stage_program(ops, c_in: int, arms=None) -> StageProgram:
+    """The encoded stage of `ops` from `c_in` channels with in-stage arms
+    `arms` (one per op, default all 'vpu'; a tensor-core arm must be proven
+    for its op), cached on the ops' identity."""
+    ops = tuple(ops)
+    arms = tuple(arms) if arms is not None else ("vpu",) * len(ops)
+    key = (c_in, arms, *map(id, ops))
+    prog = _STAGES.get(key)
+    if prog is None:
+        prog = StageProgram(ops, c_in, arms)
+        if len(_STAGES) >= _CACHE_LIMIT:
+            _STAGES.clear()
+        _STAGES[key] = prog
+    return prog
+
+
+def fused_stage_table_bytes(ops) -> int:
+    """Bytes of the stage table of `ops` (``StageProgram.table``)."""
+    n_st = sum(isinstance(op, StencilOp) for op in ops)
+    return FS_OP_BYTES * len(ops) + FS_STENCIL_BYTES * n_st
+
+
+def fused_stage_layout(c_in: int, c_smem: int, tile_h: int, tile_w: int, halo: int,
+                       table_bytes: int, two_pass: bool) -> dict:
+    """One K4 block's shared memory (fs_layout in the source), in order: the
+    stage table, one 16-byte source per window row, buffers A and B (c_smem
+    planes each of the (tile_h + 2 halo)-row window, `pitch` bytes a row:
+    a multiple of 4 with room for the last strip's word reads, which end at
+    most 5 bytes past the region), then for separable and min/max stencils
+    the float32 row pass (c_smem planes of the same shape). The raw
+    interleaved window (`raw_pitch` bytes a row: the row's c_in (tile_w +
+    2 halo) bytes from up to 15 bytes below, in whole granules) is staged
+    over B and what follows it."""
+    eh, ew = tile_h + 2 * halo, tile_w + 2 * halo
+    pitch = (ew + 5 + 3) & ~3
+    raw_pitch = -(-(ew * c_in + 15) // 16) * 16
+    plane = eh * pitch
+    rows_off = -(-table_bytes // 16) * 16
+    a_off = rows_off + eh * 16
+    buf = -(-(c_smem * plane) // 16) * 16
+    b_off = a_off + buf
+    f_off = b_off + buf
+    f_end = f_off + (c_smem * plane * 4 if two_pass else 0)
+    total = max(f_end, b_off + eh * raw_pitch)
+    return dict(pitch=pitch, raw_pitch=raw_pitch, plane=plane, rows_off=rows_off, a_off=a_off,
+                b_off=b_off, f_off=f_off, total=total)
+
+
+def fused_stage_smem_bytes(c_in: int, c_smem: int, tile_h: int, tile_w: int, halo: int,
+                           table_bytes: int, two_pass: bool) -> int:
+    """Dynamic shared memory of one K4 block (`fused_stage_layout`)."""
+    return fused_stage_layout(c_in, c_smem, tile_h, tile_w, halo, table_bytes, two_pass)["total"]
+
+
+def stage_row_source(r: int, first_row: int, in_row0: int, in_rows: int) -> int:
+    """The array row K4's window row `r` is read from (st_row_sources_clamped
+    in window_load.cuh): window row r is global row `first_row + r` (the
+    tile's first output row less the stage halo), array row `global -
+    in_row0` of an array of `in_rows` rows (in_row0 = 0 for the whole image
+    in K4, the shard's first row less the halo in K4g), clamped into it."""
+    return min(max(first_row + r - in_row0, 0), in_rows - 1)
+
+
+def row_granules(addr: int, seg: int) -> tuple[int, int, int]:
+    """How the window loader (st_row_at in window_load.cuh) copies a row
+    segment of `seg` bytes at device address `addr`: (the 16-byte aligned
+    address of its first granule, the shift from there to `addr`, the
+    granule count)."""
+    shift = addr & 15
+    return addr - shift, shift, (shift + seg + 15) >> 4
+
+
+# K4's tile heights, tallest first, and the blocks an SM should hold (the
+# registers of the VPU instantiations allow four or five)
+FS_TILE_ROWS = (48, 32, 16)
+FS_BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=4096)
+def fused_stage_tile_shape(height: int, width: int, c_in: int, c_smem: int, halo: int,
+                           two_pass: bool, table_bytes: int,
+                           tile_h: int | None = None) -> tuple[int, int, int]:
+    """K4's block of outputs for a launch over (height, width) and its
+    shared memory: (rows, cols, smem bytes). Rows: `tile_h`, else the
+    tallest of FS_TILE_ROWS whose block leaves room for FS_BLOCKS_PER_SM
+    blocks on an SM (a tall tile reads fewer context rows: (rows + 2 halo)
+    / rows), else 16 halved until the block fits, and never more than
+    `height`; columns: the widest of FS_TILE_WIDTHS that gives the grid
+    N_SMS blocks, narrowing only while that adds blocks; then, while the
+    grid has fewer than N_SMS blocks, the next lower of FS_TILE_ROWS. The
+    caller checks the shared memory against the budget."""
+
+    def smem(r, c):
+        return fused_stage_smem_bytes(c_in, c_smem, r, c, halo, table_bytes, two_pass)
+
+    rows = tile_h
+    if rows is None:
+        fit = [r for r in FS_TILE_ROWS if smem(r, FS_TILE_WIDTHS[0])
+               <= MAX_SMEM_BYTES // FS_BLOCKS_PER_SM]
+        rows = fit[0] if fit else FS_TILE_ROWS[-1]
+        while rows > 1 and smem(rows, FS_TILE_WIDTHS[0]) > MAX_SMEM_BYTES:
+            rows //= 2
+        rows = min(rows, height)
+    cols = FS_TILE_WIDTHS[0]
+    for narrower in FS_TILE_WIDTHS[1:]:
+        if stencil_blocks(height, width, rows, cols) >= N_SMS:
+            break
+        if -(-width // narrower) > -(-width // cols):
+            cols = narrower
+    if tile_h is None:
+        for lower in FS_TILE_ROWS:
+            if lower < rows and stencil_blocks(height, width, rows, cols) < N_SMS:
+                rows = lower
+    return rows, cols, smem(rows, cols)
 
 
 def edge_src(c: int, n: int, mode: str) -> int | None:
@@ -760,9 +941,9 @@ def fused_stage_reject(ops, height: int, width: int, channels: int,
     """Why K4 cannot run this stage on a (height, width, channels) image,
     or None when it can: 'lut-op', 'no-f32-core', 'halo-too-large',
     'image-too-small' (the edge fix needs height > 2 * halo and width
-    greater than the largest op halo), 'program-too-long' (more ops or
-    stencils than the kernel's parameter holds) or 'smem-budget' (the tile
-    needs more shared memory than a block has)."""
+    greater than the largest op halo) or 'smem-budget' (the tile, with the
+    stage table, needs more shared memory than a block has). A stage may
+    hold any number of ops and stencils."""
     for op in ops:
         if isinstance(op, StencilOp):
             continue
@@ -776,12 +957,12 @@ def fused_stage_reject(ops, height: int, width: int, channels: int,
     max_op_halo = max((op.halo for op in ops), default=0)
     if (halo and height <= 2 * halo) or (max_op_halo and width <= max_op_halo):
         return "image-too-small"
-    n_stencils = sum(isinstance(op, StencilOp) for op in ops)
-    if len(ops) > kr.FS_MAX_OPS or n_stencils > kr.FS_MAX_STENCILS:
-        return "program-too-long"
     _, c_smem, two_pass = _stage_channels(ops, channels)
-    if fused_stage_smem_bytes(c_smem, tile_h or FS_DEFAULT_TILE_H, halo, two_pass) > MAX_SMEM_BYTES:
-        return "smem-budget"
+    if c_smem:
+        smem = fused_stage_tile_shape(height, width, channels, c_smem, halo, two_pass,
+                                      fused_stage_table_bytes(ops), tile_h)[2]
+        if smem > MAX_SMEM_BYTES:
+            return "smem-budget"
     return None
 
 
@@ -813,6 +994,21 @@ def fused_stage_plain(
     )
 
 
+def _fs_launch_shape(prog: StageProgram, height: int, width: int,
+                     tile_h: int | None) -> tuple[int, int]:
+    """The (rows, cols) block of one K4/K4g launch of `prog` over (height,
+    width), checked against the grid's height limit."""
+    if tile_h is not None and tile_h < 1:
+        raise ValueError(f"tile height must be >= 1, got {tile_h}")
+    if not prog.c_smem:
+        return 0, 0  # no stencil: K1's body
+    rows, cols, _ = fused_stage_tile_shape(height, width, prog.c_in, prog.c_smem, prog.halo,
+                                           prog.two_pass, prog.table_bytes, tile_h)
+    if stencil_grid(height, width, rows, cols)[1] > _MAX_GRID_Y:
+        raise ValueError(f"image height {height} needs a taller tile than {rows}")
+    return rows, cols
+
+
 def fused_stage(
     ops,
     img: torch.Tensor,
@@ -822,35 +1018,32 @@ def fused_stage(
     arms=None,
 ) -> torch.Tensor:
     """K4 wrapper: one launch runs a whole fused plan stage. `tile_h` is the
-    output tile height (default 16 rows). Each stencil's in-stage arm is
-    `arms[k]` (one per op) when given, else resolved from the `mxu_stage`
-    setting once per call (ops/mxu_kernels.MXU_STAGE_SETTINGS; None is
-    'auto', the VPU arm); a stencil on a tensor-core arm runs K5. Raises for
-    a stage that `fused_stage_reject` rejects."""
+    output tile height (default `fused_stage_tile_shape`'s). Each stencil's
+    in-stage arm is `arms[k]` (one per op) when given, else resolved from
+    the `mxu_stage` setting once per call (ops/mxu_kernels.MXU_STAGE_SETTINGS;
+    None is 'auto', the VPU arm); a stencil on a tensor-core arm runs K5.
+    Raises for a stage that `fused_stage_reject` rejects."""
     ops = tuple(ops)
     arms = _resolve_arms(ops, mxu_stage, arms)
     c_in = _channels(img)
     height, width = img.shape[:2]
-    tile_h = tile_h or FS_DEFAULT_TILE_H
-    if tile_h < 1:
+    if tile_h is not None and tile_h < 1:
         raise ValueError(f"tile height must be >= 1, got {tile_h}")
     reason = fused_stage_reject(ops, height, width, c_in, tile_h)
     if reason is not None:
         raise ValueError(f"K4 cannot run stage {[op.name for op in ops]}: {reason}")
-    if stencil_grid(height, width, tile_h)[1] > _MAX_GRID_Y:
-        raise ValueError(f"image height {height} needs a taller tile than {tile_h}")
-    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in, arms)
-    if img.device.type == "cpu":
+    prog = stage_program(ops, c_in, arms)
+    rows, cols = _fs_launch_shape(prog, height, width, tile_h)
+    dev = img.device
+    if dev.type == "cpu":
         return fused_stage_plain(ops, img, arms=arms)
     _check_cuda_input(img)
-    out = _out_like(img, c_out)
-    lib = kr.load("fused_stage")
-    with torch.cuda.device(img.device):
-        rc = lib.fused_stage_launch(
-            img.data_ptr(), out.data_ptr(), height, width, c_in, c_smem, c_out,
-            chain_halo(ops), tile_h, ctypes.byref(prog),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    out = _out_like(img, prog.c_out)
+    rc = kr.load("fused_stage").fused_stage_launch(
+        img.data_ptr(), out.data_ptr(), height, width, c_in, prog.c_smem, prog.c_out,
+        prog.halo, rows, cols, prog.ptr(dev), prog.last, prog.n_ops, prog.n_stencils,
+        prog.kmax, int(prog.mma), int(prog.two_pass), dev.index, stream_handle(dev),
+    )
     _raise_on(rc, "fused_stage")
     fused_stage.launches += 1
     _count_k5(arms)
@@ -915,8 +1108,7 @@ def fused_stage_ext(
     c_in = _channels(ext)
     halo = chain_halo(ops)
     local_h, width = ext.shape[0] - 2 * halo, ext.shape[1]
-    tile_h = tile_h or FS_DEFAULT_TILE_H
-    if tile_h < 1:
+    if tile_h is not None and tile_h < 1:
         raise ValueError(f"tile height must be >= 1, got {tile_h}")
     if local_h < 1:
         raise ValueError(f"extended tile of {ext.shape[0]} rows holds no row for halo {halo}")
@@ -927,22 +1119,20 @@ def fused_stage_ext(
     reason = fused_stage_reject(ops, local_h, width, c_in, tile_h)
     if reason is not None:
         raise ValueError(f"K4g cannot run stage {[op.name for op in ops]}: {reason}")
-    if stencil_grid(local_h, width, tile_h)[1] > _MAX_GRID_Y:
-        raise ValueError(f"tile height {local_h} needs a taller tile than {tile_h}")
-    prog, c_out, c_smem, _ = fused_stage_program(ops, c_in, arms)
-    if ext.device.type == "cpu":
+    prog = stage_program(ops, c_in, arms)
+    rows, cols = _fs_launch_shape(prog, local_h, width, tile_h)
+    dev = ext.device
+    if dev.type == "cpu":
         return fused_stage_ext_plain(
             ops, ext, y0=y0, image_h=image_h, image_w=image_w, arms=arms
         )
     _check_cuda_input(ext)
-    out = _out_like(ext, c_out, local_h)
-    lib = kr.load("fused_stage")
-    with torch.cuda.device(ext.device):
-        rc = lib.fused_stage_ext_launch(
-            ext.data_ptr(), out.data_ptr(), local_h, width, c_in, c_smem, c_out,
-            halo, tile_h, ctypes.byref(prog), y0, image_h,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    out = _out_like(ext, prog.c_out, local_h)
+    rc = kr.load("fused_stage").fused_stage_ext_launch(
+        ext.data_ptr(), out.data_ptr(), local_h, width, c_in, prog.c_smem, prog.c_out, halo,
+        rows, cols, prog.ptr(dev), prog.last, prog.n_ops, prog.n_stencils, prog.kmax,
+        int(prog.mma), int(prog.two_pass), y0, image_h, dev.index, stream_handle(dev),
+    )
     _raise_on(rc, "fused_stage_ext")
     fused_stage_ext.launches += 1
     _count_k5(arms)
@@ -968,7 +1158,7 @@ def k5_sums(op: StencilOp, plane: torch.Tensor, arm: str, kernel: int = 0) -> to
     h = op.halo
     rows, cols = plane.shape
     out = torch.empty((rows - 2 * h, cols - 2 * h), dtype=torch.float32, device=plane.device)
-    desc = fused_stage_program([op], 1, (arm,))[0].st[0]
+    desc = stage_stencil_desc(op, arm)
     lib = kr.load("fused_stage")
     with torch.cuda.device(plane.device):
         rc = lib.k5_sums_launch(

@@ -24,8 +24,9 @@ per stage and image shape before any launch, as in the JAX package:
 tensor-core arm the stencil runs K5, the ``mma.sync`` arm of K4/K4g.
 
 The closed reason vocabulary is the JAX package's (`stage_pallas_reject`)
-with ``smem-budget`` in place of ``vmem-budget`` and one reason of its own,
-``program-too-long``, for a stage longer than K4's parameter holds.
+with ``smem-budget`` in place of ``vmem-budget``. Like the JAX megakernel,
+K4 takes a stage of any number of ops and stencils: its stage goes to the
+card as a table (ops/cuda_kernels.stage_program).
 """
 
 from __future__ import annotations
@@ -36,8 +37,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan, Stage
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 
 REJECT_REASONS = (
-    "barrier", "lut-op", "no-f32-core", "halo-too-large", "image-too-small",
-    "program-too-long", "smem-budget",
+    "barrier", "lut-op", "no-f32-core", "halo-too-large", "image-too-small", "smem-budget",
 )
 
 

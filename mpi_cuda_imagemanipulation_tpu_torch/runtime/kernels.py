@@ -46,17 +46,15 @@ NVCC_FLAGS = (
 
 # Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
 # fused_stage.cu, swar_stencil.cu, copy_probe.cu, packed_stream.cu). A
-# pointwise chain goes to K1, K2/K2g and T1 as a table of any length on the
-# card (ops/cuda_kernels.pointwise_program); PW_MAX_OPS bounds T2's fixed
-# by-value PwProgram only.
+# pointwise chain goes to K1, K2/K2g and T1, and a fused stage to K4/K4g, as
+# a table of any length on the card (ops/cuda_kernels.pointwise_program,
+# stage_program); PW_MAX_OPS bounds T2's fixed by-value PwProgram only.
 PW_MAX_OPS = 8
 ST_MAX_K = 7
-FS_MAX_OPS = 24
-FS_MAX_STENCILS = 8
 FS_OP_STENCIL = 100
-# CUDA's limit on a kernel's parameters; K4 takes its stage program by value
+# CUDA's limit on a kernel's parameters
 KERNEL_PARAM_BYTES = 4096
-# FsProgram.arm: each stencil's in-stage arm (FS_ARM_* in fused_stage.cu)
+# each stencil's in-stage arm in the stage table (FS_ARM_* in mma_stage.cuh)
 FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
 # copy_probe_launch's element types (CpType in copy_probe.cu)
 CP_U8, CP_F32, CP_U32 = 0, 1, 2
@@ -89,19 +87,11 @@ class StencilDesc(ctypes.Structure):
     ]
 
 
-class FsProgram(ctypes.Structure):
-    """One fused plan stage for K4: ops in order, each a pointwise opcode
-    with its parameter or ``FS_OP_STENCIL + j`` for stencil ``st[j]``, which
-    runs on in-stage arm ``arm[j]`` (FS_ARM_*). 3784 bytes."""
+class FsStencil(ctypes.Structure):
+    """One stencil row of a fused stage's table (fused_stage.cu): its
+    descriptor and its in-stage arm (FS_ARM_*). 448 bytes."""
 
-    _fields_ = [
-        ("n_ops", ctypes.c_int),
-        ("op", ctypes.c_int * FS_MAX_OPS),
-        ("p0", ctypes.c_float * FS_MAX_OPS),
-        ("n_stencils", ctypes.c_int),
-        ("st", StencilDesc * FS_MAX_STENCILS),
-        ("arm", ctypes.c_int * FS_MAX_STENCILS),
-    ]
+    _fields_ = [("st", StencilDesc), ("arm", ctypes.c_int)]
 
 
 class SwarDesc(ctypes.Structure):
@@ -218,8 +208,12 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build((name,))[name]))
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "pointwise":
-        lib.pointwise_launch.argtypes = [vp, vp, ll, ci, ci, vp, ci, vp]
+        # ... the chain table and its length, the device, the stream
+        lib.pointwise_launch.argtypes = [vp, vp, ll, ci, ci, vp, ci, ci, vp]
         lib.pointwise_launch.restype = ci
+        lib.pointwise_split.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong, ll, ci, ci,
+                                        ctypes.POINTER(ll)]
+        lib.pointwise_split.restype = None
     elif name == "stream_stencil":
         st = ctypes.POINTER(StencilDesc)
         # ... the chain table and its length, the descriptor, the block's
@@ -235,20 +229,21 @@ def load(name: str) -> ctypes.CDLL:
         lib.stream_stencil_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci, ci]
         lib.stream_stencil_smem_bytes.restype = ll
     elif name == "fused_stage":
-        lib.fused_stage_launch.argtypes = [
-            vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.POINTER(FsProgram), vp,
-        ]
+        # ... the tile's rows and columns, the stage table, its last
+        # stencil's descriptor, its ops and stencils, the largest stencil
+        # class, mma, two_pass, (ghost: row0, image_h,) the device, the
+        # stream
+        st = ctypes.POINTER(StencilDesc)
+        lib.fused_stage_launch.argtypes = [vp, vp, *[ci] * 8, vp, st, *[ci] * 6, vp]
         lib.fused_stage_launch.restype = ci
-        lib.fused_stage_ext_launch.argtypes = [
-            vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.POINTER(FsProgram), ci, ci, vp,
-        ]
+        lib.fused_stage_ext_launch.argtypes = [vp, vp, *[ci] * 8, vp, st, *[ci] * 8, vp]
         lib.fused_stage_ext_launch.restype = ci
-        lib.fused_stage_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.fused_stage_smem_bytes.argtypes = [ci] * 8
         lib.fused_stage_smem_bytes.restype = ll
+        lib.fused_stage_table_bytes.argtypes = [ci, ci]
+        lib.fused_stage_table_bytes.restype = ll
         lib.k5_sums_launch.argtypes = [vp, vp, ci, ci, ctypes.POINTER(StencilDesc), ci, ci, vp]
         lib.k5_sums_launch.restype = ci
-        lib.fused_stage_program_bytes.argtypes = []
-        lib.fused_stage_program_bytes.restype = ll
     elif name == "swar_stencil":
         lib.swar_stencil_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ci, vp,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Split the time of the stream-stencil kernel (K2, K2g, K3) and of T4's
-copies three ways on one NVIDIA GPU: the kernels' device time
-(``torch.profiler``), the wrapper's host time per call, and CUDA events
-around calls back to back, beside the PyTorch call that computes the same
+"""Split the time of the redesigned kernels (K1; K4, K4g and K5, the
+fused-stage megakernel; K2, K2g and K3, the stream-stencil kernel; T4's
+copies) three ways on one NVIDIA GPU: the kernels' device time (CUDA
+events around one call queued behind a spin kernel), the wrapper's host
+time per call, and CUDA events around calls back to back, beside the PyTorch call that computes the same
 function. The helpers are ``chip_smoke.split_ms``'s, read from the checkout
 this file lies in; the port is imported from ``--root`` (default the same
 checkout), so that two trees can be timed with one clock:
@@ -10,11 +11,17 @@ checkout), so that two trees can be timed with one clock:
     python3 tests/_torch_split_timing.py [--root DIR] [--label NAME]
 
 Prints the card's name and power limit, then one JSON object per case.
-The cases are the rows of PERF.md that the stream-stencil redesign is
-measured on: K3 on an overlap band of gaussian:5 ((6, 7680, 3) in), K3 on
-the reference path's emboss:3 over a gray (1082, 7680) tile, K2g on
-sharpen over a gray 1080x7680 shard, K2 on the three 8K groups and on
-sharpen over the 8K gray plane, and T4's copies at block height 128.
+The cases are the rows of PERF.md that the redesigns are measured on: K1
+on the 8K gray -> RGB pass, on quantize:6 over the 8K gray plane and over
+one gray 1080x7680 shard; K4 on the three 8K main stages and the gray ->
+RGB stage; K4g on the three stages over a middle 1080x7680 shard; K5 in
+its int8 and bf16 forms on the three 8K stages and int8 on the shard; K3
+on an overlap band of gaussian:5 ((6, 7680, 3) in), K3 on the reference
+path's emboss:3 over a gray (1082, 7680) tile, K2g on sharpen over a gray
+1080x7680 shard, K2 on the three 8K groups and on sharpen over the 8K gray
+plane, and T4's copies at block height 128. Then each 8K main path under
+``--plan off`` and ``--plan fused-pallas``: the median, least and most of
+seven readings (CUDA events back to back), the two plans taken in turn.
 Needs a card; builds the kernels of the tree at ``--root``.
 """
 
@@ -67,17 +74,52 @@ def main(argv=None) -> int:
                 img[y0 + local_h:y0 + local_h + h].contiguous())
 
     cases = []
+    # K1, K4, K4g and K5 on the main paths
+    pwr, str_ = cs.split_group(cs.SPECS["reference"])
+    gray = ck.stream_stencil(pwr, str_, x8k)
+    (pwm, stm), (pws, sts), (pwq, _) = ck.group_ops(make_pipeline_ops(cs.SPECS["megakernel_ab"]))
+    sharp = ck.stream_stencil(pws, sts, ck.stream_stencil(pwm, stm, x8k))
+    g2r = list(make_pipeline_ops("gray2rgb"))
+    cases.append(("K1 pointwise_group [gray2rgb] 8K", lambda: ck.pointwise_group(g2r, gray),
+                  lambda: gray[..., None].expand(-1, -1, 3).contiguous()))
+    cases.append(("K1 pointwise_group [quantize6] 8K gray", lambda: ck.pointwise_group(pwq, sharp),
+                  lambda: torch.bitwise_and(sharp, cs.QUANTIZE6_MASK)))
+    sharp_tile = sharp[y0:y0 + local_h].contiguous()
+    cases.append(("K1 pointwise_group [quantize6] gray shard",
+                  lambda: ck.pointwise_group(pwq, sharp_tile),
+                  lambda: torch.bitwise_and(sharp_tile, cs.QUANTIZE6_MASK)))
+    for key in ("reference", "gaussian5_8k", "megakernel_ab"):
+        ops = make_pipeline_ops(cs.SPECS[key])
+        names = ",".join(op.name for op in ops)
+        vpu = ("vpu",) * len(ops)
+        halo = sum(op.halo for op in ops)
+        ext = x8k[y0 - halo:y0 + local_h + halo].contiguous()
+        lib8k = cs.conv_library(ops[0], x8k, pad_rows=True) if len(ops) == 1 else None
+        libg = cs.conv_library(ops[0], ext, pad_rows=False) if len(ops) == 1 else None
+        cases.append((f"K4 fused_stage [{names}] 8K",
+                      lambda ops=ops, vpu=vpu: ck.fused_stage(ops, x8k, arms=vpu), lib8k))
+        cases.append((f"K4g fused_stage_ext [{names}] shard",
+                      lambda ops=ops, vpu=vpu, ext=ext: ck.fused_stage_ext(ops, ext, arms=vpu, **kw),
+                      libg))
+        for setting, form in (("on", "int8"), ("f32", "bf16")):
+            arms = ck.stage_arms(ops, setting)
+            cases.append((f"K5 {form} in fused_stage [{names}] 8K",
+                          lambda ops=ops, arms=arms: ck.fused_stage(ops, x8k, arms=arms), lib8k))
+        arms = ck.stage_arms(ops, "on")
+        cases.append((f"K5 int8 in fused_stage_ext [{names}] shard",
+                      lambda ops=ops, arms=arms, ext=ext: ck.fused_stage_ext(ops, ext, arms=arms,
+                                                                             **kw), libg))
+    cases.append(("K4 fused_stage [gray2rgb] 8K", lambda: ck.fused_stage(g2r, gray),
+                  lambda: gray[..., None].expand(-1, -1, 3).contiguous()))
     pw5, st5 = cs.split_group("gaussian:5")
     tile, top, bot = cut(x8k, 2)
     band = torch.cat([top, tile, bot])[:6].contiguous()
     cases.append(("K3 stencil_tile [gaussian5] overlap band (6, 7680, 3)",
                   lambda: ck.stencil_tile(st5, band), cs.conv_library(st5, band, pad_rows=False)))
-    pwr, str_ = cs.split_group(cs.SPECS["reference"])
     tile1, top1, bot1 = cut(x8k, 1)
     ext1 = ck.pointwise_group(pwr, torch.cat([top1, tile1, bot1]).contiguous())
     cases.append(("K3 stencil_tile [emboss3] gray (1082, 7680)",
                   lambda: ck.stencil_tile(str_, ext1), cs.conv_library(str_, ext1, pad_rows=False)))
-    (pwm, stm), (pws, sts), _ = ck.group_ops(make_pipeline_ops(cs.SPECS["megakernel_ab"]))
     graym = ck.stream_stencil(pwm, stm, x8k)
     gt, gtop, gbot = cut(graym, 1)
     cases.append(("K2g stream_stencil_ghost [sharpen] gray shard",
@@ -108,7 +150,33 @@ def main(argv=None) -> int:
         print(json.dumps(row))
     print(json.dumps({"case": "host parts of the K3 band call, us per call enqueued back to back",
                       "tree": args.label, **host_parts(ck, st5, band)}))
+    for row in path_rows(cs, x8k):
+        print(json.dumps({"tree": args.label, **row}))
     return 0
+
+
+def path_rows(cs, x8k, rounds: int = 7) -> list[dict]:
+    """Each 8K main path under both plans: `rounds` readings of
+    ``device_time_ms`` each, the plans taken in turn; their median, least
+    and most."""
+    import statistics
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    rows = []
+    for key, spec in cs.SPECS.items():
+        runners = {plan: image_runner(Pipeline.parse(spec), impl="cuda", device=x8k.device,
+                                      plan=plan) for plan in cs.PLANS}
+        ms = {plan: [] for plan in runners}
+        for _ in range(rounds):
+            for plan, runner in runners.items():
+                ms[plan].append(device_time_ms(lambda runner=runner: runner(x8k), reps=5,
+                                               inner=3))
+        rows += [{"case": f"path {key} plan={plan}", "median_ms": statistics.median(v),
+                  "min_ms": min(v), "max_ms": max(v)} for plan, v in ms.items()]
+    return rows
 
 
 def host_parts(ck, stencil, band, calls: int = 2000) -> dict:

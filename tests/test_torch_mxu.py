@@ -493,19 +493,25 @@ def test_program_carries_arms_under_the_parameter_limit():
     ops = make_pipeline_ops("grayscale,gaussian:5,median:3,sobel,gaussian:7")
     arms = ck.stage_arms(ops, "on")
     assert arms == ("vpu", "mxu-int8", "vpu", "mxu-int8", "mxu")
-    prog, c_out, _, _ = ck.fused_stage_program(ops, 3, arms)
-    assert list(prog.arm[:4]) == [kr.FS_ARM_INT8, kr.FS_ARM_VPU, kr.FS_ARM_INT8, kr.FS_ARM_BF16]
+    prog = ck.stage_program(ops, 3, arms)
+    rows = prog.stencil_rows()
+    assert [r.arm for r in rows] == [kr.FS_ARM_INT8, kr.FS_ARM_VPU, kr.FS_ARM_INT8,
+                                     kr.FS_ARM_BF16]
     # the separable stencils on a tensor-core arm carry their 2-D kernel
     np.testing.assert_array_equal(
-        np.asarray(prog.st[0].w0[:25]), ops[1].kernels[0].reshape(-1))
+        np.asarray(rows[0].st.w0[:25]), ops[1].kernels[0].reshape(-1))
     np.testing.assert_array_equal(
-        np.asarray(prog.st[3].w0[:49]), ops[4].kernels[0].reshape(-1))
-    assert c_out == 1
-    vpu_prog = ck.fused_stage_program(ops, 3)[0]
-    assert list(vpu_prog.arm) == [0] * kr.FS_MAX_STENCILS and not any(vpu_prog.st[0].w0)
-    other = 2 * ctypes.sizeof(ctypes.c_void_p) + 11 * ctypes.sizeof(ctypes.c_int)
-    assert ctypes.sizeof(kr.FsProgram) == 3784
-    assert ctypes.sizeof(kr.FsProgram) + other <= kr.KERNEL_PARAM_BYTES
+        np.asarray(rows[3].st.w0[:49]), ops[4].kernels[0].reshape(-1))
+    assert prog.c_out == 1 and prog.mma and prog.kmax == 7
+    vpu_prog = ck.stage_program(ops, 3)
+    vpu_rows = vpu_prog.stencil_rows()
+    assert [r.arm for r in vpu_rows] == [0] * 4 and not any(vpu_rows[0].st.w0)
+    assert not vpu_prog.mma
+    # the stage goes to the card as a table; the launch's parameters stay
+    # far under CUDA's limit whatever the stage's length
+    assert ck.stage_program(ops[1:] * 9, 1).table_bytes == 9 * (4 * 16 + 4 * 448)
+    other = 4 * ctypes.sizeof(ctypes.c_void_p) + 16 * ctypes.sizeof(ctypes.c_int)
+    assert other <= kr.KERNEL_PARAM_BYTES
     for bad_ops, bad_arms, msg in (
         (make_pipeline_ops("median:3"), ("mxu",), "in-stage"),
         (make_pipeline_ops("gaussian:7"), ("mxu-int8",), "int8 form"),
@@ -514,7 +520,7 @@ def test_program_carries_arms_under_the_parameter_limit():
         (make_pipeline_ops("sobel"), ("vpu", "vpu"), "2 arms"),
     ):
         with pytest.raises(ValueError, match=msg):
-            ck.fused_stage_program(bad_ops, 1, bad_arms)
+            ck.stage_program(bad_ops, 1, bad_arms)
 
 
 @pytest.mark.parametrize("spec", [

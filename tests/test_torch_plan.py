@@ -27,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_k4_emulator import emulate_k4 as _emulate_k4
+from _torch_stencil_emulator import emulate_stage as _emulate_k4
 
 from mpi_cuda_imagemanipulation_tpu.ops import registry as jax_registry
 from mpi_cuda_imagemanipulation_tpu.plan import build_plan as jax_build_plan
@@ -216,15 +216,17 @@ def test_stage_kernel_reject_matches_jax(spec_str, height, width, channels):
 
 
 def test_stage_kernel_reject_reasons_of_its_own():
+    # a stage of any length runs, as on the JAX megakernel: nine stencils
+    # at halo 0 (the first K4 held at most eight)
     box1 = make_pipeline_ops(",".join(["box:1"] * 9))
-    assert stage_kernel_reject(Stage("fused", box1, 0), 20, 20, 1) == "program-too-long"
+    assert stage_kernel_reject(Stage("fused", box1, 0), 20, 20, 1) is None
     assert stage_kernel_reject(Stage("geometric", box1[:1], 0), 20, 20, 1) == "barrier"
     ops = make_pipeline_ops("gaussian:5")
     stage = Stage("fused", ops, 2)
     assert stage_kernel_reject(stage, 4000, 400, 3, tile_h=900) == "smem-budget"
     assert stage_kernel_reject(stage, 4000, 400, 3, tile_h=64) is None
-    assert set(REJECT_REASONS) >= {"lut-op", "no-f32-core", "halo-too-large",
-                                   "image-too-small", "program-too-long", "smem-budget"}
+    assert set(REJECT_REASONS) == {"barrier", "lut-op", "no-f32-core", "halo-too-large",
+                                   "image-too-small", "smem-budget"}
     with pytest.raises(ValueError, match="smem-budget"):
         ck.fused_stage(ops, torch.zeros((4000, 400, 3), dtype=torch.uint8), tile_h=900)
 
@@ -311,48 +313,66 @@ def test_rejected_stage_runs_through_the_group_runner(monkeypatch):
 
 def test_fused_stage_program_encoding():
     ops = make_pipeline_ops(MEGAKERNEL)
-    prog, c_out, c_smem, two_pass = ck.fused_stage_program(ops, 3)
-    assert (c_out, c_smem, two_pass) == (1, 1, True)
-    assert prog.n_ops == 5 and prog.n_stencils == 2
-    assert list(prog.op[:5]) == [
+    prog = ck.stage_program(ops, 3)
+    assert (prog.c_out, prog.c_smem, prog.two_pass, prog.halo) == (1, 1, True, 3)
+    assert prog.n_ops == 5 and prog.n_stencils == 2 and (prog.kmax, prog.mma) == (5, False)
+    # one 16-byte op row per op, then one 448-byte row per stencil
+    assert prog.table.dtype == np.int32 and prog.table_bytes == 5 * 16 + 2 * 448
+    assert prog.table_bytes == ck.fused_stage_table_bytes(ops)
+    rows = prog.table[:20].reshape(5, 4)
+    assert list(rows[:, 0]) == [
         ops[0].program[0], ops[1].program[0], kr.FS_OP_STENCIL, kr.FS_OP_STENCIL + 1,
         ops[4].program[0],
     ]
-    assert prog.p0[1] == 3.5 and prog.p0[4] == 4.0  # contrast factor, quantize step
-    for j, op in enumerate(ops[2:4]):
-        assert bytes(prog.st[j]) == bytes(ck.stencil_desc(op))
+    p0 = rows[:, 1].view(np.float32)
+    assert p0[1] == 3.5 and p0[4] == 4.0  # contrast factor, quantize step
+    assert not rows[:, 2:].any()
+    for row, op in zip(prog.stencil_rows(), ops[2:4]):
+        assert bytes(row.st) == bytes(ck.stencil_desc(op)) and row.arm == kr.FS_ARM_VPU
+    # the last stencil's descriptor also goes by value with each launch
+    assert bytes(prog.last._obj) == bytes(prog.stencil_rows()[-1].st)
+    assert ctypes.sizeof(kr.FsStencil) == ck.FS_STENCIL_BYTES
+    # encoded once per stage: the same ops give the same program
+    assert ck.stage_program(ops, 3) is prog
     # gray2rgb between stencils: three planes held at the second stencil
-    assert ck.fused_stage_program(make_pipeline_ops("grayscale,emboss:3,gray2rgb,sobel"), 3)[
-        1:] == (3, 3, False)
-    assert ck.fused_stage_program(make_pipeline_ops("gray2rgb"), 1)[1:] == (3, 0, False)
-    # the program and the launch's other parameters fit CUDA's 4 KB limit
-    other = 2 * ctypes.sizeof(ctypes.c_void_p) + 11 * ctypes.sizeof(ctypes.c_int)
-    assert ctypes.sizeof(kr.FsProgram) == 3784
-    assert ctypes.sizeof(kr.FsProgram) + other <= kr.KERNEL_PARAM_BYTES
+    prog = ck.stage_program(make_pipeline_ops("grayscale,emboss:3,gray2rgb,sobel"), 3)
+    assert (prog.c_out, prog.c_smem, prog.two_pass, prog.kmax) == (3, 3, False, 3)
+    prog = ck.stage_program(make_pipeline_ops("gray2rgb"), 1)
+    assert (prog.c_out, prog.c_smem, prog.two_pass, prog.n_stencils) == (3, 0, False, 0)
+    assert prog.last is None
+    assert ck.stage_program(make_pipeline_ops("gaussian:7,box:3"), 3).kmax == 7
 
 
 def test_fused_stage_program_limits():
-    with pytest.raises(ValueError, match="at most 24 ops"):
-        ck.fused_stage_program(make_pipeline_ops(",".join(["invert"] * 25)), 3)
-    with pytest.raises(ValueError, match="8 stencils"):
-        ck.fused_stage_program(make_pipeline_ops(",".join(["box:1"] * 9)), 3)
+    # no limit on the ops or stencils of a stage: the table grows with it
+    prog = ck.stage_program(make_pipeline_ops(",".join(["invert"] * 25)), 3)
+    assert prog.n_ops == 25 and prog.table_bytes == 25 * 16
+    prog = ck.stage_program(make_pipeline_ops(",".join(["box:1"] * 9)), 3)
+    assert prog.n_stencils == 9 and prog.table_bytes == 9 * (16 + 448)
     with pytest.raises(ValueError, match="no kernel program"):
-        ck.fused_stage_program(make_pipeline_ops("gamma:2,sobel"), 3)
+        ck.stage_program(make_pipeline_ops("gamma:2,sobel"), 3)
     with pytest.raises(ValueError, match="expects 3 channels"):
-        ck.fused_stage_program(make_pipeline_ops("sobel,grayscale"), 1)
+        ck.stage_program(make_pipeline_ops("sobel,grayscale"), 1)
     with pytest.raises(ValueError, match="1- or 3-channel"):
-        ck.fused_stage_program(make_pipeline_ops("sobel"), 4)
-    assert ck.fused_stage_program(make_pipeline_ops(",".join(["box:1"] * 8)), 1)[0].n_stencils == 8
+        ck.stage_program(make_pipeline_ops("sobel"), 4)
+    assert ck.stage_program(make_pipeline_ops(",".join(["box:1"] * 8)), 1).n_stencils == 8
 
 
 def test_fused_stage_geometry():
-    # two u8 windows per held plane, plus one f32 window for a row pass
-    assert ck.fused_stage_smem_bytes(1, 16, 3, True) == 2 * 2960 + 22 * 134 * 4
-    assert ck.fused_stage_smem_bytes(1, 16, 1, False) == 2 * 2352  # 18 x 130, 16-aligned
-    assert ck.fused_stage_smem_bytes(3, 16, 16, True) == 2 * 3 * 48 * 160 + 48 * 160 * 4
-    assert ck.fused_stage_smem_bytes(0, 16, 0, False) == 0
-    assert ck.fused_stage_smem_bytes(3, 16, 16, True) > 48 * 1024  # needs the opt-in
-    assert ck.fused_stage_smem_bytes(3, 64, 16, True) <= ck.MAX_SMEM_BYTES
+    # the megakernel stage: a table of 976 bytes, 22 window rows of 16-byte
+    # sources, two u8 buffers of one 22 x 140 plane (134 + 5 rounded up to
+    # a multiple of 4), a float32 plane for the row pass; the raw RGB window
+    # (22 rows of 432 bytes) fits over B and the float plane
+    L = ck.fused_stage_layout(3, 1, 16, 128, 3, 976, True)
+    assert (L["pitch"], L["raw_pitch"], L["plane"]) == (140, 432, 22 * 140)
+    assert (L["rows_off"], L["a_off"], L["b_off"]) == (976, 976 + 22 * 16, 1328 + 3088)
+    assert L["total"] == L["f_off"] + 3080 * 4 == 19824
+    assert L["b_off"] + 22 * 432 <= L["total"]
+    assert ck.fused_stage_smem_bytes(3, 1, 16, 128, 3, 976, True) == 19824
+    # no row pass: the raw window sets the end
+    assert ck.fused_stage_smem_bytes(3, 1, 16, 128, 1, 16, False) == 16 + 18 * 16 + 18 * 136 + \
+        18 * 416
+    assert ck.fused_stage_smem_bytes(3, 3, 16, 128, 16, 448, True) > 48 * 1024  # needs the opt-in
     assert ck.stencil_grid(4320, 7680, 16) == (60, 270)
     # redundant reads of 16 x 128 tiles: 1.44x at halo 3, 3.75x at 16
     for halo, ratio in ((3, 1.44), (16, 3.75)):

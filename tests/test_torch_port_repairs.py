@@ -14,7 +14,11 @@
   card in place of the 8-op by-value program): chains of 9, 17 and 40 ops,
   alone and before a stencil, through ``--impl cuda --plan off``,
   ``Pipeline.sharded`` and T1, equal to the JAX Pallas kernels in interpret
-  mode.
+  mode;
+* fused stages of any length on K4 and K4g (a table on the card in place
+  of the 24-op, 8-stencil by-value program): stages of 26 and 82 ops, nine
+  ``box:3`` and twelve ``box:1`` stencils run as one megakernel stage, with
+  the JAX package's ``plan_metrics`` and bytes.
 
 Every tolerance is 0: bytes must be equal.
 """
@@ -31,6 +35,8 @@ from mpi_cuda_imagemanipulation_tpu.models.pipeline import Pipeline as JaxPipeli
 from mpi_cuda_imagemanipulation_tpu.ops import pallas_kernels as jax_pallas
 from mpi_cuda_imagemanipulation_tpu.ops import registry as jax_registry
 from mpi_cuda_imagemanipulation_tpu.ops import swar_kernels as jax_swar
+from mpi_cuda_imagemanipulation_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from mpi_cuda_imagemanipulation_tpu.plan.metrics import plan_metrics as jax_plan_metrics
 from mpi_cuda_imagemanipulation_tpu_torch import cli
 from mpi_cuda_imagemanipulation_tpu_torch.io.image import load_image, save_image, synthetic_image
 from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import BACKENDS, Pipeline
@@ -39,6 +45,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import pad2d, reflect101_index
 from mpi_cuda_imagemanipulation_tpu_torch.parallel import mesh as pmesh
+from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
 from tools import packed_kernels as jax_pk
 
@@ -323,14 +330,72 @@ def test_long_pointwise_chain_through_cuda_off_matches_jax(n, tail):
 
 @pytest.mark.parametrize("n", [12, 40])
 def test_long_pointwise_chain_past_k4_falls_back_to_k1_k2(n):
-    """Under ``--plan fused-pallas`` a stage longer than K4's 24 ops
-    ('program-too-long') runs as K1/K2 groups, which now take it."""
+    """Under ``--plan fused-pallas`` a stage of 26 or 82 ops is one K4
+    stage, as on the JAX megakernel: the first K4 held 24 ops and ran such a
+    stage as K1/K2 groups ('program-too-long'); its table now has no length
+    limit."""
     spec = "grayscale," + _chain(n) + ",gaussian:5," + _chain(n)
     ops = make_pipeline_ops(spec)
-    assert ck.fused_stage_reject(ops, 36, 48, 3) == "program-too-long"
+    assert ck.fused_stage_reject(ops, 36, 48, 3) is None
     img = synthetic_image(36, 48, channels=3, seed=3)
+    plan_metrics.reset()
     got = Pipeline.parse(spec).jit("cuda", device="cpu", plan="fused-pallas")(img)
+    assert plan_metrics.pallas_stages == 1 and not plan_metrics.pallas_fallbacks
     np.testing.assert_array_equal(got.numpy(), _jax_pallas(spec, img))
+
+
+# --------------------------------------------------------------------------
+# Fused stages of any length on K4 and K4g
+# --------------------------------------------------------------------------
+
+LONG_STAGES = {
+    "26 ops": "grayscale," + _chain(12) + ",gaussian:5," + _chain(12),
+    "nine box:3": ",".join(["box:3"] * 9),
+    "twelve box:1": ",".join(["box:1"] * 12),
+    "twelve box:1 and box:3": ",".join(["box:1"] * 12 + ["box:3"]),
+}
+_JAX_REASONS = ("barrier", "lut-op", "no-f32-core", "halo-too-large", "image-too-small",
+                "vmem-budget")
+
+
+def _jax_counts() -> tuple[int, dict]:
+    return (int(jax_plan_metrics.pallas_stages.value()),
+            {r: int(jax_plan_metrics.pallas_fallbacks.value(reason=r)) for r in _JAX_REASONS})
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["full", "sharded"])
+@pytest.mark.parametrize("case", list(LONG_STAGES))
+def test_long_stage_runs_as_one_megakernel_stage_like_jax(case, sharded):
+    """A stage with more ops or stencils than the first K4 held (24 ops, 8
+    stencils) under ``plan='fused-pallas'``: the port's ``plan_metrics``
+    (K4 or K4g stages, fallbacks by reason) and bytes equal the JAX
+    package's, whose megakernel runs in interpret mode. Whole image through
+    ``Pipeline.jit``, and over four CPU slots through ``Pipeline.sharded``
+    (K4g; both runners leave a halo-0 stage to the per-group path,
+    uncounted)."""
+    spec = LONG_STAGES[case]
+    img = synthetic_image(96, 40, channels=3, seed=len(spec))
+    stages0, falls0 = _jax_counts()
+    if sharded:
+        want = JaxPipeline.parse(spec).sharded(jax_make_mesh(4), backend="auto",
+                                               plan="fused-pallas")(jnp.asarray(img))
+    else:
+        want = JaxPipeline.parse(spec).jit("auto", plan="fused-pallas")(jnp.asarray(img))
+    want = np.asarray(want)
+    stages1, falls1 = _jax_counts()
+    jax_fallbacks = {r: falls1[r] - falls0[r] for r in _JAX_REASONS if falls1[r] > falls0[r]}
+    plan_metrics.reset()
+    pipe = Pipeline.parse(spec)
+    if sharded:
+        mesh = pmesh.make_mesh(4, devices=["cpu"] * 4)
+        got = pipe.sharded(mesh, backend="cuda", plan="fused-pallas")(img)
+    else:
+        got = pipe.jit("cuda", device="cpu", plan="fused-pallas")(img)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert plan_metrics.pallas_stages == stages1 - stages0
+    assert dict(plan_metrics.pallas_fallbacks) == jax_fallbacks
+    halo0 = sharded and case == "twelve box:1"
+    assert plan_metrics.pallas_stages == (0 if halo0 else 1) and not jax_fallbacks
 
 
 @pytest.mark.parametrize("n", [9, 17, 40])

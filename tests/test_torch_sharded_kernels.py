@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_k4_emulator import emulate_k4
+from _torch_stencil_emulator import emulate_stage as emulate_k4
 
 from mpi_cuda_imagemanipulation_tpu.ops import pallas_kernels as jax_pk
 from mpi_cuda_imagemanipulation_tpu.ops import registry as jax_registry
