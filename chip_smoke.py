@@ -59,7 +59,14 @@ printing a result:
    8K images; K4 and K4g on stages of every halo 0..16, RGB rows and
    extended tiles at every start byte, and the long stages (26 and 82 ops,
    nine box:3, twelve box:1, twelve box:1 and a box:3, past the first
-   K4's 24 ops and 8 stencils) with VPU and tensor-core arms.
+   K4's 24 ops and 8 stencils) with VPU and tensor-core arms. The
+   redesigned K6, K7 and K8 on every SWAR stencil and K7 at 7x7 and 9x9, in
+   every edge mode, at widths that are no multiple of 8 or 128, with rows
+   at every start byte, in ghost mode at the image's top, middle and
+   bottom; the redesigned K5 in both forms on one stencil of each side and
+   the magnitude family in every edge mode, as a stage's last stencil and
+   as an inner one, gray and RGB, and on the main stages at every start
+   byte, K4 and K4g.
 2. The main paths at full size: the `run` command's computation
    (cli.run_image) on the 8K RGB synthetic image, for the reference
    pipeline, gaussian:5 and the megakernel chain, under ``--plan off``
@@ -101,7 +108,9 @@ printing a result:
    K3 on the band and on emboss:3) and T4's copies also the split of one
    call: device time from CUDA events around one call queued behind a spin
    kernel, the wrapper's host time, CUDA events back to back, and the same
-   for the library call; K2 by tile height.
+   for the library call; K2 by tile height. The K6, K7 and K8 rows (8K
+   and one shard) are split the same way, and timed at each tile height
+   the SWAR picker chooses from.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1346,6 +1355,142 @@ def phase1_swar(device, gray8k) -> int:
     return n_full + n_ghost + n8k
 
 
+# the redesigned SWAR kernels' ragged and unaligned shapes: widths no
+# multiple of 8 or 128 (one narrower than a tile), and the frame's less 4
+SWAR_WIDTHS = (76, 132, 196, 260, MAIN_W - 4)
+# K7 at its largest compile-time side and past it (the tap table): 7x7 and
+# 9x9 integer kernels with negative taps, sum|w| <= 128
+SWAR_K7_7X7 = "filter:" + "/".join(str((i * 7 % 11) - 5 if i % 3 == 0 else 0) for i in range(49))
+
+
+def swar_k7_9x9():
+    """A 9x9 K7 (no registry spelling: sharpen's fields, a 9x9 kernel)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+
+    w = np.array([(-3 if i % 10 == 0 else 2) if i % 5 == 0 else 0 for i in range(81)],
+                 np.float32).reshape(9, 9)
+    return dataclasses.replace(make_op("sharpen"), name="k7_9x9", halo=4, kernels=(w,),
+                               separable=None)
+
+
+def phase1_swar_redesign(device) -> int:
+    """The redesigned K6, K7 and K8 (the window loader's row sources and
+    granules, the four-word pair build, K7's compile-time tap loops and
+    tap table, the hoisted guard, eight-byte stores) against their plain
+    versions: every SWAR stencil, K7 at 7x7 and 9x9, in every edge mode the
+    kernel takes, at widths that are no multiple of 8 or 128, with rows at
+    every start byte 0..15 (`unaligned`) on one width and two on the rest,
+    under the picker's tile and a 7-row one; ghost mode at row0 at the
+    image's top, middle and bottom on those widths. Returns the case
+    count."""
+    import dataclasses
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+
+    n = n_ghost = 0
+    stencils = [make_op(s) for s in SWAR_STENCILS + [SWAR_K7_7X7]] + [swar_k7_9x9()]
+    pre = (make_op("contrast:3.5"),)
+    pc = tuple(map(sk.swar_fusable, pre))
+    for base in stencils:
+        for mode in EDGE_MODES:
+            st = dataclasses.replace(base, edge_mode=mode)
+            if not sk.swar_any_eligible(st):
+                continue
+            for w in SWAR_WIDTHS:
+                if w // 4 < 2 * st.halo + 1:
+                    continue
+                x = torch.from_numpy(synthetic_image(37, w, channels=1, seed=w)).to(device)
+                for off in (range(16) if w == 196 else (0, 5)):
+                    xo = unaligned(x, off)
+                    want = sk.swar_stencil_plain(st, xo, pre_chain=pc)
+                    for bh in (None, 7):
+                        check_equal(f"{sk.swar_kind(st)} {st.name} {mode} width {w} offset {off} "
+                                    f"tile_h={bh}", sk.swar_stencil(st, xo, pre_ops=pre,
+                                                                    block_h=bh), want)
+                        n += 1
+                if mode != base.edge_mode:
+                    continue
+                img = torch.from_numpy(synthetic_image(72, w, channels=1, seed=w + 1)).to(device)
+                for y0 in (0, 24, 48):
+                    tile, top, bottom = gray_tile(img, y0, 24, st.halo, st)
+                    gkw = dict(ghosts=(unaligned(top, 3), unaligned(bottom, 9)), y0=y0,
+                               global_h=72)
+                    want = sk.swar_stencil_plain(st, tile, pre_chain=pc, **gkw)
+                    check_equal(f"{sk.swar_kind(st)}g {st.name} width {w} y0={y0}",
+                                sk.swar_stencil(st, unaligned(tile, 1), pre_ops=pre, **gkw),
+                                want)
+                    n_ghost += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: the redesigned K6, K7, K8 equal to their plain versions in {n} full-mode "
+          f"cases (every edge mode, widths {SWAR_WIDTHS}, start bytes 0..15) and {n_ghost} "
+          "ghost-mode cases (max_abs_err 0)")
+    return n + n_ghost
+
+
+def phase1_k5_redesign(device) -> int:
+    """The redesigned K5 (hoisted B, word-loaded A, the row and column
+    clamps, 16-bit stores, a last stencil's store pass) in both forms
+    against its plain version: one stencil of each side and the magnitude
+    family in every edge mode, as a stage's last stencil (alone and before
+    a trailing pointwise run) and before a pointwise run and a VPU
+    stencil, gray and RGB; the main stages
+    on RGB rows at every start byte 0..15 (`unaligned`), K4 and K4g.
+    Returns the case count."""
+    import dataclasses
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op, make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+
+    n = 0
+    for spec in ("box:1", "sharpen", "sobel", "gaussian:5", "emboss:5", "gaussian:7"):
+        base = make_op(spec)
+        for mode in EDGE_MODES:
+            st = dataclasses.replace(base, edge_mode=mode)
+            for ops in ((st,), (st, make_op("quantize:6")), (st, make_op("invert"),
+                                                             make_op("box:3"))):
+                for c, shape in ((1, (37, 53)), (3, (70, 301))):
+                    x = torch.from_numpy(synthetic_image(*shape, channels=c, seed=n)).to(device)
+                    for arm in k5_forms(st):
+                        arms = (arm,) + ("vpu",) * (len(ops) - 1)
+                        check_equal(f"K5 {arm} {[o.name for o in ops]} {mode} c={c}",
+                                    ck.fused_stage(ops, x, arms=arms),
+                                    ck.fused_stage_plain(ops, x, arms=arms))
+                        n += 1
+    for spec in (SPECS["megakernel_ab"], SPECS["gaussian5_8k"], SPECS["reference"]):
+        ops = make_pipeline_ops(spec)
+        H = chain_halo(ops)
+        x = torch.from_numpy(synthetic_image(37, 53, channels=3, seed=5)).to(device)
+        tile, top, bottom, y0, image_h = shard_cut(ops, (3 * 40, 301), 1, 6, device, H)
+        ext = torch.cat([top, tile, bottom]).contiguous()
+        kw = dict(y0=y0, image_h=image_h, image_w=301)
+        for setting in ("on", "f32"):
+            arms = ck.stage_arms(ops, setting)
+            want = ck.fused_stage_plain(ops, x, arms=arms)
+            want_g = ck.fused_stage_ext_plain(ops, ext, arms=arms, **kw)
+            for off in range(16):
+                check_equal(f"K5 {setting} {spec} RGB rows at offset {off}",
+                            ck.fused_stage(ops, unaligned(x, off), arms=arms), want)
+                check_equal(f"K5 (K4g) {setting} {spec} extended tile at offset {off}",
+                            ck.fused_stage_ext(ops, unaligned(ext, off), arms=arms, **kw), want_g)
+                n += 2
+    torch.cuda.synchronize()
+    print(f"phase 1: the redesigned K5 equal to its plain version in {n} cases (every edge mode, "
+          "last and inner stencil, gray and RGB, start bytes 0..15; max_abs_err 0)")
+    return n
+
+
 def phase2_swar(device, x8k, gray8k):
     """The SWAR backend's paths against the golden ops: `run --impl swar`
     (cli.run_image) on the five 8K workloads with exactly their launches,
@@ -1446,11 +1591,17 @@ def phase3_swar(device, x8k, gray8k, swar_launches, record):
             lambda st=st, x=x, pre=pre: sk.swar_stencil(st, x, pre_ops=pre),
             lambda st=st, x=x, pc=pc: sk.swar_stencil_plain(st, x, pre_chain=pc), 1, 1,
             list(pre) + [st], library=conv_library(st, x, pad_rows=True) if lib else None,
+            split=True,
         )
         t_k2 = device_time_ms(lambda st=st, x=x, pre=pre: ck.stream_stencil(list(pre), st, x),
                               reps=7)
         print(f"  K2 on the same group and plane (the --impl cuda route) in this run: "
               f"{t_k2:.4f} ms")
+        # the tile heights the picker chooses from (swar_kernels.TILE_ROWS)
+        t_rows = {rows: padded_device_ms(lambda rows=rows, st=st, x=x, pre=pre: sk.swar_stencil(
+            st, x, pre_ops=pre, block_h=rows)) for rows in sk.TILE_ROWS}
+        print(f"sweep {label} [{names}] 8K gray by tile_h (device): " +
+              ", ".join(f"{r}: {t:.4f} ms" for r, t in t_rows.items()))
     ghost = [("K6g narrow", "gaussian:5", "K6g-narrow", True),
              ("K7g", "contrast:3.5,emboss:3", "K7g", False), ("K8g", "sobel", "K8g", False)]
     for label, spec, count, lib in ghost:
@@ -1466,7 +1617,7 @@ def phase3_swar(device, x8k, gray8k, swar_launches, record):
             lambda st=st, t=tile, pre=pre, kw=kw: sk.swar_stencil(st, t, pre_ops=pre, **kw),
             lambda st=st, t=tile, pc=pc, kw=kw: sk.swar_stencil_plain(st, t, pre_chain=pc, **kw),
             1, 1, list(pre) + [st], library=conv_library(st, ext, pad_rows=False) if lib else None,
-            n_pix=local_h * MAIN_W, strip_bytes=2 * h * MAIN_W,
+            n_pix=local_h * MAIN_W, strip_bytes=2 * h * MAIN_W, split=True,
         )
         gk = dict(y0=y0, image_h=MAIN_H, image_w=MAIN_W)
 
@@ -2601,8 +2752,10 @@ def main() -> int:
     x8k = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
     phase1_k5_main(device, x8k)
     phase1_k5_sums(device, x8k)
+    phase1_k5_redesign(device)
     gray8k = Pipeline.parse("grayscale").jit("torch", device=device, plan="off")(x8k)
     phase1_swar(device, gray8k)
+    phase1_swar_redesign(device)
     phase1_tools(device, gray8k)
     phase1_t1(device, gray8k, x8k)
     launches = phase2(device, x8k)

@@ -81,12 +81,15 @@
 //             inside the image.
 //           - Pointwise runs between stencils and the trailing run: four
 //             pixels a thread, one dispatch per op.
-//           - The last stencil, on the VPU arm, fused with the store, as
-//             K2 stores: four outputs a thread for every plane, the
-//             trailing pointwise run, the channels interleaved in
-//             registers, one 4-byte word per channel where the row pitch
-//             allows, bytes at the ragged edge; its outputs never return to
-//             shared memory.
+//           - The last stencil on the VPU arm fused with the store, as K2
+//             stores: four outputs a thread for every plane, the trailing
+//             pointwise run, the channels interleaved in registers, one
+//             4-byte word per channel where the row pitch allows, bytes at
+//             the ragged edge; its outputs never return to shared memory.
+//             A last stencil on K5's arm stores through shared memory and
+//             a pass of its own (fs_store_tile): fused with the store like
+//             the VPU arm's, it spilled and ran the three main stages
+//             1.12-1.50x slower on the H100.
 //           - One instantiation per largest stencil class of the stage (3,
 //             5 or 7): a 3x3 stage gets a 3x3 register file.
 //           - A stage with no stencil runs K1's body (pointwise_run.cuh).
@@ -105,7 +108,10 @@
 #define FS_OP_STENCIL 100  // ops[k].op = FS_OP_STENCIL + j runs stencil j
 // Blocks an SM must hold, which sets the registers a thread: five for the
 // 3x3 class (48 registers), four for the others and for the tensor-core
-// instantiations (64). A build may set each (-DFS_BLOCKS_3=6).
+// instantiations (64: with K5's operands as word loads, three blocks (80
+// registers) ran the three main stages up to 9% slower, five (48) the RGB
+// gaussian:5 and the megakernel stage 3-10% slower, on the H100).
+// A build may set each (-DFS_BLOCKS_3=6).
 #ifndef FS_BLOCKS_3
 #define FS_BLOCKS_3 5
 #endif
@@ -310,51 +316,6 @@ __device__ void fs_stencil(const unsigned char* a, unsigned char* b, float* f, i
   __syncthreads();
 }
 
-// K5: one stencil on a tensor-core arm, with the contract of fs_stencil.
-// Each warp takes 16 x 8 tiles of the output region in turn
-// (mma_stage.cuh); each lane finalizes and stores the four outputs it
-// holds that lie in the region.
-template <int KS>
-__device__ void fs_stencil_mma(const unsigned char* a, unsigned char* b, int n_planes,
-                               const FsRegion& g, const StencilDesc& st, int arm) {
-  constexpr int h = KS / 2;
-  const int y_end = g.rows - h, x_end = g.cols - h;  // outputs [h, y_end) x [h, x_end)
-  const int n_tx = (x_end - h + 7) / 8;
-  const int n_tiles = (y_end - h + 15) / 16 * n_tx;
-  const int gq = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bool two = st.family == ST_MAGNITUDE;
-  const bool int8 = arm == FS_ARM_INT8;
-  const float corr0 = int8 ? mma_corr128<KS>(st.w0) : 0.0f;
-  const float corr1 = int8 && two ? mma_corr128<KS>(st.w1) : 0.0f;
-  for (int c = 0; c < n_planes; ++c) {
-    const MmaSrc src = {a + c * g.plane, g.P, 0, g.rows, 0, g.cols};
-    for (int tile = threadIdx.x >> 5; tile < n_tiles; tile += FS_WARPS) {
-      const int r0 = h + tile / n_tx * 16, c0 = h + tile % n_tx * 8;
-      float acc0[4], acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (int8) {
-        mma_tile_int8<KS>(acc0, src, st.w0, corr0, r0, c0, gq, t);
-        if (two) mma_tile_int8<KS>(acc1, src, st.w1, corr1, r0, c0, gq, t);
-      } else {
-        mma_tile_bf16<KS>(acc0, src, st.w0, r0, c0, gq, t);
-        if (two) mma_tile_bf16<KS>(acc1, src, st.w1, r0, c0, gq, t);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int wy = r0 + gq + (i >> 1) * 8, wx = c0 + 2 * t + (i & 1);
-        if (wy >= y_end || wx >= x_end) continue;
-        float res;
-        if (!st_filtered(g.gy0 + wy, g.gx0 + wx, g.H, g.W, h, st.edge_mode)) {
-          res = (float)src.p[wy * g.P + wx];
-        } else {
-          res = st_finish(two ? mma_magnitude(acc0[i], acc1[i]) : acc0[i], st);
-        }
-        b[c * g.plane + (wy - h) * g.P + wx - h] = pw_to_u8(res);
-      }
-    }
-  }
-  __syncthreads();
-}
-
 // The four pixels at region (r, 4 s) of `n` planes of `a` as floats.
 __device__ __forceinline__ void fs_load4(const unsigned char* a, int plane, int idx, int n,
                                          float v[4][3]) {
@@ -411,6 +372,103 @@ __device__ __forceinline__ void fs_store4(const FsArgs& A, int x0, int y0, int l
         if (c < c_out) o[j * c_out + c] = (unsigned char)(w[c] >> (8 * j));
       }
     }
+  }
+}
+
+// The tile's outputs from buffer `a` (the tile_h x tile_w region from offset
+// 0, `P` bytes a row, `plane` bytes a plane) through the trailing pointwise
+// run: four outputs a thread, their channels interleaved in registers.
+__device__ void fs_store_tile(const unsigned char* a, int P, int plane, int n_cur,
+                              const PwOp* trail, int n_trail, const FsArgs& A, int x0, int y0) {
+  const int th = A.tile_h, tw = A.tile_w;
+  const int rows_out = min(th, A.out_row0 + A.out_rows - y0), cols_out = min(tw, A.W - x0);
+  const int lg = 31 - __clz(tw >> 2);
+  const bool vec_store = (A.W & 3) == 0 && ((uintptr_t)A.out & 3) == 0;
+  for (int i = threadIdx.x; i < th << lg; i += FS_THREADS) {
+    const int ly = i >> lg;
+    const int lx = 4 * (i & ((tw >> 2) - 1));
+    if (ly >= rows_out || lx >= cols_out) continue;
+    uint32_t w[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      w[c] = c < n_cur ? *reinterpret_cast<const uint32_t*>(a + c * plane + ly * P + lx) : 0u;
+    }
+    fs_trail4(w, trail, n_trail, n_cur);
+    fs_store4(A, x0, y0, ly, lx, cols_out, vec_store, w);
+  }
+}
+
+// K5: one stencil on a tensor-core arm (mma_stage.cuh), with the contract
+// of fs_stencil: from buffer `a` (input region `g`) into buffer `b` (the
+// region shrunk by h, from offset 0), `n_planes` planes. Each warp takes the
+// region's 16 x 8 output tiles in turn, every plane of a tile; each lane
+// finalizes the four outputs it holds and stores each row's two as one
+// 16-bit word.
+template <int KS, bool INT8, bool TWO>
+__device__ void fs_mma_walk(const unsigned char* a, unsigned char* b, int n_planes,
+                            const FsRegion& g, const StencilDesc& st) {
+  constexpr int h = KS / 2;
+  const int y_end = g.rows - h, x_end = g.cols - h;  // outputs [h, y_end) x [h, x_end)
+  const int n_tx = (x_end - h + 7) >> 3;
+  const int n_tiles = (y_end - h + 15) / 16 * n_tx;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  MmaB<KS, INT8> b0, b1;
+  mma_b_build(b0, st.w0, gq, t);
+  if (TWO) mma_b_build(b1, st.w1, gq, t);
+  const float corr0 = INT8 ? mma_corr128<KS>(st.w0) : 0.0f;
+  const float corr1 = INT8 && TWO ? mma_corr128<KS>(st.w1) : 0.0f;
+  // interior mode passes through outputs within h of the border; a region
+  // wholly inside needs no test
+  const FsRegion o = fs_shrink(g, h);
+  const bool all_filtered = st.edge_mode != ST_EDGE_INTERIOR ||
+                            (o.gy0 > h && o.gy0 + o.rows - 1 <= g.H - 1 - h && o.gx0 > h &&
+                             o.gx0 + o.cols - 1 <= g.W - 1 - h);
+  for (int tile = threadIdx.x >> 5; tile < n_tiles; tile += FS_WARPS) {
+    const int r0 = h + tile / n_tx * 16, c0 = h + tile % n_tx * 8;
+    const int wy = r0 + gq, wx = c0 + 2 * t;  // this lane's first output
+#pragma unroll 1
+    for (int c = 0; c < n_planes; ++c) {
+      const MmaWin src{a + c * g.plane, g.P, g.rows};
+      float acc0[4], acc1[4];
+      mma_tile<KS, INT8, TWO>(acc0, acc1, src, b0, b1, corr0, corr1, r0, c0, gq, t);
+      uint32_t q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = wy + (i >> 1) * 8, x = wx + (i & 1);
+        float res = st_finish(TWO ? mma_magnitude(acc0[i], acc1[i]) : acc0[i], st);
+        if (!all_filtered && !st_filtered(g.gy0 + y, g.gx0 + x, g.H, g.W, h, st.edge_mode)) {
+          res = (float)src.p[min(y, g.rows - 1) * g.P + min(x, g.P - 1)];
+        }
+        q[i] = pw_to_u8(res);
+      }
+      // outputs (y, x) and (y, x + 1) as one 16-bit word (a second byte past
+      // the region's last column lands in the row's padding)
+      unsigned char* dst = b + c * g.plane + (wy - h) * g.P + wx - h;
+      if (wx < x_end) {
+        if (wy < y_end) *reinterpret_cast<unsigned short*>(dst) = (unsigned short)(q[0] | q[1] << 8);
+        if (wy + 8 < y_end) {
+          *reinterpret_cast<unsigned short*>(dst + 8 * g.P) = (unsigned short)(q[2] | q[3] << 8);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <int KS>
+__device__ void fs_stencil_mma(const unsigned char* a, unsigned char* b, int n_planes,
+                               const FsRegion& g, const StencilDesc& st, int arm) {
+  const bool two = st.family == ST_MAGNITUDE;  // block-uniform
+  if (arm == FS_ARM_INT8) {
+    if (two) {
+      fs_mma_walk<KS, true, true>(a, b, n_planes, g, st);
+    } else {
+      fs_mma_walk<KS, true, false>(a, b, n_planes, g, st);
+    }
+  } else if (two) {
+    fs_mma_walk<KS, false, true>(a, b, n_planes, g, st);
+  } else {
+    fs_mma_walk<KS, false, false>(a, b, n_planes, g, st);
   }
 }
 
@@ -584,6 +642,8 @@ fused_stage_kernel(const __grid_constant__ FsArgs A) {
         __syncthreads();
       }
     }
+    const PwOp* trail = ops + k + 1;
+    const int n_trail = n_ops - k - 1;
     bool on_mma = false;
     if constexpr (kMma) {
       const int arm = fst.arm;  // block-uniform
@@ -595,10 +655,12 @@ fused_stage_kernel(const __grid_constant__ FsArgs A) {
         case 7: if constexpr (KMAX >= 7) fs_stencil_mma<7>(a, b, n_cur, g, st, arm); break;
         default: break;
       }
+      if (on_mma && last) {  // the tile, from b, through the trailing run
+        fs_store_tile(b, P, L.plane, n_cur, trail, n_trail, A, x0, y0);
+        return;
+      }
     }
     if (!on_mma && last) {
-      const PwOp* trail = ops + k + 1;
-      const int n_trail = n_ops - k - 1;
       const StencilDesc& sl = A.last;
       switch (sl.ksize) {
         case 1: fs_stencil_store<1>(a, f, n_cur, g, sl, trail, n_trail, A, x0, y0); break;
@@ -623,7 +685,6 @@ fused_stage_kernel(const __grid_constant__ FsArgs A) {
     b = t;
     g = fs_shrink(g, st.halo);
     ++k;
-    if (last) break;  // a tensor-core last stencil: the store below
     if (end > k) {
       int n_next = n_cur;
       for (int j = k; j < end; ++j) n_next = fs_channels_after(ops[j].op, n_next);
@@ -648,26 +709,6 @@ fused_stage_kernel(const __grid_constant__ FsArgs A) {
       k = end;
       __syncthreads();
     }
-  }
-
-  // 4. Store the tile after a last stencil on a tensor-core arm (the
-  // region is now its tile_h x tile_w outputs), through the trailing
-  // pointwise run: four outputs a thread, their channels interleaved in
-  // registers.
-  const int rows_out = min(th, A.out_row0 + A.out_rows - y0), cols_out = min(tw, A.W - x0);
-  const int lg = 31 - __clz(tw >> 2);
-  const bool vec_store = (A.W & 3) == 0 && ((uintptr_t)A.out & 3) == 0;
-  for (int i = threadIdx.x; i < th << lg; i += FS_THREADS) {
-    const int ly = i >> lg;
-    const int lx = 4 * (i & ((tw >> 2) - 1));
-    if (ly >= rows_out || lx >= cols_out) continue;
-    uint32_t w[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      w[c] = c < n_cur ? *reinterpret_cast<const uint32_t*>(a + c * L.plane + ly * P + lx) : 0u;
-    }
-    fs_trail4(w, ops + k, n_ops - k, n_cur);
-    fs_store4(A, x0, y0, ly, lx, cols_out, vec_store, w);
   }
 }
 
@@ -762,30 +803,30 @@ extern "C" int fused_stage_ext_launch(const unsigned char* ext, unsigned char* o
 
 // K5's exactness probe: the raw f32 sums of one kernel of stencil `st`
 // (w0, or w1 when `second`) over a (rows, cols) u8 plane in device memory,
+// `pitch` bytes a row (a multiple of 4, at a 4-byte aligned address),
 // valid mode, into a (rows - KS + 1, cols - KS + 1) f32 array. One warp a
-// 16 x 8 output tile, through the tile functions K5 runs (mma_stage.cuh),
-// so the sums are those K5 finalizes; the u8 rounding and clip of K5's
-// output hide their low bits wherever the result leaves 0..255, which
-// this output does not.
-template <int KS>
+// 16 x 8 output tile, through the tile function K5 runs (mma_tile in
+// mma_stage.cuh), so the sums are those K5 finalizes; the u8 rounding and
+// clip of K5's output hide their low bits wherever the result leaves
+// 0..255, which this output does not.
+template <int KS, bool INT8>
 __global__ void __launch_bounds__(FS_THREADS)
 k5_sums_kernel(const unsigned char* __restrict__ in, float* __restrict__ out, int rows,
-               int cols, const __grid_constant__ StencilDesc st, int second, int arm) {
+               int cols, int pitch, const __grid_constant__ StencilDesc st, int second) {
   constexpr int h = KS / 2;
   const int out_rows = rows - 2 * h, out_cols = cols - 2 * h;
   const int n_tx = (out_cols + 7) / 8;
   const int tile = blockIdx.x * FS_WARPS + (int)(threadIdx.x >> 5);
   if (tile >= (out_rows + 15) / 16 * n_tx) return;  // the whole warp
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const MmaSrc src = {in, cols, 0, rows, 0, cols};
+  const MmaWin src{in, pitch, rows};
   const int r0 = h + tile / n_tx * 16, c0 = h + tile % n_tx * 8;
   const float* w = second ? st.w1 : st.w0;
-  float acc[4];
-  if (arm == FS_ARM_INT8) {
-    mma_tile_int8<KS>(acc, src, w, mma_corr128<KS>(w), r0, c0, g, t);
-  } else {
-    mma_tile_bf16<KS>(acc, src, w, r0, c0, g, t);
-  }
+  MmaB<KS, INT8> b;
+  mma_b_build(b, w, g, t);
+  float acc[4], unused[4];
+  mma_tile<KS, INT8, false>(acc, unused, src, b, b, INT8 ? mma_corr128<KS>(w) : 0.0f, 0.0f, r0,
+                            c0, g, t);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int y = r0 - h + g + (i >> 1) * 8, x = c0 - h + 2 * t + (i & 1);
@@ -793,19 +834,31 @@ k5_sums_kernel(const unsigned char* __restrict__ in, float* __restrict__ out, in
   }
 }
 
-extern "C" int k5_sums_launch(const unsigned char* in, float* out, int rows, int cols,
+template <int KS>
+static void k5_sums_run(const unsigned char* in, float* out, int rows, int cols, int pitch,
+                        const StencilDesc* st, int second, int arm, unsigned blocks,
+                        cudaStream_t s) {
+  if (arm == FS_ARM_INT8) {
+    k5_sums_kernel<KS, true><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, pitch, *st, second);
+  } else {
+    k5_sums_kernel<KS, false><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, pitch, *st, second);
+  }
+}
+
+extern "C" int k5_sums_launch(const unsigned char* in, float* out, int rows, int cols, int pitch,
                               const StencilDesc* st, int second, int arm, void* stream) {
   const int h = st->ksize / 2;
   if (arm != FS_ARM_BF16 && arm != FS_ARM_INT8) return (int)cudaErrorInvalidValue;
+  if (pitch < cols || pitch % 4 || ((uintptr_t)in & 3)) return (int)cudaErrorInvalidValue;
   if (rows <= 2 * h || cols <= 2 * h) return 0;
   const long long tiles = (long long)(rows - 2 * h + 15) / 16 * ((cols - 2 * h + 7) / 8);
   const unsigned blocks = (unsigned)((tiles + FS_WARPS - 1) / FS_WARPS);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (st->ksize) {
-    case 1: k5_sums_kernel<1><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
-    case 3: k5_sums_kernel<3><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
-    case 5: k5_sums_kernel<5><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
-    case 7: k5_sums_kernel<7><<<blocks, FS_THREADS, 0, s>>>(in, out, rows, cols, *st, second, arm); break;
+    case 1: k5_sums_run<1>(in, out, rows, cols, pitch, st, second, arm, blocks, s); break;
+    case 3: k5_sums_run<3>(in, out, rows, cols, pitch, st, second, arm, blocks, s); break;
+    case 5: k5_sums_run<5>(in, out, rows, cols, pitch, st, second, arm, blocks, s); break;
+    case 7: k5_sums_run<7>(in, out, rows, cols, pitch, st, second, arm, blocks, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

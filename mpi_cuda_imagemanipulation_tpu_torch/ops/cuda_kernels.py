@@ -1157,12 +1157,18 @@ def k5_sums(op: StencilOp, plane: torch.Tensor, arm: str, kernel: int = 0) -> to
     _check_cuda_input(plane)
     h = op.halo
     rows, cols = plane.shape
+    # K5 reads the window by words: rows a multiple of 4 bytes apart
+    pitch = -(-cols // 4) * 4
+    if pitch != cols or plane.data_ptr() % 4:
+        padded = torch.zeros((rows, pitch), dtype=U8, device=plane.device)
+        padded[:, :cols] = plane
+        plane = padded
     out = torch.empty((rows - 2 * h, cols - 2 * h), dtype=torch.float32, device=plane.device)
     desc = stage_stencil_desc(op, arm)
     lib = kr.load("fused_stage")
     with torch.cuda.device(plane.device):
         rc = lib.k5_sums_launch(
-            plane.data_ptr(), out.data_ptr(), rows, cols, ctypes.byref(desc), kernel,
+            plane.data_ptr(), out.data_ptr(), rows, cols, pitch, ctypes.byref(desc), kernel,
             _ARM_CODES[arm], torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "k5_sums")

@@ -36,13 +36,17 @@ are counted in ``cuda_kernels.SWAR_LAUNCHES`` by kernel and mode ('K6-narrow',
 'K6-wide', 'K7', 'K8'; ghost mode 'K6g-narrow', 'K6g-wide', 'K7g', 'K8g').
 
 The JAX package's block-height picker (``_pick_swar_block_h``) sizes blocks
-for a TPU's scratch memory and reads a TPU calibration table; the port has
-its own tile height (``DEFAULT_TILE_H``), which ``block_h`` sets.
+for a TPU's scratch memory and reads a TPU calibration table; the port picks
+its own tile shape from the work (``swar_tile_shape``), whose height
+``block_h`` sets. A group's descriptor, table, taps and launch shapes are
+built once and cached on its ops' identity (``swar_group``), so a call, or
+a shard's call in the sharded runner, repeats no host-side encoding.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -62,10 +66,15 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
 )
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
-# Launch geometry; SW_TILE_W in swar_stencil.cu.
-TILE_W = 128
-PAIRS = TILE_W // 2
-DEFAULT_TILE_H = 32
+# Launch geometry (swar_stencil.cu: 256 threads a block, four output pairs
+# a thread): the tile widths the picker chooses from, widest first (the
+# kernel also takes 256), and the tile heights, tallest first.
+TILE_WIDTHS = (128, 64)
+TILE_W = TILE_WIDTHS[0]
+TILE_ROWS = (64, 32, 16, 8)
+DEFAULT_TILE_H = 64
+# the largest K7 kernel side with its taps as kernel parameters (SW_MAX_K)
+MAX_K = kr.SW_MAX_K
 # Kernel kinds (SwKind in the source) and their launch-count keys
 KINDS = {"K6-narrow": 0, "K6-wide": 1, "K7": 2, "K8": 3}
 _GHOST_KEYS = {"K6-narrow": "K6g-narrow", "K6-wide": "K6g-wide", "K7": "K7g", "K8": "K8g"}
@@ -368,47 +377,178 @@ def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> tuple[kr.SwarDesc, 
     return d, np.asarray(chain + flat, dtype=np.int32)
 
 
-def window_words(halo: int) -> int:
-    """Pair words per window row: output pair p reads words p .. p + halo
-    (sw_words in the source)."""
-    return PAIRS + halo
+def swar_taps(op: StencilOp) -> kr.SwarTaps:
+    """K7's dense kernel as the kernel parameters of its compile-time tap
+    loops (SwarTaps): w[dy * (2 halo + 1) + dx] for a side of at most
+    MAX_K; zeros for K6, K8 and larger kernels, which read the table."""
+    taps = kr.SwarTaps()
+    ks = 2 * op.halo + 1
+    if swar_kind(op) == "K7" and ks <= MAX_K:
+        taps.w[: ks * ks] = [int(v) for v in np.asarray(op.kernels[0]).reshape(-1)]
+    return taps
 
 
-def swar_smem_bytes(kind: str, tile_h: int, halo: int, table_words: int = 0) -> int:
-    """Dynamic shared memory of one block (sw_smem_bytes in the source): the
-    descriptor's table rounded up to 16 bytes, the (tile_h + 2 halo) rows of
-    window words, then K6's row pass."""
+def window_pitch(tile_w: int, halo: int) -> int:
+    """Pair words a window row holds (sw_window_pitch in the source): tile_w
+    / 2 for the tile and the halo's words rounded up to 4, at least 4, so
+    that a thread's 16-byte reads of words 4q .. 4q + 7 stay in the row."""
+    return tile_w // 2 + ((max(halo, 4) + 3) & ~3)
+
+
+def window_words(halo: int, tile_w: int = TILE_W) -> int:
+    """Pair words of a window row that outputs read: output pair p reads
+    words p .. p + halo."""
+    return tile_w // 2 + halo
+
+
+def raw_pitch(tile_w: int, halo: int) -> int:
+    """Bytes a raw window row holds (sw_raw_pitch): its 16-byte granules from
+    up to 15 bytes below the row's first byte, and room for the pair
+    build's word reads past the window."""
+    return -(-(2 * window_pitch(tile_w, halo) + 24) // 16) * 16
+
+
+def swar_layout(kind: str, tile_h: int, halo: int, table_words: int = 0,
+                tile_w: int = TILE_W) -> dict:
+    """One block's shared memory (sw_layout in the source), in order: the
+    table rounded up to 16 bytes, one 16-byte row source per window row, the
+    window as pair words (`window_pitch` a row), then one scratch region:
+    the raw window (`raw_pitch` bytes a row), or K6's row pass (tile_w / 2
+    words a row) where that is larger."""
     eh = tile_h + 2 * halo
-    nbytes = ((table_words + 3) & ~3) * 4 + eh * window_words(halo) * 4
-    if kind.startswith("K6"):
-        nbytes += eh * PAIRS * 4
-    return nbytes
+    wp, rp = window_pitch(tile_w, halo), raw_pitch(tile_w, halo)
+    rows_off = ((table_words + 3) & ~3) * 4
+    win_off = rows_off + eh * 16
+    scratch_off = win_off + eh * wp * 4
+    row_pass = eh * (tile_w // 2) * 4 if kind.startswith("K6") else 0
+    total = scratch_off + max(eh * rp, row_pass)
+    return dict(wp=wp, rp=rp, rows_off=rows_off, win_off=win_off, scratch_off=scratch_off,
+                total=total)
 
 
-def swar_grid(height: int, width: int, tile_h: int) -> tuple[int, int]:
+def swar_smem_bytes(kind: str, tile_h: int, halo: int, table_words: int = 0,
+                    tile_w: int = TILE_W) -> int:
+    """Dynamic shared memory of one block (`swar_layout`)."""
+    return swar_layout(kind, tile_h, halo, table_words, tile_w)["total"]
+
+
+def swar_grid(height: int, width: int, tile_h: int, tile_w: int = TILE_W) -> tuple[int, int]:
     """The kernels' grid: (column tiles, row tiles)."""
-    return -(-width // TILE_W), -(-height // tile_h)
+    return -(-width // tile_w), -(-height // tile_h)
 
 
-def pick_tile_h(kind: str, halo: int, block_h: int | None = None, table_words: int = 0) -> int:
-    """The output tile height: `block_h` when given (raising if its shared
-    memory exceeds a block's), else DEFAULT_TILE_H halved until it fits."""
+def pick_tile_h(kind: str, halo: int, block_h: int | None = None, table_words: int = 0,
+                tile_w: int = TILE_W) -> int:
+    """The output tile height for `tile_w` columns: `block_h` when given
+    (raising if its shared memory exceeds a block's), else DEFAULT_TILE_H
+    (64 rows: on the 8K gray plane 64-row tiles ran K6, K7 and K8 2-9%
+    faster than 32-row ones, 1.5-1.8x faster than 8-row ones, H100 80GB
+    HBM3 at 700 W, chip_smoke.py's sweep) halved until it fits."""
     if block_h is not None:
         if block_h < 1:
             raise ValueError(f"tile height must be >= 1, got {block_h}")
-        nbytes = swar_smem_bytes(kind, block_h, halo, table_words)
+        nbytes = swar_smem_bytes(kind, block_h, halo, table_words, tile_w)
         if nbytes > ck.MAX_SMEM_BYTES:
             raise ValueError(
                 f"tile height {block_h} needs {nbytes} B of shared memory "
                 f"(at most {ck.MAX_SMEM_BYTES})"
             )
         return block_h
+    def fits(rows):
+        return swar_smem_bytes(kind, rows, halo, table_words, tile_w) <= ck.MAX_SMEM_BYTES
+
     tile_h = DEFAULT_TILE_H
-    while tile_h > 1 and swar_smem_bytes(kind, tile_h, halo, table_words) > ck.MAX_SMEM_BYTES:
+    while tile_h > 1 and not fits(tile_h):
         tile_h //= 2
-    if swar_smem_bytes(kind, tile_h, halo, table_words) > ck.MAX_SMEM_BYTES:
+    if not fits(tile_h):
         raise ValueError(f"halo {halo} needs more shared memory than a block has")
     return tile_h
+
+
+@functools.lru_cache(maxsize=4096)
+def swar_tile_shape(kind: str, halo: int, height: int, width: int, block_h: int | None = None,
+                    table_words: int = 0) -> tuple[int, int]:
+    """The (rows, cols) output tile of one launch over an (height, width)
+    plane. Columns: TILE_W, narrowed to 64 while the grid has fewer than
+    N_SMS blocks and the narrower tile adds blocks, or where no tile TILE_W
+    wide fits the shared memory (a halo past 100). Rows: `block_h` when
+    given, else `pick_tile_h`'s, then halved (down to 8) while the grid has
+    fewer than 2 N_SMS blocks and halving adds blocks: a tall tile reads
+    fewer context rows, (rows + 2 halo) / rows, and a short one gives a
+    short plane (a shard, an overlap band) enough blocks. Raises where the
+    shared memory or the grid's height does not allow the tile."""
+    for cols in TILE_WIDTHS:
+        try:
+            rows = pick_tile_h(kind, halo, block_h, table_words, cols)
+            break
+        except ValueError:
+            if cols == TILE_WIDTHS[-1]:
+                raise
+    for narrower in TILE_WIDTHS[TILE_WIDTHS.index(cols) + 1:]:
+        gx, gy = swar_grid(height, width, rows, cols)
+        if gx * gy >= ck.N_SMS:
+            break
+        if -(-width // narrower) > gx:
+            cols = narrower
+    if block_h is None:
+        while rows > TILE_ROWS[-1]:
+            gx, gy = swar_grid(height, width, rows, cols)
+            if gx * gy >= 2 * ck.N_SMS or -(-height // (rows // 2)) == gy:
+                break
+            rows //= 2
+    if swar_grid(height, width, rows, cols)[1] > ck._MAX_GRID_Y:
+        raise ValueError(f"plane height {height} needs a taller tile than {rows}")
+    return rows, cols
+
+
+class SwarGroup:
+    """One ``[pre*, stencil, post*]`` group as the SWAR kernels take it,
+    built once (``swar_group``): its kind, fitted chains, descriptor and
+    int32 table, K7's taps, and per card the descriptor pointing at the
+    table's copy there."""
+
+    def __init__(self, op: StencilOp, pre_ops: tuple, post_ops: tuple):
+        self.ops = (op, pre_ops, post_ops)  # held, so that the ids in the cache's key stay theirs
+        self.op = op
+        self.pre_chain = tuple(_require_fusable(o) for o in pre_ops)
+        self.post_chain = tuple(_require_fusable(o) for o in post_ops)
+        self.kind = swar_kind(op)
+        self.desc, self.table = swar_desc(op, self.pre_chain, self.post_chain)
+        self.taps = swar_taps(op)
+        self.taps_ref = ctypes.byref(self.taps)
+        self._descs: dict[torch.device, tuple] = {}
+
+    def desc_ref(self, device: torch.device):
+        """A reference to the descriptor whose table pointer is the table's
+        copy on `device` (made at the first call for the card)."""
+        hit = self._descs.get(device)
+        if hit is None:
+            d = kr.SwarDesc.from_buffer_copy(self.desc)
+            d.table = ck.device_table(self.table, device).data_ptr() if self.table.size else None
+            hit = self._descs[device] = (d, ctypes.byref(d))
+        return hit[1]
+
+    def shape(self, height: int, width: int, block_h: int | None) -> tuple[int, int]:
+        return swar_tile_shape(self.kind, self.op.halo, height, width, block_h, self.table.size)
+
+
+# groups by the identity of their ops (frozen dataclasses, held by the
+# entries): two groups whose ops encode to equal bytes are still two keys
+_GROUPS: dict[tuple, SwarGroup] = {}
+
+
+def swar_group(op: StencilOp, pre_ops=(), post_ops=()) -> SwarGroup:
+    """The encoded group of `op` with `pre_ops` before it and `post_ops`
+    after it, cached on the ops' identity."""
+    pre_ops, post_ops = tuple(pre_ops), tuple(post_ops)
+    key = (id(op), tuple(map(id, pre_ops)), tuple(map(id, post_ops)))
+    group = _GROUPS.get(key)
+    if group is None:
+        group = SwarGroup(op, pre_ops, post_ops)
+        if len(_GROUPS) >= ck._CACHE_LIMIT:
+            _GROUPS.clear()
+        _GROUPS[key] = group
+    return group
 
 
 # --------------------------------------------------------------------------
@@ -518,23 +658,21 @@ def swar_stencil(
     (halo, W) strips above and below the tile (exchanged, or the edge
     extension on the first and last shard); `y0` is the tile's first global
     row and `global_h` the image height, which the interior guard follows.
-    `block_h` sets the output tile height. On a CPU tensor the plain version
-    runs; on a CUDA tensor the kernel launches or this raises."""
-    pre_chain = tuple(_require_fusable(o) for o in pre_ops)
-    post_chain = tuple(_require_fusable(o) for o in post_ops)
-    kind = swar_kind(op)
-    desc, table = swar_desc(op, pre_chain, post_chain)
+    `block_h` sets the output tile height (`swar_tile_shape`). The group's
+    encoding and launch shape are cached (`swar_group`). On a CPU tensor the
+    plain version runs; on a CUDA tensor the kernel launches or this
+    raises."""
+    group = swar_group(op, pre_ops, post_ops)
     _check_args(op, img, ghosts)
     height, width = img.shape
-    tile_h = pick_tile_h(kind, op.halo, block_h, table.size)
-    if swar_grid(height, width, tile_h)[1] > ck._MAX_GRID_Y:
-        raise ValueError(f"plane height {height} needs a taller tile than {tile_h}")
+    tile_h, tile_w = group.shape(height, width, block_h)
     if global_h is not None and y0 is not None and not 0 <= y0 <= global_h - height:
         raise ValueError(f"tile rows [{y0}, {y0 + height}) lie outside an image of {global_h}")
-    if img.device.type == "cpu":
+    dev = img.device
+    if dev.type == "cpu":
         return swar_stencil_plain(
-            op, img, pre_chain=pre_chain, post_chain=post_chain, ghosts=ghosts, y0=y0,
-            global_h=global_h,
+            op, img, pre_chain=group.pre_chain, post_chain=group.post_chain, ghosts=ghosts,
+            y0=y0, global_h=global_h,
         )
     ck._check_cuda_input(img)
     top = bottom = None
@@ -543,17 +681,14 @@ def swar_stencil(
         for t in ghosts:
             ck._check_cuda_input(t)
     out = torch.empty_like(img)
-    lib = kr.load("swar_stencil")
-    desc.table = ck.device_table(table, img.device).data_ptr()
-    with torch.cuda.device(img.device):
-        rc = lib.swar_stencil_launch(
-            img.data_ptr(), None if top is None else top.data_ptr(),
-            None if bottom is None else bottom.data_ptr(), out.data_ptr(), height, width,
-            y0 or 0, global_h or height, ctypes.byref(desc), tile_h,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = kr.load("swar_stencil").swar_stencil_launch(
+        img.data_ptr(), None if top is None else top.data_ptr(),
+        None if bottom is None else bottom.data_ptr(), out.data_ptr(), height, width,
+        y0 or 0, global_h or height, group.desc_ref(dev), group.taps_ref, tile_h, tile_w,
+        dev.index, ck.stream_handle(dev),
+    )
     ck._raise_on(rc, "swar_stencil")
-    ck.SWAR_LAUNCHES[kind if ghosts is None else _GHOST_KEYS[kind]] += 1
+    ck.SWAR_LAUNCHES[group.kind if ghosts is None else _GHOST_KEYS[group.kind]] += 1
     return out
 
 

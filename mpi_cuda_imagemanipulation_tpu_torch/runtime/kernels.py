@@ -58,6 +58,9 @@ KERNEL_PARAM_BYTES = 4096
 FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
 # copy_probe_launch's element types (CpType in copy_probe.cu)
 CP_U8, CP_F32, CP_U32 = 0, 1, 2
+# the largest K7 kernel side whose taps go as kernel parameters
+# (SW_MAX_K in swar_stencil.cu)
+SW_MAX_K = 7
 # planes per launch of T1 (PK_MAX_PLANES in packed_stream.cu)
 PK_MAX_PLANES = 3
 
@@ -116,6 +119,14 @@ class SwarDesc(ctypes.Structure):
         ("n_post", ctypes.c_int),
         ("table", ctypes.c_void_p),
     ]
+
+
+class SwarTaps(ctypes.Structure):
+    """K7's kernel as kernel parameters (swar_stencil.cu): the dense integer
+    weights, w[dy * (2 halo + 1) + dx], of a kernel of side at most
+    SW_MAX_K; unread for K6, K8 and larger kernels. 196 bytes."""
+
+    _fields_ = [("w", ctypes.c_int * (SW_MAX_K * SW_MAX_K))]
 
 
 class PkPlanes(ctypes.Structure):
@@ -242,17 +253,22 @@ def load(name: str) -> ctypes.CDLL:
         lib.fused_stage_smem_bytes.restype = ll
         lib.fused_stage_table_bytes.argtypes = [ci, ci]
         lib.fused_stage_table_bytes.restype = ll
-        lib.k5_sums_launch.argtypes = [vp, vp, ci, ci, ctypes.POINTER(StencilDesc), ci, ci, vp]
+        # ... rows, cols, the row pitch, the descriptor, second, arm, the stream
+        lib.k5_sums_launch.argtypes = [vp, vp, ci, ci, ci, ctypes.POINTER(StencilDesc), ci, ci, vp]
         lib.k5_sums_launch.restype = ci
     elif name == "swar_stencil":
+        # ... the descriptor, K7's taps, the tile's rows and columns, the
+        # device, the stream
         lib.swar_stencil_launch.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ci, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ctypes.POINTER(SwarTaps),
+            ci, ci, ci, vp,
         ]
         lib.swar_stencil_launch.restype = ci
-        lib.swar_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.swar_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
         lib.swar_smem_bytes.restype = ll
-        lib.swar_desc_bytes.argtypes = []
-        lib.swar_desc_bytes.restype = ll
+        for fn in ("swar_desc_bytes", "swar_taps_bytes"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ll
     elif name == "copy_probe":
         # the copies take the device index before the stream
         lib.copy_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]

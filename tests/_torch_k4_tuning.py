@@ -11,7 +11,7 @@ host time per call and events around calls back to back
 (``chip_smoke.split_ms``); every build is held against the plain version
 first.
 
-    python3 tests/_torch_k4_tuning.py [--quick] [--variant NAME=-DMACRO=V[,-DMACRO=V]]...
+    python3 tests/_torch_k4_tuning.py [--quick] [--cases K5,K4g] [--variant NAME=-DMACRO=V[,-DMACRO=V]]...
 
 for example ``--variant "3x3 at 6=-DFS_BLOCKS_3=6"``. Prints the card's name
 and power limit, the registers and spills each variant's ptxas reports,
@@ -65,6 +65,8 @@ def build_variant(kr, name, defines) -> ctypes.CDLL:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true", help="tile heights 16 and 32 only")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated name prefixes of the cases to time (default all)")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=FLAGS: a build of fused_stage.cu with the comma-separated "
                          "nvcc FLAGS (-DFS_BLOCKS_3=6,-DFS_BLOCKS_5=5); repeatable")
@@ -102,17 +104,23 @@ def main(argv=None) -> int:
         k4_cases.append((f"K4g {key} shard",
                          lambda t, ops=ops, ext=ext: ck.fused_stage_ext(ops, ext, tile_h=t, **kw),
                          lambda ops=ops, ext=ext: ck.fused_stage_ext_plain(ops, ext, **kw)))
-        arms = ck.stage_arms(ops, "on")
-        k4_cases.append((f"K5 int8 {key} 8K",
-                         lambda t, ops=ops, arms=arms: ck.fused_stage(ops, x8k, tile_h=t,
-                                                                      arms=arms),
-                         lambda ops=ops, arms=arms: ck.fused_stage_plain(ops, x8k, arms=arms)))
+        for setting, form in (("on", "int8"), ("f32", "bf16")):
+            arms = ck.stage_arms(ops, setting)
+            k4_cases.append((f"K5 {form} {key} 8K",
+                             lambda t, ops=ops, arms=arms: ck.fused_stage(ops, x8k, tile_h=t,
+                                                                          arms=arms),
+                             lambda ops=ops, arms=arms: ck.fused_stage_plain(ops, x8k,
+                                                                             arms=arms)))
     k1_cases = [("K1 gray2rgb 8K", lambda: ck.pointwise_group(g2r, gray),
                  lambda: ck.pointwise_group_plain(g2r, gray)),
                 ("K1 quantize:6 8K gray", lambda: ck.pointwise_group(q6, gray),
                  lambda: ck.pointwise_group_plain(q6, gray)),
                 ("K1 grayscale,contrast:3.5 8K", lambda: ck.pointwise_group(gc, x8k),
                  lambda: ck.pointwise_group_plain(gc, x8k))]
+    if args.cases is not None:
+        keep = tuple(args.cases.split(","))
+        k4_cases = [c for c in k4_cases if c[0].startswith(keep)]
+        k1_cases = [c for c in k1_cases if c[0].startswith(keep)]
     heights = (16, 32) if args.quick else (8, 16, 32, 48, 64)
     orig_load = kr.load
 

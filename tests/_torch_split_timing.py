@@ -19,9 +19,17 @@ its int8 and bf16 forms on the three 8K stages and int8 on the shard; K3
 on an overlap band of gaussian:5 ((6, 7680, 3) in), K3 on the reference
 path's emboss:3 over a gray (1082, 7680) tile, K2g on sharpen over a gray
 1080x7680 shard, K2 on the three 8K groups and on sharpen over the 8K gray
-plane, and T4's copies at block height 128. Then each 8K main path under
-``--plan off`` and ``--plan fused-pallas``: the median, least and most of
-seven readings (CUDA events back to back), the two plans taken in turn.
+plane, and T4's copies at block height 128; the SWAR kernels on the
+SWAR paths' groups: K6 narrow ([contrast:3.5, gaussian:5]) and wide
+(gaussian:7), K7 ([contrast:3.5, emboss:3], and sharpen over the blurred
+plane) and K8 (sobel) on the 8K gray plane, K6g narrow, K7g and K8g on one
+gray 1080x7680 shard. Then each 8K main path under ``--plan off`` and
+``--plan fused-pallas``: the median, least and most of seven readings (CUDA
+events back to back), the two plans taken in turn.
+
+    --cases K6,K7,K8   only the cases whose names start so (no path rows
+                       unless "path" is listed)
+
 Needs a card; builds the kernels of the tree at ``--root``.
 """
 
@@ -47,7 +55,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated name prefixes of the cases to time (default all)")
     args = ap.parse_args(argv)
+    keep = None if args.cases is None else tuple(args.cases.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -142,17 +153,62 @@ def main(argv=None) -> int:
     out8 = torch.empty_like(probe)
     cases.append(("T4 smem_copy [u8] block_h 128", lambda: rp.smem_copy(probe, 128),
                   lambda: out8.copy_(probe)))
+    cases += swar_cases(cs, x8k, kw)
+    if keep is not None:
+        cases = [c for c in cases if c[0].startswith(keep)]
     for name, fn, library in cases:
         row = {"case": name, "tree": args.label, **cs.split_ms(fn)}
         if library is not None:
             lib = cs.split_ms(library)
             row.update({f"library_{k}": v for k, v in lib.items()})
         print(json.dumps(row))
-    print(json.dumps({"case": "host parts of the K3 band call, us per call enqueued back to back",
-                      "tree": args.label, **host_parts(ck, st5, band)}))
-    for row in path_rows(cs, x8k):
-        print(json.dumps({"tree": args.label, **row}))
+    if keep is None:
+        print(json.dumps({"case": "host parts of the K3 band call, us per call enqueued back "
+                          "to back", "tree": args.label, **host_parts(ck, st5, band)}))
+    if keep is None or "path" in keep:
+        for row in path_rows(cs, x8k):
+            print(json.dumps({"tree": args.label, **row}))
     return 0
+
+
+def swar_cases(cs, x8k, kw) -> list:
+    """K6, K7 and K8 on the SWAR paths' groups (chip_smoke.phase3_swar's
+    rows): the 8K gray plane, and ghost mode on the middle shard, each
+    beside the convolution where the group is one lone stencil."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+
+    gray = Pipeline.parse("grayscale").jit("torch", device=x8k.device, plan="off")(x8k)
+    pre5 = cs.swar_case("gaussian:5", (("contrast:3.5",), ()))[1]
+    blurred = sk.swar_stencil(cs.swar_case("gaussian:5", ((), ()))[0], gray, pre_ops=pre5)
+    cases = []
+    for label, spec, chain, x, lib in (
+            ("K6 narrow", "gaussian:5", ("contrast:3.5",), gray, False),
+            ("K6 wide", "gaussian:7", (), gray, True),
+            ("K7", "emboss:3", ("contrast:3.5",), gray, False),
+            ("K7", "sharpen", (), blurred, True),
+            ("K8", "sobel", (), gray, False)):
+        st, pre = cs.swar_case(spec, (chain, ()))[:2]
+        names = ",".join(op.name for op in pre + (st,))
+        cases.append((f"{label} swar_stencil [{names}] 8K gray",
+                      lambda st=st, x=x, pre=pre: sk.swar_stencil(st, x, pre_ops=pre),
+                      cs.conv_library(st, x, pad_rows=True) if lib else None))
+    y0, local_h, H = kw["y0"], cs.MAIN_H // cs.N_SHARDS, cs.MAIN_H
+    for label, spec, chain, lib in (("K6g narrow", "gaussian:5", (), True),
+                                    ("K7g", "emboss:3", ("contrast:3.5",), False),
+                                    ("K8g", "sobel", (), False)):
+        st, pre = cs.swar_case(spec, (chain, ()))[:2]
+        tile, top, bottom = cs.gray_tile(gray, y0, local_h, st.halo, st)
+        gkw = dict(ghosts=(top, bottom), y0=y0, global_h=H)
+        names = ",".join(op.name for op in pre + (st,))
+        cases.append((f"{label} swar_stencil ghost [{names}] gray shard",
+                      lambda st=st, t=tile, pre=pre, gkw=gkw: sk.swar_stencil(st, t, pre_ops=pre,
+                                                                              **gkw),
+                      cs.conv_library(st, torch.cat([top, tile, bottom]), pad_rows=False)
+                      if lib else None))
+    return cases
 
 
 def path_rows(cs, x8k, rounds: int = 7) -> list[dict]:

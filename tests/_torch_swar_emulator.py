@@ -1,8 +1,16 @@
-"""A numpy replay of the SWAR kernels' algorithm (``ops/csrc/swar_stencil.cu``:
-K6 narrow and wide, K7, K8, full and ghost mode), tile by tile, for the
-port's tests: the same grid, the same window of pre-chained pair words, the
-same funnel shifts, per-halfword saturating arithmetic and quantizers, the
-same masked stores. ``uint32`` arrays wrap as the card's registers do."""
+"""A numpy replay of the SWAR kernels (``ops/csrc/swar_stencil.cu``: K6
+narrow and wide, K7, K8, full and ghost mode), block by block, for the
+port's tests: the same tile shape and shared-memory layout, the window
+loader's row sources (a row of zeros where the edge mode has none) and
+16-byte granules copied from made-up device addresses into a raw buffer
+that starts as garbage, the pair build of four words a thread (word reads
+and funnel shifts in blocks inside the image, the edge mode's source column
+per pixel in border blocks), K7's compile-time tap loops for sides up to 7
+(two 16-byte reads of a window row, the odd pairs as funnel shifts of
+registers, one multiply-add per tap by the signed weight, modulo 2^32) and
+the tap-table loops for the rest, the interior guard hoisted out of blocks
+inside the interior, and the stores of eight bytes a thread. ``uint32``
+arrays wrap as the card's registers do."""
 
 import numpy as np
 
@@ -10,6 +18,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
 
 _LO = np.uint32(0x00FF00FF)
 _ONES = np.uint32(0x00010001)
+_U32 = np.uint32
 
 
 def _halves(x):
@@ -38,18 +47,21 @@ def funnel16(lo, hi):
     return (np.asarray(lo, np.uint32) >> np.uint32(16)) | (np.asarray(hi, np.uint32) << np.uint32(16))
 
 
+def funnel(lo, hi, s):
+    """__funnelshift_r(lo, hi, s) for shifts s in 0..31 (arrays)."""
+    v = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
+    return ((v >> np.asarray(s, np.uint64)) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
 def chain_fields(f, steps):
+    """sw_chain_fields4: each step with its subtraction and addition (one of
+    them of 0) and its shift (maybe by 0) on every word."""
+    f = np.asarray(f, np.uint32)
     for neg, A, C, m in steps:
-        if neg:
-            f = _LO - f
-        t = f * np.uint32(A)
-        if C > 0:
-            t = vsubus2(t, np.uint32(C) * _ONES)
-        elif C < 0:
-            t = t + np.uint32(-C) * _ONES
-        if m:
-            t = (t >> np.uint32(m)) & (np.uint32(0xFFFF >> m) * _ONES)
-        f = vminu2(t, _LO)
+        x = _LO - f if neg else f
+        t = vsubus2(x * np.uint32(A), np.uint32(max(C, 0)) * _ONES)
+        t = t + np.uint32(max(-C, 0)) * _ONES
+        f = vminu2((t >> np.uint32(m)) & (np.uint32(0xFFFF >> m) * _ONES), _LO)
     return f
 
 
@@ -80,126 +92,243 @@ def _quantize(x, mode):
     return np.floor(np.clip(x, 0, 255)) if mode == "trunc_clip" else _rint_clip(x)
 
 
-def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=sk.DEFAULT_TILE_H,
-                 ghosts=None, y0=0, global_h=None):
+def _le_words(b):
+    """Little-endian 32-bit words of a (..., 4n) uint8 array: (..., n)."""
+    return np.ascontiguousarray(b).view("<u4").astype(np.uint32)
+
+
+class _Memory:
+    """An array at a made-up device address `addr`, with garbage bytes
+    around it: the 16-byte granules a row reads from below its first byte
+    and past its last are real reads of whatever lies there."""
+
+    def __init__(self, arr, addr, rng):
+        self.addr = addr
+        flat = np.asarray(arr, np.uint8).reshape(-1)
+        self.pad = 32 + (addr & 15)
+        self.buf = rng.integers(0, 256, flat.size + 2 * self.pad + 32, dtype=np.uint8)
+        self.buf[self.pad:self.pad + flat.size] = flat
+
+    def read(self, addr, n):
+        """`n` bytes from device address `addr` (at most 16 below the array
+        and what the granules reach past it)."""
+        i = addr - self.addr + self.pad
+        assert 0 <= i and i + n <= self.buf.size, (addr, n)
+        return self.buf[i:i + n]
+
+
+def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=None,
+                 ghosts=None, y0=0, global_h=None, addr=0, ghost_addrs=(4096, 8192), seed=0):
     """The kernel over a (H, W) u8 plane, block by block. Ghost mode when
-    `ghosts` = (top, bottom) is given. Every output byte must be written
-    exactly once; an unwritten one reads 0xFF... and fails the caller's
-    comparison, a twice-written one raises."""
+    `ghosts` = (top, bottom) is given. `tile_h` and `tile_w` default to the
+    host's choice (``swar_tile_shape``); `addr` and `ghost_addrs` are the
+    made-up device addresses of the plane and the strips, so that rows start
+    at any byte of a granule; the raw buffer and the bytes around the arrays
+    start as seeded garbage. Every output byte must be written exactly once;
+    an unwritten one reads 0xFF and fails the caller's comparison, a
+    twice-written one raises."""
     kind = sk.swar_kind(op)
     H, W = img.shape
     global_h = H if global_h is None else global_h
     h = op.halo
-    nw = sk.window_words(h)
+    desc, table = sk.swar_desc(op, pre_chain, post_chain)
+    if tile_h is None or tile_w is None:
+        rows_w = sk.swar_tile_shape(kind, h, H, W, tile_h, table.size)
+        tile_h, tile_w = rows_w if tile_w is None else (rows_w[0], tile_w)
+    assert tile_w in (64, 128, 256) and tile_h >= 1
+    lay = sk.swar_layout(kind, tile_h, h, table.size, tile_w)
+    WP, RP = lay["wp"], lay["rp"]
     eh = tile_h + 2 * h
-    P = sk.PAIRS
+    nq = tile_w // 8
+    P2 = tile_w // 2
+    ks = 2 * h + 1
     f32 = np.float32
     scale = f32(op.scale)
+    rng = np.random.default_rng(seed)
+    mem = _Memory(img, addr, rng)
+    if ghosts is not None:
+        mem_top, mem_bot = (_Memory(g, a, rng) for g, a in zip(ghosts, ghost_addrs))
     out = np.zeros((H, W), np.uint8)
     writes = np.zeros((H, W), np.int32)
-    img = np.asarray(img, np.uint8)
+    # the kernels' tap encodings: K6's 1-D taps; K7/K8's (word offset << 1 |
+    # parity, weight) from the table's (offset, weight)
+    n_chain = 4 * (len(pre_chain) + len(post_chain))
+    taps = [int(v) for v in table[n_chain:]]
+    enc = []
+    if not kind.startswith("K6"):
+        for t in range(0, len(taps), 2):
+            dy, dx = divmod(taps[t], ks)
+            enc.append((((dy * WP + (dx >> 1)) << 1) | (dx & 1), taps[t + 1]))
+    n0 = desc.n_taps[0]
     for by in range(0, H, tile_h):
-        for bx in range(0, W, sk.TILE_W):
-            # 1. window load
-            ty = by + np.arange(eh) - h
-            if ghosts is None:
-                sy = _src(ty, H, op.edge_mode)
-                rows = np.where(sy[:, None] >= 0, img[np.maximum(sy, 0)], 0)
-            else:
-                top, bottom = (np.asarray(g, np.uint8) for g in ghosts)
-                rows = np.stack([
-                    top[h + t] if t < 0 else bottom[min(t - H, h - 1)] if t >= H else img[t]
-                    for t in ty
-                ])
-            gx = bx - h + 2 * np.arange(nw)
-            s0, s1 = _src(gx, W, op.edge_mode), _src(gx + 1, W, op.edge_mode)
-            v0 = np.where(s0 >= 0, rows[:, np.maximum(s0, 0)], 0).astype(np.uint32)
-            v1 = np.where(s1 >= 0, rows[:, np.maximum(s1, 0)], 0).astype(np.uint32)
-            win = chain_fields(v0 | (v1 << np.uint32(16)), pre_chain)  # (eh, nw)
-
-            def pair(r0, dy, dx):
-                """Pair words at window rows r0 + dy, columns 2p + dx, for
-                every pair p of the tile: (rows, P)."""
-                wr = win[r0 + dy]
-                a = wr[..., dx // 2 : dx // 2 + P]
-                return funnel16(a, wr[..., dx // 2 + 1 : dx // 2 + 1 + P]) if dx % 2 else a
-
-            ly = np.arange(tile_h)
-            if kind.startswith("K6"):
-                taps, k = sk._taps_shift(op)
-                row = np.zeros((eh, P), np.uint32)
-                for t, w in enumerate(taps):
-                    row = row + pair(np.arange(eh), 0, t) * np.uint32(w)
-                if kind == "K6-narrow":
-                    s = np.zeros((tile_h, P), np.uint32)
-                    for t, w in enumerate(taps):
-                        s = s + row[ly + t] * np.uint32(w)
-                    half = np.uint32((1 << (k - 1)) - 1)
-                    b = (s >> np.uint32(k)) & _ONES
-                    q = ((s + ((half << np.uint32(16)) | half) + b) >> np.uint32(k)) & _LO
-                    q = chain_fields(q, post_chain)
-                    lanes = list(_halves(q))
-                else:
-                    lanes = []
-                    for lane in _halves(row):
-                        s = sum(int(w) * lane[ly + t].astype(np.int64) for t, w in enumerate(taps))
-                        qq = _rint_clip(s.astype(f32) * scale).astype(np.int64)
-                        lanes.append(chain_lane(qq, post_chain))
-            else:
-                kernels = [np.asarray(kk).astype(np.int64) for kk in op.kernels]
-                taps = [[(dy, dx, int(w[dy, dx])) for dy in range(2 * h + 1)
-                         for dx in range(2 * h + 1) if w[dy, dx]] for w in kernels]
-                if kind == "K7":
-                    pos = np.zeros((tile_h, P), np.uint32)
-                    neg = np.zeros((tile_h, P), np.uint32)
-                    for dy, dx, w in taps[0]:
-                        v = pair(ly, dy, dx)
-                        if w > 0:
-                            pos = pos + v * np.uint32(w)
-                        else:
-                            neg = neg + v * np.uint32(-w)
-                    bias = np.uint32(255 * sum(-w for _, _, w in taps[0] if w < 0)) * _ONES
-                    q = vminu2(vsubus2((bias + pos) - neg, bias), _LO)
-                    lanes = list(_halves(q))
-                else:
-                    accs = []
-                    for kt in taps[: 1 + (op.combine == "magnitude")]:
-                        acc = [np.zeros((tile_h, P), np.int64), np.zeros((tile_h, P), np.int64)]
-                        for dy, dx, w in kt:
-                            for f, lane in enumerate(_halves(pair(ly, dy, dx))):
-                                acc[f] = acc[f] + w * lane.astype(np.int64)
-                        accs.append(acc)
-                    lanes = []
-                    for f in range(2):
-                        a = accs[0][f].astype(f32)
-                        if op.combine == "magnitude":
-                            b = accs[1][f].astype(f32)
-                            a = np.sqrt((a * a + b * b).astype(np.float64)).astype(f32)
-                        if f32(op.scale) != f32(1.0):
-                            a = a * scale
-                        lanes.append(_quantize(a, op.quantize).astype(np.int64))
-                if op.edge_mode == "interior":
-                    centre = _halves(pair(ly, h, h))
-                    gy = (y0 + by + ly)[:, None]
-                    for f in range(2):
-                        gxx = (bx + 2 * np.arange(P) + f)[None, :]
-                        keep = (gxx > h) & (gxx <= W - 1 - h) & (gy > h) & (gy <= global_h - 1 - h)
-                        lanes[f] = np.where(keep, lanes[f], centre[f])
-                if kind == "K7":
-                    lanes = _halves(chain_fields(_join(*lanes), post_chain))
-                else:
-                    lanes = [chain_lane(np.asarray(x, np.int64), post_chain) for x in lanes]
-            # masked stores of both bytes of each pair
-            for f in range(2):
-                lane = np.asarray(lanes[f])
-                for r in range(tile_h):
-                    gy = by + r
-                    if gy >= H:
+        for bx in range(0, W, tile_w):
+            x0 = bx
+            border = x0 - h < 0 or x0 + tile_w + h > W
+            lo_c, hi_c = max(x0 - h, 0), min(x0 + tile_w + h, W)
+            seg = hi_c - lo_c
+            # 1. row sources and the raw window
+            raw = rng.integers(0, 256, (eh, RP), dtype=np.uint8)
+            shifts = np.zeros(eh, np.int64)
+            has = np.zeros(eh, bool)
+            for r in range(eh):
+                ty = by + r - h
+                if ghosts is None:
+                    sy = int(_src(ty, H, op.edge_mode))
+                    if sy < 0:
                         continue
-                    cols = bx + 2 * np.arange(P) + f
-                    ok = cols < W
-                    out[gy, cols[ok]] = lane[r][ok]
-                    writes[gy, cols[ok]] += 1
+                    m, a = mem, addr + sy * W
+                elif ty < 0:
+                    m, a = mem_top, ghost_addrs[0] + (h + ty) * W
+                elif ty >= H:
+                    m, a = mem_bot, ghost_addrs[1] + min(ty - H, h - 1) * W
+                else:
+                    m, a = mem, addr + ty * W
+                a += lo_c
+                shift = a & 15
+                granules = (shift + seg + 15) >> 4
+                assert 16 * granules <= RP
+                raw[r, :16 * granules] = m.read(a - shift, 16 * granules)
+                shifts[r], has[r] = shift, True
+            # 2. pair words, four a thread (group g: window pixels 8g .. 8g + 7)
+            gw = WP // 4
+            g = np.arange(gw)
+            win = np.zeros((eh, WP), np.uint32)
+            for r in range(eh):
+                if not has[r]:
+                    lo = hi = np.zeros(gw, np.uint32)
+                elif not border:
+                    b = shifts[r] + 8 * g
+                    words = _le_words(raw[r])
+                    w0, w1, w2 = (words[(b & ~3) // 4 + k] for k in range(3))
+                    s = 8 * (b & 3)
+                    lo, hi = funnel(w0, w1, s), funnel(w1, w2, s)
+                else:
+                    cx = x0 - h + 8 * g[:, None] + np.arange(8)[None, :]
+                    sx = _src(cx, W, op.edge_mode)
+                    idx = shifts[r] + np.clip(sx, lo_c, hi_c - 1) - lo_c
+                    v = np.where(sx < 0, 0, raw[r][idx]).astype(np.uint32)
+                    sh = np.uint32(8) * (np.arange(4, dtype=np.uint32))
+                    lo = (v[:, :4] << sh).sum(axis=1).astype(np.uint32)
+                    hi = (v[:, 4:] << sh).sum(axis=1).astype(np.uint32)
+                bytes_lo = [(lo >> _U32(8 * k)) & _U32(0xFF) for k in range(4)]
+                bytes_hi = [(hi >> _U32(8 * k)) & _U32(0xFF) for k in range(4)]
+                f = np.stack([bytes_lo[0] | bytes_lo[1] << _U32(16),
+                              bytes_lo[2] | bytes_lo[3] << _U32(16),
+                              bytes_hi[0] | bytes_hi[1] << _U32(16),
+                              bytes_hi[2] | bytes_hi[3] << _U32(16)], axis=1)
+                win[r] = chain_fields(f, pre_chain).reshape(-1)
+            flat = win.reshape(-1)
+            y_end, x_end = min(tile_h, H - by), min(tile_w, W - x0)
+            ly = np.arange(tile_h)[:, None, None]
+            q = np.arange(nq)[None, :, None]
+            j = np.arange(4)[None, None, :]
+            # 3. four output pairs a thread: (tile_h, nq, 4) pair words
+            if kind.startswith("K6"):
+                t1 = [int(v) for v in taps]
+                n = len(t1)
+                rowp = np.zeros((eh, P2), np.uint32)
+                for r in range(eh):
+                    p = np.arange(P2)
+                    a = win[r, p]
+                    acc = a * _U32(t1[0])
+                    for t in range(1, n, 2):
+                        b = win[r, p + (t + 1) // 2]
+                        acc = acc + funnel16(a, b) * _U32(t1[t]) + b * _U32(t1[t + 1])
+                        a = b
+                    rowp[r] = acc
+                cols = 4 * q + j
+                if kind == "K6-narrow":
+                    s = np.zeros((tile_h, nq, 4), np.uint32)
+                    for t in range(n):
+                        s = s + rowp[ly + t, cols] * _U32(t1[t])
+                    k = desc.shift
+                    half = _U32((1 << (k - 1)) - 1)
+                    b = (s >> _U32(k)) & _ONES
+                    res = ((s + ((half << _U32(16)) | half) + b) >> _U32(k)) & _LO
+                    res = chain_fields(res, post_chain)
+                else:
+                    lanes = []
+                    for lane in range(2):
+                        acc = np.zeros((tile_h, nq, 4), np.int64)
+                        for t in range(n):
+                            acc += t1[t] * _halves(rowp[ly + t, cols])[lane].astype(np.int64)
+                        qq = _rint_clip(acc.astype(f32) * scale).astype(np.int64)
+                        lanes.append(chain_lane(qq, post_chain))
+                    res = _join(*lanes)
+            else:
+                base = ly * WP + 4 * q
+                if kind == "K7" and ks <= sk.MAX_K:
+                    dense = np.asarray(op.kernels[0]).astype(np.int64).reshape(-1)
+                    bias2 = _U32(desc.bias) * _ONES
+                    acc = np.full((tile_h, nq, 4), bias2, np.uint32)
+                    cen = None
+                    for dy in range(ks):
+                        w = flat[(ly + dy) * WP + 4 * q + np.arange(8)[None, None, :]]
+                        o = funnel16(w[..., :3 + h], w[..., 1:4 + h])
+                        for dx in range(ks):
+                            wt = _U32(int(dense[dy * ks + dx]) & 0xFFFFFFFF)
+                            src = o if dx & 1 else w
+                            acc = acc + src[..., dx // 2:dx // 2 + 4] * wt
+                        if dy == h:
+                            cen = (o if h & 1 else w)[..., h // 2:h // 2 + 4]
+                    res = vminu2(vsubus2(acc, bias2), _LO)
+                else:
+                    c = base + h * WP + h // 2 + j
+                    cen = funnel16(flat[c], flat[c + 1]) if h & 1 else flat[c]
+
+                    def pair(o_enc):
+                        p = base + (o_enc >> 1) + j
+                        return funnel16(flat[p], flat[p + 1]) if o_enc & 1 else flat[p]
+
+                    if kind == "K7":
+                        bias2 = _U32(desc.bias) * _ONES
+                        acc = np.full((tile_h, nq, 4), bias2, np.uint32)
+                        for o_enc, wt in enc[:n0]:
+                            acc = acc + pair(o_enc) * _U32(wt & 0xFFFFFFFF)
+                        res = vminu2(vsubus2(acc, bias2), _LO)
+                    else:
+                        sums = []
+                        for kt in (enc[:n0], enc[n0:]):
+                            a = [np.zeros((tile_h, nq, 4), np.int64) for _ in range(2)]
+                            for o_enc, wt in kt:
+                                for lane, v in enumerate(_halves(pair(o_enc))):
+                                    a[lane] = a[lane] + wt * v.astype(np.int64)
+                            sums.append(a)
+                        lanes = []
+                        for lane in range(2):
+                            acc = sums[0][lane].astype(f32)
+                            if op.combine == "magnitude":
+                                b = sums[1][lane].astype(f32)
+                                acc = np.sqrt((acc * acc + b * b).astype(np.float64)).astype(f32)
+                            if scale != f32(1.0):
+                                acc = acc * scale
+                            lanes.append(_quantize(acc, op.quantize).astype(np.int64))
+                        res = _join(*lanes)
+                all_filtered = op.edge_mode != "interior" or (
+                    y0 + by > h and y0 + by + y_end - 1 <= global_h - 1 - h and x0 > h
+                    and x0 + x_end - 1 <= W - 1 - h)
+                if not all_filtered:
+                    gy = y0 + by + ly
+                    gx = x0 + 8 * q + 2 * j
+                    keep_lo = (gx > h) & (gx <= W - 1 - h) & (gy > h) & (gy <= global_h - 1 - h)
+                    keep_hi = (gx + 1 > h) & (gx + 1 <= W - 1 - h) & (gy > h) & (
+                        gy <= global_h - 1 - h)
+                    m = np.where(keep_lo, _U32(0xFFFF), _U32(0)) | np.where(
+                        keep_hi, _U32(0xFFFF0000), _U32(0))
+                    res = (res & m) | (cen & ~m)
+                if kind == "K7":
+                    res = chain_fields(res, post_chain)
+                else:
+                    res = _join(*(chain_lane(x.astype(np.int64), post_chain)
+                                  for x in _halves(res)))
+            # stores: eight bytes a thread, in pixel order, where the quad
+            # lies in the plane (n = min(8, x_end - 8q) of them)
+            lo, hi = _halves(res)
+            pix = np.stack([lo, hi], axis=-1).reshape(tile_h, nq * 8)
+            for r in range(y_end):
+                n_pix = min(x_end, nq * 8)
+                out[by + r, x0:x0 + n_pix] = pix[r, :n_pix]
+                writes[by + r, x0:x0 + n_pix] += 1
     if writes.max() > 1:
         raise AssertionError("an output byte was written twice")
     out[writes == 0] = 0xFF

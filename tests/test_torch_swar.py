@@ -360,32 +360,45 @@ def test_desc_layout_and_limits():
     d, table = sk.swar_desc(big)
     assert d.n_taps[0] == 529 and table.size == 1058
     assert sk.pick_tile_h("K8", 11, table_words=table.size) == sk.DEFAULT_TILE_H
+    # K7's taps go as kernel parameters beside the descriptor
+    assert ctypes.sizeof(kr.SwarTaps) == 4 * sk.MAX_K ** 2 == 196
 
 
 @pytest.mark.parametrize("kind,tile_h,halo", [("K6-narrow", 32, 2), ("K6-wide", 32, 3),
                                               ("K7", 32, 1), ("K8", 5, 2), ("K6-wide", 1, 4)])
 def test_shared_memory_and_grid(kind, tile_h, halo):
     eh = tile_h + 2 * halo
-    words = eh * (sk.PAIRS + halo) * 4
-    assert sk.swar_smem_bytes(kind, tile_h, halo) == words + (
-        eh * sk.PAIRS * 4 if kind.startswith("K6") else 0)
-    # the table ahead of the window, rounded up to 16 bytes
+    # the window's pitch: 64 pair words and the halo's rounded up to 4 (at
+    # least 4); the raw rows: granules and the pair build's over-read
+    wp = 64 + max(4, -(-halo // 4) * 4)
+    rp = -(-(2 * wp + 24) // 16) * 16
+    scratch = max(eh * rp, eh * 64 * 4 if kind.startswith("K6") else 0)
+    assert sk.window_pitch(128, halo) == wp and wp % 4 == 0 and wp >= sk.window_words(halo)
+    assert sk.raw_pitch(128, halo) == rp
+    assert sk.swar_smem_bytes(kind, tile_h, halo) == eh * 16 + eh * wp * 4 + scratch
+    # the table ahead of the row sources, rounded up to 16 bytes
     assert sk.swar_smem_bytes(kind, tile_h, halo, 9) == sk.swar_smem_bytes(kind, tile_h, halo) + 48
     assert sk.window_words(halo) == 64 + halo
     assert sk.swar_grid(4320, 7680, tile_h) == (60, -(-4320 // tile_h))
     assert sk.swar_grid(37, 200, tile_h) == (2, -(-37 // tile_h))
+    assert sk.swar_grid(37, 200, tile_h, 64) == (4, -(-37 // tile_h))
 
 
 def test_tile_height_choice():
     assert sk.pick_tile_h("K6-narrow", 2) == sk.DEFAULT_TILE_H
     assert sk.pick_tile_h("K7", 1, 7) == 7
-    assert sk.pick_tile_h("K6-wide", 63) == sk.DEFAULT_TILE_H  # box:127 fits
-    big = sk.pick_tile_h("K6-wide", 110)  # the default halved to fit
+    assert sk.pick_tile_h("K6-wide", 63) == sk.DEFAULT_TILE_H == 64  # box:127 fits
+    big = sk.pick_tile_h("K6-wide", 110, tile_w=64)  # the default halved to fit
     assert big < sk.DEFAULT_TILE_H
-    assert sk.swar_smem_bytes("K6-wide", big, 110) <= ck.MAX_SMEM_BYTES
-    assert sk.swar_smem_bytes("K6-wide", 2 * big, 110) > ck.MAX_SMEM_BYTES
+    assert sk.swar_smem_bytes("K6-wide", big, 110, tile_w=64) <= ck.MAX_SMEM_BYTES
+    assert sk.swar_smem_bytes("K6-wide", 2 * big, 110, tile_w=64) > ck.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="more shared memory"):
-        sk.pick_tile_h("K6-wide", 120)
+        sk.pick_tile_h("K6-wide", 110)  # not at 128 columns
+    assert sk.swar_tile_shape("K6-wide", 110, 4320, 7680) == (big, 64)
+    with pytest.raises(ValueError, match="more shared memory"):
+        sk.pick_tile_h("K6-wide", 125, tile_w=64)
+    with pytest.raises(ValueError, match="more shared memory"):
+        sk.swar_tile_shape("K6-wide", 125, 4320, 7680)
     with pytest.raises(ValueError, match="shared memory"):
         sk.pick_tile_h("K6-wide", 63, 512)
     with pytest.raises(ValueError, match=">= 1"):
@@ -614,7 +627,9 @@ def test_swar_layout_matches_source(cuda_device):
 
     lib = kr.load("swar_stencil")
     assert lib.swar_desc_bytes() == ctypes.sizeof(kr.SwarDesc)
+    assert lib.swar_taps_bytes() == ctypes.sizeof(kr.SwarTaps)
     for kind, code in sk.KINDS.items():
         for tile_h, halo, words in ((32, 2, 0), (5, 3, 9), (1, 63, 1058)):
-            assert lib.swar_smem_bytes(code, tile_h, halo, words) == sk.swar_smem_bytes(
-                kind, tile_h, halo, words)
+            for tile_w in sk.TILE_WIDTHS:
+                assert lib.swar_smem_bytes(code, tile_h, tile_w, halo, words) == \
+                    sk.swar_smem_bytes(kind, tile_h, halo, words, tile_w)
