@@ -195,6 +195,12 @@ SWAR_SPECS = {
     "gaussian7_gray": ("grayscale,gaussian:7", {"K1": 2, "K6-wide": 1}),
     "sobel_gray": ("grayscale,sobel", {"K1": 2, "K8": 1}),
     "gaussian5_8k": (SPECS["gaussian5_8k"], {"K2": 1}),  # colour: the whole group falls back
+    # the redesigned K6 and K8 forms on gray frames: bare narrow, wide on
+    # fields, K8 on fields with scharr's largest sums and on lanes
+    "gaussian5_gray": ("grayscale,gaussian:5", {"K1": 2, "K6-narrow": 1}),
+    "box5_gray": ("grayscale,box:5", {"K1": 2, "K6-wide": 1}),
+    "scharr_gray": ("grayscale,scharr", {"K1": 2, "K8": 1}),
+    "unsharp_gray": ("grayscale,unsharp", {"K1": 2, "K8": 1}),  # K8 on lanes, side 5
 }
 # the sharded SWAR paths on the 8K gray frame: pipeline -> ghost kernel
 SWAR_SHARDED = {"contrast:3.5,emboss:3": "K7g", "gaussian:5": "K6g-narrow", "sobel": "K8g"}
@@ -1363,6 +1369,9 @@ SWAR_WIDTHS = (76, 132, 196, 260, MAIN_W - 4)
 SWAR_K7_7X7 = "filter:" + "/".join(str((i * 7 % 11) - 5 if i % 3 == 0 else 0) for i in range(49))
 
 
+# K8 on i32 lanes at side 3 (sum|w| = 530, past a 16-bit field) and side 7
+SWAR_K8_LANES3 = "filter:100/-100/50/0/30/0/-50/100/-100:0.25"
+SWAR_K8_7X7 = "filter:" + "/".join(str((i * 5 % 13) - 6) for i in range(49)) + ":0.125"
 def swar_k7_9x9():
     """A 9x9 K7 (no registry spelling: sharpen's fields, a 9x9 kernel)."""
     import dataclasses
@@ -1377,16 +1386,47 @@ def swar_k7_9x9():
                                separable=None)
 
 
+def swar_custom_stencils() -> list:
+    """The SWAR forms no registry op reaches: K8 past side 7 (a scaled 9x9,
+    trunc_clip: the tap table), K8's magnitude of two 5x5 kernels (lanes),
+    K6 narrow past side 5 (S = 8 over 7 taps: the tap table), K6 wide on
+    i32 lanes at sides 3 and 5 (S = 32 and 40: 255 * S^2 >= 2^16)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+
+    w9 = swar_k7_9x9().kernels[0]
+    a5 = np.outer([1, 2, 0, -2, -1], [1, 4, 6, 4, 1]).astype(np.float32)
+    return [
+        dataclasses.replace(make_op("sobel"), name="k8_9x9", halo=4, kernels=(w9,),
+                            combine="single", scale=0.25, quantize="trunc_clip"),
+        dataclasses.replace(make_op("sobel"), name="k8_mag5", halo=2, kernels=(a5, a5.T.copy())),
+        dataclasses.replace(make_op("gaussian:5"), name="k6n_7", halo=3,
+                            kernels=(np.ones((7, 7), np.float32),),
+                            separable=np.array([1, 1, 1, 2, 1, 1, 1], np.float32),
+                            scale=1.0 / 64),
+    ] + [dataclasses.replace(make_op(f"gaussian:{len(t)}"), name=f"k6w_{len(t)}",
+                             kernels=(np.outer(t, t),), separable=t, scale=1.0 / float(t.sum()) ** 2)
+         for t in (np.array([1, 30, 1], np.float32), np.array([1, 4, 30, 4, 1], np.float32))]
+
+
 def phase1_swar_redesign(device) -> int:
     """The redesigned K6, K7 and K8 (the window loader's row sources and
-    granules, the four-word pair build, K7's compile-time tap loops and
-    tap table, the hoisted guard, eight-byte stores) against their plain
-    versions: every SWAR stencil, K7 at 7x7 and 9x9, in every edge mode the
-    kernel takes, at widths that are no multiple of 8 or 128, with rows at
-    every start byte 0..15 (`unaligned`) on one width and two on the rest,
-    under the picker's tile and a 7-row one; ghost mode at row0 at the
-    image's top, middle and bottom on those widths. Returns the case
-    count."""
+    granules, the four-word pair build, the compile-time tap loops of K6,
+    K7 and K8 and their tap tables, K8 on biased fields and on lanes, K6's
+    wide column pass on fields and on lanes, the hoisted guard, eight-byte
+    stores) against their plain versions: every SWAR stencil, K7 at 7x7 and
+    9x9, box:7, box:17 (past K6's field limit), K6 wide on lanes at sides 3
+    and 5, K8 on lanes at sides 3 and 7, a 9x9 K8, K8's magnitude at side 5
+    and a 7-tap narrow K6, in every edge mode the kernel takes, at widths
+    that are no multiple of 8 or 128, with rows at every start byte 0..15
+    (`unaligned`) on one width and two on the rest, under the picker's tile
+    and a 7-row one; ghost mode at row0 at the image's top, middle and
+    bottom on those widths. Every instantiation of the dispatch
+    (swar_kernels.SWAR_INSTANCES), as the descriptor of the wrapper's group
+    selects it, is reached in both modes. Returns the case count."""
     import dataclasses
 
     import torch
@@ -1396,7 +1436,10 @@ def phase1_swar_redesign(device) -> int:
     from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
 
     n = n_ghost = 0
-    stencils = [make_op(s) for s in SWAR_STENCILS + [SWAR_K7_7X7]] + [swar_k7_9x9()]
+    extra = [SWAR_K7_7X7, "box:7", "box:17", SWAR_K8_LANES3, SWAR_K8_7X7]
+    stencils = ([make_op(s) for s in SWAR_STENCILS + extra] + [swar_k7_9x9()]
+                + swar_custom_stencils())
+    reached = {"full": set(), "ghost": set()}
     pre = (make_op("contrast:3.5"),)
     pc = tuple(map(sk.swar_fusable, pre))
     for base in stencils:
@@ -1416,6 +1459,7 @@ def phase1_swar_redesign(device) -> int:
                                     f"tile_h={bh}", sk.swar_stencil(st, xo, pre_ops=pre,
                                                                     block_h=bh), want)
                         n += 1
+                reached["full"].add(sk.swar_instance(sk.swar_group(st, pre).desc))
                 if mode != base.edge_mode:
                     continue
                 img = torch.from_numpy(synthetic_image(72, w, channels=1, seed=w + 1)).to(device)
@@ -1428,10 +1472,16 @@ def phase1_swar_redesign(device) -> int:
                                 sk.swar_stencil(st, unaligned(tile, 1), pre_ops=pre, **gkw),
                                 want)
                     n_ghost += 1
+                reached["ghost"].add(sk.swar_instance(sk.swar_group(st, pre).desc))
+    for mode, got in reached.items():
+        if got != sk.SWAR_INSTANCES:
+            raise AssertionError(f"{mode} mode reached {sorted(got)}, not every instantiation "
+                                 f"{sorted(sk.SWAR_INSTANCES)}")
     torch.cuda.synchronize()
     print(f"phase 1: the redesigned K6, K7, K8 equal to their plain versions in {n} full-mode "
           f"cases (every edge mode, widths {SWAR_WIDTHS}, start bytes 0..15) and {n_ghost} "
-          "ghost-mode cases (max_abs_err 0)")
+          f"ghost-mode cases (max_abs_err 0); all {len(sk.SWAR_INSTANCES)} instantiations reached "
+          "in both modes")
     return n + n_ghost
 
 
@@ -1558,14 +1608,17 @@ def phase3_swar(device, x8k, gray8k, swar_launches, record):
     """K6, K7 and K8 at the SWAR paths' shapes (the 8K gray plane; ghost
     mode on a middle 1080x7680 shard), each held against its plain version,
     with K2 (K2g) on the same group and plane, the route `--impl cuda`
-    takes, timed beside it; then the SWAR paths end to end beside `--impl
-    cuda`. `record` appends the kernels' rows."""
+    takes, timed beside it, and each 8K row at every tile height the picker
+    chooses from; K6 narrow on the bare gaussian:5 also beside T3; then the
+    SWAR paths end to end beside `--impl cuda`. `record` appends the
+    kernels' rows."""
     import torch
 
     from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
     from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
     from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
     local_h = MAIN_H // N_SHARDS
@@ -1577,10 +1630,14 @@ def phase3_swar(device, x8k, gray8k, swar_launches, record):
     groups = [
         ("K6 narrow", "gaussian:5", (("contrast:3.5",), ()), gray8k, ("megakernel_ab", "K6-narrow"),
          False),
+        ("K6 narrow", "gaussian:5", ((), ()), gray8k, ("gaussian5_gray", "K6-narrow"), True),
         ("K6 wide", "gaussian:7", ((), ()), gray8k, ("gaussian7_gray", "K6-wide"), True),
+        ("K6 wide", "box:5", ((), ()), gray8k, ("box5_gray", "K6-wide"), True),
         ("K7", "emboss:3", (("contrast:3.5",), ()), gray8k, ("reference", "K7"), False),
         ("K7", "sharpen", ((), ()), blurred, ("megakernel_ab", "K7"), True),
         ("K8", "sobel", ((), ()), gray8k, ("sobel_gray", "K8"), False),
+        ("K8", "scharr", ((), ()), gray8k, ("scharr_gray", "K8"), False),
+        ("K8", "unsharp", ((), ()), gray8k, ("unsharp_gray", "K8"), True),
     ]
     for label, spec, chain, x, (key, count), lib in groups:
         st, pre, post, pc, qc = swar_case(spec, chain)
@@ -1597,6 +1654,14 @@ def phase3_swar(device, x8k, gray8k, swar_launches, record):
                               reps=7)
         print(f"  K2 on the same group and plane (the --impl cuda route) in this run: "
               f"{t_k2:.4f} ms")
+        if spec == "gaussian:5" and not pre:
+            # T3, the SWAR 5x5 prototype, on the same plane (bh 240): device
+            # time of the kernel alone, beside K6's
+            ext = sp.pack_quarters(sp.reflect_pad(x))
+            print(f"  T3 on the same plane (quarter-strip words, bh 240), device: "
+                  f"{padded_device_ms(lambda: sp.swar_proto(ext, 240)):.4f} ms, K6 narrow "
+                  f"{padded_device_ms(lambda st=st, x=x: sk.swar_stencil(st, x)):.4f} ms")
+            del ext
         # the tile heights the picker chooses from (swar_kernels.TILE_ROWS)
         t_rows = {rows: padded_device_ms(lambda rows=rows, st=st, x=x, pre=pre: sk.swar_stencil(
             st, x, pre_ops=pre, block_h=rows)) for rows in sk.TILE_ROWS}
@@ -2720,6 +2785,20 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
                   f"{enqueue['overlap']:.4f} ms; serial launches {used}")
 
 
+def ptxas_summary(name: str, lines: list[str]) -> str:
+    """One line of a source's `-Xptxas -v` report: its kernel
+    instantiations, the most registers one uses and the spilled bytes
+    (stores and loads) of all of them."""
+    import re
+
+    entries = sum("Compiling entry function" in line for line in lines)
+    regs = [int(m) for line in lines for m in re.findall(r"Used (\d+) registers", line)]
+    spills = [int(a) + int(b) for line in lines
+              for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)]
+    return (f"ptxas {name}: {entries} kernel instantiations, at most {max(regs, default=0)} "
+            f"registers, {sum(spills)} bytes spilled in all")
+
+
 def main() -> int:
     import torch
 
@@ -2742,9 +2821,11 @@ def main() -> int:
     print(f"build: {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
+        lines = log.read_text().splitlines() if log.exists() else []
+        for line in lines:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+        print(ptxas_summary(name, lines))
 
     phase1(device)
     phase1_k5(device)

@@ -11,15 +11,21 @@ cover the correlation class:
   taps summing to 2 <= S <= 128, scale 1/S^2, round-half-even; the binomial
   Gaussians and the odd box filters). Narrow mode (S a power of two <= 16)
   keeps both passes on 16-bit fields and normalises by a shift; wide mode
-  runs its column pass on one pixel per 32-bit lane and replays the golden
+  runs its column pass on fields where 255 * S^2 < 2^16 (the box filters up
+  to box:15), else on one pixel per 32-bit lane, and replays the golden
   float32 multiply and rounding on the exact integer sums.
 * K7, the signed 2-D correlation over biased fields
   (``swar_corr2d_eligible``: scale 1, sum|w| <= 128; the emboss family with
   its interior guard, sharpen, the laplacians).
-* K8, the rest of the correlation class on 32-bit lanes
+* K8, the rest of the correlation class with exact signed sums
   (``swar_corr2d_wide_eligible``: 255 * sum|w| < 2^24, any scale, one kernel
   or a magnitude of two, either quantizer; sobel, prewitt, scharr, unsharp,
-  integer custom filters).
+  integer custom filters): on biased 16-bit fields where they fit (3x3:
+  sobel, scharr, prewitt), else on 32-bit lanes.
+
+Kernels of side 3, 5 and 7 take their taps as kernel parameters
+(``swar_taps``) in instantiations of their own (``swar_instance``,
+``SWAR_INSTANCES``); larger ones read a tap table.
 
 An elementwise u8 op is its 256-entry table: ``swar_fusable`` fits that
 table (``PointwiseOp.lut_host``) to ``min(max(A*x - C, 0) >> m, 255)`` with
@@ -73,8 +79,11 @@ TILE_WIDTHS = (128, 64)
 TILE_W = TILE_WIDTHS[0]
 TILE_ROWS = (64, 32, 16, 8)
 DEFAULT_TILE_H = 64
-# the largest K7 kernel side with its taps as kernel parameters (SW_MAX_K)
+# the largest kernel side with its taps as kernel parameters (SW_MAX_K)
 MAX_K = kr.SW_MAX_K
+# a 16-bit field holds sums below FIELD_LIMIT (K6 wide's column pass, K8's
+# biased sums)
+FIELD_LIMIT = 1 << 16
 # Kernel kinds (SwKind in the source) and their launch-count keys
 KINDS = {"K6-narrow": 0, "K6-wide": 1, "K7": 2, "K8": 3}
 _GHOST_KEYS = {"K6-narrow": "K6g-narrow", "K6-wide": "K6g-wide", "K7": "K7g", "K8": "K8g"}
@@ -366,6 +375,7 @@ def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> tuple[kr.SwarDesc, 
         flat = list(taps)
         d.shift = k
         d.n_taps[0] = len(taps)
+        d.fields = int(kind == "K6-wide" and 255 * sum(taps) ** 2 < FIELD_LIMIT)
     else:
         flat = []
         for j, w in enumerate(op.kernels):
@@ -374,17 +384,78 @@ def swar_desc(op: StencilOp, pre_chain=(), post_chain=()) -> tuple[kr.SwarDesc, 
             flat += [x for pair in nz for x in pair]
         if kind == "K7":
             d.bias = 255 * sum(-w for row in _corr2d_weights(op) for w in row if w < 0)
+        else:
+            bias = _k8_field_bias(op)
+            if bias is not None:
+                d.bias, d.fields = bias, 1
     return d, np.asarray(chain + flat, dtype=np.int32)
 
 
+def _k8_field_bias(op: StencilOp) -> int | None:
+    """K8's common field bias, 255 * the largest sum|w < 0| of its kernels,
+    where every kernel's biased sums, bias + sum(w * x) for u8 x, lie in
+    [0, FIELD_LIMIT); else None (the sums run on i32 lanes)."""
+    ws = [np.asarray(k).astype(np.int64) for k in op.kernels]
+    bias = 255 * max(int(-np.minimum(w, 0).sum()) for w in ws)
+    if all(bias + 255 * int(np.maximum(w, 0).sum()) < FIELD_LIMIT for w in ws):
+        return bias
+    return None
+
+
+# The kernel sides with instantiations of their own, per kind, and K8's
+# sides on 16-bit fields (sw_dispatch in the source; side 0, the tap table,
+# takes the rest).
+DISPATCH_SIDES = {"K6-narrow": (3, 5), "K6-wide": (3, 5, 7), "K7": (3, 5, 7), "K8": (3, 5, 7)}
+K8_FIELD_SIDES = (3,)
+
+
+def _forms(kind: str, side: int) -> tuple[str, ...]:
+    """Where an instantiation sums: both forms where ``SwarDesc.fields``
+    picks one (K6 wide's column-pass arms; K8 at a field side), else its
+    only one."""
+    if kind == "K6-wide" or (kind == "K8" and side in K8_FIELD_SIDES):
+        return ("fields", "lanes")
+    return ("lanes",) if kind == "K8" else ("fields",)
+
+
+def swar_instance(d: kr.SwarDesc) -> tuple[str, int, str]:
+    """The kernel instantiation sw_dispatch launches for descriptor `d`,
+    from what it reads there (kind, halo, fields): the kind, the side of
+    its compile-time tap loops (0: the tap table) and where it sums,
+    'fields' (16-bit fields, two pixels a word) or 'lanes' (one pixel per
+    i32 lane)."""
+    kind = next(k for k, v in KINDS.items() if v == d.kind)
+    ks = 2 * d.halo + 1
+    side = ks if ks in DISPATCH_SIDES[kind] else 0
+    forms = _forms(kind, side)
+    return kind, side, forms[0] if d.fields or len(forms) == 1 else forms[1]
+
+
+# every (kind, side, form) that sw_dispatch launches
+SWAR_INSTANCES = frozenset(
+    (kind, side, form)
+    for kind, sides in DISPATCH_SIDES.items()
+    for side in (*sides, 0)
+    for form in _forms(kind, side)
+)
+
+
 def swar_taps(op: StencilOp) -> kr.SwarTaps:
-    """K7's dense kernel as the kernel parameters of its compile-time tap
-    loops (SwarTaps): w[dy * (2 halo + 1) + dx] for a side of at most
-    MAX_K; zeros for K6, K8 and larger kernels, which read the table."""
+    """The dense taps as the kernel parameters of the compile-time tap loops
+    (SwarTaps) for a side of at most MAX_K: K6's 1-D taps at w[t]; K7's
+    kernel and K8's first at w[dy * (2 halo + 1) + dx], K8's second at
+    w[MAX_K^2 + dy * (2 halo + 1) + dx]. Zeros for larger kernels, which
+    read the table."""
     taps = kr.SwarTaps()
     ks = 2 * op.halo + 1
-    if swar_kind(op) == "K7" and ks <= MAX_K:
-        taps.w[: ks * ks] = [int(v) for v in np.asarray(op.kernels[0]).reshape(-1)]
+    if ks > MAX_K:
+        return taps
+    if swar_kind(op).startswith("K6"):
+        taps.w[:ks] = list(_taps_shift(op)[0])
+        return taps
+    for k, w in enumerate(op.kernels):
+        at = k * MAX_K * MAX_K
+        taps.w[at:at + ks * ks] = [int(v) for v in np.asarray(w).reshape(-1)]
     return taps
 
 
@@ -504,7 +575,7 @@ def swar_tile_shape(kind: str, halo: int, height: int, width: int, block_h: int 
 class SwarGroup:
     """One ``[pre*, stencil, post*]`` group as the SWAR kernels take it,
     built once (``swar_group``): its kind, fitted chains, descriptor and
-    int32 table, K7's taps, and per card the descriptor pointing at the
+    int32 table, dense taps, and per card the descriptor pointing at the
     table's copy there."""
 
     def __init__(self, op: StencilOp, pre_ops: tuple, post_ops: tuple):

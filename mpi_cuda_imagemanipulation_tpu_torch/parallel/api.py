@@ -94,11 +94,11 @@ HALO_MODES = ("serial", "overlap")
 BACKENDS = ("torch", "cuda", "mxu", "swar", "auto")
 _GLOBAL_NOT_PORTED = (
     "global-statistics ops (equalize, autocontrast, otsu) and their sharded "
-    "all-reduce are not ported yet (ROADMAP.md, modules to port, item 5)"
+    "all-reduce are not ported yet (ROADMAP.md, modules to port: rest of the registry)"
 )
 _GEOMETRIC_NOT_PORTED = (
     "geometric ops and the resharding between their segments are not ported "
-    "yet (ROADMAP.md, modules to port, item 5)"
+    "yet (ROADMAP.md, modules to port: rest of the registry)"
 )
 
 

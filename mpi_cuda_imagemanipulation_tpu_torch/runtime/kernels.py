@@ -58,7 +58,7 @@ KERNEL_PARAM_BYTES = 4096
 FS_ARM_VPU, FS_ARM_BF16, FS_ARM_INT8 = 0, 1, 2
 # copy_probe_launch's element types (CpType in copy_probe.cu)
 CP_U8, CP_F32, CP_U32 = 0, 1, 2
-# the largest K7 kernel side whose taps go as kernel parameters
+# the largest SWAR kernel side whose taps go as kernel parameters
 # (SW_MAX_K in swar_stencil.cu)
 SW_MAX_K = 7
 # planes per launch of T1 (PK_MAX_PLANES in packed_stream.cu)
@@ -102,7 +102,10 @@ class SwarDesc(ctypes.Structure):
     ``table`` points at int32 device memory: the ``n_pre`` pre-chain steps,
     then the ``n_post`` post-chain steps, each (neg, A, C, m); then K6's 1-D
     taps, or K7's and K8's nonzero taps as (dy * (2 halo + 1) + dx, weight)
-    pairs, kernel 0 first. 64 bytes."""
+    pairs, kernel 0 first. ``bias`` is K7's 255 * sum|w < 0|, or K8's
+    common field bias where ``fields`` is set (each kernel's biased sums fit
+    a 16-bit field); for K6 wide ``fields`` says 255 * S^2 < 2^16. 64
+    bytes."""
 
     _fields_ = [
         ("kind", ctypes.c_int),
@@ -114,6 +117,7 @@ class SwarDesc(ctypes.Structure):
         ("scale", ctypes.c_float),
         ("shift", ctypes.c_int),
         ("bias", ctypes.c_int),
+        ("fields", ctypes.c_int),
         ("n_taps", ctypes.c_int * 2),
         ("n_pre", ctypes.c_int),
         ("n_post", ctypes.c_int),
@@ -122,11 +126,14 @@ class SwarDesc(ctypes.Structure):
 
 
 class SwarTaps(ctypes.Structure):
-    """K7's kernel as kernel parameters (swar_stencil.cu): the dense integer
-    weights, w[dy * (2 halo + 1) + dx], of a kernel of side at most
-    SW_MAX_K; unread for K6, K8 and larger kernels. 196 bytes."""
+    """The taps of a SWAR kernel of side KS <= SW_MAX_K as kernel parameters
+    (swar_stencil.cu), dense integers: K6's 1-D taps at w[t]; K7's kernel
+    and K8's first at w[dy * KS + dx], K8's second at w[SW_MAX_K^2 + dy *
+    KS + dx]; unread for larger kernels, which read the table. 392
+    bytes; each kind's kernel takes the leading ints it reads (K6 7, K7 49,
+    K8 98)."""
 
-    _fields_ = [("w", ctypes.c_int * (SW_MAX_K * SW_MAX_K))]
+    _fields_ = [("w", ctypes.c_int * (2 * SW_MAX_K * SW_MAX_K))]
 
 
 class PkPlanes(ctypes.Structure):
@@ -257,7 +264,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.k5_sums_launch.argtypes = [vp, vp, ci, ci, ci, ctypes.POINTER(StencilDesc), ci, ci, vp]
         lib.k5_sums_launch.restype = ci
     elif name == "swar_stencil":
-        # ... the descriptor, K7's taps, the tile's rows and columns, the
+        # ... the descriptor, the dense taps, the tile's rows and columns, the
         # device, the stream
         lib.swar_stencil_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ctypes.POINTER(SwarTaps),

@@ -20,15 +20,17 @@ on an overlap band of gaussian:5 ((6, 7680, 3) in), K3 on the reference
 path's emboss:3 over a gray (1082, 7680) tile, K2g on sharpen over a gray
 1080x7680 shard, K2 on the three 8K groups and on sharpen over the 8K gray
 plane, and T4's copies at block height 128; the SWAR kernels on the
-SWAR paths' groups: K6 narrow ([contrast:3.5, gaussian:5]) and wide
-(gaussian:7), K7 ([contrast:3.5, emboss:3], and sharpen over the blurred
-plane) and K8 (sobel) on the 8K gray plane, K6g narrow, K7g and K8g on one
-gray 1080x7680 shard. Then each 8K main path under ``--plan off`` and
-``--plan fused-pallas``: the median, least and most of seven readings (CUDA
-events back to back), the two plans taken in turn.
+SWAR paths' groups: K6 narrow ([contrast:3.5, gaussian:5], and the bare
+gaussian:5 beside T3) and wide (gaussian:7, box:5), K7 ([contrast:3.5,
+emboss:3], and sharpen over the blurred plane) and K8 (sobel, scharr,
+unsharp) on the 8K gray plane, K6g narrow, K7g and K8g on one gray
+1080x7680 shard. Then each 8K main path under ``--plan off`` and ``--plan
+fused-pallas``: the median, least and most of seven readings (CUDA events
+back to back), the two plans taken in turn.
 
-    --cases K6,K7,K8   only the cases whose names start so (no path rows
-                       unless "path" is listed)
+    --cases K6,K8,T3   only the cases whose names start so (no path rows
+                       unless "path" is listed; the --impl swar paths, 8K
+                       and sharded, where "swar-path" is)
 
 Needs a card; builds the kernels of the tree at ``--root``.
 """
@@ -168,12 +170,16 @@ def main(argv=None) -> int:
     if keep is None or "path" in keep:
         for row in path_rows(cs, x8k):
             print(json.dumps({"tree": args.label, **row}))
+    if keep is None or "swar-path" in keep:
+        for row in swar_path_rows(cs, x8k):
+            print(json.dumps({"tree": args.label, **row}))
     return 0
 
 
-def swar_cases(cs, x8k, kw) -> list:
-    """K6, K7 and K8 on the SWAR paths' groups (chip_smoke.phase3_swar's
-    rows): the 8K gray plane, and ghost mode on the middle shard, each
+def swar_groups(cs, x8k, kw) -> list:
+    """The SWAR paths' groups (chip_smoke.phase3_swar's rows), each as
+    (name, stencil op, plane, pre ops, ghost keywords, library call or
+    None): the 8K gray plane, and ghost mode on the middle shard, each
     beside the convolution where the group is one lone stencil."""
     import torch
 
@@ -183,31 +189,48 @@ def swar_cases(cs, x8k, kw) -> list:
     gray = Pipeline.parse("grayscale").jit("torch", device=x8k.device, plan="off")(x8k)
     pre5 = cs.swar_case("gaussian:5", (("contrast:3.5",), ()))[1]
     blurred = sk.swar_stencil(cs.swar_case("gaussian:5", ((), ()))[0], gray, pre_ops=pre5)
-    cases = []
+    groups = []
     for label, spec, chain, x, lib in (
             ("K6 narrow", "gaussian:5", ("contrast:3.5",), gray, False),
+            ("K6 narrow", "gaussian:5", (), gray, True),
             ("K6 wide", "gaussian:7", (), gray, True),
+            ("K6 wide", "box:5", (), gray, True),
             ("K7", "emboss:3", ("contrast:3.5",), gray, False),
             ("K7", "sharpen", (), blurred, True),
-            ("K8", "sobel", (), gray, False)):
+            ("K8", "sobel", (), gray, False),
+            ("K8", "scharr", (), gray, False),
+            ("K8", "unsharp", (), gray, True)):
         st, pre = cs.swar_case(spec, (chain, ()))[:2]
         names = ",".join(op.name for op in pre + (st,))
-        cases.append((f"{label} swar_stencil [{names}] 8K gray",
-                      lambda st=st, x=x, pre=pre: sk.swar_stencil(st, x, pre_ops=pre),
-                      cs.conv_library(st, x, pad_rows=True) if lib else None))
+        groups.append((f"{label} swar_stencil [{names}] 8K gray", st, x, pre, {},
+                       cs.conv_library(st, x, pad_rows=True) if lib else None))
     y0, local_h, H = kw["y0"], cs.MAIN_H // cs.N_SHARDS, cs.MAIN_H
     for label, spec, chain, lib in (("K6g narrow", "gaussian:5", (), True),
                                     ("K7g", "emboss:3", ("contrast:3.5",), False),
                                     ("K8g", "sobel", (), False)):
         st, pre = cs.swar_case(spec, (chain, ()))[:2]
         tile, top, bottom = cs.gray_tile(gray, y0, local_h, st.halo, st)
-        gkw = dict(ghosts=(top, bottom), y0=y0, global_h=H)
         names = ",".join(op.name for op in pre + (st,))
-        cases.append((f"{label} swar_stencil ghost [{names}] gray shard",
-                      lambda st=st, t=tile, pre=pre, gkw=gkw: sk.swar_stencil(st, t, pre_ops=pre,
-                                                                              **gkw),
-                      cs.conv_library(st, torch.cat([top, tile, bottom]), pad_rows=False)
-                      if lib else None))
+        groups.append((f"{label} swar_stencil ghost [{names}] gray shard", st, tile, pre,
+                       dict(ghosts=(top, bottom), y0=y0, global_h=H),
+                       cs.conv_library(st, torch.cat([top, tile, bottom]), pad_rows=False)
+                       if lib else None))
+    return groups
+
+
+def swar_cases(cs, x8k, kw) -> list:
+    """K6, K7 and K8 on the SWAR paths' groups (`swar_groups`), and T3, the
+    SWAR 5x5 prototype, on the same 8K gray plane (bh 240)."""
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
+
+    cases = [(name, lambda st=st, x=x, pre=pre, g=g: sk.swar_stencil(st, x, pre_ops=pre, **g),
+              lib) for name, st, x, pre, g, lib in swar_groups(cs, x8k, kw)]
+    gray = Pipeline.parse("grayscale").jit("torch", device=x8k.device, plan="off")(x8k)
+    ext = sp.pack_quarters(sp.reflect_pad(gray))
+    cases.append(("T3 swar_proto [gaussian5] quarter-strip words 8K gray, bh 240",
+                  lambda: sp.swar_proto(ext, 240), None))
     return cases
 
 
@@ -233,6 +256,32 @@ def path_rows(cs, x8k, rounds: int = 7) -> list[dict]:
         rows += [{"case": f"path {key} plan={plan}", "median_ms": statistics.median(v),
                   "min_ms": min(v), "max_ms": max(v)} for plan, v in ms.items()]
     return rows
+
+
+def swar_path_rows(cs, x8k, rounds: int = 7) -> list[dict]:
+    """The `--impl swar` paths (chip_smoke.SWAR_SPECS, the 8K RGB frame),
+    then the sharded SWAR paths (chip_smoke.SWAR_SHARDED, the 8K gray frame
+    over the 4-slot mesh, serial): `rounds` readings of ``device_time_ms``
+    each, the paths taken in turn; their median, least and most."""
+    import statistics
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    gray = Pipeline.parse("grayscale").jit("torch", device=x8k.device, plan="off")(x8k)
+    mesh = cs.sharded_mesh()
+    calls = {f"swar path {key}": (image_runner(Pipeline.parse(spec), impl="swar",
+                                               device=x8k.device, plan="off"), x8k)
+             for key, (spec, _) in cs.SWAR_SPECS.items()}
+    calls.update({f"swar sharded path [{spec}] gray": (Pipeline.parse(spec).sharded(
+        mesh, backend="swar"), gray) for spec in cs.SWAR_SHARDED})
+    ms = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, (fn, x) in calls.items():
+            ms[name].append(device_time_ms(lambda fn=fn, x=x: fn(x), reps=5, inner=3))
+    return [{"case": name, "median_ms": statistics.median(v), "min_ms": min(v), "max_ms": max(v)}
+            for name, v in ms.items()]
 
 
 def host_parts(ck, stencil, band, calls: int = 2000) -> dict:

@@ -5,12 +5,15 @@ loader's row sources (a row of zeros where the edge mode has none) and
 16-byte granules copied from made-up device addresses into a raw buffer
 that starts as garbage, the pair build of four words a thread (word reads
 and funnel shifts in blocks inside the image, the edge mode's source column
-per pixel in border blocks), K7's compile-time tap loops for sides up to 7
-(two 16-byte reads of a window row, the odd pairs as funnel shifts of
-registers, one multiply-add per tap by the signed weight, modulo 2^32) and
-the tap-table loops for the rest, the interior guard hoisted out of blocks
-inside the interior, and the stores of eight bytes a thread. ``uint32``
-arrays wrap as the card's registers do."""
+per pixel in border blocks), then the instantiation the dispatch picks
+from the descriptor (``swar_instance``): for sides 3/5/7 the register
+window (two 16-byte reads of a window row, the odd pairs as funnel shifts
+of registers) with K7's biased multiply-add per tap modulo 2^32, K8's
+biased 16-bit fields (side 3) or i32 lanes, and K6's row pass of four pair
+words a thread and its column pass of two rows a thread (read from the
+source) on fields or lanes; the tap-table loops for larger kernels; the
+interior guard hoisted out of blocks inside the interior, the post-chain on
+pair words, and the stores of eight bytes a thread. ``uint32`` arrays wrap as the card's registers do."""
 
 import numpy as np
 
@@ -65,14 +68,6 @@ def chain_fields(f, steps):
     return f
 
 
-def chain_lane(x, steps):
-    for neg, A, C, m in steps:
-        if neg:
-            x = 255 - x
-        x = np.minimum(np.maximum(x * A - C, 0) >> m, 255)
-    return x
-
-
 def _src(c, n, mode):
     """sw_src: the source index, -1 for a zero."""
     c = np.asarray(c)
@@ -84,12 +79,37 @@ def _src(c, n, mode):
     return np.clip(c, 0, n - 1)
 
 
-def _rint_clip(x):
-    return np.clip(np.rint(x), 0, 255)
+_MAGIC_BITS = np.uint32(0x4B400000)
+_MAGIC = np.float32(12582912.0)  # 1.5 * 2^23
 
 
-def _quantize(x, mode):
-    return np.floor(np.clip(x, 0, 255)) if mode == "trunc_clip" else _rint_clip(x)
+def _field_f(field, off):
+    """sw_field_f: the u16 field's bits into the magic's mantissa (a byte
+    permute), as float32, minus `off` (one float32 subtraction)."""
+    bits = _MAGIC_BITS | np.asarray(field, np.uint32)
+    return bits.view(np.float32) - np.float32(off)
+
+
+def _lane_f(n):
+    """sw_lane_f: an integer 0 <= n < 2^22 added to the magic's bits."""
+    n = np.asarray(n, np.int64)
+    assert n.min(initial=0) >= 0 and n.max(initial=0) < 1 << 22
+    return (_MAGIC_BITS + n.astype(np.uint32)).view(np.float32) - _MAGIC
+
+
+def _rint_clip_byte(x):
+    """sw_rint_clip_bits: clip to [0, 255] in float32, add the magic (round
+    half to even at 1), the low byte; its second byte must be 0."""
+    bits = (np.clip(np.asarray(x, np.float32), 0, 255).astype(np.float32) + _MAGIC).view(np.uint32)
+    assert not np.any(bits & np.uint32(0xFF00))
+    return (bits & np.uint32(0xFF)).astype(np.int64)
+
+
+def _quantize2(x, mode):
+    """sw_quantize2's quantizer of one pixel: the magic rounding for
+    rint_clip, floor of the clip for trunc_clip."""
+    x = np.asarray(x, np.float32)
+    return _rint_clip_byte(x) if mode == "rint_clip" else np.floor(np.clip(x, 0, 255))
 
 
 def _le_words(b):
@@ -117,6 +137,130 @@ class _Memory:
         return self.buf[i:i + n]
 
 
+def _source_rows() -> int:
+    """The output rows a thread of K6's compile-time column pass takes, as
+    swar_stencil.cu's sw_k6_columns sets them."""
+    import re
+    from pathlib import Path
+
+    src = (Path(sk.__file__).parent / "csrc" / "swar_stencil.cu").read_text()
+    return int(re.search(r"constexpr int ROWS = KS > 0 \? (\d+) : 1;", src).group(1))
+
+
+ROWS = _source_rows()
+
+
+def _k6_row_pass(win, t1, side, eh, nq, wp):
+    """K6's row pass into the (eh, P2) row-pass buffer. Side 3/5/7: four pair
+    words a thread (group g of a row) from the register window, its words
+    4g .. 4g + 7 (two 16-byte reads) and the odd pairs as funnel shifts of
+    them, one multiply-add per word and tap; the tap table: one pair word a
+    thread, its window words read one by one."""
+    p2 = 4 * nq
+    rowp = np.zeros((eh, p2), np.uint32)
+    if side:
+        hk = side // 2
+        words = 4 * np.arange(nq)[:, None] + np.arange(8)[None, :]
+        assert words.max() < wp
+        for r in range(eh):
+            w = win[r, words]
+            o = funnel16(w[:, :3 + hk], w[:, 1:4 + hk])
+            acc = np.zeros((nq, 4), np.uint32)
+            for dx in range(side):
+                acc = acc + (o if dx & 1 else w)[:, dx // 2:dx // 2 + 4] * _U32(t1[dx])
+            rowp[r] = acc.reshape(-1)
+        return rowp
+    p = np.arange(p2)
+    for r in range(eh):
+        a = win[r, p]
+        acc = a * _U32(t1[0])
+        for t in range(1, len(t1), 2):
+            b = win[r, p + (t + 1) // 2]
+            acc = acc + funnel16(a, b) * _U32(t1[t]) + b * _U32(t1[t + 1])
+            a = b
+        rowp[r] = acc
+    return rowp
+
+
+def _k6_columns(rowp, t1, arm, rows, tile_h, y_end, nq, eh, shift, scale):
+    """K6's column pass: `rows` output rows a thread (a group from row ly0),
+    one 16-byte read of the row pass per tap row shared by the group's rows;
+    the last read, which feeds only the group's last row, only where that
+    row is stored. `arm`: 'narrow' (fields, >> shift round-half-even),
+    'fields' (wide on fields), 'lanes' (wide on i32 lanes); then the u8
+    results as pair words (rows past y_end hold zeros)."""
+    n = len(t1)
+    s = np.zeros((tile_h, nq, 4), np.uint32)
+    lo = np.zeros((tile_h, nq, 4), np.int64)
+    hi = np.zeros((tile_h, nq, 4), np.int64)
+    ly0 = np.arange(0, tile_h, rows)
+    ly0 = ly0[ly0 < y_end]
+    last = ly0 + rows - 1 < y_end
+    for t in range(n + rows - 1):
+        read = ly0[(t < n) | last]
+        assert read.size == 0 or read.max() + t < eh, "a read past the row pass"
+        c = rowp[read + t].reshape(-1, nq, 4)
+        for rr in range(rows):
+            if not 0 <= t - rr < n:
+                continue
+            at = read + rr
+            keep = at < tile_h
+            tap = t1[t - rr]
+            if arm == "lanes":
+                lo[at[keep]] += tap * (c[keep] & _U32(0xFFFF)).astype(np.int64)
+                hi[at[keep]] += tap * (c[keep] >> _U32(16)).astype(np.int64)
+            else:
+                s[at[keep]] = s[at[keep]] + c[keep] * _U32(tap)
+    if arm == "narrow":
+        half = _U32((1 << (shift - 1)) - 1)
+        b = (s >> _U32(shift)) & _ONES
+        return ((s + ((half << _U32(16)) | half) + b) >> _U32(shift)) & _LO
+    if arm == "fields":
+        floats = [_field_f(x, _MAGIC) for x in _halves(s)]
+    else:
+        floats = [_lane_f(x) for x in (lo, hi)]
+    return _join(*(_rint_clip_byte(f * np.float32(scale)) for f in floats))
+
+
+def _k8_window_sums(op, flat, ly, q, wp, side, form, bias):
+    """K8's sums at side 3/5/7 from the register window (each window row's
+    words 4q .. 4q + 7 for every quad): 'fields', bias + sum(w * x) per
+    kernel on whole pair words modulo 2^32, read out per field minus the
+    bias; 'lanes', each row split into one pixel per lane. Returns the sums
+    as [kernel][field] arrays of (tile_h, nq, 4) and the centre pairs."""
+    hk = side // 2
+    dense = [np.asarray(k).astype(np.int64).reshape(-1) for k in op.kernels]
+    idx = np.arange(8)[None, None, :]
+    cen = None
+    if form == "fields":
+        bias2 = _U32(bias) * _ONES
+        acc = [np.full(ly.shape[:1] + q.shape[1:2] + (4,), bias2, np.uint32) for _ in dense]
+        for dy in range(side):
+            w = flat[(ly + dy) * wp + 4 * q + idx]
+            o = funnel16(w[..., :3 + hk], w[..., 1:4 + hk])
+            for dx in range(side):
+                src = (o if dx & 1 else w)[..., dx // 2:dx // 2 + 4]
+                for k, d in enumerate(dense):
+                    acc[k] = acc[k] + src * _U32(int(d[dy * side + dx]) & 0xFFFFFFFF)
+            if dy == hk:
+                cen = (o if hk & 1 else w)[..., hk // 2:hk // 2 + 4]
+        off = _MAGIC + np.float32(bias)
+        sums = [[_field_f(f, off) for f in _halves(a)] for a in acc]
+        return sums + [[0, 0]] * (2 - len(sums)), cen
+    acc = [0 for _ in dense]
+    for dy in range(side):
+        w = flat[(ly + dy) * wp + 4 * q + idx]
+        lanes = np.stack(_halves(w[..., :4 + hk]), axis=-1).reshape(w.shape[:2] + (8 + 2 * hk,))
+        lanes = lanes.astype(np.int64)
+        for dx in range(side):
+            for k, d in enumerate(dense):
+                acc[k] = acc[k] + int(d[dy * side + dx]) * lanes[..., dx:dx + 8]
+        if dy == hk:
+            cen = _join(lanes[..., hk:hk + 8:2], lanes[..., hk + 1:hk + 8:2])
+    sums = [[a[..., 0::2], a[..., 1::2]] for a in acc]
+    return sums + [[0, 0]] * (2 - len(sums)), cen
+
+
 def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=None,
                  ghosts=None, y0=0, global_h=None, addr=0, ghost_addrs=(4096, 8192), seed=0):
     """The kernel over a (H, W) u8 plane, block by block. Ghost mode when
@@ -127,11 +271,11 @@ def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=No
     start as seeded garbage. Every output byte must be written exactly once;
     an unwritten one reads 0xFF and fails the caller's comparison, a
     twice-written one raises."""
-    kind = sk.swar_kind(op)
+    desc, table = sk.swar_desc(op, pre_chain, post_chain)
+    kind, side, form = sk.swar_instance(desc)
     H, W = img.shape
     global_h = H if global_h is None else global_h
     h = op.halo
-    desc, table = sk.swar_desc(op, pre_chain, post_chain)
     if tile_h is None or tile_w is None:
         rows_w = sk.swar_tile_shape(kind, h, H, W, tile_h, table.size)
         tile_h, tile_w = rows_w if tile_w is None else (rows_w[0], tile_w)
@@ -226,38 +370,14 @@ def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=No
             if kind.startswith("K6"):
                 t1 = [int(v) for v in taps]
                 n = len(t1)
-                rowp = np.zeros((eh, P2), np.uint32)
-                for r in range(eh):
-                    p = np.arange(P2)
-                    a = win[r, p]
-                    acc = a * _U32(t1[0])
-                    for t in range(1, n, 2):
-                        b = win[r, p + (t + 1) // 2]
-                        acc = acc + funnel16(a, b) * _U32(t1[t]) + b * _U32(t1[t + 1])
-                        a = b
-                    rowp[r] = acc
-                cols = 4 * q + j
-                if kind == "K6-narrow":
-                    s = np.zeros((tile_h, nq, 4), np.uint32)
-                    for t in range(n):
-                        s = s + rowp[ly + t, cols] * _U32(t1[t])
-                    k = desc.shift
-                    half = _U32((1 << (k - 1)) - 1)
-                    b = (s >> _U32(k)) & _ONES
-                    res = ((s + ((half << _U32(16)) | half) + b) >> _U32(k)) & _LO
-                    res = chain_fields(res, post_chain)
-                else:
-                    lanes = []
-                    for lane in range(2):
-                        acc = np.zeros((tile_h, nq, 4), np.int64)
-                        for t in range(n):
-                            acc += t1[t] * _halves(rowp[ly + t, cols])[lane].astype(np.int64)
-                        qq = _rint_clip(acc.astype(f32) * scale).astype(np.int64)
-                        lanes.append(chain_lane(qq, post_chain))
-                    res = _join(*lanes)
+                rowp = _k6_row_pass(win, t1, side, eh, nq, WP)
+                arm = "narrow" if kind == "K6-narrow" else ("fields" if desc.fields else "lanes")
+                res = _k6_columns(rowp, t1, arm, ROWS if side else 1, tile_h, y_end, nq, eh,
+                                  desc.shift, scale)
+                res = chain_fields(res, post_chain)
             else:
                 base = ly * WP + 4 * q
-                if kind == "K7" and ks <= sk.MAX_K:
+                if kind == "K7" and side:
                     dense = np.asarray(op.kernels[0]).astype(np.int64).reshape(-1)
                     bias2 = _U32(desc.bias) * _ONES
                     acc = np.full((tile_h, nq, 4), bias2, np.uint32)
@@ -273,8 +393,11 @@ def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=No
                             cen = (o if h & 1 else w)[..., h // 2:h // 2 + 4]
                     res = vminu2(vsubus2(acc, bias2), _LO)
                 else:
-                    c = base + h * WP + h // 2 + j
-                    cen = funnel16(flat[c], flat[c + 1]) if h & 1 else flat[c]
+                    if kind == "K8" and side:
+                        sums, cen = _k8_window_sums(op, flat, ly, q, WP, side, form, desc.bias)
+                    else:
+                        c = base + h * WP + h // 2 + j
+                        cen = funnel16(flat[c], flat[c + 1]) if h & 1 else flat[c]
 
                     def pair(o_enc):
                         p = base + (o_enc >> 1) + j
@@ -287,22 +410,23 @@ def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=No
                             acc = acc + pair(o_enc) * _U32(wt & 0xFFFFFFFF)
                         res = vminu2(vsubus2(acc, bias2), _LO)
                     else:
-                        sums = []
-                        for kt in (enc[:n0], enc[n0:]):
-                            a = [np.zeros((tile_h, nq, 4), np.int64) for _ in range(2)]
-                            for o_enc, wt in kt:
-                                for lane, v in enumerate(_halves(pair(o_enc))):
-                                    a[lane] = a[lane] + wt * v.astype(np.int64)
-                            sums.append(a)
+                        if not side:
+                            sums = []
+                            for kt in (enc[:n0], enc[n0:]):
+                                a = [np.zeros((tile_h, nq, 4), np.int64) for _ in range(2)]
+                                for o_enc, wt in kt:
+                                    for lane, v in enumerate(_halves(pair(o_enc))):
+                                        a[lane] = a[lane] + wt * v.astype(np.int64)
+                                sums.append(a)
                         lanes = []
                         for lane in range(2):
-                            acc = sums[0][lane].astype(f32)
+                            acc = np.asarray(sums[0][lane]).astype(f32)
                             if op.combine == "magnitude":
-                                b = sums[1][lane].astype(f32)
+                                b = np.asarray(sums[1][lane]).astype(f32)
                                 acc = np.sqrt((acc * acc + b * b).astype(np.float64)).astype(f32)
                             if scale != f32(1.0):
                                 acc = acc * scale
-                            lanes.append(_quantize(acc, op.quantize).astype(np.int64))
+                            lanes.append(_quantize2(acc, op.quantize).astype(np.int64))
                         res = _join(*lanes)
                 all_filtered = op.edge_mode != "interior" or (
                     y0 + by > h and y0 + by + y_end - 1 <= global_h - 1 - h and x0 > h
@@ -316,11 +440,8 @@ def emulate_swar(op, img, *, pre_chain=(), post_chain=(), tile_h=None, tile_w=No
                     m = np.where(keep_lo, _U32(0xFFFF), _U32(0)) | np.where(
                         keep_hi, _U32(0xFFFF0000), _U32(0))
                     res = (res & m) | (cen & ~m)
-                if kind == "K7":
-                    res = chain_fields(res, post_chain)
-                else:
-                    res = _join(*(chain_lane(x.astype(np.int64), post_chain)
-                                  for x in _halves(res)))
+                # every field holds a u8 value: the post-chain on pair words
+                res = chain_fields(res, post_chain)
             # stores: eight bytes a thread, in pixel order, where the quad
             # lies in the plane (n = min(8, x_end - 8q) of them)
             lo, hi = _halves(res)

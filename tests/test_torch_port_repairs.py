@@ -18,7 +18,10 @@
 * fused stages of any length on K4 and K4g (a table on the card in place
   of the 24-op, 8-stencil by-value program): stages of 26 and 82 ops, nine
   ``box:3`` and twelve ``box:1`` stencils run as one megakernel stage, with
-  the JAX package's ``plan_metrics`` and bytes.
+  the JAX package's ``plan_metrics`` and bytes;
+* the sharded runner's refusals of global-statistics and geometric ops
+  name the ROADMAP item they wait on by its name, which stays put when the
+  queue is renumbered, and that name is an item of ROADMAP.md's queue 1.
 
 Every tolerance is 0: bytes must be equal.
 """
@@ -428,3 +431,32 @@ def test_long_pointwise_chain_on_t1_matches_jax(n, tail):
     got = pk.run_group_packed_words(pw, st, [pk.pack_words(torch.from_numpy(img))], 40, 128,
                                     block_h=16)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def _roadmap_queue1_items() -> list[str]:
+    """The bold item names of ROADMAP.md's queue 1 ("Modules to port"),
+    lower case, without the closing full stop."""
+    import re
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    section = text.split("### 1. Modules to port", 1)[1].split("\n### ", 1)[0]
+    return [m.rstrip(".").lower() for m in re.findall(r"^\d+\. \*\*(.+?)\*\*", section,
+                                                       re.MULTILINE)]
+
+
+@pytest.mark.parametrize("name", ["_GLOBAL_NOT_PORTED", "_GEOMETRIC_NOT_PORTED"])
+def test_refusals_cite_a_queue1_item_by_name(name):
+    """Each refusal cites "modules to port: <item name>", and the name is
+    an item of ROADMAP.md's queue 1 (an item number goes stale when the
+    queue is re-anchored)."""
+    import re
+
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import api
+
+    message = getattr(api, name)
+    cited = re.search(r"ROADMAP\.md, modules to port: ([^)]+)\)", message)
+    assert cited is not None, message
+    items = _roadmap_queue1_items()
+    assert "rest of the registry" in items, items
+    assert cited.group(1).strip().lower() in items, (cited.group(1), items)

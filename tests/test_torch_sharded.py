@@ -465,7 +465,7 @@ def test_split_segments_keeps_the_segment_structure():
 
     segs = api._split_segments((ops[0], Geometric(), ops[1]))
     assert [k for k, _ in segs] == ["sharded", "whole", "sharded"]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="modules to port: rest of the registry"):
         api.sharded_pipeline(Pipeline(ops=(ops[0], Geometric(), ops[1])), cpu_mesh(2))
 
 

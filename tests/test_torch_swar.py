@@ -360,8 +360,9 @@ def test_desc_layout_and_limits():
     d, table = sk.swar_desc(big)
     assert d.n_taps[0] == 529 and table.size == 1058
     assert sk.pick_tile_h("K8", 11, table_words=table.size) == sk.DEFAULT_TILE_H
-    # K7's taps go as kernel parameters beside the descriptor
-    assert ctypes.sizeof(kr.SwarTaps) == 4 * sk.MAX_K ** 2 == 196
+    # the dense taps of both kernels go as kernel parameters beside the
+    # descriptor
+    assert ctypes.sizeof(kr.SwarTaps) == 2 * 4 * sk.MAX_K ** 2 == 392
 
 
 @pytest.mark.parametrize("kind,tile_h,halo", [("K6-narrow", 32, 2), ("K6-wide", 32, 3),

@@ -31,35 +31,67 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
 # tap table), both within sum|w| <= 128 with negative taps
 K7_7X7 = "filter:" + "/".join(str(v) for v in
                               [(i * 7 % 11) - 5 if i % 3 == 0 else 0 for i in range(49)])
-K7_9X9 = "k7_9x9"  # a 9x9 kernel, no registry spelling: _op builds it
 _W9 = np.array([(-3 if i % 10 == 0 else 2) if i % 5 == 0 else 0 for i in range(81)],
                np.float32).reshape(9, 9)
+# K8 on i32 lanes at side 3 (sum|w| = 530: past a 16-bit field) and at
+# side 7 (a scaled 7x7 filter); K8 on fields with one kernel
+K8_LANES3 = "filter:100/-100/50/0/30/0/-50/100/-100:0.25"
+K8_7X7 = "filter:" + "/".join(str((i * 5 % 13) - 6) for i in range(49)) + ":0.125"
+K8_FIELDS1 = "filter:1/2/1/2/4/2/1/2/1:0.0625"
+_A5 = np.outer([1, 2, 0, -2, -1], [1, 4, 6, 4, 1]).astype(np.float32)
+_T3 = np.array([1, 30, 1], np.float32)
+_T5 = np.array([1, 4, 30, 4, 1], np.float32)
+# ops with no registry spelling: (base spec, fields replaced); _op builds them
+CUSTOM = {
+    "k7_9x9": ("sharpen", dict(halo=4, kernels=(_W9,), separable=None)),
+    # K8 past side 7 (the tap table), trunc_clip
+    "k8_9x9": ("sobel", dict(halo=4, kernels=(_W9,), combine="single", scale=0.25,
+                             quantize="trunc_clip")),
+    # K8's magnitude of two 5x5 kernels (lanes)
+    "k8_mag5": ("sobel", dict(halo=2, kernels=(_A5, _A5.T.copy()))),
+    # K6 narrow past side 5 (the tap table): S = 8
+    "k6n_7": ("gaussian:5", dict(halo=3, kernels=(np.ones((7, 7), np.float32),),
+                                 separable=np.array([1, 1, 1, 2, 1, 1, 1], np.float32),
+                                 scale=1.0 / 64)),
+    # K6 wide on i32 lanes at sides 3 and 5: S = 32 and 40, 255 * S^2 >= 2^16
+    "k6w_3": ("gaussian:3", dict(kernels=(np.outer(_T3, _T3),), separable=_T3,
+                                 scale=1.0 / 32 ** 2)),
+    "k6w_5": ("gaussian:5", dict(kernels=(np.outer(_T5, _T5),), separable=_T5,
+                                 scale=1.0 / 40 ** 2)),
+}
+K7_9X9 = "k7_9x9"
 
 
 def _op(spec, make=make_op):
     """The op of `spec` (the port's, or the JAX package's with its
-    `make`), K7_9X9 built from sharpen's fields with the 9x9 kernel."""
-    if spec != K7_9X9:
+    `make`), a CUSTOM name built from its base op's fields."""
+    if spec not in CUSTOM:
         return make(spec)
-    return dataclasses.replace(make("sharpen"), name="k7_9x9", halo=4, kernels=(_W9,),
-                               separable=None)
+    base, fields = CUSTOM[spec]
+    return dataclasses.replace(make(base), name=spec, **fields)
 
 
 def _ops(spec, make_one):
     return tuple(_op(s, make_one) for s in spec.split(",") if s) if spec else ()
 
 
-# (pre ops, stencil, post ops): K6 narrow and wide, K7 at halos 1-4, K8 single
-# and magnitude
+# (pre ops, stencil, post ops): K6 narrow and wide at every side and arm, K7
+# at halos 1-4, K8 single and magnitude on fields, lanes and the tap table
 CASES = [
     ("contrast:3.5", "gaussian:5", "invert"), ("", "gaussian:7", "brightness:-20"),
     ("contrast:3.5", "emboss:3", ""), ("brightness:-20", "sharpen", "contrast:3.5"),
     ("", "emboss:5", "invert"), ("invert", K7_7X7, ""), ("", K7_9X9, "brightness:20"),
     ("", "sobel", ""), ("contrast:3.5", "unsharp", ""),
+    ("", "gaussian:3", "invert"), ("contrast:3.5", "box:3", ""), ("", "box:5", "brightness:-20"),
+    ("", "box:7", ""), ("invert", "box:9", ""), ("", "box:17", "invert"), ("", "k6n_7", ""),
+    ("", "scharr", "contrast:3.5"), ("brightness:-20", "prewitt", ""), ("", K8_FIELDS1, ""),
+    ("", K8_LANES3, "invert"), ("", "k8_mag5", ""), ("contrast:3.5", K8_7X7, ""),
+    ("", "k8_9x9", "brightness:20"), ("contrast:3.5", "k6w_3", ""), ("", "k6w_5", "invert"),
 ]
-IDS = ["K6n", "K6w", "K7-3", "K7-sharpen", "K7-5", "K7-7", "K7-9", "K8-sobel", "K8-unsharp"]
-
-
+IDS = ["K6n", "K6w", "K7-3", "K7-sharpen", "K7-5", "K7-7", "K7-9", "K8-sobel", "K8-unsharp",
+       "K6n-3", "K6w-box3", "K6w-box5", "K6w-box7", "K6w-box9", "K6w-box17", "K6n-7",
+       "K8-scharr", "K8-prewitt", "K8-fields1", "K8-lanes3", "K8-mag5", "K8-7", "K8-9",
+       "K6w-lanes3", "K6w-lanes5"]
 def _split(case):
     pre, st, post = case
     out = ()
@@ -76,12 +108,49 @@ def _plane(h, w, seed):
     return synthetic_image(h, w, channels=1, seed=seed)
 
 
+def _instance(op):
+    """The instantiation the dispatch launches for `op`'s descriptor."""
+    return sk.swar_instance(sk.swar_desc(op)[0])
+
+
+def test_instances_are_the_dispatch():
+    """SWAR_INSTANCES and swar_instance's sides are the launches that
+    sw_dispatch in swar_stencil.cu makes: (kind, side, on fields), side 0
+    the tap table."""
+    import re
+    from pathlib import Path
+
+    src = (Path(sk.__file__).parent / "csrc" / "swar_stencil.cu").read_text()
+    body = src[src.index("static int sw_dispatch("):]
+    body = body[:body.index("#undef SW_ARGS")]
+    names = {"SW_K6_NARROW": "K6-narrow", "SW_K6_WIDE": "K6-wide", "SW_K7": "K7", "SW_K8": "K8"}
+    launched = {(names[k], int(side), bool(f16))
+                for k, side, f16 in re.findall(r"sw_launch<(SW_\w+), (\d+), GHOST(, true)?>",
+                                               body)}
+    want = {(k, side, False) for k, sides in sk.DISPATCH_SIDES.items() for side in (*sides, 0)}
+    want |= {("K8", side, True) for side in sk.K8_FIELD_SIDES}
+    assert launched == want
+    # K8's field instantiations are picked by d->fields, and they are the
+    # only K8 instantiations that sum on fields
+    assert body.count("d->fields ?") == len(sk.K8_FIELD_SIDES)
+    assert {(k, s) for k, s, f in sk.SWAR_INSTANCES if k == "K8" and f == "fields"} == {
+        ("K8", s) for s in sk.K8_FIELD_SIDES}
+
+
 def test_cases_cover_every_kernel_and_form():
     kinds = [sk.swar_kind(_split(c)[1]) for c in CASES]
     assert set(kinds) == set(sk.KINDS)
     halos = {_split(c)[1].halo for c, k in zip(CASES, kinds) if k == "K7"}
     assert halos == {1, 2, 3, 4}  # 4: past the compile-time tap loops
     assert 2 * 4 + 1 > sk.MAX_K
+    assert {_instance(_split(c)[1]) for c in CASES} == sk.SWAR_INSTANCES
+    # K8 on fields and on lanes with one kernel and with two
+    k8 = {(_instance(op)[2], op.combine) for op in (_split(c)[1] for c in CASES)
+          if sk.swar_kind(op) == "K8"}
+    assert k8 == {(f, c) for f in ("fields", "lanes") for c in ("single", "magnitude")}
+    # each JAX kernel takes the same op (the interpret-mode comparison)
+    for c in CASES:
+        assert jax_swar.swar_any_eligible(_split(c)[4]), c
 
 
 @pytest.mark.parametrize("addr", [0, 3, 13])
@@ -120,7 +189,8 @@ def test_replay_matches_plain_at_ragged_shapes(case, shape, tile):
 
 @pytest.mark.parametrize("mode", ["interior", "reflect101", "edge", "zero"])
 @pytest.mark.parametrize("spec", ["gaussian:5", "gaussian:7", "emboss:3", "laplacian:8",
-                                  K7_7X7, K7_9X9, "sobel", "unsharp"])
+                                  K7_7X7, K7_9X9, "sobel", "unsharp", "gaussian:3", "box:5",
+                                  "box:9", "scharr", K8_LANES3, K8_7X7, "k8_9x9"])
 def test_replay_every_edge_mode(spec, mode):
     """Every edge mode on every kernel that takes it (K6 has no interior
     form), blocks on every border: a 3 x 3 grid of 64 x 8 tiles."""
@@ -136,7 +206,8 @@ def test_replay_every_edge_mode(spec, mode):
         np.testing.assert_array_equal(got, want.numpy())
 
 
-@pytest.mark.parametrize("spec", ["emboss:3", "emboss:5", K7_7X7, K7_9X9, "sobel"])
+@pytest.mark.parametrize("spec", ["emboss:3", "emboss:5", K7_7X7, K7_9X9, "sobel", "scharr",
+                                  "unsharp", K8_LANES3, K8_7X7, "k8_mag5", "k8_9x9"])
 def test_replay_interior_guard_at_the_borders(spec):
     """The interior guard: tiles whose outputs lie wholly inside the
     interior skip it; tiles on the first and last rows and columns pass
