@@ -48,7 +48,13 @@ printing a result:
    (97x384, ragged heights, last blocks shorter than the halo, W/4 = 8 and
    W/4 < 128) and tile heights, flat and checkerboard planes, the first, a
    middle and the last 1080x7680 shard tile in ghost mode, the 8K gray
-   gaussian:5 and the 8K RGB reference group. The stream-stencil kernel's
+   gaussian:5 and the 8K RGB reference group; the redesigned T1 at heights
+   of 1 to 2h + 1 rows around each chunk boundary (runs of whole images, at
+   the default and at 5-row chunks), at widths of 8, 11 and 75 words with
+   the planes starting at word offsets 0-3, on RGB chains into stencils and
+   on ghost tiles at the top, middle and bottom; T1-pw (1 -> 1, 1 -> 3,
+   3 -> 1, 3 -> 3) and T2 on planes of 1 to 1081 rows at ragged widths, at
+   word offsets 0-3. The stream-stencil kernel's
    tile shapes: K3 on overlap bands of 1 to 2h + 1 output rows, K2g on
    shard tiles of h + 1 to 2h + 1 rows, K2 on short images and ragged last
    tiles, for a stencil of every family (the 5x5 median too) in every edge
@@ -102,8 +108,8 @@ printing a result:
    probe's 8K shapes beside `copy_`, the probe's copy rates as a share of
    3.35 TB/s, T2 at 8K beside K1 on the same group, T3 at 8K beside K6
    narrow and K2 on the same plane; T1 on the 8K gray gaussian:5 beside K2
-   and `F.conv2d`, T1g on one shard beside K2g, T1-pw on packed_ab's group
-   beside K1. For the K1, K4, K4g and K5 rows (K1 also on quantize:6 over
+   and `F.conv2d`, T1g on one shard beside K2g, T1-pw
+   on packed_ab's group beside K1. For the K1, K4, K4g and K5 rows (K1 also on quantize:6 over
    the 8K gray plane), the stream-stencil rows (K2 on the 8K groups, K2g,
    K3 on the band and on emboss:3) and T4's copies also the split of one
    call: device time from CUDA events around one call queued behind a spin
@@ -118,6 +124,7 @@ and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1992,16 +1999,19 @@ def phase3_tools(device, gray8k, tool_runs, record):
     rgb = torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0)).to(device)
     planes = [pp.pack_u8(rgb[..., c].contiguous()) for c in range(3)]
     chain = list(make_pipeline_ops(pp.CHAIN))
-    record("T2 packed_gray_contrast [grayscale,contrast3.5] 8K, block_h 128",
+    record("T2 packed_gray_contrast [grayscale,contrast3.5] 8K",
            csrc + "packed_proto.cu", "tools/packed_proto.py:141",
            tool_runs["packed_proto"][0]["T2"], lambda: pp.packed_gray_contrast(*planes),
            lambda: pp.packed_gray_contrast_plain(*planes), 3, 1, chain, n_pix=MAIN_H * MAIN_W)
     t_k1 = device_time_ms(lambda: ck.pointwise_group(chain, rgb), reps=7)
-    t_bh = {bh: device_time_ms(lambda bh=bh: pp.packed_gray_contrast(*planes, block_h=bh), reps=7)
-            for bh in (8, 32, 512)}
+    # planes that start one word past a 16-byte boundary, one row shorter
+    wp = MAIN_W // 4
+    sliced = [p.reshape(-1)[1:1 + (MAIN_H - 1) * wp].view(MAIN_H - 1, wp) for p in planes]
+    check_equal("T2 on planes one word in", pp.packed_gray_contrast(*sliced),
+                pp.packed_gray_contrast_plain(*sliced))
+    t_sliced = device_time_ms(lambda: pp.packed_gray_contrast(*sliced), reps=7)
     print(f"  K1 on the same group and frame ((H, W, 3) u8 in, gray out) in this run: "
-          f"{t_k1:.4f} ms; T2 at block_h " +
-          ", ".join(f"{bh}: {t:.4f} ms" for bh, t in t_bh.items()))
+          f"{t_k1:.4f} ms; T2 on planes one word past a 16-byte boundary: {t_sliced:.4f} ms")
     del planes, rgb
 
     # T3 at 8K (bh 240) beside K6 narrow and K2 on the same plane
@@ -2077,7 +2087,7 @@ def check_t1(tag, pointwise, stencil, words, height, width, **kw) -> int:
 def phase1_t1(device, gray8k, x8k) -> int:
     """T1-pw, T1 and T1g against their plain versions: every group T1 takes
     in the 33 specs at the odd shapes and block heights (the flat and
-    checkerboard planes too at 97x384), block_h 32/64/96 at 130x512, the
+    checkerboard planes too at 97x384), block_h 32/64/96/400 at 130x512, the
     first, a middle and the last 1080x7680 shard tile of the 8K frame in
     ghost mode, the 8K gray gaussian:5 and the 8K RGB reference group, which
     runs fully packed. Returns the case count."""
@@ -2105,10 +2115,12 @@ def phase1_t1(device, gray8k, x8k) -> int:
                                           f"{tuple(img.shape)} block_h={bh}", pw, st, t1_words(img),
                                           *shape, block_h=bh)
                     img = ck.run_group(pw, st, img)
-    for spec, channels in (("gaussian:5", 1), ("sepia,gaussian:3", 3)):
+    # block_h sets nothing: 400, whose tile the first design refused for
+    # its shared memory, gives the plain version's bytes too
+    for spec, channels in (("gaussian:5", 1), ("sepia,gaussian:3", 3), ("sepia,gaussian:7", 3)):
         img = torch.from_numpy(synthetic_image(130, 512, channels=channels, seed=44)).to(device)
         for pw, st in ck.group_ops(make_pipeline_ops(spec)):
-            for bh in (32, 64, 96):
+            for bh in (32, 64, 96, 400):
                 n += check_t1(f"T1 {spec} 130x512 block_h={bh}", pw, st, t1_words(img), 130, 512,
                               block_h=bh)
             img = ck.run_group(pw, st, img)
@@ -2132,6 +2144,112 @@ def phase1_t1(device, gray8k, x8k) -> int:
     n += check_t1("T1-pw grayscale,contrast:3.5 8K", pw, None, t1_words(x8k), MAIN_H, MAIN_W)
     torch.cuda.synchronize()
     print(f"phase 1: T1-pw, T1 and T1g equal to their plain versions (max_abs_err 0): {n} cases")
+    return n
+
+
+# the redesigned T1's stencil groups: every family and halo, chains
+T1_CHUNK_SPECS = ["gaussian:5", "gaussian:7", "box:3", "sobel", "scharr", "median:5", "median:3",
+                  "erode:3", "dilate:5", "laplacian:8", "emboss:3", "emboss:5",
+                  "invert,gaussian:5", "brightness:25,median:3"]
+# word widths: 8 words, not a multiple of 4, odd (row slices at every offset)
+T1_CHUNK_WPS = (8, 11, 75)
+
+
+@contextlib.contextmanager
+def t1_shape(chunk_h, target):
+    """T1's launch shape for a block of cases: chunks of `chunk_h` rows and
+    about `target` blocks (1: one run per strip, so that every block walks
+    the whole height and carries rows over every chunk boundary); the
+    module's own settings are put back after."""
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+
+    saved = pk.CHUNK_H, pk.TARGET_BLOCKS
+    pk.CHUNK_H, pk.TARGET_BLOCKS = chunk_h, target
+    pk.packed_tile_shape.cache_clear()
+    try:
+        yield
+    finally:
+        pk.CHUNK_H, pk.TARGET_BLOCKS = saved
+        pk.packed_tile_shape.cache_clear()
+
+
+def phase1_t1_redesign(device) -> int:
+    """The redesigned T1, T1-pw and T2 against their plain versions: T1 at
+    heights of 1 to 2h + 1 rows either side of each chunk boundary, at the
+    default chunk height and a 5-row one, one run per strip (the runs the
+    host cuts are phase1_t1's); widths of 8, 11 and 75 words, the planes
+    row slices that start at word offsets 0-3; RGB chains into
+    stencils; ghost tiles at the top, middle and bottom of an image; T1-pw
+    for 1 -> 1, 1 -> 3, 3 -> 1 and 3 -> 3 chains and T2, on planes of 1 to
+    1081 rows at ragged widths, each input at word offsets 0-3. Returns
+    the case count."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_proto as pp
+
+    n = 0
+    # the first rows of the slices: from row a, a plane of wp words starts
+    # at word offset a * wp mod 4 (75 words: 0, 3, 2, 1; 11 words: 3, 1)
+    offsets = {8: (0,), 11: (1, 3), 75: (0, 1, 2, 3)}
+    for chunk_h, wps in ((pk.CHUNK_H, T1_CHUNK_WPS), (5, T1_CHUNK_WPS[1:])):
+        with t1_shape(chunk_h, 1):
+            for spec in T1_CHUNK_SPECS:
+                pw, st = split_group(spec)
+                h = st.halo
+                heights = sorted({chunk_h * m + d for m in (1, 2, 3)
+                                  for d in range(-2 * h - 1, 2 * h + 2) if chunk_h * m + d > h})
+                for wp in wps:
+                    for rows in heights:
+                        img = torch.from_numpy(synthetic_image(rows + 3, 4 * wp, channels=1,
+                                                               seed=rows)).to(device)
+                        planes = t1_words(img)
+                        for a in offsets[wp]:
+                            n += check_t1(f"T1 {spec} chunk {chunk_h} {wp} words {rows} rows "
+                                          f"from row {a}", pw, st,
+                                          [p[a:a + rows] for p in planes], rows, 4 * wp)
+            for spec in ("grayscale,gaussian:5", "sepia,gaussian:3",
+                         "grayscale,contrast:3.5,emboss:3", "sepia,median:3", "grayscale,sobel"):
+                pw, st = split_group(spec)
+                for rows in (chunk_h - 1, chunk_h + 3, 3 * chunk_h + 1):
+                    img = torch.from_numpy(synthetic_image(rows + 1, 300, channels=3,
+                                                           seed=rows)).to(device)
+                    planes = t1_words(img)
+                    n += check_t1(f"T1 {spec} RGB chunk {chunk_h} {rows} rows", pw, st,
+                                  [p[1:] for p in planes], rows, 300)
+            img = torch.from_numpy(synthetic_image(3 * chunk_h + 7, 300, channels=1,
+                                                   seed=3)).to(device)
+            for spec in ("gaussian:5", "sobel", "emboss:3", "median:5", "invert,dilate:3"):
+                pw, st = split_group(spec)
+                for k in range(3):  # the top, a middle and the bottom tile
+                    tile, top, bot, y0 = t1_ghost_tile(img, k, 3, st.halo)
+                    n += check_t1(f"T1g {spec} chunk {chunk_h} tile {k}", pw, st,
+                                  t1_words(tile.contiguous()), tile.shape[0], 300,
+                                  ghosts=(t1_words(top), t1_words(bot)), y0=y0,
+                                  image_h=img.shape[0])
+    for spec, ch in (("invert,brightness:9", 1), ("gray2rgb,sepia", 1),
+                     ("grayscale,contrast:3.5", 3), ("sepia,invert", 3)):
+        pw = list(make_pipeline_ops(spec))
+        for rows, width in ((1, 36), (5, 44), (37, 300), (1081, 7676)):
+            img = torch.from_numpy(synthetic_image(rows + 3, width, channels=ch,
+                                                   seed=rows)).to(device)
+            planes = t1_words(img)
+            for a in range(4):
+                words = [p[a:a + rows] for p in planes]
+                n += check_t1(f"T1-pw {spec} {rows}x{width} from row {a}", pw, None, words,
+                              rows, width)
+                if ch == 3 and spec == pp.CHAIN:
+                    want = pp.packed_gray_contrast_plain(*words)
+                    for bh in (pp.DEFAULT_BLOCK_H, 1, 400):  # block_h sets nothing
+                        check_equal(f"T2 {rows}x{width} from row {a} block_h={bh}",
+                                    pp.packed_gray_contrast(*words, block_h=bh), want)
+                        n += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: the redesigned T1 at chunk boundaries, narrow and ragged strips, row "
+          f"slices at word offsets 0-3 and ghost tiles, T1-pw and T2 at word offsets 0-3, equal "
+          f"to their plain versions (max_abs_err 0): {n} cases")
     return n
 
 
@@ -2192,10 +2310,7 @@ def phase3_t1(device, gray8k, tool_runs, record):
            lambda: pk.run_group_packed_words_plain(pw5, st5, words, MAIN_H, MAIN_W)[0], 1, 1,
            [st5], library=conv_library(st5, gray8k, pad_rows=True))
     t_k2 = device_time_ms(lambda: ck.stream_stencil(pw5, st5, gray8k), reps=7)
-    t_bh = {bh: device_time_ms(lambda bh=bh: pk.run_group_packed_words(
-        pw5, st5, words, MAIN_H, MAIN_W, block_h=bh), reps=7) for bh in (8, 32, 64)}
-    print(f"  K2 on the same 8K gray plane in this run: {t_k2:.4f} ms; T1 at block_h " +
-          ", ".join(f"{bh}: {t:.4f} ms" for bh, t in t_bh.items()))
+    print(f"  K2 on the same 8K gray plane in this run: {t_k2:.4f} ms")
     tile, top, bot, y0 = t1_ghost_tile(gray8k, 1, N_SHARDS, st5.halo)
     tw, ghosts = t1_words(tile.contiguous()), (t1_words(top), t1_words(bot))
     rows = tile.shape[0]
@@ -2839,6 +2954,7 @@ def main() -> int:
     phase1_swar_redesign(device)
     phase1_tools(device, gray8k)
     phase1_t1(device, gray8k, x8k)
+    phase1_t1_redesign(device)
     launches = phase2(device, x8k)
     sharded_launches = phase2_sharded(device, x8k)
     phase2_long_stages(device)

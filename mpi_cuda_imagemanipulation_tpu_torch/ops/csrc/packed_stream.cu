@@ -28,35 +28,70 @@
 //           group grayscale,contrast:3.5 on a 2160 x 3840 RGB frame
 //           (3 B in, 1 B out, 33.2 MB) 9.9 us. A 5x5 median runs 113
 //           min/max pairs per pixel and may be bound by operations instead.
-// Design:   the TPU kernel walks row blocks in order, carries the row pass
-//           from block to block in scratch memory, and unpacks words into
-//           four f32 lane planes with shifts and masks, rebuilding the
-//           first and last `halo` columns from their clamped sources. Here
-//           blocks run in no order and carry nothing: a block owns a tile
-//           of tile_h rows x PK_TILE_WORDS words and loads its own window,
-//           tile_h + 2 halo rows x PK_TILE_WORDS + 2 words (one halo word
-//           each side holds the <= 3 halo columns), as 32-bit word loads,
-//           neighbouring threads on neighbouring words. A halo word outside
-//           the image takes each of its four bytes from the column source
-//           of the edge mode (st_src); window rows outside the image come
-//           from the row source (full mode) or the ghost strips (ghost
-//           mode). The chain runs per byte of the loaded words and the
-//           result goes to shared memory as words, one window per output
-//           plane. Shared memory is byte-addressable, so the stencil reads
-//           its taps as u8 without shifts; separable and min/max stencils
-//           first write a float32 row pass. Each thread then computes the
-//           four pixels of one output word and stores the word. The
-//           pointwise form is a tile of words with no window. tile_h (the
-//           JAX block_h) changes no byte. Built with -fmad=false.
+// Design:   the TPU kernel walks row blocks in order and carries its window
+//           rows from block to block in scratch memory. The first design
+//           here carried nothing: 16-row tiles, each loading its own window
+//           (25% more rows for a 5x5) as 4-byte words with an edge branch
+//           per word, the chain on every byte, three barrier-separated
+//           phases with no load in flight, each output reading its taps
+//           anew; it ran at 5-7% of the bytes bound. This one re-expresses
+//           the TPU walk as a loop inside a block:
+//           - A block owns a strip of tile_w words (32, 16 or 8: the host
+//             narrows it until the grid fills the SMs, as K2's picker
+//             does) and a run of run_h rows, which it walks in chunks of
+//             chunk_h output rows.
+//           - Loads: each loaded row's source is resolved once (the row
+//             source in full mode, the ghost strips in ghost mode) into a
+//             StRow; the rows then arrive as 16-byte cp.async granules
+//             (window_load.cuh) in one of three raw slots, chunks k + 1
+//             and k + 2 in flight while chunk k computes (one chunk ahead
+//             ran within 1% and spilled 8-24 bytes at 64 registers).
+//           - Carry instead of reload: the post-chain window lives in a
+//             ring of chunk_h + 2h rows per plane, so a chunk loads only
+//             its chunk_h new rows and reads the 2h before them where the
+//             previous chunk left them; halo rows are read once per run.
+//             The ring's first 2h rows are mirrored past its end, so the
+//             KS rows of any output lie at one pitch and stencil.cuh's
+//             strip functions read them as K2's do. The row pass of
+//             separable and min/max stencils has a float32 ring of its own.
+//           - The window pass: four pixels per thread, one funnel shift of
+//             two raw words per plane aligns column 4 w - h to a word (the
+//             strips read words), then the chain (each op through the
+//             read-only cache, once for the four; skipped when the group
+//             has none); column sources (st_src) only in strips that touch
+//             the left or right border, a branch uniform over the block.
+//           - Compute, as K2 does: each thread four adjacent outputs, one
+//             output word, reading each window row's 4 + 2h bytes as words
+//             once; the row pass into float rows read back as float4; one
+//             word store per plane. Bytes to floats and back through the
+//             mantissa of 2^23 where this source converts (packed_run.cuh).
+//           Per chunk: two barriers (three with a row pass); four blocks of
+//           256 threads an SM (three or two ran slower). The TPU block height (the wrapper's block_h)
+//           sets nothing: chunk_h and run_h come from the host's shape
+//           picker. On the card the 8K gray gaussian:5 spends most of its
+//           time in stencil.cuh's row and column passes, not in its loads
+//           (PERF.md). The pointwise form is packed_run.cuh's planar body.
+//           Built with -fmad=false.
 
 #include <stdint.h>
 
+#include "device_scope.cuh"
+#include "packed_run.cuh"
 #include "stencil.cuh"
+#include "window_load.cuh"
 
-#define PK_TILE_WORDS 32  // output words per tile row: 128 pixel columns
-#define PK_WIN_WORDS (PK_TILE_WORDS + 2)
 #define PK_THREADS 256
 #define PK_MAX_PLANES 3
+#define PK_MAX_TILE_W 32  // output words a strip: 128 pixel columns
+#define PK_MIN_TILE_W 8
+#define PK_MAX_CHUNK_H 48  // the largest whose 3-plane block fits in shared memory
+// chunks whose loads are in flight ahead of the one read (one ran slower)
+#define PK_PREFETCH 2
+#define PK_BLOCKS 4  // blocks an SM in the launch bounds
+#define PK_RAW_SLOTS (PK_PREFETCH + 1)
+// row sources: the chunk read, the ones in flight, the next
+#define PK_ROW_SLOTS (PK_PREFETCH + 2)
+#define PK_MAX_DEVICES 16
 
 // The planes of one launch: n_in input planes and, in ghost mode, their
 // top and bottom strips; n_out output planes. 96 bytes.
@@ -69,224 +104,301 @@ struct PkPlanes {
 
 enum PkMode { PK_FULL = 0, PK_GHOST = 1 };
 
-// Shared memory of one stencil block: the chain's table (n_ops PwOp), the
-// post-pointwise window per output plane as words, then (separable, min,
-// max) the float32 row pass per plane, tile_h + 2 halo rows of 4
-// PK_TILE_WORDS columns.
-__host__ __device__ inline size_t pk_smem_bytes(int n_out, int tile_h, int halo, int family,
-                                                int n_ops) {
-  const size_t eh = tile_h + 2 * halo;
-  size_t bytes = (size_t)n_ops * sizeof(PwOp) + (size_t)n_out * eh * PK_WIN_WORDS * 4;
-  if (st_two_pass(family)) bytes += (size_t)n_out * eh * PK_TILE_WORDS * 4 * sizeof(float);
-  return bytes;
-}
+// A stencil block's shared memory, in order: PK_ROW_SLOTS slots of row
+// sources (n_in x (chunk_h + 2 halo) StRow each); PK_RAW_SLOTS raw slots of
+// as many rows, raw_pitch bytes a row; the post-chain window ring per output plane,
+// ring = chunk_h + 2 halo rows and the mirror of its first 2 halo rows,
+// `pitch` bytes a row (byte 0 = column 4 w0 - halo); then, for separable
+// and min/max, the float32 row-pass ring per plane, as many rows of
+// 4 tile_w floats.
+struct PkLayout {
+  int raw_pitch;
+  int pitch;
+  int ring;
+  size_t raw_off;
+  size_t pix_off;
+  size_t row_off;
+  size_t total;
+};
 
-// Word `gw` of a row of Wp words. A word outside the row takes each byte k
-// from column st_src(4 gw + k): the edge mode's source, clamped.
-__device__ __forceinline__ uint32_t pk_load_word(const uint32_t* row, int gw, int Wp, int mode) {
-  if (gw >= 0 && gw < Wp) return row[gw];
-  uint32_t word = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int src = st_src(4 * gw + k, 4 * Wp, mode);
-    word |= ((row[src >> 2] >> (8 * (src & 3))) & 0xFFu) << (8 * k);
-  }
-  return word;
-}
-
-// The chain (its table in shared memory) on the four pixels of one word
-// position: n_in words in, n_out words out.
-__device__ __forceinline__ void pk_chain(const PwOp* ops, int n_ops, const uint32_t* w_in,
-                                         int n_in, uint32_t* w_out, int n_out) {
-#pragma unroll
-  for (int c = 0; c < PK_MAX_PLANES; ++c) w_out[c] = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float v[3];
-#pragma unroll
-    for (int c = 0; c < PK_MAX_PLANES; ++c) {
-      v[c] = c < n_in ? (float)((w_in[c] >> (8 * k)) & 0xFFu) : 0.0f;
-    }
-    pw_apply(ops, n_ops, v, n_in);
-#pragma unroll
-    for (int c = 0; c < PK_MAX_PLANES; ++c) {
-      if (c < n_out) w_out[c] |= (uint32_t)pw_to_u8(v[c]) << (8 * k);
-    }
-  }
-}
-
-// T1-pw: the chain alone, one word per thread and plane. Dynamic shared
-// memory: the chain's table.
-__global__ void __launch_bounds__(PK_THREADS)
-packed_pointwise_group_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_in,
-                              int n_out, int tile_h, const PwOp* __restrict__ chain,
-                              int n_ops) {
-  extern __shared__ __align__(16) PwOp s_ops[];
-  pw_copy_chain(s_ops, chain, n_ops);
-  __syncthreads();
-  const int w0 = blockIdx.x * PK_TILE_WORDS;
-  const int y0 = blockIdx.y * tile_h;
-  for (int i = threadIdx.x; i < tile_h * PK_TILE_WORDS; i += PK_THREADS) {
-    const int ly = i / PK_TILE_WORDS;
-    const int gy = y0 + ly;
-    const int gw = w0 + i - ly * PK_TILE_WORDS;
-    if (gy >= H || gw >= Wp) continue;
-    const long long o = (long long)gy * Wp + gw;
-    uint32_t w_in[PK_MAX_PLANES], w_out[PK_MAX_PLANES];
-#pragma unroll
-    for (int c = 0; c < PK_MAX_PLANES; ++c) w_in[c] = c < n_in ? pl.in[c][o] : 0u;
-    pk_chain(s_ops, n_ops, w_in, n_in, w_out, n_out);
-#pragma unroll
-    for (int c = 0; c < PK_MAX_PLANES; ++c) {
-      if (c < n_out) pl.out[c][o] = w_out[c];
-    }
-  }
+__host__ __device__ inline PkLayout pk_layout(int n_in, int n_out, int tile_w, int chunk_h,
+                                              int halo, int family) {
+  PkLayout L;
+  const int eh = chunk_h + 2 * halo;
+  const size_t rows = (size_t)eh + 2 * halo;
+  L.ring = eh;
+  // a row's granules from the aligned address below word w0 - 1, up to
+  // 12 bytes before it, plus the word past the window that the last
+  // funnel shift reads
+  L.raw_pitch = (int)st_round16(4 * tile_w + 24);
+  L.pitch = (int)st_round16(4 * tile_w + 8);
+  L.raw_off = (size_t)PK_ROW_SLOTS * n_in * eh * sizeof(StRow);
+  L.pix_off = L.raw_off + PK_RAW_SLOTS * (size_t)n_in * eh * L.raw_pitch;
+  L.row_off = L.pix_off + (size_t)n_out * rows * L.pitch;
+  L.total = L.row_off +
+            (st_two_pass(family) ? (size_t)n_out * rows * 4 * tile_w * sizeof(float) : 0);
+  return L;
 }
 
 // T1 (MODE = PK_FULL) and T1g (PK_GHOST): the chain, then the stencil.
+// Four blocks an SM (64 registers a thread).
 template <int KS, int MODE>
-__global__ void __launch_bounds__(PK_THREADS)
+__global__ void __launch_bounds__(PK_THREADS, PK_BLOCKS)
 packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_in, int n_out,
                      const PwOp* __restrict__ chain, int n_ops,
-                     const __grid_constant__ StencilDesc st, int tile_h, int row0,
-                     int image_h) {
+                     const __grid_constant__ StencilDesc st, int tile_w, int lg_w, int chunk_h,
+                     int run_h, int row0, int image_h) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int h = KS / 2;
-  constexpr int ew = 4 * PK_WIN_WORDS;   // window row, bytes
-  constexpr int rw = 4 * PK_TILE_WORDS;  // row-pass row, floats
+  // bits from the start of raw word w - 1 to column 4 w - h
+  constexpr unsigned lead = 8 * (4 - h);
   const int W = 4 * Wp;
-  const int eh = tile_h + 2 * h;
-  const int w0 = blockIdx.x * PK_TILE_WORDS;
-  const int y0 = blockIdx.y * tile_h;
-  // the chain's table, then the windows, then the row pass
-  PwOp* s_ops = reinterpret_cast<PwOp*>(smem);
-  unsigned char* s_win = smem + (size_t)n_ops * sizeof(PwOp);
-  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_win);
-  const unsigned char* s_pix = s_win;
-  float* s_row = reinterpret_cast<float*>(s_win + (size_t)n_out * eh * ew);
-  pw_copy_chain(s_ops, chain, n_ops);
-  __syncthreads();
+  const int w0 = blockIdx.x * tile_w;
+  const int ry0 = blockIdx.y * run_h;
+  const int ry1 = min(ry0 + run_h, H);
+  const int eh = chunk_h + 2 * h;
+  const PkLayout L = pk_layout(n_in, n_out, tile_w, chunk_h, h, st.family);
+  const int RB = L.ring, RBM = RB + 2 * h, P = L.pitch, RP = L.raw_pitch, FW = 4 * tile_w;
+  StRow* rows = reinterpret_cast<StRow*>(smem);
+  unsigned char* raw = smem + L.raw_off;
+  unsigned char* s_pix = smem + L.pix_off;
+  float* s_row = reinterpret_cast<float*>(smem + L.row_off);
+  const bool two_pass = st_two_pass(st.family);
+  // the words a window row needs from the image: all of [w0 - 1, w0 +
+  // tile_w + 1) in a strip that touches no border, else the part inside
+  const int lo = max(w0 - 1, 0);
+  const int hi = min(w0 + tile_w + 1, Wp);
+  const bool border = w0 == 0 || w0 + tile_w + 1 > Wp;
+  const int seg = 4 * (hi - lo);
+  const int n_chunks = (ry1 - ry0 + chunk_h - 1) / chunk_h;
+  const int G = (4 * tile_w + 2 * h + 3) >> 2;  // window words a row
+  const unsigned mg = st_magic(G);
 
-  // 1. The window: word loads with edge words by column source, rows by
-  // the row source (full) or from the strips (ghost: rows past a strip
-  // feed only outputs below the tile, which are not stored), the chain,
-  // words into shared memory.
-  for (int i = threadIdx.x; i < eh * PK_WIN_WORDS; i += PK_THREADS) {
-    const int wy = i / PK_WIN_WORDS;
-    const int ww = i - wy * PK_WIN_WORDS;
-    const int ty = y0 + wy - h;  // row of the image (full) or tile (ghost)
-    const int gw = w0 + ww - 1;
-    uint32_t w_in[PK_MAX_PLANES], w_out[PK_MAX_PLANES];
-#pragma unroll
-    for (int c = 0; c < PK_MAX_PLANES; ++c) {
-      if (c >= n_in) {
-        w_in[c] = 0u;
-        continue;
-      }
+  // Chunk k: output rows [y, y + n) (of the image, or of the tile in ghost
+  // mode), window rows [y - h, y + n + h). It loads all of them (k = 0),
+  // else the last n (the first 2h are the previous chunk's last). Loaded
+  // row j of plane c is entry c * nn + j of the chunk's slots.
+  auto resolve = [&](int k) {
+    const int y = ry0 + k * chunk_h;
+    const int first = k ? 2 * h : 0;
+    const int nn = min(chunk_h, ry1 - y) + 2 * h - first;
+    StRow* slot = rows + (k % PK_ROW_SLOTS) * n_in * eh;
+    for (int i = threadIdx.x; i < n_in * nn; i += PK_THREADS) {
+      const int c = i >= nn ? (i >= 2 * nn ? 2 : 1) : 0;
+      const int ty = y - h + first + (i - c * nn);
       const uint32_t* row;
       if (MODE == PK_FULL) {
         row = pl.in[c] + (long long)st_src(ty, H, st.edge_mode) * Wp;
       } else if (ty < 0) {
         row = pl.top[c] + (long long)(h + ty) * Wp;
       } else if (ty >= H) {
+        // rows past the strip feed only outputs below the tile
         row = pl.bot[c] + (long long)min(ty - H, h - 1) * Wp;
       } else {
         row = pl.in[c] + (long long)ty * Wp;
       }
-      w_in[c] = pk_load_word(row, gw, Wp, st.edge_mode);
+      slot[i] = st_row_at(reinterpret_cast<const unsigned char*>(row + lo), seg);
     }
-    pk_chain(s_ops, n_ops, w_in, n_in, w_out, n_out);
-#pragma unroll
-    for (int c = 0; c < PK_MAX_PLANES; ++c) {
-      if (c < n_out) s_words[(c * eh + wy) * PK_WIN_WORDS + ww] = w_out[c];
+  };
+  auto fetch = [&](int k) {
+    const int y = ry0 + k * chunk_h;
+    const int nn = min(chunk_h, ry1 - y) + (k ? 0 : 2 * h);
+    st_load_window<PK_THREADS>(raw + (size_t)(k % PK_RAW_SLOTS) * n_in * eh * RP,
+                               rows + (k % PK_ROW_SLOTS) * n_in * eh, n_in * nn, RP);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  for (int k = 0; k <= PK_PREFETCH && k < n_chunks; ++k) resolve(k);
+  __syncthreads();
+  for (int k = 0; k < PK_PREFETCH; ++k) {
+    if (k < n_chunks) {
+      fetch(k);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
     }
   }
-  __syncthreads();
+  for (int k = 0; k < n_chunks; ++k) {
+    // chunk k's rows have landed, chunk k - 1's outputs are done, the
+    // sources of chunk k + PK_PREFETCH are resolved
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(PK_PREFETCH - 1));
+    __syncthreads();
+    if (k + PK_PREFETCH < n_chunks) {
+      fetch(k + PK_PREFETCH);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    if (k + PK_PREFETCH + 1 < n_chunks) resolve(k + PK_PREFETCH + 1);
+    const int y = ry0 + k * chunk_h;
+    const int n = min(chunk_h, ry1 - y);
+    const int first = k ? 2 * h : 0;
+    const int nn = n + 2 * h - first;
+    const int base = (k * chunk_h) % RB;  // ring row of window row y - h
+    const unsigned char* rs = raw + (size_t)(k % PK_RAW_SLOTS) * n_in * eh * RP;
+    const StRow* rk = rows + (k % PK_ROW_SLOTS) * n_in * eh;
 
-  // 2. Row pass of separable and min/max stencils. Pixel x of the tile is
-  // byte x + 4 of its window row; its taps start h bytes left of it.
-  const bool two_pass = st_two_pass(st.family);
-  if (two_pass) {
-    for (int i = threadIdx.x; i < n_out * eh * rw; i += PK_THREADS) {
-      const int r = i / rw;  // plane * eh + row
-      const int x = i - r * rw;
-      s_row[r * rw + x] = st_row_pass<KS>(s_pix + r * ew + x + 4 - h, st);
+    // 1. The loaded rows into the ring: four pixels per step, aligned by
+    // one funnel shift (or by column source in border strips), the chain,
+    // one word per output plane (and its mirror).
+    for (unsigned i = threadIdx.x; i < (unsigned)(nn * G); i += PK_THREADS) {
+      const int j = (int)st_div(i, mg);
+      const int g = (int)i - j * G;
+      int pos = base + first + j;
+      if (pos >= RB) pos -= RB;
+      uint32_t wi[3] = {0u, 0u, 0u};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (c >= n_in) break;
+        const int r = c * nn + j;
+        const unsigned char* src = rs + r * RP + rk[r].shift;  // word lo of the row
+        if (!border) {
+          const uint32_t* s32 = reinterpret_cast<const uint32_t*>(src) + g;
+          wi[c] = __funnelshift_r(s32[0], s32[1], lead);
+        } else {
+          uint32_t w = 0u;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int cx = 4 * (w0 + g) - h + b;
+            const int sx = min(max(st_src(cx, W, st.edge_mode), 4 * lo), 4 * hi - 1);
+            w |= (uint32_t)src[sx - 4 * lo] << (8 * b);
+          }
+          wi[c] = w;
+        }
+      }
+      uint32_t wo[3] = {wi[0], wi[1], wi[2]};
+      if (n_ops > 0) {
+        float v[4][3];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) v[b][c] = pr_byte_f(wi[c], b);
+        }
+        pw_apply_ldg<4>(chain, n_ops, v, n_in);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          wo[c] = 0u;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) wo[c] |= pr_f_byte(v[b][c]) << (8 * b);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (c >= n_out) break;
+        unsigned char* d = s_pix + (size_t)(c * RBM + pos) * P + 4 * g;
+        *reinterpret_cast<uint32_t*>(d) = wo[c];
+        if (pos < 2 * h) *reinterpret_cast<uint32_t*>(d + (size_t)RB * P) = wo[c];
+      }
     }
     __syncthreads();
-  }
 
-  // 3. Four pixels per output word: column pass or 2-D window, scale,
-  // quantize, the interior passthrough at global coordinates; one word
-  // store per plane.
-  for (int i = threadIdx.x; i < tile_h * PK_TILE_WORDS; i += PK_THREADS) {
-    const int ly = i / PK_TILE_WORDS;
-    const int lw = i - ly * PK_TILE_WORDS;
-    const int gy = y0 + ly;
-    const int gw = w0 + lw;
-    if (gy >= H || gw >= Wp) continue;
-    for (int c = 0; c < n_out; ++c) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int lx = 4 * lw + k;
-        const int gx = 4 * gw + k;
-        const bool filtered =
-            MODE == PK_FULL ? st_filtered(gy, gx, H, W, h, st.edge_mode)
-                            : st_filtered(row0 + gy, gx, image_h, W, h, st.edge_mode);
-        const unsigned char* win = s_pix + (c * eh + ly) * ew + lx + 4 - h;
-        float res;
-        if (!filtered) {
-          res = (float)win[h * ew + h];
-        } else {
-          const float acc = two_pass
-                                ? st_col_pass<KS>(s_row + (c * eh + ly) * rw + lx, rw, st)
-                                : st_window<KS>(win, ew, st);
-          res = st_finish(acc, st);
-        }
-        word |= (uint32_t)pw_to_u8(res) << (8 * k);
+    // 2. Row pass of separable and min/max stencils over the loaded rows:
+    // four values per step from one read of the row's 4 + 2h bytes, one
+    // float4 into the float ring (and its mirror).
+    if (two_pass) {
+      for (int i = threadIdx.x; i < (n_out * nn) << lg_w; i += PK_THREADS) {
+        const int r = i >> lg_w;  // plane * nn + loaded row
+        const int s4 = 4 * (i & (tile_w - 1));
+        const int c = r >= nn ? (r >= 2 * nn ? 2 : 1) : 0;
+        int pos = base + first + (r - c * nn);
+        if (pos >= RB) pos -= RB;
+        const float4 f = st_strip_row_pass<KS>(s_pix + (size_t)(c * RBM + pos) * P + s4, st);
+        float* d = s_row + (size_t)(c * RBM + pos) * FW + s4;
+        *reinterpret_cast<float4*>(d) = f;
+        if (pos < 2 * h) *reinterpret_cast<float4*>(d + (size_t)RB * FW) = f;
       }
-      pl.out[c][(long long)gy * Wp + gw] = word;
+      __syncthreads();
+    }
+
+    // 3. Four adjacent outputs (one word) per step: column pass or 2-D
+    // window from the ring, scale, quantize, the interior passthrough at
+    // global coordinates; one word store per plane.
+    for (int i = threadIdx.x; i < n << lg_w; i += PK_THREADS) {
+      const int ly = i >> lg_w;
+      const int s = i & (tile_w - 1);
+      const int gw = w0 + s;
+      if (gw >= Wp) continue;
+      const int gy = y + ly;
+      int pos = base + ly;
+      if (pos >= RB) pos -= RB;
+#pragma unroll 1
+      for (int c = 0; c < n_out; ++c) {
+        const unsigned char* win = s_pix + (size_t)(c * RBM + pos) * P + 4 * s;
+        float acc[4], center[4];
+        if (two_pass) {
+          st_strip_col_pass<KS>(s_row + (size_t)(c * RBM + pos) * FW + 4 * s, FW, st, acc);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) center[j] = 0.0f;
+        } else {
+          st_strip_window<KS>(win, P, st, acc, center);
+        }
+        uint32_t word = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gx = 4 * gw + j;
+          const bool filtered =
+              MODE == PK_FULL ? st_filtered(gy, gx, H, W, h, st.edge_mode)
+                              : st_filtered(row0 + gy, gx, image_h, W, h, st.edge_mode);
+          float res;
+          if (filtered) {
+            res = st_finish(acc[j], st);
+          } else {
+            res = two_pass ? (float)win[h * P + j + h] : center[j];
+          }
+          word |= pr_f_byte(res) << (8 * j);
+        }
+        pl.out[c][(long long)gy * Wp + gw] = word;
+      }
     }
   }
 }
 
 template <int KS, int MODE>
 static int pk_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, const PwOp* chain,
-                     int n_ops, const StencilDesc* st, int tile_h, int row0, int image_h,
-                     cudaStream_t stream) {
-  const size_t smem = pk_smem_bytes(n_out, tile_h, st->halo, st->family, n_ops);
-  if (smem > 48 * 1024) {
+                     int n_ops, const StencilDesc* st, int tile_w, int chunk_h, int run_h,
+                     int row0, int image_h, int device, cudaStream_t stream) {
+  const size_t smem = pk_layout(n_in, n_out, tile_w, chunk_h, st->halo, st->family).total;
+  // the opt-in above 48 KB, once per instantiation, size and device
+  static size_t opted[PK_MAX_DEVICES] = {};
+  if (smem > 48 * 1024 && smem > opted[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
         packed_stream_kernel<KS, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    opted[device] = smem;
   }
-  const dim3 grid((Wp + PK_TILE_WORDS - 1) / PK_TILE_WORDS, (H + tile_h - 1) / tile_h);
+  int lg = 0;
+  while ((1 << lg) < tile_w) ++lg;
+  const dim3 grid((Wp + tile_w - 1) / tile_w, (H + run_h - 1) / run_h);
   packed_stream_kernel<KS, MODE><<<grid, PK_THREADS, smem, stream>>>(
-      *pl, H, Wp, n_in, n_out, chain, n_ops, *st, tile_h, row0, image_h);
+      *pl, H, Wp, n_in, n_out, chain, n_ops, *st, tile_w, lg, chunk_h, run_h, row0, image_h);
   return (int)cudaGetLastError();
 }
 
-static bool pk_args_ok(int n_in, int n_out, int tile_h, const PwOp* chain, int n_ops) {
+static bool pk_args_ok(int n_in, int n_out, const PwOp* chain, int n_ops, int device) {
   return n_in >= 1 && n_in <= PK_MAX_PLANES && n_out >= 1 && n_out <= PK_MAX_PLANES &&
-         tile_h >= 1 && n_ops >= 0 && (n_ops == 0 || chain != nullptr);
+         n_ops >= 0 && (n_ops == 0 || chain != nullptr) && (n_ops > 0 || n_in == n_out) &&
+         device >= 0 && device < PK_MAX_DEVICES;
 }
 
-// Launches the stencil form for the stencil's size (halo 1-3). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// Launches the stencil form for the stencil's size (halo 1-3) on `device`.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments the kernel does not take.
 template <int MODE>
 static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, const PwOp* chain,
-                       int n_ops, const StencilDesc* st, int tile_h, int row0, int image_h,
-                       void* stream) {
+                       int n_ops, const StencilDesc* st, int tile_w, int chunk_h, int run_h,
+                       int row0, int image_h, int device, void* stream) {
   if (H <= 0 || Wp <= 0) return 0;
-  if (!pk_args_ok(n_in, n_out, tile_h, chain, n_ops) || H <= st->halo) {
+  const bool shape_ok = (tile_w == PK_MIN_TILE_W || tile_w == 16 || tile_w == PK_MAX_TILE_W) &&
+                        chunk_h >= 1 && chunk_h <= PK_MAX_CHUNK_H && run_h >= chunk_h &&
+                        run_h % chunk_h == 0 && (H + run_h - 1) / run_h <= 65535;
+  if (!shape_ok || !pk_args_ok(n_in, n_out, chain, n_ops, device) || H <= st->halo) {
     return (int)cudaErrorInvalidValue;
   }
+  DeviceScope scope(device);
+  if (scope.err) return scope.err;
   const cudaStream_t s = (cudaStream_t)stream;
-#define PK_CASE(KS)                                                                          \
-  case KS:                                                                                   \
-    return pk_launch<KS, MODE>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_h, row0, image_h, \
-                               s);
+#define PK_CASE(KS)                                                                         \
+  case KS:                                                                                  \
+    return pk_launch<KS, MODE>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_w, chunk_h,  \
+                               run_h, row0, image_h, device, s);
   switch (st->ksize) {
     PK_CASE(3)
     PK_CASE(5)
@@ -297,29 +409,36 @@ static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, c
 }
 
 // T1-pw: the chain table `chain` (n_ops PwOp in device memory) over the
-// (H, Wp) planes of `pl`, in tiles of tile_h rows.
+// (H, Wp) planes of `pl` (their strips unused), on `device`.
 extern "C" int packed_pointwise_group_launch(const PkPlanes* pl, int H, int Wp, int n_in,
-                                             int n_out, const PwOp* chain, int n_ops, int tile_h,
+                                             int n_out, const PwOp* chain, int n_ops, int device,
                                              void* stream) {
   if (H <= 0 || Wp <= 0) return 0;
-  if (!pk_args_ok(n_in, n_out, tile_h, chain, n_ops)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n_ops * sizeof(PwOp);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        packed_pointwise_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (!pk_args_ok(n_in, n_out, chain, n_ops, device)) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err) return scope.err;
+  PrPlanes p;
+  for (int c = 0; c < PK_MAX_PLANES; ++c) {
+    p.in[c] = pl->in[c];
+    p.out[c] = pl->out[c];
   }
-  const dim3 grid((Wp + PK_TILE_WORDS - 1) / PK_TILE_WORDS, (H + tile_h - 1) / tile_h);
-  packed_pointwise_group_kernel<<<grid, PK_THREADS, smem, (cudaStream_t)stream>>>(
-      *pl, H, Wp, n_in, n_out, tile_h, chain, n_ops);
-  return (int)cudaGetLastError();
+  const long long n = (long long)H * Wp;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n_in == 1 && n_out == 1) return pr_launch<1, 1>(p, n, chain, n_ops, s);
+  if (n_in == 1 && n_out == 3) return pr_launch<1, 3>(p, n, chain, n_ops, s);
+  if (n_in == 3 && n_out == 1) return pr_launch<3, 1>(p, n, chain, n_ops, s);
+  if (n_in == 3 && n_out == 3) return pr_launch<3, 3>(p, n, chain, n_ops, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// T1: the group over whole (H, Wp) planes.
+// T1: the group over whole (H, Wp) planes, in strips of tile_w words and
+// runs of run_h rows walked in chunks of chunk_h.
 extern "C" int packed_stream_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out,
                                     const PwOp* chain, int n_ops, const StencilDesc* st,
-                                    int tile_h, void* stream) {
-  return pk_dispatch<PK_FULL>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_h, 0, H, stream);
+                                    int tile_w, int chunk_h, int run_h, int device,
+                                    void* stream) {
+  return pk_dispatch<PK_FULL>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_w, chunk_h, run_h,
+                              0, H, device, stream);
 }
 
 // T1g: the group over a (local_h, Wp) row-shard whose first row is global
@@ -327,17 +446,31 @@ extern "C" int packed_stream_launch(const PkPlanes* pl, int H, int Wp, int n_in,
 // strips in `pl->top` and `pl->bot`.
 extern "C" int packed_stream_ghost_launch(const PkPlanes* pl, int local_h, int Wp, int n_in,
                                           int n_out, const PwOp* chain, int n_ops,
-                                          const StencilDesc* st, int tile_h, int row0,
-                                          int image_h, void* stream) {
+                                          const StencilDesc* st, int tile_w, int chunk_h,
+                                          int run_h, int row0, int image_h, int device,
+                                          void* stream) {
   for (int c = 0; c < n_in && c < PK_MAX_PLANES; ++c) {
     if (pl->top[c] == nullptr || pl->bot[c] == nullptr) return (int)cudaErrorInvalidValue;
   }
-  return pk_dispatch<PK_GHOST>(pl, local_h, Wp, n_in, n_out, chain, n_ops, st, tile_h, row0,
-                               image_h, stream);
+  return pk_dispatch<PK_GHOST>(pl, local_h, Wp, n_in, n_out, chain, n_ops, st, tile_w, chunk_h,
+                               run_h, row0, image_h, device, stream);
 }
 
 // Dynamic shared memory one stencil launch needs, for the host-side check.
-extern "C" long long packed_stream_smem_bytes(int n_out, int tile_h, int halo, int family,
-                                              int n_ops) {
-  return (long long)pk_smem_bytes(n_out, tile_h, halo, family, n_ops);
+extern "C" long long packed_stream_smem_bytes(int n_in, int n_out, int tile_w, int chunk_h,
+                                              int halo, int family) {
+  return (long long)pk_layout(n_in, n_out, tile_w, chunk_h, halo, family).total;
+}
+
+// The split of one pointwise launch (pr_split), for the host-side check:
+// head, runs, tail and the three input shifts (words) in `split[0..5]`.
+extern "C" void packed_pointwise_split(unsigned long long in0, unsigned long long in1,
+                                       unsigned long long in2, int n_in, unsigned long long out,
+                                       long long n, long long* split) {
+  const uintptr_t in[PR_MAX_PLANES] = {(uintptr_t)in0, (uintptr_t)in1, (uintptr_t)in2};
+  const PrSplit s = pr_split(in, n_in, (uintptr_t)out, n);
+  split[0] = s.head;
+  split[1] = s.runs;
+  split[2] = s.tail;
+  for (int c = 0; c < PR_MAX_PLANES; ++c) split[3 + c] = s.shift[c];
 }

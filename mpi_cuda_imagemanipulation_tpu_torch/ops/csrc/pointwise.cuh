@@ -6,19 +6,18 @@
 //
 // A chain is a table of PwOp in device memory, an opcode and up to two
 // float32 parameters per op, of any length: the wrapper builds it once per
-// chain (ops/cuda_kernels.chain_table) and each block copies it into
-// shared memory before its load loop (pw_copy_chain). T2's fixed
-// two-op chain alone still comes by value, as a PwProgram. Each op repeats its golden PyTorch core (ops/registry.py) operation for
-// operation: every product and sum is one IEEE-rounded float32 step
-// (__fmul_rn / __fadd_rn, and the sources are built with -fmad=false), so
-// the results are the golden bytes. Values entering and leaving every op
+// chain (ops/cuda_kernels.chain_for). K2 and K4 copy it into shared memory
+// before their load loops (pw_copy_chain); K1, T1 and T2 read each op
+// through the read-only cache (pw_apply_ldg). Each op repeats its golden
+// PyTorch core (ops/registry.py) operation for operation: every product
+// and sum is one IEEE-rounded float32 step (__fmul_rn / __fadd_rn, and the
+// sources are built with -fmad=false), so the results are the golden
+// bytes. Values entering and leaving every op
 // are exact integers in [0, 255].
 
 #pragma once
 
 #include <cuda_runtime.h>
-
-#define PW_MAX_OPS 8
 
 // Opcodes: the same numbers as PW_* in ops/spec.py.
 enum PwOpcode {
@@ -40,14 +39,6 @@ struct PwOp {
   float p0;
   float p1;
   int pad;
-};
-
-// T2's chain (packed_proto.cu), passed by value: at most PW_MAX_OPS ops.
-struct PwProgram {
-  int n_ops;
-  int op[PW_MAX_OPS];
-  float p0[PW_MAX_OPS];
-  float p1[PW_MAX_OPS];
 };
 
 __device__ __forceinline__ float pw_clip(float x) {
@@ -168,9 +159,13 @@ __device__ __forceinline__ int pw_apply(const PwOp* ops, int n_ops, float v[3], 
   return n;
 }
 
-// The same for T2's by-value program.
-__device__ __forceinline__ int pw_apply(const PwProgram& prog, float v[3], int n) {
-  for (int k = 0; k < prog.n_ops; ++k) n = pw_apply_one(prog.op[k], prog.p0[k], v, n);
+// The chain `ops[0 .. n_ops)` in device memory applied to N pixels, each
+// op read through the read-only cache (uniform over the warp) and
+// dispatched once for the N.
+template <int N>
+__device__ __forceinline__ int pw_apply_ldg(const PwOp* __restrict__ ops, int n_ops,
+                                            float (*v)[3], int n) {
+  for (int k = 0; k < n_ops; ++k) n = pw_apply_lanes<N>(__ldg(&ops[k].op), __ldg(&ops[k].p0), v, n);
   return n;
 }
 

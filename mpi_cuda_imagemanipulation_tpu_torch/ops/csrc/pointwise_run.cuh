@@ -52,16 +52,6 @@ __host__ __device__ inline PwSplit pw_split(uintptr_t in, uintptr_t out, long lo
   return s;
 }
 
-// The chain `ops[0 .. n_ops)` in device memory applied to N pixels, each
-// op read through the read-only cache (uniform over the warp) and
-// dispatched once for the N.
-template <int N>
-__device__ __forceinline__ int pw_apply_ldg(const PwOp* __restrict__ ops, int n_ops,
-                                            float (*v)[3], int n) {
-  for (int k = 0; k < n_ops; ++k) n = pw_apply_lanes<N>(__ldg(&ops[k].op), __ldg(&ops[k].p0), v, n);
-  return n;
-}
-
 template <int CI, int CO>
 __global__ void __launch_bounds__(PW_THREADS)
 pw_run_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out,

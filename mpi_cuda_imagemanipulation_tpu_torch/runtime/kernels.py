@@ -46,10 +46,9 @@ NVCC_FLAGS = (
 
 # Layouts shared with the C sources (pointwise.cuh, stencil.cuh,
 # fused_stage.cu, swar_stencil.cu, copy_probe.cu, packed_stream.cu). A
-# pointwise chain goes to K1, K2/K2g and T1, and a fused stage to K4/K4g, as
-# a table of any length on the card (ops/cuda_kernels.pointwise_program,
-# stage_program); PW_MAX_OPS bounds T2's fixed by-value PwProgram only.
-PW_MAX_OPS = 8
+# pointwise chain goes to K1, K2/K2g, T1 and T2, and a fused stage to
+# K4/K4g, as a table of any length on the card
+# (ops/cuda_kernels.pointwise_program, stage_program).
 ST_MAX_K = 7
 FS_OP_STENCIL = 100
 # CUDA's limit on a kernel's parameters
@@ -61,19 +60,9 @@ CP_U8, CP_F32, CP_U32 = 0, 1, 2
 # the largest SWAR kernel side whose taps go as kernel parameters
 # (SW_MAX_K in swar_stencil.cu)
 SW_MAX_K = 7
-# planes per launch of T1 (PK_MAX_PLANES in packed_stream.cu)
+# planes per launch of T1 (PK_MAX_PLANES in packed_stream.cu, PR_MAX_PLANES
+# in packed_run.cuh)
 PK_MAX_PLANES = 3
-
-
-class PwProgram(ctypes.Structure):
-    """T2's by-value chain (packed_proto.cu)."""
-
-    _fields_ = [
-        ("n_ops", ctypes.c_int),
-        ("op", ctypes.c_int * PW_MAX_OPS),
-        ("p0", ctypes.c_float * PW_MAX_OPS),
-        ("p1", ctypes.c_float * PW_MAX_OPS),
-    ]
 
 
 class StencilDesc(ctypes.Structure):
@@ -286,21 +275,28 @@ def load(name: str) -> ctypes.CDLL:
                    "bitcast_load_launch"):
             getattr(lib, fn).restype = ci
     elif name == "packed_proto":
-        lib.packed_pointwise_launch.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(PwProgram), vp,
-        ]
+        # R, G, B, out, H, Wp, the chain table and its length, the device,
+        # the stream
+        lib.packed_pointwise_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, ci, ci, vp]
         lib.packed_pointwise_launch.restype = ci
     elif name == "packed_stream":
         pk, st = (ctypes.POINTER(t) for t in (PkPlanes, StencilDesc))
-        # the chain as a table on the card and its length (vp, ci)
+        # ... the chain as a table on the card and its length (vp, ci), the
+        # descriptor, the strip's words, the chunk's and the run's rows,
+        # (ghost: row0, image_h,) the device, the stream
         lib.packed_pointwise_group_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, ci, vp]
-        lib.packed_stream_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, st, ci, vp]
-        lib.packed_stream_ghost_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, vp]
+        lib.packed_stream_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, vp]
+        lib.packed_stream_ghost_launch.argtypes = [
+            pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, ci, ci, vp,
+        ]
         for fn in ("packed_pointwise_group_launch", "packed_stream_launch",
                    "packed_stream_ghost_launch"):
             getattr(lib, fn).restype = ci
-        lib.packed_stream_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
+        lib.packed_stream_smem_bytes.argtypes = [ci] * 6
         lib.packed_stream_smem_bytes.restype = ll
+        ull = ctypes.c_ulonglong
+        lib.packed_pointwise_split.argtypes = [ull, ull, ull, ci, ull, ll, ctypes.POINTER(ll)]
+        lib.packed_pointwise_split.restype = None
     elif name == "swar_proto":
         lib.swar_proto_launch.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.swar_proto_launch.restype = ci

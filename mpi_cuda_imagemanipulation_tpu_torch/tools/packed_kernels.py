@@ -25,8 +25,9 @@ no production route to it. It holds:
 * ``pipeline_packed``: the word-carrying group loop, consecutive eligible
   groups staying in word form.
 
-The kernel's host geometry (tiles, window words and their column sources,
-shared memory) is plain Python here, so that the CPU tests can check it.
+The kernel's host geometry (the strips, runs and chunks of the stencil
+form, the window's column and row sources, shared memory, the pointwise
+form's split) is plain Python here, so that the CPU tests can check it.
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises, and counts the launch in
 ``cuda_kernels.TOOL_LAUNCHES`` under 'T1-pw', 'T1' or 'T1g'.
@@ -35,6 +36,8 @@ CUDA tensor it launches the kernel or raises, and counts the launch in
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -43,12 +46,24 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import U8, PointwiseOp, Stenc
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
 I32 = torch.int32
-# Launch geometry; PK_TILE_WORDS in packed_stream.cu. A tile is tile_h rows
-# of TILE_WORDS words; a stencil block's window adds halo rows above and
-# below and one word left and right.
-TILE_WORDS = 32
-WIN_WORDS = TILE_WORDS + 2
-DEFAULT_TILE_H = 16
+# Launch geometry (packed_stream.cu). A stencil block owns a strip of
+# tile_w words, one of TILE_WIDTHS (PK_MAX_TILE_W .. PK_MIN_TILE_W), and a
+# run of run_h rows, which it walks in chunks of CHUNK_H output rows (at
+# most MAX_CHUNK_H, PK_MAX_CHUNK_H), PREFETCH chunks' loads in flight ahead
+# of the one it reads (PK_PREFETCH; RAW_SLOTS and ROW_SLOTS are
+# PK_RAW_SLOTS and PK_ROW_SLOTS); the host narrows the strips until the
+# grid has N_SMS blocks and cuts runs of whole chunks so that it has about
+# TARGET_BLOCKS. The pointwise form takes RUN_WORDS words a plane per
+# thread (PR_RUN_WORDS in packed_run.cuh).
+TILE_WIDTHS = (32, 16, 8)
+CHUNK_H = 32
+MAX_CHUNK_H = 48
+PREFETCH = 2
+RAW_SLOTS = PREFETCH + 1
+ROW_SLOTS = PREFETCH + 2
+TARGET_BLOCKS = 16 * ck.N_SMS
+RUN_WORDS = 4
+N_SMS = ck.N_SMS
 
 
 # --------------------------------------------------------------------------
@@ -121,22 +136,61 @@ def packed_supported(
 # --------------------------------------------------------------------------
 
 
-def packed_grid(height: int, wp: int, tile_h: int) -> tuple[int, int]:
-    """T1's grid: (word tiles, row tiles)."""
-    return -(-wp // TILE_WORDS), -(-height // tile_h)
+def packed_grid(height: int, wp: int, tile_w: int, run_h: int) -> tuple[int, int]:
+    """T1's grid: (strips, runs)."""
+    return -(-wp // tile_w), -(-height // run_h)
 
 
-def packed_smem_bytes(n_out: int, tile_h: int, halo: int, family: int, n_ops: int = 0) -> int:
-    """Dynamic shared memory of one stencil block (pk_smem_bytes in the
-    source): the chain's table (16 bytes an op), the window of (tile_h + 2
-    halo) rows x WIN_WORDS words per output plane, then for separable and
-    min/max the float32 row pass of (tile_h + 2 halo) rows x 4 TILE_WORDS
-    columns per plane."""
-    eh = tile_h + 2 * halo
-    nbytes = 16 * n_ops + n_out * eh * WIN_WORDS * 4
+@functools.lru_cache(maxsize=4096)
+def packed_tile_shape(height: int, wp: int) -> tuple[int, int]:
+    """The (tile_w, run_h) of one T1 launch over (height, wp) words: the
+    widest of TILE_WIDTHS that gives the grid N_SMS blocks of one chunk
+    each, narrowing only while that adds strips; then runs of whole
+    chunks, as long as keeps about TARGET_BLOCKS blocks (one chunk at
+    least, and at most 65535 runs)."""
+    cols = TILE_WIDTHS[0]
+    for narrower in TILE_WIDTHS[1:]:
+        if math.prod(packed_grid(height, wp, cols, CHUNK_H)) >= N_SMS:
+            break
+        if -(-wp // narrower) > -(-wp // cols):
+            cols = narrower
+    strips, chunks = packed_grid(height, wp, cols, CHUNK_H)
+    per_run = max(1, chunks * strips // TARGET_BLOCKS, -(-chunks // 65535))
+    return cols, CHUNK_H * per_run
+
+
+def packed_smem_bytes(n_in: int, n_out: int, tile_w: int, chunk_h: int, halo: int,
+                      family: int) -> int:
+    """Dynamic shared memory of one stencil block (pk_layout in the
+    source): ROW_SLOTS slots of row sources (16 bytes each) and RAW_SLOTS
+    raw slots, n_in x (chunk_h + 2 halo) rows each; then per output plane the
+    window ring, chunk_h + 4 halo rows (its mirror included); then, for
+    separable and min/max, the float32 row-pass ring of as many rows of 4
+    tile_w floats per plane."""
+    eh = chunk_h + 2 * halo
+    rows = eh + 2 * halo
+    raw_pitch = -(-(4 * tile_w + 24) // 16) * 16
+    pitch = -(-(4 * tile_w + 8) // 16) * 16
+    nbytes = (ROW_SLOTS * n_in * eh * 16 + RAW_SLOTS * n_in * eh * raw_pitch
+              + n_out * rows * pitch)
     if family in (ck._FAMILIES["separable"], ck._FAMILIES["min"], ck._FAMILIES["max"]):
-        nbytes += n_out * eh * TILE_WORDS * 4 * 4
+        nbytes += n_out * rows * 4 * tile_w * 4
     return nbytes
+
+
+def planar_split(in_addrs, out_addr: int, n: int) -> tuple[int, int, int, list[int]]:
+    """How the pointwise form (T1-pw, and T2) splits a launch of `n` words a
+    plane (pr_split in packed_run.cuh): (head, runs, tail, shifts). Words
+    [0, head) and the `tail` after the body run one a thread; the body is
+    `runs` runs of RUN_WORDS words from `head`, the first word whose output
+    is 16-byte aligned; input plane c's runs start shifts[c] words past a
+    16-byte boundary."""
+    head = 0
+    while head < RUN_WORDS and (out_addr + 4 * head) % 16:
+        head += 1
+    head = min(head, n)
+    runs = (n - head) // RUN_WORDS
+    return head, runs, n - head - runs * RUN_WORDS, [(a + 4 * head) % 16 // 4 for a in in_addrs]
 
 
 def _st_src(c: int, n: int, mode: str) -> int:
@@ -146,13 +200,18 @@ def _st_src(c: int, n: int, mode: str) -> int:
     return min(max(c, 0), n - 1) if src is None else src
 
 
-def window_word_sources(gw: int, wp: int, mode: str) -> list[int]:
-    """The image columns the four bytes of window word `gw` hold
-    (pk_load_word): word gw's own columns inside the row, else each byte's
-    st_src column."""
-    if 0 <= gw < wp:
-        return [4 * gw + k for k in range(4)]
-    return [_st_src(4 * gw + k, 4 * wp, mode) for k in range(4)]
+def window_columns(w0: int, tile_w: int, wp: int, halo: int, mode: str) -> list[int]:
+    """The image column each byte of a strip's post-chain window row holds
+    (the window pass): bytes 0 .. 4 tile_w + 2 halo - 1, byte 0 being
+    column 4 w0 - halo. In a strip that touches no border, the column
+    itself; else its st_src column, clamped into the words the strip loads,
+    [max(w0 - 1, 0), min(w0 + tile_w + 1, wp))."""
+    lo, hi = max(w0 - 1, 0), min(w0 + tile_w + 1, wp)
+    border = w0 == 0 or w0 + tile_w + 1 > wp
+    cols = [4 * w0 - halo + b for b in range(4 * tile_w + 2 * halo)]
+    if border:
+        cols = [min(max(_st_src(c, 4 * wp, mode), 4 * lo), 4 * hi - 1) for c in cols]
+    return cols
 
 
 def window_row_source(ty: int, height: int, halo: int, mode: str,
@@ -181,8 +240,9 @@ def _check_planes(what: str, planes, shape, device) -> None:
 
 
 def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h):
-    """Validate one T1 call. Returns (program, n_out, stencil descriptor or
-    None, tile_h)."""
+    """Validate one T1 call. Returns (chain, stencil descriptor or None,
+    (tile_w, run_h) or None). `block_h`, the JAX block height, is checked
+    (the JAX default when falsy) and sets nothing."""
     if len(words) not in (1, 3):
         raise ValueError(f"T1 takes 1 or 3 word planes, got {len(words)}")
     if width % 4:
@@ -193,23 +253,16 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
         names = [op.name for op in pointwise] + ([stencil.name] if stencil else [])
         raise ValueError(f"T1 does not take group {names} at width {width} (packed_supported)")
     chain = ck.chain_for(pointwise, len(words))
-    tile_h = block_h or DEFAULT_TILE_H
-    if tile_h < 1:
-        raise ValueError(f"tile height must be >= 1, got {tile_h}")
-    if packed_grid(height, wp, tile_h)[1] > ck._MAX_GRID_Y:
-        raise ValueError(f"image height {height} needs a taller tile than {tile_h}")
+    if (block_h or 1) < 1:
+        raise ValueError(f"tile height must be >= 1, got {block_h}")
     if stencil is None:
         if ghosts is not None:
             raise ValueError("ghost mode needs a stencil")
-        return chain, None, tile_h
-    desc = ck.stencil_desc(stencil)
+        return chain, None, None
+    desc = ck.desc_for(stencil)
     h = stencil.halo
     if height <= h:
         raise ValueError(f"image height {height} too small for halo {h}")
-    smem = packed_smem_bytes(chain.c_out, tile_h, h, desc.family, chain.n_ops)
-    if smem > ck.MAX_SMEM_BYTES:
-        raise ValueError(f"tile height {tile_h} needs {smem} B of shared memory "
-                         f"(at most {ck.MAX_SMEM_BYTES})")
     if ghosts is not None:
         tops, bots = ghosts
         if len(tops) != len(words) or len(bots) != len(words):
@@ -221,7 +274,7 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
         if not 0 <= int(y0) <= image_h - height:
             raise ValueError(f"tile rows [{int(y0)}, {int(y0) + height}) lie outside an image "
                              f"of {image_h} rows")
-    return chain, desc, tile_h
+    return chain, desc, packed_tile_shape(height, wp)
 
 
 def _hwc(planes: list[torch.Tensor]) -> torch.Tensor:
@@ -283,12 +336,14 @@ def run_group_packed_words(
 ) -> list[torch.Tensor]:
     """T1: one group on (height, width/4) int32 word planes, one per
     channel, into word planes of the channel count after the chain; one
-    launch. `block_h` is the tile height in rows (default 16).
-    ``ghosts=(tops, bots)`` runs ghost mode over a row-shard: raw,
-    pre-pointwise (halo, width/4) word strips per input plane, the tile's
-    first row being global row `y0` of an image `image_h` rows high. The
-    caller keeps to `packed_supported`; a group outside it raises."""
-    chain, desc, tile_h = _check_group(
+    launch. `block_h` is the JAX block height: checked, and it sets nothing
+    (the launch shape is ``packed_tile_shape``'s). ``ghosts=(tops, bots)``
+    runs ghost mode over a row-shard: raw, pre-pointwise (halo, width/4)
+    word strips per input plane, the tile's first row being global row
+    `y0` of an image `image_h` rows high. A plane may start at any word (a
+    row slice of a larger one). The caller keeps to `packed_supported`; a
+    group outside it raises."""
+    chain, desc, shape = _check_group(
         pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
     device = words[0].device
     if device.type == "cpu":
@@ -309,23 +364,25 @@ def run_group_packed_words(
     lib = kr.load("packed_stream")
     n_in = len(words)
     table = chain.ptr(device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if stencil is None:
-            key = "T1-pw"
-            rc = lib.packed_pointwise_group_launch(
-                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops, tile_h,
-                stream)
-        elif ghosts is None:
+    stream = ck.stream_handle(device)
+    if stencil is None:
+        key = "T1-pw"
+        rc = lib.packed_pointwise_group_launch(
+            ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops, device.index,
+            stream)
+    else:
+        tile_w, run_h = shape
+        if ghosts is None:
             key = "T1"
             rc = lib.packed_stream_launch(
                 ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
-                ctypes.byref(desc), tile_h, stream)
+                ctypes.byref(desc), tile_w, CHUNK_H, run_h, device.index, stream)
         else:
             key = "T1g"
             rc = lib.packed_stream_ghost_launch(
                 ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
-                ctypes.byref(desc), tile_h, int(y0), image_h, stream)
+                ctypes.byref(desc), tile_w, CHUNK_H, run_h, int(y0), image_h, device.index,
+                stream)
     ck._raise_on(rc, "packed_stream")
     ck.TOOL_LAUNCHES[key] += 1
     return outs
@@ -359,8 +416,9 @@ def pipeline_packed(ops, img: torch.Tensor, *, block_h: int | None = None) -> to
     """The archival packed runner: each group `packed_supported` takes runs
     on T1 in word form, consecutive ones staying words; the others run on
     the u8 group runner (K1/K2, ``cuda_kernels.run_group``), as the JAX
-    runner sends them to its u8 streaming path. `block_h` is the tile
-    height of both. Same bytes as the golden ops; on a CPU tensor every
+    runner sends them to its u8 streaming path. `block_h` is the u8
+    runner's tile height; T1 checks it and it sets nothing there. Same
+    bytes as the golden ops; on a CPU tensor every
     group takes its plain version."""
     planes = _planes(img)
     words = None  # not None: the planes live as packed words

@@ -9,8 +9,10 @@ anything over the u8 kernels' bytes. It holds:
   a contiguous plane.
 * ``packed_gray_contrast``: T2, ``grayscale`` then ``contrast:3.5`` on three
   packed planes (R, G, B) into one packed plane, a hand-written CUDA kernel
-  (``ops/csrc/packed_proto.cu``) beside its plain version
-  ``packed_gray_contrast_plain`` (unpack, the golden ops, pack).
+  (``ops/csrc/packed_proto.cu``, the planar body of ``packed_run.cuh``:
+  sixteen pixels a thread, the chain table ``t2_program`` on the card)
+  beside its plain version ``packed_gray_contrast_plain`` (unpack, the
+  golden ops, pack).
 * the packed-lane helpers ``_lanes_i32``, ``_pack_lanes_i32``,
   ``_shift_lanes`` and ``packed_row_corr_interior`` (a separable row pass on
   packed lanes, interior columns exact), plain PyTorch, as the JAX tool's
@@ -23,7 +25,7 @@ the self-test, on the card (the hand kernel) unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import functools
 import sys
 
 import numpy as np
@@ -121,7 +123,9 @@ def _check_planes(r, g, b) -> tuple[int, int]:
 def packed_gray_contrast(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,
                          block_h: int = DEFAULT_BLOCK_H) -> torch.Tensor:
     """T2: ``grayscale`` then ``contrast:3.5`` on three packed (H, W/4)
-    int32 planes into one, in blocks of `block_h` rows. On CPU tensors the
+    int32 planes into one. `block_h` is the JAX tool's block height: it is
+    checked and sets nothing (the kernel walks the planes flat). A plane may
+    start at any word (a row slice of a larger one). On CPU tensors the
     plain version runs; on CUDA tensors the kernel launches or this
     raises."""
     height, wp = _check_planes(r, g, b)
@@ -132,31 +136,25 @@ def packed_gray_contrast(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,
     for p in (r, g, b):
         if not p.is_contiguous():
             raise ValueError("T2 takes contiguous planes")
-    prog = t2_program()
+    chain = t2_program()
     out = torch.empty_like(r)
-    lib = kr.load("packed_proto")
-    with torch.cuda.device(r.device):
-        rc = lib.packed_pointwise_launch(
-            r.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(), height, wp,
-            min(block_h, height), ctypes.byref(prog), torch.cuda.current_stream().cuda_stream,
-        )
+    dev = r.device
+    rc = kr.load("packed_proto").packed_pointwise_launch(
+        r.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(), height, wp, chain.ptr(dev),
+        chain.n_ops, dev.index, ck.stream_handle(dev),
+    )
     ck._raise_on(rc, "packed_proto")
     ck.TOOL_LAUNCHES["T2"] += 1
     return out
 
 
-def t2_program() -> kr.PwProgram:
-    """T2's fixed chain (grayscale, then contrast 3.5) as the by-value
-    program packed_proto.cu takes."""
-    table, c_out = ck.pointwise_program(list(make_pipeline_ops(CHAIN)), 3)
-    assert c_out == 1 and len(table) <= kr.PW_MAX_OPS
-    prog = kr.PwProgram()
-    prog.n_ops = len(table)
-    prog.op[: len(table)] = [int(v) for v in table[:, 0]]
-    params = table[:, 1:3].view(np.float32)
-    prog.p0[: len(table)] = [float(v) for v in params[:, 0]]
-    prog.p1[: len(table)] = [float(v) for v in params[:, 1]]
-    return prog
+@functools.cache
+def t2_program() -> ck.PointwiseChain:
+    """T2's fixed chain (grayscale, then contrast 3.5), 3 channels in and 1
+    out, as the cached chain table packed_proto.cu takes."""
+    chain = ck.chain_for(tuple(make_pipeline_ops(CHAIN)), 3)
+    assert chain.c_out == 1
+    return chain
 
 
 def selftest(device: torch.device) -> None:

@@ -24,11 +24,14 @@ SWAR paths' groups: K6 narrow ([contrast:3.5, gaussian:5], and the bare
 gaussian:5 beside T3) and wide (gaussian:7, box:5), K7 ([contrast:3.5,
 emboss:3], and sharpen over the blurred plane) and K8 (sobel, scharr,
 unsharp) on the 8K gray plane, K6g narrow, K7g and K8g on one gray
-1080x7680 shard. Then each 8K main path under ``--plan off`` and ``--plan
+1080x7680 shard; the packed-word tools' kernels T1 (8K gray gaussian:5),
+T1g (one gray shard of it), T1-pw (grayscale,contrast:3.5 on 2160x3840
+RGB) and T2 (the same group on the 8K RGB planes), each beside K2, K2g or
+K1 on the same input. Then each 8K main path under ``--plan off`` and ``--plan
 fused-pallas``: the median, least and most of seven readings (CUDA events
 back to back), the two plans taken in turn.
 
-    --cases K6,K8,T3   only the cases whose names start so (no path rows
+    --cases T1,T2      only the cases whose names start so (no path rows
                        unless "path" is listed; the --impl swar paths, 8K
                        and sharded, where "swar-path" is)
 
@@ -156,6 +159,7 @@ def main(argv=None) -> int:
     cases.append(("T4 smem_copy [u8] block_h 128", lambda: rp.smem_copy(probe, 128),
                   lambda: out8.copy_(probe)))
     cases += swar_cases(cs, x8k, kw)
+    cases += packed_cases(cs, x8k, kw)
     if keep is not None:
         cases = [c for c in cases if c[0].startswith(keep)]
     for name, fn, library in cases:
@@ -231,6 +235,66 @@ def swar_cases(cs, x8k, kw) -> list:
     ext = sp.pack_quarters(sp.reflect_pad(gray))
     cases.append(("T3 swar_proto [gaussian5] quarter-strip words 8K gray, bh 240",
                   lambda: sp.swar_proto(ext, 240), None))
+    return cases
+
+
+def packed_cases(cs, x8k, kw) -> list:
+    """T1 on the 8K gray gaussian:5, T1g on one gray 1080x7680 shard of it,
+    T1 on the reference group's three planes (8K RGB in, one plane out),
+    T1-pw on packed_ab's group (2160x3840 RGB, seed 31), T2 on the 8K RGB
+    planes, each beside the u8 kernel on the same input (K2, K2g, K1;
+    named "<T> vs <K> ...", so that ``--cases T1,T2`` keeps them)."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_proto as pp
+
+    H, W = cs.MAIN_H, cs.MAIN_W
+    gray = Pipeline.parse("grayscale").jit("torch", device=x8k.device, plan="off")(x8k)
+    pw5, st5 = cs.split_group("gaussian:5")
+    words = cs.t1_words(gray)
+    tile, top, bot, y0 = cs.t1_ghost_tile(gray, 1, cs.N_SHARDS, st5.halo)
+    tile = tile.contiguous()
+    tw, ghosts = cs.t1_words(tile), (cs.t1_words(top), cs.t1_words(bot))
+    rows = tile.shape[0]
+    rgb = torch.from_numpy(synthetic_image(2160, 3840, channels=3, seed=31)).to(x8k.device)
+    chain = list(make_pipeline_ops(pp.CHAIN))
+    planes_ab = cs.t1_words(rgb)
+    planes8k = [pp.pack_u8(x8k[..., c].contiguous()) for c in range(3)]
+
+    def t1():
+        return pk.run_group_packed_words(pw5, st5, words, H, W)
+
+    def t1g():
+        return pk.run_group_packed_words(pw5, st5, tw, rows, W, ghosts=ghosts, y0=y0, image_h=H)
+
+    pwr, str_ = cs.split_group(cs.SPECS["reference"])
+    planes_ref = cs.t1_words(x8k)
+
+    cases = [
+        ("T1 packed_stream [gaussian5] 8K gray words", t1,
+         cs.conv_library(st5, gray, pad_rows=True)),
+        ("T1 vs K2 stream_stencil [gaussian5] 8K gray",
+         lambda: ck.stream_stencil(pw5, st5, gray), None),
+        ("T1g packed_stream [gaussian5] gray shard", t1g, None),
+        ("T1 packed_stream [grayscale,contrast3.5,emboss3] 8K RGB words",
+         lambda: pk.run_group_packed_words(pwr, str_, planes_ref, H, W), None),
+        ("T1g vs K2g stream_stencil_ghost [gaussian5] gray shard",
+         lambda: ck.stream_stencil_ghost(pw5, st5, tile, top, bot, y0=y0, image_h=H, image_w=W),
+         None),
+        ("T1-pw packed_stream [grayscale,contrast3.5] 2160x3840 RGB words",
+         lambda: pk.run_group_packed_words(chain, None, planes_ab, 2160, 3840), None),
+        ("T1-pw vs K1 pointwise_group [grayscale,contrast3.5] 2160x3840 RGB",
+         lambda: ck.pointwise_group(chain, rgb), None),
+        ("T2 packed_gray_contrast [grayscale,contrast3.5] 8K RGB planes",
+         lambda: pp.packed_gray_contrast(*planes8k), None),
+        ("T2 vs K1 pointwise_group [grayscale,contrast3.5] 8K RGB",
+         lambda: ck.pointwise_group(chain, x8k), None),
+    ]
     return cases
 
 

@@ -1,7 +1,8 @@
-"""Numpy replays of the tools kernels' indexing (ops/csrc/copy_probe.cu and
-swar_proto.cu), block by block and thread by thread in vector form: the
-tests hold them against the plain versions, so that the kernels' index
-arithmetic is checked on the CPU, where no CUDA compiler runs.
+"""Numpy replays of the tools kernels' indexing (ops/csrc/copy_probe.cu,
+swar_proto.cu and packed_run.cuh), block by block and thread by thread in
+vector form: the tests hold them against the plain versions, so that the
+kernels' index arithmetic is checked on the CPU, where no CUDA compiler
+runs.
 
 * ``byte_perm``: CUDA's ``__byte_perm(x, y, s)``; ``transpose4x4`` with the
   selectors read from copy_probe.cu.
@@ -10,13 +11,22 @@ arithmetic is checked on the CPU, where no CUDA compiler runs.
 * ``emulate_swar_proto``: T3's blocks: the (bh + 4) x (TILE_W + 4) window
   with its zero fill past the array, the row pass, the column pass and the
   predicated stores. Every output word must be written exactly once.
+* ``emulate_planar``: the planar pointwise body of T2 and T1-pw
+  (packed_run.cuh): the split of a launch (``pk.planar_split``) at made-up
+  addresses, the head and tail one word a thread, each body run's input
+  read as the kernel reads it (one uint4, or the two aligned uint4 around
+  it and a select by the plane's shift), the chain on sixteen pixels, one
+  uint4 store per output plane.
 """
 
 import re
 
 import numpy as np
+import torch
 
+from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
+from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
 from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
 
 THREADS = 256
@@ -137,3 +147,60 @@ def emulate_swar_proto(ext: np.ndarray, bh: int) -> np.ndarray:
             written[y0 + rr, x0 + cc] += 1
     assert (written == 1).all(), "an output word written other than once"
     return out.view(np.int32)
+
+
+def emulate_planar(pointwise, words, *, bases=None, out_base: int = 0) -> list[np.ndarray]:
+    """What one launch of the planar body writes for the chain `pointwise`
+    over the int32 word planes `words` (numpy, one shape): input plane c at
+    bases[c] words past a 16-byte boundary, the outputs at `out_base` words
+    past one. Returns the flat output planes (int32). Bytes outside a plane
+    read as 0xA5."""
+    n_in = len(words)
+    n = words[0].size
+    bases = bases or [0] * n_in
+    c_out = ck.pointwise_program(list(pointwise), n_in)[1]
+    starts = [(1 << 20) * (c + 1) + 4 * b for c, b in enumerate(bases)]
+    out_addr = (1 << 30) + 4 * out_base
+    head, runs, tail, shifts = pk.planar_split(starts, out_addr, n)
+    assert head + pk.RUN_WORDS * runs + tail == n and head < pk.RUN_WORDS and tail < pk.RUN_WORDS
+    # each plane's bytes with 16 bytes of 0xA5 on either side
+    pad = [np.concatenate([np.full(16, 0xA5, np.uint8),
+                           np.ascontiguousarray(w).reshape(-1).view(np.uint8),
+                           np.full(16, 0xA5, np.uint8)]) for w in words]
+
+    def read(c: int, addr: int, nbytes: int) -> np.ndarray:
+        off = addr - starts[c] + 16
+        assert 0 <= off and off + nbytes <= len(pad[c]), "a read past the padding"
+        return pad[c][off:off + nbytes]
+
+    def chain(pix: np.ndarray) -> np.ndarray:
+        """(m, n_in) u8 pixels -> (m, c_out)."""
+        t = torch.from_numpy(pix if n_in == 3 else pix[:, 0])[None]
+        res = ck.pointwise_group_plain(list(pointwise), t).numpy()[0] if pointwise else t.numpy()[0]
+        return res.reshape(len(pix), c_out)
+
+    out = np.full((c_out, 4 * n), 0x3C, dtype=np.uint8)
+    written = np.zeros((c_out, n), dtype=np.int64)
+    singles = list(range(head)) + list(range(head + pk.RUN_WORDS * runs, n))
+    for p in singles:
+        pix = np.stack([read(c, starts[c] + 4 * p, 4) for c in range(n_in)], axis=-1)
+        out[:, 4 * p:4 * p + 4] = chain(pix).T
+        written[:, p] += 1
+    for t in range(runs):
+        p0 = head + pk.RUN_WORDS * t
+        assert (out_addr + 4 * p0) % 16 == 0
+        cols = []
+        for c in range(n_in):
+            a = starts[c] + 4 * p0
+            s = shifts[c]
+            assert a % 16 == 4 * s
+            if s == 0:
+                cols.append(read(c, a, 16))
+            else:
+                x = read(c, a - 4 * s, 32)  # two aligned uint4
+                cols.append(x[4 * s:4 * s + 16])
+        pix = np.stack(cols, axis=-1)
+        out[:, 4 * p0:4 * p0 + 16] = chain(pix).T
+        written[:, p0:p0 + pk.RUN_WORDS] += 1
+    assert (written == 1).all(), "every output word written exactly once"
+    return [np.ascontiguousarray(o).view(np.int32) for o in out]
