@@ -40,7 +40,10 @@ printing a result:
    plane, on 36/44/37-row planes (one 100 wide: the element path) and on
    all-0, all-255 and checkerboard planes; T2 and T3 on their JAX
    self-tests' shapes and tile heights (ragged ones too), on those planes
-   and at 8K, T3 also against the golden gaussian:5. Then the SWAR chains
+   and at 8K, T3 also against the golden gaussian:5, and the redesigned T3
+   on both its paths: widths whose word count is no multiple of 4, ext
+   words off a 16-byte boundary (the 8K plane too), rows narrower than one
+   strip, one row, heights under one run and no multiple of it. Then the SWAR chains
    past the old limits: K6 after 17 and 40 fused steps, K8 with a 23x23
    filter (1058 tap words), and `run --impl swar` on a 17-step chain at 8K.
    T1, the packed-word group runner, in its three forms (T1-pw, T1, T1g):
@@ -107,7 +110,9 @@ printing a result:
    K2 on the same group, and the SWAR paths end to end; T4's kernels at the
    probe's 8K shapes beside `copy_`, the probe's copy rates as a share of
    3.35 TB/s, T2 at 8K beside K1 on the same group, T3 at 8K beside K6
-   narrow and K2 on the same plane; T1 on the 8K gray gaussian:5 beside K2
+   narrow and K2 on the same plane (its bound the larger of its bytes and
+   its counted integer instructions; its registers, spills and SASS loops
+   printed); T1 on the 8K gray gaussian:5 beside K2
    and `F.conv2d`, T1g on one shard beside K2g, T1-pw
    on packed_ab's group beside K1. For the K1, K4, K4g and K5 rows (K1 also on quantize:6 over
    the 8K gray plane), the stream-stencil rows (K2 on the 8K groups, K2g,
@@ -134,6 +139,14 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 # dense tensor-core peaks, H100 SXM data sheet: bf16 operations, int8
 H100_TC_OPS_PER_S = {"mxu": 989e12, "mxu-int8": 1979e12}
+# 32-bit integer instructions: 64 INT32 lanes an SM a clock (Hopper
+# architecture white paper's SM), 132 SMs, 1.98 GHz (the clock of the data
+# sheet's 67 TFLOP/s float32)
+H100_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# T3's integer instructions per output word and row, counted from the
+# arithmetic (swar_proto.cu's header): field splits 2, row passes 8, column
+# cascades 8, rounds and repack 8
+T3_INT_OPS_PER_WORD = 26
 MAIN_H, MAIN_W = 4320, 7680  # the 8K frame of the gaussian5_8k workload
 SPECS = {
     "reference": "grayscale,contrast:3.5,emboss:3",
@@ -1745,6 +1758,29 @@ def tool_planes(shape, device, seed=1):
     return [seeded] + extreme_inputs(shape, 1, device)[:3]
 
 
+# T3's shapes new with its redesign, (H, W, ext words past a 16-byte
+# boundary): W 132, 4, 516 (Ws 33, 1, 129: no multiple of 4); ext 1 and 3
+# words in; Ws under one 128-word strip; H = 1; H under one run (16 rows)
+# and no multiple of it (37 = 16 + 16 + 5); a row of two warps, the second
+# partly past Ws (W 1040); the 8K plane one word in
+T3_SHAPES = [(48, 132, 0), (37, 132, 0), (1, 4, 0), (50, 516, 0), (48, 64, 1), (37, 128, 3),
+             (50, 132, 1), (16, 64, 0), (1, 64, 0), (1, 132, 0), (5, 128, 0), (15, 256, 1),
+             (37, 64, 0), (50, 1040, 0), (17, 520, 0), (MAIN_H, MAIN_W, 1)]
+
+
+def offset_words(x, words: int):
+    """`x`'s values in a contiguous tensor that starts `words` elements
+    into a larger one (a slice of a bigger array); `x` itself for 0."""
+    import torch
+
+    if not words:
+        return x
+    big = torch.zeros(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = big[words:words + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def phase1_tools(device, gray8k) -> int:
     """T4's copies and bitcasts, T2 and T3 against their plain versions, byte
     for byte; T3 unpacked against the golden gaussian:5; then the SWAR
@@ -1819,6 +1855,23 @@ def phase1_tools(device, gray8k) -> int:
                 check_equal(f"T3 {shape} plane {i} bh={bh} vs golden", sp.unpack_quarters(got),
                             golden5(p))
                 n += 1
+    # the redesign's new shapes, each on the path sp.granule_path names:
+    # Ws % 4 != 0, ext one or three words past a 16-byte boundary, Ws under
+    # one strip, H = 1, H under one run or no multiple of it, the 8K plane
+    # off a boundary
+    paths = {True: 0, False: 0}
+    for h, w, off in T3_SHAPES:
+        for i, p in enumerate(tool_planes((h, w), device, seed=h + w)):
+            ext = offset_words(sp.pack_quarters(sp.reflect_pad(p)), off)
+            got = sp.swar_proto(ext, 16)
+            name = f"T3 ({h}, {w}) plane {i} ext {off} words in"
+            check_equal(name, got, sp.swar_words_plain(ext))
+            check_equal(f"{name} vs golden", sp.unpack_quarters(got), golden5(p))
+            paths[sp.granule_path(ext.data_ptr(), got.data_ptr(), w // 4)] += 1
+            n += 1
+    assert paths[True] and paths[False], paths
+    print(f"  T3's new shapes: {paths[True]} cases on 16-byte granules, {paths[False]} on "
+          f"4-byte words")
     sp.bitexact_gate(device)
     n += phase1_swar_chains(device, gray8k)
     torch.cuda.synchronize()
@@ -2014,18 +2067,27 @@ def phase3_tools(device, gray8k, tool_runs, record):
           f"{t_k1:.4f} ms; T2 on planes one word past a 16-byte boundary: {t_sliced:.4f} ms")
     del planes, rgb
 
-    # T3 at 8K (bh 240) beside K6 narrow and K2 on the same plane
+    # T3 at 8K beside K6 narrow and K2 on the same plane; its bound is the
+    # larger of its bytes and its counted integer instructions
     g5 = make_op("gaussian:5")
     ext = sp.pack_quarters(sp.reflect_pad(x))
-    record("T3 swar_proto [gaussian5] quarter-strip words 8K, bh 240", csrc + "swar_proto.cu",
+    strip_words, run_h = sp.launch_shape(rp.H, rp.W // 4)
+    words = rp.H * rp.W // 4
+    record(f"T3 swar_proto [gaussian5] quarter-strip words 8K, {strip_words}-word strips, "
+           f"{run_h}-row runs", csrc + "swar_proto.cu",
            "tools/swar_proto.py:122", tool_runs["swar_proto"][0]["T3"],
            lambda: sp.swar_proto(ext, 240), lambda: sp.swar_words_plain(ext), 1, 1, [g5],
-           strip_bytes=ext.numel() * 4 - n_pix, library=conv_library(g5, x, pad_rows=True))
+           strip_bytes=ext.numel() * 4 - n_pix, library=conv_library(g5, x, pad_rows=True),
+           ops_ms=T3_INT_OPS_PER_WORD * words / H100_INT32_OPS_PER_S * 1e3, split=True)
     t_k6 = device_time_ms(lambda: sk.swar_stencil(g5, x), reps=7)
     t_k2 = device_time_ms(lambda: ck.stream_stencil([], g5, x), reps=7)
     t_e2e = device_time_ms(lambda: sp.gaussian5(x, 240), reps=7)
-    print(f"  on the same 8K gray plane in this run: K6 narrow {t_k6:.4f} ms, K2 {t_k2:.4f} ms, "
-          f"T3 with pad, pack and unpack {t_e2e:.4f} ms")
+    print(f"  on the same 8K gray plane in this run: K6 narrow {t_k6:.4f} ms (device "
+          f"{padded_device_ms(lambda: sk.swar_stencil(g5, x)):.4f}), K2 {t_k2:.4f} ms, "
+          f"T3 with pad, pack and unpack {t_e2e:.4f} ms; T3's integer instructions "
+          f"{T3_INT_OPS_PER_WORD} a word: "
+          f"{T3_INT_OPS_PER_WORD * words / H100_INT32_OPS_PER_S * 1e3:.4f} ms at 16.7 T/s")
+    print(f"  T3 build: {t3_build_summary()}")
 
 
 # --------------------------------------------------------------------------
@@ -2904,14 +2966,78 @@ def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
     (stores and loads) of all of them."""
+    entries = ptxas_entries(lines)
+    return (f"ptxas {name}: {len(entries)} kernel instantiations, at most "
+            f"{max((r for _, r, _ in entries), default=0)} registers, "
+            f"{sum(s for _, _, s in entries)} bytes spilled in all")
+
+
+def ptxas_entries(lines: list[str]) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spilled bytes) of each instantiation in a
+    source's `-Xptxas -v` report."""
     import re
 
-    entries = sum("Compiling entry function" in line for line in lines)
-    regs = [int(m) for line in lines for m in re.findall(r"Used (\d+) registers", line)]
-    spills = [int(a) + int(b) for line in lines
-              for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)]
-    return (f"ptxas {name}: {entries} kernel instantiations, at most {max(regs, default=0)} "
-            f"registers, {sum(spills)} bytes spilled in all")
+    out, name, spill = [], None, 0
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
+def sass_loops(lib_path, function: str) -> list[dict]:
+    """The loops of the kernels whose names hold `function` in a built
+    library's SASS (`cuobjdump -sass`): one dict per backward branch, with
+    the kernel, the loop's instruction count and the count of each opcode
+    in it (its name before the first dot). [] where cuobjdump is missing."""
+    import collections
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return []
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    loops = []
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        if function not in name:
+            continue
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+        for addr, op, rest in ins:
+            m = re.match(r"\s*(0x[0-9a-f]+)", rest)
+            if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+                body_ops = [o for a, o, _ in ins if int(m.group(1), 16) <= a <= addr]
+                loops.append({"kernel": name.strip(), "instructions": len(body_ops),
+                              "opcodes": dict(collections.Counter(
+                                  o.split(".")[0] for o in body_ops).most_common())})
+    return loops
+
+
+def t3_build_summary() -> str:
+    """T3's instantiations from its build log (registers, spilled bytes;
+    raises if one spills) and the loops of their SASS."""
+    from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels
+
+    path = kernels.library_path("swar_proto")
+    entries = ptxas_entries(path.with_suffix(".log").read_text().splitlines())
+    spilled = [e for e in entries if e[2]]
+    if spilled:
+        raise AssertionError(f"T3 spills: {spilled}")
+    loops = sass_loops(path, "swar_proto_kernel")
+    return ("; ".join(f"{n} {r} registers, {s} bytes spilled" for n, r, s in entries)
+            + "; SASS loops: " + (json.dumps(loops) if loops else "not measured (no cuobjdump)"))
 
 
 def main() -> int:

@@ -298,8 +298,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.packed_pointwise_split.argtypes = [ull, ull, ull, ci, ull, ll, ctypes.POINTER(ll)]
         lib.packed_pointwise_split.restype = None
     elif name == "swar_proto":
-        lib.swar_proto_launch.argtypes = [vp, vp, ci, ci, ci, vp]
+        # ext, out, H, Ws, the strip's words, the run's rows, the stream
+        lib.swar_proto_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]
         lib.swar_proto_launch.restype = ci
-        lib.swar_proto_smem_bytes.argtypes = [ci]
-        lib.swar_proto_smem_bytes.restype = ll
     return lib

@@ -9,14 +9,19 @@ those fields (row fields <= 4080, column fields <= 65280 < 2^16), and the
 x 2^-8 round half to even is q = (s + 127 + ((s >> 8) & 1)) >> 8.
 
 * ``swar_proto``: T3, the hand-written CUDA kernel
-  (``ops/csrc/swar_proto.cu``), beside ``swar_words_plain`` (the JAX tool's
-  whole-array ``swar_xla``), its plain version.
+  (``ops/csrc/swar_proto.cu``: four output words a thread, each thread
+  walking a run of rows with its column window carried in registers and
+  the next rows' granules in flight by cp.async), beside
+  ``swar_words_plain`` (the JAX tool's whole-array ``swar_xla``), its plain
+  version. ``launch_shape`` picks its strips and runs; the JAX block height
+  ``bh`` is still taken and checked, and sets nothing.
 * ``pack_quarters`` / ``unpack_quarters``: plain PyTorch copies.
 * ``bitexact_gate``: the JAX tool's gate, run before any timing.
 
 Cases timed (round-robin rounds, per-case bests, the card's name and power
 limit in every record): ``cuda_swar_prepacked_bh{120,240,480}`` (T3 on
-pre-packed words), ``torch_swar_prepacked`` (the plain version),
+pre-packed words; the names are the JAX tool's, and the three run the same
+launch), ``torch_swar_prepacked`` (the plain version),
 ``torch_swar_pack_cost`` (pack and unpack), ``swar_end_to_end`` (reflect
 pad, pack, T3, unpack), ``gaussian5_8k_cuda`` (the port's K2) and
 ``gaussian5_8k_swar`` (the port's K6 narrow: production SWAR, which pairs
@@ -41,8 +46,14 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
 TAPS = (1, 4, 6, 4, 1)  # binomial_1d(5); scale 1/256 in all
 H_ = 2  # halo
 BLOCK_HEIGHTS = (120, 240, 480)
-# Launch geometry; SP_TILE_W in swar_proto.cu.
-TILE_W = 32
+# Launch geometry (swar_proto.cu): a block of strip_words / 4 threads,
+# whole warps and at most MAX_THREADS (SP_MAX_THREADS), four output words a
+# thread, walks a run of run_h rows. launch_shape cuts runs of at least
+# MIN_RUN_H rows so that the grid holds about WARPS_PER_SM warps on each of
+# the card's SMs.
+MAX_THREADS = 128
+MIN_RUN_H = 16
+WARPS_PER_SM = 24
 M_LO = 0x00FF00FF
 
 
@@ -86,41 +97,53 @@ def swar_words_plain(ext: torch.Tensor) -> torch.Tensor:
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
-def smem_bytes(bh: int) -> int:
-    """Dynamic shared memory of one T3 block (sp_smem_bytes in the source):
-    the (bh + 4) x (TILE_W + 4) word window, then two (bh + 4) x TILE_W
-    field arrays."""
-    eh = bh + 2 * H_
-    return (eh * (TILE_W + 2 * H_) + 2 * eh * TILE_W) * 4
+def launch_shape(height: int, ws: int) -> tuple[int, int]:
+    """T3's (strip_words, run_h) over (height, ws) output words: a strip
+    as wide as the row needs, in whole warps of four-word threads, up to 4
+    MAX_THREADS words; then runs as short as keeps about WARPS_PER_SM x
+    N_SMS warps busy, but of MIN_RUN_H rows at least (the whole height if
+    it is shorter) and at most 65535 of them."""
+    warps = -(-ws // 128)  # warps a row takes, over all its strips
+    threads = min(MAX_THREADS, 32 * warps)
+    runs = max(1, WARPS_PER_SM * ck.N_SMS // warps)
+    run_h = max(MIN_RUN_H, -(-height // runs), -(-height // ck._MAX_GRID_Y))
+    return 4 * threads, min(run_h, height)
 
 
-def grid(height: int, ws: int, bh: int) -> tuple[int, int]:
-    """T3's grid: (word-column tiles, row tiles)."""
-    return -(-ws // TILE_W), -(-height // bh)
+def grid(height: int, ws: int) -> tuple[int, int]:
+    """T3's grid: (strips, runs)."""
+    strip_words, run_h = launch_shape(height, ws)
+    return -(-ws // strip_words), -(-height // run_h)
+
+
+def granule_path(ext_addr: int, out_addr: int, ws: int) -> bool:
+    """Whether a launch takes the 16-byte granule path (the kernel's VEC):
+    Ws a multiple of 4 and both arrays 16-byte aligned; else every thread
+    loads and stores 4-byte words."""
+    return ws % 4 == 0 and ext_addr % 16 == 0 and out_addr % 16 == 0
 
 
 def swar_proto(ext: torch.Tensor, bh: int) -> torch.Tensor:
-    """T3 over (H + 4, Ws + 4) int32 ext words into (H, Ws) words, in blocks
-    of `bh` output rows (any height: stores stop at row H). CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    """T3 over (H + 4, Ws + 4) int32 ext words into (H, Ws) words. `bh`, the
+    JAX caller's block height, must be positive and sets nothing: the
+    launch shape is ``launch_shape(H, Ws)``. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if ext.ndim != 2 or ext.dtype != torch.int32:
         raise ValueError(f"T3 takes 2-D int32 ext words, got {tuple(ext.shape)} {ext.dtype}")
     h, ws = ext.shape[0] - 2 * H_, ext.shape[1] - 2 * H_
     if h < 1 or ws < 1:
         raise ValueError(f"ext words {tuple(ext.shape)} hold no output")
-    if bh < 1 or smem_bytes(bh) > ck.MAX_SMEM_BYTES:
-        raise ValueError(f"block height {bh} needs {smem_bytes(bh)} B of shared memory "
-                         f"(at most {ck.MAX_SMEM_BYTES})")
-    if grid(h, ws, bh)[1] > ck._MAX_GRID_Y:
-        raise ValueError(f"height {h} needs a taller block than {bh}")
+    if bh < 1:
+        raise ValueError(f"block height {bh} is not positive")
     if ext.device.type == "cpu":
         return swar_words_plain(ext)
     if not ext.is_contiguous():
         raise ValueError("T3 takes contiguous ext words")
     out = torch.empty((h, ws), dtype=torch.int32, device=ext.device)
+    strip_words, run_h = launch_shape(h, ws)
     with torch.cuda.device(ext.device):
         rc = kr.load("swar_proto").swar_proto_launch(
-            ext.data_ptr(), out.data_ptr(), h, ws, bh,
+            ext.data_ptr(), out.data_ptr(), h, ws, strip_words, run_h,
             torch.cuda.current_stream().cuda_stream)
     ck._raise_on(rc, "swar_proto")
     ck.TOOL_LAUNCHES["T3"] += 1
@@ -136,7 +159,7 @@ def reflect_pad(img: torch.Tensor) -> torch.Tensor:
 
 def gaussian5(img: torch.Tensor, bh: int) -> torch.Tensor:
     """`gaussian:5` on a u8 plane (W a multiple of 4) through T3: pad,
-    pack, T3, unpack."""
+    pack, T3 (`bh` checked, unused), unpack."""
     return unpack_quarters(swar_proto(pack_quarters(reflect_pad(img)), bh))
 
 

@@ -23,7 +23,9 @@ plane, and T4's copies at block height 128; the SWAR kernels on the
 SWAR paths' groups: K6 narrow ([contrast:3.5, gaussian:5], and the bare
 gaussian:5 beside T3) and wide (gaussian:7, box:5), K7 ([contrast:3.5,
 emboss:3], and sharpen over the blurred plane) and K8 (sobel, scharr,
-unsharp) on the 8K gray plane, K6g narrow, K7g and K8g on one gray
+unsharp) on the 8K gray plane, T3 on that plane beside K6 narrow, K2 and
+T4's u8 copy of it (with T3's registers, spills and SASS loops), K6g
+narrow, K7g and K8g on one gray
 1080x7680 shard; the packed-word tools' kernels T1 (8K gray gaussian:5),
 T1g (one gray shard of it), T1-pw (grayscale,contrast:3.5 on 2160x3840
 RGB) and T2 (the same group on the 8K RGB planes), each beside K2, K2g or
@@ -162,6 +164,8 @@ def main(argv=None) -> int:
     cases += packed_cases(cs, x8k, kw)
     if keep is not None:
         cases = [c for c in cases if c[0].startswith(keep)]
+    if any(name.startswith("T3") for name, _, _ in cases):
+        print(f"T3 build: {cs.t3_build_summary()}")
     for name, fn, library in cases:
         row = {"case": name, "tree": args.label, **cs.split_ms(fn)}
         if library is not None:
@@ -224,17 +228,34 @@ def swar_groups(cs, x8k, kw) -> list:
 
 def swar_cases(cs, x8k, kw) -> list:
     """K6, K7 and K8 on the SWAR paths' groups (`swar_groups`), and T3, the
-    SWAR 5x5 prototype, on the same 8K gray plane (bh 240)."""
+    SWAR 5x5 prototype, on the same 8K gray plane, beside K6 narrow and K2
+    on the bare gaussian:5 and T4's u8 copy of that plane (named "T3 vs
+    ...", so that ``--cases T3`` keeps them; ``--cases "T3 swar"`` keeps T3
+    alone)."""
+    import torch
+
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
     from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import roofline_probe as rp
     from mpi_cuda_imagemanipulation_tpu_torch.tools import swar_proto as sp
 
     cases = [(name, lambda st=st, x=x, pre=pre, g=g: sk.swar_stencil(st, x, pre_ops=pre, **g),
               lib) for name, st, x, pre, g, lib in swar_groups(cs, x8k, kw)]
     gray = Pipeline.parse("grayscale").jit("torch", device=x8k.device, plan="off")(x8k)
     ext = sp.pack_quarters(sp.reflect_pad(gray))
-    cases.append(("T3 swar_proto [gaussian5] quarter-strip words 8K gray, bh 240",
-                  lambda: sp.swar_proto(ext, 240), None))
+    st5 = cs.swar_case("gaussian:5", ((), ()))[0]
+    out = torch.empty_like(gray)
+    cases += [
+        ("T3 swar_proto [gaussian5] quarter-strip words 8K gray", lambda: sp.swar_proto(ext, 240),
+         cs.conv_library(st5, gray, pad_rows=True)),
+        ("T3 vs K6 narrow swar_stencil [gaussian5] 8K gray", lambda: sk.swar_stencil(st5, gray),
+         None),
+        ("T3 vs K2 stream_stencil [gaussian5] 8K gray", lambda: ck.stream_stencil([], st5, gray),
+         None),
+        ("T3 vs T4 copy_probe [u8] 8K gray, block_h 128", lambda: rp.copy_probe(gray, 128),
+         lambda: out.copy_(gray)),
+    ]
     return cases
 
 

@@ -8,9 +8,12 @@ runs.
   selectors read from copy_probe.cu.
 * ``emulate_bitcast_store`` / ``emulate_bitcast_load``: the bitcast
   kernels' grids (four columns per thread, ragged last block).
-* ``emulate_swar_proto``: T3's blocks: the (bh + 4) x (TILE_W + 4) window
-  with its zero fill past the array, the row pass, the column pass and the
-  predicated stores. Every output word must be written exactly once.
+* ``emulate_swar_proto``: T3's threads: four output words each, a run of
+  rows walked with the column window carried as cascades in registers; the
+  granule path (a cp.async ring of SP_DEPTH rows, lane 31's second granule,
+  the shuffle) and the 4-byte path (two rows in flight in registers); the
+  predicated stores over garbage. Every output word must be written exactly
+  once.
 * ``emulate_planar``: the planar pointwise body of T2 and T1-pw
   (packed_run.cuh): the split of a launch (``pk.planar_split``) at made-up
   addresses, the head and tail one word a thread, each body run's input
@@ -109,42 +112,145 @@ def emulate_bitcast_load(words: np.ndarray, block_h: int) -> np.ndarray:
     return out.view(np.uint8).reshape(4 * hw, w)
 
 
-def emulate_swar_proto(ext: np.ndarray, bh: int) -> np.ndarray:
-    """swar_proto_kernel over (H + 4, Ws + 4) ext words, block by block."""
+def swar_proto_source() -> str:
+    return (kr.CSRC_DIR / "swar_proto.cu").read_text()
+
+
+def swar_proto_hi_selector() -> int:
+    """The __byte_perm selector of swar_proto.cu's sp_hi (the hi field set)."""
+    return int(re.search(r"sp_hi\(uint32_t w\) \{ return __byte_perm\(w, 0u, (0x[0-9A-Fa-f]+)\)",
+                         swar_proto_source()).group(1), 16)
+
+
+def swar_proto_depth() -> int:
+    """SP_DEPTH in swar_proto.cu: the rows of a thread's granule ring."""
+    return int(re.search(r"#define SP_DEPTH (\d+)", swar_proto_source()).group(1))
+
+
+def emulate_swar_proto(ext: np.ndarray, *, ext_byte: int = 0, out_byte: int = 0,
+                       shape=None) -> np.ndarray:
+    """swar_proto_kernel over (H + 4, Ws + 4) ext words, thread by thread in
+    vector form (every live thread of every run at once, one ext row a
+    step): ext `ext_byte` and the output `out_byte` bytes past a 16-byte
+    boundary pick the path (``sp.granule_path``); `shape` is the launch's
+    (strip_words, run_h), by default ``sp.launch_shape``. Replays the warp
+    that returns past the row; on the granule path the ring of SP_DEPTH rows
+    in shared memory filled by predicated cp.async (lane 31's second
+    granule with its own; none past the run's last row) and the shuffle of
+    the next lane's granule; on the 4-byte path the
+    eight clamped word loads of rows i + 1 and i + 2, in flight while row i
+    computes, clamped to the run's last row; the cascades of
+    [1, 1] sums carried in registers; the round and repack on uint32; the
+    stores predicated at Ws, one uint4 or four words. Every read must lie in
+    ext, every ring slot must hold its row when read and be read before it is
+    refilled; the output starts as garbage and every word must be written
+    exactly once."""
     ext = np.ascontiguousarray(ext).view(np.uint32)
-    hp, wsp = ext.shape
-    h, ws = hp - 4, wsp - 4
-    tw, ew, eh = sp.TILE_W, sp.TILE_W + 4, bh + 4
+    hp, pitch = ext.shape
+    h, ws = hp - 2 * sp.H_, pitch - 2 * sp.H_
+    strip_words, run_h = shape or sp.launch_shape(h, ws)
+    threads = strip_words // 4
+    assert threads % 32 == 0 and 0 < threads <= sp.MAX_THREADS and run_h >= 1
+    vec = sp.granule_path(ext_byte, out_byte, ws)
+    assert not vec or pitch % 4 == 0
+    ngran = -(-ws // 4)
+    strips, runs = -(-ngran // threads), -(-h // run_h)
+    assert runs <= ck._MAX_GRID_Y
+    g = np.arange(strips * threads)
+    g = g[(g & ~31) < ngran]  # a warp wholly past the row returns
+    last = (g & 31) == 31
+    r0 = np.arange(runs) * run_h
+    n_in = np.minimum(run_h, h - r0) + 2 * sp.H_  # ext rows of each run
     m = np.uint32(sp.M_LO)
-    taps = [np.uint32(t) for t in sp.TAPS]
+    hi_sel = swar_proto_hi_selector()
+    pitch4 = pitch // 4
+    go, gx = np.minimum(g, pitch4 - 1), np.minimum(g + 1, pitch4 - 1)
+    cols = np.minimum(4 * g[:, None] + np.arange(8), pitch - 1)
+
+    def load(row):
+        """The eight raw words of each run's ext row r0 + row, (runs, T, 8)."""
+        rows = r0 + row
+        assert (row < n_in).all() and rows.max() < hp
+        a = np.zeros((runs, len(g), 8), np.uint32)
+        if vec:
+            own = 4 * go[:, None] + np.arange(4)
+            nxt = 4 * gx[last][:, None] + np.arange(4)
+            assert own.max() < pitch and (nxt.max(initial=0) < pitch)
+            a[:, :, :4] = ext[rows[:, None, None], own[None]]
+            a[:, last, 4:] = ext[rows[:, None, None], nxt[None]]
+        else:
+            a[:] = ext[rows[:, None, None], cols[None]]
+        return a
+
+    def row5(f, k):
+        return (f[..., k] + f[..., k + 4]) + np.uint32(4) * (f[..., k + 1] + f[..., k + 3]) \
+            + np.uint32(6) * f[..., k + 2]
+
+    def rnd(s):
+        return s + np.uint32(0x007F007F) + ((s >> np.uint32(8)) & np.uint32(0x00010001))
+
     out = np.full((h, ws), 0xDEADBEEF, np.uint32)
     written = np.zeros((h, ws), np.int32)
-    gx_blocks, gy_blocks = sp.grid(h, ws, bh)
-    for by in range(gy_blocks):
-        for bx in range(gx_blocks):
-            x0, y0 = bx * tw, by * bh
-            gy = y0 + np.arange(eh)[:, None]
-            gx = x0 + np.arange(ew)[None, :]
-            inside = (gy < hp) & (gx < wsp)
-            win = np.where(inside, ext[np.minimum(gy, hp - 1), np.minimum(gx, wsp - 1)],
-                           np.uint32(0))
-            fields = []
-            for shift in (0, 8):
-                f = (win >> np.uint32(shift)) & m
-                fields.append(sum(taps[t] * f[:, t:t + tw] for t in range(5)))
-            qs = []
-            for row in fields:
-                s = sum(taps[t] * row[t:t + bh] for t in range(5))
-                qs.append(((s + np.uint32(0x007F007F) + ((s >> np.uint32(8)) &
-                                                          np.uint32(0x00010001)))
-                           >> np.uint32(8)) & m)
-            word = qs[0] | (qs[1] << np.uint32(8))
-            r = y0 + np.arange(bh)[:, None]
-            c = x0 + np.arange(tw)[None, :]
-            keep = (r < h) & (c < ws)
-            rr, cc = np.nonzero(keep)
-            out[y0 + rr, x0 + cc] = word[rr, cc]
-            written[y0 + rr, x0 + cc] += 1
+    depth = swar_proto_depth()
+    # granule path: the ring of `depth` rows (garbage until filled) and the
+    # row each slot holds, per run; 4-byte path: rows i + 1, i + 2 in flight
+    ring = np.full((depth, runs, len(g), 8), 0xA5A5A5A5, np.uint32)
+    held = np.full((depth, runs), -1)
+
+    def copy_row(row: int, i: int) -> None:
+        """cp.async of row `row` into its slot, in the runs that have it (a
+        predicated copy); the slot's row must already have been read (at
+        step i - 1 or before)."""
+        has = row < n_in
+        slot = row % depth
+        assert (held[slot][has] <= i - 1).all(), "a slot refilled before it was read"
+        ring[slot][has] = load(np.where(has, row, n_in - 1))[has]
+        held[slot][has] = row
+
+    if vec:
+        for r in range(depth - 1):
+            copy_row(r, 0)
+    else:
+        a0, a1 = load(np.zeros(runs, int)), load(np.ones(runs, int))
+    casc = np.zeros((2, 4, 4, runs, len(g)), np.uint32)  # field set, word, stage
+    for i in range(int(n_in.max())):
+        live = i < n_in
+        if vec:
+            assert (held[i % depth][live] == i).all(), "row read before its cp.async"
+            w = ring[i % depth].copy()
+            copy_row(i + depth - 1, i)
+            # __shfl_down_sync: lane L < 31 takes lane L + 1's granule
+            nb = np.zeros_like(w[:, :, :4])
+            nb[:, :-1] = w[:, 1:, :4]
+            w[:, ~last, 4:] = nb[:, ~last]
+        else:
+            w = a0.copy()
+            a0 = a1
+            a1 = load(np.where(live, np.minimum(i + 2, n_in - 1), n_in - 1))
+        fields = (w & m, byte_perm(w, 0, hi_sel).reshape(w.shape))
+        o = np.zeros((runs, len(g), 4), np.uint32)
+        for f, fl in enumerate(fields):
+            for k in range(4):
+                p = casc[f, k]
+                x1 = p[0] + row5(fl, k)
+                x2 = p[1] + x1
+                x3 = p[2] + x2
+                s = p[3] + x3
+                p[:] = np.where(live[:, None], np.stack([row5(fl, k), x1, x2, x3]), p)
+                q = rnd(s)
+                o[..., k] |= (q >> np.uint32(8)) & m if f == 0 else q & ~m
+        if i < 2 * sp.H_:
+            continue
+        for run in np.nonzero(live)[0]:
+            y = r0[run] + i - 2 * sp.H_
+            assert y < h
+            for k in range(4):
+                c = 4 * g + k
+                keep = c < ws if not vec else g < ngran
+                if vec:
+                    assert (c[keep] < ws).all()
+                out[y, c[keep]] = o[run, keep, k]
+                written[y, c[keep]] += 1
     assert (written == 1).all(), "an output word written other than once"
     return out.view(np.int32)
 
