@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-three phases; any failure raises and the script exits non-zero without
+four phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -122,6 +122,18 @@ printing a result:
    for the library call; K2 by tile height. The K6, K7 and K8 rows (8K
    and one shard) are split the same way, and timed at each tile height
    the SWAR picker chooses from.
+
+4. The rest of the registry: the geometric ops (flips, quarter turns,
+   transpose, crop, pad, resize, scale, rotate) and the global-statistics
+   ops (equalize, autocontrast, otsu), plain tensor ops between the
+   kernels. `Pipeline.jit` on the 8K RGB frame under ``--impl cuda --plan
+   off`` and ``--impl swar`` (``grayscale,equalize,gaussian:5`` also under
+   ``fused-pallas`` and ``fused-pallas-mxu``), with exactly the launches of
+   the kernels before and after them, byte-equal to the golden ops on the
+   card, and the same route's card and CPU results equal at 1080x1920;
+   ``tools.packed_kernels.pipeline_packed`` on ``rot:90,gaussian:5`` (one
+   T1 launch); ``Pipeline.sharded`` over the 4-slot mesh at 4320 and 4323
+   rows. Each path's device ms, launches and bytes bound are printed.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -2962,6 +2974,170 @@ def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
                   f"{enqueue['overlap']:.4f} ms; serial launches {used}")
 
 
+# --------------------------------------------------------------------------
+# Phase 4: the rest of the registry, geometric and global-statistics ops
+# --------------------------------------------------------------------------
+
+# (pipeline, {(impl, plan): the launches of one Pipeline.jit call on the 8K
+# RGB frame}); the geometric and global ops run as their own tensor ops, the
+# kernels before and after them as the table in PERF.md section 6 says
+REGISTRY_PATHS = [
+    ("grayscale,equalize,gaussian:5", {
+        ("cuda", "off"): {"K1": 1, "K2": 1},
+        ("cuda", "fused-pallas"): {"K4": 2},
+        ("cuda", "fused-pallas-mxu"): {"K4": 2, "K5-int8": 1},
+        ("swar", "off"): {"K1": 1, "K6-narrow": 1}}),
+    ("grayscale,gaussian:3,otsu", {("cuda", "off"): {"K2": 1},
+                                   ("swar", "off"): {"K1": 1, "K6-narrow": 1}}),
+    ("grayscale,autocontrast,emboss:3", {("cuda", "off"): {"K1": 1, "K2": 1},
+                                         ("swar", "off"): {"K1": 1, "K7": 1}}),
+    # colour planes: the SWAR route falls back to K2
+    ("rot:90,gaussian:5", {("cuda", "off"): {"K2": 1}, ("swar", "off"): {"K2": 1}}),
+    ("transpose,emboss:3", {("cuda", "off"): {"K2": 1}, ("swar", "off"): {"K2": 1}}),
+    ("fliph,emboss:3,flipv", {("cuda", "off"): {"K2": 1}, ("swar", "off"): {"K2": 1}}),
+    ("crop:0:0:2160:3840,gaussian:5", {("cuda", "off"): {"K2": 1},
+                                       ("swar", "off"): {"K2": 1}}),
+    ("pad:8:reflect101,gaussian:3", {("cuda", "off"): {"K2": 1}, ("swar", "off"): {"K2": 1}}),
+    ("grayscale,resize:2160x3840,gaussian:5", {("cuda", "off"): {"K1": 1, "K2": 1},
+                                               ("swar", "off"): {"K1": 1, "K6-narrow": 1}}),
+    ("grayscale,scale:2,sobel", {("cuda", "off"): {"K1": 1, "K2": 1},
+                                 ("swar", "off"): {"K1": 1, "K8": 1}}),
+    ("rotate:30", {("cuda", "off"): {}, ("swar", "off"): {}}),
+    ("rotate:-17:nearest", {("cuda", "off"): {}, ("swar", "off"): {}}),
+]
+# the sharded paths over the 4-slot mesh (cuda, plan off): pipeline -> the
+# launches at 4320 rows and at 4323 (pad rows in the last shard: K3, and the
+# mask keeps them out of the histogram); rot:90 turns 4323 rows into 7680
+REGISTRY_SHARDED = {
+    "grayscale,equalize,gaussian:5": ({"K1": 4, "K2g": 4}, {"K1": 4, "K3": 4}),
+    "grayscale,gaussian:3,otsu": ({"K2g": 4}, {"K1": 4, "K3": 4}),
+    "rot:90,gaussian:5": ({"K2g": 4}, {"K2g": 4}),
+}
+# the CPU cross-check's frame; the 8K crop's window halved to fit it
+CROSS_H, CROSS_W = 1080, 1920
+CROSS_SPEC = {"crop:0:0:2160:3840,gaussian:5": "crop:0:0:540:960,gaussian:5"}
+
+
+def golden_and_bytes(ops, x):
+    """The golden ops in sequence on `x` (Pipeline.apply), and the bytes
+    the pipeline must move at least: each run of pointwise and stencil ops
+    between barriers reads its input and writes its output once, a global
+    op reads its input twice (the statistic, then the apply) and writes its
+    output once, a geometric op reads its input and writes its output."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import op_family
+
+    nbytes, run_in = 0, None
+    for op in ops:
+        fam = op_family(op)
+        y = op(x)
+        if fam in ("pointwise", "stencil"):
+            run_in = x.numel() if run_in is None else run_in
+            run_out = y.numel()
+        else:
+            if run_in is not None:
+                nbytes += run_in + run_out
+                run_in = None
+            nbytes += (2 if fam == "global-stat" else 1) * x.numel() + y.numel()
+        x = y
+    if run_in is not None:
+        nbytes += run_in + run_out
+    return x, nbytes
+
+
+def phase4_registry(device, x8k, gray8k):
+    """The geometric and global-statistics ops on the card: each path of
+    REGISTRY_PATHS through Pipeline.jit on the 8K RGB frame (seed 0), with
+    exactly its launches, byte-equal to the golden ops on the card and, on
+    the 1080x1920 frame, to the port's own CPU result on the same route;
+    `rot:90,gaussian:5` through tools.packed_kernels.pipeline_packed on the
+    8K gray plane (T1 on the stencil group); Pipeline.sharded over the
+    4-slot mesh at 4320 and 4323 rows. Prints each path's device ms
+    (padded_device_ms; bincount syncs the host, so a path with a histogram
+    reads the host's enqueue after the sync too), its launches, its bytes
+    bound at 3.35 TB/s, and for the sharded paths the host enqueue ms."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+
+    def launched(fn):
+        ck.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in ck.launch_counts().items() if v}
+
+    def bound_ms(nbytes):
+        return nbytes / H100_BYTES_PER_S * 1e3
+
+    cross = torch.from_numpy(synthetic_image(CROSS_H, CROSS_W, seed=0))
+    n_paths = 0
+    for spec, lanes in REGISTRY_PATHS:
+        pipe = Pipeline.parse(spec)
+        want, nbytes = golden_and_bytes(pipe.ops, x8k)
+        cross_pipe = Pipeline.parse(CROSS_SPEC.get(spec, spec))
+        cross_want = cross_pipe(cross)
+        check_equal(f"registry golden {cross_pipe.name} card vs CPU",
+                    cross_pipe(cross.to(device)).cpu(), cross_want)
+        for (impl, plan), exp in lanes.items():
+            tag = f"registry path [{spec}] impl={impl} plan={plan}"
+            fn = pipe.jit(impl, device=device, plan=plan)
+            out, counts = launched(lambda: fn(x8k))
+            check_equal(tag, out, want)
+            if counts != exp:
+                raise AssertionError(f"{tag}: launches {counts}, expected {exp}")
+            # the same route on the CPU and on the card, 1080x1920
+            on_card = cross_pipe.jit(impl, device=device, plan=plan)(cross.to(device)).cpu()
+            on_cpu = cross_pipe.jit(impl, device="cpu", plan=plan)(cross)
+            check_equal(f"{tag} 1080x1920 card vs CPU", on_card, on_cpu)
+            check_equal(f"{tag} 1080x1920 CPU vs golden", on_cpu, cross_want)
+            ms = padded_device_ms(lambda: fn(x8k))
+            b = bound_ms(nbytes)
+            print(f"registry: [{spec}] impl={impl} plan={plan} {MAIN_H}x{MAIN_W} RGB -> "
+                  f"{tuple(want.shape)}: == golden (card) and CPU == card at "
+                  f"{CROSS_H}x{CROSS_W}; device {ms:.4f} ms, launches {counts}, bytes "
+                  f"{nbytes} -> bound {b:.4f} ms at 3.35 TB/s ({b / ms * 100:.1f}% of it)")
+            n_paths += 1
+        del want
+    # T1 on the stencil group after the quarter turn
+    spec = "rot:90,gaussian:5"
+    pipe = Pipeline.parse(spec)
+    want, nbytes = golden_and_bytes(pipe.ops, gray8k)
+    out, counts = launched(lambda: pk.pipeline_packed(pipe.ops, gray8k))
+    check_equal(f"pipeline_packed [{spec}] 8K gray", out, want)
+    if counts != {"T1": 1}:
+        raise AssertionError(f"pipeline_packed [{spec}]: launches {counts}, expected T1 1")
+    ms = padded_device_ms(lambda: pk.pipeline_packed(pipe.ops, gray8k))
+    print(f"registry: pipeline_packed [{spec}] {MAIN_H}x{MAIN_W} gray: == golden; device "
+          f"{ms:.4f} ms, launches {counts}, bytes {nbytes} -> bound {bound_ms(nbytes):.4f} ms")
+    # row-sharded over four slots, at 4320 rows and with a pad row
+    mesh = sharded_mesh()
+    x4323 = torch.from_numpy(synthetic_image(PAD_H, MAIN_W, seed=0)).to(device)
+    for spec, (exp_full, exp_pad) in REGISTRY_SHARDED.items():
+        pipe = Pipeline.parse(spec)
+        fn = pipe.sharded(mesh, backend="cuda", plan="off")
+        for x, exp in ((x8k, exp_full), (x4323, exp_pad)):
+            tag = f"registry sharded [{spec}] {x.shape[0]}x{x.shape[1]} over {N_SHARDS} slots"
+            want, nbytes = golden_and_bytes(pipe.ops, x)
+            out, counts = launched(lambda: fn(x))
+            assert out.device == mesh.devices[0], tag
+            check_equal(tag, out, want)
+            if counts != exp:
+                raise AssertionError(f"{tag}: launches {counts}, expected {exp}")
+            ms = padded_device_ms(lambda: fn(x))
+            enqueue = host_enqueue_ms(lambda: fn(x))
+            print(f"registry: {tag} on {len(set(mesh.devices))} card(s): == golden; device "
+                  f"{ms:.4f} ms, host enqueue {enqueue:.4f} ms, launches {counts}, bytes "
+                  f"{nbytes} -> bound {bound_ms(nbytes):.4f} ms")
+            n_paths += 1
+            del want, out
+    del x4323
+    torch.cuda.empty_cache()
+    print(f"phase 4: {n_paths} geometric and global-statistics paths == golden on the card "
+          f"(and CPU == card at {CROSS_H}x{CROSS_W}), and pipeline_packed on T1")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -3090,6 +3266,7 @@ def main() -> int:
     tool_runs["t1_ghost"] = (phase2_t1_ghost(device, gray8k), [])
     rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
                   tool_runs)
+    phase4_registry(device, x8k, gray8k)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -270,6 +270,10 @@ def cmd_info(args: argparse.Namespace) -> int:
 
     from mpi_cuda_imagemanipulation_tpu_torch._version import __version__
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import BACKENDS
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
+        FAMILIES,
+        registry_family_table,
+    )
     from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels
 
     print(f"mpi_cuda_imagemanipulation_tpu_torch {__version__}")
@@ -295,6 +299,10 @@ def cmd_info(args: argparse.Namespace) -> int:
             )
         )
     print(f"backends: {', '.join(BACKENDS)}")
+    table = registry_family_table()
+    print("ops:")
+    for family in FAMILIES:
+        print(f"  {family}: {', '.join(sorted(n for n, f in table.items() if f == family))}")
     print("kernels:")
     for k in KERNELS:
         print(f"  {k}")

@@ -23,6 +23,11 @@
 * ``backend='auto'`` : every eligible group takes its hand kernel, which
   is ``'cuda'`` (the port has no calibration store to route by).
 
+Geometric ops (which may change the shape) and global-statistics ops run
+as their own tensor ops between the kernel groups on every backend and
+plan: a barrier stage of the plan, a group of their own in the K1/K2,
+SWAR and banded routes.
+
 ``Pipeline.sharded`` runs the same pipeline row-sharded over a mesh of
 devices with ghost-strip exchange (parallel/api.py).
 
@@ -162,7 +167,10 @@ class Pipeline:
         local tiles and gathers the result on the first slot's device,
         where it returns a tensor. Under ``torch.distributed`` every rank
         calls it with the same image; the rank that holds slot 0 returns the
-        whole image, the others their own rows.
+        whole image, the others their own rows (the whole image too when
+        the pipeline ends in a geometric op). A geometric op runs on the
+        whole image between two sharded regions; a global-statistics op
+        sums its histogram over every shard's valid rows.
 
         `backend` is 'cuda' (the hand-written ghost-mode kernels K2g, K3,
         K4g and K1), 'mxu' (the banded products for eligible stencils on

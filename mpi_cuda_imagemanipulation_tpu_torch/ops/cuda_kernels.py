@@ -102,7 +102,8 @@ _K5_FORMS = {"mxu": "K5-bf16", "mxu-int8": "K5-int8"}
 
 def group_ops(ops) -> list[tuple[list[PointwiseOp], StencilOp | None]]:
     """Split a pipeline into ``[pointwise*, stencil?]`` groups; an op with no
-    kernel program (a lookup table) becomes a group of its own."""
+    kernel program (a lookup table, a geometric or a global-statistics op:
+    ``kernel_safe`` False) becomes a group of its own."""
     groups: list[tuple[list[PointwiseOp], StencilOp | None]] = []
     pointwise: list[PointwiseOp] = []
     for op in ops:
@@ -1231,8 +1232,11 @@ def run_group(
     *,
     block_h: int | None = None,
 ) -> torch.Tensor:
-    """Run one ``[pointwise*, stencil?]`` group as one kernel launch (or, for
-    a lookup-table op, a plain gather). `block_h` sets K2's tile height."""
+    """Run one ``[pointwise*, stencil?]`` group as one kernel launch, or a
+    group of one op with no kernel program as that op's own tensor ops (a
+    lookup table's gather; a geometric op's gathers, whose output is
+    contiguous, so that the next group's kernel takes it; a histogram and
+    its table). `block_h` sets K2's tile height."""
     if stencil is None and len(pointwise) == 1 and not pointwise[0].kernel_safe:
         return pointwise[0](img)
     if stencil is None:

@@ -449,7 +449,10 @@ def mxu_stencil(
 
     if img.ndim == 3:
         return torch.stack([plane(img[..., c]) for c in range(img.shape[2])], dim=-1)
-    return plane(img)
+    # the banded products can leave a plane column-major, and the K1/K2
+    # launch that pipeline_mxu may run next refuses it ("the kernels take
+    # contiguous images")
+    return plane(img).contiguous()
 
 
 def _within_halo(op: StencilOp, img: torch.Tensor) -> bool:

@@ -4,9 +4,8 @@ An op string is ``name`` or ``name:arg`` (``contrast:3.5``, ``emboss:5``,
 ``gaussian:7``); a pipeline string is comma-separated op strings. The
 reference pipeline (kernel.cu:192-195) is ``grayscale,contrast:3.5,emboss:3``.
 
-This slice holds the pointwise and stencil ops. The geometric and
-global-statistics names are registered so that they fail with a clear
-message instead of "unknown op".
+Four families: pointwise and stencil ops (this module), geometric ops
+(ops/geometry.py) and global-statistics ops (ops/histogram.py).
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpi_cuda_imagemanipulation_tpu_torch.ops import filters
+from mpi_cuda_imagemanipulation_tpu_torch.ops import filters, geometry, histogram
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     F32,
     PW_BRIGHTNESS,
@@ -480,15 +479,6 @@ def _solarize(a: str | None) -> PointwiseOp:
     )
 
 
-def _not_ported(name: str) -> Callable[[str | None], Op]:
-    def factory(arg: str | None) -> Op:
-        raise NotImplementedError(
-            f"op {name!r} is not yet ported to the PyTorch package"
-        )
-
-    return factory
-
-
 REGISTRY: dict[str, Callable[[str | None], Op]] = {
     "grayscale": lambda a: _GRAYSCALE,
     "gray": lambda a: _GRAYSCALE,
@@ -521,18 +511,89 @@ REGISTRY: dict[str, Callable[[str | None], Op]] = {
     "erode": lambda a: make_morph("erode", _int_arg(a, 3)),
     "dilate": lambda a: make_morph("dilate", _int_arg(a, 3)),
     "median": lambda a: make_median(_int_arg(a, 3)),
+    # geometric (ops/geometry.py)
+    "fliph": lambda a: geometry.FLIP_H,
+    "mirror": lambda a: geometry.FLIP_H,
+    "flipv": lambda a: geometry.FLIP_V,
+    "flip": lambda a: geometry.FLIP_V,
+    "transpose": lambda a: geometry.TRANSPOSE,
+    "rot": lambda a: geometry.make_rot90(_int_arg(a, 90)),
+    "rot90": lambda a: geometry.ROT90,
+    "rot180": lambda a: geometry.ROT180,
+    "rot270": lambda a: geometry.ROT270,
+    "crop": lambda a: _parse_crop(a),
+    "pad": lambda a: _parse_pad(a),
+    "resize": lambda a: _parse_resize(a),
+    "scale": lambda a: _parse_scale(a),
+    "rotate": lambda a: _parse_rotate(a),
+    # global statistics (ops/histogram.py): histograms summed over shards
+    "equalize": lambda a: histogram.EQUALIZE,
+    "autocontrast": lambda a: histogram.AUTOCONTRAST,
+    "otsu": lambda a: histogram.OTSU,
 }
-# geometric and global-statistics ops: a later slice of the port
-for _name in (
-    "fliph", "mirror", "flipv", "flip", "transpose", "rot", "rot90", "rot180",
-    "rot270", "crop", "pad", "resize", "scale", "rotate",
-    "equalize", "autocontrast", "otsu",
-):
-    REGISTRY[_name] = _not_ported(_name)
-del _name
+
+
+def _parse_crop(arg: str | None):
+    parts = (arg or "").split(":")
+    if len(parts) != 4:
+        raise ValueError("crop needs crop:y0:x0:height:width")
+    y0, x0, h, w = (int(p) for p in parts)
+    return geometry.make_crop(y0, x0, h, w)
+
+
+def _parse_pad(arg: str | None):
+    parts = (arg or "").split(":") if arg else []
+    if not parts or not parts[0]:
+        raise ValueError("pad needs pad:N or pad:N:mode")
+    n = int(parts[0])
+    mode = parts[1] if len(parts) > 1 else "zero"
+    return geometry.make_pad(n, mode)
+
+
+def _parse_size(size: str) -> tuple[int, int]:
+    h, _, w = size.lower().partition("x")
+    return int(h), int(w)
+
+
+def _parse_resize(arg: str | None):
+    parts = (arg or "").split(":")
+    if not parts or not parts[0]:
+        raise ValueError("resize needs resize:HxW or resize:HxW:nearest")
+    h, w = _parse_size(parts[0])
+    method = parts[1] if len(parts) > 1 else "bilinear"
+    return geometry.make_resize(h, w, method)
+
+
+def _parse_rotate(arg: str | None):
+    parts = (arg or "").split(":")
+    if not parts or not parts[0]:
+        raise ValueError("rotate needs rotate:DEGREES or rotate:DEGREES:nearest")
+    angle = float(parts[0])
+    method = parts[1] if len(parts) > 1 else "bilinear"
+    return geometry.make_rotate(angle, method)
+
+
+def _parse_scale(arg: str | None):
+    parts = (arg or "").split(":")
+    if not parts or not parts[0]:
+        raise ValueError("scale needs scale:F or scale:F:nearest")
+    factor = float(parts[0])
+    method = parts[1] if len(parts) > 1 else "bilinear"
+    return geometry.make_scale(factor, method)
 
 
 FAMILIES = ("pointwise", "stencil", "geometric", "global-stat")
+
+# the arguments that build one instance of each name whose factory needs
+# one, for registry_family_table only (the JAX package's table)
+_FAMILY_PROBE_ARGS = {
+    "crop": "0:0:16:16",
+    "pad": "2",
+    "resize": "32x32",
+    "scale": "0.5",
+    "rotate": "90",
+    "filter": "1/1/1/1/1/1/1/1/1:0.111",
+}
 
 
 def op_family(op: Op) -> str:
@@ -547,6 +608,14 @@ def op_family(op: Op) -> str:
             f"(got {fam!r}; known: {FAMILIES})"
         )
     return fam
+
+
+def registry_family_table() -> dict[str, str]:
+    """Every registered name -> its family, from one instance each."""
+    return {
+        name: op_family(factory(_FAMILY_PROBE_ARGS.get(name)))
+        for name, factory in REGISTRY.items()
+    }
 
 
 def make_op(spec: str) -> Op:

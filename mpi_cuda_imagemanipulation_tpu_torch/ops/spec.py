@@ -391,7 +391,67 @@ class StencilOp:
         return self.finalize(self.valid(xpad), img, 0, 0, h, w)
 
 
-Op = PointwiseOp | StencilOp
+@dataclasses.dataclass(frozen=True)
+class GeometricOp:
+    """Shape-changing data-movement op (flip, rotate, transpose, crop, pad,
+    resize; ops/geometry.py). `fn` is the one definition every backend
+    runs: gathers, plus for resize and rotate a fixed-point lerp whose
+    indices and weights are built on the host in float64, so the result is
+    exact data movement plus exact float32 sums.
+
+    Every route runs it as a step of its own between kernel groups
+    (`kernel_safe=False`, like the lookup-table ops), and the sharded
+    runner runs it on the whole image between sharded segments. Its output
+    is always a contiguous tensor: the kernels refuse views."""
+
+    family: ClassVar[str] = "geometric"
+
+    name: str
+    fn: Callable[[torch.Tensor], torch.Tensor]  # u8 -> u8, shape may change
+    in_channels: int = 0
+    out_channels: int = 0
+    halo: int = 0
+    kernel_safe: bool = False
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        _check_channels(self.name, self.in_channels, img)
+        return self.fn(img)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalOp:
+    """Op whose per-pixel transform depends on a whole-image statistic
+    (equalize, autocontrast, otsu; ops/histogram.py), split into two pieces
+    every route composes the same way:
+
+      stats(img, valid) -> int32[256]  counts over the image; `valid`
+                                       (broadcastable to img, 0/1) masks
+                                       rows that are sharding padding
+      apply(img, stats) -> u8 image    pointwise given the statistic
+
+    The statistic is additive: the sharded runner sums each tile's masked
+    counts over the slots and ranks (integers, so the sum is exact) and
+    applies the same function of it on every tile."""
+
+    family: ClassVar[str] = "global-stat"
+
+    name: str
+    stats: Callable  # (u8 img, valid mask or None) -> int32 vector
+    apply: Callable  # (u8 img, int32 stats) -> u8 img
+    in_channels: int = 1
+    out_channels: int = 0
+    halo: int = 0
+    kernel_safe: bool = False
+
+    def fn(self, img: torch.Tensor) -> torch.Tensor:
+        return self.apply(img, self.stats(img, None))
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        _check_channels(self.name, self.in_channels, img)
+        return self.fn(img)
+
+
+Op = PointwiseOp | StencilOp | GeometricOp | GlobalOp
 
 
 def chain_halo(ops) -> int:

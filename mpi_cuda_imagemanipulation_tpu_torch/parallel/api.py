@@ -37,6 +37,21 @@ or 'fused' its stages walk with those products, and under
 tile as one K6g, K7g or K8g launch per shard (ops/swar_kernels.py ghost
 mode), and every other group as ``cuda`` does. On a CPU tile each kernel
 wrapper takes its plain version.
+
+Global-statistics ops (equalize, autocontrast, otsu) flush the pending
+pointwise run, then each tile counts its histogram over its valid rows (a
+row is valid when ``y0 + r < global_h``, so the pad rows of the last shard
+never count). The counts are summed over this process's slots on the first
+slot's device, then with ``torch.distributed.all_reduce(SUM)`` across ranks
+under a process group: the counterpart of the JAX package's ``lax.psum``.
+Integer counts, so the sum is exact, and every tile applies the same table.
+
+Geometric ops cut the pipeline into segments (`_split_segments`). Each one
+runs on the whole image on the first slot's device between two sharded
+regions, and the next region is opened on the new shape (its own
+``global_h``, ``local_h`` and pad rows). Under a process group the rank that
+holds slot 0 applies it to the gathered image and broadcasts the shape, then
+the bytes, so that every rank opens the next region from the same image.
 """
 
 from __future__ import annotations
@@ -92,14 +107,6 @@ from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 # either way.
 HALO_MODES = ("serial", "overlap")
 BACKENDS = ("torch", "cuda", "mxu", "swar", "auto")
-_GLOBAL_NOT_PORTED = (
-    "global-statistics ops (equalize, autocontrast, otsu) and their sharded "
-    "all-reduce are not ported yet (ROADMAP.md, modules to port: rest of the registry)"
-)
-_GEOMETRIC_NOT_PORTED = (
-    "geometric ops and the resharding between their segments are not ported "
-    "yet (ROADMAP.md, modules to port: rest of the registry)"
-)
 
 
 # --------------------------------------------------------------------------
@@ -351,6 +358,26 @@ def _apply_pointwise(region: _Region, chain, tile: torch.Tensor) -> torch.Tensor
     return tile
 
 
+def _apply_global(region: _Region, op, tiles):
+    """One global-statistics op on every tile: each tile's histogram over
+    its valid rows, summed over the local slots and, under a process group,
+    across ranks, then applied to each tile. A tile with no pad rows counts
+    unmasked (the same counts, without the mask's pass)."""
+    mesh = region.mesh
+    dev = mesh.devices[mesh.local_slots[0]]
+    total = None
+    for tile, y0 in zip(tiles, region.y0s):
+        valid = None
+        if y0 + tile.shape[0] > region.global_h:  # the last shard's pad rows
+            rows = y0 + torch.arange(tile.shape[0], device=tile.device)
+            valid = (rows < region.global_h).view((-1,) + (1,) * (tile.ndim - 1))
+        counts = op.stats(tile, valid).to(dev)
+        total = counts if total is None else total + counts
+    if mesh.distributed:
+        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+    return [op.apply(t, total.to(t.device)) for t in tiles]
+
+
 def _interior_box(op: StencilOp, rows: int, y0: int, global_h: int, global_w: int):
     """`op.interior_mask` over a `rows`-row, full-width tile at global row
     `y0`, as the box it is: the rows [r0, r1) and columns [c0, c1) the
@@ -410,7 +437,9 @@ def _stencil_on_ext(
         return torch.stack(
             [plane(ext[..., c], tile[..., c]) for c in range(ext.shape[2])], dim=-1
         )
-    return plane(ext, tile)
+    # the banded products can leave a plane column-major, which the K1
+    # launch of the next pointwise run refuses
+    return plane(ext, tile).contiguous()
 
 
 def _apply_stencil(region: _Region, op: StencilOp, tiles):
@@ -604,8 +633,9 @@ def _walk_groups(region: _Region, ops, tiles):
             else:
                 tiles = [op.fn(t) for t in flush(tiles)]
             continue
-        if fam != "stencil":
-            raise NotImplementedError(_GLOBAL_NOT_PORTED)
+        if fam == "global-stat":
+            tiles = _apply_global(region, op, flush(tiles))
+            continue
         # Interior-first overlapped halo path: eligible stencil groups
         # compute their interior while the ghost strips are in flight;
         # boundary strips stitch once they land. Takes priority over the
@@ -829,8 +859,8 @@ def _run_segment_planned(
     arms = {} if arms is None else arms
     for si, stage in enumerate(plan.stages):
         if stage.kind == "global":
-            raise NotImplementedError(_GLOBAL_NOT_PORTED)
-        if si in mega_stages:
+            tiles = _apply_global(region, stage.ops[0], tiles)
+        elif si in mega_stages:
             if si not in arms:
                 arms[si] = stage_arms(stage.ops, mxu_stage)
             tiles = _apply_stage_megakernel(region, stage, tiles, arms[si])
@@ -881,6 +911,30 @@ def _split_segments(ops):
     return segments
 
 
+def _run_whole(op, mesh: Mesh, img: torch.Tensor, everywhere: bool) -> torch.Tensor:
+    """One geometric op on the whole image, on the first slot's device (a
+    numpy input lands there first: no CPU detour beside a card).
+    `everywhere` says that every rank holds the whole image (the pipeline's
+    input, or an earlier whole segment's result); otherwise, under a process
+    group, only the rank that holds slot 0 does (`_close_region`), and it
+    applies the op and broadcasts the result's shape, then its bytes."""
+    dev = mesh.devices[mesh.local_slots[0]]
+    img = img.to(dev)
+    if not mesh.distributed or everywhere:
+        return op(img)
+    root = mesh.ranks[0]
+    shape = torch.zeros(4, dtype=torch.int64, device=dev)  # (ndim, H, W, C)
+    if mesh.rank == root:
+        out = op(img)
+        shape[: out.ndim + 1] = torch.tensor((out.ndim,) + tuple(out.shape))
+    dist.broadcast(shape, src=root)
+    if mesh.rank != root:
+        ndim, *dims = shape.tolist()
+        out = torch.empty(dims[:ndim], dtype=U8, device=dev)
+    dist.broadcast(out, src=root)
+    return out
+
+
 def _run_segment(ops, mesh: Mesh, backend: str, img, halo_mode: str = "serial"):
     """One sharded region: pad-to-multiple, halo-exchanged local compute,
     crop."""
@@ -894,7 +948,9 @@ def sharded_pipeline(
     """`pipe` as a function that runs row-sharded over `mesh` with halo
     exchange: a whole (H, W[, 3]) uint8 image (numpy array or tensor) in,
     the whole image out as a tensor on the first slot's device,
-    byte-identical to the unsharded golden path.
+    byte-identical to the unsharded golden path. Under a process group the
+    other ranks return their own rows of the last region, or the whole
+    image when the pipeline ends in a geometric op.
 
     `halo_mode='overlap'` restructures each eligible stencil group so the
     interior rows compute while the ghost strips are in flight (see
@@ -924,10 +980,9 @@ def sharded_pipeline(
     if plan_mode != "off" and halo_mode == "overlap" and plan in ("auto", None, ""):
         plan_mode = "off"
     segments = _split_segments(pipe.ops)
-    if any(kind == "whole" for kind, _ in segments):
-        raise NotImplementedError(_GEOMETRIC_NOT_PORTED)
     seg_plans = [
-        build_plan(ops, plan_mode) if plan_mode != "off" else None for _, ops in segments
+        build_plan(ops, plan_mode) if plan_mode != "off" and kind == "sharded" else None
+        for kind, ops in segments
     ]
     mega = plan_mode in ("fused-pallas", "fused-pallas-mxu") and backend in ("cuda", "mxu")
     mxu_stage = "on" if plan_mode == "fused-pallas-mxu" else None
@@ -937,7 +992,13 @@ def sharded_pipeline(
         img = torch.as_tensor(img)
         if img.dtype != U8:
             raise TypeError(f"expected a uint8 image, got {img.dtype}")
-        for (_, ops), seg_plan, arms in zip(segments, seg_plans, seg_arms):
+        everywhere = True  # every rank holds the whole image
+        for (kind, ops), seg_plan, arms in zip(segments, seg_plans, seg_arms):
+            if kind == "whole":
+                img = _run_whole(ops[0], mesh, img, everywhere)
+                everywhere = True
+                continue
+            everywhere = not mesh.distributed
             if seg_plan is None:
                 img = _run_segment(ops, mesh, backend, img, halo_mode)
             else:

@@ -69,7 +69,12 @@ def main() -> int:
             torch.cuda.synchronize(dev)
         dist.barrier()
 
-    for spec in (REFERENCE_PIPELINE_SPEC, "gaussian:5", "gaussian:5,emboss:3,gaussian:3"):
+    # then the histogram's all_reduce across ranks, a geometric op on the
+    # input every rank holds, and one after a sharded region (the root
+    # applies it and broadcasts the shape and the bytes)
+    for spec in (REFERENCE_PIPELINE_SPEC, "gaussian:5", "gaussian:5,emboss:3,gaussian:3",
+                 "grayscale,equalize,gaussian:5", "rot:90,gaussian:5",
+                 "gaussian:3,rot:90,gaussian:5"):
         pipe = Pipeline.parse(spec)
         golden = pipe(torch.from_numpy(img).to(dev))
         for backend, plan, halo_mode in LANES:
@@ -92,9 +97,9 @@ def main() -> int:
                           "(host clock, barrier to synchronise)", flush=True)
             if halo.exchanges.rounds < 1:  # every spec here has a stencil group
                 bad += 1
-            if rank != 0:
-                local = slice(rank * slots * (height // (world * slots)),
-                              (rank + 1) * slots * (height // (world * slots)))
+            if rank != 0:  # its own rows of the last region (rot:90 turns the height)
+                rows = golden.shape[0] // (world * slots)
+                local = slice(rank * slots * rows, (rank + 1) * slots * rows)
                 if not torch.equal(out, golden[local]):
                     bad += 1
                 continue

@@ -118,11 +118,21 @@ def test_magnitude_sqrt_is_correctly_rounded():
         _assert_port_equals_jax(s, img)
 
 
+# an argument for each registry name whose factory needs one
+_PROBE_ARGS = {"crop": "crop:1:2:5:6", "pad": "pad:2", "resize": "resize:8x9",
+               "scale": "scale:0.5", "rotate": "rotate:30",
+               "filter": "filter:1/1/1/1/1/1/1/1/1:0.111"}
+
+
 def test_every_jax_registry_name_is_registered():
+    """Every name builds in the port, with the JAX op's name, halo and
+    family (the geometric and global-statistics names too)."""
     assert set(jax_registry.REGISTRY) == set(registry.REGISTRY)
-    for name in ("fliph", "rot90", "crop", "resize", "equalize", "otsu"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            registry.make_op(name)
+    for name in registry.REGISTRY:
+        spec_str = _PROBE_ARGS.get(name, name)
+        op, jax_op = registry.make_op(spec_str), jax_registry.make_op(spec_str)
+        assert (op.name, op.halo) == (jax_op.name, jax_op.halo), name
+        assert registry.op_family(op) == jax_registry.op_family(jax_op), name
 
 
 def test_pipeline_parse_checks_channels():

@@ -19,9 +19,9 @@
   of the 24-op, 8-stencil by-value program): stages of 26 and 82 ops, nine
   ``box:3`` and twelve ``box:1`` stencils run as one megakernel stage, with
   the JAX package's ``plan_metrics`` and bytes;
-* the sharded runner's refusals of global-statistics and geometric ops
-  name the ROADMAP item they wait on by its name, which stays put when the
-  queue is renumbered, and that name is an item of ROADMAP.md's queue 1.
+* the whole-op ``mxu`` route hands the next kernel a contiguous image: the
+  banded products left a gray plane column-major, which the K1 launch after
+  it refuses on the card ("the kernels take contiguous images").
 
 Every tolerance is 0: bytes must be equal.
 """
@@ -433,30 +433,32 @@ def test_long_pointwise_chain_on_t1_matches_jax(n, tail):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
 
 
-def _roadmap_queue1_items() -> list[str]:
-    """The bold item names of ROADMAP.md's queue 1 ("Modules to port"),
-    lower case, without the closing full stop."""
-    import re
-    from pathlib import Path
+@pytest.mark.parametrize("route", ["full", "sharded"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("spec", ["gaussian:3", "gaussian:5", "sobel", "sharpen", "emboss:3",
+                                  "erode:3", "box:5"])
+def test_mxu_route_hands_the_next_kernel_a_contiguous_image(monkeypatch, spec, channels, route):
+    """Every image the whole-op route passes to the K1/K2 group runner
+    (`pipeline_mxu`, and the sharded runner's tiles under 'mxu'), and its
+    result, is contiguous, as the kernels require on the card (their plain
+    versions on the CPU take any strides); bytes equal to JAX."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import mxu_kernels
 
-    text = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    section = text.split("### 1. Modules to port", 1)[1].split("\n### ", 1)[0]
-    return [m.rstrip(".").lower() for m in re.findall(r"^\d+\. \*\*(.+?)\*\*", section,
-                                                       re.MULTILINE)]
+    seen = []
+    real = ck.pipeline_cuda
 
+    def spy(ops, img, **kw):
+        seen.append(img.is_contiguous())
+        return real(ops, img, **kw)
 
-@pytest.mark.parametrize("name", ["_GLOBAL_NOT_PORTED", "_GEOMETRIC_NOT_PORTED"])
-def test_refusals_cite_a_queue1_item_by_name(name):
-    """Each refusal cites "modules to port: <item name>", and the name is
-    an item of ROADMAP.md's queue 1 (an item number goes stale when the
-    queue is re-anchored)."""
-    import re
-
-    from mpi_cuda_imagemanipulation_tpu_torch.parallel import api
-
-    message = getattr(api, name)
-    cited = re.search(r"ROADMAP\.md, modules to port: ([^)]+)\)", message)
-    assert cited is not None, message
-    items = _roadmap_queue1_items()
-    assert "rest of the registry" in items, items
-    assert cited.group(1).strip().lower() in items, (cited.group(1), items)
+    monkeypatch.setattr(ck, "pipeline_cuda", spy)
+    full = f"{spec},invert"
+    img = synthetic_image(40, 52, channels=channels, seed=61)
+    if route == "full":
+        got = mxu_kernels.pipeline_mxu(make_pipeline_ops(full), torch.from_numpy(img))
+    else:
+        got = Pipeline.parse(full).sharded(pmesh.make_mesh(2, devices=["cpu"] * 2),
+                                           backend="mxu", plan="off")(img)
+    want = np.asarray(JaxPipeline.parse(full)(jnp.asarray(img)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert seen == [True] * (1 if route == "full" else 2) and got.is_contiguous()

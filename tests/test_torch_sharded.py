@@ -458,15 +458,14 @@ def test_sharded_validation():
 
 
 def test_split_segments_keeps_the_segment_structure():
-    ops = Pipeline.parse("invert,gaussian:5").ops
-
-    class Geometric:  # a stand-in: the port's registry has no geometric op yet
-        family, name, halo = "geometric", "rot180", 0
-
-    segs = api._split_segments((ops[0], Geometric(), ops[1]))
+    pipe = Pipeline.parse("invert,rot180,gaussian:5")
+    segs = api._split_segments(pipe.ops)
     assert [k for k, _ in segs] == ["sharded", "whole", "sharded"]
-    with pytest.raises(NotImplementedError, match="modules to port: rest of the registry"):
-        api.sharded_pipeline(Pipeline(ops=(ops[0], Geometric(), ops[1])), cpu_mesh(2))
+    img = _image(40, 24, 3, 5)
+    golden = pipe(torch.from_numpy(img))
+    for plan in ("off", "fused-pallas"):
+        got = api.sharded_pipeline(pipe, cpu_mesh(2), plan=plan)(img)
+        assert torch.equal(got, golden), plan
 
 
 def test_cli_run_shards(tmp_path, capsys):

@@ -148,10 +148,9 @@ def test_pipeline_packed_block_overrides(block_h):
     ],
 )
 def test_pipeline_packed_falls_back(monkeypatch, spec, ch, hw, launches):
-    """Groups T1 does not take go to the K1/K2 runner, untouched. The JAX
-    test's fourth case, `rot:90,gaussian:5`, needs a geometric op the port
-    refuses ("not yet ported"); a halo-0 box, which T1 refuses and K2 runs,
-    takes its place."""
+    """Groups T1 does not take go to the K1/K2 runner, untouched; a halo-0
+    box, which T1 refuses and K2 runs, among them. The JAX test's fourth
+    case, `rot:90,gaussian:5`, has a test of its own below."""
     seen = {}
     for key, owner, name in (("T1-pw", pk, "run_group_packed_words"),
                              ("K2", ck, "stream_stencil"), ("K1", ck, "pointwise_group")):
@@ -167,9 +166,26 @@ def test_pipeline_packed_falls_back(monkeypatch, spec, ch, hw, launches):
     assert seen == launches
 
 
-def test_geometric_ops_are_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_pipeline_ops("rot:90,gaussian:5")
+def test_pipeline_packed_geometric_fallback_equals_jax_interpret(monkeypatch):
+    """tests/test_packed.py's fallback case `rot:90,gaussian:5`: the quarter
+    turn goes to the u8 group runner (``ck.run_group``), and the stencil
+    group after it, on the turned plane's words, to T1. Equal to the JAX
+    ``pipeline_packed`` in interpret mode and to golden."""
+    spec, img = "rot:90,gaussian:5", synthetic_image(64, 128, channels=1, seed=45)
+    want = np.asarray(jax_pk.pipeline_packed(JaxPipeline.parse(spec).ops, jnp.asarray(img),
+                                             interpret=True))
+    seen = []
+    real = pk.run_group_packed_words
+
+    def spy(pw, st, words, height, width, **kw):
+        seen.append((st.name, height, width, [w.is_contiguous() for w in words]))
+        return real(pw, st, words, height, width, **kw)
+
+    monkeypatch.setattr(pk, "run_group_packed_words", spy)
+    got = _packed(spec, img)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _golden(spec, img))
+    assert seen == [("gaussian5", 128, 64, [True])]
 
 
 def test_pipeline_packed_keeps_words_between_groups(monkeypatch):
