@@ -135,6 +135,21 @@ printing a result:
    T1 launch); ``Pipeline.sharded`` over the 4-slot mesh at 4320 and 4323
    rows. Each path's device ms, launches and bytes bound are printed.
 
+5. Calibration and ``auto`` routing, with a calibration store in a
+   temporary directory (the earlier phases run with an empty one, wherever
+   the script runs): ``autotune`` in-process on the 8K frame for each
+   dimension (``block`` with ``--impl cuda`` and ``--impl swar`` on
+   gaussian:5, ``backend`` on gaussian:5,emboss:3,sharpen, ``plan`` on the
+   reference and megakernel_ab pipelines), each lane's ms and the records
+   printed; then the three 8K workloads through ``Pipeline.jit(backend=
+   'auto', plan='auto')`` with an empty store (the launches of ``cuda
+   --plan off``), with the recorded store (the launches of the recorded
+   choice) and under ``MCIM_PREFER_SWAR=1`` (the launches of ``swar``),
+   each byte-equal to golden with its device ms, and the host enqueue ms
+   of ``auto`` beside ``cuda``; ``Pipeline.sharded(backend='auto')`` over
+   the 4-slot mesh in the same three states; and an armed
+   ``halo.exchange`` failpoint, which must raise.
+
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -143,8 +158,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -3138,6 +3155,179 @@ def phase4_registry(device, x8k, gray8k):
           f"(and CPU == card at {CROSS_H}x{CROSS_W}), and pipeline_packed on T1")
 
 
+# phase 5: the autotune sweeps, as `autotune` arguments (8K frame, defaults)
+AUTOTUNE_RUNS = [
+    ["--dimension", "block", "--impl", "cuda", "--ops", SPECS["gaussian5_8k"]],
+    ["--dimension", "block", "--impl", "swar", "--ops", SPECS["gaussian5_8k"]],
+    ["--dimension", "backend", "--ops", "gaussian:5,emboss:3,sharpen"],
+    ["--dimension", "plan", "--ops", SPECS["reference"]],
+    ["--dimension", "plan", "--ops", SPECS["megakernel_ab"]],
+]
+AUTO_KNOBS = ("MCIM_CALIB_FILE", "MCIM_NO_CALIB", "MCIM_PREFER_SWAR")
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """MCIM_* variables set (a value) or unset (None) for the block, the
+    previous values restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def expected_auto_off(ops, banded: set, shards: int = 0) -> dict:
+    """The launches of `auto` under plan 'off' when the stencils of the
+    families in `banded` take the banded products: per group, a K1 for the
+    pointwise prologue of a banded stencil, else the group's K1 or K2 (K2g
+    per shard, K1 per shard, with `shards`)."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import mxu_family
+
+    want = dict.fromkeys(ck.launch_counts(), 0)
+    n = max(shards, 1)
+    for pw, st in ck.group_ops(ops):
+        if st is not None and mxu_family(st) in banded:
+            want["K1"] += n if pw else 0
+        elif st is not None:
+            want["K2g" if shards else "K2"] += n
+        elif pw[0].kernel_safe:
+            want["K1"] += n
+    return want
+
+
+def phase5_auto(device, x8k):
+    """Calibration and `auto` routing on the card (see the module
+    docstring, phase 5). Raises on any lane that differs from golden, on
+    launches other than the recorded choice's, and if the failpoint does
+    not fire."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import main as cli_main
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import pipeline_fingerprint
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mcim_calib_")
+    store, empty = os.path.join(tmp, "calib.json"), os.path.join(tmp, "empty.json")
+    metrics = os.path.join(tmp, "autotune.jsonl")
+    kind = torch.cuda.get_device_name(device)
+    with knobs(MCIM_CALIB_FILE=store, MCIM_NO_CALIB=None, MCIM_PREFER_SWAR=None):
+        for argv in AUTOTUNE_RUNS:
+            rc = cli_main(["autotune", *argv, "--json-metrics", metrics])
+            if rc != 0:
+                raise AssertionError(f"autotune {' '.join(argv)}: exit {rc}")
+        with open(metrics) as f:
+            for line in f:
+                print(f"autotune: {line.strip()}")
+        with open(store) as f:
+            data = json.load(f)
+        print(f"calibration store [{kind}]: {json.dumps(data['device_kinds'][kind], sort_keys=True)}")
+        records = data["device_kinds"][kind]
+    banded = {fam for fam, ent in records.get("backend_choice", {}).items()
+              if ent["choice"] in ("mxu", "hybrid")}
+    mesh = sharded_mesh()
+    mp = MAIN_H * MAIN_W / 1e6
+
+    def launched(fn):
+        ck.reset_launch_counts()
+        out = fn(x8k)
+        for d in set(mesh.devices) | {device}:
+            torch.cuda.synchronize(d)
+        return out, ck.launch_counts()
+
+    for key, spec in SPECS.items():
+        pipe = Pipeline.parse(spec)
+        want = pipe.jit("torch", device=device, plan="off")(x8k)
+        plan = records.get("plan_choice", {}).get(pipeline_fingerprint(pipe.ops), {})
+        plan = plan.get("choice", "off")
+        states = {
+            "empty store": dict(MCIM_CALIB_FILE=empty, MCIM_NO_CALIB=None, MCIM_PREFER_SWAR=None),
+            "recorded store": dict(MCIM_CALIB_FILE=store, MCIM_NO_CALIB=None,
+                                   MCIM_PREFER_SWAR=None),
+            "MCIM_PREFER_SWAR=1": dict(MCIM_CALIB_FILE=store, MCIM_NO_CALIB="1",
+                                       MCIM_PREFER_SWAR="1"),
+        }
+        state_ms = {}
+        for state, env in states.items():
+            with knobs(**env):
+                auto = pipe.jit("auto", device=device, plan="auto")
+                shard_auto = pipe.sharded(mesh, backend="auto", plan="auto")
+                if state == "empty store":
+                    ref = pipe.jit("cuda", device=device, plan="off")
+                    shard_ref = pipe.sharded(mesh, backend="cuda", plan="off")
+                elif state == "recorded store" and plan != "off":
+                    ref = pipe.jit("cuda", device=device, plan=plan)
+                    shard_ref = pipe.sharded(mesh, backend="cuda", plan=plan)
+                elif state == "recorded store":
+                    ref = shard_ref = None
+                else:
+                    ref = pipe.jit("swar", device=device, plan="off")
+                    shard_ref = pipe.sharded(mesh, backend="swar", plan="off")
+                tag = f"auto [{spec}] {state}"
+                out, counts = launched(auto)
+                check_equal(tag, out, want)
+                exp = launched(ref)[1] if ref is not None else expected_auto_off(pipe.ops, banded)
+                if counts != exp:
+                    raise AssertionError(f"{tag}: launches {counts}, expected {exp}")
+                out, s_counts = launched(shard_auto)
+                check_equal(f"sharded {tag}", out, want)
+                s_exp = (launched(shard_ref)[1] if shard_ref is not None
+                         else expected_auto_off(pipe.ops, banded, N_SHARDS))
+                if s_counts != s_exp:
+                    raise AssertionError(f"sharded {tag}: launches {s_counts}, expected {s_exp}")
+                ms = padded_device_ms(lambda: auto(x8k))
+                s_ms = padded_device_ms(lambda: shard_auto(x8k))
+                state_ms[state] = ms
+                note = (f" (recorded: plan {plan}, banded {sorted(banded)})"
+                        if state == "recorded store" else "")
+                line = (f"auto: [{spec}] {state}{note}: == golden; device {ms:.4f} ms "
+                        f"({mp / ms * 1e3:.1f} MP/s), launches "
+                        f"{ {k: v for k, v in counts.items() if v} }; sharded over {N_SHARDS} "
+                        f"slots == golden, device {s_ms:.4f} ms ({mp / s_ms * 1e3:.1f} MP/s), "
+                        f"launches { {k: v for k, v in s_counts.items() if v} }")
+                if state == "empty store":
+                    enq = {name: host_enqueue_ms(lambda f=f: f(x8k))
+                           for name, f in (("auto", auto), ("cuda", ref), ("auto2", auto),
+                                           ("cuda2", ref))}
+                    line += (f"; host enqueue auto {enq['auto']:.4f} / {enq['auto2']:.4f} ms, "
+                             f"cuda --plan off {enq['cuda']:.4f} / {enq['cuda2']:.4f} ms")
+                print(line)
+        print(f"auto: [{spec}] device ms, recorded store / empty store "
+              f"{state_ms['recorded store'] / state_ms['empty store']:.3f}, "
+              f"MCIM_PREFER_SWAR=1 / recorded store "
+              f"{state_ms['MCIM_PREFER_SWAR=1'] / state_ms['recorded store']:.3f}")
+        del want
+    # an armed halo.exchange failpoint raises at the sharded entry
+    failpoints.configure("halo.exchange=always")
+    try:
+        Pipeline.parse(SPECS["gaussian5_8k"]).sharded(mesh, backend="auto")(x8k)
+    except failpoints.FailpointError as e:
+        print(f"auto: halo.exchange armed -> {e}")
+    else:
+        raise AssertionError("the armed halo.exchange failpoint did not raise")
+    finally:
+        failpoints.clear()
+    calibration._cache["key"] = None
+    torch.cuda.empty_cache()
+    print(f"phase 5: autotune records, auto routing in three states over {len(SPECS)} "
+          f"workloads unsharded and sharded, the failpoint; {time.perf_counter() - t0:.1f} s")
+
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -3229,6 +3419,9 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # phases 1-4 run with an empty calibration store wherever the script
+    # runs: a store file in the working directory must not steer them
+    os.environ["MCIM_CALIB_FILE"] = os.path.join(tempfile.mkdtemp(prefix="mcim_"), "none.json")
     device = torch.device("cuda")
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -3267,6 +3460,7 @@ def main() -> int:
     rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
                   tool_runs)
     phase4_registry(device, x8k, gray8k)
+    phase5_auto(device, x8k)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

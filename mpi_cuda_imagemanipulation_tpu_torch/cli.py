@@ -1,27 +1,62 @@
-"""Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch run|info``.
+"""Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
+run|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
-through the hand-written kernels (``--impl auto``, the default, runs what
-``--impl cuda`` runs), the tensor-core route
+through the hand-written kernels (``--impl auto``, the default, routes
+each group as the calibration store's records and the ``MCIM_PREFER_*``
+switches say, and with neither runs what ``--impl cuda`` runs), the
+tensor-core route
 (``--impl mxu``), the SWAR kernels (``--impl swar``) or PyTorch ops
 (``--impl torch``), in the execution structure ``--plan`` selects
 (models/pipeline.py says what each pair runs). ``--shards N`` row-shards
 the image over N devices with ghost-strip exchange (parallel/api.py); under
 ``torchrun`` every rank runs the same command and holds its share of the
-shards. ``info`` prints the toolchain, the devices, the backends and the
-kernels.
+shards. ``autotune`` measures the routes of one choice on the card and
+records the fastest in the calibration store (utils/calibration.py), which
+``--impl auto --plan auto`` then follows; ``autotune info`` prints the
+records for a pipeline. ``info`` prints the toolchain, the devices, the
+backends, the kernels and the calibration records for the device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import statistics
 import subprocess
 import sys
 import time
 
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import REFERENCE_PIPELINE_SPEC
 from mpi_cuda_imagemanipulation_tpu_torch.plan.planner import PLAN_MODES
+
+# autotune's candidate tile heights: K2's (default 16) and K6-K8's (the
+# SWAR picker's TILE_ROWS; default 64)
+AUTOTUNE_BLOCKS = {"cuda": "8,16,24,32,48,64", "swar": "8,16,32,64"}
+# the plans --impl auto can run, which `autotune --dimension plan` measures
+AUTOTUNE_PLANS = ("off", "fused-pallas", "fused-pallas-mxu")
+
+
+def _add_failpoint_flags(sp: argparse.ArgumentParser) -> None:
+    sp.add_argument(
+        "--failpoints", default=None, metavar="SPEC",
+        help="arm deterministic fault injection, e.g. 'io.decode=first:2,"
+        "halo.exchange=always' (sites and modes: resilience/failpoints.py; "
+        "MCIM_FAILPOINTS works too). For testing error paths",
+    )
+    sp.add_argument(
+        "--failpoint-seed", type=int, default=0,
+        help="seed for probabilistic failpoint modes (deterministic fail/pass "
+        "sequence per site)",
+    )
+
+
+def _arm_failpoints(args: argparse.Namespace) -> None:
+    if getattr(args, "failpoints", None):
+        from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+
+        failpoints.configure(args.failpoints, seed=args.failpoint_seed)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -44,8 +79,10 @@ def _build_parser() -> argparse.ArgumentParser:
         "--impl",
         choices=("auto", "cuda", "mxu", "swar", "torch"),
         default="auto",
-        help="auto (default): every eligible op group on its hand-written "
-        "kernel, which is what cuda runs; "
+        help="auto (default): each op group on the route the calibration store "
+        "records for it on this card (`autotune`), or MCIM_PREFER_SWAR / "
+        "MCIM_PREFER_MXU say, else its hand-written kernel, which is what "
+        "cuda runs; "
         "cuda: the hand-written kernels, one launch per op group; "
         "mxu: eligible stencils as banded matrix products (torch.matmul), "
         "the other ops as under cuda; swar: eligible stencils on a gray plane, "
@@ -64,8 +101,10 @@ def _build_parser() -> argparse.ArgumentParser:
         "one launch of the megakernel K4 (cuda and mxu; torch runs the "
         "walker); 'fused-pallas-mxu' does the same with every eligible "
         "stencil on K4's tensor-core arm K5 (torch: the walker with K5's "
-        "plain version); 'auto' is 'off' under cuda and 'fused' under torch "
-        "and mxu. Byte-identical output in every mode",
+        "plain version); 'auto' is MCIM_PLAN if set, else the plan the "
+        "calibration store records for the pipeline on this card "
+        "(`autotune --dimension plan`), else 'off' under auto and cuda and "
+        "'fused' under torch and mxu. Byte-identical output in every mode",
     )
     run.add_argument(
         "--device", default="cuda", help="torch device (default cuda; cpu runs the "
@@ -87,8 +126,12 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument(
         "--block", type=int, default=None,
-        help="row height of the stencil kernels' output tiles (K2 and K4, "
-        "default 16; under --impl swar K6-K8 only, default 32)",
+        help="row height of the stencil kernels' output tiles: K2 (default 16 "
+        "rows) and K4 (default the tallest of 48, 32, 16 rows that fits); "
+        "under --impl swar K6-K8 only (default 64 rows, halved to fit and for "
+        "small grids). Not given, a block_h record of the calibration store "
+        "(`autotune --dimension block`) sets K2's tile under auto and cuda, "
+        "and K6-K8's under swar, where it fits",
     )
     run.add_argument(
         "--gray-output", action="store_true",
@@ -100,6 +143,61 @@ def _build_parser() -> argparse.ArgumentParser:
         "--json-metrics", default=None,
         help="write a JSON metrics line to this path ('-' = stdout)",
     )
+    _add_failpoint_flags(run)
+
+    tune = sub.add_parser(
+        "autotune",
+        help="measure the routes of one choice on the card and record the fastest "
+        "in the calibration store (utils/calibration.py), which --impl auto and "
+        "--plan auto then follow",
+    )
+    tune.add_argument(
+        "action", nargs="?", choices=("run", "info"), default="run",
+        help="'run' (default) measures and records; 'info' prints the store's "
+        "records for --ops on the device",
+    )
+    tune.add_argument("--ops", default="gaussian:5",
+                      help="pipeline to tune against (default gaussian:5)")
+    tune.add_argument(
+        "--impl", choices=("cuda", "swar"), default="cuda",
+        help="--dimension block: whose tile heights, K2's (cuda) or K6-K8's (swar)",
+    )
+    tune.add_argument(
+        "--dimension", choices=("block", "backend", "plan"), default="block",
+        help="'block': the stencil kernels' tile heights (--impl, --blocks), the "
+        "default tile beside them, on an RGB frame where --ops takes one (K2; "
+        "the record then steers K2 launches on as many channels) or a gray "
+        "plane (K6-K8); 'backend': per banded family of the stencils "
+        "in --ops, K1/K2 (vpu) against the whole-op banded products (mxu) and "
+        "their hybrid form, which --impl auto then follows per family; 'plan': "
+        "the plans --impl auto can run (off, fused-pallas, fused-pallas-mxu) on "
+        "--ops, which --plan auto then follows. Every route is checked "
+        "byte-equal to the golden ops before it is timed",
+    )
+    tune.add_argument("--height", type=int, default=4320)
+    tune.add_argument("--width", type=int, default=7680)
+    tune.add_argument(
+        "--blocks", default=None,
+        help="comma-separated candidate tile heights (default "
+        f"{AUTOTUNE_BLOCKS['cuda']} for cuda, {AUTOTUNE_BLOCKS['swar']} for "
+        "swar); a height a launch cannot take is skipped",
+    )
+    tune.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    tune.add_argument(
+        "--calib-file", default=None,
+        help="calibration store path (default $MCIM_CALIB_FILE or "
+        "./.mcim_calibration.json)",
+    )
+    tune.add_argument("--dry-run", action="store_true",
+                      help="measure and print, but do not write the store")
+    tune.add_argument(
+        "--allow-cpu", action="store_true",
+        help="permit a CPU device: the kernels' plain versions on the host clock, "
+        "recorded under the device kind 'cpu' (tests and development only; "
+        "refused otherwise)",
+    )
+    tune.add_argument("--json-metrics", default=None,
+                      help="write the record to this path ('-' = stdout)")
 
     info = sub.add_parser("info", help="print toolchain and device info")
     info.add_argument("--device", default="cuda", help="device to report on")
@@ -153,8 +251,10 @@ def cmd_run(args: argparse.Namespace) -> int:
     from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo, mesh as pmesh
     from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
     from mpi_cuda_imagemanipulation_tpu_torch.utils.device import as_image_tensor
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
+    _arm_failpoints(args)
     pmesh.distributed_init(args.device)  # no-op unless launched by torchrun
     dev = pmesh.rank_device(args.device)
     pipe = Pipeline.parse(args.ops)
@@ -231,13 +331,323 @@ def cmd_run(args: argparse.Namespace) -> int:
             "steady_ms": steady_ms,
             "mp_per_s": mp / (steady_ms / 1e3) if steady_ms else None,
         }
-        line = json.dumps(rec)
-        if args.json_metrics == "-":
-            print(line)
-        else:
-            with open(args.json_metrics, "a") as f:
-                f.write(line + "\n")
+        emit_json_metrics(rec, args.json_metrics)
     return 0
+
+
+# --------------------------------------------------------------------------
+# autotune
+# --------------------------------------------------------------------------
+
+
+def _lane_ms(fn, device) -> float:
+    """Milliseconds of one call of `fn`: CUDA events (utils/timing
+    .device_time_ms) on a card; on the CPU (--allow-cpu) the median of five
+    host-clock calls, which is not a device time."""
+    if device.type == "cuda":
+        from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+        return device_time_ms(fn)
+    fn()
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def _timed_lanes(tag: str, lanes: dict, x, want, device) -> dict | None:
+    """{lane: ms} of every lane that runs; a lane that a launch cannot
+    take (a tile too tall for the shared memory) is skipped. Each lane's
+    output is held byte-equal to `want` before it is timed; None (and an
+    error) when one differs, so that no record is written."""
+    import torch
+
+    timed = {}
+    for lane, fn in lanes.items():
+        try:
+            got = fn(x)
+        except ValueError as e:
+            print(f"{tag} {lane}: skipped ({str(e)[:120]})")
+            continue
+        if not torch.equal(got, want):
+            print(f"error: {tag} {lane} differs from the golden output; refusing to "
+                  "record", file=sys.stderr)
+            return None
+        timed[lane] = _lane_ms(lambda f=fn: f(x), device)
+    return timed
+
+
+def _print_lanes(tag: str, timed: dict, choice, mp: float) -> dict:
+    lane_mp = {str(k): round(mp / (v / 1e3), 1) for k, v in timed.items()}
+    for lane, ms in timed.items():
+        mark = "  <- fastest" if lane == choice else ""
+        print(f"{tag} {lane!s:>16}: {ms:.4f} ms  {lane_mp[str(lane)]:,.1f} MP/s{mark}")
+    return lane_mp
+
+
+def _autotune_block(args, ops, device, kind: str, clock: str) -> tuple[int, dict | None]:
+    """K2's (--impl cuda) or K6-K8's (--impl swar) tile heights on --ops, the
+    default tile beside them; records the fastest with the channels it
+    applies to. K2 runs on an RGB frame where the pipeline takes one (else a
+    gray plane), and its record steers K2 launches that read as many
+    channels; K6-K8 run on gray planes only (a gray input where the pipeline
+    takes one)."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    candidates = _parse_blocks(args)
+    h, w = args.height, args.width
+    swar = args.impl == "swar"
+    if swar:
+        stencils = [op for op in ops if sk.swar_any_eligible(op, (h, w))]
+    else:
+        stencils = [st for _, st in ck.group_ops(ops) if st is not None]
+    if not stencils:
+        print(f"error: no {'SWAR-eligible stencil (W % 4 == 0)' if swar else 'stencil'} "
+              f"in --ops {args.ops!r} at {h}x{w}", file=sys.stderr)
+        return 2, None
+    # the default tile's height, to record if the default wins: K2's or the
+    # SWAR picker's for the first stencil on this plane
+    if swar:
+        default_h = sk.swar_group(stencils[0]).shape(h, w, None)[0]
+    else:
+        default_h = ck.stencil_tile_shape(h, w)[0]
+    pipe = Pipeline(ops)
+    ch = _channels_for(pipe, 1 if swar else 3)
+    x = torch.from_numpy(synthetic_image(h, w, channels=ch, seed=7)).to(device)
+    channels = 1 if swar else ch  # what the recorded kernels read
+    want = pipe.jit("torch", device=device, plan="off")(x)
+    lanes = {"default": pipe.jit(args.impl, device=device, plan="off")}
+    for bh in dict.fromkeys(candidates):
+        lanes[bh] = pipe.jit(args.impl, bh, device=device, plan="off")
+    timed = _timed_lanes("block", lanes, x, want, device)
+    if timed is None:
+        return 1, None
+    choice = min(timed, key=timed.get)
+    best_h = default_h if choice == "default" else choice
+    lane_mp = _print_lanes(f"block {args.impl}", timed, choice, h * w / 1e6)
+    rec = {"event": "autotune", "dimension": "block", "device_kind": kind, "clock": clock,
+           "pipeline": args.ops, "impl": args.impl, "height": h, "width": w,
+           "channels": channels, "default_h": default_h, "block_h": best_h,
+           "ms": {str(k): v for k, v in timed.items()}, "mp_per_s": lane_mp}
+    if not args.dry_run:
+        rec["calib_file"] = calibration.record_block_h(
+            kind, best_h, impl=args.impl, pipeline=args.ops, width=w, channels=channels,
+            ms=round(timed[choice], 4), mp_per_s=lane_mp[str(choice)],
+        )
+    return 0, rec
+
+
+def _autotune_backend(args, ops, device, kind: str, clock: str) -> tuple[int, dict | None]:
+    """Per banded family of the stencils in --ops, on a gray plane: K1/K2
+    ('vpu') against the whole-op banded products ('mxu') and their hybrid
+    form; records the fastest per family."""
+    from functools import partial
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import mxu_family, pipeline_mxu
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    fams: dict = {}  # family -> the first stencil of it
+    for op in ops:
+        fam = mxu_family(op)
+        if fam is not None:
+            fams.setdefault(fam, op)
+    if not fams:
+        print(f"error: no stencil with a banded formulation in --ops {args.ops!r} "
+              "(ops/mxu_kernels.mxu_eligible)", file=sys.stderr)
+        return 2, None
+    h, w = args.height, args.width
+    x = torch.from_numpy(synthetic_image(h, w, channels=1, seed=7)).to(device)
+    records = []
+    for fam, op in fams.items():
+        lanes = {
+            "vpu": partial(pipeline_cuda, (op,)),
+            "mxu": partial(pipeline_mxu, (op,), mode="banded"),
+            "hybrid": partial(pipeline_mxu, (op,), mode="hybrid"),
+        }
+        timed = _timed_lanes(f"backend {fam}", lanes, x, op(x), device)
+        if timed is None:
+            return 1, None
+        choice = min(timed, key=timed.get)
+        lane_mp = _print_lanes(f"backend {fam:>9}", timed, choice, h * w / 1e6)
+        ent = {"family": fam, "op": op.name, "choice": choice, "width": w, "ms": timed,
+               "mp_per_s": lane_mp}
+        if not args.dry_run:
+            ent["calib_file"] = calibration.record_backend_choice(
+                kind, fam, choice, op=op.name, width=w, mp_per_s=lane_mp,
+            )
+        records.append(ent)
+    return 0, {"event": "autotune", "dimension": "backend", "device_kind": kind,
+               "clock": clock, "pipeline": args.ops, "height": h, "width": w,
+               "families": records}
+
+
+def _channels_for(pipe, prefer: int) -> int:
+    """`prefer` channels (1 or 3) if the pipeline takes such an image, else
+    the other count (an op that needs 3 channels, or 1, raises)."""
+    import torch
+
+    shape = (8, 8, 3) if prefer == 3 else (8, 8)
+    try:
+        pipe(torch.zeros(shape, dtype=torch.uint8))
+    except ValueError:
+        return 4 - prefer
+    return prefer
+
+
+def _autotune_plan(args, ops, device, kind: str, clock: str) -> tuple[int, dict | None]:
+    """The plans --impl auto can run (AUTOTUNE_PLANS) on --ops end to end,
+    on an RGB image where the pipeline takes one; records the fastest per
+    (device kind, pipeline fingerprint, width)."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, pipeline_fingerprint
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    pipe = Pipeline(ops)
+    h, w = args.height, args.width
+    ch = _channels_for(pipe, 3)
+    x = torch.from_numpy(synthetic_image(h, w, channels=ch, seed=7)).to(device)
+    want = pipe.jit("torch", device=device, plan="off")(x)
+    lanes = {m: pipe.jit("auto", device=device, plan=m) for m in AUTOTUNE_PLANS}
+    timed = _timed_lanes("plan", lanes, x, want, device)
+    if timed is None:
+        return 1, None
+    choice = min(timed, key=timed.get)
+    lane_mp = _print_lanes("plan", timed, choice, h * w / 1e6)
+    fp = pipeline_fingerprint(ops)
+    rec = {"event": "autotune", "dimension": "plan", "device_kind": kind, "clock": clock,
+           "pipeline": args.ops, "pipeline_fp": fp, "height": h, "width": w,
+           "channels": ch, "choice": choice, "ms": timed, "mp_per_s": lane_mp,
+           "stages": {m: len(build_plan(ops, m).stages) for m in timed}}
+    if not args.dry_run:
+        rec["calib_file"] = calibration.record_plan_choice(
+            kind, fp, choice, ops=args.ops, width=w, mp_per_s=lane_mp,
+        )
+    return 0, rec
+
+
+def _parse_blocks(args) -> list[int]:
+    """--blocks as ints, every token parsed before any measurement."""
+    raw = args.blocks or AUTOTUNE_BLOCKS[args.impl]
+    try:
+        blocks = [int(tok) for tok in raw.split(",") if tok.strip()]
+    except ValueError:
+        raise ValueError(f"--blocks must be comma-separated ints: {raw!r}") from None
+    if not blocks:
+        raise ValueError("--blocks is empty")
+    bad = [b for b in blocks if b < 1]
+    if bad:
+        raise ValueError(f"--blocks must be positive: {bad}")
+    return blocks
+
+
+def _autotune_info(args) -> int:
+    """The store's records for --ops on the device's kind, as JSON."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
+        STAGE_ARMS,
+        STAGE_FALLBACK_REASONS,
+        mxu_family,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import pipeline_fingerprint
+    from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    ops = make_pipeline_ops(args.ops)
+    fp = pipeline_fingerprint(ops)
+    kind = calibration.current_device_kind(args.device)
+    kind_rec = calibration.entries().get(kind)
+    kind_rec = kind_rec if isinstance(kind_rec, dict) else {}
+    backend = kind_rec.get("backend_choice")
+    backend = backend if isinstance(backend, dict) else {}
+    fams = sorted({f for f in map(mxu_family, ops) if f is not None})
+    report = {
+        "store": calibration.calib_path(),
+        "device_kind": kind,
+        "ops": args.ops,
+        "pipeline_fingerprint": fp,
+        "plan_choice": calibration.plan_entry(fp, device_kind=kind),
+        "block_h": {impl: kind_rec.get(impl) for impl in ("cuda", "swar")},
+        "backend_choice": {f: backend.get(f) for f in fams},
+        "mxu_in_stage": {
+            "stage_arms": calibration.stage_arm_entries(kind),
+            "ops_by_arm": {a: plan_metrics.mxu_stage_ops[a] for a in STAGE_ARMS if a != "vpu"},
+            "fallbacks_by_reason": {
+                r: plan_metrics.mxu_stage_fallbacks[r] for r in STAGE_FALLBACK_REASONS
+            },
+        },
+    }
+    print(json.dumps(report, indent=2, sort_keys=True, default=str))
+    return 0
+
+
+def cmd_autotune(args: argparse.Namespace) -> int:
+    """Measure one dimension's routes on the device and record the fastest.
+
+    Every --blocks token is parsed before any measurement. The sweep runs
+    with lookups off (MCIM_NO_CALIB), so the store cannot steer the sweep
+    that is about to rewrite it, and the caller's MCIM_CALIB_FILE and
+    MCIM_NO_CALIB are restored on return. A CPU device is refused unless
+    --allow-cpu, so a host-clock time is never recorded for a card, and
+    then its records go under the kind 'cpu'."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration, platform
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
+
+    saved = {k: os.environ.get(k) for k in ("MCIM_CALIB_FILE", "MCIM_NO_CALIB")}
+    if args.calib_file:
+        os.environ["MCIM_CALIB_FILE"] = args.calib_file
+    try:
+        if args.action == "info":
+            return _autotune_info(args)
+        if args.dimension == "block":
+            _parse_blocks(args)
+        device = torch.device(args.device)
+        if not platform.is_cuda_device(device) and not args.allow_cpu:
+            print(f"error: refusing to autotune on {str(device)!r}, which is no CUDA device "
+                  "this process can use: its times would be the plain versions' on the "
+                  "host; pass --device cpu --allow-cpu to record them under the kind "
+                  "'cpu' (tests and development only)", file=sys.stderr)
+            return 3
+        device = resolve_device(device)
+        ops = make_pipeline_ops(args.ops)
+        kind = calibration.current_device_kind(device)
+        clock = "device (CUDA events)" if device.type == "cuda" else "host"
+        os.environ["MCIM_NO_CALIB"] = "1"
+        sweep = {"block": _autotune_block, "backend": _autotune_backend,
+                 "plan": _autotune_plan}[args.dimension]
+        rc, rec = sweep(args, ops, device, kind, clock)
+        if rec is None:
+            return rc
+        rec["dry_run"] = bool(args.dry_run)
+        print("dry run: the store was not written" if args.dry_run
+              else f"recorded in {calibration.calib_path()} [{kind}]")
+        if args.json_metrics:
+            emit_json_metrics(rec, args.json_metrics)
+        return rc
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # The hand-written kernels: name, source, what runs it.
@@ -318,13 +728,36 @@ def cmd_info(args: argparse.Namespace) -> int:
         print(f"triton: {triton.__version__}")
     except ImportError:
         print("triton: not importable")
+    _print_calibration(args.device)
     return 0
+
+
+def _print_calibration(device) -> None:
+    """The calibration store's records for the device's kind, one line."""
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    kind = calibration.current_device_kind(device)
+    rec = calibration.entries().get(kind)
+    parts = []
+    for name, ent in sorted(rec.items() if isinstance(rec, dict) else ()):
+        if not isinstance(ent, dict):
+            continue
+        if name in ("backend_choice", "stage_arm", "plan_choice"):
+            parts.extend(
+                f"{name.split('_')[0]}:{key}={e.get('choice')}"
+                for key, e in sorted(ent.items()) if isinstance(e, dict)
+            )
+        else:
+            parts.append(f"{name}: block_h={ent.get('block_h')}")
+    where = f"({calibration.calib_path()}) [{kind}]"
+    print(f"calibration {where}: " + (", ".join(parts) if parts else
+                                      "none (run `autotune` on the card)"))
 
 
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
-        return {"run": cmd_run, "info": cmd_info}[args.cmd](args)
+        return {"run": cmd_run, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -15,8 +15,13 @@ def load_image(path: str | os.PathLike, *, grayscale: bool = False) -> np.ndarra
     """Load an image file to (H, W, 3) RGB uint8, or (H, W) if grayscale.
 
     `grayscale=True` on a colour source reduces with the golden grayscale
-    op; a single-channel source is returned as stored."""
+    op; a single-channel source is returned as stored. An armed
+    ``io.decode`` failpoint raises before the file is opened."""
     from PIL import Image
+
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+
+    failpoints.maybe_fail("io.decode", path=str(path))
 
     with Image.open(path) as im:
         if im.mode in ("L", "1", "I", "I;16", "F"):

@@ -20,8 +20,21 @@
   resolves to ``'off'``: `pipeline_swar` runs each eligible
   ``[pre*, stencil, post*]`` group on a gray plane as one launch of K6, K7
   or K8, and every other op through the K1/K2 group runner.
-* ``backend='auto'`` : every eligible group takes its hand kernel, which
-  is ``'cuda'`` (the port has no calibration store to route by).
+* ``backend='auto'`` : the measured per-group choice of the JAX package's
+  ``auto`` (ops/cuda_kernels.auto_runner): a stencil takes the whole-op
+  banded products behind a ``backend_choice`` record or
+  ``MCIM_PREFER_MXU``, the SWAR kernels under ``MCIM_PREFER_SWAR``, else
+  its K1/K2 group, so with no record and no switch it runs what ``'cuda'``
+  runs. ``plan='auto'`` follows a ``plan_choice`` record
+  (plan/planner.resolve_plan_mode), so ``fused-pallas[-mxu]`` enter only
+  behind a measured win. The records are the calibration store's
+  (utils/calibration.py), filled by the ``autotune`` command on the card
+  and keyed by device kind; on the CPU no record or switch promotes a
+  route but a plan choice or block height recorded under ``'cpu'``.
+
+A built function (``jit``, ``sharded``) reads the environment and the
+store once per image shape, at its first call for that shape, and never
+per call after.
 
 Geometric ops (which may change the shape) and global-statistics ops run
 as their own tensor ops between the kernel groups on every backend and
@@ -46,29 +59,32 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
     REFERENCE_PIPELINE_SPEC,
     make_pipeline_ops,
 )
-from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
-from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import pipeline_mxu
+from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import (
+    auto_runner,
+    calibrated_tile,
+    pipeline_cuda,
+)
+from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
+    mxu_col_variant,
+    mxu_mode,
+    pipeline_mxu,
+)
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op
-from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import pipeline_swar
+from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import pipeline_swar, prefer_swar
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import sharded_pipeline
 from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
 from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import plan_callable_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import plan_callable
-from mpi_cuda_imagemanipulation_tpu_torch.plan.planner import PLAN_MODES
+from mpi_cuda_imagemanipulation_tpu_torch.plan.planner import PLAN_MODES, check_plan
+from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
 from mpi_cuda_imagemanipulation_tpu_torch.utils.device import (
     as_image_tensor,
+    per_shape,
     resolve_device,
 )
 
 BACKENDS = ("torch", "cuda", "mxu", "swar", "auto")
 __all__ = ["BACKENDS", "PLAN_MODES", "Pipeline", "reference_cpu_pipeline", "reference_pipeline"]
-
-
-def _resolve_backend(backend: str) -> str:
-    """`backend` checked against BACKENDS, with 'auto' resolved to 'cuda'."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
-    return "cuda" if backend == "auto" else backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,32 +116,31 @@ class Pipeline:
 
     # -- entry point -----------------------------------------------------
 
-    def _planned_callable(self, backend: str, plan: str, block_h: int | None = None):
-        """The plan executor for this (backend, plan) pair, or None when the
-        plan resolves to per-op execution (plan/planner.resolve_plan_mode)."""
-        backend = _resolve_backend(backend)
-        mode = resolve_plan_mode(self.ops, plan, backend=backend)
-        if mode == "off":
-            return None
-        built = build_plan(self.ops, mode)
-        mxu_stage = "on" if mode == "fused-pallas-mxu" else None
-        if mode in ("fused-pallas", "fused-pallas-mxu") and backend != "torch":
-            return plan_callable_cuda(built, block_h=block_h, mxu_stage=mxu_stage, impl=backend)
-        impl = "mxu" if backend == "mxu" else "torch"
-        return plan_callable(built, impl=impl, mxu_stage=mxu_stage)
-
-    def _callable(self, backend: str, block_h: int | None = None, plan: str = "auto"):
-        backend = _resolve_backend(backend)
-        planned = self._planned_callable(backend, plan, block_h)
-        if planned is not None:
-            return planned
+    def _build(self, backend: str, block_h: int | None, plan: str, width: int, device,
+               swar: bool):
+        """The image -> image function of this (backend, plan) for images
+        `width` columns wide on `device`, every decision that reads the
+        environment or the calibration store made here."""
+        mode = resolve_plan_mode(self.ops, plan, backend=backend, width=width, device=device)
+        if mode != "off":
+            built = build_plan(self.ops, mode)
+            mxu_stage = "on" if mode == "fused-pallas-mxu" else None
+            if mode in ("fused-pallas", "fused-pallas-mxu") and backend != "torch":
+                impl = "mxu" if backend == "mxu" else "cuda"
+                return plan_callable_cuda(built, block_h=block_h, mxu_stage=mxu_stage, impl=impl)
+            impl = "mxu" if backend == "mxu" else "torch"
+            return plan_callable(built, impl=impl, mxu_stage=mxu_stage)
         if backend == "torch":
             return self.apply
         if backend == "mxu":
-            return partial(pipeline_mxu, self.ops, block_h=block_h)
-        if backend == "swar":
-            return partial(pipeline_swar, self.ops, block_h=block_h)
-        return partial(pipeline_cuda, self.ops, block_h=block_h)
+            return partial(pipeline_mxu, self.ops, block_h=block_h, mode=mxu_mode(),
+                           col_variant=mxu_col_variant())
+        if backend == "auto":
+            return auto_runner(self.ops, width, device, block_h=block_h, swar=swar)
+        impl = "swar" if backend == "swar" else "cuda"
+        tile = None if block_h is not None else calibrated_tile(impl, width, device)
+        runner = pipeline_swar if backend == "swar" else pipeline_cuda
+        return partial(runner, self.ops, block_h=block_h, calibrated=tile)
 
     def jit(
         self,
@@ -142,12 +157,21 @@ class Pipeline:
 
         The function takes a uint8 numpy array or tensor, moves it to the
         device, and returns a tensor there. `block_h` sets the stencil
-        kernels' tile height (K2 and K4; under 'swar' K6-K8 only). `plan` selects the fusion-planner
+        kernels' tile height (K2 and K4; under 'swar' K6-K8 only); where it
+        is None, a ``block_h`` record of the calibration store sets K2's
+        (under 'cuda' and 'auto') or K6-K8's (under 'swar') where it fits.
+        `plan` selects the fusion-planner
         execution structure (PLAN_MODES; see the module docstring for what
         each backend runs under each). With no CUDA device, the default
-        raises."""
+        raises. The function builds its route (`_build`) at its first call
+        for each image shape; an explicit plan the backend refuses raises
+        here, and MCIM_PREFER_SWAR is read here, once."""
         dev = resolve_device(device)
-        fn = self._callable(backend, block_h, plan)
+        check_plan(plan, backend)
+        swar = backend == "auto" and prefer_swar()
+        fn = per_shape(
+            lambda img: self._build(backend, block_h, plan, img.shape[1], img.device, swar)
+        )
 
         def run(img) -> torch.Tensor:
             return fn(as_image_tensor(img, dev))
@@ -177,7 +201,11 @@ class Pipeline:
         the extended tile, the 'cuda' kernels otherwise), 'swar' (K6g, K7g
         or K8g for each eligible group on gray tiles without pad rows, the
         'cuda' kernels otherwise), 'torch' (the golden ops per tile) or
-        'auto' (every eligible group takes its kernel: 'cuda'). `halo_mode='overlap'`
+        'auto' (per stencil the banded products behind a record or
+        MCIM_PREFER_MXU, the SWAR ghost kernels under MCIM_PREFER_SWAR, else
+        the 'cuda' kernels; with no record and no switch, 'cuda'). An armed
+        ``halo.exchange`` failpoint (resilience/failpoints.py) raises at
+        the function's entry, before any shard is touched. `halo_mode='overlap'`
         computes interior rows while the ghost strips are in flight
         (parallel.api.HALO_MODES). `plan` (PLAN_MODES) engages the fusion
         planner: a fused stage exchanges one `Stage.halo`-row ghost strip
@@ -186,7 +214,14 @@ class Pipeline:
         shard over that same pre-exchanged halo ('fused-pallas-mxu': with
         every eligible stencil on K5). Byte-identical output in every
         combination."""
-        return sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
+        fn = sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
+        mesh_shape = dict(mesh.shape)
+
+        def run(img) -> torch.Tensor:
+            failpoints.maybe_fail("halo.exchange", mesh_shape=mesh_shape)
+            return fn(img)
+
+        return run
 
 
 def reference_pipeline() -> Pipeline:

@@ -38,6 +38,16 @@ launches that ran each form ('K5-bf16', 'K5-int8'), and the launches of
 the SWAR kernels K6-K8 by kernel and mode (``SWAR_LAUNCHES``, counted by
 ops/swar_kernels.swar_stencil).
 
+``pipeline_auto`` (``backend='auto'``) routes each group as the JAX
+package's ``pipeline_auto`` does: to the whole-op banded products where
+ops/mxu_kernels.use_mxu_for_stencil says so (a calibration record or
+``MCIM_PREFER_MXU``, on a card), else to the SWAR kernels under
+``MCIM_PREFER_SWAR``, else to K1/K2. With no record and no switch that
+is exactly what ``pipeline_cuda`` launches. A ``block_h`` record for
+``'cuda'`` (utils/calibration.py) is K2's tile height where the caller
+gives none, the launch reads as many channels as the record's sweep did,
+and the record fits the launch (``stencil_launch_shape``).
+
 The kernels read and write interleaved HWC u8 images in place: (H, W) for
 one channel, (H, W, 3) for three. Each wrapper takes its plain version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or
@@ -65,12 +75,16 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
 )
 from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
     check_stage_arm,
+    mxu_col_variant,
+    mxu_stencil,
     stage_arms,
     stage_sums_mxu_plain,
+    use_mxu_for_stencil,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import acc_fns_for, run_stage_full
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Stage
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
+from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration, platform
 
 # Launch geometry of K2, K2g and K3 (stream_stencil.cu): ST_THREADS threads
 # a block, a tile of tile_h rows (16 by default, or the launch's height if
@@ -337,10 +351,20 @@ def stencil_blocks(height: int, width: int, tile_h: int, tile_w: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def stencil_launch_shape(height: int, width: int, c_in: int, c_out: int, halo: int,
-                         family: int, n_ops: int, tile_h: int | None) -> tuple[int, int]:
+                         family: int, n_ops: int, tile_h: int | None,
+                         calibrated: tuple | None = None) -> tuple[int, int]:
     """The (rows, cols) block of one K2/K2g/K3 launch, checked: shared
-    memory within a block's and the grid within CUDA's. Cached, so that a
-    call repeats no shape arithmetic."""
+    memory within a block's and the grid within CUDA's. Where `tile_h` is
+    None, `calibrated` (rows, channels) of a block_h record sets the tile
+    height if the launch reads that many channels (None: any) and can take
+    it, else the default does. Cached, so that a call repeats no shape
+    arithmetic."""
+    if tile_h is None and calibrated is not None and calibrated[1] in (None, c_in):
+        try:
+            return stencil_launch_shape(height, width, c_in, c_out, halo, family, n_ops,
+                                        calibrated[0])
+        except ValueError:
+            pass  # a record that does not fit this launch costs time, never a launch
     if tile_h is not None and tile_h < 1:
         raise ValueError(f"tile height must be >= 1, got {tile_h}")
     rows, cols = stencil_tile_shape(height, width, tile_h)
@@ -487,10 +511,12 @@ def stream_stencil(
     img: torch.Tensor,
     *,
     tile_h: int | None = None,
+    calibrated: tuple | None = None,
 ) -> torch.Tensor:
     """K2 wrapper: one launch runs the pointwise prologue (any length) and
     the stencil. `tile_h` is the block's output rows (default 16, or the
-    image's height if lower); the columns follow (`stencil_tile_shape`)."""
+    image's height if lower; a `calibrated` record's where it applies,
+    `stencil_launch_shape`); the columns follow (`stencil_tile_shape`)."""
     if stencil.edge_mode == "zero":
         raise NotImplementedError(
             "zero-mode stencils would need post-pointwise padding in K2; "
@@ -501,7 +527,7 @@ def stream_stencil(
     desc = desc_for(stencil)
     height, width = img.shape[:2]
     rows, cols = stencil_launch_shape(height, width, c_in, chain.c_out, desc.halo, desc.family,
-                                      chain.n_ops, tile_h)
+                                      chain.n_ops, tile_h, calibrated)
     dev = img.device
     if dev.type == "cpu":
         return stream_stencil_plain(pointwise, stencil, img)
@@ -967,12 +993,13 @@ def fused_stage_reject(ops, height: int, width: int, channels: int,
     return None
 
 
-def _resolve_arms(ops, mxu_stage, arms) -> tuple[str, ...]:
+def _resolve_arms(ops, mxu_stage, arms, width: int, device) -> tuple[str, ...]:
     """The stage's in-stage arms: `arms` as given, else resolved from the
-    `mxu_stage` setting now (ops/mxu_kernels.stage_arm_for counts them)."""
+    `mxu_stage` setting now for an image `width` wide on `device`
+    (ops/mxu_kernels.stage_arm_for counts them)."""
     if arms is not None:
         return tuple(arms)
-    return stage_arms(ops, mxu_stage)
+    return stage_arms(ops, mxu_stage, width, device=device)
 
 
 def _count_k5(arms) -> None:
@@ -988,7 +1015,7 @@ def fused_stage_plain(
     tensor-core arm running K5's plain version (ops/mxu_kernels
     .stage_valid_mxu_plain). Arms as `fused_stage` takes them."""
     ops = tuple(ops)
-    arms = _resolve_arms(ops, mxu_stage, arms)
+    arms = _resolve_arms(ops, mxu_stage, arms, img.shape[1], img.device)
     _stage_channels(ops, _channels(img))
     return run_stage_full(
         Stage("fused", ops, chain_halo(ops)), img, acc_fns_for(ops, "torch", arms)
@@ -1022,10 +1049,11 @@ def fused_stage(
     output tile height (default `fused_stage_tile_shape`'s). Each stencil's
     in-stage arm is `arms[k]` (one per op) when given, else resolved from
     the `mxu_stage` setting once per call (ops/mxu_kernels.MXU_STAGE_SETTINGS;
-    None is 'auto', the VPU arm); a stencil on a tensor-core arm runs K5.
-    Raises for a stage that `fused_stage_reject` rejects."""
+    None is MCIM_MXU_STAGE, by default 'auto': a stage_arm record on a card,
+    else the VPU arm); a stencil on a tensor-core arm runs K5. Raises for a
+    stage that `fused_stage_reject` rejects."""
     ops = tuple(ops)
-    arms = _resolve_arms(ops, mxu_stage, arms)
+    arms = _resolve_arms(ops, mxu_stage, arms, img.shape[1], img.device)
     c_in = _channels(img)
     height, width = img.shape[:2]
     if tile_h is not None and tile_h < 1:
@@ -1076,7 +1104,7 @@ def fused_stage_ext_plain(
     from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import _plan_walk
 
     ops = tuple(ops)
-    arms = _resolve_arms(ops, mxu_stage, arms)
+    arms = _resolve_arms(ops, mxu_stage, arms, image_w, ext.device)
     _stage_channels(ops, _channels(ext))
     halo = chain_halo(ops)
     return _plan_walk(
@@ -1105,7 +1133,7 @@ def fused_stage_ext(
     `fused_stage` takes them. Raises for a stage that `fused_stage_reject`
     rejects at height local_h."""
     ops = tuple(ops)
-    arms = _resolve_arms(ops, mxu_stage, arms)
+    arms = _resolve_arms(ops, mxu_stage, arms, image_w, ext.device)
     c_in = _channels(ext)
     halo = chain_halo(ops)
     local_h, width = ext.shape[0] - 2 * halo, ext.shape[1]
@@ -1231,12 +1259,14 @@ def run_group(
     img: torch.Tensor,
     *,
     block_h: int | None = None,
+    calibrated: tuple | None = None,
 ) -> torch.Tensor:
     """Run one ``[pointwise*, stencil?]`` group as one kernel launch, or a
     group of one op with no kernel program as that op's own tensor ops (a
     lookup table's gather; a geometric op's gathers, whose output is
     contiguous, so that the next group's kernel takes it; a histogram and
-    its table). `block_h` sets K2's tile height."""
+    its table). `block_h` sets K2's tile height; where it is None, a
+    `calibrated` record's does where it applies (`stencil_launch_shape`)."""
     if stencil is None and len(pointwise) == 1 and not pointwise[0].kernel_safe:
         return pointwise[0](img)
     if stencil is None:
@@ -1245,12 +1275,81 @@ def run_group(
     h = stencil.halo
     if stencil.edge_mode == "reflect101" and (height <= h or width <= h):
         raise ValueError(f"image {height}x{width} too small for halo {h}")
-    return stream_stencil(pointwise, stencil, img, tile_h=block_h)
+    return stream_stencil(pointwise, stencil, img, tile_h=block_h, calibrated=calibrated)
 
 
-def pipeline_cuda(ops, img: torch.Tensor, *, block_h: int | None = None) -> torch.Tensor:
+def pipeline_cuda(ops, img: torch.Tensor, *, block_h: int | None = None,
+                  calibrated: tuple | None = None) -> torch.Tensor:
     """Run a pipeline group by group through the kernels. Same u8 result as
-    the golden path; on a CPU tensor every group takes its plain version."""
+    the golden path; on a CPU tensor every group takes its plain version.
+    `block_h` and `calibrated` as `run_group` takes them."""
     for pointwise, stencil in group_ops(ops):
-        img = run_group(pointwise, stencil, img, block_h=block_h)
+        img = run_group(pointwise, stencil, img, block_h=block_h, calibrated=calibrated)
     return img
+
+
+def calibrated_tile(impl: str, width: int, device) -> tuple | None:
+    """(rows, channels) of the block_h record of `impl` ('cuda': K2;
+    'swar': K6-K8) for `device`'s kind at `width` (channels None where the
+    record does not say), or None. Reads the store: resolve it once per
+    built function and image shape."""
+    rec = calibration.block_entry(platform.device_kind(device), impl=impl, width=width)
+    return None if rec is None else (rec["block_h"], rec.get("channels"))
+
+
+def auto_runner(ops, width: int, device, *, block_h: int | None = None,
+                swar: bool | None = None):
+    """``backend='auto'`` for images `width` wide on `device`: a function
+    image -> image with every routing decision made here, once. Each stencil
+    that `use_mxu_for_stencil` routes runs as the whole-op banded products
+    (`mxu_stencil`, in the mode it says), its pointwise prologue a K1 group
+    before it; the runs of ops between such stencils go, under `swar`
+    (default ``MCIM_PREFER_SWAR``), through `pipeline_swar` (each eligible
+    ``[pre*, stencil, post*]`` group one K6-K8 launch on a gray plane), else
+    through `pipeline_cuda`. `block_h` sets K2's tile (K6-K8's under
+    `swar`); where it is None the store's block_h records do, where they
+    fit. The counterpart of the JAX package's ``pipeline_auto``, whose
+    static default (XLA for halo-1 groups, a TPU measurement) does not
+    carry over: with no record and no switch this runs what `pipeline_cuda`
+    runs."""
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import (
+        pipeline_swar,
+        prefer_swar,
+    )
+
+    swar = prefer_swar() if swar is None else swar
+    impl = "swar" if swar else "cuda"
+    tile = None if block_h is not None else calibrated_tile(impl, width, device)
+    col = mxu_col_variant()
+    steps: list = []  # (run of ops, None) or (stencil, banded mode)
+    run: list = []
+    for op in ops:
+        mode = use_mxu_for_stencil(op, width, device)
+        if mode is None:
+            run.append(op)
+            continue
+        if run:
+            steps.append((tuple(run), None))
+            run = []
+        steps.append((op, mode))
+    if run:
+        steps.append((tuple(run), None))
+
+    def go(img: torch.Tensor) -> torch.Tensor:
+        for step, mode in steps:
+            if mode is not None:
+                img = mxu_stencil(step, img, mode=mode, col_variant=col)
+            elif swar:
+                img = pipeline_swar(step, img, block_h=block_h, calibrated=tile)
+            else:
+                img = pipeline_cuda(step, img, block_h=block_h, calibrated=tile)
+        return img
+
+    return go
+
+
+def pipeline_auto(ops, img: torch.Tensor, *, block_h: int | None = None) -> torch.Tensor:
+    """`auto_runner` for this image, resolved and run once. A built
+    function (``Pipeline.jit(backend='auto')``) resolves once per image
+    shape instead."""
+    return auto_runner(ops, img.shape[1], img.device, block_h=block_h)(img)

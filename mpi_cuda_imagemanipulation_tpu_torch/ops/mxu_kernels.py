@@ -56,10 +56,16 @@ band matrices are built from the same ``StencilOp.kernels`` arrays the JAX
 package reads, so ``Pipeline.parse`` of the same spec is all either
 package needs.
 
-The port's ``auto`` never routes to the tensor cores: the JAX package does
-so only behind a TPU calibration record or an environment switch, and
-neither carries over. So ``stage_arm_for`` under the ``'auto'`` setting
-keeps every op on the VPU arm and counts it as ``'no-calibration'``.
+**Auto routing**, as in the JAX package, and only on a CUDA device
+(utils/platform.is_cuda_device): ``backend='auto'`` sends a stencil group
+to the whole-op route only behind a ``backend_choice`` record for its
+family and width (``autotune --dimension backend``) or the
+``MCIM_PREFER_MXU`` switch (`use_mxu_for_stencil`), and ``stage_arm_for``
+under the setting ``'auto'`` (``MCIM_MXU_STAGE``, the default) puts a
+stencil on K5 only behind a ``stage_arm`` record (utils/calibration.py).
+With no record an op keeps the VPU arm, counted as ``'no-calibration'``;
+off the card, counted as ``'not-cuda'``. The JAX package's TPU records do
+not carry over: records are keyed by device kind.
 """
 
 from __future__ import annotations
@@ -79,6 +85,8 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     pad2d,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration, platform
+from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
 
 B = 128  # block width of the banded products
 _SPLIT = 64.0  # the 64a+b column-split radix
@@ -86,6 +94,28 @@ _F32_EXACT = 1 << 24  # integers below this are exact in float32
 
 MXU_MODES = ("banded", "hybrid")
 MXU_COL_VARIANTS = ("bf16split", "f32")
+
+
+def mxu_mode() -> str:
+    """The banded-product mode: MCIM_MXU_MODE, default 'banded'."""
+    m = env_registry.get("MCIM_MXU_MODE") or "banded"
+    if m not in MXU_MODES:
+        raise ValueError(f"MCIM_MXU_MODE={m!r}; known: {MXU_MODES}")
+    return m
+
+
+def mxu_col_variant() -> str:
+    """The column-pass variant: MCIM_MXU_COL, default 'bf16split'."""
+    v = env_registry.get("MCIM_MXU_COL") or "bf16split"
+    if v not in MXU_COL_VARIANTS:
+        raise ValueError(f"MCIM_MXU_COL={v!r}; known: {MXU_COL_VARIANTS}")
+    return v
+
+
+def prefer_mxu() -> bool:
+    """The A/B switch MCIM_PREFER_MXU=1: eligible stencil families take the
+    banded products on auto paths with no record (CUDA devices only)."""
+    return env_registry.get_bool("MCIM_PREFER_MXU")
 
 
 @contextlib.contextmanager
@@ -501,23 +531,52 @@ def pipeline_mxu(
 
 
 # --------------------------------------------------------------------------
+# Auto routing
+# --------------------------------------------------------------------------
+
+
+def use_mxu_for_stencil(op: Op, width: int | None = None, device=None) -> str | None:
+    """The auto route of one stencil group on an image `width` columns
+    wide on `device` (None: the current CUDA device): the banded-product
+    mode ('banded' or 'hybrid') to run it in, or None to keep K1/K2. Routes
+    only when the op has a banded formulation, `device` is a CUDA device,
+    and either MCIM_PREFER_MXU=1 (then in `mxu_mode`) or the store records
+    'mxu' (banded) or 'hybrid' for its family, device kind and width. The
+    JAX package's ``use_mxu_for_stencil``; the unsharded and sharded auto
+    paths both ask it. Reads the environment and the store: resolve once
+    per built function and image shape."""
+    if not isinstance(op, StencilOp) or not mxu_eligible(op):
+        return None
+    if not platform.is_cuda_device(device):
+        return None
+    if prefer_mxu():
+        return mxu_mode()
+    choice = calibration.lookup_backend_choice(
+        mxu_family(op), device_kind=platform.device_kind(device), width=width
+    )
+    return {"mxu": "banded", "hybrid": "hybrid"}.get(choice)
+
+
+# --------------------------------------------------------------------------
 # In-stage arm resolution (inside the fused stage megakernel)
 # --------------------------------------------------------------------------
 
 STAGE_ARMS = ("vpu", "mxu", "mxu-int8")
 # The JAX package's settings less its 'int8', which forces what 'on' does
+# (MCIM_MXU_STAGE=int8 reads as 'on')
 MXU_STAGE_SETTINGS = ("auto", "off", "on", "f32")
 
 # Closed vocabulary of why an op with a banded formulation (mxu_family is
 # not None) stays on the VPU arm inside a fused stage (the JAX package's,
-# less its 'not-tpu', which only its calibrated 'auto' reports):
+# with 'not-cuda' for its 'not-tpu'):
 #
 #   off            the setting 'off': the caller disabled the arm
 #   family         the formulation is whole-op only (morphology: threshold
 #                  decomposition needs its own pass structure)
-#   no-calibration the setting 'auto': no measured record says the arm wins
-#                  (the port has no calibration store)
-STAGE_FALLBACK_REASONS = ("off", "family", "no-calibration")
+#   not-cuda       the setting 'auto' off a CUDA device: no K5 to win there
+#   no-calibration the setting 'auto': no stage_arm record for (family,
+#                  device kind, width)
+STAGE_FALLBACK_REASONS = ("off", "family", "not-cuda", "no-calibration")
 
 
 def count_stage_fallback(counter, reason: str) -> None:
@@ -531,22 +590,38 @@ def count_stage_fallback(counter, reason: str) -> None:
     counter[reason] += 1
 
 
-def stage_arm_for(op: Op, setting: str | None = None) -> str:
-    """The in-stage arm of one op of a fused stage: 'vpu', 'mxu' (bf16
-    operands) or 'mxu-int8' (STAGE_ARMS), resolved on the host before the
-    launch. `setting` (MXU_STAGE_SETTINGS, None = 'auto'): 'on' forces the
-    tensor-core arm on every eligible correlation, int8 where
+def mxu_stage_setting() -> str:
+    """The MCIM_MXU_STAGE knob (MXU_STAGE_SETTINGS; 'int8' reads as 'on'),
+    default 'auto'."""
+    v = env_registry.get("MCIM_MXU_STAGE") or "auto"
+    v = "on" if v == "int8" else v
+    if v not in MXU_STAGE_SETTINGS:
+        raise ValueError(f"MCIM_MXU_STAGE={v!r}; known: {MXU_STAGE_SETTINGS + ('int8',)}")
+    return v
+
+
+def stage_arm_for(op: Op, width: int | None = None, setting: str | None = None, *,
+                  device=None) -> str:
+    """The in-stage arm of one op of a fused stage on an image `width`
+    columns wide on `device`: 'vpu', 'mxu' (bf16 operands) or 'mxu-int8'
+    (STAGE_ARMS), resolved on the host before the launch. `setting`
+    (MXU_STAGE_SETTINGS; None = MCIM_MXU_STAGE, default 'auto'): 'on'
+    forces the tensor-core arm on every eligible correlation, int8 where
     `mxu_int8_ok` proves it and bf16 otherwise; 'f32' forces bf16; 'off'
-    and 'auto' keep the VPU arm.
+    keeps the VPU arm; 'auto' follows the store's stage_arm record for the
+    op's family, device kind and width on a CUDA device (None: the current
+    one), int8 only where proven, and keeps the VPU arm otherwise.
 
     Counts into ``plan_metrics``: the op's arm in ``mxu_stage_ops`` when it
     is a tensor-core arm, its reason in ``mxu_stage_fallbacks`` when an op
-    with a banded formulation stays on the VPU. Ops with none (pointwise,
-    median, fractional taps) are not counted."""
-    setting = setting or "auto"
+    with a banded formulation stays on the VPU arm by default. Ops with
+    none (pointwise, median, fractional taps) are not counted, nor a
+    recorded 'vpu', which is a measured choice."""
+    setting = setting or mxu_stage_setting()
     if setting not in MXU_STAGE_SETTINGS:
         raise ValueError(f"unknown mxu_stage setting {setting!r}; known: {MXU_STAGE_SETTINGS}")
-    if not isinstance(op, StencilOp) or mxu_family(op) is None:
+    fam = mxu_family(op) if isinstance(op, StencilOp) else None
+    if fam is None:
         return "vpu"
     if setting == "off":
         count_stage_fallback(plan_metrics.mxu_stage_fallbacks, "off")
@@ -554,21 +629,32 @@ def stage_arm_for(op: Op, setting: str | None = None) -> str:
     if op.reduce != "corr":
         count_stage_fallback(plan_metrics.mxu_stage_fallbacks, "family")
         return "vpu"
-    if setting == "auto":
-        count_stage_fallback(plan_metrics.mxu_stage_fallbacks, "no-calibration")
-        return "vpu"
     if setting == "f32":
         arm = "mxu"
-    else:  # on
+    elif setting == "on":
         arm = "mxu-int8" if mxu_int8_ok(op) else "mxu"
+    else:  # auto
+        if not platform.is_cuda_device(device):
+            count_stage_fallback(plan_metrics.mxu_stage_fallbacks, "not-cuda")
+            return "vpu"
+        choice = calibration.lookup_stage_arm(
+            fam, device_kind=platform.device_kind(device), width=width
+        )
+        if choice is None:
+            count_stage_fallback(plan_metrics.mxu_stage_fallbacks, "no-calibration")
+            return "vpu"
+        if choice == "vpu":
+            return "vpu"
+        arm = choice if choice != "mxu-int8" or mxu_int8_ok(op) else "mxu"
     plan_metrics.mxu_stage_ops[arm] += 1
     return arm
 
 
-def stage_arms(ops, setting: str | None = None) -> tuple[str, ...]:
+def stage_arms(ops, setting: str | None = None, width: int | None = None, *,
+               device=None) -> tuple[str, ...]:
     """`stage_arm_for` of every op of a stage, in order (counted once
     each)."""
-    return tuple(stage_arm_for(op, setting=setting) for op in ops)
+    return tuple(stage_arm_for(op, width, setting, device=device) for op in ops)
 
 
 def check_stage_arm(op: Op, arm: str) -> None:

@@ -33,7 +33,9 @@ table (``PointwiseOp.lut_host``) to ``min(max(A*x - C, 0) >> m, 255)`` with
 entry. ``pipeline_swar`` runs each eligible ``[pre*, stencil, post*]`` group
 as one launch on a single u8 plane and every other op through the K1/K2
 group runner (``cuda_kernels.pipeline_cuda``), so the backend gives the same
-bytes as the golden ops on any pipeline. ``auto`` never picks it.
+bytes as the golden ops on any pipeline. ``auto`` takes it only under the
+switch ``MCIM_PREFER_SWAR=1`` (`prefer_swar`; the JAX package keeps its own
+off on a TPU measurement, which does not carry over).
 
 Each kernel has a plain PyTorch version that computes the same integer
 forms (``swar_stencil_plain``); ``swar_stencil`` takes it only for a tensor
@@ -42,9 +44,10 @@ are counted in ``cuda_kernels.SWAR_LAUNCHES`` by kernel and mode ('K6-narrow',
 'K6-wide', 'K7', 'K8'; ghost mode 'K6g-narrow', 'K6g-wide', 'K7g', 'K8g').
 
 The JAX package's block-height picker (``_pick_swar_block_h``) sizes blocks
-for a TPU's scratch memory and reads a TPU calibration table; the port picks
-its own tile shape from the work (``swar_tile_shape``), whose height
-``block_h`` sets. A group's descriptor, table, taps and launch shapes are
+for a TPU's scratch memory; the port picks its own tile shape from the work
+(``swar_tile_shape``), whose height ``block_h`` sets, and where it is None
+the store's ``"swar"`` block_h record does where it fits
+(utils/calibration.py, written by ``autotune --impl swar``). A group's descriptor, table, taps and launch shapes are
 built once and cached on its ops' identity (``swar_group``), so a call, or
 a shard's call in the sharded runner, repeats no host-side encoding.
 """
@@ -71,6 +74,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     rint_clip_f32,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
+from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
 
 # Launch geometry (swar_stencil.cu: 256 threads a block, four output pairs
 # a thread): the tile widths the picker chooses from, widest first (the
@@ -87,6 +91,13 @@ FIELD_LIMIT = 1 << 16
 # Kernel kinds (SwKind in the source) and their launch-count keys
 KINDS = {"K6-narrow": 0, "K6-wide": 1, "K7": 2, "K8": 3}
 _GHOST_KEYS = {"K6-narrow": "K6g-narrow", "K6-wide": "K6g-wide", "K7": "K7g", "K8": "K8g"}
+
+
+def prefer_swar() -> bool:
+    """The switch MCIM_PREFER_SWAR=1: every auto path (``Pipeline.jit`` and
+    the sharded runner) runs eligible stencil groups on K6-K8. Off by
+    default. Read once per built function."""
+    return env_registry.get_bool("MCIM_PREFER_SWAR")
 
 
 # --------------------------------------------------------------------------
@@ -538,7 +549,7 @@ def pick_tile_h(kind: str, halo: int, block_h: int | None = None, table_words: i
 
 @functools.lru_cache(maxsize=4096)
 def swar_tile_shape(kind: str, halo: int, height: int, width: int, block_h: int | None = None,
-                    table_words: int = 0) -> tuple[int, int]:
+                    table_words: int = 0, calibrated: tuple | None = None) -> tuple[int, int]:
     """The (rows, cols) output tile of one launch over an (height, width)
     plane. Columns: TILE_W, narrowed to 64 while the grid has fewer than
     N_SMS blocks and the narrower tile adds blocks, or where no tile TILE_W
@@ -546,8 +557,16 @@ def swar_tile_shape(kind: str, halo: int, height: int, width: int, block_h: int 
     given, else `pick_tile_h`'s, then halved (down to 8) while the grid has
     fewer than 2 N_SMS blocks and halving adds blocks: a tall tile reads
     fewer context rows, (rows + 2 halo) / rows, and a short one gives a
-    short plane (a shard, an overlap band) enough blocks. Raises where the
-    shared memory or the grid's height does not allow the tile."""
+    short plane (a shard, an overlap band) enough blocks. Where `block_h` is
+    None, `calibrated` (rows, channels) of a block_h record taken on a gray
+    plane (channels 1 or None) is taken as `block_h` if the shared memory
+    and the grid allow it. Raises where the shared memory or the grid's
+    height does not allow the tile."""
+    if block_h is None and calibrated is not None and calibrated[1] in (None, 1):
+        try:
+            return swar_tile_shape(kind, halo, height, width, calibrated[0], table_words)
+        except ValueError:
+            pass  # a record that does not fit this launch costs time, never a launch
     for cols in TILE_WIDTHS:
         try:
             rows = pick_tile_h(kind, halo, block_h, table_words, cols)
@@ -599,8 +618,10 @@ class SwarGroup:
             hit = self._descs[device] = (d, ctypes.byref(d))
         return hit[1]
 
-    def shape(self, height: int, width: int, block_h: int | None) -> tuple[int, int]:
-        return swar_tile_shape(self.kind, self.op.halo, height, width, block_h, self.table.size)
+    def shape(self, height: int, width: int, block_h: int | None,
+              calibrated: tuple | None = None) -> tuple[int, int]:
+        return swar_tile_shape(self.kind, self.op.halo, height, width, block_h, self.table.size,
+                               calibrated)
 
 
 # groups by the identity of their ops (frozen dataclasses, held by the
@@ -720,6 +741,7 @@ def swar_stencil(
     y0: int | None = None,
     global_h: int | None = None,
     block_h: int | None = None,
+    calibrated: tuple | None = None,
 ) -> torch.Tensor:
     """One eligible stencil (``swar_any_eligible``) on an (H, W) u8 plane
     through its SWAR kernel, with the fusable pointwise ops `pre_ops`
@@ -729,14 +751,15 @@ def swar_stencil(
     (halo, W) strips above and below the tile (exchanged, or the edge
     extension on the first and last shard); `y0` is the tile's first global
     row and `global_h` the image height, which the interior guard follows.
-    `block_h` sets the output tile height (`swar_tile_shape`). The group's
+    `block_h` sets the output tile height (`swar_tile_shape`; where it is
+    None, a `calibrated` record's where it applies). The group's
     encoding and launch shape are cached (`swar_group`). On a CPU tensor the
     plain version runs; on a CUDA tensor the kernel launches or this
     raises."""
     group = swar_group(op, pre_ops, post_ops)
     _check_args(op, img, ghosts)
     height, width = img.shape
-    tile_h, tile_w = group.shape(height, width, block_h)
+    tile_h, tile_w = group.shape(height, width, block_h, calibrated)
     if global_h is not None and y0 is not None and not 0 <= y0 <= global_h - height:
         raise ValueError(f"tile rows [{y0}, {y0 + height}) lie outside an image of {global_h}")
     dev = img.device
@@ -768,15 +791,17 @@ def swar_stencil(
 # --------------------------------------------------------------------------
 
 
-def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None) -> torch.Tensor:
+def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None,
+                  calibrated: tuple | None = None) -> torch.Tensor:
     """Run a pipeline with every eligible ``[pre*, stencil, post*]`` group
     on its SWAR kernel and every other op through the K1/K2 group runner:
     the same bytes as the golden ops on any pipeline.
 
     The fallback takes maximal runs of ops, not single ops, so that its own
     group fusion (a pointwise prologue inside the stencil launch) is kept.
-    `block_h` sets the SWAR kernels' tile height only; the fallback picks
-    its own."""
+    `block_h` sets the SWAR kernels' tile height only (where it is None, a
+    `calibrated` record's does where it applies); the fallback picks its
+    own."""
     pending: list[Op] = []
 
     def flush(im):
@@ -813,7 +838,7 @@ def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None) -> torc
                 and swar_any_eligible(st, tuple(img.shape))
             ):
                 img = swar_stencil(st, img, pre_ops=tuple(pre), post_ops=tuple(post),
-                                   block_h=block_h)
+                                   block_h=block_h, calibrated=calibrated)
             else:
                 # the whole group falls back as one run
                 pending.extend(pre)

@@ -20,8 +20,7 @@ tensor per local slot, each on its slot's device, and a shard's global row
 offset `y0` is a plain int. Exchanges happen between the steps.
 
 Backends: ``torch`` runs the golden ops per tile (the JAX package's
-``xla``). ``cuda`` (and ``auto``, which means every eligible group) runs
-the hand-written kernels, where the JAX package's ``pallas`` runs Pallas
+``xla``). ``cuda`` runs the hand-written kernels, where the JAX package's ``pallas`` runs Pallas
 kernels: a ``[pointwise*, stencil]`` group is one K2g launch per shard, a
 group on tiles with pad rows (or a halo-0 stencil) one K3 launch over the
 materialised extended tile, a flushed pointwise run one K1 launch, and
@@ -35,8 +34,16 @@ or 'fused' its stages walk with those products, and under
 'off'. ``swar`` (every plan resolves to 'off') runs each
 ``[pre*, stencil, post*]`` group that ``_swar_group_ok`` admits on a gray
 tile as one K6g, K7g or K8g launch per shard (ops/swar_kernels.py ghost
-mode), and every other group as ``cuda`` does. On a CPU tile each kernel
-wrapper takes its plain version.
+mode), and every other group as ``cuda`` does. ``auto`` is the JAX
+package's measured choice (its ``parallel/api.py`` ``_resolve_backend``):
+per stencil the banded products on the extended tile where
+ops/mxu_kernels.use_mxu_for_stencil says so (a calibration record or
+``MCIM_PREFER_MXU``, on a card), else the ``swar`` ghost path under
+``MCIM_PREFER_SWAR`` (read once per built function), else the ``cuda``
+paths; ``plan='auto'`` follows a plan record, so K4g runs behind a
+recorded ``fused-pallas`` win. With no record and no switch ``auto`` runs
+what ``cuda`` runs. The records are read once per image shape. On a CPU
+tile each kernel wrapper takes its plain version.
 
 Global-statistics ops (equalize, autocontrast, otsu) flush the pending
 pointwise run, then each tile counts its histogram over its valid rows (a
@@ -66,8 +73,10 @@ import torch.distributed as dist
 from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
 from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
     mxu_eligible,
+    mxu_mode,
     mxu_valid,
     stage_arms,
+    use_mxu_for_stencil,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import op_family
 from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
@@ -81,6 +90,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
 from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import (
     _chain_fixes_zero,
     post_chain_end,
+    prefer_swar,
     swar_any_eligible,
     swar_fusable,
     swar_stencil,
@@ -92,12 +102,14 @@ from mpi_cuda_imagemanipulation_tpu_torch.parallel.halo import (
 )
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import ROWS, Mesh
 from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
+from mpi_cuda_imagemanipulation_tpu_torch.plan.planner import check_plan
 from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import (
     run_stage_cuda_ext,
     stage_kernel_reject,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import acc_fns_for, walk_stage
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
+from mpi_cuda_imagemanipulation_tpu_torch.utils.device import per_shape
 
 # Halo execution modes for the sharded stencil runners. 'serial' exchanges
 # ghost strips and only then runs each stencil group; 'overlap' computes the
@@ -219,13 +231,16 @@ class _Region:
     global_h: int
     global_w: int
     y0s: tuple[int, ...]
+    # id(op) -> banded-product mode of each stencil on the whole-op route
+    mxu_modes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def padded(self) -> bool:
         return self.n * self.local_h != self.global_h
 
 
-def _open_region(ops, mesh: Mesh, backend: str, halo_mode: str, img: torch.Tensor):
+def _open_region(ops, mesh: Mesh, backend: str, halo_mode: str, img: torch.Tensor,
+                 mxu_modes: dict | None = None):
     """Pad-to-multiple and scatter: returns the region and the local tiles.
     Fixes the reference's silent `rows / size` truncation (kernel.cu:117) by
     padding and cropping instead of dropping rows."""
@@ -258,7 +273,7 @@ def _open_region(ops, mesh: Mesh, backend: str, halo_mode: str, img: torch.Tenso
     region = _Region(
         mesh=mesh, backend=backend, halo_mode=halo_mode, n=n, local_h=local_h,
         global_h=global_h, global_w=global_w,
-        y0s=tuple(slot * local_h for slot in mesh.local_slots),
+        y0s=tuple(slot * local_h for slot in mesh.local_slots), mxu_modes=mxu_modes or {},
     )
     return region, tiles
 
@@ -398,17 +413,16 @@ def _stencil_on_ext(
     global_h: int,
     global_w: int,
     backend: str,
+    mxu_mode: str | None = None,
 ) -> torch.Tensor:
     """Run one stencil over a (rows + 2h, W[, C]) pre-exchanged tile; `tile`
-    holds the rows the output replaces and `y0` their global offset. Under
-    'mxu' an eligible op takes the banded products and any other op K3, as
-    under 'cuda'; under 'swar' every op takes K3 (the materialised tiles of
-    pad rows and of the overlap structure have no SWAR form, as in the JAX
-    package)."""
+    holds the rows the output replaces and `y0` their global offset. With
+    an `mxu_mode` (the region's route for the op) it takes the banded
+    products in that mode; otherwise under every backend but 'torch' K3
+    (under 'swar' too: the materialised tiles of pad rows and of the overlap
+    structure have no SWAR form, as in the JAX package)."""
     h = op.halo
-    if backend == "swar" or (backend == "mxu" and not mxu_eligible(op)):
-        backend = "cuda"
-    if backend == "cuda":
+    if mxu_mode is None and backend != "torch":
         q = ck.stencil_tile(op, ext.contiguous())  # K3, every channel at once
         if op.edge_mode != "interior":
             return q
@@ -427,7 +441,7 @@ def _stencil_on_ext(
             q[r0:r1, c1:] = tile[r0:r1, c1:]
         return q
 
-    acc_fn = functools.partial(mxu_valid, op) if backend == "mxu" else op.valid
+    acc_fn = functools.partial(mxu_valid, op, mode=mxu_mode) if mxu_mode else op.valid
 
     def plane(e: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         xpad = pad2d(e.to(F32), op.edge_mode, 0, 0, h, h)  # width halo is local
@@ -450,7 +464,7 @@ def _apply_stencil(region: _Region, op: StencilOp, tiles):
     return [
         _stencil_on_ext(
             op, _fix_edge_rows(ext, op, y0, region.global_h), tile, y0,
-            region.global_h, region.global_w, region.backend,
+            region.global_h, region.global_w, region.backend, region.mxu_modes.get(id(op)),
         )
         for ext, tile, y0 in zip(exts, tiles, region.y0s)
     ]
@@ -586,8 +600,9 @@ def _apply_stencil_overlap(region: _Region, op: StencilOp, tiles, strips):
     boundary pieces alone (_piece_edge_rows)."""
     h = op.halo
     gh, gw, be = region.global_h, region.global_w, region.backend
+    mode = region.mxu_modes.get(id(op))
     interiors = [
-        _stencil_on_ext(op, tile, tile[h : tile.shape[0] - h], y0 + h, gh, gw, be)
+        _stencil_on_ext(op, tile, tile[h : tile.shape[0] - h], y0 + h, gh, gw, be, mode)
         for tile, y0 in zip(tiles, region.y0s)
     ]
     _join_exchange(region, strips)
@@ -596,11 +611,11 @@ def _apply_stencil_overlap(region: _Region, op: StencilOp, tiles, strips):
         local_h = tile.shape[0]
         top, bottom = _fix_edge_strips(top, bottom, tile, op, y0, gh)
         top_out = _stencil_on_ext(
-            op, torch.cat([top, tile[: 2 * h]], dim=0), tile[:h], y0, gh, gw, be
+            op, torch.cat([top, tile[: 2 * h]], dim=0), tile[:h], y0, gh, gw, be, mode
         )
         bottom_out = _stencil_on_ext(
             op, torch.cat([tile[local_h - 2 * h :], bottom], dim=0),
-            tile[local_h - h :], y0 + local_h - h, gh, gw, be,
+            tile[local_h - h :], y0 + local_h - h, gh, gw, be, mode,
         )
         pieces.append((top_out, interior, bottom_out))
     return pieces
@@ -668,9 +683,12 @@ def _walk_groups(region: _Region, ops, tiles):
             tiles = [torch.cat(p, dim=0) for p in pieces]
             continue
         # SWAR ghost path: an eligible group runs as one K6g/K7g/K8g launch
-        # per shard, with its post-chain as pipeline_swar takes it. Other
-        # groups fall through to the 'cuda' paths below.
-        if region.backend == "swar" and _swar_group_ok(region, pending, op, tiles):
+        # per shard, with its post-chain as pipeline_swar takes it, unless
+        # the op's route is the banded products (auto checks those first).
+        # Other groups fall through to the 'cuda' paths below.
+        banded = id(op) in region.mxu_modes
+        if (region.backend == "swar" and not banded
+                and _swar_group_ok(region, pending, op, tiles)):
             group = list(pending)
             pending.clear()
             end = post_chain_end(ops, i)
@@ -680,10 +698,8 @@ def _walk_groups(region: _Region, ops, tiles):
         # Fused-ghost fast path: no pad rows inside the tile
         # (pad-to-multiple needs position-dependent edge fixes), halo >= 1,
         # a mode the streaming kernel supports, and enough local rows for
-        # strip synthesis. Under 'mxu' only ops without banded products.
-        kernel_group = region.backend in ("cuda", "swar") or (
-            region.backend == "mxu" and not mxu_eligible(op)
-        )
+        # strip synthesis. Not for an op on the banded products.
+        kernel_group = region.backend != "torch" and not banded
         fusible = (
             kernel_group
             and op.halo >= 1
@@ -804,7 +820,7 @@ def _apply_stage_megakernel(region: _Region, stage, tiles, arms):
 
 def _run_segment_planned(
     plan, mesh: Mesh, backend: str, img, halo_mode: str, mega: bool,
-    mxu_stage: str | None = None, arms: dict | None = None,
+    mxu_stage: str | None = None, arms: dict | None = None, mxu_modes: dict | None = None,
 ):
     """One sharded region executed stage by stage from a fused plan.
 
@@ -830,7 +846,7 @@ def _run_segment_planned(
     # feasibility bounds come from the per-op fallback: a stage whose grown
     # halo outsizes the tile falls back to per-op execution instead of
     # failing the build
-    region, tiles = _open_region(plan.ops, mesh, backend, halo_mode, img)
+    region, tiles = _open_region(plan.ops, mesh, backend, halo_mode, img, mxu_modes)
     n, local_h, global_h = region.n, region.local_h, region.global_h
     overlap = halo_mode == "overlap"
     # static per-stage K4g eligibility (identical on every shard): the
@@ -862,7 +878,8 @@ def _run_segment_planned(
             tiles = _apply_global(region, stage.ops[0], tiles)
         elif si in mega_stages:
             if si not in arms:
-                arms[si] = stage_arms(stage.ops, mxu_stage)
+                arms[si] = stage_arms(stage.ops, mxu_stage, region.global_w,
+                                      device=tiles[0].device)
             tiles = _apply_stage_megakernel(region, stage, tiles, arms[si])
         elif mega:
             tiles = _walk_groups(region, stage.ops, tiles)
@@ -870,7 +887,8 @@ def _run_segment_planned(
             walk_arms = None
             if backend == "torch" and mxu_stage is not None:  # K5's plain version
                 if si not in arms:
-                    arms[si] = stage_arms(stage.ops, mxu_stage)
+                    arms[si] = stage_arms(stage.ops, mxu_stage, region.global_w,
+                                          device=tiles[0].device)
                 walk_arms = arms[si]
             acc_fns = acc_fns_for(stage.ops, impl, walk_arms)
             if overlap and stage.halo >= 1:
@@ -935,10 +953,11 @@ def _run_whole(op, mesh: Mesh, img: torch.Tensor, everywhere: bool) -> torch.Ten
     return out
 
 
-def _run_segment(ops, mesh: Mesh, backend: str, img, halo_mode: str = "serial"):
+def _run_segment(ops, mesh: Mesh, backend: str, img, halo_mode: str = "serial",
+                 mxu_modes: dict | None = None):
     """One sharded region: pad-to-multiple, halo-exchanged local compute,
     crop."""
-    region, tiles = _open_region(ops, mesh, backend, halo_mode, img)
+    region, tiles = _open_region(ops, mesh, backend, halo_mode, img, mxu_modes)
     return _close_region(region, _walk_groups(region, ops, tiles))
 
 
@@ -961,50 +980,77 @@ def sharded_pipeline(
     `plan` engages the fusion planner (plan/): a fused plan exchanges one
     stage-halo ghost-strip pair per fused stage, temporal blocking over the
     wire, instead of one per stencil op. 'auto' resolves as
-    plan/planner.resolve_plan_mode says ('fused' under 'torch' and 'mxu',
-    'off' under 'cuda'; every plan is 'off' under 'swar') and stays 'off'
-    under halo_mode='overlap', whose
-    per-group prefetch structure only an explicit plan request
-    restructures. Under 'fused-pallas-mxu' each stencil's in-stage arm is
-    forced on (K5 under 'cuda' and 'mxu', its plain version in the walker
-    under 'torch'); a stage's arms are resolved, and counted in
-    `plan_metrics`, once per built function, at the stage's first
-    launch."""
+    plan/planner.resolve_plan_mode says (MCIM_PLAN, a plan record, then
+    'fused' under 'torch' and 'mxu', 'off' under 'cuda' and 'auto'; every
+    plan is 'off' under 'swar') and stays 'off' under
+    halo_mode='overlap', whose per-group prefetch structure only an
+    explicit plan request restructures. Under 'fused-pallas-mxu' each
+    stencil's in-stage arm is forced on (K5 under 'cuda' and 'mxu', its
+    plain version in the walker under 'torch'), under 'fused-pallas' it
+    follows MCIM_MXU_STAGE (by default a stage_arm record on a card); a
+    stage's arms are resolved, and counted in `plan_metrics`, once per
+    built function and image shape, at the stage's first launch."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     if halo_mode not in HALO_MODES:
         raise ValueError(f"unknown halo_mode {halo_mode!r}; known: {HALO_MODES}")
-    if backend == "auto":  # every eligible group takes its kernel
-        backend = "cuda"
-    plan_mode = resolve_plan_mode(pipe.ops, plan, backend=backend)
-    if plan_mode != "off" and halo_mode == "overlap" and plan in ("auto", None, ""):
-        plan_mode = "off"
+    check_plan(plan, backend)  # a refused plan raises here
+    region_backend = backend
+    if backend == "auto":  # MCIM_PREFER_SWAR, read once per built function
+        region_backend = "swar" if prefer_swar() else "cuda"
+    device = mesh.devices[mesh.local_slots[0]]
     segments = _split_segments(pipe.ops)
-    seg_plans = [
-        build_plan(ops, plan_mode) if plan_mode != "off" and kind == "sharded" else None
-        for kind, ops in segments
-    ]
-    mega = plan_mode in ("fused-pallas", "fused-pallas-mxu") and backend in ("cuda", "mxu")
-    mxu_stage = "on" if plan_mode == "fused-pallas-mxu" else None
-    seg_arms = [{} for _ in segments]  # per segment: stage index -> arms
+
+    def build(img):
+        """Everything that reads the environment or the store, for images
+        of this shape: the plan mode, the segments' plans, each stencil's
+        banded-product route."""
+        width = img.shape[1]
+        plan_mode = resolve_plan_mode(pipe.ops, plan, backend=backend, width=width,
+                                      device=device)
+        if plan_mode != "off" and halo_mode == "overlap" and plan in ("auto", None, ""):
+            plan_mode = "off"
+        seg_plans = [
+            build_plan(ops, plan_mode) if plan_mode != "off" and kind == "sharded" else None
+            for kind, ops in segments
+        ]
+        mega = plan_mode in ("fused-pallas", "fused-pallas-mxu") and backend != "torch"
+        mxu_stage = "on" if plan_mode == "fused-pallas-mxu" else None
+        seg_arms = [{} for _ in segments]  # per segment: stage index -> arms
+        if backend == "mxu":
+            mode = mxu_mode()
+            mxu_modes = {id(op): mode for op in pipe.ops if mxu_eligible(op)}
+        elif backend == "auto":
+            mxu_modes = {id(op): m for op in pipe.ops
+                         if (m := use_mxu_for_stencil(op, width, device)) is not None}
+        else:
+            mxu_modes = {}
+
+        def run(img) -> torch.Tensor:
+            everywhere = True  # every rank holds the whole image
+            for (kind, ops), seg_plan, arms in zip(segments, seg_plans, seg_arms):
+                if kind == "whole":
+                    img = _run_whole(ops[0], mesh, img, everywhere)
+                    everywhere = True
+                    continue
+                everywhere = not mesh.distributed
+                if seg_plan is None:
+                    img = _run_segment(ops, mesh, region_backend, img, halo_mode, mxu_modes)
+                else:
+                    img = _run_segment_planned(
+                        seg_plan, mesh, region_backend, img, halo_mode, mega, mxu_stage, arms,
+                        mxu_modes,
+                    )
+            return img
+
+        return run
+
+    built = per_shape(build)
 
     def run(img) -> torch.Tensor:
         img = torch.as_tensor(img)
         if img.dtype != U8:
             raise TypeError(f"expected a uint8 image, got {img.dtype}")
-        everywhere = True  # every rank holds the whole image
-        for (kind, ops), seg_plan, arms in zip(segments, seg_plans, seg_arms):
-            if kind == "whole":
-                img = _run_whole(ops[0], mesh, img, everywhere)
-                everywhere = True
-                continue
-            everywhere = not mesh.distributed
-            if seg_plan is None:
-                img = _run_segment(ops, mesh, backend, img, halo_mode)
-            else:
-                img = _run_segment_planned(
-                    seg_plan, mesh, backend, img, halo_mode, mega, mxu_stage, arms
-                )
-        return img
+        return built(img)
 
     return run

@@ -20,8 +20,10 @@ per stage and image shape before any launch, as in the JAX package:
   * barrier stages run their golden op.
 
 ``mxu_stage`` (ops/mxu_kernels.MXU_STAGE_SETTINGS; 'on' under
-``plan='fused-pallas-mxu'``) sets each stencil's in-stage arm: on a
-tensor-core arm the stencil runs K5, the ``mma.sync`` arm of K4/K4g.
+``plan='fused-pallas-mxu'``, else None: ``MCIM_MXU_STAGE``, by default
+'auto', which follows the calibration store's ``stage_arm`` records on a
+card) sets each stencil's in-stage arm: on a tensor-core arm the stencil
+runs K5, the ``mma.sync`` arm of K4/K4g.
 
 The closed reason vocabulary is the JAX package's (`stage_pallas_reject`)
 with ``smem-budget`` in place of ``vmem-budget``. Like the JAX megakernel,
@@ -86,7 +88,8 @@ def plan_callable_cuda(
     """The full-image fused-pallas executor: an image -> image function.
     Eligible fused stages run as one K4 launch each (`block_h` sets K4's
     and K2's tile height), with each stencil's in-stage arm from
-    `mxu_stage`, resolved once per stage at its first launch; rejected
+    `mxu_stage`, resolved once per stage at its first launch (so build one
+    executor per image shape where the store may decide them); rejected
     stages run through the K1/K2 group runner under `impl` 'cuda' and
     through `pipeline_mxu` (the banded products, K1/K2 for the rest) under
     'mxu';
@@ -105,8 +108,9 @@ def plan_callable_cuda(
             reason = stage_kernel_reject(stage, img.shape[0], img.shape[1], ch, block_h)
             if reason is None:
                 plan_metrics.pallas_stages += 1
-                if si not in arms:
-                    arms[si] = ck.stage_arms(stage.ops, mxu_stage)
+                if si not in arms:  # the image's width keys the stage_arm record
+                    arms[si] = ck.stage_arms(stage.ops, mxu_stage, img.shape[1],
+                                             device=img.device)
                 img = ck.fused_stage(stage.ops, img, tile_h=block_h, arms=arms[si])
             else:
                 plan_metrics.pallas_fallbacks[reason] += 1

@@ -60,7 +60,9 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan
 
 # the walker's accumulator routing: the JAX package's 'xla' is the port's
-# 'torch'; its calibration-gated 'auto' has no counterpart
+# 'torch'. Its 'auto' (the banded products behind a record) has no
+# counterpart: the port's 'auto' backend never walks (plan/planner.py
+# refuses the walker modes there, and a recorded one is ignored)
 PLAN_IMPLS = ("torch", "mxu")
 
 

@@ -1,4 +1,5 @@
-"""Device selection: CUDA unless the caller asks for the CPU."""
+"""Device selection: CUDA unless the caller asks for the CPU; and the
+per-shape build cache of the built functions."""
 
 from __future__ import annotations
 
@@ -25,3 +26,25 @@ def as_image_tensor(img, device: torch.device) -> torch.Tensor:
     if t.dtype != torch.uint8:
         raise TypeError(f"expected a uint8 image, got {t.dtype}")
     return t.to(device).contiguous()
+
+
+# shapes a built function keeps its per-shape builds for before it starts over
+_PER_SHAPE_LIMIT = 64
+
+
+def per_shape(build):
+    """A function img -> build(img)(img) that calls `build` once per image
+    shape (the routing decisions that read the environment, the platform or
+    the calibration store) and reuses its result after: one dict lookup a
+    call."""
+    built: dict = {}
+
+    def run(img):
+        fn = built.get(img.shape)
+        if fn is None:
+            if len(built) >= _PER_SHAPE_LIMIT:
+                built.clear()
+            fn = built[img.shape] = build(img)
+        return fn(img)
+
+    return run

@@ -1,0 +1,119 @@
+"""The registry of the ``MCIM_*`` environment variables the port reads.
+
+The counterpart of the JAX package's ``utils/env.py``. Every variable is
+declared once with its default, the module that reads it and a one-line
+doc, and the port reads the environment only through `get`,
+`get_bool`, `get_int` and `get_float`, which raise on an unregistered
+name, so a misspelt name fails where it is read.
+
+The port declares only names the JAX package registers, with the same
+defaults: both packages may run in one process (the tests do) and read
+one environment, and the repository's static check
+(``tools/mcim_check.py``, rule ``env-unregistered``) holds every
+``MCIM_*`` literal in the repository to the JAX registry. A knob only the
+port has cannot take an ``MCIM_`` name.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    name: str
+    default: str | None  # value get() returns when unset (None = unset)
+    consumer: str  # the module of the port that reads it
+    doc: str
+
+
+_VARS = (
+    # -- fault injection (resilience/failpoints.py) -------------------------
+    EnvVar("MCIM_FAILPOINTS", None, "resilience/failpoints.py",
+           "Arm deterministic fault injection: comma-separated site=mode "
+           "pairs (e.g. io.decode=first:2,halo.exchange=always)."),
+    EnvVar("MCIM_FAILPOINT_SEED", "0", "resilience/failpoints.py",
+           "Seed for probabilistic failpoint modes (deterministic "
+           "fail/pass sequence per site)."),
+    # -- logging (utils/log.py) ----------------------------------------------
+    EnvVar("MCIM_LOG_LEVEL", None, "utils/log.py",
+           "Logger verbosity: level name or number (DEBUG..CRITICAL or "
+           "10..50); default INFO."),
+    # -- calibration store (utils/calibration.py) ---------------------------
+    EnvVar("MCIM_CALIB_FILE", None, "utils/calibration.py",
+           "Calibration store path (default ./.mcim_calibration.json)."),
+    EnvVar("MCIM_NO_CALIB", None, "utils/calibration.py",
+           "Any non-empty value disables calibration lookups (A/B tools "
+           "must not be steered by a store)."),
+    # -- backend routing switches (ops/) ------------------------------------
+    EnvVar("MCIM_PREFER_SWAR", None, "ops/swar_kernels.py",
+           "=1: route eligible stencil groups through the SWAR kernels "
+           "K6-K8 on every auto path (A/B switch, off by default)."),
+    EnvVar("MCIM_PREFER_MXU", None, "ops/mxu_kernels.py",
+           "=1: route eligible stencil families onto the banded products "
+           "on auto paths without a calibration record (CUDA devices "
+           "only)."),
+    EnvVar("MCIM_MXU_MODE", "banded", "ops/mxu_kernels.py",
+           "Banded-product mode: banded (both separable passes as "
+           "products) or hybrid (row pass in float ops, column pass as a "
+           "product)."),
+    EnvVar("MCIM_MXU_COL", "bf16split", "ops/mxu_kernels.py",
+           "Column-pass arithmetic: bf16split (the 64a+b split) or f32."),
+    EnvVar("MCIM_MXU_STAGE", "auto", "ops/mxu_kernels.py",
+           "In-stage arm inside fused-pallas stages: auto (a CUDA device "
+           "and a stage_arm record), off, on (K5, int8 where proven), "
+           "f32 (K5 bf16), int8 (as on)."),
+    # -- fusion planner (plan/) ----------------------------------------------
+    EnvVar("MCIM_PLAN", None, "plan/planner.py",
+           "Plan mode used where an entry point is called with "
+           "plan='auto' (off, pointwise, fused, fused-pallas, "
+           "fused-pallas-mxu; 'on' = fused); unset: the calibration "
+           "store's plan choice, then the backend default."),
+    EnvVar("MCIM_PLAN_COMMUTE", "1", "plan/planner.py",
+           "=0 disables hoisting rot180/flips out of pointwise runs "
+           "before stage partitioning; byte-identical either way."),
+)
+
+REGISTRY: dict[str, EnvVar] = {v.name: v for v in _VARS}
+
+
+def spec(name: str) -> EnvVar:
+    """The declaration of `name`; raises KeyError for an unregistered
+    name."""
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"env var {name!r} is not registered in "
+            "mpi_cuda_imagemanipulation_tpu_torch/utils/env.py"
+        ) from None
+
+
+def get(name: str, env=None) -> str | None:
+    """The registered variable's value, or its declared default. `env`
+    defaults to os.environ; tests pass a mapping."""
+    v = spec(name)
+    raw = (os.environ if env is None else env).get(name)
+    return v.default if raw is None else raw
+
+
+def get_bool(name: str, env=None) -> bool:
+    """Switch semantics of every MCIM_* toggle: unset, empty and "0" are
+    off, anything else is on."""
+    return get(name, env=env) not in (None, "", "0")
+
+
+def get_int(name: str, env=None) -> int | None:
+    raw = get(name, env=env)
+    return None if raw in (None, "") else int(raw)
+
+
+def get_float(name: str, env=None) -> float | None:
+    raw = get(name, env=env)
+    return None if raw in (None, "") else float(raw)
+
+
+def registry_rows() -> tuple[EnvVar, ...]:
+    """Every declared variable, sorted by name."""
+    return tuple(sorted(_VARS, key=lambda v: v.name))

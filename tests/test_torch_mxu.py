@@ -423,10 +423,10 @@ def test_stage_arm_for_matches_jax_forced_settings(spec):
 
 
 def test_stage_fallback_reasons_closed_vocabulary():
-    # the JAX package's names less those that nothing in the port could
-    # produce ('not-tpu') or that repeat another ('int8' is 'on')
+    # the JAX package's names with 'not-cuda' for its 'not-tpu', less the
+    # setting that repeats another ('int8' is 'on')
     assert mk.STAGE_FALLBACK_REASONS == tuple(
-        r for r in jmk.STAGE_FALLBACK_REASONS if r != "not-tpu")
+        "not-cuda" if r == "not-tpu" else r for r in jmk.STAGE_FALLBACK_REASONS)
     assert mk.STAGE_ARMS == jmk.STAGE_ARMS
     assert mk.MXU_STAGE_SETTINGS == tuple(s for s in jmk.MXU_STAGE_SETTINGS if s != "int8")
     assert jmk.stage_arm_for(jax_registry.make_op("gaussian:5"), setting="int8") == "mxu-int8"
@@ -441,10 +441,11 @@ def test_stage_fallback_reasons_closed_vocabulary():
     gauss = make_op("gaussian:5")
     assert mk.stage_arm_for(gauss, setting="off") == "vpu"
     assert mk.stage_arm_for(make_op("erode:3"), setting="on") == "vpu"
-    # 'auto' (and no setting): no calibration store in the port
+    # 'auto' (and no setting): off a CUDA device the VPU arm, as the JAX
+    # package's 'not-tpu'
     assert mk.stage_arm_for(gauss) == "vpu"
     assert mk.stage_arm_for(gauss, setting="auto") == "vpu"
-    assert dict(plan_metrics.mxu_stage_fallbacks) == {"off": 1, "family": 1, "no-calibration": 2}
+    assert dict(plan_metrics.mxu_stage_fallbacks) == {"off": 1, "family": 1, "not-cuda": 2}
     # ops with no banded formulation are not counted
     for spec in ("median:3", "invert", OVER_2_24):
         assert mk.stage_arm_for(make_op(spec), setting="on") == "vpu"
@@ -480,7 +481,7 @@ def test_counters_advance_once_per_stage_build_and_once_per_plain_call():
     assert dict(plan_metrics.mxu_stage_ops) == {"mxu-int8": 6, "mxu": 4}
     plan_metrics.reset()
     ck.fused_stage(ops, img)  # the default setting is 'auto': the VPU arm, counted
-    assert dict(plan_metrics.mxu_stage_fallbacks) == {"no-calibration": 2}
+    assert dict(plan_metrics.mxu_stage_fallbacks) == {"not-cuda": 2}
     assert dict(plan_metrics.mxu_stage_ops) == {}
 
 
