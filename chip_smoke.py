@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-four phases; any failure raises and the script exits non-zero without
+nine phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -149,6 +149,42 @@ printing a result:
    of ``auto`` beside ``cuda``; ``Pipeline.sharded(backend='auto')`` over
    the 4-slot mesh in the same three states; and an armed
    ``halo.exchange`` failpoint, which must raise.
+
+6. The randomized differential soak (tools/soak.py) on the card: 1000
+   trials from seed 0, the sharded lanes over 4 slots of the one card,
+   every lane byte-equal to the golden ops on the card; it fails on any
+   REPRO line, on a lane no trial reached (xla, pallas, packed,
+   swar-plane, swar, sharded under each of torch / cuda / auto / swar, and
+   the plan lane's fused-pallas, fused-pallas-mxu, mxu and sharded
+   fused-pallas, and the sharded SWAR gray-plane lane) and on a kernel the
+   soak never launched (K1, K2, K2g, K3, K4, K4g, K5, K6, K7, K8, K6g, K7g,
+   K8g, T1, T1-pw; T1g has no route to soak: no entry point runs the
+   packed runner sharded, and phase 2's stitch holds it); it prints the
+   trials, the lane counts, the skipped lanes, the launches by kernel and
+   the wall time.
+
+7. Tracing: `run --trace-out --show-timing` on the 8K reference (a PNG
+   in a temporary directory), twice traced and twice not, in turns: the
+   spans run, run.load, run.compile_and_run, run.steady and run.save with
+   their parent links, run.steady and run.compile_and_run at least the
+   path's device time (CUDA events) and run.steady's one synchronised call
+   at least 0.9 of it, and the steady device time traced beside untraced;
+   then the sharded dispatch span under run.compile_and_run (`run --shards
+   4` with four cards, else Pipeline.sharded over the 4-slot mesh of one
+   card under the same two spans), and the device and host enqueue time
+   of that sharded path with the tracer armed and disarmed.
+
+8. The flight recorder: `run` with ``--failpoints io.decode=always`` exits
+   2, and ``recorder.dump("manual", force=True)``, written under
+   ``MCIM_RECORDER_DIR`` (a temporary directory for the whole script),
+   holds the failpoint entry and the run's WARNING line.
+
+9. The online store's newest-wins rule: in phase 5's store, an offline
+   ``plan_choice`` and an online ``promoted`` record that disagree for the
+   8K reference under the card's kind, each newer in turn; `run`'s
+   computation (gray output) under ``--impl auto --plan auto`` launches
+   exactly what the newer record names, equal to golden, and
+   ``mcim_tune_stale_overrides_total`` rises by one.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -3325,6 +3361,282 @@ def phase5_auto(device, x8k):
     torch.cuda.empty_cache()
     print(f"phase 5: autotune records, auto routing in three states over {len(SPECS)} "
           f"workloads unsharded and sharded, the failpoint; {time.perf_counter() - t0:.1f} s")
+    return store
+
+
+# the soak phase: trials of tools/soak.py on the card (seed 0), mesh slots
+# of its sharded lanes on the one card, and the launch counters each trial
+# run must have moved
+SOAK_TRIALS = 1000
+SOAK_SLOTS = 4
+SOAK_KERNELS = ("K1", "K2", "K2g", "K3", "K4", "K4g", "K5", "K6", "K7", "K8", "K6g", "K7g",
+                "K8g", "T1", "T1-pw")
+
+
+def phase6_soak(device) -> dict:
+    """The randomized differential soak on the card (module docstring,
+    phase 6): SOAK_TRIALS trials from seed 0 over every lane, the sharded
+    ones over SOAK_SLOTS slots of the one card. Raises on any REPRO line, on
+    a lane no trial reached and on a kernel of SOAK_KERNELS the soak never
+    launched (K5 counts either form, K6 and K6g either mode). Returns the
+    report."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import soak
+
+    with knobs(MCIM_NO_CALIB="1", MCIM_PREFER_SWAR=None, MCIM_PREFER_MXU=None, MCIM_PLAN=None):
+        ck.reset_launch_counts()
+        rep = soak.soak(iters=SOAK_TRIALS, seed=0, device=device, slots=SOAK_SLOTS)
+        torch.cuda.synchronize(device)
+        counts = ck.launch_counts()
+    by_kind = {k: v for k, v in counts.items() if v}
+    print(f"soak: {rep['trials']} trials (seed 0, {SOAK_SLOTS} slots on one card), "
+          f"{len(rep['repros'])} REPRO lines, {rep['shard_skips']} without sharded coverage, "
+          f"{rep['seconds']:.1f} s")
+    print(f"soak lanes: {json.dumps(rep['lanes'])}")
+    print(f"soak skipped lanes (not in the port yet): {json.dumps(rep['skipped'])}")
+    print(f"soak launches by kernel: {json.dumps(by_kind)}")
+    if rep["repros"]:
+        raise AssertionError(f"soak: {len(rep['repros'])} REPRO lines, first "
+                             f"{json.dumps(rep['repros'][0])}")
+    missed = [lane for lane, n in rep["lanes"].items() if not n]
+    if missed:
+        raise AssertionError(f"soak: lanes no trial reached: {missed}")
+    grouped = {
+        "K5": counts["K5-bf16"] + counts["K5-int8"],
+        "K6": counts["K6-narrow"] + counts["K6-wide"],
+        "K6g": counts["K6g-narrow"] + counts["K6g-wide"],
+    }
+    idle = [k for k in SOAK_KERNELS if not grouped.get(k, counts.get(k, 0))]
+    if idle:
+        raise AssertionError(f"soak: kernels never launched: {idle}")
+    print(f"phase 6: soak, {rep['trials']} trials, every lane reached, "
+          f"{rep['seconds']:.1f} s")
+    return rep
+
+
+def _trace_spans(path) -> dict:
+    with open(path) as f:
+        doc = json.load(f)
+    return {e["name"]: e for e in doc["traceEvents"] if e["ph"] == "X"}
+
+
+def phase7_trace(device, x8k) -> None:
+    """`run --trace-out` on the 8K reference (module docstring, phase 7):
+    the five spans and their parent links, run.steady and
+    run.compile_and_run at least the path's device time (the sync is inside
+    them), the steady device time traced and untraced; then the sharded
+    dispatch span over the 4-slot mesh, and the tracer's cost on that
+    host-bound path."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import main as cli_main
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import save_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mcim_trace_")
+    src = os.path.join(tmp, "in8k.png")
+    save_image(src, x8k.cpu().numpy())
+    runs = {}
+    for armed in (True, False, True, False):
+        metrics = os.path.join(tmp, f"run_{len(runs)}.jsonl")
+        argv = ["run", "--input", src, "--output", os.path.join(tmp, "out8k.png"),
+                "--ops", SPECS["reference"], "--show-timing", "--json-metrics", metrics]
+        trace = os.path.join(tmp, f"trace_{len(runs)}.json")
+        if armed:
+            argv += ["--trace-out", trace, "--trace-sample", "1.0"]
+        if cli_main(argv) != 0:
+            raise AssertionError(f"run {' '.join(argv)} failed")
+        with open(metrics) as f:
+            rec = json.loads(f.readline())
+        runs[len(runs)] = (armed, rec["steady_ms"], trace if armed else None)
+    for _i, (armed, steady_ms, trace) in runs.items():
+        if not armed:
+            continue
+        spans = _trace_spans(trace)
+        if set(spans) != {"run", "run.load", "run.compile_and_run", "run.steady", "run.save"}:
+            raise AssertionError(f"trace: spans {sorted(spans)}")
+        root = spans["run"]["args"]["span_id"]
+        for name in ("run.load", "run.compile_and_run", "run.steady", "run.save"):
+            if spans[name]["args"].get("parent_id") != root:
+                raise AssertionError(f"trace: {name} is not a child of run")
+        args = spans["run.steady"]["args"]
+        durs = {n: spans[n]["dur"] / 1e3 for n in spans}
+        # a synchronised call lasts at least its device time; an enqueue-only
+        # span would end before the kernels ran
+        if not (args["call_ms"] >= 0.9 * args["steady_ms"]
+                and durs["run.steady"] >= args["steady_ms"]
+                and durs["run.compile_and_run"] >= args["steady_ms"]):
+            raise AssertionError(f"trace: spans shorter than the device time: {durs}, {args}")
+        print(f"trace: [{SPECS['reference']}] 8K spans (ms) "
+              f"{ {k: round(v, 4) for k, v in sorted(durs.items())} }; run.steady one "
+              f"synchronised call {args['call_ms']:.4f} ms host, device {args['steady_ms']:.4f} ms")
+    traced = [ms for armed, ms, _ in runs.values() if armed]
+    plain = [ms for armed, ms, _ in runs.values() if not armed]
+    print(f"trace: `run` steady device ms, tracer armed at sample 1.0 {traced} / disarmed "
+          f"{plain} (turns traced, untraced, traced, untraced)")
+
+    # the sharded dispatch: `run --shards 4` takes four cards, so on fewer
+    # the same Pipeline.sharded call runs over the 4-slot mesh of one card,
+    # under a root and a run.compile_and_run span as cmd_run opens them
+    pipe = Pipeline.parse(SPECS["reference"])
+    mesh = sharded_mesh()
+    fn = pipe.sharded(mesh, backend="cuda", plan="off")
+    want = pipe.jit("torch", device=device, plan="off")(x8k)
+    trace = os.path.join(tmp, "trace_sharded.json")
+    if torch.cuda.device_count() >= N_SHARDS:
+        argv = ["run", "--input", src, "--output", os.path.join(tmp, "out8k4.png"),
+                "--ops", SPECS["reference"], "--impl", "cuda", "--plan", "off",
+                "--shards", str(N_SHARDS), "--trace-out", trace]
+        if cli_main(argv) != 0:
+            raise AssertionError("run --shards failed")
+        how = f"run --shards {N_SHARDS}"
+    else:
+        obs_trace.configure(sample=1.0)
+        try:
+            with obs_trace.start_trace("run", ops=SPECS["reference"], impl="cuda",
+                                       shards=str(N_SHARDS)) as root:
+                with obs_trace.span("run.compile_and_run", parent=root.context()):
+                    out = fn(x8k)
+                    for d in set(mesh.devices):
+                        torch.cuda.synchronize(d)
+            obs_trace.export(trace)
+        finally:
+            obs_trace.disable()
+        check_equal("traced sharded reference", out, want)
+        how = f"Pipeline.sharded over {N_SHARDS} slots of one card"
+    spans = _trace_spans(trace)
+    d = spans.get("sharded.dispatch")
+    if d is None or d["args"].get("parent_id") != spans["run.compile_and_run"]["args"]["span_id"]:
+        raise AssertionError(f"trace: no sharded.dispatch under run.compile_and_run: "
+                             f"{sorted(spans)}")
+    print(f"trace: {how}: sharded.dispatch {d['dur'] / 1e3:.4f} ms host enqueue, args "
+          f"mesh={d['args']['mesh']} halo_mode={d['args']['halo_mode']}")
+
+    # the tracer's cost on the host-bound sharded path: one span a call
+    def traced_call():
+        with obs_trace.start_trace("bench"):
+            return fn(x8k)
+
+    cost = {}
+    for turn in ("disarmed", "armed", "armed2", "disarmed2"):
+        if turn.startswith("armed"):
+            obs_trace.configure(sample=1.0)
+        try:
+            cost[turn] = (padded_device_ms(traced_call), host_enqueue_ms(traced_call))
+        finally:
+            obs_trace.disable()
+    print("trace: sharded reference over 4 slots, (device ms, host enqueue ms) "
+          + ", ".join(f"{k} ({v[0]:.4f}, {v[1]:.4f})" for k, v in cost.items()))
+    del want
+    print(f"phase 7: trace spans of run and of the sharded dispatch; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase8_recorder(device) -> None:
+    """The flight recorder and the io.decode failpoint (module docstring,
+    phase 8): a run with io.decode armed fails, and a manual dump holds the
+    failpoint entry and the run's WARNING line."""
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import main as cli_main
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import recorder
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mcim_recorder_")
+    with knobs(MCIM_RECORDER_DIR=tmp):
+        recorder.configure(cap=None)
+        try:
+            rc = cli_main(["run", "--input", os.path.join(tmp, "never-read.png"), "--output",
+                           os.path.join(tmp, "out.png"), "--failpoints", "io.decode=always"])
+        finally:
+            failpoints.clear()
+        if rc != 2:
+            raise AssertionError(f"run with io.decode armed: exit {rc}, expected 2")
+        path = recorder.dump("manual", force=True)
+    if path is None or not path.startswith(tmp):
+        raise AssertionError(f"recorder dump {path!r} not in {tmp}")
+    with open(path) as f:
+        payload = json.load(f)
+    kinds = {e["kind"] for e in payload["entries"]}
+    fp = [e for e in payload["entries"] if e["kind"] == "failpoint"]
+    logs = [e for e in payload["entries"] if e["kind"] == "log" and e["level"] == "WARNING"]
+    if not fp or fp[-1]["site"] != "io.decode" or not logs or "io.decode" not in logs[-1]["msg"]:
+        raise AssertionError(f"recorder dump lacks the failpoint or the WARNING line: "
+                             f"{payload['summary']}")
+    print(f"recorder: dump {os.path.basename(path)}: {len(payload['entries'])} entries, kinds "
+          f"{sorted(kinds)}, failpoint {fp[-1]}, warning {logs[-1]['msg']!r}")
+    print(f"phase 8: flight recorder and failpoint; {time.perf_counter() - t0:.1f} s")
+
+
+def phase9_online(device, x8k, store: str) -> None:
+    """The online store's newest-wins rule on the card (module docstring,
+    phase 9): in phase 5's store, an offline plan_choice and an online
+    promoted record that disagree for the 8K reference under the card's
+    kind; `run --impl auto --plan auto` launches what the newer one names,
+    and mcim_tune_stale_overrides_total counts one override a resolution."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import image_runner
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import pipeline_fingerprint
+    from mpi_cuda_imagemanipulation_tpu_torch.tune.metrics import tune_metrics
+    from mpi_cuda_imagemanipulation_tpu_torch.tune.store import online_store
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
+
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(device)
+    pipe = Pipeline.parse(SPECS["reference"])
+    fp = pipeline_fingerprint(pipe.ops)
+    want = pipe.jit("torch", device=device, plan="off")(x8k)
+    # gray output: the gray -> RGB step resolves a plan of its own
+
+    def launched(runner):
+        ck.reset_launch_counts()
+        out = runner(x8k)
+        torch.cuda.synchronize(device)
+        return out, ck.launch_counts()
+
+    now = time.time()
+    # the same two records, each the newer in turn: the launches must follow
+    cases = (("fused-pallas", now - 100.0, "fused-pallas-mxu", now),
+             ("fused-pallas", now, "fused-pallas-mxu", now - 100.0))
+    for off_choice, off_t, on_choice, on_t in cases:
+        with open(store) as f:
+            data = json.load(f)
+        data["device_kinds"][kind].setdefault("plan_choice", {})[fp] = {
+            "choice": off_choice, "width": MAIN_W, "recorded_at": off_t}
+        data.setdefault("online", {}).setdefault(kind, {})["promoted"] = {
+            fp: {"choice": on_choice, "width": MAIN_W, "at": on_t}}
+        with open(store, "w") as f:
+            json.dump(data, f)
+        calibration._cache["key"] = None
+        online_store.reset()
+        newer = on_choice if on_t >= off_t else off_choice
+        with knobs(MCIM_CALIB_FILE=store, MCIM_NO_CALIB=None, MCIM_PREFER_SWAR=None,
+                   MCIM_PREFER_MXU=None, MCIM_PLAN=None):
+            before = tune_metrics.stale_overrides.value()
+            out, counts = launched(image_runner(pipe, impl="auto", device=device,
+                                                gray_output=True))
+            overrides = tune_metrics.stale_overrides.value() - before
+            exp = launched(image_runner(pipe, impl="cuda", device=device, plan=newer,
+                                        gray_output=True))[1]
+        check_equal(f"online store [{newer}]", out, want)
+        if counts != exp or overrides != 1:
+            raise AssertionError(f"online store: offline {off_choice} at {off_t:.1f}, online "
+                                 f"{on_choice} at {on_t:.1f}: launches {counts}, expected "
+                                 f"{newer}'s {exp}; {overrides} overrides counted")
+        print(f"online store: offline {off_choice} / online {on_choice}, the "
+              f"{'online' if newer == on_choice else 'offline'} record newer: auto runs "
+              f"{newer} == golden, launches { {k: v for k, v in counts.items() if v} }, "
+              f"mcim_tune_stale_overrides_total +{overrides:g}")
+    online_store.reset()
+    calibration._cache["key"] = None
+    del want
+    print(f"phase 9: newest-wins plan records; {time.perf_counter() - t0:.1f} s")
 
 
 
@@ -3422,6 +3734,8 @@ def main() -> int:
     # phases 1-4 run with an empty calibration store wherever the script
     # runs: a store file in the working directory must not steer them
     os.environ["MCIM_CALIB_FILE"] = os.path.join(tempfile.mkdtemp(prefix="mcim_"), "none.json")
+    # flight-recorder dumps land in a temporary directory, never in the tree
+    os.environ["MCIM_RECORDER_DIR"] = tempfile.mkdtemp(prefix="mcim_recorder_")
     device = torch.device("cuda")
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -3460,7 +3774,11 @@ def main() -> int:
     rows = phase3(device, x8k, launches, sharded_launches, mxu_launches, gray8k, swar_launches,
                   tool_runs)
     phase4_registry(device, x8k, gray8k)
-    phase5_auto(device, x8k)
+    store = phase5_auto(device, x8k)
+    phase6_soak(device)
+    phase7_trace(device, x8k)
+    phase8_recorder(device)
+    phase9_online(device, x8k, store)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -14,8 +14,11 @@ the image over N devices with ghost-strip exchange (parallel/api.py); under
 shards. ``autotune`` measures the routes of one choice on the card and
 records the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
-records for a pipeline. ``info`` prints the toolchain, the devices, the
-backends, the kernels and the calibration records for the device.
+records for a pipeline (``--online``: with the online tuning store's, and
+the plan the newest-wins rule picks). ``run --trace-out`` writes the run's
+trace spans as Chrome/Perfetto JSON (obs/trace.py). ``info`` prints the
+toolchain, the devices, the backends, the kernels and the calibration
+records for the device.
 """
 
 from __future__ import annotations
@@ -57,6 +60,43 @@ def _arm_failpoints(args: argparse.Namespace) -> None:
         from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
 
         failpoints.configure(args.failpoints, seed=args.failpoint_seed)
+
+
+def _add_trace_flags(sp: argparse.ArgumentParser) -> None:
+    sp.add_argument(
+        "--trace-out", default=None, metavar="PATH",
+        help="write the run's trace spans (run, run.load, run.compile_and_run, "
+        "run.steady, run.save; sharded.dispatch under --shards) as "
+        "Chrome/Perfetto trace-event JSON to this path at exit (obs/trace.py; "
+        "load it in ui.perfetto.dev). Under torchrun the rank that holds "
+        "slot 0 writes it",
+    )
+    sp.add_argument(
+        "--trace-sample", type=float, default=None, metavar="FRAC",
+        help="trace this fraction of traces (deterministic every-k-th; default "
+        "1.0 with --trace-out); sampled-out work pays one flag check "
+        "(MCIM_TRACE_SAMPLE arms tracing too)",
+    )
+
+
+def _configure_tracing(args: argparse.Namespace) -> bool:
+    """Arm the tracer from --trace-out/--trace-sample (or the
+    MCIM_TRACE_SAMPLE env). Returns True when armed."""
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
+
+    sample = getattr(args, "trace_sample", None)
+    if getattr(args, "trace_out", None) or sample is not None:
+        obs_trace.configure(sample=1.0 if sample is None else sample)
+        return True
+    return obs_trace.configure_from_env() is not None
+
+
+def _export_trace(args: argparse.Namespace, log) -> None:
+    if getattr(args, "trace_out", None):
+        from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
+
+        n = obs_trace.export(args.trace_out)
+        log.info("trace: %d events -> %s", n, args.trace_out)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -144,6 +184,7 @@ def _build_parser() -> argparse.ArgumentParser:
         help="write a JSON metrics line to this path ('-' = stdout)",
     )
     _add_failpoint_flags(run)
+    _add_trace_flags(run)
 
     tune = sub.add_parser(
         "autotune",
@@ -154,7 +195,14 @@ def _build_parser() -> argparse.ArgumentParser:
     tune.add_argument(
         "action", nargs="?", choices=("run", "info"), default="run",
         help="'run' (default) measures and records; 'info' prints the store's "
-        "records for --ops on the device",
+        "records for --ops on the device (with --online also the online tuning "
+        "store's, and the plan choice the newest-wins rule picks)",
+    )
+    tune.add_argument(
+        "--online", action="store_true",
+        help="with 'info': include the online promotion, the per-window arm "
+        "statistics and the audit-trail tail (tune/store.py) next to the offline "
+        "records",
     )
     tune.add_argument("--ops", default="gaussian:5",
                       help="pipeline to tune against (default gaussian:5)")
@@ -244,17 +292,54 @@ def run_image(pipe, img, *, impl: str, device, block_h=None, gray_output=False,
 
 
 def cmd_run(args: argparse.Namespace) -> int:
+    """`run`: one image through the pipeline. One trace for the whole run
+    (root ``run``; children ``run.load``, ``run.compile_and_run``,
+    ``run.steady`` under --show-timing or --json-metrics, ``run.save``),
+    exported on every exit path when --trace-out is given. The compute
+    spans end after the device is synchronised, so they time the work,
+    not its enqueue."""
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import recorder, trace as obs_trace
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import get_logger
+
+    _arm_failpoints(args)
+    armed = _configure_tracing(args)
+    log = get_logger()
+    root = obs_trace.start_trace("run", ops=args.ops, impl=args.impl, shards=str(args.shards))
+    try:
+        with root:
+            return _run(args, root)
+    except Exception as e:
+        # the failure as a WARNING entry of the flight recorder's ring, beside
+        # the failpoint or span entries that led to it; `main` prints it
+        recorder.note("log", level="WARNING", msg=f"run failed: {type(e).__name__}: {e}"[:300])
+        raise
+    finally:
+        if _writes_trace():
+            _export_trace(args, log)
+        if armed:
+            obs_trace.disable()
+
+
+def _writes_trace() -> bool:
+    """Whether this process writes --trace-out: the only one, or the rank
+    that holds slot 0 under a process group (rank 0)."""
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh._world()[0] == 0
+
+
+def _run(args: argparse.Namespace, root) -> int:
     import torch
 
     from mpi_cuda_imagemanipulation_tpu_torch.io.image import load_image, save_image
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
     from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo, mesh as pmesh
     from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
     from mpi_cuda_imagemanipulation_tpu_torch.utils.device import as_image_tensor
     from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
-    _arm_failpoints(args)
     pmesh.distributed_init(args.device)  # no-op unless launched by torchrun
     dev = pmesh.rank_device(args.device)
     pipe = Pipeline.parse(args.ops)
@@ -269,8 +354,9 @@ def cmd_run(args: argparse.Namespace) -> int:
         gray_output=args.gray_output, plan=args.plan, mesh=mesh,
         halo_mode=args.halo_mode,
     )
-    img = load_image(args.input)
-    x = as_image_tensor(img, dev)
+    with obs_trace.span("run.load", parent=root.context(), path=args.input):
+        img = load_image(args.input)
+        x = as_image_tensor(img, dev)
     # under a process group only the rank that holds slot 0 has the whole result
     writes = mesh is None or mesh.rank == mesh.ranks[0]
 
@@ -284,20 +370,35 @@ def cmd_run(args: argparse.Namespace) -> int:
                 torch.cuda.synchronize(d)
 
     t0 = time.perf_counter()
-    out = once()
-    sync()
-    exchange_rounds = halo.exchanges.rounds
+    with obs_trace.span("run.compile_and_run", parent=root.context()):
+        out = once()
+        sync()
     first_s = time.perf_counter() - t0  # includes the kernels' build on first use
+    exchange_rounds = halo.exchanges.rounds
     steady_ms = None
     if args.show_timing or args.json_metrics:
-        if dev.type == "cuda":
-            steady_ms = device_time_ms(once)
-        else:  # host time of the CPU run; not a device number
-            t0 = time.perf_counter()
-            once()
-            steady_ms = (time.perf_counter() - t0) * 1e3
+        with obs_trace.span("run.steady", parent=root.context()) as steady:
+            call_ms = None
+            if steady is not obs_trace.NOOP_SPAN:
+                # traced only: one synchronised call on the host clock, which
+                # shows the span times the work and not its enqueue
+                t0 = time.perf_counter()
+                once()
+                sync()
+                call_ms = (time.perf_counter() - t0) * 1e3
+            if dev.type == "cuda":  # device time per call from CUDA events
+                steady_ms = device_time_ms(once)
+                sync()
+            elif call_ms is not None:
+                steady_ms = call_ms
+            else:  # host time of the CPU run; not a device number
+                t0 = time.perf_counter()
+                once()
+                steady_ms = (time.perf_counter() - t0) * 1e3
+            steady.set(call_ms=call_ms, steady_ms=steady_ms)
     if writes:
-        save_image(args.output, out.cpu().numpy())
+        with obs_trace.span("run.save", parent=root.context(), path=args.output):
+            save_image(args.output, out.cpu().numpy())
 
     mp = img.shape[0] * img.shape[1] / 1e6
     clock = "device (CUDA events)" if dev.type == "cuda" else "host"
@@ -556,7 +657,10 @@ def _parse_blocks(args) -> list[int]:
 
 
 def _autotune_info(args) -> int:
-    """The store's records for --ops on the device's kind, as JSON."""
+    """The store's records for --ops on the device's kind, as JSON; with
+    --online also the online tuning store's promoted entry, per-window arm
+    statistics and audit-trail tail, and the plan choice the newest-wins
+    rule (tune/store.effective_plan_choice) picks."""
     from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
         STAGE_ARMS,
         STAGE_FALLBACK_REASONS,
@@ -591,6 +695,22 @@ def _autotune_info(args) -> int:
             },
         },
     }
+    if args.online:
+        from mpi_cuda_imagemanipulation_tpu_torch.tune.store import (
+            effective_plan_choice,
+            online_store,
+        )
+
+        windows = online_store.windows(fp, device_kind=kind)
+        report["online"] = {
+            "promoted": online_store.promoted_entry(fp, device_kind=kind),
+            "observations": {
+                w: online_store.arm_stats(fp, w, device_kind=kind) for w in sorted(windows)
+            },
+            "audit_tail": online_store.audit_trail()[-10:],
+        }
+        # the choice resolve_plan_mode acts on, newest wins
+        report["effective"] = {"plan_choice": effective_plan_choice(fp, device_kind=kind)}
     print(json.dumps(report, indent=2, sort_keys=True, default=str))
     return 0
 

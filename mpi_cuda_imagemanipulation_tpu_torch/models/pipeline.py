@@ -54,6 +54,7 @@ from functools import partial
 
 import torch
 
+from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
     REFERENCE_CPU_PIPELINE_SPEC,
     REFERENCE_PIPELINE_SPEC,
@@ -205,7 +206,9 @@ class Pipeline:
         MCIM_PREFER_MXU, the SWAR ghost kernels under MCIM_PREFER_SWAR, else
         the 'cuda' kernels; with no record and no switch, 'cuda'). An armed
         ``halo.exchange`` failpoint (resilience/failpoints.py) raises at
-        the function's entry, before any shard is touched. `halo_mode='overlap'`
+        the function's entry, before any shard is touched, inside the
+        function's ``sharded.dispatch`` trace span (obs/trace.py; mesh and
+        halo mode as its arguments). `halo_mode='overlap'`
         computes interior rows while the ghost strips are in flight
         (parallel.api.HALO_MODES). `plan` (PLAN_MODES) engages the fusion
         planner: a fused stage exchanges one `Stage.halo`-row ghost strip
@@ -216,10 +219,16 @@ class Pipeline:
         combination."""
         fn = sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
         mesh_shape = dict(mesh.shape)
+        mesh_desc = str(mesh_shape)  # hoisted: no per-call build
 
         def run(img) -> torch.Tensor:
-            failpoints.maybe_fail("halo.exchange", mesh_shape=mesh_shape)
-            return fn(img)
+            # the host-side enqueue of the sharded program as a span: under
+            # a traced run it nests below the caller's span; untraced it is
+            # the shared no-op. It ends when the launches are enqueued, not
+            # when the card has run them.
+            with obs_trace.span("sharded.dispatch", mesh=mesh_desc, halo_mode=halo_mode):
+                failpoints.maybe_fail("halo.exchange", mesh_shape=mesh_shape)
+                return fn(img)
 
         return run
 

@@ -1,0 +1,59 @@
+"""Observability: tracing, metrics and the flight recorder. The counterpart
+of the JAX package's ``obs/``.
+
+  * `obs/trace.py`    - request-scoped spans with cross-thread context
+                        propagation, deterministic sampling and
+                        Chrome/Perfetto trace-event export (``run
+                        --trace-out``).
+  * `obs/metrics.py`  - counters, gauges and histograms in one named
+                        registry with Prometheus text exposition.
+  * `obs/recorder.py` - the always-on flight recorder: a bounded ring of
+                        recent facts, dumped to JSON post-mortems.
+
+The JAX package's ``fleet`` (metrics federation) and ``slo`` (burn-rate
+SLOs) serve its fabric and federation layers and come with them; its
+``cost``, ``devmem`` and ``profile`` are rewritten for the card with the
+engine, streaming and serving layers that read them.
+"""
+
+from mpi_cuda_imagemanipulation_tpu_torch.obs import recorder  # noqa: F401
+from mpi_cuda_imagemanipulation_tpu_torch.obs import trace  # noqa: F401
+from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import (  # noqa: F401
+    CONTENT_TYPE,
+    DEFAULT_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    parse_exposition,
+)
+from mpi_cuda_imagemanipulation_tpu_torch.obs.trace import (  # noqa: F401
+    NOOP_SPAN,
+    SpanContext,
+    Tracer,
+    current_context,
+    current_trace_id,
+    event,
+    span,
+    start_trace,
+)
+
+__all__ = [
+    "CONTENT_TYPE",
+    "DEFAULT_BUCKETS",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "NOOP_SPAN",
+    "Registry",
+    "SpanContext",
+    "Tracer",
+    "current_context",
+    "current_trace_id",
+    "event",
+    "parse_exposition",
+    "recorder",
+    "span",
+    "start_trace",
+    "trace",
+]

@@ -4,7 +4,10 @@ The counterpart of the JAX package's ``plan/metrics.py``, with the same
 ``snapshot()`` keys. One module-level instance (`plan_metrics`) counts
 every plan built and every stage the fused-pallas executor routes, from
 whichever entry point built it; `--json-metrics` reports its snapshot.
-Counters are plain integers: the port has no metrics registry yet.
+Counters are plain integers and ``collections.Counter``s, where the JAX
+package builds them on ``obs.metrics.Registry`` as the
+``mcim_plan_*`` families; the port's registry (obs/metrics.py) takes them
+over with the first exposition that reads them (ROADMAP queue 1).
 
 Under ``plan='fused-pallas'`` the port's megakernel is the CUDA kernel K4
 (plan/cuda_exec.py), so ``pallas_stages`` counts K4 stage launches and

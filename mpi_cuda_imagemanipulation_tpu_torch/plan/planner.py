@@ -21,10 +21,12 @@ structure:
                        walker runs K5's plain version for those stencils.
 
 ``plan='auto'`` resolves as the JAX package resolves it
-(`resolve_plan_mode`): ``MCIM_PLAN`` first, then the calibration store's
-plan choice for (device kind, pipeline fingerprint, width)
-(utils/calibration.py, written by ``autotune --dimension plan``), then the
-backend's default:
+(`resolve_plan_mode`): ``MCIM_PLAN`` first, then the plan choice for
+(device kind, pipeline fingerprint, width) that
+tune/store.effective_plan_choice picks, the newer of the offline record
+(utils/calibration.py, written by ``autotune --dimension plan``) and an
+online ``promoted`` record, counting an override in
+``mcim_tune_stale_overrides_total``; then the backend's default:
 
   * ``torch`` plays the JAX package's ``xla``: ``auto`` -> ``fused``.
   * ``mxu`` is the JAX package's ``mxu``: ``auto`` -> ``fused`` (the walker
@@ -49,6 +51,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
 from mpi_cuda_imagemanipulation_tpu_torch.plan.ir import Plan, Stage, pipeline_fingerprint
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+from mpi_cuda_imagemanipulation_tpu_torch.tune.store import effective_plan_choice
 from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration
 from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
 from mpi_cuda_imagemanipulation_tpu_torch.utils.log import get_logger
@@ -128,7 +131,8 @@ def resolve_plan_mode(
         return mode
     if backend in _SELF_FUSING_BACKENDS:
         return "off"
-    choice = calibration.lookup_plan_choice(
+    # newest wins between the offline record and the online promotion
+    choice = effective_plan_choice(
         pipeline_fingerprint(ops), device_kind=calibration.current_device_kind(device),
         width=width,
     )

@@ -29,8 +29,8 @@ site gets the same decision for a given seed in both packages. Disarmed,
 packages alike. The port calls three of them: ``io.decode``
 (io/image.load_image), ``plan.fuse`` (plan/planner.build_plan, fusing
 builds only) and ``halo.exchange`` (the entry of ``Pipeline.sharded``'s
-function). The JAX package's note of each hit in its flight recorder
-waits for the port's ``obs/``.
+function). Each hit is noted in the flight recorder (obs/recorder.py)
+before it raises, as the JAX package notes it.
 """
 
 from __future__ import annotations
@@ -197,6 +197,11 @@ def maybe_fail(site: str, **ctx) -> None:
     if delay_s:
         time.sleep(delay_s)
     if hit:
+        # an injected fault is what a post-mortem dump needs beside the
+        # span and breaker entries
+        from mpi_cuda_imagemanipulation_tpu_torch.obs import recorder
+
+        recorder.note("failpoint", site=site, n_call=n)
         raise FailpointError(site, n)
 
 

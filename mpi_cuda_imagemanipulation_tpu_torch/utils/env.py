@@ -40,6 +40,37 @@ _VARS = (
     EnvVar("MCIM_LOG_LEVEL", None, "utils/log.py",
            "Logger verbosity: level name or number (DEBUG..CRITICAL or "
            "10..50); default INFO."),
+    # -- tracing (obs/trace.py) ----------------------------------------------
+    EnvVar("MCIM_TRACE_SAMPLE", None, "obs/trace.py",
+           "Arm request-scoped tracing at this sample fraction "
+           "(deterministic every-k-th; 1 = every trace)."),
+    EnvVar("MCIM_TRACE_TAIL", "256", "obs/trace.py",
+           "Deferred tail-keep buffer: sampled-OUT traces buffer up to "
+           "this many concurrently-open traces and promote to kept when "
+           "the root ends with an error status or a p99-slow duration; 0 "
+           "restores pure root sampling."),
+    # -- flight recorder (obs/recorder.py) -----------------------------------
+    EnvVar("MCIM_RECORDER_DIR", None, "obs/recorder.py",
+           "Directory post-mortem flight-recorder dumps are written to "
+           "(default artifacts/recorder/)."),
+    EnvVar("MCIM_RECORDER_CAP", "2048", "obs/recorder.py",
+           "Flight-recorder ring capacity: the newest N entries a dump can "
+           "contain."),
+    EnvVar("MCIM_RECORDER_MIN_INTERVAL_S", "30", "obs/recorder.py",
+           "Per-trigger dump rate limit in seconds."),
+    # -- online tuning store (tune/store.py) ---------------------------------
+    EnvVar("MCIM_TUNE", "0", "tune/store.py",
+           "=1 persists online tuning observations and promotions to the "
+           "calibration store."),
+    EnvVar("MCIM_TUNE_STALE_S", "900", "tune/store.py",
+           "Staleness half-life for online observations (seconds); samples "
+           "older than 8 half-lives are dropped."),
+    EnvVar("MCIM_TUNE_RESERVOIR", "64", "tune/store.py",
+           "Max online samples kept per (device kind, fingerprint, width "
+           "window, arm); newest kept."),
+    EnvVar("MCIM_TUNE_FLUSH_S", "1.0", "tune/store.py",
+           "Min seconds between online-record merges into the calibration "
+           "file."),
     # -- calibration store (utils/calibration.py) ---------------------------
     EnvVar("MCIM_CALIB_FILE", None, "utils/calibration.py",
            "Calibration store path (default ./.mcim_calibration.json)."),
