@@ -156,12 +156,13 @@ printing a result:
    REPRO line, on a lane no trial reached (xla, pallas, packed,
    swar-plane, swar, sharded under each of torch / cuda / auto / swar, and
    the plan lane's fused-pallas, fused-pallas-mxu, mxu and sharded
-   fused-pallas, and the sharded SWAR gray-plane lane) and on a kernel the
-   soak never launched (K1, K2, K2g, K3, K4, K4g, K5, K6, K7, K8, K6g, K7g,
-   K8g, T1, T1-pw; T1g has no route to soak: no entry point runs the
-   packed runner sharded, and phase 2's stitch holds it); it prints the
-   trials, the lane counts, the skipped lanes, the launches by kernel and
-   the wall time.
+   fused-pallas, the sharded SWAR gray-plane lane, batched under torch and
+   cuda, the 2-D mesh and data-parallel) and on a kernel the soak never
+   launched (K1, K2, K2g, K3, K4, K4g, K5, K6, K7, K8, K6g, K7g, K8g, T1,
+   T1-pw; T1g has no route to soak: no entry point runs the packed runner
+   sharded, and phase 2's stitch holds it), and when the batched-cuda lane
+   launched no batched K1 or K2; it prints the trials, the lane counts, the
+   launches by kernel (and the stack lanes' own) and the wall time.
 
 7. Tracing: `run --trace-out --show-timing` on the 8K reference (a PNG
    in a temporary directory), twice traced and twice not, in turns: the
@@ -185,6 +186,38 @@ printing a result:
    computation (gray output) under ``--impl auto --plan auto`` launches
    exactly what the newer record names, equal to golden, and
    ``mcim_tune_stale_overrides_total`` rises by one.
+
+10. The batch axis (grid z) of the redesigned kernels, through the same
+   launch entry as one image: K2 (every family and edge mode, prologues
+   that change the channel count), K1 as one flat run, K4 on the VPU arm
+   and with K5 in each form, K6 narrow and wide, K7 and K8, each on stacks
+   of N = 1, 2 and 3 small images (sub-halo, odd widths), equal to its
+   plain version image by image; a non-contiguous stack is refused by each
+   wrapper and made contiguous by ``Pipeline.batched``.
+
+11. The batched main paths: a stack of 4 frames of the 8K RGB synthetic
+   (seeds 0-3) through ``Pipeline.batched`` under cuda --plan off,
+   fused-pallas, fused-pallas-mxu, mxu, swar and auto for the three
+   workloads (and the SWAR gray workloads under swar; auto with phase 5's
+   recorded store, since with none it is cuda --plan off), each image equal to
+   ``Pipeline.parse(spec)(image)``, the launches equal to one image's (one
+   launch per group per stack), device ms per stack and per image beside 4
+   single calls; then the batched kernels' rows of the ``kernels`` line
+   (K2, K4, K4 with K5, K1 flat, K6 narrow and wide, K7, K8), each bound
+   counting all four frames.
+
+12. ``Pipeline.data_parallel``: 5 frames of 8K over the 4-slot mesh of the
+   one card, equal per image, host ms beside the same stack batched.
+
+13. The 2-D tile-sharded runner (parallel/api2d.py) over a 2 x 2 mesh of
+   the one card: the 8K reference and gaussian:5 under torch and auto,
+   serial and overlap, plan fused, equal to golden with rounds on both
+   axes; host ms beside the 1-D 4-slot runner on the same torch ops.
+
+14. The device-hang guard: ``run --impl cuda`` on the 8K reference (a PNG
+   in a temporary directory) in a subprocess, unguarded and with
+   ``--device-timeout 300``, the outputs equal, both wall times beside the
+   child's two windows; a 0.01 s budget exits 4.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -3395,8 +3428,8 @@ def phase6_soak(device) -> dict:
           f"{len(rep['repros'])} REPRO lines, {rep['shard_skips']} without sharded coverage, "
           f"{rep['seconds']:.1f} s")
     print(f"soak lanes: {json.dumps(rep['lanes'])}")
-    print(f"soak skipped lanes (not in the port yet): {json.dumps(rep['skipped'])}")
     print(f"soak launches by kernel: {json.dumps(by_kind)}")
+    print(f"soak stack lanes' launches by kernel: {json.dumps(rep['lane_launches'])}")
     if rep["repros"]:
         raise AssertionError(f"soak: {len(rep['repros'])} REPRO lines, first "
                              f"{json.dumps(rep['repros'][0])}")
@@ -3411,6 +3444,9 @@ def phase6_soak(device) -> dict:
     idle = [k for k in SOAK_KERNELS if not grouped.get(k, counts.get(k, 0))]
     if idle:
         raise AssertionError(f"soak: kernels never launched: {idle}")
+    stacked = rep["lane_launches"].get("batched-cuda", {})
+    if not stacked.get("K1") or not stacked.get("K2"):
+        raise AssertionError(f"soak: the batched-cuda lane launched no K1 or no K2: {stacked}")
     print(f"phase 6: soak, {rep['trials']} trials, every lane reached, "
           f"{rep['seconds']:.1f} s")
     return rep
@@ -3640,6 +3676,475 @@ def phase9_online(device, x8k, store: str) -> None:
 
 
 
+# --------------------------------------------------------------------------
+# Phases 10-13: the batched and data-parallel forms, the 2-D tile-sharded
+# runner, the device-hang guard
+# --------------------------------------------------------------------------
+
+BATCH_N = 4  # 8K frames of one stack, seeds 0..3
+# the batched main paths' routes: (backend, plan)
+BATCH_ROUTES = (("cuda", "off"), ("cuda", "fused-pallas"), ("cuda", "fused-pallas-mxu"),
+                ("mxu", "off"), ("swar", "off"), ("auto", "auto"))
+# the SWAR slice's gray workloads, batched under swar beside SPECS: K6 wide
+# and K8 take a stack only there
+BATCH_SWAR_EXTRA = {k: SWAR_SPECS[k][0] for k in ("gaussian7_gray", "sobel_gray")}
+# small shapes of the batched kernel checks: sub-halo heights and widths,
+# odd widths, one past a 128-column tile
+BATCH_SHAPES = [(3, 5), (2, 9), (17, 33), (37, 53), (64, 133)]
+BATCH_STENCILS = ["emboss:3", "gaussian:5", "erode:3", "median:5", "sobel", "gaussian:7",
+                  "contrast:3.5,emboss:3", "grayscale,contrast:3.5,gaussian:5"]
+BATCH_STAGES = ["grayscale,contrast:3.5,emboss:3", "gaussian:5,sharpen",
+                "grayscale,contrast:3.5,gaussian:5,sharpen,quantize:6", "gray2rgb,box:3",
+                "gaussian:5,gaussian:5,emboss:3"]
+# the SWAR kernels' plane shapes (W % 4 == 0): odd heights, 76 and 132
+# columns, one 8-column plane
+BATCH_PLANES = [(5, 8), (13, 76), (37, 132), (64, 260)]
+BATCH_SWAR = ["gaussian:5", "gaussian:7", "box:5", "emboss:3", "sharpen", "sobel", "scharr",
+              "contrast:3.5,emboss:3,invert", "unsharp"]
+GRID_2D = (2, 2)
+
+
+def stack_of(n, shape, channels, seed, device):
+    """A contiguous (n, H, W[, C]) stack of seeded images on `device`."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+
+    return torch.stack([torch.from_numpy(synthetic_image(*shape, channels=channels,
+                                                         seed=seed + t)) for t in range(n)]
+                       ).to(device)
+
+
+def phase10_batched_kernels(device) -> int:
+    """The batch axis of the redesigned kernels, each held against its plain
+    version image by image, through the same launch entry as one image:
+    K2 (every family and edge mode the registry gives it, with prologues
+    that change the channel count), K1 as a flat run, K4 on the VPU arm and
+    with K5 in each form, K6 narrow and wide, K7 and K8; N = 1, 2 and 3 on
+    small shapes (sub-halo, odd widths); a non-contiguous stack is refused
+    by each wrapper and made contiguous by Pipeline.batched."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+
+    def per_image_plain(fn, stack):
+        return torch.stack([fn(x) for x in stack])
+
+    n = {"K1": 0, "K2": 0, "K4": 0, "K5": 0, "SWAR": 0}
+    ck.reset_launch_counts()
+    for spec in BATCH_STENCILS:
+        pw, st = split_group(spec)
+        first = next((op.in_channels for op in pw if op.in_channels), 0)
+        for channels in ((first,) if first else (1, 3)):
+            for shape in BATCH_SHAPES:
+                if st.edge_mode == "reflect101" and min(shape) <= st.halo:
+                    continue  # the group runner refuses it, one image or many
+                for k in (1, 2, 3):
+                    x = stack_of(k, shape, channels, 11 * k, device)
+                    got = ck.stream_stencil(pw, st, x, batched=True)
+                    check_equal(f"K2 batched {spec} {shape}x{channels} N={k}", got,
+                                per_image_plain(lambda im: ck.stream_stencil_plain(pw, st, im),
+                                                x))
+                    n["K2"] += 1
+    for spec in ("grayscale,contrast:3.5", "gray2rgb,invert", "sepia,quantize:6"):
+        pw, _ = split_group(spec)
+        channels = 1 if spec.startswith("gray2rgb") else 3
+        for shape in BATCH_SHAPES:
+            for k in (1, 2, 3):
+                x = stack_of(k, shape, channels, 5 * k, device)
+                check_equal(f"K1 batched {spec} {shape} N={k}",
+                            ck.pointwise_group(pw, x, batched=True),
+                            per_image_plain(lambda im: ck.pointwise_group_plain(pw, im), x))
+                n["K1"] += 1
+    for spec in BATCH_STAGES:
+        ops = make_pipeline_ops(spec)
+        channels = 1 if spec.startswith("gray2rgb") else 3
+        forms = [("vpu",) * len(ops)]
+        forms += [ck.stage_arms(ops, s) for s in ("on", "f32")]
+        for arms in dict.fromkeys(forms):
+            for shape in BATCH_SHAPES:
+                if ck.fused_stage_reject(ops, *shape, channels) is not None:
+                    continue
+                for k in (1, 2, 3):
+                    x = stack_of(k, shape, channels, 7 * k, device)
+                    check_equal(f"K4 batched {spec} arms={arms} {shape} N={k}",
+                                ck.fused_stage(ops, x, arms=arms, batched=True),
+                                per_image_plain(
+                                    lambda im: ck.fused_stage_plain(ops, im, arms=arms), x))
+                    n["K5" if any(a != "vpu" for a in arms) else "K4"] += 1
+    kinds = set()
+    for spec in BATCH_SWAR:
+        ops = make_pipeline_ops(spec)
+        i = next(j for j, op in enumerate(ops) if sk.swar_any_eligible(op))
+        op, pre, post = ops[i], ops[:i], ops[i + 1:]
+        for shape in BATCH_PLANES:
+            if not sk.swar_any_eligible(op, shape):
+                continue
+            for k in (1, 2, 3):
+                x = stack_of(k, shape, 1, 3 * k, device)
+                got = sk.swar_stencil(op, x, pre_ops=pre, post_ops=post, batched=True)
+                group = sk.swar_group(op, pre, post)
+                want = per_image_plain(lambda im: sk.swar_stencil_plain(
+                    op, im, pre_chain=group.pre_chain, post_chain=group.post_chain), x)
+                check_equal(f"{group.kind} batched {spec} {shape} N={k}", got, want)
+                kinds.add(group.kind)
+                n["SWAR"] += 1
+    if kinds != {"K6-narrow", "K6-wide", "K7", "K8"}:
+        raise AssertionError(f"batched SWAR checks reached only {sorted(kinds)}")
+    batched_non_contiguous(device)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    print(f"phase 10: batched kernels equal to their plain versions image by image "
+          f"(max_abs_err 0): {n}, SWAR kinds {sorted(kinds)}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return sum(n.values())
+
+
+def batched_non_contiguous(device) -> None:
+    """A non-contiguous stack: K2, K4 and K6 refuse it, and Pipeline.batched
+    hands the kernels a contiguous copy, equal to golden per image."""
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+
+    base = stack_of(6, (40, 64), 3, 90, device)
+    view = base[::2, :, 8:56]
+    pw, st = split_group("gaussian:5")
+    for name, fn in (("K2", lambda: ck.stream_stencil(pw, st, view, batched=True)),
+                     ("K4", lambda: ck.fused_stage([st], view, batched=True)),
+                     ("K6", lambda: sk.swar_stencil(st, view[..., 0], batched=True))):
+        try:
+            fn()
+        except ValueError as e:
+            if "contiguous" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} took a non-contiguous stack")
+    for backend, plan in (("cuda", "off"), ("cuda", "fused-pallas"), ("swar", "off")):
+        spec = "gaussian:5,emboss:3"
+        got = Pipeline.parse(spec).batched(backend, device=device, plan=plan)(view)
+        for t in range(view.shape[0]):
+            check_equal(f"batched {backend}/{plan} non-contiguous image {t}", got[t],
+                        Pipeline.parse(spec)(view[t].contiguous()))
+
+
+def batched_run(spec, backend, plan, stack, device) -> tuple:
+    """The batched run of `spec` over `stack`: its output and launches, the
+    launches of one image's run through Pipeline.jit, and the device ms of
+    the stack's call and of one call per image."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    pipe = Pipeline.parse(spec)
+    fb = pipe.batched(backend, device=device, plan=plan)
+    f1 = pipe.jit(backend, device=device, plan=plan)
+    ck.reset_launch_counts()
+    f1(stack[0])
+    torch.cuda.synchronize()
+    single = ck.launch_counts()
+    ck.reset_launch_counts()
+    out = fb(stack)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    t_stack = device_time_ms(lambda: fb(stack), reps=5, inner=2)
+    t_single = device_time_ms(lambda: [f1(x) for x in stack], reps=5, inner=2)
+    return out, counts, single, t_stack, t_single
+
+
+def phase11_batched_paths(device, rows, store) -> dict:
+    """The batched main paths at 8K: a stack of BATCH_N RGB frames (seeds
+    0..3) through Pipeline.batched on each route of BATCH_ROUTES for the
+    three workloads (and the SWAR gray workloads under swar), `auto` with
+    the calibration store `store` that phase 5 recorded (with no store it
+    would run exactly cuda --plan off), the rest with none; each image
+    byte-equal to Pipeline.parse(spec)(image), each route's launches equal
+    to one image's (one launch per group per stack, not N); device ms per
+    stack and per image beside N single calls. Then the batched kernels'
+    rows of the `kernels` line, at the stack's shapes."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import swar_kernels as sk
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    stack = stack_of(BATCH_N, (MAIN_H, MAIN_W), 3, 0, device)
+    launches = {}
+    with knobs(MCIM_NO_CALIB="1", MCIM_PREFER_SWAR=None, MCIM_PREFER_MXU=None, MCIM_PLAN=None,
+               MCIM_CALIB_FILE=store):
+        work = [(k, s, r) for k, s in SPECS.items() for r in BATCH_ROUTES]
+        work += [(k, s, ("swar", "off")) for k, s in BATCH_SWAR_EXTRA.items()]
+        goldens = {}
+        for key, spec, (backend, plan) in work:
+            if key not in goldens:
+                gold = Pipeline.parse(spec)
+                goldens[key] = [gold(stack[t]) for t in range(BATCH_N)]
+            with knobs(MCIM_NO_CALIB=None if backend == "auto" else "1"):
+                out, counts, single, t_stack, t_single = batched_run(spec, backend, plan,
+                                                                      stack, device)
+            for t in range(BATCH_N):
+                check_equal(f"batched {key} {backend}/{plan} image {t}", out[t],
+                            goldens[key][t])
+            # (the whole-op banded products launch nothing on gaussian:5)
+            if counts != single or (backend != "mxu" and not any(counts.values())):
+                raise AssertionError(f"batched {key} {backend}/{plan}: launches {counts}, one "
+                                     f"image's {single}")
+            launches[key, backend, plan] = {k: v for k, v in counts.items() if v}
+            print(f"phase 11: batched {key} [{spec}] {backend}/{plan} N={BATCH_N} x "
+                  f"{MAIN_H}x{MAIN_W} RGB: == golden per image, launches "
+                  f"{launches[key, backend, plan]} (one image's too); device {t_stack:.4f} ms "
+                  f"per stack, {t_stack / BATCH_N:.4f} ms per image; {BATCH_N} single calls "
+                  f"{t_single:.4f} ms ({t_single / BATCH_N:.4f} ms per image, "
+                  f"ratio {t_stack / t_single:.3f})")
+    del goldens
+
+    n_pix = BATCH_N * MAIN_H * MAIN_W
+    k2 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/stream_stencil.cu"
+    k4 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/fused_stage.cu"
+
+    def record(name, source, replaces, launch_count, fn, plain, c_in, c_out, ops,
+               library=None, ops_ms=None):
+        """One batched kernel's row: the kernel on the stack beside its plain
+        version image by image; the bound counts every image's bytes and
+        operations."""
+        got, want = fn(), plain()
+        err = int((got.int() - want.int()).abs().max().item())
+        if err:
+            raise AssertionError(f"{name}: kernel != plain, max abs err {err}")
+        ms = device_time_ms(fn, reps=7)
+        plain_ms = device_time_ms(plain, warmup=1, reps=2, inner=1)
+        library_ms = device_time_ms(library, reps=7) if library is not None else None
+        bound_ms, bound_by = bound((c_in + c_out) * n_pix, op_count(ops, n_pix, c_in), ops_ms)
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launch_count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+        print(f"kernel {name}: {ms:.4f} ms ({ms / BATCH_N:.4f} per image), bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+              f"library {library_ms}, launches {launch_count}")
+
+    def plain_each(fn):
+        return lambda: torch.stack([fn(x) for x in stack])
+
+    def conv_batched(op, x):
+        """`conv_library` over a stack of RGB images or gray planes: one
+        depthwise float32 F.conv2d of the padded stack."""
+        import torch.nn.functional as F
+
+        h, k = op.halo, 2 * op.halo + 1
+        c = x.shape[3] if x.ndim == 4 else 1
+        planes = (x.permute(0, 3, 1, 2) if c > 1 else x[:, None]).float()
+        xf = F.pad(planes, (h, h, h, h), mode="reflect")
+        w = torch.as_tensor(op.kernels[0] * op.scale, dtype=torch.float32, device=x.device)
+        w = w.expand(c, 1, k, k).contiguous()
+        return lambda: F.conv2d(xf, w, groups=c)
+
+    pw5, st5 = split_group(SPECS["gaussian5_8k"])
+    conv5 = conv_batched(st5, stack)
+    record(f"K2 stream_stencil [gaussian5] batched N={BATCH_N}", k2,
+           "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
+           launches["gaussian5_8k", "cuda", "off"]["K2"],
+           lambda: ck.stream_stencil(pw5, st5, stack, batched=True),
+           plain_each(lambda x: ck.stream_stencil_plain(pw5, st5, x)), 3, 3, pw5 + [st5],
+           library=conv5)
+    pw, st = split_group(SPECS["reference"])
+    record(f"K2 stream_stencil [grayscale,contrast3.5,emboss3] batched N={BATCH_N}", k2,
+           "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:377",
+           launches["reference", "cuda", "off"]["K2"],
+           lambda: ck.stream_stencil(pw, st, stack, batched=True),
+           plain_each(lambda x: ck.stream_stencil_plain(pw, st, x)), 3, 1, pw + [st])
+    record(f"K4 fused_stage [gaussian5] batched N={BATCH_N}", k4,
+           "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
+           launches["gaussian5_8k", "cuda", "fused-pallas"]["K4"],
+           lambda: ck.fused_stage([st5], stack, batched=True),
+           plain_each(lambda x: ck.fused_stage_plain([st5], x)), 3, 3, [st5], library=conv5)
+    del conv5
+    ops = make_pipeline_ops(SPECS["reference"])
+    record(f"K4 fused_stage [grayscale,contrast3.5,emboss3] batched N={BATCH_N}", k4,
+           "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:993",
+           launches["reference", "cuda", "fused-pallas"]["K4"],
+           lambda: ck.fused_stage(ops, stack, batched=True),
+           plain_each(lambda x: ck.fused_stage_plain(ops, x)), 3, 1, ops)
+    for key in ("reference", "megakernel_ab"):
+        ops = make_pipeline_ops(SPECS[key])
+        arms = ck.stage_arms(ops, "on")
+        tc = sorted({K5_KEYS[a] for a in arms if a != "vpu"})
+        got = launches[key, "cuda", "fused-pallas-mxu"]
+        record(f"K4+{'+'.join(tc)} fused_stage [{','.join(op.name for op in ops)}] batched "
+               f"N={BATCH_N}", K5_SOURCE, K5_REPLACES, got.get(tc[0], 0),
+               lambda ops=ops, arms=arms: ck.fused_stage(ops, stack, arms=arms, batched=True),
+               plain_each(lambda x, ops=ops, arms=arms: ck.fused_stage_plain(ops, x, arms=arms)),
+               3, 1, ops, ops_ms=k5_ops_ms(ops, arms, n_pix, 3))
+    # K1 as one flat run: megakernel_ab's quantize:6 over the stack's gray
+    # planes (the batched path's one K1 group)
+    (pwm, stm), (pws, sts), (pwq, _) = ck.group_ops(make_pipeline_ops(SPECS["megakernel_ab"]))
+    sharp = ck.stream_stencil(pws, sts, ck.stream_stencil(pwm, stm, stack, batched=True),
+                              batched=True)
+    record(f"K1 pointwise_group [quantize6] batched N={BATCH_N} gray",
+           "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/pointwise.cu",
+           "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py:540",
+           launches["megakernel_ab", "cuda", "off"]["K1"],
+           lambda: ck.pointwise_group(pwq, sharp, batched=True),
+           lambda: torch.stack([ck.pointwise_group_plain(pwq, x) for x in sharp]), 1, 1, pwq,
+           library=lambda: torch.bitwise_and(sharp, QUANTIZE6_MASK))
+    del sharp
+    # K6-K8 on the swar paths' groups over the stack's gray planes
+    gray = ck.pointwise_group(split_group("grayscale")[0], stack, batched=True)
+    # (a lone stencil beside its convolution; a chain or a magnitude has no
+    # single PyTorch call)
+    for key, spec, kind in (("megakernel_ab", "contrast:3.5,gaussian:5", "K6-narrow"),
+                            ("gaussian7_gray", "gaussian:7", "K6-wide"),
+                            ("reference", "contrast:3.5,emboss:3", "K7"),
+                            ("sobel_gray", "sobel", "K8")):
+        ops = make_pipeline_ops(spec)
+        op, pre = ops[-1], ops[:-1]
+        group = sk.swar_group(op, pre, ())
+        assert group.kind == kind, (spec, group.kind)
+        lone = not pre and op.combine != "magnitude"
+        record(f"{kind} swar_stencil [{spec}] batched N={BATCH_N} gray", SWAR_SOURCE,
+               SWAR_REPLACES[kind[:2]], launches[key, "swar", "off"].get(kind, 0),
+               lambda op=op, pre=pre: sk.swar_stencil(op, gray, pre_ops=pre, batched=True),
+               lambda op=op, g=group: torch.stack([sk.swar_stencil_plain(
+                   op, x, pre_chain=g.pre_chain) for x in gray]), 1, 1, ops,
+               library=conv_batched(op, gray) if lone else None)
+    del gray, stack
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase12_data_parallel(device) -> None:
+    """Pipeline.data_parallel: 5 frames of 8K RGB over the 4-slot mesh of
+    the one card (padded to 8, two a slot), byte-equal per image, beside the
+    same stack batched on one device; host ms (synchronised)."""
+    import statistics
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+
+    stack = stack_of(5, (MAIN_H, MAIN_W), 3, 20, device)
+    pipe = Pipeline.parse(SPECS["reference"])
+    dp = pipe.data_parallel(sharded_mesh())
+    out = dp(stack)
+    for t in range(5):
+        check_equal(f"data_parallel image {t}", out[t], pipe(stack[t]))
+    fb = pipe.batched(device=device)
+
+    def host_ms(fn):
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    t_dp, t_b = host_ms(lambda: dp(stack)), host_ms(lambda: fb(stack))
+    print(f"phase 12: data_parallel [{SPECS['reference']}] N=5 x {MAIN_H}x{MAIN_W} over "
+          f"{N_SHARDS} slots of one card == golden per image; host {t_dp:.4f} ms "
+          f"(synchronised), batched on one device {t_b:.4f} ms")
+
+
+def phase13_2d(device, x8k) -> None:
+    """The 2-D tile-sharded runner (parallel/api2d) over a 2 x 2 mesh of the
+    one card: the 8K reference and gaussian:5 under torch and auto, serial
+    and overlap, plan fused, byte-equal to golden, with both exchange axes
+    counted; host ms (synchronised) beside the 1-D 4-slot runner on the same
+    golden ops."""
+    import statistics
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import make_mesh_2d
+
+    mesh = make_mesh_2d(*GRID_2D, devices=[device] * (GRID_2D[0] * GRID_2D[1]))
+
+    def host_ms(fn):
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    for key in ("reference", "gaussian5_8k"):
+        pipe = Pipeline.parse(SPECS[key])
+        want = pipe(x8k)
+        t_1d = host_ms(lambda: pipe.sharded(sharded_mesh(), backend="torch", plan="fused")(x8k))
+        for backend in ("torch", "auto"):
+            for halo_mode in HALO_MODES:
+                fn = pipe.sharded(mesh, backend=backend, halo_mode=halo_mode, plan="fused")
+                halo.exchanges.reset()
+                check_equal(f"2-D {key} {backend}/{halo_mode}", fn(x8k), want)
+                rounds = dict(halo.exchanges.axis_rounds)
+                if not rounds["rows"] or not rounds["cols"]:
+                    raise AssertionError(f"2-D {key}: exchange rounds {rounds}")
+                t = host_ms(lambda: fn(x8k))
+                print(f"phase 13: 2-D {GRID_2D[0]}x{GRID_2D[1]} {key} [{SPECS[key]}] "
+                      f"{backend}/{halo_mode} plan=fused at {MAIN_H}x{MAIN_W}: == golden, "
+                      f"rounds {rounds}, host {t:.4f} ms (synchronised); the 1-D {N_SHARDS}-slot "
+                      f"runner on the same torch ops {t_1d:.4f} ms")
+
+
+def phase14_guard(device, x8k) -> None:
+    """`run --impl cuda` on the 8K reference (a PNG in a temporary
+    directory) in a subprocess, unguarded and with `--device-timeout 300`:
+    both exit 0 and their outputs are byte-equal; with a budget of 0.01 s,
+    exit code 4 and no output. Prints both wall times (the guard's
+    overhead: the watchdog child's start-up and the kernels' load) beside
+    the child's two windows."""
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import load_image, save_image
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(src, out, *extra):
+        cmd = [sys.executable, "-m", "mpi_cuda_imagemanipulation_tpu_torch", "run",
+               "--input", src, "--output", out, "--impl", "cuda", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                              stdin=subprocess.DEVNULL)
+        return proc, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="mcim_guard_") as td:
+        src = os.path.join(td, "in.png")
+        plain, guarded, late = (os.path.join(td, f"{n}.png") for n in ("plain", "guarded", "late"))
+        save_image(src, x8k.cpu().numpy())
+        p_plain, wall_plain = run(src, plain)
+        p_guard, wall_guard = run(src, guarded, "--device-timeout", "300", "--show-timing",
+                                  "--json-metrics", "-")
+        for name, proc in (("unguarded", p_plain), ("guarded", p_guard)):
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} run: rc {proc.returncode}: {proc.stderr[-2000:]}")
+        rec = json.loads(p_guard.stdout.strip().splitlines()[-1])
+        if rec["guarded"] is not True or not np.array_equal(load_image(guarded),
+                                                            load_image(plain)):
+            raise AssertionError("guarded run: output differs from the unguarded run's")
+        p_late, wall_late = run(src, late, "--device-timeout", "0.01")
+        if p_late.returncode != 4 or os.path.exists(late):
+            raise AssertionError(f"guarded run over budget: rc {p_late.returncode}, "
+                                 f"{p_late.stderr[-1000:]}")
+    print(f"phase 14: run --impl cuda on the 8K reference PNG: unguarded wall {wall_plain:.3f} s, "
+          f"--device-timeout 300 wall {wall_guard:.3f} s (byte-equal output; the child's first "
+          f"call {rec['compile_and_run_s']:.4f} s, steady {rec['steady_s'] * 1e3:.4f} ms on the "
+          f"host clock, synchronised, the numpy input's copy to the card included); a 0.01 s "
+          f"budget exits 4 after {wall_late:.3f} s")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -3779,6 +4284,11 @@ def main() -> int:
     phase7_trace(device, x8k)
     phase8_recorder(device)
     phase9_online(device, x8k, store)
+    phase10_batched_kernels(device)
+    phase11_batched_paths(device, rows, store)
+    phase12_data_parallel(device)
+    phase13_2d(device, x8k)
+    phase14_guard(device, x8k)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

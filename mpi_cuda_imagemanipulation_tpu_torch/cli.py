@@ -9,10 +9,13 @@ tensor-core route
 (``--impl mxu``), the SWAR kernels (``--impl swar``) or PyTorch ops
 (``--impl torch``), in the execution structure ``--plan`` selects
 (models/pipeline.py says what each pair runs). ``--shards N`` row-shards
-the image over N devices with ghost-strip exchange (parallel/api.py); under
+the image over N devices with ghost-strip exchange (parallel/api.py), and
+``--shards RxC`` tile-shards it over a 2-D mesh (parallel/api2d.py); under
 ``torchrun`` every rank runs the same command and holds its share of the
-shards. ``autotune`` measures the routes of one choice on the card and
-records the fastest in the calibration store (utils/calibration.py), which
+shards. ``--device-timeout SECS`` runs the computation in a watchdog
+subprocess (utils/guard.py) and exits with code 4 when it overruns.
+``autotune`` measures the routes of one choice on the card and records
+the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
 records for a pipeline (``--online``: with the online tuning store's, and
 the plan the newest-wins rule picks). ``run --trace-out`` writes the run's
@@ -99,6 +102,13 @@ def _export_trace(args: argparse.Namespace, log) -> None:
         log.info("trace: %d events -> %s", n, args.trace_out)
 
 
+def _positive_float(v: str) -> float:
+    f = float(v)
+    if f <= 0:
+        raise argparse.ArgumentTypeError(f"--device-timeout must be positive, got {v}")
+    return f
+
+
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mpi_cuda_imagemanipulation_tpu_torch",
@@ -153,9 +163,12 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument(
         "--shards", default="1",
         help="shard the image over devices: N row-shards (the mpirun -np "
-        "analogue) with ghost-strip halo exchange; 1 = single device. With "
-        "--device cuda the first N cards (fewer raise), with --device cpu N "
-        "CPU slots; under torchrun each rank holds N / WORLD_SIZE shards",
+        "analogue) with ghost-strip halo exchange, or RxC tile-shards over a "
+        "2-D rows x cols mesh with the two-phase corner-carrying exchange "
+        "(tiles compute with the torch ops: --impl torch or auto); 1 = single "
+        "device. With --device cuda the first N (R * C) cards (fewer raise), "
+        "with --device cpu that many CPU slots; under torchrun each rank holds "
+        "an equal share of the shards",
     )
     run.add_argument(
         "--halo-mode", choices=("serial", "overlap"), default="serial",
@@ -177,6 +190,16 @@ def _build_parser() -> argparse.ArgumentParser:
         "--gray-output", action="store_true",
         help="write single-channel output instead of replicating gray to RGB "
         "(the reference replicates: kernel.cu:210)",
+    )
+    run.add_argument(
+        "--device-timeout", type=_positive_float, default=None, metavar="SECS",
+        help="run the device computation in a watchdog subprocess with this "
+        "wall-clock budget, so that a wedged device fails fast with a clean "
+        "error (exit code 4) instead of hanging the process (the reference "
+        "deadlocks its peers on a mid-collective failure, kernel.cu:150). The "
+        "budget covers the child's start-up and its first call, which builds "
+        "the CUDA kernels with nvcc (tens of seconds) where build/torch_kernels/ "
+        "holds no build of the sources yet",
     )
     run.add_argument("--show-timing", action="store_true", help="print timing")
     run.add_argument(
@@ -340,6 +363,8 @@ def _run(args: argparse.Namespace, root) -> int:
     from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
+    if args.device_timeout is not None:  # the child process owns the device
+        return _run_guarded(args, root)
     pmesh.distributed_init(args.device)  # no-op unless launched by torchrun
     dev = pmesh.rank_device(args.device)
     pipe = Pipeline.parse(args.ops)
@@ -417,6 +442,7 @@ def _run(args: argparse.Namespace, root) -> int:
             "plan": args.plan,
             "shards": args.shards,
             "halo_mode": args.halo_mode,
+            "guarded": False,
             "halo_exchanges": exchange_rounds,
             "plan_metrics": plan_metrics.snapshot(),
             "plan_fallbacks": dict(plan_metrics.pallas_fallbacks),
@@ -433,6 +459,87 @@ def _run(args: argparse.Namespace, root) -> int:
             "mp_per_s": mp / (steady_ms / 1e3) if steady_ms else None,
         }
         emit_json_metrics(rec, args.json_metrics)
+    return 0
+
+
+def _run_guarded(args: argparse.Namespace, root) -> int:
+    """`run --device-timeout`: the pipeline in a watchdog subprocess
+    (utils/guard.py) on --device. The shard spec and --impl are checked here,
+    before the child starts. On a timeout the error is logged, the root
+    span marked, and the exit code is 4; the child's two synchronised
+    windows feed --show-timing and --json-metrics. Under torchrun each
+    rank's child joins the process group, and rank 0 writes."""
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+        gray_to_rgb,
+        load_image,
+        save_image,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import parse_shards
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.guard import (
+        DeviceTimeoutError,
+        run_guarded,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
+
+    log = get_logger()
+    _n_r, n_c = parse_shards(args.shards)
+    if n_c is not None and args.impl not in ("torch", "auto"):
+        raise ValueError(
+            "2-D sharding (--shards RxC) computes tiles with the torch ops; use "
+            f"--impl torch or auto (got {args.impl!r})"
+        )
+    with obs_trace.span("run.load", parent=root.context(), path=args.input):
+        img = load_image(args.input)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    try:
+        with obs_trace.span("run.compile_and_run", parent=root.context(), guarded=True):
+            out = run_guarded(
+                args.ops, img, args.device_timeout, impl=args.impl, block_h=args.block,
+                shards=args.shards, halo_mode=args.halo_mode, timings=timings,
+                device=args.device, plan=args.plan,
+            )
+    except DeviceTimeoutError as e:
+        log.error("%s", e)
+        root.set(error="DeviceTimeoutError")
+        return 4
+    first_s = timings.get("compile_and_run_s", time.perf_counter() - t0)
+    steady_s = timings.get("steady_s")
+    if not args.gray_output and out.ndim == 2:
+        out = gray_to_rgb(out)
+    writes = int(os.environ.get("RANK", "0")) == 0
+    if writes:
+        with obs_trace.span("run.save", parent=root.context(), path=args.output):
+            save_image(args.output, out)
+    mp = img.shape[0] * img.shape[1] / 1e6
+    if args.show_timing and writes:
+        steady = (f"steady-state {steady_s * 1e3:.4f} ms host ({mp / steady_s:.1f} MP/s)"
+                  if steady_s else "steady-state timing unavailable")
+        print(
+            f"pipeline [{args.ops}] impl={args.impl} shards={args.shards} "
+            f"device={args.device} (guarded): first call {first_s * 1e3:.3f} ms, {steady}"
+        )
+    if args.json_metrics and writes:
+        emit_json_metrics(
+            {
+                "event": "run",
+                "ops": args.ops,
+                "impl": args.impl,
+                "shards": args.shards,
+                "halo_mode": args.halo_mode,
+                "guarded": True,
+                "device": args.device,
+                # synchronised windows in the child, on the host clock
+                "clock": "host",
+                "height": img.shape[0],
+                "width": img.shape[1],
+                "compile_and_run_s": first_s,
+                "steady_s": steady_s,
+                "mp_per_s": mp / steady_s if steady_s else None,
+            },
+            args.json_metrics,
+        )
     return 0
 
 

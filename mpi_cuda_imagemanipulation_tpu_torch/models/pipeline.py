@@ -42,7 +42,10 @@ plan: a barrier stage of the plan, a group of their own in the K1/K2,
 SWAR and banded routes.
 
 ``Pipeline.sharded`` runs the same pipeline row-sharded over a mesh of
-devices with ghost-strip exchange (parallel/api.py).
+devices with ghost-strip exchange (parallel/api.py), or tile-sharded over
+a 2-D mesh (parallel/api2d.py). ``Pipeline.batched`` runs it over a stack
+of same-shape images, each kernel group one launch for the whole stack,
+and ``Pipeline.data_parallel`` splits a stack over a mesh's slots.
 
 Every combination gives the same u8 bytes.
 """
@@ -70,9 +73,10 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
     mxu_mode,
     pipeline_mxu,
 )
-from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op
+from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import Op, one_image, per_image
 from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import pipeline_swar, prefer_swar
-from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import sharded_pipeline
+from mpi_cuda_imagemanipulation_tpu_torch.parallel.api import gather_slots, sharded_pipeline
+from mpi_cuda_imagemanipulation_tpu_torch.parallel.api2d import sharded_pipeline_2d
 from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan, resolve_plan_mode
 from mpi_cuda_imagemanipulation_tpu_torch.plan.cuda_exec import plan_callable_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.plan.exec import plan_callable
@@ -83,6 +87,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import (
     per_shape,
     resolve_device,
 )
+from mpi_cuda_imagemanipulation_tpu_torch.utils.log import get_logger
 
 BACKENDS = ("torch", "cuda", "mxu", "swar", "auto")
 __all__ = ["BACKENDS", "PLAN_MODES", "Pipeline", "reference_cpu_pipeline", "reference_pipeline"]
@@ -119,29 +124,32 @@ class Pipeline:
 
     def _build(self, backend: str, block_h: int | None, plan: str, width: int, device,
                swar: bool):
-        """The image -> image function of this (backend, plan) for images
-        `width` columns wide on `device`, every decision that reads the
-        environment or the calibration store made here."""
+        """The (N, H, W[, C]) stack -> stack function of this (backend,
+        plan) for images `width` columns wide on `device`, every decision
+        that reads the environment or the calibration store made here: each
+        kernel group one launch over the stack, the golden ops and the
+        walker per image. One image runs as a stack of one (`one_image`)."""
         mode = resolve_plan_mode(self.ops, plan, backend=backend, width=width, device=device)
         if mode != "off":
             built = build_plan(self.ops, mode)
             mxu_stage = "on" if mode == "fused-pallas-mxu" else None
             if mode in ("fused-pallas", "fused-pallas-mxu") and backend != "torch":
                 impl = "mxu" if backend == "mxu" else "cuda"
-                return plan_callable_cuda(built, block_h=block_h, mxu_stage=mxu_stage, impl=impl)
+                return plan_callable_cuda(built, block_h=block_h, mxu_stage=mxu_stage, impl=impl,
+                                          batched=True)
             impl = "mxu" if backend == "mxu" else "torch"
-            return plan_callable(built, impl=impl, mxu_stage=mxu_stage)
+            return partial(per_image, plan_callable(built, impl=impl, mxu_stage=mxu_stage))
         if backend == "torch":
-            return self.apply
+            return partial(per_image, self.apply)
         if backend == "mxu":
             return partial(pipeline_mxu, self.ops, block_h=block_h, mode=mxu_mode(),
-                           col_variant=mxu_col_variant())
+                           col_variant=mxu_col_variant(), batched=True)
         if backend == "auto":
             return auto_runner(self.ops, width, device, block_h=block_h, swar=swar)
         impl = "swar" if backend == "swar" else "cuda"
         tile = None if block_h is not None else calibrated_tile(impl, width, device)
         runner = pipeline_swar if backend == "swar" else pipeline_cuda
-        return partial(runner, self.ops, block_h=block_h, calibrated=tile)
+        return partial(runner, self.ops, block_h=block_h, calibrated=tile, batched=True)
 
     def jit(
         self,
@@ -170,12 +178,105 @@ class Pipeline:
         dev = resolve_device(device)
         check_plan(plan, backend)
         swar = backend == "auto" and prefer_swar()
-        fn = per_shape(
-            lambda img: self._build(backend, block_h, plan, img.shape[1], img.device, swar)
-        )
+        fn = per_shape(lambda img: one_image(
+            self._build(backend, block_h, plan, img.shape[1], img.device, swar)))
 
         def run(img) -> torch.Tensor:
             return fn(as_image_tensor(img, dev))
+
+        return run
+
+    def batched(
+        self,
+        backend: str = "cuda",
+        *,
+        device: str | torch.device | None = None,
+        plan: str = "auto",
+    ):
+        """An (N, H, W[, C]) -> (N, ...) function over a stack of same-shape
+        uint8 images on `device` (default CUDA), the counterpart of the JAX
+        package's ``Pipeline.batched`` (``jax.vmap``, under which each
+        Pallas kernel takes the batch as an extra grid dimension). Here the
+        batch is a dimension written out: each kernel group is one launch
+        over the whole stack, counted once (K1 as one flat run of pixels,
+        K2, K4/K5 and K6-K8 on their batch axis, grid z), and the banded
+        products contract the stack as batched ``torch.matmul`` products.
+        Image i of the result equals ``self.jit(backend, plan=plan)(stack[i])``
+        byte for byte, on every backend and plan.
+
+        What runs per image: the golden ops (``backend='torch'``), the
+        PyTorch stage walker (plans 'pointwise' and 'fused'), and the
+        geometric and global-statistics ops between the batched groups (a
+        statistic reduces over its own image, as under vmap). The route is
+        built once per image shape (H, W, C), whatever the stack's length.
+        The stack is made contiguous on `device` first: the kernels take
+        each image at a fixed stride from the first.
+
+        The JAX package's ``donate=`` (the input buffer recycled into the
+        output) waits for ``Pipeline.jit(donate=True)``, which comes with
+        the engine and streaming runners."""
+        dev = resolve_device(device)
+        check_plan(plan, backend)
+        swar = backend == "auto" and prefer_swar()
+        fn = per_shape(
+            lambda st: self._build(backend, None, plan, st.shape[2], st.device, swar),
+            key=lambda st: st.shape[1:],
+        )
+
+        def run(imgs) -> torch.Tensor:
+            stack = as_image_tensor(imgs, dev)
+            if stack.ndim not in (3, 4) or stack.shape[0] < 1:
+                raise ValueError(
+                    f"expected a non-empty (N, H, W[, C]) stack, got shape {tuple(stack.shape)}"
+                )
+            return fn(stack)
+
+        return run
+
+    def data_parallel(self, mesh, backend: str = "cuda", plan: str = "auto"):
+        """An (N, H, W[, C]) -> (N, ...) function with the stack split over
+        `mesh`'s slots (parallel/mesh.make_mesh or make_mesh_2d, in slot
+        order): each slot runs the whole pipeline (`batched`) on its chunk
+        of the images on its own device, and the chunks are gathered on the
+        first slot's device. The counterpart of the JAX package's
+        ``Pipeline.data_parallel``: images are independent, so the only
+        communication is the gather; a global-statistics op reduces per
+        image. N need not divide the slot count: the stack is padded by
+        repeating its last image and the padding is sliced off, as in the
+        JAX package, so every chunk has the same length.
+
+        Under ``torch.distributed`` every rank calls it with the same stack
+        and computes the chunks of its own slots; as ``Pipeline.sharded``
+        does, the rank that holds slot 0 receives the other ranks' chunks
+        and returns the whole result, and every other rank returns its own
+        chunks (padding included where they hold the last slot)."""
+        n_slots = len(mesh.devices)
+        slots = mesh.local_slots
+        fns = {d: self.batched(backend, device=d, plan=plan)
+               for d in dict.fromkeys(mesh.devices[s] for s in slots)}
+        root = mesh.devices[slots[0]]
+
+        def run(imgs) -> torch.Tensor:
+            stack = torch.as_tensor(imgs)
+            if stack.dtype != torch.uint8:
+                raise TypeError(f"expected a uint8 stack, got {stack.dtype}")
+            if stack.ndim not in (3, 4) or stack.shape[0] < 1:
+                raise ValueError(
+                    f"expected a non-empty (N, H, W[, C]) stack, got shape {tuple(stack.shape)}"
+                )
+            n = stack.shape[0]
+            pad = -n % n_slots
+            if pad:
+                stack = torch.cat([stack, stack[-1:].expand((pad,) + tuple(stack.shape[1:]))])
+            per = stack.shape[0] // n_slots
+            outs = [
+                fns[mesh.devices[s]](stack[s * per : (s + 1) * per]).to(root, non_blocking=True)
+                for s in slots
+            ]
+            local = gather_slots(mesh, torch.cat(outs))
+            if mesh.distributed and mesh.rank != mesh.ranks[0]:
+                return local
+            return local[:n]
 
         return run
 
@@ -216,8 +317,32 @@ class Pipeline:
         `plan='fused-pallas'` runs each eligible stage as one K4g launch per
         shard over that same pre-exchanged halo ('fused-pallas-mxu': with
         every eligible stencil on K5). Byte-identical output in every
-        combination."""
-        fn = sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
+        combination.
+
+        On a 2-D ('rows', 'cols') mesh (parallel/mesh.make_mesh_2d) the
+        image is tile-sharded with the two-phase corner-carrying exchange
+        (parallel/api2d.py, the counterpart of the JAX package's
+        ``sharded_pipeline_2d``): the tiles compute with the golden ops,
+        so `backend` must be 'torch' or 'auto' (the JAX package's 'xla' and
+        'auto'), and 'auto' says so at INFO; a fused plan stage pays one
+        two-phase exchange round. Under a process group the ranks that do
+        not hold slot 0 return their own tiles, stacked."""
+        if len(mesh.axis_names) == 2:
+            if backend not in ("torch", "auto"):
+                raise ValueError(
+                    "2-D sharding computes tiles with the golden torch ops (the "
+                    "row-shard kernels are full-width by design, parallel/api2d "
+                    f"docstring); use backend 'torch' or 'auto', got {backend!r}"
+                )
+            if backend == "auto":
+                get_logger().info(
+                    "2-D mesh: tile compute uses the torch ops (the row-shard "
+                    "kernels are 1-D full-width by design; parallel/api2d.py "
+                    "scope note)"
+                )
+            fn = sharded_pipeline_2d(self, mesh, halo_mode=halo_mode, plan=plan)
+        else:
+            fn = sharded_pipeline(self, mesh, backend=backend, halo_mode=halo_mode, plan=plan)
         mesh_shape = dict(mesh.shape)
         mesh_desc = str(mesh_shape)  # hoisted: no per-call build
 

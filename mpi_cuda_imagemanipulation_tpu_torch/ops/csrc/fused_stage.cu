@@ -31,6 +31,11 @@
 //           rewrite therefore fires only on the shards whose tile touches
 //           the image's first or last row. Context rows that are real
 //           neighbour rows are never rewritten. It writes local_h rows.
+//           Full mode takes a stack of same-shape images (the batched
+//           pipeline under plan='fused-pallas[-mxu]'; the JAX package's
+//           vmap of the Pallas megakernel, whose rule adds a grid
+//           dimension): grid z is the image, each at its own input and
+//           output stride, so a stage over a stack is one launch.
 // The stage: a table in device memory (ops/cuda_kernels.stage_program,
 //           built once per stage and copied once per card), its ops in
 //           order as PwOp rows (a pointwise opcode and its parameter, or
@@ -105,6 +110,8 @@
 #define FS_THREADS 256
 #define FS_WARPS (FS_THREADS / 32)
 #define FS_MAX_DEVICES 16
+// images of one full-mode launch: CUDA's limit on grid z
+#define FS_MAX_IMAGES 65535
 #define FS_OP_STENCIL 100  // ops[k].op = FS_OP_STENCIL + j runs stencil j
 // Blocks an SM must hold, which sets the registers a thread: five for the
 // 3x3 class (48 registers), four for the others and for the tensor-core
@@ -203,7 +210,26 @@ struct FsArgs {
   // whose weights the store-fused last step then reads as kernel
   // parameters, as K2 reads its one stencil's
   StencilDesc last;
+  // the batch axis (full mode): grid z is the image of a stack, image i
+  // at `in + i * in_stride` and `out + i * out_stride` (bytes; 0 in
+  // ghost mode, whose grid z is 1)
+  long long in_stride, out_stride;
 };
+
+// This block's image of the stack: its input and output, offsets in 64
+// bits (a stack of 8K RGB frames passes 2^31 bytes at its 22nd).
+__device__ __forceinline__ const unsigned char* fs_in(const FsArgs& A) {
+  return A.in + (long long)blockIdx.z * A.in_stride;
+}
+// The output's image index is read anew in each store pass (a volatile
+// read the compiler cannot hoist), so that no 64-bit image pointer stays
+// live in registers across the stage body, where K5's tensor-core arm
+// spills.
+__device__ __forceinline__ unsigned char* fs_out(const FsArgs& A) {
+  unsigned z;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+  return A.out + (long long)z * A.out_stride;
+}
 
 // The current window region of one block: `rows` x `cols` positions from
 // buffer offset 0, whose (0, 0) is global position (gy0, gx0).
@@ -347,15 +373,15 @@ __device__ __forceinline__ void fs_trail4(uint32_t (&w)[3], const PwOp* trail, i
   }
 }
 
-// Stores four outputs of the tile at (ly, lx), each channel c's four in
-// the packed word w[c]: one 4-byte word per channel where the row pitch
-// allows (RGB interleaved by byte permutes: r0 g0 b0 r1 | g1 b1 r2 g2 |
-// b2 r3 g3 b3), else bytes.
-__device__ __forceinline__ void fs_store4(const FsArgs& A, int x0, int y0, int ly, int lx,
-                                          int cols_out, bool vec_store,
+// Stores four outputs of the tile at (ly, lx) into the block's image
+// `out` (fs_out), each channel c's four in the packed word w[c]: one
+// 4-byte word per channel where the row pitch allows (RGB interleaved by
+// byte permutes: r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3), else bytes.
+__device__ __forceinline__ void fs_store4(unsigned char* out, const FsArgs& A, int x0, int y0,
+                                          int ly, int lx, int cols_out, bool vec_store,
                                           const uint32_t (&w)[3]) {
   const int c_out = A.c_out;
-  unsigned char* o = A.out + ((long long)(y0 - A.out_row0 + ly) * A.W + x0 + lx) * c_out;
+  unsigned char* o = out + ((long long)(y0 - A.out_row0 + ly) * A.W + x0 + lx) * c_out;
   if (vec_store && lx + 4 <= cols_out && c_out == 1) {
     *reinterpret_cast<uint32_t*>(o) = w[0];
   } else if (vec_store && lx + 4 <= cols_out) {
@@ -383,7 +409,8 @@ __device__ void fs_store_tile(const unsigned char* a, int P, int plane, int n_cu
   const int th = A.tile_h, tw = A.tile_w;
   const int rows_out = min(th, A.out_row0 + A.out_rows - y0), cols_out = min(tw, A.W - x0);
   const int lg = 31 - __clz(tw >> 2);
-  const bool vec_store = (A.W & 3) == 0 && ((uintptr_t)A.out & 3) == 0;
+  unsigned char* const out = fs_out(A);
+  const bool vec_store = (A.W & 3) == 0 && ((uintptr_t)out & 3) == 0;
   for (int i = threadIdx.x; i < th << lg; i += FS_THREADS) {
     const int ly = i >> lg;
     const int lx = 4 * (i & ((tw >> 2) - 1));
@@ -394,7 +421,7 @@ __device__ void fs_store_tile(const unsigned char* a, int P, int plane, int n_cu
       w[c] = c < n_cur ? *reinterpret_cast<const uint32_t*>(a + c * plane + ly * P + lx) : 0u;
     }
     fs_trail4(w, trail, n_trail, n_cur);
-    fs_store4(A, x0, y0, ly, lx, cols_out, vec_store, w);
+    fs_store4(out, A, x0, y0, ly, lx, cols_out, vec_store, w);
   }
 }
 
@@ -503,7 +530,8 @@ __device__ void fs_stencil_store(const unsigned char* a, float* f, int n_planes,
     __syncthreads();
   }
   const int rows_out = min(o.rows, A.out_row0 + A.out_rows - y0), cols_out = min(o.cols, A.W - x0);
-  const bool vec_store = (A.W & 3) == 0 && ((uintptr_t)A.out & 3) == 0;
+  unsigned char* const out = fs_out(A);
+  const bool vec_store = (A.W & 3) == 0 && ((uintptr_t)out & 3) == 0;
   for (int i = threadIdx.x; i < o.rows << lg; i += FS_THREADS) {
     const int ly = i >> lg;
     const int lx = 4 * (i & ((int)strips - 1));
@@ -532,7 +560,7 @@ __device__ void fs_stencil_store(const unsigned char* a, float* f, int n_planes,
       }
     }
     fs_trail4(w, trail, n_trail, n_planes);
-    fs_store4(A, x0, y0, ly, lx, cols_out, vec_store, w);
+    fs_store4(out, A, x0, y0, ly, lx, cols_out, vec_store, w);
   }
 }
 
@@ -563,8 +591,8 @@ fused_stage_kernel(const __grid_constant__ FsArgs A) {
     reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(A.table)[i];
   }
   const StCols cols = st_cols(x0, tw, R, A.W);
-  st_row_sources_clamped<FS_THREADS>(rows, eh, y0 - R, A.in_row0, A.in_rows, cols, A.in, A.W,
-                                     A.c_in);
+  st_row_sources_clamped<FS_THREADS>(rows, eh, y0 - R, A.in_row0, A.in_rows, cols, fs_in(A),
+                                     A.W, A.c_in);
   __syncthreads();
   st_load_window<FS_THREADS>(smem + L.b_off, rows, eh, L.raw_pitch);
   st_load_wait();
@@ -713,7 +741,7 @@ fused_stage_kernel(const __grid_constant__ FsArgs A) {
 }
 
 template <int KMAX, bool kMma>
-static int fs_launch_k(const FsArgs& A, size_t smem, int device, cudaStream_t s) {
+static int fs_launch_k(const FsArgs& A, size_t smem, int n_img, int device, cudaStream_t s) {
   // the opt-in above 48 KB, once per instantiation, size and device
   static size_t opted[FS_MAX_DEVICES] = {};
   if (smem > 48 * 1024 && smem > opted[device]) {
@@ -722,7 +750,8 @@ static int fs_launch_k(const FsArgs& A, size_t smem, int device, cudaStream_t s)
     if (e != cudaSuccess) return (int)e;
     opted[device] = smem;
   }
-  const dim3 grid((A.W + A.tile_w - 1) / A.tile_w, (A.out_rows + A.tile_h - 1) / A.tile_h);
+  const dim3 grid((A.W + A.tile_w - 1) / A.tile_w, (A.out_rows + A.tile_h - 1) / A.tile_h,
+                  n_img);
   fused_stage_kernel<KMAX, kMma><<<grid, FS_THREADS, smem, s>>>(A);
   return (int)cudaGetLastError();
 }
@@ -738,17 +767,25 @@ static int fs_launch(const unsigned char* in, unsigned char* out, int H, int W, 
                      int c_smem, int c_out, int halo, int tile_h, int tile_w,
                      const unsigned char* table, const StencilDesc* last, int n_ops,
                      int n_stencils, int kmax, int mma, int two_pass, int in_row0, int in_rows,
-                     int out_row0, int out_rows, int device, void* stream) {
-  if (out_rows <= 0 || W <= 0) return 0;
+                     int out_row0, int out_rows, int n_img, long long in_stride,
+                     long long out_stride, int device, void* stream) {
+  if (out_rows <= 0 || W <= 0 || n_img == 0) return 0;
   if (device < 0 || device >= FS_MAX_DEVICES || n_ops < 1 || table == nullptr ||
-      n_stencils < 0 || c_in < 1 || c_in > 3 || c_out < 1 || c_out > 3) {
+      n_stencils < 0 || c_in < 1 || c_in > 3 || c_out < 1 || c_out > 3 || n_img < 0 ||
+      n_img > FS_MAX_IMAGES) {
     return (int)cudaErrorInvalidValue;
   }
   DeviceScope scope(device);
   if (scope.err) return scope.err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n_stencils == 0) {  // halo 0: `in` and `out` hold the same rows
-    return pw_run_launch(in, out, (long long)out_rows * W, c_in, c_out,
+  if (n_stencils == 0) {
+    // halo 0: `in` and `out` hold the same rows, and a stack of them is
+    // one flat run where its images lie back to back
+    const long long pix = (long long)out_rows * W;
+    if (n_img > 1 && (in_stride != pix * c_in || out_stride != pix * c_out)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return pw_run_launch(in, out, pix * n_img, c_in, c_out,
                          reinterpret_cast<const PwOp*>(table), n_ops, s);
   }
   const bool width_ok = tile_w == 32 || tile_w == 64 || tile_w == 128;
@@ -757,13 +794,13 @@ static int fs_launch(const unsigned char* in, unsigned char* out, int H, int W, 
   }
   FsArgs A{in,       out,      table,    H,        W,       c_in,       c_smem,
            c_out,    halo,     tile_h,   tile_w,   n_ops,   n_stencils, in_row0,
-           in_rows,  out_row0, out_rows, *last};
+           in_rows,  out_row0, out_rows, *last,    in_stride, out_stride};
   const size_t smem = fs_layout(c_in, c_smem, tile_h, tile_w, halo,
                                 fs_table_bytes(n_ops, n_stencils), two_pass != 0).total;
 #define FS_CASE(KMAX)                                                    \
   case KMAX:                                                             \
-    return mma ? fs_launch_k<KMAX, true>(A, smem, device, s)             \
-               : fs_launch_k<KMAX, false>(A, smem, device, s);
+    return mma ? fs_launch_k<KMAX, true>(A, smem, n_img, device, s)      \
+               : fs_launch_k<KMAX, false>(A, smem, n_img, device, s);
   switch (kmax) {
     FS_CASE(3)
     FS_CASE(5)
@@ -773,17 +810,22 @@ static int fs_launch(const unsigned char* in, unsigned char* out, int H, int W, 
 #undef FS_CASE
 }
 
-// K4: one fused stage over a whole (H, W) image, tiles of tile_h x tile_w
-// outputs, the stage table `table` (n_ops op rows, then n_stencils
-// FsStencil rows, in device memory) and its last stencil's descriptor
-// `last` in host memory (null for a stage with no stencil).
+// K4: one fused stage over a stack of `n_img` whole (H, W) images, image
+// i at `in + i * in_stride` and written to `out + i * out_stride` (bytes;
+// one image: n_img 1), tiles of tile_h x tile_w outputs, the stage table
+// `table` (n_ops op rows, then n_stencils FsStencil rows, in device
+// memory) and its last stencil's descriptor `last` in host memory (null
+// for a stage with no stencil). A tile never spans two images: grid z is
+// the image.
 extern "C" int fused_stage_launch(const unsigned char* in, unsigned char* out, int H, int W,
                                   int c_in, int c_smem, int c_out, int halo, int tile_h,
                                   int tile_w, const unsigned char* table,
                                   const StencilDesc* last, int n_ops, int n_stencils, int kmax,
-                                  int mma, int two_pass, int device, void* stream) {
+                                  int mma, int two_pass, int n_img, long long in_stride,
+                                  long long out_stride, int device, void* stream) {
   return fs_launch(in, out, H, W, c_in, c_smem, c_out, halo, tile_h, tile_w, table, last,
-                   n_ops, n_stencils, kmax, mma, two_pass, 0, H, 0, H, device, stream);
+                   n_ops, n_stencils, kmax, mma, two_pass, 0, H, 0, H, n_img, in_stride,
+                   out_stride, device, stream);
 }
 
 // K4g: one fused stage over a (local_h + 2 halo, W) extended shard tile
@@ -798,7 +840,7 @@ extern "C" int fused_stage_ext_launch(const unsigned char* ext, unsigned char* o
                                       void* stream) {
   return fs_launch(ext, out, image_h, W, c_in, c_smem, c_out, halo, tile_h, tile_w, table,
                    last, n_ops, n_stencils, kmax, mma, two_pass, row0 - halo,
-                   local_h + 2 * halo, row0, local_h, device, stream);
+                   local_h + 2 * halo, row0, local_h, 1, 0, 0, device, stream);
 }
 
 // K5's exactness probe: the raw f32 sums of one kernel of stencil `st`

@@ -26,6 +26,10 @@
 //           and last halo rows are the strips), with no pointwise chain,
 //           zero-mode columns read as 0, and no passthrough: its caller
 //           applies the interior mask.
+//           Full mode takes a stack of same-shape images (the batched
+//           pipeline; the JAX package's vmap of the Pallas kernel, whose
+//           rule adds a grid dimension): grid z is the image, each at its
+//           own input and output stride, so a stack is one launch.
 // Bound on the H100: device memory for every family but the 5x5 median.
 //           Each pixel reads c_in bytes and writes c_out bytes once: the 8K
 //           reference group (3 B in, 1 B out) takes at least 39.6 us at
@@ -81,6 +85,8 @@
 #define ST_MAX_TILE_W 128
 #define ST_MIN_TILE_W 32
 #define ST_MAX_DEVICES 16
+// images of one full-mode launch: CUDA's limit on grid z
+#define ST_MAX_IMAGES 65535
 
 // The block's shared memory, in order: the chain table (n_ops PwOp), the
 // window rows' sources, the post-pointwise u8 planes (c_out planes of
@@ -124,8 +130,14 @@ stream_stencil_kernel(const unsigned char* __restrict__ in, unsigned char* __res
                       int H, int W, int c_in, int c_out, const PwOp* __restrict__ chain,
                       int n_ops, const __grid_constant__ StencilDesc st, int tile_h,
                       int tile_w, int lg_strips, const unsigned char* __restrict__ top,
-                      const unsigned char* __restrict__ bot, int row0, int image_h) {
+                      const unsigned char* __restrict__ bot, int row0, int image_h,
+                      long long in_stride, long long out_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the batch axis: grid z is the image of a stack (full mode; 1 in the
+  // ghost modes), its offset taken in 64 bits (a stack of 8K RGB frames
+  // passes 2^31 bytes at its 22nd)
+  in += (long long)blockIdx.z * in_stride;
+  out += (long long)blockIdx.z * out_stride;
   constexpr int h = KS / 2;
   const int eh = tile_h + 2 * h;
   const int ew = tile_w + 2 * h;
@@ -288,7 +300,8 @@ template <int KS, int MODE>
 static int st_launch(const unsigned char* in, unsigned char* out, int H, int W, int c_in,
                      int c_out, const PwOp* chain, int n_ops, const StencilDesc* st, int tile_h,
                      int tile_w, const unsigned char* top, const unsigned char* bot, int row0,
-                     int image_h, int device, cudaStream_t stream) {
+                     int image_h, int n_img, long long in_stride, long long out_stride,
+                     int device, cudaStream_t stream) {
   const size_t smem =
       st_layout(c_in, c_out, tile_h, tile_w, st->halo, st->family, n_ops).total;
   // the opt-in above 48 KB, once per instantiation, size and device
@@ -302,10 +315,10 @@ static int st_launch(const unsigned char* in, unsigned char* out, int H, int W, 
   }
   int lg = 0;
   while ((4 << lg) < tile_w) ++lg;
-  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h);
+  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, n_img);
   stream_stencil_kernel<KS, MODE><<<grid, ST_THREADS, smem, stream>>>(
       in, out, H, W, c_in, c_out, chain, n_ops, *st, tile_h, tile_w, lg, top, bot, row0,
-      image_h);
+      image_h, in_stride, out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -316,11 +329,12 @@ template <int MODE>
 static int st_dispatch(const unsigned char* in, unsigned char* out, int H, int W, int c_in,
                        int c_out, const PwOp* chain, int n_ops, const StencilDesc* st,
                        int tile_h, int tile_w, const unsigned char* top,
-                       const unsigned char* bot, int row0, int image_h, int device,
-                       void* stream) {
-  if (H <= 0 || W <= 0) return 0;
+                       const unsigned char* bot, int row0, int image_h, int n_img,
+                       long long in_stride, long long out_stride, int device, void* stream) {
+  if (H <= 0 || W <= 0 || n_img == 0) return 0;
   const bool width_ok = tile_w == ST_MIN_TILE_W || tile_w == 64 || tile_w == ST_MAX_TILE_W;
   if (!width_ok || tile_h < 1 || device < 0 || n_ops < 0 || (n_ops > 0 && chain == nullptr) ||
+      n_img < 0 || n_img > ST_MAX_IMAGES || (MODE != ST_FULL && n_img != 1) ||
       c_in < 1 || c_in > 3 || c_out < 1 || c_out > 3 || (n_ops == 0 && c_in != c_out)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -330,7 +344,7 @@ static int st_dispatch(const unsigned char* in, unsigned char* out, int H, int W
 #define ST_CASE(KS)                                                                       \
   case KS:                                                                                \
     return st_launch<KS, MODE>(in, out, H, W, c_in, c_out, chain, n_ops, st, tile_h, tile_w, \
-                               top, bot, row0, image_h, device, s);
+                               top, bot, row0, image_h, n_img, in_stride, out_stride, device, s);
   switch (st->ksize) {
     ST_CASE(1)
     ST_CASE(3)
@@ -341,14 +355,19 @@ static int st_dispatch(const unsigned char* in, unsigned char* out, int H, int W
 #undef ST_CASE
 }
 
-// K2: the group over a whole (H, W) image, with the chain table `chain`
-// (n_ops PwOp in device memory), in tiles of tile_h x tile_w outputs.
+// K2: the group over a stack of `n_img` whole (H, W) images, image i at
+// `in + i * in_stride` and written to `out + i * out_stride` (bytes; one
+// image: n_img 1), with the chain table `chain` (n_ops PwOp in device
+// memory), in tiles of tile_h x tile_w outputs. A tile never spans two
+// images: grid z is the image.
 extern "C" int stream_stencil_launch(const unsigned char* in, unsigned char* out, int H, int W,
                                      int c_in, int c_out, const PwOp* chain, int n_ops,
-                                     const StencilDesc* st, int tile_h, int tile_w, int device,
+                                     const StencilDesc* st, int tile_h, int tile_w, int n_img,
+                                     long long in_stride, long long out_stride, int device,
                                      void* stream) {
   return st_dispatch<ST_FULL>(in, out, H, W, c_in, c_out, chain, n_ops, st, tile_h, tile_w,
-                              nullptr, nullptr, 0, H, device, stream);
+                              nullptr, nullptr, 0, H, n_img, in_stride, out_stride, device,
+                              stream);
 }
 
 // K2g: the group over a (local_h, W) row-shard whose first row is global
@@ -362,7 +381,7 @@ extern "C" int stream_stencil_ghost_launch(const unsigned char* tile, const unsi
                                            int device, void* stream) {
   if (st->halo < 1 || top == nullptr || bot == nullptr) return (int)cudaErrorInvalidValue;
   return st_dispatch<ST_GHOST>(tile, out, local_h, W, c_in, c_out, chain, n_ops, st, tile_h,
-                               tile_w, top, bot, row0, image_h, device, stream);
+                               tile_w, top, bot, row0, image_h, 1, 0, 0, device, stream);
 }
 
 // K3: the stencil alone (valid rows, quantized, no passthrough) over a
@@ -374,7 +393,7 @@ extern "C" int stencil_tile_launch(const unsigned char* ext, unsigned char* out,
   const long long strip = (long long)st->halo * W * c;
   return st_dispatch<ST_TILE>(ext + strip, out, local_h, W, c, c, nullptr, 0, st, tile_h,
                               tile_w, ext, ext + strip + (long long)local_h * W * c, 0, local_h,
-                              device, stream);
+                              1, 0, 0, device, stream);
 }
 
 // Dynamic shared memory one launch needs, for the host-side check.

@@ -34,6 +34,11 @@
 //           Ghost mode takes the rows above and below a (local_h, W) tile
 //           from two raw (halo, W) strips and follows the guard in global
 //           rows (row0, image_h).
+//           Full mode takes a stack of same-shape planes (the batched
+//           pipeline; the JAX package's vmap of the Pallas kernels, whose
+//           rule adds a grid dimension): grid z is the plane, each at its
+//           own input and output stride, so a group over a stack is one
+//           launch.
 // Bound on the H100: device memory. Each pixel is read once and written
 //           once (1 B + 1 B): an 8K gray plane (33.18 MP) cannot take less
 //           than 19.8 us at 3.35 TB/s, one 1080 x 7680 shard 5.0 us. The
@@ -116,6 +121,8 @@
 #define SW_MAX_K 7  // the largest kernel side with taps as kernel parameters
 #define SW_KK (SW_MAX_K * SW_MAX_K)
 #define SW_MAX_DEVICES 16
+// planes of one full-mode launch: CUDA's limit on grid z
+#define SW_MAX_IMAGES 65535
 
 enum SwKind { SW_K6_NARROW = 0, SW_K6_WIDE = 1, SW_K7 = 2, SW_K8 = 3 };
 enum SwEdge {
@@ -596,8 +603,12 @@ swar_stencil_kernel(const unsigned char* __restrict__ in,
                     unsigned char* __restrict__ out, int H, int W, int row0,
                     int image_h, const __grid_constant__ SwarDesc d,
                     const __grid_constant__ SwTapsOf<KIND> T, int tile_h, int tile_w,
-                    int lg_quads) {
+                    int lg_quads, long long in_stride, long long out_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the batch axis: grid z is the plane of a stack (full mode; 1 in ghost
+  // mode), its offset taken in 64 bits
+  in += (long long)blockIdx.z * in_stride;
+  out += (long long)blockIdx.z * out_stride;
   constexpr bool K6 = KIND == SW_K6_NARROW || KIND == SW_K6_WIDE;
   const int h = KS ? KS / 2 : d.halo;
   const int eh = tile_h + 2 * h;
@@ -866,7 +877,8 @@ template <int KIND, int KS, bool GHOST, bool F16 = false>
 static int sw_launch(const unsigned char* in, const unsigned char* top,
                      const unsigned char* bot, unsigned char* out, int H, int W, int row0,
                      int image_h, const SwarDesc* d, const SwarTaps* taps, int tile_h,
-                     int tile_w, int device, cudaStream_t stream) {
+                     int tile_w, int n_img, long long in_stride, long long out_stride,
+                     int device, cudaStream_t stream) {
   const size_t smem = sw_layout(KIND, tile_h, tile_w, d->halo, sw_table_words(*d)).total;
   // the opt-in above 48 KB, once per instantiation, size and device
   static size_t opted[SW_MAX_DEVICES] = {};
@@ -879,10 +891,10 @@ static int sw_launch(const unsigned char* in, const unsigned char* top,
   }
   int lg = 0;
   while ((8 << lg) < tile_w) ++lg;
-  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h);
+  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, n_img);
   swar_stencil_kernel<KIND, KS, GHOST, F16><<<grid, SW_THREADS, smem, stream>>>(
       in, top, bot, out, H, W, row0, image_h, *d, *reinterpret_cast<const SwTapsOf<KIND>*>(taps),
-      tile_h, tile_w, lg);
+      tile_h, tile_w, lg, in_stride, out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -894,8 +906,11 @@ template <bool GHOST>
 static int sw_dispatch(const unsigned char* in, const unsigned char* top,
                        const unsigned char* bot, unsigned char* out, int H, int W, int row0,
                        int image_h, const SwarDesc* d, const SwarTaps* taps, int tile_h,
-                       int tile_w, int device, cudaStream_t s) {
-#define SW_ARGS in, top, bot, out, H, W, row0, image_h, d, taps, tile_h, tile_w, device, s
+                       int tile_w, int n_img, long long in_stride, long long out_stride,
+                       int device, cudaStream_t s) {
+#define SW_ARGS                                                                        \
+  in, top, bot, out, H, W, row0, image_h, d, taps, tile_h, tile_w, n_img, in_stride, \
+      out_stride, device, s
   switch (d->kind) {
     case SW_K6_NARROW:
       switch (d->halo) {
@@ -937,14 +952,21 @@ static int sw_dispatch(const unsigned char* in, const unsigned char* top,
 // outputs (tile_w 64, 128 or 256), on `device` and `stream`. `taps` is the
 // dense kernel (read for a side of at most SW_MAX_K). Ghost mode when `top`
 // and `bot` are given: the plane is a row-shard and `top` / `bot` are its
-// raw (halo, W) ghost strips. Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for arguments the kernel does not take.
+// raw (halo, W) ghost strips. Full mode takes a stack of `n_img` planes,
+// plane i at `in + i * in_stride` and written to `out + i * out_stride`
+// (bytes; one plane: n_img 1): grid z is the plane, so a tile never spans
+// two. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int swar_stencil_launch(const unsigned char* in, const unsigned char* top,
                                    const unsigned char* bot, unsigned char* out, int H, int W,
                                    int row0, int image_h, const SwarDesc* d,
-                                   const SwarTaps* taps, int tile_h, int tile_w, int device,
+                                   const SwarTaps* taps, int tile_h, int tile_w, int n_img,
+                                   long long in_stride, long long out_stride, int device,
                                    void* stream) {
-  if (H <= 0 || W <= 0) return 0;
+  if (H <= 0 || W <= 0 || n_img == 0) return 0;
+  if (n_img < 0 || n_img > SW_MAX_IMAGES || (top != nullptr && n_img != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const bool width_ok = tile_w == 64 || tile_w == 128 || tile_w == 256;
   if (W % 4 || tile_h < 1 || !width_ok || d->halo < 0 || d->n_pre < 0 || d->n_post < 0 ||
       d->n_taps[0] < 0 || d->n_taps[1] < 0 || (d->table == nullptr && sw_table_words(*d) > 0) ||
@@ -957,10 +979,10 @@ extern "C" int swar_stencil_launch(const unsigned char* in, const unsigned char*
   const cudaStream_t s = (cudaStream_t)stream;
   if (top != nullptr) {
     return sw_dispatch<true>(in, top, bot, out, H, W, row0, image_h, d, taps, tile_h, tile_w,
-                             device, s);
+                             1, 0, 0, device, s);
   }
   return sw_dispatch<false>(in, top, bot, out, H, W, row0, image_h, d, taps, tile_h, tile_w,
-                            device, s);
+                            n_img, in_stride, out_stride, device, s);
 }
 
 // Dynamic shared memory one launch needs, and the structures' sizes, for

@@ -49,7 +49,14 @@ gives none, the launch reads as many channels as the record's sweep did,
 and the record fits the launch (``stencil_launch_shape``).
 
 The kernels read and write interleaved HWC u8 images in place: (H, W) for
-one channel, (H, W, 3) for three. Each wrapper takes its plain version only
+one channel, (H, W, 3) for three. The wrappers and runners are written for
+a contiguous (N, H, W[, C]) stack (``takes_stack``): one image runs as a
+stack of one, a stack (``Pipeline.batched``) is passed with
+``batched=True``. K1 takes the stack as one flat run of pixels, and K2,
+K4/K5 and the SWAR kernels K6-K8 take it on their batch axis, grid z
+(``batch_geometry``), so each group is one launch per stack and counts
+once; an op with no kernel program runs per image (``per_image``), as do
+the plain versions. Each wrapper takes its plain version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or
 raises. Each wrapper counts its launches in its ``launches`` attribute.
 """
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from functools import partial
 
 import numpy as np
 import torch
@@ -71,7 +79,10 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     PointwiseOp,
     StencilOp,
     chain_halo,
+    one_image,
     pad2d,
+    per_image,
+    takes_stack,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.ops.mxu_kernels import (
     check_stage_arm,
@@ -145,6 +156,11 @@ def _channels_after(pointwise: list[PointwiseOp], n_ch: int) -> int:
 
 def _channels(img: torch.Tensor) -> int:
     return 1 if img.ndim == 2 else img.shape[2]
+
+
+def _stack_channels(stack: torch.Tensor) -> int:
+    """Channels of each image of an (N, H, W[, C]) stack."""
+    return 1 if stack.ndim == 3 else stack.shape[3]
 
 
 # --------------------------------------------------------------------------
@@ -395,11 +411,41 @@ def _out_like(img: torch.Tensor, c_out: int, height: int | None = None) -> torch
     return img.new_empty((h, w) if c_out == 1 else (h, w, c_out))
 
 
+def _stack_like(stack: torch.Tensor, c_out: int) -> torch.Tensor:
+    """A fresh u8 stack beside the u8 stack `stack`: one (H, W[, c_out])
+    output per input image."""
+    n, h, w = stack.shape[:3]
+    return stack.new_empty((n, h, w) if c_out == 1 else (n, h, w, c_out))
+
+
 def _per_plane(fn, img: torch.Tensor) -> torch.Tensor:
     """`fn` on each channel plane of an (H, W) or (H, W, C) image."""
     if img.ndim == 3:
         return torch.stack([fn(img[..., c]) for c in range(img.shape[2])], dim=-1)
     return fn(img)
+
+
+# --------------------------------------------------------------------------
+# The batch axis: one launch over a stack of same-shape images
+# --------------------------------------------------------------------------
+
+# images of one launch: CUDA's limit on grid z (ST_MAX_IMAGES, FS_MAX_IMAGES
+# and SW_MAX_IMAGES in the sources)
+MAX_BATCH = 65535
+
+
+def batch_geometry(n: int, height: int, width: int, c_in: int,
+                   c_out: int) -> tuple[int, int, int]:
+    """(images, input stride, output stride) of one K2, K4 or K6-K8 launch
+    over a contiguous stack of `n` (height, width) images of `c_in`
+    channels in and `c_out` out, strides in bytes: the kernels' batch
+    axis, grid z, takes image i at ``i * stride`` (in 64 bits there; here
+    Python ints). One image is a stack of one. The input and output
+    strides differ where the group changes the channel count."""
+    if not 1 <= n <= MAX_BATCH:
+        raise ValueError(f"one launch takes 1 to {MAX_BATCH} images, got {n}")
+    pix = height * width
+    return n, pix * c_in, pix * c_out
 
 
 # the current stream's handle on a device, without building a Stream object
@@ -469,17 +515,20 @@ def pointwise_split(in_addr: int, out_addr: int, n_pix: int, c_in: int,
     return head, runs, tail, (in_addr + head * c_in) % 16
 
 
-def pointwise_group(pointwise: list[PointwiseOp], img: torch.Tensor) -> torch.Tensor:
+@takes_stack
+def pointwise_group(pointwise: list[PointwiseOp], stack: torch.Tensor) -> torch.Tensor:
     """K1 wrapper: one launch applies the whole pointwise chain, of any
-    length."""
-    chain = chain_for(pointwise, _channels(img))
-    dev = img.device
+    length. A contiguous stack is one flat run of N * H * W pixels, so it
+    too is one launch."""
+    c_in = _stack_channels(stack)
+    chain = chain_for(pointwise, c_in)
+    dev = stack.device
     if dev.type == "cpu":
-        return pointwise_group_plain(pointwise, img)
-    _check_cuda_input(img)
-    out = _out_like(img, chain.c_out)
+        return per_image(partial(pointwise_group_plain, pointwise), stack)
+    _check_cuda_input(stack)
+    out = _stack_like(stack, chain.c_out)
     rc = kr.load("pointwise").pointwise_launch(
-        img.data_ptr(), out.data_ptr(), img.shape[0] * img.shape[1], _channels(img),
+        stack.data_ptr(), out.data_ptr(), stack.numel() // c_in, c_in,
         chain.c_out, chain.ptr(dev), chain.n_ops, dev.index, stream_handle(dev),
     )
     _raise_on(rc, "pointwise")
@@ -505,10 +554,11 @@ def stream_stencil_plain(
     return stencil(post)
 
 
+@takes_stack
 def stream_stencil(
     pointwise: list[PointwiseOp],
     stencil: StencilOp,
-    img: torch.Tensor,
+    stack: torch.Tensor,
     *,
     tile_h: int | None = None,
     calibrated: tuple | None = None,
@@ -516,26 +566,29 @@ def stream_stencil(
     """K2 wrapper: one launch runs the pointwise prologue (any length) and
     the stencil. `tile_h` is the block's output rows (default 16, or the
     image's height if lower; a `calibrated` record's where it applies,
-    `stencil_launch_shape`); the columns follow (`stencil_tile_shape`)."""
+    `stencil_launch_shape`); the columns follow (`stencil_tile_shape`).
+    The one launch takes every image of the stack on its batch axis
+    (`batch_geometry`)."""
     if stencil.edge_mode == "zero":
         raise NotImplementedError(
             "zero-mode stencils would need post-pointwise padding in K2; "
             "none exist in the registry"
         )
-    c_in = _channels(img)
+    c_in = _stack_channels(stack)
     chain = chain_for(pointwise, c_in)
     desc = desc_for(stencil)
-    height, width = img.shape[:2]
+    n, height, width = stack.shape[:3]
     rows, cols = stencil_launch_shape(height, width, c_in, chain.c_out, desc.halo, desc.family,
                                       chain.n_ops, tile_h, calibrated)
-    dev = img.device
+    dev = stack.device
     if dev.type == "cpu":
-        return stream_stencil_plain(pointwise, stencil, img)
-    _check_cuda_input(img)
-    out = _out_like(img, chain.c_out)
+        return per_image(partial(stream_stencil_plain, pointwise, stencil), stack)
+    _check_cuda_input(stack)  # only contiguous: images at a fixed stride
+    n, in_stride, out_stride = batch_geometry(n, height, width, c_in, chain.c_out)
+    out = _stack_like(stack, chain.c_out)
     rc = kr.load("stream_stencil").stream_stencil_launch(
-        img.data_ptr(), out.data_ptr(), height, width, c_in, chain.c_out, chain.ptr(dev),
-        chain.n_ops, desc, rows, cols, dev.index, stream_handle(dev),
+        stack.data_ptr(), out.data_ptr(), height, width, c_in, chain.c_out, chain.ptr(dev),
+        chain.n_ops, desc, rows, cols, n, in_stride, out_stride, dev.index, stream_handle(dev),
     )
     _raise_on(rc, "stream_stencil")
     stream_stencil.launches += 1
@@ -1037,9 +1090,10 @@ def _fs_launch_shape(prog: StageProgram, height: int, width: int,
     return rows, cols
 
 
+@takes_stack
 def fused_stage(
     ops,
-    img: torch.Tensor,
+    stack: torch.Tensor,
     *,
     tile_h: int | None = None,
     mxu_stage: str | None = None,
@@ -1051,11 +1105,12 @@ def fused_stage(
     the `mxu_stage` setting once per call (ops/mxu_kernels.MXU_STAGE_SETTINGS;
     None is MCIM_MXU_STAGE, by default 'auto': a stage_arm record on a card,
     else the VPU arm); a stencil on a tensor-core arm runs K5. Raises for a
-    stage that `fused_stage_reject` rejects."""
+    stage that `fused_stage_reject` rejects. The one launch takes every
+    image of the stack on its batch axis (`batch_geometry`)."""
     ops = tuple(ops)
-    arms = _resolve_arms(ops, mxu_stage, arms, img.shape[1], img.device)
-    c_in = _channels(img)
-    height, width = img.shape[:2]
+    n, height, width = stack.shape[:3]
+    arms = _resolve_arms(ops, mxu_stage, arms, width, stack.device)
+    c_in = _stack_channels(stack)
     if tile_h is not None and tile_h < 1:
         raise ValueError(f"tile height must be >= 1, got {tile_h}")
     reason = fused_stage_reject(ops, height, width, c_in, tile_h)
@@ -1063,15 +1118,17 @@ def fused_stage(
         raise ValueError(f"K4 cannot run stage {[op.name for op in ops]}: {reason}")
     prog = stage_program(ops, c_in, arms)
     rows, cols = _fs_launch_shape(prog, height, width, tile_h)
-    dev = img.device
+    dev = stack.device
     if dev.type == "cpu":
-        return fused_stage_plain(ops, img, arms=arms)
-    _check_cuda_input(img)
-    out = _out_like(img, prog.c_out)
+        return per_image(partial(fused_stage_plain, ops, arms=arms), stack)
+    _check_cuda_input(stack)  # only contiguous: images at a fixed stride
+    n, in_stride, out_stride = batch_geometry(n, height, width, c_in, prog.c_out)
+    out = _stack_like(stack, prog.c_out)
     rc = kr.load("fused_stage").fused_stage_launch(
-        img.data_ptr(), out.data_ptr(), height, width, c_in, prog.c_smem, prog.c_out,
+        stack.data_ptr(), out.data_ptr(), height, width, c_in, prog.c_smem, prog.c_out,
         prog.halo, rows, cols, prog.ptr(dev), prog.last, prog.n_ops, prog.n_stencils,
-        prog.kmax, int(prog.mma), int(prog.two_pass), dev.index, stream_handle(dev),
+        prog.kmax, int(prog.mma), int(prog.two_pass), n, in_stride, out_stride, dev.index,
+        stream_handle(dev),
     )
     _raise_on(rc, "fused_stage")
     fused_stage.launches += 1
@@ -1253,10 +1310,11 @@ def reset_launch_counts() -> None:
 # --------------------------------------------------------------------------
 
 
+@takes_stack
 def run_group(
     pointwise: list[PointwiseOp],
     stencil: StencilOp | None,
-    img: torch.Tensor,
+    stack: torch.Tensor,
     *,
     block_h: int | None = None,
     calibrated: tuple | None = None,
@@ -1266,26 +1324,31 @@ def run_group(
     lookup table's gather; a geometric op's gathers, whose output is
     contiguous, so that the next group's kernel takes it; a histogram and
     its table). `block_h` sets K2's tile height; where it is None, a
-    `calibrated` record's does where it applies (`stencil_launch_shape`)."""
+    `calibrated` record's does where it applies (`stencil_launch_shape`).
+    A kernel group is one launch over the stack; an op with no kernel
+    program runs per image."""
     if stencil is None and len(pointwise) == 1 and not pointwise[0].kernel_safe:
-        return pointwise[0](img)
+        return per_image(pointwise[0], stack)
     if stencil is None:
-        return pointwise_group(pointwise, img)
-    height, width = img.shape[:2]
+        return pointwise_group(pointwise, stack, batched=True)
+    height, width = stack.shape[1:3]
     h = stencil.halo
     if stencil.edge_mode == "reflect101" and (height <= h or width <= h):
         raise ValueError(f"image {height}x{width} too small for halo {h}")
-    return stream_stencil(pointwise, stencil, img, tile_h=block_h, calibrated=calibrated)
+    return stream_stencil(pointwise, stencil, stack, tile_h=block_h, calibrated=calibrated,
+                          batched=True)
 
 
-def pipeline_cuda(ops, img: torch.Tensor, *, block_h: int | None = None,
+@takes_stack
+def pipeline_cuda(ops, stack: torch.Tensor, *, block_h: int | None = None,
                   calibrated: tuple | None = None) -> torch.Tensor:
     """Run a pipeline group by group through the kernels. Same u8 result as
     the golden path; on a CPU tensor every group takes its plain version.
     `block_h` and `calibrated` as `run_group` takes them."""
     for pointwise, stencil in group_ops(ops):
-        img = run_group(pointwise, stencil, img, block_h=block_h, calibrated=calibrated)
-    return img
+        stack = run_group(pointwise, stencil, stack, block_h=block_h, calibrated=calibrated,
+                          batched=True)
+    return stack
 
 
 def calibrated_tile(impl: str, width: int, device) -> tuple | None:
@@ -1300,7 +1363,7 @@ def calibrated_tile(impl: str, width: int, device) -> tuple | None:
 def auto_runner(ops, width: int, device, *, block_h: int | None = None,
                 swar: bool | None = None):
     """``backend='auto'`` for images `width` wide on `device`: a function
-    image -> image with every routing decision made here, once. Each stencil
+    stack -> stack with every routing decision made here, once. Each stencil
     that `use_mxu_for_stencil` routes runs as the whole-op banded products
     (`mxu_stencil`, in the mode it says), its pointwise prologue a K1 group
     before it; the runs of ops between such stencils go, under `swar`
@@ -1311,7 +1374,8 @@ def auto_runner(ops, width: int, device, *, block_h: int | None = None,
     fit. The counterpart of the JAX package's ``pipeline_auto``, whose
     static default (XLA for halo-1 groups, a TPU measurement) does not
     carry over: with no record and no switch this runs what `pipeline_cuda`
-    runs."""
+    runs. Each route takes the stack in its batched form (one launch per
+    group and stack); `one_image` makes it an image -> image function."""
     from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import (
         pipeline_swar,
         prefer_swar,
@@ -1335,15 +1399,15 @@ def auto_runner(ops, width: int, device, *, block_h: int | None = None,
     if run:
         steps.append((tuple(run), None))
 
-    def go(img: torch.Tensor) -> torch.Tensor:
+    def go(stack: torch.Tensor) -> torch.Tensor:
         for step, mode in steps:
             if mode is not None:
-                img = mxu_stencil(step, img, mode=mode, col_variant=col)
+                stack = mxu_stencil(step, stack, mode=mode, col_variant=col, batched=True)
             elif swar:
-                img = pipeline_swar(step, img, block_h=block_h, calibrated=tile)
+                stack = pipeline_swar(step, stack, block_h=block_h, calibrated=tile, batched=True)
             else:
-                img = pipeline_cuda(step, img, block_h=block_h, calibrated=tile)
-        return img
+                stack = pipeline_cuda(step, stack, block_h=block_h, calibrated=tile, batched=True)
+        return stack
 
     return go
 
@@ -1352,4 +1416,4 @@ def pipeline_auto(ops, img: torch.Tensor, *, block_h: int | None = None) -> torc
     """`auto_runner` for this image, resolved and run once. A built
     function (``Pipeline.jit(backend='auto')``) resolves once per image
     shape instead."""
-    return auto_runner(ops, img.shape[1], img.device, block_h=block_h)(img)
+    return one_image(auto_runner(ops, img.shape[1], img.device, block_h=block_h))(img)

@@ -83,6 +83,8 @@ from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
     corr_valid,
     exact_f32,
     pad2d,
+    per_image,
+    takes_stack,
 )
 from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
 from mpi_cuda_imagemanipulation_tpu_torch.utils import calibration, platform
@@ -278,9 +280,10 @@ def _band2_np(w2d: np.ndarray, h: int) -> np.ndarray:
 
 
 def _band_blocks(xp: torch.Tensor, axis: int, h: int) -> torch.Tensor:
-    """Sliding blocks of width B + 2h along `axis` with stride B, as a view
-    with a new block axis in place of `axis` and the block width last; `xp`
-    carries the 2h halo along `axis` and a block-multiple core."""
+    """Sliding blocks of width B + 2h along `axis` (-2 rows, -1 columns; any
+    leading axes are a stack's) with stride B, as a view with a new block
+    axis in place of `axis` and the block width last; `xp` carries the 2h
+    halo along `axis` and a block-multiple core."""
     return xp.unfold(axis, B + 2 * h, B)
 
 
@@ -294,25 +297,26 @@ def _band(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def _row_pass_banded(rows: torch.Tensor, taps: tuple, h: int) -> torch.Tensor:
-    """(R, Wc + 2h) exact-integer float32 -> (R, Wc) row sums, Wc a block
-    multiple."""
-    ext = _band_blocks(rows, 1, h)  # (R, nb, B + 2h)
-    out = torch.matmul(ext, _band(_band_np(taps, h), rows))  # (R, nb, B)
-    return out.reshape(out.shape[0], -1)
+    """(..., R, Wc + 2h) exact-integer float32 -> (..., R, Wc) row sums, Wc
+    a block multiple (the leading axes a stack's: one batched product)."""
+    ext = _band_blocks(rows, -1, h)  # (..., R, nb, B + 2h)
+    out = torch.matmul(ext, _band(_band_np(taps, h), rows))  # (..., R, nb, B)
+    return out.reshape(out.shape[:-2] + (-1,))
 
 
 def _col_pass_banded(tmp: torch.Tensor, taps: tuple, h: int, variant: str) -> torch.Tensor:
-    """(Rc + 2h, W) exact-integer row sums -> (Rc, W) column sums, Rc a
-    block multiple. 'bf16split' contracts tmp = 64a + b as its two halves
-    and recombines them, 'f32' contracts tmp itself: the same integers."""
+    """(..., Rc + 2h, W) exact-integer row sums -> (..., Rc, W) column
+    sums, Rc a block multiple. 'bf16split' contracts tmp = 64a + b as its
+    two halves and recombines them, 'f32' contracts tmp itself: the same
+    integers."""
     if variant not in MXU_COL_VARIANTS:
         raise ValueError(f"unknown column variant {variant!r}; known: {MXU_COL_VARIANTS}")
     C = _band(_band_np(taps, h), tmp)
 
     def colsum(x: torch.Tensor) -> torch.Tensor:
-        ext = _band_blocks(x, 0, h)  # (nb, W, B + 2h)
-        out = torch.matmul(ext, C)  # (nb, W, B)
-        return out.permute(0, 2, 1).reshape(-1, x.shape[1])
+        ext = _band_blocks(x, -2, h)  # (..., nb, W, B + 2h)
+        out = torch.matmul(ext, C)  # (..., nb, W, B)
+        return out.transpose(-1, -2).reshape(x.shape[:-2] + (-1, x.shape[-1]))
 
     if variant == "f32":
         return colsum(tmp)
@@ -326,8 +330,8 @@ def _sep_valid_mxu(
 ) -> torch.Tensor:
     """Separable valid-mode correlation as banded products; the same
     integers as spec.separable_valid."""
-    hh = xpad.shape[0] - 2 * h
-    ww = xpad.shape[1] - 2 * h
+    hh = xpad.shape[-2] - 2 * h
+    ww = xpad.shape[-1] - 2 * h
     xf = exact_f32(xpad)
     if mode == "hybrid":
         # the row pass as the golden shifts, the column pass as products
@@ -340,7 +344,7 @@ def _sep_valid_mxu(
     if hpad:
         tmp = torch.nn.functional.pad(tmp, (0, 0, 0, hpad))
     out = _col_pass_banded(tmp, taps, h, col_variant)
-    return out[:hh, :ww]
+    return out[..., :hh, :ww]
 
 
 def _corr2d_valid_mxu(xpad: torch.Tensor, w2d: np.ndarray, h: int) -> torch.Tensor:
@@ -348,18 +352,18 @@ def _corr2d_valid_mxu(xpad: torch.Tensor, w2d: np.ndarray, h: int) -> torch.Tens
     kh row-shifted views of the width-blocked tile contract together over
     (row offset, band position) against the stacked C2[d]."""
     kh, kw = w2d.shape
-    hh = xpad.shape[0] - (kh - 1)
-    ww = xpad.shape[1] - (kw - 1)
+    hh = xpad.shape[-2] - (kh - 1)
+    ww = xpad.shape[-1] - (kw - 1)
     xf = exact_f32(xpad)
     wpad = (-ww) % B
     if wpad:
         xf = torch.nn.functional.pad(xf, (0, wpad))
     views = torch.cat(
-        [_band_blocks(xf[d : d + hh], 1, h) for d in range(kh)], dim=-1
-    )  # (hh, nb, kh * (B + 2h))
+        [_band_blocks(xf[..., d : d + hh, :], -1, h) for d in range(kh)], dim=-1
+    )  # (..., hh, nb, kh * (B + 2h))
     C2 = _band(_band2_np(w2d, h).reshape(kh * (B + 2 * h), B), xf)
-    out = torch.matmul(views, C2)  # (hh, nb, B)
-    return out.reshape(hh, -1)[:, :ww]
+    out = torch.matmul(views, C2)  # (..., hh, nb, B)
+    return out.reshape(out.shape[:-2] + (-1,))[..., :ww]
 
 
 def _morph_digits(M: int) -> int:
@@ -371,10 +375,10 @@ def _morph_digits(M: int) -> int:
 
 
 def _ones_windowsum_f32(xp: torch.Tensor, K: int, h: int) -> torch.Tensor:
-    """(R + 2h, C + 2h) exact-integer float32 plane -> (R, C) K x K window
-    sums, by two all-ones banded passes."""
-    hh = xp.shape[0] - 2 * h
-    ww = xp.shape[1] - 2 * h
+    """(..., R + 2h, C + 2h) exact-integer float32 planes -> (..., R, C)
+    K x K window sums, by two all-ones banded passes."""
+    hh = xp.shape[-2] - 2 * h
+    ww = xp.shape[-1] - 2 * h
     taps = (1.0,) * K
     wpad = (-ww) % B
     core = xp if wpad == 0 else torch.nn.functional.pad(xp, (0, wpad))
@@ -382,7 +386,7 @@ def _ones_windowsum_f32(xp: torch.Tensor, K: int, h: int) -> torch.Tensor:
     hpad = (-hh) % B
     if hpad:
         tmp = torch.nn.functional.pad(tmp, (0, 0, 0, hpad))
-    return _col_pass_banded(tmp, taps, h, "f32")[:hh, :ww]
+    return _col_pass_banded(tmp, taps, h, "f32")[..., :hh, :ww]
 
 
 def _morph_valid_mxu(op: StencilOp, xpad: torch.Tensor) -> torch.Tensor:
@@ -391,13 +395,13 @@ def _morph_valid_mxu(op: StencilOp, xpad: torch.Tensor) -> torch.Tensor:
     erode those where the whole window hits."""
     K = 2 * op.halo + 1
     h = op.halo
-    hh = xpad.shape[0] - 2 * h
-    ww = xpad.shape[1] - 2 * h
+    hh = xpad.shape[-2] - 2 * h
+    ww = xpad.shape[-1] - 2 * h
     xf = exact_f32(xpad)
     M = K * K + 1
     m = _morph_digits(M)
     full = K * K
-    acc = torch.zeros((hh, ww), dtype=F32, device=xf.device)
+    acc = torch.zeros(xf.shape[:-2] + (hh, ww), dtype=F32, device=xf.device)
     for t0 in range(0, 255, m):
         ts = range(t0, min(t0 + m, 255))
         packed = torch.zeros_like(xf)
@@ -434,7 +438,9 @@ def mxu_valid(
     col_variant: str = "bf16split",
 ) -> torch.Tensor:
     """Drop-in for ``op.valid`` on an eligible op: float32 (H + 2h, W + 2h)
-    -> float32 (H, W), byte for byte the golden accumulation. `mode`
+    -> float32 (H, W), byte for byte the golden accumulation; a stack of
+    such planes (..., H + 2h, W + 2h) contracts as one batched product per
+    pass (the sums are exact integers, so they do not depend on it). `mode`
     'banded' takes both separable passes as products, 'hybrid' the row pass
     as golden shifts. Every tensor-core route calls it on its own
     pre-extended tile."""
@@ -459,43 +465,46 @@ def mxu_valid(
 # --------------------------------------------------------------------------
 
 
+@takes_stack
 def mxu_stencil(
     op: StencilOp,
-    img: torch.Tensor,
+    stack: torch.Tensor,
     *,
     mode: str = "banded",
     col_variant: str = "bf16split",
 ) -> torch.Tensor:
-    """One eligible stencil over a u8 image, per channel plane, byte-equal
-    to ``op(img)``: golden edge extension, banded accumulation, golden
-    finalize."""
+    """One eligible stencil over a stack of u8 images, per channel plane,
+    byte-equal to ``op`` on each image: golden edge extension, banded
+    accumulation, golden finalize. The stack's planes contract together as
+    batched ``torch.matmul`` products (TF32 off)."""
 
     def plane(x: torch.Tensor) -> torch.Tensor:
-        hh, ww = x.shape
+        hh, ww = x.shape[-2:]
         h = op.halo
         xpad = pad2d(exact_f32(x), op.edge_mode, h, h, h, h)
         acc = mxu_valid(op, xpad, mode=mode, col_variant=col_variant)
         return op.finalize(acc, x, 0, 0, hh, ww)
 
-    if img.ndim == 3:
-        return torch.stack([plane(img[..., c]) for c in range(img.shape[2])], dim=-1)
+    if stack.ndim == 4:
+        return torch.stack([plane(stack[..., c]) for c in range(stack.shape[-1])], dim=-1)
     # the banded products can leave a plane column-major, and the K1/K2
     # launch that pipeline_mxu may run next refuses it ("the kernels take
     # contiguous images")
-    return plane(img).contiguous()
+    return plane(stack).contiguous()
 
 
-def _within_halo(op: StencilOp, img: torch.Tensor) -> bool:
-    """Whether the K1/K2 group runner refuses `op` on `img` from its shape
-    alone: a reflect101 stencil on an image no taller or wider than its halo
-    (cuda_kernels.run_group)."""
-    height, width = img.shape[:2]
+def _within_halo(op: StencilOp, shape: tuple[int, ...]) -> bool:
+    """Whether the K1/K2 group runner refuses `op` on an image of `shape`
+    from its shape alone: a reflect101 stencil on an image no taller or
+    wider than its halo (cuda_kernels.run_group)."""
+    height, width = shape[:2]
     return op.edge_mode == "reflect101" and (height <= op.halo or width <= op.halo)
 
 
+@takes_stack
 def pipeline_mxu(
     ops,
-    img: torch.Tensor,
+    stack: torch.Tensor,
     *,
     mode: str = "banded",
     col_variant: str = "bf16split",
@@ -508,26 +517,29 @@ def pipeline_mxu(
     on an image the group runner refuses (`_within_halo`) runs its golden
     op instead, as the JAX package's pipeline_mxu runs every such op,
     counted in ``plan_metrics.mxu_golden_ops``. `block_h` sets K2's tile
-    height."""
+    height. The banded products contract the stack as batched products,
+    each K1/K2 group is one launch over it, and a golden op runs per
+    image."""
     from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
 
     run: list = []
     for op in ops:
         eligible = isinstance(op, StencilOp) and mxu_eligible(op)
-        if eligible or (isinstance(op, StencilOp) and _within_halo(op, img)):
+        if eligible or (isinstance(op, StencilOp)
+                        and _within_halo(op, tuple(stack.shape[1:]))):
             if run:
-                img = pipeline_cuda(run, img, block_h=block_h)
+                stack = pipeline_cuda(run, stack, block_h=block_h, batched=True)
                 run = []
             if eligible:
-                img = mxu_stencil(op, img, mode=mode, col_variant=col_variant)
+                stack = mxu_stencil(op, stack, mode=mode, col_variant=col_variant, batched=True)
             else:
-                img = op(img)
+                stack = per_image(op, stack)
                 plan_metrics.mxu_golden_ops[op.name] += 1
         else:
             run.append(op)
     if run:
-        img = pipeline_cuda(run, img, block_h=block_h)
-    return img
+        stack = pipeline_cuda(run, stack, block_h=block_h, batched=True)
+    return stack
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,8 @@ Two rules keep the float32 arithmetic identical on every device:
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Callable, ClassVar
 
 import numpy as np
@@ -78,8 +80,8 @@ def corr_valid(xpad: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
     zero taps are skipped — the order the CUDA kernel keeps, which matters
     only for non-integer weights."""
     kh, kw = weights.shape
-    out_h = xpad.shape[0] - (kh - 1)
-    out_w = xpad.shape[1] - (kw - 1)
+    out_h = xpad.shape[-2] - (kh - 1)
+    out_w = xpad.shape[-1] - (kw - 1)
     xf = exact_f32(xpad)
     acc = None
     for dy in range(kh):
@@ -87,11 +89,11 @@ def corr_valid(xpad: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
             w = _f32(weights[dy, dx])
             if w == 0.0:
                 continue
-            win = xf[dy : dy + out_h, dx : dx + out_w]
+            win = xf[..., dy : dy + out_h, dx : dx + out_w]
             term = win if w == 1.0 else win * w
             acc = term if acc is None else acc + term
     if acc is None:
-        acc = torch.zeros((out_h, out_w), dtype=F32, device=xpad.device)
+        acc = torch.zeros(xpad.shape[:-2] + (out_h, out_w), dtype=F32, device=xpad.device)
     return acc
 
 
@@ -196,8 +198,9 @@ def pad2d(
     left: int,
     right: int,
 ) -> torch.Tensor:
-    """Pad a float32 (H, W) tile on each side per the op's edge mode.
-    ``F.pad``'s reflect/replicate modes need a leading batch dimension.
+    """Pad a float32 (H, W) tile, or each of a stack of them (..., H, W),
+    on each side per the op's edge mode. ``F.pad``'s reflect/replicate
+    modes need a leading batch dimension.
 
     ``F.pad`` refuses a reflection at least as wide as the side it
     reflects; ``jnp.pad`` (the JAX package's golden padding) reflects
@@ -205,13 +208,15 @@ def pad2d(
     ``reflect101_index``."""
     if (top, bottom, left, right) == (0, 0, 0, 0):
         return xf
-    height, width = xf.shape
+    lead = xf.shape[:-2]
+    height, width = xf.shape[-2:]
     if edge_mode == "reflect101" and (max(top, bottom) >= height or max(left, right) >= width):
         rows = reflect101_index(height, top, bottom, xf.device)
         cols = reflect101_index(width, left, right, xf.device)
-        return xf[rows][:, cols]
-    out = F.pad(xf[None, None], (left, right, top, bottom), mode=_PAD_MODES[edge_mode])
-    return out[0, 0]
+        return xf[..., rows, :][..., cols]
+    out = F.pad(xf.reshape((math.prod(lead), 1, height, width)), (left, right, top, bottom),
+                mode=_PAD_MODES[edge_mode])
+    return out.reshape(lead + out.shape[-2:])
 
 
 def reflect101_index(n: int, before: int, after: int, device=None) -> torch.Tensor:
@@ -364,8 +369,9 @@ class StencilOp:
 
     def interior_mask(self, shape, y0, x0, global_h, global_w, device=None):
         """Reference guard (kernel.cu:83): x > o && x <= W-1-o (likewise y),
-        in global image coordinates."""
-        h, w = shape
+        in global image coordinates; an (h, w) mask for a `shape` whose last
+        two axes are (h, w) (a stack's planes share it)."""
+        h, w = shape[-2:]
         yy = (y0 + torch.arange(h, device=device)).view(h, 1)
         xx = (x0 + torch.arange(w, device=device)).view(1, w)
         o = self.halo
@@ -469,3 +475,43 @@ def _check_channels(name: str, want: int, img: torch.Tensor) -> None:
         raise ValueError(
             f"op {name!r} expects a {want}-channel image, got shape {tuple(img.shape)}"
         )
+
+
+# --------------------------------------------------------------------------
+# The stack form: one image is a stack of one
+# --------------------------------------------------------------------------
+
+
+def per_image(fn, stack: torch.Tensor) -> torch.Tensor:
+    """`fn` applied to each image of a stack, stacked: the plain versions,
+    and the ops that have no batched form (geometric and global-statistics
+    ops, lookup tables), which see one image each, as under the JAX
+    package's vmap (statistics reduce per image). A stack of one is not
+    copied."""
+    if stack.shape[0] == 1:
+        return fn(stack[0])[None]
+    return torch.stack([fn(x) for x in stack])
+
+
+def one_image(fn):
+    """The image -> image form of a stack -> stack function `fn` (its last
+    positional argument the stack): one image runs as a stack of one."""
+
+    def run(*args, **kw):
+        return fn(*args[:-1], args[-1][None], **kw)[0]
+
+    return functools.update_wrapper(run, fn)
+
+
+def takes_stack(fn):
+    """`fn` is written for a contiguous (N, H, W[, C]) stack of same-shape
+    images, its last positional argument. The function returned takes one
+    image (as a stack of one), or a stack as it is with ``batched=True``:
+    the one place where the two forms part."""
+    one = one_image(fn)
+
+    @functools.wraps(fn)
+    def call(*args, batched: bool = False, **kw):
+        return fn(*args, **kw) if batched else one(*args, **kw)
+
+    return call

@@ -648,20 +648,21 @@ def swar_group(op: StencilOp, pre_ops=(), post_ops=()) -> SwarGroup:
 # --------------------------------------------------------------------------
 
 
-def _check_args(op: StencilOp, img: torch.Tensor, ghosts) -> None:
-    if img.ndim != 2 or img.dtype != U8:
-        raise ValueError(
-            f"the SWAR kernels take one u8 plane, got {tuple(img.shape)} {img.dtype}"
-        )
-    if not _shape_ok(op, tuple(img.shape)):
-        raise ValueError(f"op {op.name!r} cannot run on a {tuple(img.shape)} plane (SWAR gates)")
+def _check_args(op: StencilOp, stack: torch.Tensor, ghosts) -> None:
+    plane = tuple(stack.shape[1:])
+    if stack.ndim != 3 or stack.dtype != U8:
+        raise ValueError(f"the SWAR kernels take one u8 plane an image, got {plane} {stack.dtype}")
+    if not _shape_ok(op, plane):
+        raise ValueError(f"op {op.name!r} cannot run on a {plane} plane (SWAR gates)")
+    if ghosts is not None and stack.shape[0] != 1:
+        raise ValueError("ghost mode takes one row-shard, not a stack")
     if ghosts is not None:
-        want = (op.halo, img.shape[1])
+        want = (op.halo, stack.shape[2])
         for name, strip in zip(("top", "bottom"), ghosts):
-            if tuple(strip.shape) != want or strip.dtype != U8 or strip.device != img.device:
+            if tuple(strip.shape) != want or strip.dtype != U8 or strip.device != stack.device:
                 raise ValueError(
                     f"{name} strip {tuple(strip.shape)} {strip.dtype} on {strip.device}; "
-                    f"the tile needs {want} uint8 on {img.device}"
+                    f"the tile needs {want} uint8 on {stack.device}"
                 )
 
 
@@ -731,9 +732,10 @@ def swar_stencil_plain(
     return affine_int(q, post_chain).to(U8)
 
 
+@ck.takes_stack
 def swar_stencil(
     op: StencilOp,
-    img: torch.Tensor,
+    stack: torch.Tensor,
     *,
     pre_ops=(),
     post_ops=(),
@@ -743,11 +745,13 @@ def swar_stencil(
     block_h: int | None = None,
     calibrated: tuple | None = None,
 ) -> torch.Tensor:
-    """One eligible stencil (``swar_any_eligible``) on an (H, W) u8 plane
-    through its SWAR kernel, with the fusable pointwise ops `pre_ops`
-    before it and `post_ops` after it inside the same launch.
+    """One eligible stencil (``swar_any_eligible``) on a stack of (H, W) u8
+    planes through its SWAR kernel, with the fusable pointwise ops
+    `pre_ops` before it and `post_ops` after it inside the same launch,
+    which takes every plane on its batch axis
+    (``cuda_kernels.batch_geometry``).
 
-    Ghost mode, for the sharded runner: `ghosts` = (top, bottom), the raw
+    Ghost mode, for the sharded runner (one plane): `ghosts` = (top, bottom), the raw
     (halo, W) strips above and below the tile (exchanged, or the edge
     extension on the first and last shard); `y0` is the tile's first global
     row and `global_h` the image height, which the interior guard follows.
@@ -757,29 +761,31 @@ def swar_stencil(
     plain version runs; on a CUDA tensor the kernel launches or this
     raises."""
     group = swar_group(op, pre_ops, post_ops)
-    _check_args(op, img, ghosts)
-    height, width = img.shape
+    _check_args(op, stack, ghosts)
+    n, height, width = stack.shape
     tile_h, tile_w = group.shape(height, width, block_h, calibrated)
     if global_h is not None and y0 is not None and not 0 <= y0 <= global_h - height:
         raise ValueError(f"tile rows [{y0}, {y0 + height}) lie outside an image of {global_h}")
-    dev = img.device
+    dev = stack.device
     if dev.type == "cpu":
-        return swar_stencil_plain(
-            op, img, pre_chain=group.pre_chain, post_chain=group.post_chain, ghosts=ghosts,
-            y0=y0, global_h=global_h,
+        plain = functools.partial(
+            swar_stencil_plain, op, pre_chain=group.pre_chain, post_chain=group.post_chain,
+            ghosts=ghosts, y0=y0, global_h=global_h,
         )
-    ck._check_cuda_input(img)
+        return ck.per_image(plain, stack)
+    ck._check_cuda_input(stack)  # only contiguous: planes at a fixed stride
+    n, in_stride, out_stride = ck.batch_geometry(n, height, width, 1, 1)
     top = bottom = None
     if ghosts is not None:
         top, bottom = ghosts
         for t in ghosts:
             ck._check_cuda_input(t)
-    out = torch.empty_like(img)
+    out = torch.empty_like(stack)
     rc = kr.load("swar_stencil").swar_stencil_launch(
-        img.data_ptr(), None if top is None else top.data_ptr(),
+        stack.data_ptr(), None if top is None else top.data_ptr(),
         None if bottom is None else bottom.data_ptr(), out.data_ptr(), height, width,
         y0 or 0, global_h or height, group.desc_ref(dev), group.taps_ref, tile_h, tile_w,
-        dev.index, ck.stream_handle(dev),
+        n, in_stride, out_stride, dev.index, ck.stream_handle(dev),
     )
     ck._raise_on(rc, "swar_stencil")
     ck.SWAR_LAUNCHES[group.kind if ghosts is None else _GHOST_KEYS[group.kind]] += 1
@@ -791,7 +797,8 @@ def swar_stencil(
 # --------------------------------------------------------------------------
 
 
-def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None,
+@ck.takes_stack
+def pipeline_swar(ops, stack: torch.Tensor, *, block_h: int | None = None,
                   calibrated: tuple | None = None) -> torch.Tensor:
     """Run a pipeline with every eligible ``[pre*, stencil, post*]`` group
     on its SWAR kernel and every other op through the K1/K2 group runner:
@@ -801,12 +808,12 @@ def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None,
     group fusion (a pointwise prologue inside the stencil launch) is kept.
     `block_h` sets the SWAR kernels' tile height only (where it is None, a
     `calibrated` record's does where it applies); the fallback picks its
-    own."""
+    own. Every group (SWAR or fallback) is one launch over the stack."""
     pending: list[Op] = []
 
     def flush(im):
         if pending:
-            im = ck.pipeline_cuda(tuple(pending), im, block_h=None)
+            im = ck.pipeline_cuda(tuple(pending), im, block_h=None, batched=True)
             pending.clear()
         return im
 
@@ -830,15 +837,15 @@ def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None,
             # a pre-chain commutes with zero padding only if it fixes 0;
             # reflect101 and edge pads are image values and always commute
             pre_ok = not pre or st.edge_mode != "zero" or _chain_fixes_zero(pre)
-            img = flush(img)  # the shape gate needs the actual input
+            stack = flush(stack)  # the shape gate needs the actual input
             if (
                 pre_ok
-                and img.dtype == U8
-                and img.ndim == 2
-                and swar_any_eligible(st, tuple(img.shape))
+                and stack.dtype == U8
+                and stack.ndim == 3
+                and swar_any_eligible(st, tuple(stack.shape[1:]))
             ):
-                img = swar_stencil(st, img, pre_ops=tuple(pre), post_ops=tuple(post),
-                                   block_h=block_h, calibrated=calibrated)
+                stack = swar_stencil(st, stack, pre_ops=tuple(pre), post_ops=tuple(post),
+                                     block_h=block_h, calibrated=calibrated, batched=True)
             else:
                 # the whole group falls back as one run
                 pending.extend(pre)
@@ -850,4 +857,4 @@ def pipeline_swar(ops, img: torch.Tensor, *, block_h: int | None = None,
         # fallback run (a later iteration tries again from i + 1)
         pending.append(ops[i])
         i += 1
-    return flush(img)
+    return flush(stack)

@@ -1,13 +1,16 @@
-"""Row-sharded execution: the mesh (mesh.py), the ghost-strip exchange
-(halo.py) and the sharded pipeline runner (api.py). The counterpart of the
-JAX package's ``parallel/``; ``api2d`` (2-D tile shards) is not ported
-yet."""
+"""Sharded execution: the meshes (mesh.py), the ghost-strip exchange
+(halo.py), the row-sharded pipeline runner (api.py) and the 2-D
+tile-sharded runner (api2d.py). The counterpart of the JAX package's
+``parallel/``."""
 
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import (  # noqa: F401
+    COLS,
     ROWS,
     Mesh,
+    Mesh2D,
     distributed_init,
     make_mesh,
+    make_mesh_2d,
     mesh_from_shards,
     parse_shards,
 )

@@ -278,6 +278,31 @@ def _open_region(ops, mesh: Mesh, backend: str, halo_mode: str, img: torch.Tenso
     return region, tiles
 
 
+def gather_slots(mesh, local: torch.Tensor) -> torch.Tensor:
+    """Under a process group, the blocks of every rank's slots on the rank
+    that holds slot 0: `local` is this rank's slots' blocks, equal-sized,
+    concatenated along axis 0 in slot order. The root receives the other
+    ranks' blocks in slot order and returns them all concatenated; every
+    other rank sends its own and returns them. Without a process group,
+    `local` itself."""
+    root = mesh.ranks[0]
+    if not mesh.distributed:
+        return local
+    if mesh.rank != root:
+        dist.send(local.contiguous(), dst=root)
+        return local
+    per_slot = local.shape[0] // len(mesh.local_slots)
+    blocks = []
+    for rank in dict.fromkeys(mesh.ranks):  # ranks in slot order
+        if rank == root:
+            blocks.append(local)
+            continue
+        buf = local.new_empty((mesh.ranks.count(rank) * per_slot,) + tuple(local.shape[1:]))
+        dist.recv(buf, src=rank)
+        blocks.append(buf)
+    return torch.cat(blocks, dim=0)
+
+
 def _close_region(region: _Region, tiles: list[torch.Tensor]) -> torch.Tensor:
     """Gather and crop: the whole image on the first slot's device. Under a
     process group the rank that holds slot 0 receives every other rank's
@@ -285,23 +310,10 @@ def _close_region(region: _Region, tiles: list[torch.Tensor]) -> torch.Tensor:
     rows."""
     mesh = region.mesh
     dev = mesh.devices[mesh.local_slots[0]]
-    local = torch.cat([t.to(dev, non_blocking=True) for t in tiles], dim=0)
-    if not mesh.distributed:
-        return local[: region.global_h]
-    root = mesh.ranks[0]
-    if mesh.rank != root:
-        dist.send(local.contiguous(), dst=root)
-        return local
-    blocks = []
-    for rank in dict.fromkeys(mesh.ranks):  # ranks in slot order
-        if rank == root:
-            blocks.append(local)
-            continue
-        rows = mesh.ranks.count(rank) * region.local_h
-        buf = torch.empty((rows,) + tuple(local.shape[1:]), dtype=U8, device=dev)
-        dist.recv(buf, src=rank)
-        blocks.append(buf)
-    return torch.cat(blocks, dim=0)[: region.global_h]
+    rows = gather_slots(mesh, torch.cat([t.to(dev, non_blocking=True) for t in tiles], dim=0))
+    if mesh.distributed and mesh.rank != mesh.ranks[0]:
+        return rows  # this rank's own
+    return rows[: region.global_h]
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Ghost-row halo exchange over the ('rows',) mesh. The counterpart of the
-JAX package's ``parallel/halo.py``.
+"""Ghost-strip halo exchange over the ('rows',) mesh, and along both axes
+of a ('rows', 'cols') mesh. The counterpart of the JAX package's
+``parallel/halo.py``.
 
 This is the component the reference lacks: its MPI row-scatter runs
 stencils on each slice independently, producing visible seams every H/N
@@ -13,8 +14,9 @@ same length. A neighbour slot in the same process is a device-to-device
 copy on the current streams; a neighbour on another rank is a
 ``torch.distributed`` point-to-point transfer. The JAX ring wraps around
 (XLA needs a bijection) and its callers overwrite the wrapped strips; the
-port sends nothing there: slot 0's leading strip and the last slot's
-trailing strip are zeros, which the callers overwrite the same way
+port sends nothing there: the leading strip of a shard with no
+predecessor along the axis, and the trailing strip of one with no
+successor, are zeros, which the callers overwrite the same way
 (``parallel.api._fix_edge_strips`` / ``_fix_edge_axis``).
 """
 
@@ -23,20 +25,23 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import ROWS, Mesh
+from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import COLS, ROWS, Mesh, Mesh2D
 
 
 class ExchangeCounts:
     """How often strips crossed shard boundaries: `rounds` counts the calls
-    that exchanged (one pair of strips over each of the mesh's n - 1
-    boundaries, the counterpart of one ppermute pair in the JAX program).
-    Calls on a one-slot mesh exchange nothing and count nothing."""
+    that exchanged (one pair of strips over every boundary of one mesh
+    axis, the counterpart of one ppermute pair in the JAX program), and
+    `axis_rounds` the same per axis: a 2-D stencil's two-phase exchange is
+    one round on 'rows' and one on 'cols'. Calls along an axis of one slot
+    exchange nothing and count nothing."""
 
     def __init__(self) -> None:
         self.reset()
 
     def reset(self) -> None:
         self.rounds = 0
+        self.axis_rounds = {ROWS: 0, COLS: 0}
 
 
 exchanges = ExchangeCounts()
@@ -49,73 +54,100 @@ def _copy_to(strip: torch.Tensor, device: torch.device) -> torch.Tensor:
     return strip.to(device, non_blocking=True, copy=True)
 
 
+def _boundaries(mesh: Mesh | Mesh2D, axis_name: str) -> list[tuple[int, int]]:
+    """The (before, after) slot pairs that share a boundary along
+    `axis_name`, in one order every rank enumerates alike: the 1-D mesh's
+    consecutive slots; on a 2-D mesh, (r, c) above (r + 1, c) along 'rows'
+    and (r, c) left of (r, c + 1) along 'cols'."""
+    if isinstance(mesh, Mesh):
+        if axis_name != ROWS:
+            raise ValueError(f"a 1-D mesh has no {axis_name!r} axis")
+        return [(k, k + 1) for k in range(mesh.shape[ROWS] - 1)]
+    nr, nc = mesh.n_rows, mesh.n_cols
+    if axis_name == ROWS:
+        return [(r * nc + c, (r + 1) * nc + c) for r in range(nr - 1) for c in range(nc)]
+    if axis_name == COLS:
+        return [(r * nc + c, r * nc + c + 1) for r in range(nr) for c in range(nc - 1)]
+    raise ValueError(f"unknown mesh axis {axis_name!r}")
+
+
 def exchange_edge_strips(
-    firsts: list[torch.Tensor], lasts: list[torch.Tensor], mesh: Mesh
+    firsts: list[torch.Tensor], lasts: list[torch.Tensor], mesh: Mesh | Mesh2D,
+    axis_name: str = ROWS,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """Exchange pre-sliced edge strips: `firsts[i]`/`lasts[i]` are the
-    leading/trailing `halo` rows of local shard i, already cut out by the
-    caller. Returns (befores, afters): for each local shard, its upper
-    neighbour's trailing rows and its lower neighbour's leading rows.
+    """Exchange pre-sliced edge strips along `axis_name`: `firsts[i]` /
+    `lasts[i]` are the leading / trailing `halo` rows (or columns, along
+    'cols') of local shard i, already cut out by the caller. Returns
+    (befores, afters): for each local shard, its predecessor's trailing
+    strip and its successor's leading strip along the axis; a shard with no
+    predecessor (successor) gets zeros there.
 
     This is the primitive under exchange_halo_strips, exposed so the
     overlapped-halo runner can exchange a derived strip (the next stencil
     group's edge rows assembled from the previous group's boundary
     outputs) without waiting for a whole tile.
 
-    Transfers between ranks are posted boundary by boundary in mesh order,
-    on each boundary the downward strip before the upward one, so every
-    rank posts its sends and receives in the same order."""
+    Transfers between ranks are posted boundary by boundary in the order
+    of `_boundaries`, on each boundary the forward strip before the
+    backward one, so every rank posts its sends and receives in the same
+    order."""
     slots = mesh.local_slots
-    n = mesh.shape[ROWS]
     pos = {s: i for i, s in enumerate(slots)}
     befores: list = [None] * len(slots)
     afters: list = [None] * len(slots)
     p2p = []
-    for upper in range(n - 1):
-        lower = upper + 1
+    pairs = _boundaries(mesh, axis_name)
+    for upper, lower in pairs:
         if upper in pos and lower in pos:
             befores[pos[lower]] = _copy_to(lasts[pos[upper]], mesh.devices[lower])
             afters[pos[upper]] = _copy_to(firsts[pos[lower]], mesh.devices[upper])
         elif upper in pos:
             i, peer = pos[upper], mesh.ranks[lower]
-            afters[i] = torch.empty_like(firsts[i])
+            afters[i] = torch.empty_like(firsts[i], memory_format=torch.contiguous_format)
             p2p.append(dist.P2POp(dist.isend, lasts[i].contiguous(), peer))
             p2p.append(dist.P2POp(dist.irecv, afters[i], peer))
         elif lower in pos:
             i, peer = pos[lower], mesh.ranks[upper]
-            befores[i] = torch.empty_like(lasts[i])
+            befores[i] = torch.empty_like(lasts[i], memory_format=torch.contiguous_format)
             p2p.append(dist.P2POp(dist.irecv, befores[i], peer))
             p2p.append(dist.P2POp(dist.isend, firsts[i].contiguous(), peer))
     if p2p:
         for work in dist.batch_isend_irecv(p2p):
             work.wait()
-    if 0 in pos:
-        befores[pos[0]] = torch.zeros_like(lasts[pos[0]])
-    if n - 1 in pos:
-        afters[pos[n - 1]] = torch.zeros_like(firsts[pos[n - 1]])
-    if n > 1:
+    for i in range(len(slots)):  # the mesh's edges along the axis
+        if befores[i] is None:
+            befores[i] = torch.zeros_like(lasts[i])
+        if afters[i] is None:
+            afters[i] = torch.zeros_like(firsts[i])
+    if pairs:
         exchanges.rounds += 1
+        exchanges.axis_rounds[axis_name] += 1
     return befores, afters
 
 
 def exchange_halo_strips(
-    tiles: list[torch.Tensor], halo: int, mesh: Mesh
+    tiles: list[torch.Tensor], halo: int, mesh: Mesh | Mesh2D, axis: int = 0
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The (before, after) ghost strips of every local tile, each `halo`
-    rows thick: each shard's last rows go to its successor (becoming that
-    neighbour's leading halo) and its first rows to its predecessor. Slot
-    0's leading and the last slot's trailing strip are zeros; callers
-    overwrite them with the op's edge extension."""
-    firsts = [t[:halo] for t in tiles]
-    lasts = [t[t.shape[0] - halo :] for t in tiles]
-    return exchange_edge_strips(firsts, lasts, mesh)
+    rows (axis 0, over the 'rows' ring) or columns (axis 1, over the 'cols'
+    ring of a 2-D mesh) thick: each shard's last rows go to its successor
+    (becoming that neighbour's leading halo) and its first rows to its
+    predecessor. The mesh's first leading and last trailing strips are
+    zeros; callers overwrite them with the op's edge extension."""
+    firsts = [t.narrow(axis, 0, halo) for t in tiles]
+    lasts = [t.narrow(axis, t.shape[axis] - halo, halo) for t in tiles]
+    return exchange_edge_strips(firsts, lasts, mesh, (ROWS, COLS)[axis])
 
 
-def exchange_halo(tiles: list[torch.Tensor], halo: int, mesh: Mesh) -> list[torch.Tensor]:
-    """Every local tile extended with `halo` ghost rows on both sides (see
-    exchange_halo_strips; this materialises the concatenated tile for the
-    paths that run over an extended tile)."""
+def exchange_halo(tiles: list[torch.Tensor], halo: int, mesh: Mesh | Mesh2D,
+                  axis: int = 0) -> list[torch.Tensor]:
+    """Every local tile extended with `halo` ghost rows (axis 0) or
+    columns (axis 1) on both sides (see exchange_halo_strips; this
+    materialises the concatenated tile for the paths that run over an
+    extended tile). The 2-D runner's two-phase, corner-carrying order is
+    axis 0 first, then axis 1 over the row-extended tiles, so corner ghosts
+    arrive through the shared neighbour with no diagonal copy."""
     if halo == 0:
         return list(tiles)
-    befores, afters = exchange_halo_strips(tiles, halo, mesh)
-    return [torch.cat([b, t, a], dim=0) for b, t, a in zip(befores, tiles, afters)]
+    befores, afters = exchange_halo_strips(tiles, halo, mesh, axis)
+    return [torch.cat([b, t, a], dim=axis) for b, t, a in zip(befores, tiles, afters)]

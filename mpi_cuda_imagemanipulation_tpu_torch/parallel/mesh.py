@@ -4,7 +4,8 @@ counterpart of the JAX package's ``parallel/mesh.py``.
 Replaces the reference's MPI world management (MPI_Init/rank/size,
 kern.cpp:25-28; kernel.cu:104-107): the communicator becomes a 1-D mesh
 over the 'rows' axis, the image-height domain decomposition the reference
-implements with MPI_Scatter row blocks.
+implements with MPI_Scatter row blocks, or a 2-D ('rows', 'cols') mesh
+for the tile decomposition (parallel/api2d.py).
 
 A mesh is an ordered list of *slots*. Each slot is one row-shard of the
 image; it names the ``torch.device`` that holds the shard and the
@@ -28,6 +29,7 @@ import torch.distributed as dist
 from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
 
 ROWS = "rows"
+COLS = "cols"
 
 _TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
@@ -39,8 +41,22 @@ def _world() -> tuple[int, int]:
     return 0, 1
 
 
+class _Slots:
+    """What every mesh has: `devices[k]` and `ranks[k]`, slot k's device and
+    owner, and `rank`, this process."""
+
+    @property
+    def local_slots(self) -> tuple[int, ...]:
+        """The slots this process holds, in order."""
+        return tuple(k for k, r in enumerate(self.ranks) if r == self.rank)
+
+    @property
+    def distributed(self) -> bool:
+        return len(set(self.ranks)) > 1
+
+
 @dataclasses.dataclass(frozen=True)
-class Mesh:
+class Mesh(_Slots):
     """A 1-D ('rows',) mesh: slot k holds row-shard k on `devices[k]`,
     owned by rank `ranks[k]`."""
 
@@ -54,14 +70,29 @@ class Mesh:
     def shape(self) -> dict[str, int]:
         return {ROWS: len(self.devices)}
 
-    @property
-    def local_slots(self) -> tuple[int, ...]:
-        """The slots this process holds, in order."""
-        return tuple(k for k, r in enumerate(self.ranks) if r == self.rank)
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D(_Slots):
+    """A 2-D ('rows', 'cols') mesh of `n_rows` x `n_cols` slots in
+    row-major order: slot k = r * n_cols + c holds tile (r, c) on
+    `devices[k]`, owned by rank `ranks[k]`. Slots and ranks work as in the
+    1-D `Mesh`."""
+
+    devices: tuple[torch.device, ...]
+    ranks: tuple[int, ...]
+    n_rows: int
+    n_cols: int
+    rank: int = 0  # this process
+
+    axis_names = (ROWS, COLS)
 
     @property
-    def distributed(self) -> bool:
-        return len(set(self.ranks)) > 1
+    def shape(self) -> dict[str, int]:
+        return {ROWS: self.n_rows, COLS: self.n_cols}
+
+    def coords(self, slot: int) -> tuple[int, int]:
+        """The (row, column) of `slot`'s tile."""
+        return divmod(slot, self.n_cols)
 
 
 def distributed_init(device: str | torch.device | None = None) -> None:
@@ -136,6 +167,25 @@ def make_mesh(n_shards: int | None = None, *, devices=None) -> Mesh:
     Under a ``torch.distributed`` process group, `devices` are this rank's
     slots (default: this rank's one device); every rank passes as many, and
     the mesh is their concatenation in rank order."""
+    devices, ranks, rank = _slots(n_shards, devices, "shards")
+    return Mesh(devices, ranks, rank)
+
+
+def make_mesh_2d(n_rows: int, n_cols: int, *, devices=None) -> Mesh2D:
+    """A 2-D ('rows', 'cols') mesh of n_rows x n_cols slots: the tile
+    decomposition of parallel/api2d.py. `devices` as `make_mesh` takes
+    them (default every visible CUDA device; more slots than devices
+    raise; explicit devices may repeat), and under a process group each
+    rank holds an equal share of the slots in rank order."""
+    if n_rows < 1 or n_cols < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {n_rows}x{n_cols}")
+    devices, ranks, rank = _slots(n_rows * n_cols, devices, f"a {n_rows}x{n_cols} mesh's slots")
+    return Mesh2D(devices, ranks, n_rows, n_cols, rank)
+
+
+def _slots(n_shards: int | None, devices, what: str):
+    """(devices, ranks, this rank) of a mesh of `n_shards` slots (None: one
+    per device) over `devices` (see make_mesh)."""
     rank, world = _world()
     if devices is None:
         if world > 1:
@@ -148,7 +198,7 @@ def make_mesh(n_shards: int | None = None, *, devices=None) -> Mesh:
         total = world * len(devices)
         if n_shards not in (None, total):
             raise ValueError(
-                f"requested {n_shards} shards but {world} ranks hold "
+                f"requested {n_shards} {what} but {world} ranks hold "
                 f"{len(devices)} slot(s) each"
             )
         # a remote slot's device is known only to its owner; the entry
@@ -158,14 +208,14 @@ def make_mesh(n_shards: int | None = None, *, devices=None) -> Mesh:
             for r in range(world)
             for d in devices
         ]
-        return Mesh(tuple(d for d, _ in slots), tuple(r for _, r in slots), rank)
+        return tuple(d for d, _ in slots), tuple(r for _, r in slots), rank
     if n_shards is None:
         n_shards = len(devices)
     if n_shards > len(devices):
         raise ValueError(
-            f"requested {n_shards} shards but only {len(devices)} devices are visible"
+            f"requested {n_shards} {what} but only {len(devices)} devices are visible"
         )
-    return Mesh(tuple(devices[:n_shards]), (0,) * n_shards, 0)
+    return tuple(devices[:n_shards]), (0,) * n_shards, 0
 
 
 _SPEC_ERROR = (
@@ -198,25 +248,29 @@ def parse_shards(spec) -> tuple[int, int | None]:
     return n, None
 
 
-def mesh_from_shards(spec, device: str | torch.device | None = None) -> Mesh | None:
+def mesh_from_shards(spec, device: str | torch.device | None = None) -> Mesh | Mesh2D | None:
     """Mesh for a CLI shard spec, or None when it means 'unsharded' ('1').
-    On a CUDA `device` (the default) the mesh takes the first N cards and
-    raises if there are fewer; on the CPU it makes N CPU slots; under a
-    process group each rank takes an equal share of the slots. A 2-D
-    'RxC' spec is refused: the tile-sharded runner is not ported yet."""
+    'RxC' builds the 2-D mesh (make_mesh_2d) even for '1x8' or '8x1' (an
+    explicit 2-D request, as in the JAX package); a bare count builds the
+    1-D row mesh. On a CUDA `device` (the default) the mesh takes the first
+    N (or R * C) cards and raises if there are fewer; on the CPU it makes
+    that many CPU slots; under a process group each rank takes an equal
+    share of the slots."""
     n_r, n_c = parse_shards(spec)
-    if n_c is not None:
-        raise NotImplementedError(
-            f"--shards {spec}: 2-D tile sharding needs parallel/api2d, which "
-            "is not ported yet; use a 1-D row mesh (--shards N)"
-        )
-    if n_r <= 1:
+    n = n_r * (n_c or 1)
+    if n_c is None and n_r <= 1:
         return None
+
+    def build(devices=None):
+        if n_c is not None:
+            return make_mesh_2d(n_r, n_c, devices=devices)
+        return make_mesh(n_r, devices=devices)
+
     rank, world = _world()
     if world > 1:  # every rank holds an equal share of the slots on its device
-        if n_r % world:
-            raise ValueError(f"--shards {n_r} does not divide over {world} ranks")
-        return make_mesh(n_r, devices=[rank_device(device)] * (n_r // world))
+        if n % world:
+            raise ValueError(f"--shards {spec} does not divide over {world} ranks")
+        return build([rank_device(device)] * (n // world))
     if resolve_device(device).type == "cpu":
-        return make_mesh(n_r, devices=["cpu"] * n_r)
-    return make_mesh(n_r)
+        return build(["cpu"] * n)
+    return build()

@@ -84,8 +84,11 @@ def plan_callable_cuda(
     block_h: int | None = None,
     mxu_stage: str | None = None,
     impl: str = "cuda",
+    batched: bool = False,
 ):
-    """The full-image fused-pallas executor: an image -> image function.
+    """The full-image fused-pallas executor: an image -> image function
+    (`batched`: an (N, H, W[, C]) stack -> stack function, each eligible
+    stage one K4 launch over the stack, each barrier op per image).
     Eligible fused stages run as one K4 launch each (`block_h` sets K4's
     and K2's tile height), with each stencil's in-stage arm from
     `mxu_stage`, resolved once per stage at its first launch (so build one
@@ -99,25 +102,24 @@ def plan_callable_cuda(
         raise ValueError(f"unknown impl {impl!r}; known: ('cuda', 'mxu')")
     arms: dict[int, tuple] = {}  # stage index -> its arms, at its first launch
 
-    def run(img):
+    def run(stack):
         for si, stage in enumerate(plan.stages):
             if stage.kind in ("geometric", "global"):
-                img = stage.ops[0](img)
+                stack = ck.per_image(stage.ops[0], stack)
                 continue
-            ch = img.shape[2] if img.ndim == 3 else 1
-            reason = stage_kernel_reject(stage, img.shape[0], img.shape[1], ch, block_h)
+            height, width = stack.shape[1:3]
+            ch = stack.shape[3] if stack.ndim == 4 else 1
+            reason = stage_kernel_reject(stage, height, width, ch, block_h)
             if reason is None:
                 plan_metrics.pallas_stages += 1
                 if si not in arms:  # the image's width keys the stage_arm record
-                    arms[si] = ck.stage_arms(stage.ops, mxu_stage, img.shape[1],
-                                             device=img.device)
-                img = ck.fused_stage(stage.ops, img, tile_h=block_h, arms=arms[si])
+                    arms[si] = ck.stage_arms(stage.ops, mxu_stage, width, device=stack.device)
+                stack = ck.fused_stage(stage.ops, stack, tile_h=block_h, arms=arms[si],
+                                       batched=True)
             else:
                 plan_metrics.pallas_fallbacks[reason] += 1
-                if impl == "mxu":
-                    img = pipeline_mxu(stage.ops, img, block_h=block_h)
-                else:
-                    img = ck.pipeline_cuda(stage.ops, img, block_h=block_h)
-        return img
+                runner = pipeline_mxu if impl == "mxu" else ck.pipeline_cuda
+                stack = runner(stage.ops, stack, block_h=block_h, batched=True)
+        return stack
 
-    return run
+    return run if batched else ck.one_image(run)

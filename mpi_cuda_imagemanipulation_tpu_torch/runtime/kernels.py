@@ -224,8 +224,11 @@ def load(name: str) -> ctypes.CDLL:
     elif name == "stream_stencil":
         st = ctypes.POINTER(StencilDesc)
         # ... the chain table and its length, the descriptor, the block's
-        # rows and columns, (ghost: row0, image_h,) the device, the stream
-        lib.stream_stencil_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, vp]
+        # rows and columns, (full: the stack's images and its input and
+        # output strides; ghost: row0, image_h,) the device, the stream
+        lib.stream_stencil_launch.argtypes = [
+            vp, vp, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ll, ll, ci, vp,
+        ]
         lib.stream_stencil_launch.restype = ci
         lib.stream_stencil_ghost_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, ci, vp,
@@ -238,10 +241,10 @@ def load(name: str) -> ctypes.CDLL:
     elif name == "fused_stage":
         # ... the tile's rows and columns, the stage table, its last
         # stencil's descriptor, its ops and stencils, the largest stencil
-        # class, mma, two_pass, (ghost: row0, image_h,) the device, the
-        # stream
+        # class, mma, two_pass, (full: the stack's images and its input and
+        # output strides; ghost: row0, image_h,) the device, the stream
         st = ctypes.POINTER(StencilDesc)
-        lib.fused_stage_launch.argtypes = [vp, vp, *[ci] * 8, vp, st, *[ci] * 6, vp]
+        lib.fused_stage_launch.argtypes = [vp, vp, *[ci] * 8, vp, st, *[ci] * 6, ll, ll, ci, vp]
         lib.fused_stage_launch.restype = ci
         lib.fused_stage_ext_launch.argtypes = [vp, vp, *[ci] * 8, vp, st, *[ci] * 8, vp]
         lib.fused_stage_ext_launch.restype = ci
@@ -254,10 +257,11 @@ def load(name: str) -> ctypes.CDLL:
         lib.k5_sums_launch.restype = ci
     elif name == "swar_stencil":
         # ... the descriptor, the dense taps, the tile's rows and columns, the
-        # device, the stream
+        # stack's planes and its input and output strides, the device, the
+        # stream
         lib.swar_stencil_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, ci, ctypes.POINTER(SwarDesc), ctypes.POINTER(SwarTaps),
-            ci, ci, ci, vp,
+            ci, ci, ci, ll, ll, ci, vp,
         ]
         lib.swar_stencil_launch.restype = ci
         lib.swar_smem_bytes.argtypes = [ci, ci, ci, ci, ci]

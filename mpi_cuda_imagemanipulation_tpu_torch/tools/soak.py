@@ -33,15 +33,18 @@ case in either. Lanes, each held byte-equal to the golden
                      (K6-K8, drawn heights)
     swar             pipeline_swar on the trial's image (K6-K8 where
                      eligible, the K1/K2 fallback otherwise)
+    batched-B        Pipeline.batched(B) over 2-3 images, B in torch /
+                     cuda for the JAX soak's xla / pallas (cuda: each
+                     K1/K2 group one launch for the stack), each image
+                     against its own golden
+    sharded2d-RxC    Pipeline.sharded over a 2-D R x C mesh (with at least
+                     4 slots; a mesh too big for the image is skipped, as
+                     in the JAX soak)
+    dp-KoverN        Pipeline.data_parallel over N slots, K images (uneven
+                     K included), the port's default backend (cuda)
     sharded-N-B      Pipeline.sharded over N slots, B in torch / cuda /
                      auto / swar for the JAX soak's xla / pallas / auto /
                      swar (K2g, K3, K6g-K8g and K1 per shard)
-
-The JAX soak's batched, 2-D mesh and data-parallel lanes wait for the
-port's ``Pipeline.batched``, ``Pipeline.data_parallel`` and
-``parallel/api2d.py``: their draws are made all the same and each skipped
-lane is counted under its own name (``batched``, ``sharded2d``,
-``data_parallel``).
 
 After those draws, a plan lane drawn from its own ``random.Random(trial
 seed)`` (so that the shared stream stays the JAX soak's) runs the port's
@@ -75,10 +78,11 @@ import torch
 
 from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
 from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
 from mpi_cuda_imagemanipulation_tpu_torch.ops.cuda_kernels import pipeline_cuda
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
 from mpi_cuda_imagemanipulation_tpu_torch.ops.swar_kernels import pipeline_swar
-from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import make_mesh
+from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from mpi_cuda_imagemanipulation_tpu_torch.tools.packed_kernels import pipeline_packed
 from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
 
@@ -87,11 +91,15 @@ from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
 SHARDED_BACKENDS = ("torch", "cuda", "auto", "swar")
 # the plan lane's routes
 PLAN_ROUTES = ("fused-pallas", "fused-pallas-mxu", "mxu", "sharded-fused-pallas")
-# the JAX soak's lanes the port cannot run yet
-SKIPPED_LANES = ("batched", "sharded2d", "data_parallel")
+# the batched lane's backends, in the JAX soak's draw order (xla, pallas)
+BATCHED_BACKENDS = ("torch", "cuda")
+# the 2-D lane's mesh shapes, in the JAX soak's draw order
+MESHES_2D = ((2, 2), (2, 4), (4, 2), (2, 3))
 # every lane a soak should reach: chip_smoke fails a soak that misses one
 LANES = (
     ("xla", "pallas", "packed", "swar-plane", "swar")
+    + tuple(f"batched-{b}" for b in BATCHED_BACKENDS)
+    + ("sharded2d", "data-parallel")
     + tuple(f"sharded-{b}" for b in SHARDED_BACKENDS)
     + tuple(f"plan-{r}" for r in PLAN_ROUTES)
     + ("sharded-swar-plane",)
@@ -232,6 +240,21 @@ def _mesh(n: int, device):
     return make_mesh(n, devices=[device] * n)
 
 
+def _stack(h: int, w: int, k: int, seed: int, device) -> torch.Tensor:
+    """The JAX soak's stacks: k RGB images seeded seed, seed + 1, ..."""
+    return torch.stack([_image(h, w, 3, seed + t, device) for t in range(k)])
+
+
+def _per_image_lane(fn, pipe, stack) -> str | None:
+    """None when `fn()` gives, image by image, the golden output of each
+    image of `stack`, else what went wrong."""
+    out = fn()
+    for t in range(stack.shape[0]):
+        if not _same(out[t], pipe(stack[t])):
+            return f"mismatch at image {t}"
+    return None
+
+
 def _count(stats: dict | None, group: str, name: str) -> None:
     if stats is not None:
         table = stats.setdefault(group, {})
@@ -269,7 +292,7 @@ def run_trial(
     """One trial: a random chain on a random shape through every lane. None
     when every lane agrees with golden, else the REPRO dict of the first
     that does not. `stats['lanes']` counts the lanes that ran and agreed,
-    `stats['skipped']` the JAX soak's lanes the port cannot run yet."""
+    `stats['shard_skips']` the trials too short for any sharded lane."""
     device = torch.device(device)
     h, w = random_shape(rng)
     spec = random_chain(rng)
@@ -337,20 +360,60 @@ def run_trial(
         if bad:
             return bad
 
-    # the JAX soak's batched, 2-D mesh and data-parallel lanes: the same
-    # draws, the lanes skipped and counted until the port has them
-    if rng.random() < 0.35:
-        rng.randint(2, 3)
-        rng.choice(("xla", "pallas"))
-        _count(stats, "skipped", "batched")
+    def stack_lane(name, count, fn, stack):
+        """A stack's lane: every image against its own golden; the launches
+        its call made are added to stats['lane_launches'][count]."""
+        before = ck.launch_counts()
+        try:
+            bad = _per_image_lane(fn, pipe, stack)
+        except Exception as e:  # noqa: BLE001
+            return repro(name, f"raised {type(e).__name__}: {e}")
+        if bad:
+            return repro(name, bad)
+        _count(stats, "lanes", count)
+        if stats is not None:
+            table = stats.setdefault("lane_launches", {}).setdefault(count, {})
+            for k, v in ck.launch_counts().items():
+                if v > before[k]:
+                    table[k] = table.get(k, 0) + v - before[k]
+        return None
+
+    if rng.random() < 0.35:  # the batched path: per-image byte equality
+        k = rng.randint(2, 3)
+        backend_b = rng.choice(BATCHED_BACKENDS)  # the JAX soak's xla / pallas
+        imgs = _stack(h, w, k, trial_seed, device)
+        bad = stack_lane(f"batched-{backend_b}", f"batched-{backend_b}",
+                         lambda: pipe.batched(backend_b, device=device)(imgs), imgs)
+        if bad:
+            return bad
+
     if rng.random() < 0.3 and slots >= 4:
-        r, c = rng.choice(((2, 2), (2, 4), (4, 2), (2, 3)))
+        # the 2-D tile mesh (parallel/api2d): the corner-carrying exchange
+        r, c = rng.choice(MESHES_2D)
         if r * c <= slots:
-            _count(stats, "skipped", "sharded2d")
+            mesh2 = make_mesh_2d(r, c, devices=[device] * (r * c))
+            try:
+                got = pipe.sharded(mesh2, backend="torch")(img)
+            except ValueError as e:
+                if "below the minimum" not in str(e):
+                    return repro(f"sharded2d-{r}x{c}", f"raised ValueError: {e}")
+                got = None  # the image is too small for this mesh: skipped
+            except Exception as e:  # noqa: BLE001
+                return repro(f"sharded2d-{r}x{c}", f"raised {type(e).__name__}: {e}")
+            if got is not None:
+                if not _same(got, golden):
+                    return repro(f"sharded2d-{r}x{c}", "mismatch")
+                _count(stats, "lanes", "sharded2d")
+
     if rng.random() < 0.25 and slots >= 2:
-        rng.randint(2, 5)
-        rng.choice([s for s in (2, 4) if s <= slots])
-        _count(stats, "skipped", "data_parallel")
+        # a data-parallel stack (Pipeline.data_parallel), uneven K included
+        k = rng.randint(2, 5)
+        n_dp = rng.choice([s for s in (2, 4) if s <= slots])
+        dimgs = _stack(h, w, k, trial_seed, device)
+        bad = stack_lane(f"dp-{k}over{n_dp}", "data-parallel",
+                         lambda: pipe.data_parallel(_mesh(n_dp, device))(dimgs), dimgs)
+        if bad:
+            return bad
 
     def sharded_lane(name, count, n, skips, **kw):
         """`pipe.sharded` over `n` slots (`_run_sharded`) as a lane; `name`
@@ -411,9 +474,9 @@ def run_trial(
 def run_repro(line: str, *, device="cuda", slots: int = 8) -> int:
     """Re-run one REPRO json line deterministically: the same spec, shape and
     image seed on every lane (each tile height the line names and the
-    default, every shard count and backend, the plan routes), with a verdict
-    a lane. The JAX soak's batched, 2-D and data-parallel checks are
-    printed as skipped. Returns 1 if any lane disagrees with golden."""
+    default, every shard count and backend, the batched backends and the
+    data-parallel stack image by image, every 2-D mesh, the plan routes),
+    with a verdict a lane. Returns 1 if any lane disagrees with golden."""
     device = torch.device(device)
     d = json.loads(line)
     spec, h, w, seed = d["spec"], d["h"], d["w"], d["seed"]
@@ -460,8 +523,24 @@ def run_repro(line: str, *, device="cuda", slots: int = 8) -> int:
         sbh = d.get("plane_block_h")
         check(f"swar-plane[{d['plane_spec']} bh={sbh}]",
               lambda: pipeline_swar(gpipe.ops, gimg, block_h=sbh), want=gpipe(gimg))
-    for name in SKIPPED_LANES:
-        print(f"  {name}: skipped (not in the port yet)")
+    # the trial's stacks (k images seeded seed + t); k = 3 covers the
+    # batched lane's k, and every index is compared
+    imgs = _stack(h, w, 3, seed, device)
+    for b in BATCHED_BACKENDS:
+        for t in range(3):
+            check(f"batched-{b}[{t}]", lambda b=b, t=t: pipe.batched(b, device=device)(imgs)[t],
+                  want=pipe(imgs[t]))
+    if slots >= 4:
+        for r, c in sorted(MESHES_2D):
+            if r * c <= slots:
+                check(f"sharded2d-{r}x{c}",
+                      lambda r=r, c=c: pipe.sharded(
+                          make_mesh_2d(r, c, devices=[device] * (r * c)), backend="torch")(img),
+                      skip_on_min_guard=True)
+    if slots >= 2:
+        for t in range(3):
+            check(f"dp[{t}]", lambda t=t: pipe.data_parallel(_mesh(2, device))(imgs)[t],
+                  want=pipe(imgs[t]))
     if slots >= 2:
         for shards in sorted({s for s in (2, 3, 5, slots) if s <= slots}):
             for b in SHARDED_BACKENDS:
@@ -489,8 +568,8 @@ def soak(*, iters: int | None = 200, seconds: float | None = None, seed: int = 0
          device="cuda", slots: int = 8, verbose: bool = False, out=sys.stdout) -> dict:
     """Run trials from `random.Random(seed)` until `iters` trials or
     `seconds` of wall time (which then wins) and return the report:
-    trials, REPRO dicts, per-lane counts, skipped lanes, shard skips,
-    seconds. Prints each REPRO line and a progress line every 25 trials
+    trials, REPRO dicts, per-lane counts, the stack lanes' launches by
+    kernel, shard skips, seconds. Prints each REPRO line and a progress line every 25 trials
     to `out`. The caller sets MCIM_NO_CALIB (main does)."""
     rng = random.Random(seed)
     t0 = time.time()
@@ -516,7 +595,8 @@ def soak(*, iters: int | None = 200, seconds: float | None = None, seed: int = 0
         "trials": i,
         "repros": repros,
         "lanes": {name: stats.get("lanes", {}).get(name, 0) for name in LANES},
-        "skipped": {name: stats.get("skipped", {}).get(name, 0) for name in SKIPPED_LANES},
+        # the kernel launches of the stack lanes (batched, data-parallel)
+        "lane_launches": stats.get("lane_launches", {}),
         "shard_skips": stats.get("shard_skips", 0),
         "seconds": time.time() - t0,
     }
@@ -556,8 +636,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"soak done: {rep['trials']} trials, {len(rep['repros'])} failures, "
           f"{rep['shard_skips']} without sharded coverage "
           f"(too short even for 2 shards), {rep['seconds']:.0f}s", flush=True)
-    print("soak lanes: " + json.dumps({"lanes": rep["lanes"], "skipped": rep["skipped"]}),
-          flush=True)
+    print("soak lanes: " + json.dumps({"lanes": rep["lanes"]}), flush=True)
     return 1 if rep["repros"] else 0
 
 

@@ -32,19 +32,21 @@ def as_image_tensor(img, device: torch.device) -> torch.Tensor:
 _PER_SHAPE_LIMIT = 64
 
 
-def per_shape(build):
+def per_shape(build, key=lambda img: img.shape):
     """A function img -> build(img)(img) that calls `build` once per image
     shape (the routing decisions that read the environment, the platform or
     the calibration store) and reuses its result after: one dict lookup a
-    call."""
+    call. `key` names the shape (a stack's: its images', not their
+    count)."""
     built: dict = {}
 
     def run(img):
-        fn = built.get(img.shape)
+        k = key(img)
+        fn = built.get(k)
         if fn is None:
             if len(built) >= _PER_SHAPE_LIMIT:
                 built.clear()
-            fn = built[img.shape] = build(img)
+            fn = built[k] = build(img)
         return fn(img)
 
     return run

@@ -1,4 +1,5 @@
-"""Timing: sample percentiles, and device time by CUDA events.
+"""Timing: sample percentiles, device time by CUDA events, and the
+synchronisation that ends a host-clock window.
 
 Device time is never taken with a host clock around an unsynchronised
 call: PyTorch returns before the card finishes.
@@ -30,6 +31,15 @@ def percentiles(
         hi = math.ceil(rank)
         out[q] = xs[lo] + (xs[hi] - xs[lo]) * (rank - lo)
     return out
+
+
+def _sync(out) -> None:
+    """Wait until everything enqueued before `out` has run: for a CUDA
+    tensor, ``torch.cuda.synchronize`` on its card; nothing for a CPU one,
+    whose ops ran when they were called. The counterpart of the JAX
+    package's ``utils.timing._sync``."""
+    if isinstance(out, torch.Tensor) and out.device.type == "cuda":
+        torch.cuda.synchronize(out.device)
 
 
 def device_time_ms(

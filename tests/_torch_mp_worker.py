@@ -11,6 +11,13 @@ gather crossing a process boundary. The rendezvous comes from the torchrun
 environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE).
 
     python tests/_torch_mp_worker.py SLOTS_PER_RANK [cpu|cuda] [HEIGHTxWIDTH]
+    python tests/_torch_mp_worker.py 2d|dp [cpu|cuda]
+
+The second form holds two slots per rank and runs the 2-D tile-sharded
+runner over a 2 x (ranks) mesh (parallel/api2d: both exchange phases, the
+histograms' all_reduce and the root's geometric ops crossing ranks), or
+``Pipeline.data_parallel`` over a 5-image stack (uneven over the slots;
+the gather crossing ranks).
 
 On a host with one card per rank, the NCCL form is
 
@@ -40,6 +47,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo  # noqa: E402
 from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import (  # noqa: E402
     distributed_init,
     make_mesh,
+    make_mesh_2d,
     rank_device,
 )
 
@@ -48,7 +56,62 @@ LANES = [("torch", "off", "serial"), ("torch", "fused", "serial"), ("cuda", "off
          ("torch", "fused", "overlap")]
 
 
+def main_form(form: str) -> int:
+    """The 2-D runner ('2d') or the data-parallel stack ('dp') across the
+    ranks, two slots each; the rank that holds slot 0 checks the result
+    against the golden ops, and data-parallel's other ranks their own
+    chunks."""
+    kind = sys.argv[2] if len(sys.argv) > 2 else "cpu"
+    distributed_init(kind)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dev = rank_device(kind)
+    bad = 0
+    if form == "2d":
+        mesh = make_mesh_2d(world, 2, devices=[dev] * 2)
+        assert mesh.shape == {"rows": world, "cols": 2} and mesh.distributed
+        img = synthetic_image(96, 88, channels=3, seed=23)
+        for spec in (REFERENCE_PIPELINE_SPEC, "gaussian:5,gaussian:5",
+                     "grayscale,equalize,gaussian:5", "rot:90,gaussian:5",
+                     "gaussian:3,rot:90,gaussian:5"):
+            pipe = Pipeline.parse(spec)
+            golden = pipe(torch.from_numpy(img).to(dev))
+            for plan, halo_mode in (("off", "serial"), ("off", "overlap"), ("fused", "serial")):
+                halo.exchanges.reset()
+                out = pipe.sharded(mesh, backend="torch", plan=plan, halo_mode=halo_mode)(img)
+                rounds = halo.exchanges.axis_rounds
+                if rounds["rows"] < 1 or rounds["cols"] < 1:
+                    bad += 1
+                if rank == 0 and not torch.equal(out, golden):
+                    print(f"TORCH_MULTIPROC_MISMATCH 2d {spec} {plan}/{halo_mode}", flush=True)
+                    bad += 1
+    else:
+        mesh = make_mesh(devices=[dev] * 2)
+        n, per = 5, -(-5 // (2 * world))
+        stack = torch.stack([torch.from_numpy(synthetic_image(40, 56, channels=3, seed=30 + t))
+                             for t in range(n)])
+        padded = torch.cat([stack, stack[-1:].expand((per * 2 * world - n,) + stack.shape[1:])])
+        for spec in (REFERENCE_PIPELINE_SPEC, "grayscale,equalize,gaussian:5", "gaussian:5"):
+            pipe = Pipeline.parse(spec)
+            for backend in ("torch", "cuda"):
+                out = pipe.data_parallel(mesh, backend=backend)(stack)
+                mine = padded if rank == 0 else padded[rank * 2 * per : (rank + 1) * 2 * per]
+                want = [pipe(x.to(dev)) for x in (stack if rank == 0 else mine)]
+                if len(out) != len(want) or not all(map(torch.equal, out, want)):
+                    print(f"TORCH_MULTIPROC_MISMATCH dp {spec} {backend} rank={rank}", flush=True)
+                    bad += 1
+    dist.barrier()
+    dist.destroy_process_group()
+    if bad:
+        print(f"TORCH_MULTIPROC_BAD rank={rank} n={bad}", flush=True)
+        return 1
+    if rank == 0:
+        print(f"TORCH_MULTIPROC_OK {form} slots={2 * world}", flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1] in ("2d", "dp"):
+        return main_form(sys.argv[1])
     slots = int(sys.argv[1])
     kind = sys.argv[2] if len(sys.argv) > 2 else "cpu"
     distributed_init(kind)

@@ -1,6 +1,7 @@
 """The port's sharded runner across OS processes: two ranks of a
 ``torch.distributed`` group on ``gloo`` (tests/_torch_mp_worker.py), one
-shard per rank and two slots per rank, and the CLI under the torchrun
+shard per rank and two slots per rank, the 2-D runner and the
+data-parallel stack over two slots per rank, and the CLI under the torchrun
 environment. The rank that holds slot 0 must end with the golden bytes.
 
 Each subprocess has its own time limit; the rendezvous port is chosen at
@@ -67,6 +68,17 @@ def test_two_gloo_processes_match_golden(slots_per_rank):
         assert rc == 0, f"rank {rank}: {out}\n{err[-2000:]}"
     assert f"TORCH_MULTIPROC_OK slots={2 * slots_per_rank}" in outs[0][1]
     assert "TORCH_MULTIPROC" not in outs[1][1]  # only slot 0's rank reports
+
+
+@pytest.mark.parametrize("form", ["2d", "dp"])
+def test_two_gloo_processes_2d_and_data_parallel(form):
+    """The 2-D tile-sharded runner over a 2 x 2 mesh and the data-parallel
+    stack over 4 slots, two slots on each of two ranks."""
+    outs = _run_group([WORKER, form])
+    for rank, (rc, out, err) in enumerate(outs):
+        assert rc == 0, f"rank {rank}: {out}\n{err[-2000:]}"
+    assert f"TORCH_MULTIPROC_OK {form} slots=4" in outs[0][1]
+    assert "TORCH_MULTIPROC" not in outs[1][1]
 
 
 @pytest.mark.parametrize("plan", ["off", "fused-pallas"])

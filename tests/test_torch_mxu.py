@@ -631,8 +631,8 @@ def test_rejected_stage_under_mxu_keeps_the_banded_products(monkeypatch):
                         raising=False)
     runs, whole = [], []
     orig_runner, orig_stencil = ck.pipeline_cuda, mk.mxu_stencil
-    monkeypatch.setattr(ck, "pipeline_cuda", lambda ops, img, block_h=None: runs.append(
-        [op.name for op in ops]) or orig_runner(ops, img, block_h=block_h))
+    monkeypatch.setattr(ck, "pipeline_cuda", lambda ops, img, block_h=None, **kw: runs.append(
+        [op.name for op in ops]) or orig_runner(ops, img, block_h=block_h, **kw))
     monkeypatch.setattr(mk, "mxu_stencil", lambda op, img, **k: whole.append(op.name) or
                         orig_stencil(op, img, **k))
     spec = "gamma:2,gaussian:5,median:3,sobel"  # a lookup table: 'lut-op'
@@ -647,8 +647,8 @@ def test_rejected_stage_under_mxu_keeps_the_banded_products(monkeypatch):
 def test_pipeline_mxu_runs_other_ops_through_the_group_runner(monkeypatch):
     runs = []
     orig = ck.pipeline_cuda
-    monkeypatch.setattr(ck, "pipeline_cuda", lambda ops, img, block_h=None: runs.append(
-        [op.name for op in ops]) or orig(ops, img, block_h=block_h))
+    monkeypatch.setattr(ck, "pipeline_cuda", lambda ops, img, block_h=None, **kw: runs.append(
+        [op.name for op in ops]) or orig(ops, img, block_h=block_h, **kw))
     spec = "grayscale,contrast:3.5,gaussian:5,median:3,sharpen,quantize:6"
     img = torch.from_numpy(_img(40, 50, 3, 6))
     got = Pipeline.parse(spec).jit("mxu", device="cpu", plan="off")(img)

@@ -294,7 +294,7 @@ def test_plan_callable_cuda_matches_jax_megakernel(spec_str, shape):
 
 def test_rejected_stage_runs_through_the_group_runner(monkeypatch):
     calls = []
-    monkeypatch.setattr(ck, "pipeline_cuda", lambda ops, img, block_h=None: calls.append(
+    monkeypatch.setattr(ck, "pipeline_cuda", lambda ops, img, block_h=None, **kw: calls.append(
         [op.name for op in ops]) or img)
     plan_metrics.reset()
     img = torch.from_numpy(_img(30, 30, 1, seed=34))

@@ -398,8 +398,9 @@ def test_mesh_construction():
             pmesh.mesh_from_shards("4")
     assert pmesh.mesh_from_shards("1", "cpu") is None
     assert pmesh.mesh_from_shards("4", "cpu").shape == {"rows": 4}
-    with pytest.raises(NotImplementedError, match="api2d"):
-        pmesh.mesh_from_shards("2x4", "cpu")
+    m2 = pmesh.mesh_from_shards("2x4", "cpu")  # the 2-D mesh of parallel/api2d
+    assert m2.axis_names == ("rows", "cols") and m2.shape == {"rows": 2, "cols": 4}
+    assert m2.local_slots == tuple(range(8)) and all(d.type == "cpu" for d in m2.devices)
 
 
 @pytest.mark.parametrize("spec", [4, "4", " 8 ", "2x4", "1X8", "0", "x", "2x", "-1", "2x0", "a"])
@@ -486,9 +487,14 @@ def test_cli_run_shards(tmp_path, capsys):
     recs = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [r["halo_mode"] for r in recs] == ["serial", "serial", "overlap", "overlap"]
     assert all(r["shards"] == "4" and r["halo_exchanges"] == 1 for r in recs)
+    # --shards RxC tile-shards (parallel/api2d) with the torch ops, and
+    # refuses the kernel backends
     assert cli.main(["run", "--input", str(src), "--output", str(tmp_path / "x.png"),
-                     "--device", "cpu", "--shards", "2x2"]) == 2
-    assert "api2d" in capsys.readouterr().err
+                     "--device", "cpu", "--shards", "2x2"]) == 0
+    np.testing.assert_array_equal(load_image(tmp_path / "x.png"), load_image(plain))
+    assert cli.main(["run", "--input", str(src), "--output", str(tmp_path / "x.png"),
+                     "--device", "cpu", "--shards", "2x2", "--impl", "cuda"]) == 2
+    assert "2-D sharding" in capsys.readouterr().err
     if not torch.cuda.is_available():  # no card: an error, not a quiet CPU run
         assert cli.main(["run", "--input", str(src), "--output", str(tmp_path / "x.png"),
                          "--shards", "4"]) == 2

@@ -229,7 +229,11 @@ def test_main_prints_repro_and_leaves_no_calib_unset(monkeypatch, capsys):
     assert json.loads(line[len("REPRO "):])["backend"] == "pallas"
     assert "soak done: 1 trials, 1 failures" in out
     lanes = json.loads(out.split("soak lanes: ", 1)[1].splitlines()[0])
-    assert lanes["lanes"]["xla"] == 1 and set(lanes["skipped"]) == set(soak.SKIPPED_LANES)
+    # every lane is reported, the batched, 2-D and data-parallel ones too,
+    # and none is skipped
+    assert lanes["lanes"]["xla"] == 1 and set(lanes) == {"lanes"}
+    assert set(lanes["lanes"]) == set(soak.LANES) >= {"batched-torch", "batched-cuda",
+                                                      "sharded2d", "data-parallel"}
 
 
 def test_run_repro_passes_a_passing_case(no_calib, capsys):
@@ -240,8 +244,10 @@ def test_run_repro_passes_a_passing_case(no_calib, capsys):
     out = capsys.readouterr().out
     assert "MISMATCH" not in out and "RAISED" not in out
     for name in ("pallas[bh=32]", "swar-plane", "sharded-3-swar", "plan-fused-pallas-mxu",
-                 "plan-sharded-3-fused-pallas-overlap", "batched: skipped"):
+                 "plan-sharded-3-fused-pallas-overlap", "batched-torch[2]: ok",
+                 "batched-cuda[0]: ok", "dp[2]: ok"):
         assert name in out
+    assert "skipped (not in the port yet)" not in out
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
