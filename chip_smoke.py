@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-nine phases; any failure raises and the script exits non-zero without
+seventeen phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -219,7 +219,36 @@ printing a result:
    ``--device-timeout 300``, the outputs equal, both wall times beside the
    child's two windows; a 0.01 s budget exits 4.
 
-It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+15. T1's batch axis: T1 full mode (every stencil group of tests/test_packed.py's
+   specs that T1 takes: every edge mode, gray and RGB) and T1-pw (1 -> 1,
+   3 -> 1, 3 -> 3, 1 -> 3) on stacks of N = 1, 2 and 3 small images
+   (heights just above the halo, word widths 8, 11, 75, 33 and 65) through
+   the same launch entry as one image, each equal to its plain version
+   image by image with one launch a stack; ``pipeline_packed`` on a
+   non-contiguous source stack; then ``pipeline_packed`` over 4 8K gray
+   planes (gaussian:5): equal to golden per image, one T1 launch, ms a frame
+   beside one frame's call, and the batched T1 row of the ``kernels`` line.
+
+16. The engine (engine/core.py) on the card: 64 dispatches of the 8K
+   reference, each a fresh frame, through ``Engine(inflight=3)`` with
+   ``device_stager`` and ``Pipeline.jit(donate=True)``, every output equal
+   to golden (SHA-256 of the bytes): the staged buffers' ``record_stream``
+   under load; the stage percentiles and ``device_idle_frac``; inflight 1
+   and 2 with each output written as a PGM; what pinning a 99.5 MB buffer
+   costs, and the frame's H2D and D2H, pinned and pageable.
+
+17. CLI ``batch`` at 8K: 6 frames of the 8K RGB synthetic as PPM (the
+   native codec, its counters asserted) and 2 as PNG, the reference
+   through ``cuda --plan off``, ``auto``, ``swar``, ``fused-pallas-mxu``,
+   ``--stack 3``, ``--shards 4`` and ``--stack 4 --shards 4`` (the 4-slot
+   mesh of the one card) over the PPM files and ``cuda --plan off`` over
+   the PNG files, each at ``--inflight`` 1 and 2: every output file equal
+   to golden, each run's end-to-end MP/s and device idle share as
+   ``--show-timing`` prints them.
+
+The native codec is built from the checkout like the kernels, and a kernel
+or the codec that fails to build or launch fails its phase: nothing falls
+back. It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
@@ -4145,6 +4174,415 @@ def phase14_guard(device, x8k) -> None:
           f"budget exits 4 after {wall_late:.3f} s")
 
 
+# --------------------------------------------------------------------------
+# Phases 15-17: T1's batch axis, the engine on the card, CLI batch at 8K
+# --------------------------------------------------------------------------
+
+# T1's batched checks: word-aligned shapes just above each halo, word
+# widths that are odd or 8 (the smallest T1 takes), one past a strip
+T1_BATCH_SHAPES = [(4, 32), (5, 44), (8, 300), (37, 132), (66, 260)]
+T1_BATCH_N = (1, 2, 3)
+# T1-pw's chains: 1 -> 1, 3 -> 1, 3 -> 3, 1 -> 3
+T1_BATCH_CHAINS = ["contrast:3.5", "grayscale,contrast:3.5", "sepia,invert", "gray2rgb,invert"]
+T1_FRAMES = 4  # 8K gray planes of the batched pipeline_packed path
+ENGINE_DISPATCHES = 64  # 8K reference frames through Engine(inflight=3)
+ENGINE_IDLE_DISPATCHES = 16  # each of the inflight 1 and 2 runs
+# CLI batch at 8K: the frames of the input directory (seeds), PPM and PNG
+BATCH_PPM_SEEDS = range(6)
+BATCH_PNG_SEEDS = (6, 7)
+# (label, batch arguments) of the PPM runs, each at --inflight 1 and 2
+BATCH_CLI_RUNS = [
+    ("cuda off", ["--impl", "cuda", "--plan", "off"]),
+    ("auto", ["--impl", "auto"]),
+    ("swar", ["--impl", "swar"]),
+    ("fused-pallas-mxu", ["--impl", "cuda", "--plan", "fused-pallas-mxu"]),
+    ("stack 3", ["--impl", "cuda", "--plan", "off", "--stack", "3"]),
+    ("shards 4", ["--impl", "cuda", "--plan", "off", "--shards", "4"]),
+    ("stack 4 shards 4", ["--impl", "cuda", "--plan", "off", "--stack", "4", "--shards", "4"]),
+]
+
+
+def phase15_t1_batched(device, rows) -> None:
+    """T1's batch axis on the card: T1 full mode (every stencil group of
+    PACKED_SPECS that T1 takes, so every edge mode, gray and RGB) and T1-pw
+    (T1_BATCH_CHAINS) on stacks of N = 1, 2 and 3 small images through the
+    same launch entry as one image, each against its plain version image by
+    image, one launch counted per call; pipeline_packed on a non-contiguous
+    source stack; then pipeline_packed over T1_FRAMES 8K gray planes
+    (gaussian:5): each image equal to golden, one T1 launch for the stack,
+    ms a frame beside one frame's call, and the batched T1 row of the
+    `kernels` line."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.tools import packed_kernels as pk
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    t0 = time.perf_counter()
+
+    def words_of(stack):
+        planes = [stack] if stack.ndim == 3 else [stack[..., c] for c in range(stack.shape[3])]
+        return [pk._pack(p) for p in planes]
+
+    def check(tag, pw, st, stack, key):
+        h, w = stack.shape[1:3]
+        words = words_of(stack)
+        ck.reset_launch_counts()
+        got = pk.run_group_packed_words(pw, st, words, h, w, batched=True)
+        torch.cuda.synchronize()
+        if ck.TOOL_LAUNCHES[key] != 1:
+            raise AssertionError(f"{tag}: {ck.TOOL_LAUNCHES[key]} {key} launches for a stack")
+        want = pk.run_group_packed_words_plain(pw, st, words, h, w, batched=True)
+        for c, (g, x) in enumerate(zip(got, want)):
+            check_equal(f"{tag} plane {c}", g, x)
+        return 1
+
+    n = 0
+    groups = []
+    for spec in PACKED_SPECS:
+        for pw, st in ck.group_ops(make_pipeline_ops(spec)):
+            if st is not None:
+                groups.append((spec, pw, st))
+    for spec, pw, st in groups:
+        channels = 3 if pw and pw[0].name.startswith(("grayscale", "sepia")) else 1
+        for shape in T1_BATCH_SHAPES:
+            if not pk.packed_supported(pw, st, shape[1]) or shape[0] <= st.halo:
+                continue
+            for nb in T1_BATCH_N:
+                stack = stack_of(nb, shape, channels, 300 + nb, device)
+                n += check(f"T1 batched {spec} N={nb} {shape}", pw, st, stack, "T1")
+    for chain in T1_BATCH_CHAINS:
+        pw, st = split_group(chain)
+        channels = 3 if chain.startswith(("grayscale", "sepia")) else 1
+        for shape in T1_BATCH_SHAPES:
+            for nb in T1_BATCH_N:
+                stack = stack_of(nb, shape, channels, 310 + nb, device)
+                n += check(f"T1-pw batched {chain} N={nb} {shape}", pw, st, stack, "T1-pw")
+    # a non-contiguous source stack: every other image of a stack of 6
+    ops = make_pipeline_ops("grayscale,gaussian:5,invert,sobel")
+    src = stack_of(6, (66, 260), 3, 320, device)[::2]
+    got = pk.pipeline_packed(ops, src, batched=True)
+    gold = Pipeline.parse("grayscale,gaussian:5,invert,sobel")
+    for t in range(src.shape[0]):
+        check_equal(f"pipeline_packed non-contiguous stack image {t}", got[t], gold(src[t]))
+    n += 1
+    print(f"phase 15: T1 and T1-pw batched equal to their plain versions (max_abs_err 0) in {n} "
+          f"cases, one launch a stack; {time.perf_counter() - t0:.1f} s")
+
+    # pipeline_packed over the 8K gray planes
+    ops = make_pipeline_ops("gaussian:5")
+    (pw5, st5), = ck.group_ops(ops)
+    gray = ck.pointwise_group(split_group("grayscale")[0],
+                              stack_of(T1_FRAMES, (MAIN_H, MAIN_W), 3, 0, device), batched=True)
+    ck.reset_launch_counts()
+    out = pk.pipeline_packed(ops, gray, batched=True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    if counts != {"T1": 1}:
+        raise AssertionError(f"pipeline_packed over {T1_FRAMES} 8K planes launched {counts}")
+    golden = Pipeline.parse("gaussian:5")
+    for t in range(T1_FRAMES):
+        check_equal(f"pipeline_packed 8K gray image {t}", out[t], golden(gray[t]))
+    del out
+    t_stack = device_time_ms(lambda: pk.pipeline_packed(ops, gray, batched=True), reps=5, inner=2)
+    t_single = device_time_ms(lambda: [pk.pipeline_packed(ops, x) for x in gray], reps=5, inner=2)
+    print(f"phase 15: pipeline_packed [gaussian:5] N={T1_FRAMES} x {MAIN_H}x{MAIN_W} gray: launches "
+          f"{counts}, stack {t_stack:.4f} ms ({t_stack / T1_FRAMES:.4f} a frame), {T1_FRAMES} "
+          f"single calls {t_single:.4f} ms ({t_single / T1_FRAMES:.4f} a frame; per frame stack / "
+          f"single {t_stack / t_single:.3f})")
+    words = [pk._pack(gray)]
+    n_pix = T1_FRAMES * MAIN_H * MAIN_W
+    fn = lambda: pk.run_group_packed_words(pw5, st5, words, MAIN_H, MAIN_W, batched=True)[0]  # noqa: E731
+    plain = lambda: pk.run_group_packed_words_plain(pw5, st5, words, MAIN_H, MAIN_W,  # noqa: E731
+                                                    batched=True)[0]
+    err = int((fn().int() - plain().int()).abs().max().item())
+    if err:
+        raise AssertionError(f"T1 batched 8K: kernel != plain, max abs err {err}")
+    ms = device_time_ms(fn, reps=7)
+    plain_ms = device_time_ms(plain, warmup=1, reps=2, inner=1)
+    import torch.nn.functional as F
+
+    xf = F.pad(gray[:, None].float(), (2, 2, 2, 2), mode="reflect")
+    wk = torch.as_tensor(st5.kernels[0] * st5.scale, dtype=torch.float32, device=device)[None, None]
+    library_ms = device_time_ms(lambda: F.conv2d(xf, wk), reps=7)
+    del xf
+    bound_ms, bound_by = bound(2 * n_pix, op_count([st5], n_pix, 1))
+    rows.append({
+        "name": f"T1 packed_stream [gaussian5] batched N={T1_FRAMES} 8K gray words", "route": "cuda",
+        "source": "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/packed_stream.cu",
+        "replaces": "tools/packed_kernels.py:752", "launches": counts["T1"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+    })
+    print(f"kernel T1 batched N={T1_FRAMES}: {ms:.4f} ms ({ms / T1_FRAMES:.4f} per image), bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+          f"library {library_ms:.4f} ms, launches {counts['T1']}")
+    del gray, words
+    torch.cuda.empty_cache()
+
+
+def _pct(stages: dict) -> str:
+    return "; ".join(
+        f"{k} " + ("-" if v is None else f"p50 {v['p50_ms']:.2f} p95 {v['p95_ms']:.2f} ms")
+        for k, v in stages.items())
+
+
+def phase16_engine(device) -> None:
+    """The engine on the card: ENGINE_DISPATCHES frames of the 8K reference
+    (each a fresh frame: the seed-0 frame plus 37 k, modulo 256) through
+    Engine(inflight=3) with device_stager and Pipeline.jit(donate=True),
+    each output byte for byte equal to golden (by SHA-256 of the bytes, the
+    goldens computed first on the card): the staged buffers' record_stream
+    under load. The engine's stage percentiles and device_idle_frac; then
+    inflight 1 and 2 with each output also written as a PGM file (the
+    native codec) on the encode pool; what pinning a 99.5 MB buffer costs; the pinned
+    and pageable H2D and D2H of the frame."""
+    import hashlib
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.engine import Engine, EngineMetrics, device_stager
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import save_image, synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+
+    t0 = time.perf_counter()
+    base = synthetic_image(MAIN_H, MAIN_W, seed=0)
+    frame = lambda k: base + np.uint8((37 * k) % 256)  # noqa: E731
+    spec = SPECS["reference"]
+    gold = Pipeline.parse(spec)
+    want = [hashlib.sha256(gold(torch.from_numpy(frame(k)).to(device)).cpu().numpy().tobytes())
+            .hexdigest() for k in range(ENGINE_DISPATCHES)]
+    t_gold = time.perf_counter() - t0
+
+    def run_engine(inflight, n, encode=None):
+        fn = Pipeline.parse(spec).jit("cuda", device=device, plan="off", donate=True)
+        metrics = EngineMetrics()
+        bad, got = [], {}
+        lock = threading.Lock()
+
+        def on_done(k, out, info):
+            h = hashlib.sha256(out.tobytes()).hexdigest()
+            if encode is not None:
+                encode(k, out)
+            with lock:
+                got[k] = h
+
+        def on_error(k, e):
+            with lock:
+                bad.append((k, repr(e)))
+
+        t = time.perf_counter()
+        with Engine(inflight=inflight, io_threads=4, stage=device_stager(device, inflight=inflight),
+                    metrics=metrics, name="chip") as eng:
+            for k in range(n):
+                eng.submit(k, lambda k=k: frame(k), fn, on_done=on_done, on_error=on_error)
+            if not eng.flush(timeout=600):
+                raise AssertionError("engine did not drain in 600 s")
+        wall = time.perf_counter() - t
+        if bad:
+            raise AssertionError(f"engine failures: {bad[:3]}")
+        wrong = [k for k in range(n) if got.get(k) != want[k]]
+        if wrong:
+            raise AssertionError(f"engine outputs differ from golden at dispatches {wrong[:8]}")
+        return metrics.snapshot(), wall
+
+    snap, wall = run_engine(3, ENGINE_DISPATCHES)
+    print(f"phase 16: engine inflight=3, {ENGINE_DISPATCHES} dispatches of the 8K reference, every "
+          f"output equal to golden (goldens {t_gold:.1f} s); wall {wall:.2f} s "
+          f"({ENGINE_DISPATCHES * MAIN_H * MAIN_W / 1e6 / wall:.1f} MP/s), inflight peak "
+          f"{snap['inflight_peak']}, device_idle_frac {snap['device_idle_frac']:.4f}; stages: "
+          f"{_pct(snap['stages'])}")
+    tmp = tempfile.mkdtemp(prefix="mcim_engine_")
+
+    def write_ppm(k, out):
+        save_image(os.path.join(tmp, f"{k % 4}.pgm"), out)
+
+    for inflight in (1, 2):
+        snap, wall = run_engine(inflight, ENGINE_IDLE_DISPATCHES, encode=write_ppm)
+        print(f"phase 16: engine inflight={inflight}, {ENGINE_IDLE_DISPATCHES} dispatches with a PGM "
+              f"write each: wall {wall:.2f} s, device_idle_frac {snap['device_idle_frac']:.4f}, "
+              f"inflight peak {snap['inflight_peak']}; stages: {_pct(snap['stages'])}")
+    # pinning 99.5 MB: page-locking a fresh host buffer in place
+    # (cudaHostRegister, and its unregister), and fresh blocks of PyTorch's
+    # caching host allocator (three held at once, so that each is a new
+    # cudaHostAlloc unless the cache holds that many), then one from its
+    # cache after a free
+    nbytes = MAIN_H * MAIN_W * 3
+    cudart = torch.cuda.cudart()
+    fresh = np.ones(nbytes, dtype=np.uint8)  # touched: its pages exist
+    t = time.perf_counter()
+    rc = cudart.cudaHostRegister(fresh.ctypes.data, nbytes, 0)
+    register = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    cudart.cudaHostUnregister(fresh.ctypes.data)
+    unregister = (time.perf_counter() - t) * 1e3
+    if int(rc) != 0:
+        raise AssertionError(f"cudaHostRegister returned {rc}")
+    held, allocs = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        held.append(torch.empty(nbytes, dtype=torch.uint8, pin_memory=True))
+        allocs.append((time.perf_counter() - t) * 1e3)
+    pinned = held.pop(0)
+    held.clear()
+    t = time.perf_counter()
+    again = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    cached = (time.perf_counter() - t) * 1e3
+    del again
+    host = torch.from_numpy(base.reshape(-1))
+    t = time.perf_counter()
+    pinned.copy_(host)
+    fill = (time.perf_counter() - t) * 1e3
+
+    def xfer_ms(fn):
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(samples)
+
+    dev_buf = pinned.to(device)
+    h2d_pin = xfer_ms(lambda: dev_buf.copy_(pinned, non_blocking=True))
+    h2d_page = xfer_ms(lambda: dev_buf.copy_(host))
+    d2h_pin = xfer_ms(lambda: pinned.copy_(dev_buf, non_blocking=True))
+    page_out = torch.empty_like(host)
+    d2h_page = xfer_ms(lambda: page_out.copy_(dev_buf))
+    rate = lambda ms: nbytes / ms / 1e6  # noqa: E731  GB/s
+    print(f"phase 16: pinning a {nbytes / 1e6:.1f} MB buffer: cudaHostRegister {register:.2f} ms "
+          f"(unregister {unregister:.2f} ms); caching host allocator, three held "
+          f"{', '.join(f'{x:.2f}' for x in allocs)} ms, again after a free {cached:.3f} ms; filling "
+          f"it from pageable memory {fill:.2f} ms; H2D pinned {h2d_pin:.3f} ms "
+          f"({rate(h2d_pin):.1f} GB/s), pageable {h2d_page:.3f} ms ({rate(h2d_page):.1f} GB/s); D2H pinned {d2h_pin:.3f} ms "
+          f"({rate(d2h_pin):.1f} GB/s), pageable {d2h_page:.3f} ms ({rate(d2h_page):.1f} GB/s); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del pinned, dev_buf, page_out
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def one_card_meshes(device):
+    """`make_mesh` and `make_mesh_2d` with slot i on card i modulo the cards
+    (the earlier phases' 4-slot mesh of one card), for the CLI's --shards."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import mesh as pmesh
+
+    real1, real2 = pmesh.make_mesh, pmesh.make_mesh_2d
+    cards = torch.cuda.device_count()
+
+    def slots(n):
+        return [torch.device("cuda", i % cards) for i in range(n)]
+
+    pmesh.make_mesh = lambda n=None, *, devices=None: real1(n, devices=devices or slots(n))
+    pmesh.make_mesh_2d = lambda r, c, *, devices=None: real2(r, c, devices=devices or slots(r * c))
+    try:
+        yield
+    finally:
+        pmesh.make_mesh, pmesh.make_mesh_2d = real1, real2
+
+
+def run_batch_cli(argv) -> tuple[int, str]:
+    """`batch` through the port's main, in this process; (exit code, stdout)."""
+    import io
+
+    from mpi_cuda_imagemanipulation_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["batch", *argv])
+    return rc, buf.getvalue()
+
+
+def phase17_batch_cli(device) -> None:
+    """CLI `batch` at 8K (module docstring, phase 17): a directory of the 8K
+    RGB synthetic frames BATCH_PPM_SEEDS as PPM (the native codec, whose
+    counter must move by every input and output) and BATCH_PNG_SEEDS as PNG;
+    the reference pipeline through each of BATCH_CLI_RUNS over the PPM
+    files at --inflight 1 and 2, and `cuda --plan off` over the PNG files at
+    both; every output file byte-equal to Pipeline.parse(spec)(img) with
+    gray replicated to RGB; each run's end-to-end MP/s and device idle
+    share as `--show-timing` prints them."""
+    import re
+    import shutil
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+        gray_to_rgb,
+        load_image,
+        save_image,
+        synthetic_image,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.runtime import codec
+
+    t0 = time.perf_counter()
+    if not codec.available():
+        raise AssertionError("the native codec did not build (runtime/build.py)")
+    print(f"phase 17: native codec {codec.library_path()}")
+    root = tempfile.mkdtemp(prefix="mcim_batch_")
+    src = os.path.join(root, "in")
+    os.makedirs(src)
+    spec = SPECS["reference"]
+    gold = Pipeline.parse(spec)
+    want = {}
+    for seed in [*BATCH_PPM_SEEDS, *BATCH_PNG_SEEDS]:
+        img = synthetic_image(MAIN_H, MAIN_W, seed=seed)
+        name = f"f{seed}.{'ppm' if seed in BATCH_PPM_SEEDS else 'png'}"
+        save_image(os.path.join(src, name), img)
+        out = gold(torch.from_numpy(img).to(device)).cpu().numpy()
+        want[name] = gray_to_rgb(out) if out.ndim == 2 else out
+    t_setup = time.perf_counter() - t0
+    runs = [(label, "*.ppm", args, inflight) for label, args in BATCH_CLI_RUNS for inflight in (1, 2)]
+    runs += [("cuda off png", "*.png", ["--impl", "cuda", "--plan", "off"], inflight)
+             for inflight in (1, 2)]
+    with one_card_meshes(device):
+        for label, glob, args, inflight in runs:
+            dst = os.path.join(root, "out")
+            metrics = os.path.join(root, "metrics.jsonl")
+            reads, writes = codec.NATIVE_IO["read"], codec.NATIVE_IO["write"]
+            rc, text = run_batch_cli(["--input-dir", src, "--output-dir", dst, "--glob", glob,
+                                      "--ops", spec, "--device", "cuda", "--inflight",
+                                      str(inflight), "--show-timing", "--no-journal",
+                                      "--json-metrics", metrics, *args])
+            line = next((x for x in text.splitlines() if x.startswith("batch [")), "")
+            if rc != 0:
+                raise AssertionError(f"batch {label} inflight {inflight}: exit {rc}: {text[-500:]}")
+            names = sorted(n for n in want if n.endswith(glob[1:]))
+            for name in names:
+                check_equal(f"batch {label} inflight {inflight} {name}",
+                            torch.from_numpy(load_image(os.path.join(dst, name))),
+                            torch.from_numpy(want[name]))
+            if glob == "*.ppm":
+                moved = (codec.NATIVE_IO["read"] - reads, codec.NATIVE_IO["write"] - writes)
+                # the run's reads and writes, and this check's reads
+                if moved[0] < 2 * len(names) or moved[1] < len(names):
+                    raise AssertionError(f"batch {label}: the native codec read/wrote {moved} for "
+                                         f"{len(names)} PPM inputs")
+            mps = re.search(r"\(([\d.]+) MP/s end-to-end", line)
+            idle = re.search(r"device idle (\d+)%", line)
+            if mps is None or idle is None:
+                raise AssertionError(f"batch {label}: no MP/s or device idle in {line!r}")
+            with open(metrics) as f:
+                eng = json.loads(f.read().strip())["engine"]
+            os.remove(metrics)
+            print(f"phase 17: batch [{spec}] {label} {glob} inflight {inflight}: {len(names)} "
+                  f"outputs == golden; {mps.group(1)} MP/s end-to-end, device idle "
+                  f"{idle.group(1)}% ({line}); engine stages: {_pct(eng['stages'])}")
+            shutil.rmtree(dst)
+    shutil.rmtree(root)
+    print(f"phase 17: CLI batch at 8K, {len(runs)} runs; set-up {t_setup:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -4232,6 +4670,7 @@ def main() -> int:
         return 1
     from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
     from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.runtime import build as native_build
     from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels
 
     torch.backends.cudnn.allow_tf32 = False
@@ -4248,6 +4687,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = kernels.build()
     print(f"build: {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    codec_lib = native_build.build()
+    if codec_lib is None:
+        raise RuntimeError("the native codec did not build (runtime/build.py: make and g++)")
+    print(f"build: native codec {codec_lib} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -4289,6 +4733,9 @@ def main() -> int:
     phase12_data_parallel(device)
     phase13_2d(device, x8k)
     phase14_guard(device, x8k)
+    phase15_t1_batched(device, rows)
+    phase16_engine(device)
+    phase17_batch_cli(device)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -1,5 +1,5 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
-run|autotune|info``.
+run|batch|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl auto``, the default, routes
@@ -14,6 +14,13 @@ the image over N devices with ghost-strip exchange (parallel/api.py), and
 ``torchrun`` every rank runs the same command and holds its share of the
 shards. ``--device-timeout SECS`` runs the computation in a watchdog
 subprocess (utils/guard.py) and exits with code 4 when it overruns.
+``batch`` runs a pipeline over every image of a directory through the
+asynchronous engine (engine/core.py): decode ahead on worker threads
+(``io.image.batch_load``, the native codec for PPM/PGM), pinned H2D on a
+copy stream, the computation (``Pipeline.jit`` or ``batched`` with
+``donate=True``, ``sharded``, ``data_parallel``), pinned D2H on a side
+stream, encode and write on a worker pool; a journal makes a killed run
+resumable (``--resume``).
 ``autotune`` measures the routes of one choice on the card and records
 the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
@@ -209,6 +216,8 @@ def _build_parser() -> argparse.ArgumentParser:
     _add_failpoint_flags(run)
     _add_trace_flags(run)
 
+    _add_batch_parser(sub)
+
     tune = sub.add_parser(
         "autotune",
         help="measure the routes of one choice on the card and record the fastest "
@@ -273,6 +282,92 @@ def _build_parser() -> argparse.ArgumentParser:
     info = sub.add_parser("info", help="print toolchain and device info")
     info.add_argument("--device", default="cuda", help="device to report on")
     return p
+
+
+def _add_batch_parser(sub) -> None:
+    """The ``batch`` subcommand's arguments (the JAX package's, in the
+    port's terms: --impl names the port's backends, --device a torch
+    device)."""
+    batch = sub.add_parser("batch", help="run a pipeline over every image in a directory")
+    batch.add_argument("--input-dir", required=True)
+    batch.add_argument("--output-dir", required=True)
+    batch.add_argument("--glob", default="*", help="input filename pattern")
+    batch.add_argument("--ops", default=REFERENCE_PIPELINE_SPEC)
+    batch.add_argument(
+        "--impl", choices=("auto", "cuda", "mxu", "swar", "torch"), default="auto",
+        help="the backend, as `run --impl` (run --help)",
+    )
+    batch.add_argument(
+        "--plan", choices=PLAN_MODES, default="auto",
+        help="fusion-planner execution structure, as `run --plan` (run --help)",
+    )
+    batch.add_argument(
+        "--shards", default="1",
+        help="N row-shards per image, or RxC 2-D tile-shards (run --help); with "
+        "--stack the flat slot count hosts the data-parallel stack",
+    )
+    batch.add_argument(
+        "--device", default="cuda", help="torch device (default cuda; cpu runs the plain "
+        "PyTorch versions of the kernels)",
+    )
+    batch.add_argument(
+        "--halo-mode", choices=("serial", "overlap"), default="serial",
+        help="sharded halo execution (see `run --help`)",
+    )
+    batch.add_argument("--threads", type=int, default=4, help="decode prefetch threads")
+    batch.add_argument(
+        "--inflight", type=int, default=None,
+        help="device dispatches kept outstanding through the async engine "
+        "(engine/core.py): >= 2 overlaps the card's work on dispatch N with the "
+        "host's decode of N+1 and encode of N-1; default 2",
+    )
+    batch.add_argument("--window", type=int, default=None,
+                       help=argparse.SUPPRESS)  # deprecated alias for --inflight
+    batch.add_argument(
+        "--io-threads", type=int, default=4,
+        help="encode/write worker threads draining completed dispatches (the "
+        "engine's output pool; decode prefetch is --threads)",
+    )
+    batch.add_argument(
+        "--stream-rows", type=int, default=0, metavar="N",
+        help="N > 0 would route every input through the streaming tile engine; "
+        "the port does not have it yet (refused)",
+    )
+    batch.add_argument(
+        "--stack", type=int, default=1,
+        help="stack up to N same-shape images into one device dispatch "
+        "(Pipeline.batched: one launch per kernel group for the stack); with "
+        "--shards M the stack is data-parallel over M slots",
+    )
+    batch.add_argument("--gray-output", action="store_true",
+                       help="write single-channel output instead of replicating gray to RGB")
+    batch.add_argument("--show-timing", action="store_true",
+                       help="print end-to-end MP/s, the inflight peak and the device's idle share")
+    batch.add_argument(
+        "--json-metrics", default=None,
+        help="write a JSON metrics line (incl. the skipped-file list) to this path "
+        "('-' = stdout)",
+    )
+    batch.add_argument(
+        "--resume", action="store_true",
+        help="skip inputs already journaled ok (content-hash-verified) by an "
+        "earlier run over this output dir: a batch killed mid-way finishes by "
+        "re-running only failures and never-reached inputs",
+    )
+    batch.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="batch journal path (append-only JSONL of per-input outcomes; default "
+        "<output-dir>/.mcim_batch_journal.jsonl)",
+    )
+    batch.add_argument("--no-journal", action="store_true",
+                       help="disable the journal (no resume for this run)")
+    batch.add_argument(
+        "--metrics-out", default=None, metavar="PATH",
+        help="write a Prometheus text snapshot of the batch registry (engine "
+        "stages, inflight, per-outcome input counts) at exit (obs/metrics.py)",
+    )
+    _add_failpoint_flags(batch)
+    _add_trace_flags(batch)
 
 
 def image_runner(pipe, *, impl: str, device, block_h=None, gray_output=False,
@@ -902,6 +997,297 @@ def _tool_output(cmd: list[str]) -> str:
     return r.stdout.strip() if r.returncode == 0 else f"unavailable (exit {r.returncode})"
 
 
+def _batch_mesh(n_r: int, n_c: int | None, dev, *, flat: bool):
+    """The mesh of `batch --shards`: R x C tiles (a 2-D mesh), N rows, or
+    with `flat` (a data-parallel stack) R * C slots in a row. On the CPU
+    that many CPU slots; on CUDA the first cards (fewer raise)."""
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import mesh as pmesh
+
+    n = n_r * (n_c or 1)
+    devices = [dev] * n if dev.type == "cpu" else None
+    if n_c is not None and not flat:
+        return pmesh.make_mesh_2d(n_r, n_c, devices=devices)
+    return pmesh.make_mesh(n, devices=devices)
+
+
+def cmd_batch(args: argparse.Namespace) -> int:
+    """`batch`: the pipeline over every input of a directory through the
+    engine (engine/core.py), the JAX package's ``cmd_batch`` in the port's
+    terms. The dispatch form: ``Pipeline.data_parallel`` for a stack over a
+    mesh, ``batched(donate=True)`` for a stack, ``sharded`` for N or RxC
+    shards, else ``jit(donate=True)``; only the single-device forms are
+    staged (``device_stager``: pinned H2D on a copy stream). A shape change
+    flushes the pending stack padded to --stack (`pad_stack`); the trailing
+    partial stack goes at its own size. Journal lines are written only
+    after an output exists. Exit codes: 3 when no input matches, 1 when an
+    input failed or was skipped, 0 otherwise."""
+    import glob as globmod
+    import threading
+
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.engine import Engine, EngineMetrics, device_stager
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import batch_load, gray_to_rgb, save_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
+    from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import Registry
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import mesh as pmesh
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience.journal import (
+        DEFAULT_NAME as JOURNAL_DEFAULT_NAME,
+        BatchJournal,
+        content_digest,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import pad_stack
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
+
+    if args.stream_rows:
+        raise ValueError(
+            "--stream-rows needs the streaming tile engine (stream/), which the port "
+            "does not have yet (ROADMAP.md queue 1 item 4, the streaming half)"
+        )
+    _arm_failpoints(args)
+    _configure_tracing(args)
+    log = get_logger()
+    pmesh.distributed_init(args.device)  # no-op unless launched by torchrun
+    dev = pmesh.rank_device(args.device)
+    paths = sorted(
+        p for p in globmod.glob(os.path.join(globmod.escape(args.input_dir), args.glob))
+        if os.path.isfile(p)
+    )
+    if not paths:
+        log.error("no inputs match %s/%s", args.input_dir, args.glob)
+        return 3
+    os.makedirs(args.output_dir, exist_ok=True)
+    # outputs mirror the input's path under input-dir, so that a pattern
+    # spanning subdirectories cannot collide on basenames
+    rels = [os.path.relpath(p, args.input_dir) for p in paths]
+
+    journal = None
+    if not args.no_journal:
+        journal = BatchJournal(args.journal
+                               or os.path.join(args.output_dir, JOURNAL_DEFAULT_NAME))
+    digests: dict[int, str | None] = {}
+
+    def digest(i: int) -> str | None:
+        if i not in digests:
+            try:
+                digests[i] = content_digest(paths[i])
+            except OSError:
+                digests[i] = None
+        return digests[i]
+
+    resumed: set[int] = set()
+    if args.resume:
+        if journal is None:
+            raise ValueError("--resume needs the journal (drop --no-journal)")
+        prior = journal.load()
+        for i, rel in enumerate(rels):
+            rec = prior.get(rel)
+            # only ok records whose digest still matches the input's bytes:
+            # an edited input is reprocessed
+            if rec and rec.get("status") == "ok" and rec.get("digest") and \
+                    rec.get("digest") == digest(i):
+                resumed.add(i)
+        log.info("resume: %d/%d inputs already journaled ok, %d to (re)run",
+                 len(resumed), len(paths), len(paths) - len(resumed))
+    failed: dict[int, str] = {}  # index -> error (decode, compute or save)
+    pipe = Pipeline.parse(args.ops)
+    stack = max(1, args.stack)
+    n_r, n_c = pmesh.parse_shards(args.shards)
+    n_flat = n_r * (n_c or 1)
+    if args.inflight is not None:
+        inflight = args.inflight
+    elif args.window is not None:
+        log.warning("--window is deprecated; use --inflight")
+        inflight = args.window
+    else:
+        inflight = 2
+    inflight = max(1, inflight)
+    stage = None  # H2D staging: the single-device forms only
+    if stack > 1 and n_flat > 1:
+        if stack % n_flat:
+            log.warning(
+                "--stack %d is not a multiple of %d slots: full mid-stream dispatches pad "
+                "to %d images and discard the pad's compute (the trailing partial stack "
+                "goes at its own size)", stack, n_flat, -(-stack // n_flat) * n_flat)
+        fn = pipe.data_parallel(_batch_mesh(n_r, n_c, dev, flat=True), backend=args.impl,
+                                plan=args.plan)
+    elif stack > 1:
+        fn = pipe.batched(backend=args.impl, device=dev, plan=args.plan, donate=True)
+        stage = device_stager(dev, inflight=inflight)
+    elif n_flat > 1 or n_c is not None:
+        fn = pipe.sharded(_batch_mesh(n_r, n_c, dev, flat=False), backend=args.impl,
+                          halo_mode=args.halo_mode, plan=args.plan)
+    else:
+        fn = pipe.jit(backend=args.impl, device=dev, plan=args.plan, donate=True)
+        stage = device_stager(dev, inflight=inflight)
+
+    # one registry for the run: the engine's families and the per-outcome
+    # input counter; --metrics-out renders it at exit
+    registry = Registry()
+    inputs_total = registry.counter("mcim_batch_inputs_total",
+                                    "Batch inputs by outcome (ok/failed/resumed).",
+                                    labels=("outcome",))
+    inputs_total.inc(len(resumed), outcome="resumed")
+    state_lock = threading.Lock()  # done and failed across the engine's threads
+    done = 0
+
+    def record_failed(idxs, e) -> None:
+        # a failed dispatch or save fails only its own inputs, each with a
+        # journal line; the run goes on and exits 1
+        msg = f"{type(e).__name__}: {e}"
+        with state_lock:
+            for i in idxs:
+                failed[i] = msg
+        inputs_total.inc(len(idxs), outcome="failed")
+        for i in idxs:
+            log.error("failed %s: %s", rels[i], msg)
+            if journal is not None:
+                journal.record_failed(rels[i], digest(i), msg)
+
+    def save_one(i, out):
+        nonlocal done
+        if not args.gray_output and out.ndim == 2:
+            out = gray_to_rgb(out)
+        dst = os.path.join(args.output_dir, rels[i])
+        os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+        save_image(dst, out)
+        if journal is not None:
+            # journaled only here, after the output exists: a run killed with
+            # this item in flight re-runs it on --resume, and the resumed run
+            # skips exactly the journaled-ok inputs (no loss, no duplicate)
+            journal.record_ok(rels[i], digest(i), rels[i])
+        inputs_total.inc(outcome="ok")
+        with state_lock:
+            done += 1
+
+    def on_done(idxs, out, info):
+        for k, i in enumerate(idxs):  # padded images of a stack are dropped here
+            try:
+                save_one(i, out[k] if stack > 1 else out)
+            except Exception as e:
+                record_failed([i], e)
+
+    def on_error(idxs, e):
+        record_failed(list(idxs), e)
+
+    engine = Engine(inflight=inflight, io_threads=max(1, args.io_threads), stage=stage,
+                    metrics=EngineMetrics(registry=registry), name="batch")
+
+    def ship(idxs, make_input):
+        # each dispatch is its own trace: build, h2d and enqueue under this
+        # root on this thread, force and encode under it on the engine's
+        # threads; a host-side failure at submit fails these inputs only
+        root = obs_trace.start_trace("batch.dispatch", n=len(idxs), first=rels[idxs[0]])
+        try:
+            with root:
+                engine.submit(tuple(idxs), make_input, fn, on_done=on_done, on_error=on_error)
+        except Exception as e:
+            record_failed(idxs, e)
+
+    pending: list[tuple[int, np.ndarray]] = []
+
+    def flush_pending(final: bool = False):
+        nonlocal pending
+        if not pending:
+            return
+        idxs = [i for i, _ in pending]
+        imgs = [im for _, im in pending]
+        if stack == 1:
+            ship(idxs, lambda: imgs[0])
+        elif final and len(imgs) < stack:
+            # the trailing partial stack goes at its own size
+            ship(idxs, lambda: np.stack(imgs, axis=0))
+        else:
+            # a shape-change flush pads to --stack by repeating the last
+            # image, so that each image shape keeps one stack shape
+            ship(idxs, lambda: pad_stack(imgs, stack))
+        pending = []
+
+    t0 = time.perf_counter()
+    total_mp = 0.0
+    # with --resume only the inputs not journaled ok are decoded at all
+    work_idx = [i for i in range(len(paths)) if i not in resumed]
+    work_paths = [paths[i] for i in work_idx]
+    seen: set[int] = set()
+    try:
+        for j, img, dig in batch_load(work_paths, n_threads=args.threads, on_error="skip",
+                                      with_digests=True):
+            i = work_idx[j]
+            digests.setdefault(i, dig)
+            # the kill point of the --resume tests: an armed batch.interrupt
+            # aborts the run here, mid-stream
+            failpoints.maybe_fail("batch.interrupt", index=i, path=paths[i])
+            seen.add(i)
+            if pending and (len(pending) >= stack or pending[-1][1].shape != img.shape):
+                flush_pending()
+            pending.append((i, img))
+            total_mp += img.shape[0] * img.shape[1] / 1e6
+            if stack == 1:
+                flush_pending()
+        flush_pending(final=True)
+    finally:
+        # drain every dispatched item (outputs written, journal lines
+        # appended) even while an interrupt propagates: the work that
+        # finished is resumable, the rest looks never started
+        engine.close()
+    # decode failures, skipped by batch_load: journal lines so that
+    # --resume retries exactly these
+    for j in range(len(work_paths)):
+        i = work_idx[j]
+        if i not in seen and i not in failed:
+            failed[i] = "decode failed (skipped)"
+            if journal is not None:
+                journal.record_failed(rels[i], digest(i), failed[i])
+    wall = time.perf_counter() - t0
+    eng = engine.metrics.snapshot()
+
+    def fmt(v: float, unit: str) -> str:
+        return f"{v:.3g} {unit}" if v < 1 else f"{v:.1f} {unit}"
+
+    mp_s, rate_s = fmt(total_mp, "MP"), fmt(total_mp / wall, "MP/s")
+    log.info("processed %d/%d images (%s) in %.2fs (%s end-to-end)%s", done, len(paths), mp_s,
+             wall, rate_s,
+             f" [{len(resumed)} resumed, {len(failed)} failed]" if resumed or failed else "")
+    if eng["submitted"]:
+        log.info("%s", engine.metrics.summary_line())
+    if args.show_timing:
+        idle = eng["device_idle_frac"]
+        print(f"batch [{pipe.name}] impl={args.impl} plan={args.plan} device={dev}: "
+              f"{done}/{len(paths)} images, {mp_s} in {wall:.2f}s ({rate_s} end-to-end incl. "
+              f"kernel builds and I/O; inflight {inflight}, peak {eng['inflight_peak']}"
+              + (f", device idle {idle * 100:.0f}%" if idle is not None else "") + ")")
+    skipped = [paths[i] for i in range(len(paths)) if i not in seen and i not in resumed]
+    if args.json_metrics:
+        emit_json_metrics(
+            {
+                "event": "batch",
+                "ops": pipe.name,
+                "impl": args.impl,
+                "inputs": len(paths),
+                "processed": done,
+                "resumed": len(resumed),
+                "skipped": skipped,
+                "failed": {rels[i]: msg for i, msg in sorted(failed.items())},
+                "journal": journal.path if journal is not None else None,
+                "total_mp": total_mp,
+                "wall_s": wall,
+                "mp_per_s": total_mp / wall if wall > 0 else None,
+                "inflight": inflight,
+                "io_threads": args.io_threads,
+                "engine": eng,
+            },
+            None if args.json_metrics == "-" else args.json_metrics,
+        )
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(registry.render())
+        log.info("metrics snapshot -> %s", args.metrics_out)
+    _export_trace(args, log)
+    return 0 if done + len(resumed) == len(paths) else 1
+
+
 def cmd_info(args: argparse.Namespace) -> int:
     import torch
 
@@ -984,7 +1370,8 @@ def _print_calibration(device) -> None:
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
-        return {"run": cmd_run, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
+        return {"run": cmd_run, "batch": cmd_batch, "autotune": cmd_autotune,
+                "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -158,6 +158,7 @@ class Pipeline:
         *,
         device: str | torch.device | None = None,
         plan: str = "auto",
+        donate: bool = False,
     ):
         """An image -> image function on `device` (default CUDA), the
         counterpart of the JAX package's ``Pipeline.jit``. PyTorch runs
@@ -174,7 +175,18 @@ class Pipeline:
         each backend runs under each). With no CUDA device, the default
         raises. The function builds its route (`_build`) at its first call
         for each image shape; an explicit plan the backend refuses raises
-        here, and MCIM_PREFER_SWAR is read here, once."""
+        here, and MCIM_PREFER_SWAR is read here, once.
+
+        ``donate=True`` (the JAX package's input donation) gives the input
+        to the function: once the call has enqueued its work, the function
+        drops the input tensor (`_donate`; the wrappers' frames hold it
+        until then), so that its memory goes back to the caching allocator,
+        which hands it out again only to work ordered after the kernels
+        that read it: a stream of dispatches (engine/core.py) recycles each
+        staged buffer into the next. The caller must not read the input
+        again: a tensor passed in is left empty. The port has no
+        input-output aliasing: the output is a new tensor, and no byte
+        changes."""
         dev = resolve_device(device)
         check_plan(plan, backend)
         swar = backend == "auto" and prefer_swar()
@@ -182,7 +194,11 @@ class Pipeline:
             self._build(backend, block_h, plan, img.shape[1], img.device, swar)))
 
         def run(img) -> torch.Tensor:
-            return fn(as_image_tensor(img, dev))
+            x = as_image_tensor(img, dev)
+            out = fn(x)
+            if donate:
+                _donate(x)
+            return out
 
         return run
 
@@ -192,6 +208,7 @@ class Pipeline:
         *,
         device: str | torch.device | None = None,
         plan: str = "auto",
+        donate: bool = False,
     ):
         """An (N, H, W[, C]) -> (N, ...) function over a stack of same-shape
         uint8 images on `device` (default CUDA), the counterpart of the JAX
@@ -210,11 +227,9 @@ class Pipeline:
         statistic reduces over its own image, as under vmap). The route is
         built once per image shape (H, W, C), whatever the stack's length.
         The stack is made contiguous on `device` first: the kernels take
-        each image at a fixed stride from the first.
-
-        The JAX package's ``donate=`` (the input buffer recycled into the
-        output) waits for ``Pipeline.jit(donate=True)``, which comes with
-        the engine and streaming runners."""
+        each image at a fixed stride from the first. ``donate=True`` gives
+        the stack to the function, as in ``jit``: the caller must not read
+        it again."""
         dev = resolve_device(device)
         check_plan(plan, backend)
         swar = backend == "auto" and prefer_swar()
@@ -229,7 +244,10 @@ class Pipeline:
                 raise ValueError(
                     f"expected a non-empty (N, H, W[, C]) stack, got shape {tuple(stack.shape)}"
                 )
-            return fn(stack)
+            out = fn(stack)
+            if donate:
+                _donate(stack)
+            return out
 
         return run
 
@@ -356,6 +374,16 @@ class Pipeline:
                 return fn(img)
 
         return run
+
+
+def _donate(x: torch.Tensor) -> None:
+    """Drop the donated input (``jit``/``batched`` with ``donate=True``):
+    the tensor object is emptied (``set_()``: no elements, no storage), so
+    that its memory goes back to the caching allocator once no other tensor
+    shares it; the allocator hands it out again only to work ordered after
+    the kernels that read it. A tensor of the caller's that shares the
+    storage (a view, the output of a pipeline with no ops) keeps it."""
+    x.set_()
 
 
 def reference_pipeline() -> Pipeline:

@@ -7,7 +7,11 @@
 //           run_group_packed_words (:643): the pointwise form
 //           _pointwise_kernel_packed (:429, pallas_call :676) and the
 //           stencil form _stream_kernel_packed (:438, pallas_call :752),
-//           full mode and ghost mode (ghosts, y0, image_h).
+//           full mode and ghost mode (ghosts, y0, image_h); and both
+//           under jax.vmap (a stack of images, tests/test_packed.py:159):
+//           full mode takes the batch on grid z, each plane's image i at
+//           i * in_stride (out_stride) words, offset in 64 bits at entry;
+//           the pointwise form takes a contiguous stack as one flat run.
 // Computes: n_in (1 or 3) int32 word planes (H, Wp), one per channel, byte
 //           k (little-endian) of word j = column 4j + k of a u8 plane of
 //           width W = 4 Wp, into n_out such planes (the channel count after
@@ -92,14 +96,20 @@
 // row sources: the chunk read, the ones in flight, the next
 #define PK_ROW_SLOTS (PK_PREFETCH + 2)
 #define PK_MAX_DEVICES 16
+// images of one full-mode launch: CUDA's limit on grid z
+#define PK_MAX_IMAGES 65535
 
 // The planes of one launch: n_in input planes and, in ghost mode, their
-// top and bottom strips; n_out output planes. 96 bytes.
+// top and bottom strips; n_out output planes; the words from one image of
+// a stack to the next in the input and the output planes (full mode; grid
+// z is the image). 112 bytes.
 struct PkPlanes {
   const uint32_t* in[PK_MAX_PLANES];
   const uint32_t* top[PK_MAX_PLANES];
   const uint32_t* bot[PK_MAX_PLANES];
   uint32_t* out[PK_MAX_PLANES];
+  long long in_stride;
+  long long out_stride;
 };
 
 enum PkMode { PK_FULL = 0, PK_GHOST = 1 };
@@ -149,6 +159,11 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
                      const __grid_constant__ StencilDesc st, int tile_w, int lg_w, int chunk_h,
                      int run_h, int row0, int image_h) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the batch axis: grid z is the image of a stack (1 in ghost mode), its
+  // word offset taken in 64 bits (a stack of 8K gray planes passes 2^31
+  // bytes at its 66th image)
+  const long long z_in = (long long)blockIdx.z * pl.in_stride;
+  const long long z_out = (long long)blockIdx.z * pl.out_stride;
   constexpr int h = KS / 2;
   // bits from the start of raw word w - 1 to column 4 w - h
   constexpr unsigned lead = 8 * (4 - h);
@@ -188,7 +203,7 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
       const int ty = y - h + first + (i - c * nn);
       const uint32_t* row;
       if (MODE == PK_FULL) {
-        row = pl.in[c] + (long long)st_src(ty, H, st.edge_mode) * Wp;
+        row = pl.in[c] + z_in + (long long)st_src(ty, H, st.edge_mode) * Wp;
       } else if (ty < 0) {
         row = pl.top[c] + (long long)(h + ty) * Wp;
       } else if (ty >= H) {
@@ -345,7 +360,7 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
           }
           word |= pr_f_byte(res) << (8 * j);
         }
-        pl.out[c][(long long)gy * Wp + gw] = word;
+        pl.out[c][z_out + (long long)gy * Wp + gw] = word;
       }
     }
   }
@@ -354,7 +369,7 @@ packed_stream_kernel(const __grid_constant__ PkPlanes pl, int H, int Wp, int n_i
 template <int KS, int MODE>
 static int pk_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, const PwOp* chain,
                      int n_ops, const StencilDesc* st, int tile_w, int chunk_h, int run_h,
-                     int row0, int image_h, int device, cudaStream_t stream) {
+                     int row0, int image_h, int n_img, int device, cudaStream_t stream) {
   const size_t smem = pk_layout(n_in, n_out, tile_w, chunk_h, st->halo, st->family).total;
   // the opt-in above 48 KB, once per instantiation, size and device
   static size_t opted[PK_MAX_DEVICES] = {};
@@ -366,7 +381,7 @@ static int pk_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, con
   }
   int lg = 0;
   while ((1 << lg) < tile_w) ++lg;
-  const dim3 grid((Wp + tile_w - 1) / tile_w, (H + run_h - 1) / run_h);
+  const dim3 grid((Wp + tile_w - 1) / tile_w, (H + run_h - 1) / run_h, n_img);
   packed_stream_kernel<KS, MODE><<<grid, PK_THREADS, smem, stream>>>(
       *pl, H, Wp, n_in, n_out, chain, n_ops, *st, tile_w, lg, chunk_h, run_h, row0, image_h);
   return (int)cudaGetLastError();
@@ -384,11 +399,12 @@ static bool pk_args_ok(int n_in, int n_out, const PwOp* chain, int n_ops, int de
 template <int MODE>
 static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, const PwOp* chain,
                        int n_ops, const StencilDesc* st, int tile_w, int chunk_h, int run_h,
-                       int row0, int image_h, int device, void* stream) {
-  if (H <= 0 || Wp <= 0) return 0;
+                       int row0, int image_h, int n_img, int device, void* stream) {
+  if (H <= 0 || Wp <= 0 || n_img == 0) return 0;
   const bool shape_ok = (tile_w == PK_MIN_TILE_W || tile_w == 16 || tile_w == PK_MAX_TILE_W) &&
                         chunk_h >= 1 && chunk_h <= PK_MAX_CHUNK_H && run_h >= chunk_h &&
-                        run_h % chunk_h == 0 && (H + run_h - 1) / run_h <= 65535;
+                        run_h % chunk_h == 0 && (H + run_h - 1) / run_h <= 65535 &&
+                        n_img >= 1 && n_img <= PK_MAX_IMAGES && (MODE == PK_FULL || n_img == 1);
   if (!shape_ok || !pk_args_ok(n_in, n_out, chain, n_ops, device) || H <= st->halo) {
     return (int)cudaErrorInvalidValue;
   }
@@ -398,7 +414,7 @@ static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, c
 #define PK_CASE(KS)                                                                         \
   case KS:                                                                                  \
     return pk_launch<KS, MODE>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_w, chunk_h,  \
-                               run_h, row0, image_h, device, s);
+                               run_h, row0, image_h, n_img, device, s);
   switch (st->ksize) {
     PK_CASE(3)
     PK_CASE(5)
@@ -409,7 +425,8 @@ static int pk_dispatch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out, c
 }
 
 // T1-pw: the chain table `chain` (n_ops PwOp in device memory) over the
-// (H, Wp) planes of `pl` (their strips unused), on `device`.
+// (H, Wp) planes of `pl` (their strips and strides unused), on `device`. A
+// contiguous stack of N images is one flat run: the host passes N * H rows.
 extern "C" int packed_pointwise_group_launch(const PkPlanes* pl, int H, int Wp, int n_in,
                                              int n_out, const PwOp* chain, int n_ops, int device,
                                              void* stream) {
@@ -431,14 +448,16 @@ extern "C" int packed_pointwise_group_launch(const PkPlanes* pl, int H, int Wp, 
   return (int)cudaErrorInvalidValue;
 }
 
-// T1: the group over whole (H, Wp) planes, in strips of tile_w words and
-// runs of run_h rows walked in chunks of chunk_h.
+// T1: the group over a stack of `n_img` whole (H, Wp) images, in strips
+// of tile_w words and runs of run_h rows walked in chunks of chunk_h; image
+// i of each plane at `pl->in_stride * i` words (out: `pl->out_stride`; one
+// image: n_img 1). A block never spans two images: grid z is the image.
 extern "C" int packed_stream_launch(const PkPlanes* pl, int H, int Wp, int n_in, int n_out,
                                     const PwOp* chain, int n_ops, const StencilDesc* st,
-                                    int tile_w, int chunk_h, int run_h, int device,
+                                    int tile_w, int chunk_h, int run_h, int n_img, int device,
                                     void* stream) {
   return pk_dispatch<PK_FULL>(pl, H, Wp, n_in, n_out, chain, n_ops, st, tile_w, chunk_h, run_h,
-                              0, H, device, stream);
+                              0, H, n_img, device, stream);
 }
 
 // T1g: the group over a (local_h, Wp) row-shard whose first row is global
@@ -453,7 +472,7 @@ extern "C" int packed_stream_ghost_launch(const PkPlanes* pl, int local_h, int W
     if (pl->top[c] == nullptr || pl->bot[c] == nullptr) return (int)cudaErrorInvalidValue;
   }
   return pk_dispatch<PK_GHOST>(pl, local_h, Wp, n_in, n_out, chain, n_ops, st, tile_w, chunk_h,
-                               run_h, row0, image_h, device, stream);
+                               run_h, row0, image_h, 1, device, stream);
 }
 
 // Dynamic shared memory one stencil launch needs, for the host-side check.

@@ -128,13 +128,17 @@ class SwarTaps(ctypes.Structure):
 class PkPlanes(ctypes.Structure):
     """The word planes of one T1 launch (packed_stream.cu): the input
     planes, their top and bottom ghost strips (ghost mode only), the output
-    planes; unused entries are null. 96 bytes."""
+    planes, unused entries null; then the words from one image of a stack
+    to the next in the input and the output planes (full mode). 112
+    bytes."""
 
     _fields_ = [
         ("in_", ctypes.c_void_p * PK_MAX_PLANES),
         ("top", ctypes.c_void_p * PK_MAX_PLANES),
         ("bot", ctypes.c_void_p * PK_MAX_PLANES),
         ("out", ctypes.c_void_p * PK_MAX_PLANES),
+        ("in_stride", ctypes.c_longlong),
+        ("out_stride", ctypes.c_longlong),
     ]
 
 
@@ -287,9 +291,12 @@ def load(name: str) -> ctypes.CDLL:
         pk, st = (ctypes.POINTER(t) for t in (PkPlanes, StencilDesc))
         # ... the chain as a table on the card and its length (vp, ci), the
         # descriptor, the strip's words, the chunk's and the run's rows,
-        # (ghost: row0, image_h,) the device, the stream
+        # (full: the stack's images; ghost: row0, image_h,) the device, the
+        # stream
         lib.packed_pointwise_group_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, ci, vp]
-        lib.packed_stream_launch.argtypes = [pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, vp]
+        lib.packed_stream_launch.argtypes = [
+            pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, ci, vp,
+        ]
         lib.packed_stream_ghost_launch.argtypes = [
             pk, ci, ci, ci, ci, vp, ci, st, ci, ci, ci, ci, ci, ci, vp,
         ]

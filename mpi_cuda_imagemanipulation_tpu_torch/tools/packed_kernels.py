@@ -25,6 +25,13 @@ no production route to it. It holds:
 * ``pipeline_packed``: the word-carrying group loop, consecutive eligible
   groups staying in word form.
 
+Each of ``run_group_packed_words``, ``run_group_packed`` and
+``pipeline_packed`` takes one image, or with ``batched=True`` a stack of
+same-shape images (the JAX module under ``jax.vmap``,
+``tests/test_packed.py:159``): T1 full mode takes the stack on its batch
+axis (grid z, ``packed_batch_geometry``) and T1-pw as one flat run, so a
+group is one launch per stack; ghost mode (T1g) takes one image.
+
 The kernel's host geometry (the strips, runs and chunks of the stencil
 form, the window's column and row sources, shared memory, the pointwise
 form's split) is plain Python here, so that the CPU tests can check it.
@@ -42,7 +49,13 @@ import math
 import torch
 
 from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
-from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import U8, PointwiseOp, StencilOp
+from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import (
+    U8,
+    PointwiseOp,
+    StencilOp,
+    per_image,
+    takes_stack,
+)
 from mpi_cuda_imagemanipulation_tpu_torch.runtime import kernels as kr
 
 I32 = torch.int32
@@ -77,10 +90,7 @@ def pack_words(plane: torch.Tensor) -> torch.Tensor:
     if plane.ndim != 2 or plane.dtype != U8:
         raise ValueError(f"pack_words takes an (H, W) uint8 plane, got "
                          f"{tuple(plane.shape)} {plane.dtype}")
-    height, width = plane.shape
-    if width % 4:
-        raise ValueError(f"packed words need a width that is a multiple of 4, got {width}")
-    return plane.contiguous().view(I32).view(height, width // 4)
+    return _pack(plane)
 
 
 def unpack_words(words: torch.Tensor, width: int) -> torch.Tensor:
@@ -88,10 +98,24 @@ def unpack_words(words: torch.Tensor, width: int) -> torch.Tensor:
     if words.ndim != 2 or words.dtype != I32:
         raise ValueError(f"unpack_words takes (H, W/4) int32 words, got "
                          f"{tuple(words.shape)} {words.dtype}")
-    if width != 4 * words.shape[1]:
-        raise ValueError(f"{words.shape[1]} words per row hold width {4 * words.shape[1]}, "
+    return _unpack(words, width)
+
+
+def _pack(planes: torch.Tensor) -> torch.Tensor:
+    """pack_words over the last two axes: an (H, W) plane or an (N, H, W)
+    stack of planes."""
+    width = planes.shape[-1]
+    if width % 4:
+        raise ValueError(f"packed words need a width that is a multiple of 4, got {width}")
+    return planes.contiguous().view(I32).view(*planes.shape[:-1], width // 4)
+
+
+def _unpack(words: torch.Tensor, width: int) -> torch.Tensor:
+    """unpack_words over the last two axes."""
+    if width != 4 * words.shape[-1]:
+        raise ValueError(f"{words.shape[-1]} words per row hold width {4 * words.shape[-1]}, "
                          f"not {width}")
-    return words.contiguous().view(U8).view(words.shape[0], width)
+    return words.contiguous().view(U8).view(*words.shape[:-1], width)
 
 
 # --------------------------------------------------------------------------
@@ -142,21 +166,39 @@ def packed_grid(height: int, wp: int, tile_w: int, run_h: int) -> tuple[int, int
 
 
 @functools.lru_cache(maxsize=4096)
-def packed_tile_shape(height: int, wp: int) -> tuple[int, int]:
-    """The (tile_w, run_h) of one T1 launch over (height, wp) words: the
-    widest of TILE_WIDTHS that gives the grid N_SMS blocks of one chunk
-    each, narrowing only while that adds strips; then runs of whole
-    chunks, as long as keeps about TARGET_BLOCKS blocks (one chunk at
-    least, and at most 65535 runs)."""
+def packed_tile_shape(height: int, wp: int, n: int = 1) -> tuple[int, int]:
+    """The (tile_w, run_h) of one T1 launch over a stack of `n` images of
+    (height, wp) words: the widest of TILE_WIDTHS that gives the grid,
+    every image counted, N_SMS blocks of one chunk each, narrowing only
+    while that adds strips; then runs of whole chunks, as long as keeps
+    about TARGET_BLOCKS blocks over the stack (one chunk at least, and at
+    most 65535 runs an image). A stack fills the SMs sooner than one
+    image, so it keeps wider strips and longer runs."""
     cols = TILE_WIDTHS[0]
     for narrower in TILE_WIDTHS[1:]:
-        if math.prod(packed_grid(height, wp, cols, CHUNK_H)) >= N_SMS:
+        if n * math.prod(packed_grid(height, wp, cols, CHUNK_H)) >= N_SMS:
             break
         if -(-wp // narrower) > -(-wp // cols):
             cols = narrower
     strips, chunks = packed_grid(height, wp, cols, CHUNK_H)
-    per_run = max(1, chunks * strips // TARGET_BLOCKS, -(-chunks // 65535))
-    return cols, CHUNK_H * per_run
+    per_run = max(1, n * chunks * strips // TARGET_BLOCKS, -(-chunks // 65535))
+    return cols, CHUNK_H * min(per_run, chunks)
+
+
+# images of one full-mode launch: CUDA's limit on grid z (PK_MAX_IMAGES)
+MAX_BATCH = ck.MAX_BATCH
+
+
+def packed_batch_geometry(n: int, height: int, wp: int) -> tuple[int, int, int]:
+    """(images, input stride, output stride) of one T1 full-mode launch
+    over `n` images of (height, wp) words a plane, strides in words: each
+    input and output plane is a contiguous (n, height, wp) stack, image i
+    at ``i * stride`` words, which the kernel takes in 64 bits (here
+    Python ints; PkPlanes holds them as long long). One image is a stack of
+    one."""
+    if not 1 <= n <= MAX_BATCH:
+        raise ValueError(f"one T1 launch takes 1 to {MAX_BATCH} images, got {n}")
+    return n, height * wp, height * wp
 
 
 def packed_smem_bytes(n_in: int, n_out: int, tile_w: int, chunk_h: int, halo: int,
@@ -232,7 +274,7 @@ def window_row_source(ty: int, height: int, halo: int, mode: str,
 
 def _check_planes(what: str, planes, shape, device) -> None:
     for p in planes:
-        if p.ndim != 2 or tuple(p.shape) != shape or p.dtype != I32 or p.device != device:
+        if tuple(p.shape) != shape or p.dtype != I32 or p.device != device:
             raise ValueError(
                 f"T1 takes {what} as {shape} int32 word planes on {device}, got "
                 f"{[(tuple(q.shape), q.dtype, str(q.device)) for q in planes]}"
@@ -240,15 +282,17 @@ def _check_planes(what: str, planes, shape, device) -> None:
 
 
 def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h):
-    """Validate one T1 call. Returns (chain, stencil descriptor or None,
-    (tile_w, run_h) or None). `block_h`, the JAX block height, is checked
-    (the JAX default when falsy) and sets nothing."""
+    """Validate one T1 call on a stack: `words` are (N, height, width/4)
+    planes. Returns (chain, stencil descriptor or None, (tile_w, run_h) or
+    None). `block_h`, the JAX block height, is checked (the JAX default
+    when falsy) and sets nothing."""
     if len(words) not in (1, 3):
         raise ValueError(f"T1 takes 1 or 3 word planes, got {len(words)}")
     if width % 4:
         raise ValueError(f"packed words need a width that is a multiple of 4, got {width}")
     wp = width // 4
-    _check_planes("the input", words, (height, wp), words[0].device)
+    n = words[0].shape[0]
+    _check_planes("the input", words, (n, height, wp), words[0].device)
     if not packed_supported(list(pointwise), stencil, width):
         names = [op.name for op in pointwise] + ([stencil.name] if stencil else [])
         raise ValueError(f"T1 does not take group {names} at width {width} (packed_supported)")
@@ -264,6 +308,8 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
     if height <= h:
         raise ValueError(f"image height {height} too small for halo {h}")
     if ghosts is not None:
+        if n != 1:
+            raise ValueError(f"ghost mode takes one image, got a stack of {n}")
         tops, bots = ghosts
         if len(tops) != len(words) or len(bots) != len(words):
             raise ValueError(f"ghost mode needs one top and one bottom strip per input plane, "
@@ -274,20 +320,47 @@ def _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, 
         if not 0 <= int(y0) <= image_h - height:
             raise ValueError(f"tile rows [{int(y0)}, {int(y0) + height}) lie outside an image "
                              f"of {image_h} rows")
-    return chain, desc, packed_tile_shape(height, wp)
+    return chain, desc, packed_tile_shape(height, wp, n)
 
 
 def _hwc(planes: list[torch.Tensor]) -> torch.Tensor:
+    """An image (a stack) from its channel planes (stacks of planes)."""
     return planes[0] if len(planes) == 1 else torch.stack(planes, dim=-1)
 
 
-def _planes(img: torch.Tensor) -> list[torch.Tensor]:
-    return [img] if img.ndim == 2 else [img[..., c] for c in range(img.shape[2])]
+def _stack_planes(stack: torch.Tensor) -> list[torch.Tensor]:
+    """The (N, H, W) channel planes of an (N, H, W[, C]) stack."""
+    return [stack] if stack.ndim == 3 else [stack[..., c] for c in range(stack.shape[3])]
+
+
+def _stack_call(fn, words, batched: bool):
+    """`fn(words)` on a stack of (N, H, W/4) planes: one image's planes as a
+    stack of one unless `batched` (ghost strips stay per image)."""
+    if batched:
+        return fn(list(words))
+    return [o[0] for o in fn([w[None] for w in words])]
 
 
 # --------------------------------------------------------------------------
 # T1: plain version and wrapper
 # --------------------------------------------------------------------------
+
+
+def _group_plain_stack(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h):
+    """The plain version on (N, height, width/4) planes, image by image."""
+    _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
+    img = _hwc([_unpack(w, width) for w in words])
+    if stencil is None:
+        out = per_image(functools.partial(ck.pointwise_group_plain, list(pointwise)), img)
+    elif ghosts is None:
+        out = per_image(functools.partial(ck.stream_stencil_plain, list(pointwise), stencil), img)
+    else:
+        tops, bots = ([unpack_words(s, width) for s in strips] for strips in ghosts)
+        out = ck.stream_stencil_ghost_plain(
+            list(pointwise), stencil, img[0], _hwc(tops), _hwc(bots), y0=int(y0),
+            image_h=image_h, image_w=width,
+        )[None]
+    return [_pack(p) for p in _stack_planes(out)]
 
 
 def run_group_packed_words_plain(
@@ -301,25 +374,65 @@ def run_group_packed_words_plain(
     ghosts: tuple[list[torch.Tensor], list[torch.Tensor]] | None = None,
     y0=None,
     image_h: int | None = None,
+    batched: bool = False,
 ) -> list[torch.Tensor]:
     """Plain version of T1, all three forms: unpack the words (views), the
     port's plain group (``pointwise_group_plain``, ``stream_stencil_plain``,
     or ``stream_stencil_ghost_plain`` at global row `y0` of `image_h` in
-    ghost mode), pack each output plane. `block_h` is checked, and changes
-    no byte."""
-    _check_group(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
-    img = _hwc([unpack_words(w, width) for w in words])
+    ghost mode), pack each output plane; with ``batched=True`` over
+    (N, height, width/4) planes, image by image. `block_h` is checked, and
+    changes no byte."""
+    return _stack_call(
+        lambda ws: _group_plain_stack(pointwise, stencil, ws, height, width, block_h, ghosts, y0,
+                                      image_h),
+        words, batched)
+
+
+def _group_words_stack(pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h):
+    """T1 on (N, height, width/4) planes: one launch for the stack."""
+    chain, desc, shape = _check_group(
+        pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
+    device = words[0].device
+    if device.type == "cpu":
+        return _group_plain_stack(pointwise, stencil, words, height, width, block_h, ghosts, y0,
+                                  image_h)
+    tops, bots = ghosts if ghosts is not None else ([], [])
+    for p in [*words, *tops, *bots]:
+        if not p.is_contiguous():
+            raise ValueError("T1 takes contiguous word planes")
+    wp = width // 4
+    n, in_stride, out_stride = packed_batch_geometry(words[0].shape[0], height, wp)
+    n_out = chain.c_out
+    outs = [torch.empty((n, height, wp), dtype=I32, device=device) for _ in range(n_out)]
+    planes = kr.PkPlanes()
+    for field, tensors in (("in_", words), ("top", tops), ("bot", bots), ("out", outs)):
+        getattr(planes, field)[: len(tensors)] = [t.data_ptr() for t in tensors]
+    planes.in_stride, planes.out_stride = in_stride, out_stride
+    lib = kr.load("packed_stream")
+    n_in = len(words)
+    table = chain.ptr(device)
+    stream = ck.stream_handle(device)
     if stencil is None:
-        out = ck.pointwise_group_plain(list(pointwise), img)
-    elif ghosts is None:
-        out = ck.stream_stencil_plain(list(pointwise), stencil, img)
+        key = "T1-pw"  # a contiguous stack is one flat run of n * height rows
+        rc = lib.packed_pointwise_group_launch(
+            ctypes.byref(planes), n * height, wp, n_in, n_out, table, chain.n_ops, device.index,
+            stream)
     else:
-        tops, bots = ([unpack_words(s, width) for s in strips] for strips in ghosts)
-        out = ck.stream_stencil_ghost_plain(
-            list(pointwise), stencil, img, _hwc(tops), _hwc(bots), y0=int(y0),
-            image_h=image_h, image_w=width,
-        )
-    return [pack_words(p) for p in _planes(out)]
+        tile_w, run_h = shape
+        if ghosts is None:
+            key = "T1"
+            rc = lib.packed_stream_launch(
+                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
+                ctypes.byref(desc), tile_w, CHUNK_H, run_h, n, device.index, stream)
+        else:
+            key = "T1g"
+            rc = lib.packed_stream_ghost_launch(
+                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
+                ctypes.byref(desc), tile_w, CHUNK_H, run_h, int(y0), image_h, device.index,
+                stream)
+    ck._raise_on(rc, "packed_stream")
+    ck.TOOL_LAUNCHES[key] += 1
+    return outs
 
 
 def run_group_packed_words(
@@ -333,59 +446,23 @@ def run_group_packed_words(
     ghosts: tuple[list[torch.Tensor], list[torch.Tensor]] | None = None,
     y0=None,
     image_h: int | None = None,
+    batched: bool = False,
 ) -> list[torch.Tensor]:
     """T1: one group on (height, width/4) int32 word planes, one per
     channel, into word planes of the channel count after the chain; one
-    launch. `block_h` is the JAX block height: checked, and it sets nothing
-    (the launch shape is ``packed_tile_shape``'s). ``ghosts=(tops, bots)``
-    runs ghost mode over a row-shard: raw, pre-pointwise (halo, width/4)
-    word strips per input plane, the tile's first row being global row
-    `y0` of an image `image_h` rows high. A plane may start at any word (a
-    row slice of a larger one). The caller keeps to `packed_supported`; a
-    group outside it raises."""
-    chain, desc, shape = _check_group(
-        pointwise, stencil, words, height, width, block_h, ghosts, y0, image_h)
-    device = words[0].device
-    if device.type == "cpu":
-        return run_group_packed_words_plain(
-            pointwise, stencil, words, height, width, block_h=block_h, ghosts=ghosts, y0=y0,
-            image_h=image_h,
-        )
-    tops, bots = ghosts if ghosts is not None else ([], [])
-    for p in [*words, *tops, *bots]:
-        if not p.is_contiguous():
-            raise ValueError("T1 takes contiguous word planes")
-    wp = width // 4
-    n_out = chain.c_out
-    outs = [torch.empty((height, wp), dtype=I32, device=device) for _ in range(n_out)]
-    planes = kr.PkPlanes()
-    for field, tensors in (("in_", words), ("top", tops), ("bot", bots), ("out", outs)):
-        getattr(planes, field)[: len(tensors)] = [t.data_ptr() for t in tensors]
-    lib = kr.load("packed_stream")
-    n_in = len(words)
-    table = chain.ptr(device)
-    stream = ck.stream_handle(device)
-    if stencil is None:
-        key = "T1-pw"
-        rc = lib.packed_pointwise_group_launch(
-            ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops, device.index,
-            stream)
-    else:
-        tile_w, run_h = shape
-        if ghosts is None:
-            key = "T1"
-            rc = lib.packed_stream_launch(
-                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
-                ctypes.byref(desc), tile_w, CHUNK_H, run_h, device.index, stream)
-        else:
-            key = "T1g"
-            rc = lib.packed_stream_ghost_launch(
-                ctypes.byref(planes), height, wp, n_in, n_out, table, chain.n_ops,
-                ctypes.byref(desc), tile_w, CHUNK_H, run_h, int(y0), image_h, device.index,
-                stream)
-    ck._raise_on(rc, "packed_stream")
-    ck.TOOL_LAUNCHES[key] += 1
-    return outs
+    launch. With ``batched=True`` the planes are (N, height, width/4)
+    stacks, and the one launch takes every image (full mode on grid z,
+    T1-pw as one flat run). `block_h` is the JAX block height: checked, and
+    it sets nothing (the launch shape is ``packed_tile_shape``'s).
+    ``ghosts=(tops, bots)`` runs ghost mode over a row-shard (one image):
+    raw, pre-pointwise (halo, width/4) word strips per input plane, the
+    tile's first row being global row `y0` of an image `image_h` rows high.
+    A plane may start at any word (a row slice of a larger one). The
+    caller keeps to `packed_supported`; a group outside it raises."""
+    return _stack_call(
+        lambda ws: _group_words_stack(pointwise, stencil, ws, height, width, block_h, ghosts, y0,
+                                      image_h),
+        words, batched)
 
 
 def run_group_packed(
@@ -397,45 +474,50 @@ def run_group_packed(
     ghosts: tuple[list[torch.Tensor], list[torch.Tensor]] | None = None,
     y0=None,
     image_h: int | None = None,
+    batched: bool = False,
 ) -> list[torch.Tensor]:
-    """T1 on (H, W) u8 planes in and out; the words are views at the call's
-    boundary. ``ghosts=(tops, bots)``: raw (halo, W) u8 strips per input
-    plane, packed like the planes."""
-    height, width = planes[0].shape
+    """T1 on (H, W) u8 planes in and out ((N, H, W) with ``batched=True``);
+    the words are views at the call's boundary. ``ghosts=(tops, bots)``:
+    raw (halo, W) u8 strips per input plane, packed like the planes."""
+    height, width = planes[0].shape[-2:]
     gw = None
     if ghosts is not None:
         gw = tuple([pack_words(s) for s in strips] for strips in ghosts)
     outs = run_group_packed_words(
-        pointwise, stencil, [pack_words(p) for p in planes], height, width, block_h=block_h,
-        ghosts=gw, y0=y0, image_h=image_h,
+        pointwise, stencil, [_pack(p) for p in planes], height, width, block_h=block_h,
+        ghosts=gw, y0=y0, image_h=image_h, batched=batched,
     )
-    return [unpack_words(o, width) for o in outs]
+    return [_unpack(o, width) for o in outs]
 
 
-def pipeline_packed(ops, img: torch.Tensor, *, block_h: int | None = None) -> torch.Tensor:
-    """The archival packed runner: each group `packed_supported` takes runs
-    on T1 in word form, consecutive ones staying words; the others run on
-    the u8 group runner (K1/K2, ``cuda_kernels.run_group``), as the JAX
-    runner sends them to its u8 streaming path. `block_h` is the u8
-    runner's tile height; T1 checks it and it sets nothing there. Same
-    bytes as the golden ops; on a CPU tensor every
-    group takes its plain version."""
-    planes = _planes(img)
+@takes_stack
+def pipeline_packed(ops, stack: torch.Tensor, *, block_h: int | None = None) -> torch.Tensor:
+    """The archival packed runner over one image, or a stack of same-shape
+    images with ``batched=True`` (the JAX runner under ``jax.vmap``): each
+    group `packed_supported` takes runs on T1 in word form, one launch for
+    the stack, consecutive ones staying words; the others run on the u8
+    group runner (K1/K2, ``cuda_kernels.run_group``, which takes the stack
+    on its batch axis too), as the JAX runner sends them to its u8
+    streaming path. `block_h` is the u8 runner's tile height; T1 checks it
+    and it sets nothing there. Same bytes as the golden ops, image by
+    image; on a CPU tensor every group takes its plain version."""
+    planes = _stack_planes(stack)
     words = None  # not None: the planes live as packed words
     height = width = None
     for pointwise, stencil in ck.group_ops(ops):
         if words is None:
-            height, width = planes[0].shape
+            height, width = planes[0].shape[1:]
         if packed_supported(pointwise, stencil, width):
             if words is None:
-                words = [pack_words(p) for p in planes]
+                words = [_pack(p) for p in planes]
             words = run_group_packed_words(pointwise, stencil, words, height, width,
-                                           block_h=block_h)
+                                           block_h=block_h, batched=True)
             continue
         if words is not None:
-            planes = [unpack_words(w, width) for w in words]
+            planes = [_unpack(w, width) for w in words]
             words = None
-        planes = _planes(ck.run_group(pointwise, stencil, _hwc(planes), block_h=block_h))
+        planes = _stack_planes(ck.run_group(pointwise, stencil, _hwc(planes),
+                                            block_h=block_h, batched=True))
     if words is not None:
-        planes = [unpack_words(w, width) for w in words]
+        planes = [_unpack(w, width) for w in words]
     return _hwc(planes)
