@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-seventeen phases; any failure raises and the script exits non-zero without
+eighteen phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -245,6 +245,23 @@ printing a result:
    the PNG files, each at ``--inflight`` 1 and 2: every output file equal
    to golden, each run's end-to-end MP/s and device idle share as
    ``--show-timing`` prints them.
+
+18. The streaming tile engine (stream/): the 8K frame through
+   ``stream_pipeline`` in 512-row bands for the reference and megakernel_ab
+   chains, inflight 1 and 2 x impl torch and mxu x plan off and fused, into
+   an ``ArrayTileWriter``, and to a PNG and a PGM file; ``stream
+   --synthetic 100000x4096`` (1.23 GB RGB, never whole on the host) and
+   25000x4096 to a PGM, each by SHA-256 against the golden of the whole
+   frame on the card, the host peak against ``stream/runner.resident_bound``
+   (one bound for both heights: flat) and the frame, the card's allocator
+   peak, MP/s and ``device_idle_frac``; 6 8K frames as video under ``framediff`` and
+   ``tdenoise:3`` before ``grayscale,gaussian:5``; ``batch --stream-rows
+   512`` over two 8K PPM frames, its files byte-equal to ``batch``'s;
+   ``obs/cost.attribute_plan(pallas=True)`` on the reference and
+   megakernel_ab plans at 8K (one K4 launch a stage, drift in the band,
+   ``temp_bytes`` beside the torch walker's); a ``stream`` killed by the
+   ``stream.tile`` failpoint at tile 5, then ``--resume``: the file equal
+   to golden with only the missing tiles run.
 
 The native codec is built from the checkout like the kernels, and a kernel
 or the codec that fails to build or launch fails its phase: nothing falls
@@ -4583,6 +4600,311 @@ def phase17_batch_cli(device) -> None:
           f"{time.perf_counter() - t0:.1f} s in all")
 
 
+STREAM_TILE_ROWS = 512
+STREAM_SPECS = (SPECS["reference"], SPECS["megakernel_ab"])
+GIGA_H, GIGA_W = 100000, 4096  # the JAX package's gigapixel source (cli.py:657)
+GIGA_SMALL_H = 25000
+VIDEO_FRAMES = 6
+VIDEO_SPATIAL = "grayscale,gaussian:5"
+VIDEO_TEMPORAL = ("framediff", "tdenoise:3")
+STREAM_BATCH_SEEDS = (30, 31)
+RESUME_KILL_AT = 5
+
+
+def _pnm_body(path) -> bytes:
+    """The pixel bytes of a binary PNM file written by PNMTileWriter or the
+    native codec (header: magic, width height, 255, one newline each)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return data[data.index(b"\n", data.index(b"\n", data.index(b"\n") + 1) + 1) + 1:]
+
+
+def _stream_cli(argv) -> tuple[int, dict, str]:
+    """`stream` through the port's main, in this process, with
+    --json-metrics to a temporary file: (exit code, its record, stdout)."""
+    import io
+
+    from mpi_cuda_imagemanipulation_tpu_torch import cli
+
+    fd, metrics = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["stream", *argv, "--json-metrics", metrics])
+    with open(metrics) as f:
+        text = f.read().strip()
+    os.remove(metrics)
+    return rc, (json.loads(text) if text else {}), buf.getvalue()
+
+
+def phase18_stream_8k(device, gpu: str, tmp: str) -> None:
+    """STREAM_SPECS over the 8K RGB frame through stream_pipeline at
+    STREAM_TILE_ROWS rows: inflight 1 and 2 x impl torch and mxu x plan off
+    and fused into an ArrayTileWriter, then a PNG and a PGM file each; every
+    output byte-equal to the whole-image golden Pipeline.parse(spec) on the
+    card."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.io.stream_codec import (
+        ArrayTileReader,
+        ArrayTileWriter,
+        open_tile_writer,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.stream import StreamMetrics, stream_pipeline
+
+    img = synthetic_image(MAIN_H, MAIN_W, seed=0)
+    for spec in STREAM_SPECS:
+        ops = Pipeline.parse(spec).ops
+        want = Pipeline.parse(spec)(torch.from_numpy(img).to(device)).cpu()
+        runs = [(inflight, impl, plan, None) for inflight in (1, 2) for impl in ("torch", "mxu")
+                for plan in ("off", "fused")]
+        runs += [(2, "torch", "fused", ext) for ext in (".png", ".pgm")]
+        for inflight, impl, plan, ext in runs:
+            path = None if ext is None else os.path.join(tmp, f"s8k{ext}")
+            writer = (ArrayTileWriter(MAIN_H, MAIN_W, 1) if path is None
+                      else open_tile_writer(path, MAIN_H, MAIN_W, 1))
+            t = time.perf_counter()
+            res = stream_pipeline(ArrayTileReader(img), writer, ops, tile_rows=STREAM_TILE_ROWS,
+                                  inflight=inflight, impl=impl, plan=plan, device=device,
+                                  metrics=StreamMetrics())
+            writer.close()
+            wall = time.perf_counter() - t
+            if path is None:
+                got = writer.array
+            elif ext == ".png":
+                with Image.open(path) as im:
+                    got = np.array(im)
+            else:
+                got = np.frombuffer(_pnm_body(path), np.uint8).reshape(MAIN_H, MAIN_W).copy()
+            check_equal(f"stream {spec} inflight {inflight} {impl} {plan} {ext or 'array'}",
+                        torch.from_numpy(got), want)
+            idle = res.engine["device_idle_frac"]
+            print(f"phase 18: stream 8K [{spec}] inflight {inflight} impl {impl} plan {plan} "
+                  f"-> {ext or 'ArrayTileWriter'}: == golden; {res.tiles} tiles, "
+                  f"{res.compiles} tile functions, {MAIN_H * MAIN_W / 1e6 / wall:.1f} MP/s "
+                  f"end-to-end, peak resident {res.peak_resident_bytes} B, device_idle_frac "
+                  f"{idle:.4f} ({gpu})")
+
+
+def phase18_stream_giga(device, gpu: str, tmp: str) -> None:
+    """`stream --synthetic GIGA_HxGIGA_W` (RGB) with the reference chain to a
+    PGM, its SHA-256 against the golden of the whole frame computed once on
+    the card; then GIGA_SMALL_H rows the same way: MP/s, tiles, tile
+    functions, the host peak against resident_bound (flat: the bound takes
+    no height, and both peaks are held to it) and the frame's bytes,
+    device_idle_frac, and the card's allocator peak during each stream."""
+    import hashlib
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.engine import Engine
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.spec import chain_halo
+    from mpi_cuda_imagemanipulation_tpu_torch.stream.runner import resident_bound
+
+    spec = SPECS["reference"]
+    gold = Pipeline.parse(spec)
+    halo = chain_halo(gold.ops)
+    for h in (GIGA_H, GIGA_SMALL_H):
+        out = os.path.join(tmp, f"giga{h}.pgm")
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        rc, rec, text = _stream_cli(["--synthetic", f"{h}x{GIGA_W}", "--output", out, "--ops",
+                                     spec, "--device", str(device), "--no-journal",
+                                     "--tile-rows", str(STREAM_TILE_ROWS), "--show-timing"])
+        dev_peak = torch.cuda.max_memory_allocated(device) - base
+        if rc != 0:
+            raise AssertionError(f"stream --synthetic {h}x{GIGA_W}: exit {rc}: {text[-500:]}")
+        t = time.perf_counter()
+        got = hashlib.sha256(_pnm_body(out)).hexdigest()
+        os.remove(out)
+        frame = torch.from_numpy(synthetic_image(h, GIGA_W, seed=0)).to(device)
+        want = hashlib.sha256(gold(frame).cpu().numpy().tobytes()).hexdigest()
+        del frame
+        torch.cuda.empty_cache()
+        if got != want:
+            raise AssertionError(f"stream {h}x{GIGA_W}: SHA-256 {got} != golden {want}")
+        bound = resident_bound(width=GIGA_W, channels=3, out_chan=1, tile_rows=rec["tile_rows"],
+                               halo=halo, inflight=rec["inflight"],
+                               encode_backlog=Engine(inflight=rec["inflight"],
+                                                     io_threads=2).encode_backlog,
+                               pinned=True)
+        frame_bytes = h * GIGA_W * 3
+        if not 0 < rec["peak_resident_bytes"] <= bound:
+            raise AssertionError(f"stream {h}x{GIGA_W}: peak resident {rec['peak_resident_bytes']}"
+                                 f" B outside (0, {bound}]")
+        if rec["compiles"] > 4:
+            raise AssertionError(f"stream {h}x{GIGA_W}: {rec['compiles']} tile functions")
+        print(f"phase 18: stream --synthetic {h}x{GIGA_W} [{spec}] -> PGM: SHA-256 == golden "
+              f"(golden and check {time.perf_counter() - t:.1f} s); {rec['mp']:.1f} MP in "
+              f"{rec['wall_s']:.2f} s of stream, {rec['mp_per_s']:.1f} MP/s end-to-end incl. "
+              f"encode; {rec['tiles']} tiles, {rec['compiles']} tile functions; host peak "
+              f"resident {rec['peak_resident_bytes']} B (bound {bound} B) vs the frame's "
+              f"{frame_bytes} B ({frame_bytes / rec['peak_resident_bytes']:.1f}x); "
+              f"device_idle_frac {rec['engine']['device_idle_frac']:.4f}; card allocator peak "
+              f"during the stream {dev_peak} B ({gpu})")
+
+
+def phase18_video(device, gpu: str, tmp: str) -> None:
+    """VIDEO_FRAMES 8K frames (PPM) through stream_video with each of
+    VIDEO_TEMPORAL before VIDEO_SPATIAL, to PGM frames; each equal to the
+    temporal op on the host (ops/temporal.py) followed by the golden
+    spatial chain on the card."""
+    from collections import deque
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import save_image, synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.temporal import split_temporal
+    from mpi_cuda_imagemanipulation_tpu_torch.stream import stream_video
+
+    base = synthetic_image(MAIN_H, MAIN_W, seed=3)
+    frames, paths = [], []
+    for k in range(VIDEO_FRAMES):
+        frame = np.roll(base, 64 * k, axis=1) // (1 + k % 3)
+        path = os.path.join(tmp, f"v{k}.ppm")
+        save_image(path, frame)
+        frames.append(frame)
+        paths.append(path)
+    gold = Pipeline.parse(VIDEO_SPATIAL)
+    for top in VIDEO_TEMPORAL:
+        spec = f"{top},{VIDEO_SPATIAL}"
+        out = os.path.join(tmp, "vout")
+        rec = stream_video(paths, out, spec, tile_rows=STREAM_TILE_ROWS, device=device,
+                           out_ext=".pgm")
+        (op,), _rest = split_temporal(top)
+        ring: deque = deque(maxlen=op.window)
+        for k, frame in enumerate(frames):
+            ring.append(frame)
+            want = gold(torch.from_numpy(op(ring)).to(device)).cpu()
+            got = np.frombuffer(_pnm_body(os.path.join(out, f"v{k}.pgm")), np.uint8).copy()
+            check_equal(f"video [{spec}] frame {k}", torch.from_numpy(got.reshape(MAIN_H, MAIN_W)),
+                        want)
+        print(f"phase 18: video [{spec}] {VIDEO_FRAMES} 8K frames == golden; {rec['fps']:.2f} fps, "
+              f"ring sizes {rec['ring_sizes']}, peak resident {rec['peak_resident_bytes']} B, "
+              f"device_idle_frac {rec['engine']['device_idle_frac']:.4f} ({gpu})")
+
+
+def phase18_batch(device, gpu: str, tmp: str) -> None:
+    """`batch --stream-rows STREAM_TILE_ROWS` over two 8K PPM frames against
+    `batch --impl cuda --plan off` on the same directory: the files equal
+    byte for byte."""
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import save_image, synthetic_image
+
+    src = os.path.join(tmp, "bin")
+    os.makedirs(src)
+    for seed in STREAM_BATCH_SEEDS:
+        save_image(os.path.join(src, f"b{seed}.ppm"), synthetic_image(MAIN_H, MAIN_W, seed=seed))
+    lines = {}
+    for label, extra in (("stream", ["--stream-rows", str(STREAM_TILE_ROWS), "--impl", "torch"]),
+                         ("whole", ["--impl", "cuda", "--plan", "off"])):
+        rc, text = run_batch_cli(["--input-dir", src, "--output-dir", os.path.join(tmp, label),
+                                  "--ops", SPECS["reference"], "--device", str(device),
+                                  "--no-journal", "--show-timing", *extra])
+        if rc != 0:
+            raise AssertionError(f"batch {label}: exit {rc}: {text[-500:]}")
+        lines[label] = next((x for x in text.splitlines() if x.startswith("batch [")), "")
+    for seed in STREAM_BATCH_SEEDS:
+        name = f"b{seed}.ppm"
+        with open(os.path.join(tmp, "stream", name), "rb") as a, \
+                open(os.path.join(tmp, "whole", name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"batch --stream-rows {name} differs from batch's file")
+    print(f"phase 18: batch --stream-rows {STREAM_TILE_ROWS} over {len(STREAM_BATCH_SEEDS)} 8K PPM "
+          f"frames: files byte-equal to batch --impl cuda --plan off's; {lines['stream']} | "
+          f"{lines['whole']} ({gpu})")
+
+
+def phase18_attribution(device, gpu: str) -> None:
+    """obs/cost.attribute_plan on the reference and megakernel_ab plans at
+    8K under fused-pallas with pallas=True: exactly one K4 launch a stage,
+    every drift ratio in the band; each stage's temp_bytes beside the same
+    stage walked by torch."""
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import cost as obs_cost
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan
+
+    lo, hi = obs_cost.drift_band()
+    for name in ("reference", "megakernel_ab"):
+        plan = build_plan(make_pipeline_ops(SPECS[name]), "fused-pallas")
+        ck.reset_launch_counts()
+        rows = obs_cost.attribute_plan(plan, (MAIN_H, MAIN_W, 3), pallas=True, device=device)
+        launches = {k: v for k, v in ck.launch_counts().items() if v}
+        if launches.get("K4") != len(plan.stages):
+            raise AssertionError(f"attribute_plan {name}: launches {launches}, "
+                                 f"{len(plan.stages)} stages")
+        walked = obs_cost.attribute_plan(plan, (MAIN_H, MAIN_W, 3), device=device)
+        for row, walk in zip(rows, walked):
+            r = row["drift_ratio"]
+            if r is None or not lo <= r <= hi:
+                raise AssertionError(f"attribute_plan {name} {row['stage']}: ratio {r}")
+            print(f"phase 18: attribute_plan {name} {row['stage']} {row['names']}: one K4 launch, "
+                  f"drift {r:.4f} (band [{lo}, {hi}]), boundary {row['cost']['boundary_bytes']:.0f}"
+                  f" B, temp_bytes K4 {row['cost']['temp_bytes']} B vs torch walker "
+                  f"{walk['cost']['temp_bytes']} B ({gpu})")
+
+
+def phase18_resume(device, gpu: str, tmp: str) -> None:
+    """`stream --synthetic` 8K to a PGM killed by the stream.tile failpoint
+    at tile RESUME_KILL_AT, then --resume: the file byte-equal to golden and
+    only the missing tiles run."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+
+    spec = SPECS["reference"]
+    out = os.path.join(tmp, "resume.pgm")
+    base = ["--synthetic", f"{MAIN_H}x{MAIN_W}", "--output", out, "--ops", spec, "--device",
+            str(device), "--tile-rows", str(STREAM_TILE_ROWS)]
+    try:
+        rc, _rec, text = _stream_cli([*base, "--failpoints", f"stream.tile=after:{RESUME_KILL_AT}"])
+    finally:
+        failpoints.clear()
+    if rc != 1:
+        raise AssertionError(f"stream with stream.tile=after:{RESUME_KILL_AT}: exit {rc}, want 1")
+    rc, rec, text = _stream_cli([*base, "--resume"])
+    if rc != 0 or (rec["tiles_resumed"], rec["tiles_done"]) != (RESUME_KILL_AT,
+                                                                rec["tiles"] - RESUME_KILL_AT):
+        raise AssertionError(f"stream --resume: exit {rc}, record {rec}")
+    want = Pipeline.parse(spec)(torch.from_numpy(synthetic_image(MAIN_H, MAIN_W, seed=0))
+                                .to(device)).cpu()
+    got = np.frombuffer(_pnm_body(out), np.uint8).reshape(MAIN_H, MAIN_W).copy()
+    check_equal("stream --resume", torch.from_numpy(got), want)
+    print(f"phase 18: stream killed at tile {RESUME_KILL_AT} then --resume: file == golden; "
+          f"{rec['tiles_resumed']} tiles resumed, {rec['tiles_done']} of {rec['tiles']} run ({gpu})")
+
+
+def phase18_stream(device) -> None:
+    """The streaming tile engine on the card (module docstring, phase 18)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    gpu = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="mcim_stream_")
+    try:
+        phase18_stream_8k(device, gpu, tmp)
+        phase18_stream_giga(device, gpu, tmp)
+        phase18_video(device, gpu, tmp)
+        phase18_batch(device, gpu, tmp)
+        phase18_attribution(device, gpu)
+        phase18_resume(device, gpu, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 18: the streaming tile engine, {time.perf_counter() - t0:.1f} s in all")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -4736,6 +5058,7 @@ def main() -> int:
     phase15_t1_batched(device, rows)
     phase16_engine(device)
     phase17_batch_cli(device)
+    phase18_stream(device)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -1,5 +1,5 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
-run|batch|autotune|info``.
+run|batch|stream|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl auto``, the default, routes
@@ -20,7 +20,14 @@ asynchronous engine (engine/core.py): decode ahead on worker threads
 copy stream, the computation (``Pipeline.jit`` or ``batched`` with
 ``donate=True``, ``sharded``, ``data_parallel``), pinned D2H on a side
 stream, encode and write on a worker pool; a journal makes a killed run
-resumable (``--resume``).
+resumable (``--resume``); ``--stream-rows N`` streams each input through
+the tile engine instead.
+``stream`` runs a pipeline over one image of any height (``--input``, or
+``--synthetic HxW[xC]``) or over a video frame sequence
+(``--video-frames``) as fixed-height row bands through the streaming tile
+engine (stream/): decode, stitch, compute and encode overlap, and the host
+holds a few bands whatever the image height; ``--resume`` finishes a
+killed run from its journal.
 ``autotune`` measures the routes of one choice on the card and records
 the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
@@ -217,6 +224,7 @@ def _build_parser() -> argparse.ArgumentParser:
     _add_trace_flags(run)
 
     _add_batch_parser(sub)
+    _add_stream_parser(sub)
 
     tune = sub.add_parser(
         "autotune",
@@ -319,7 +327,8 @@ def _add_batch_parser(sub) -> None:
         "--inflight", type=int, default=None,
         help="device dispatches kept outstanding through the async engine "
         "(engine/core.py): >= 2 overlaps the card's work on dispatch N with the "
-        "host's decode of N+1 and encode of N-1; default 2",
+        "host's decode of N+1 and encode of N-1; default 2 (with --stream-rows, "
+        "MCIM_STREAM_INFLIGHT=2, as for `stream`)",
     )
     batch.add_argument("--window", type=int, default=None,
                        help=argparse.SUPPRESS)  # deprecated alias for --inflight
@@ -330,8 +339,11 @@ def _add_batch_parser(sub) -> None:
     )
     batch.add_argument(
         "--stream-rows", type=int, default=0, metavar="N",
-        help="N > 0 would route every input through the streaming tile engine; "
-        "the port does not have it yet (refused)",
+        help="N > 0: stream every input through the tile engine (stream/) in "
+        "N-row bands with the output encoded incrementally (png, ppm/pgm; other "
+        "containers are written as .png), so an input costs band memory, not "
+        "frame memory; --impl torch, mxu or auto (the stage walker); refused "
+        "with --stack and --shards",
     )
     batch.add_argument(
         "--stack", type=int, default=1,
@@ -368,6 +380,96 @@ def _add_batch_parser(sub) -> None:
     )
     _add_failpoint_flags(batch)
     _add_trace_flags(batch)
+
+
+def _add_stream_parser(sub) -> None:
+    """The ``stream`` subcommand's arguments: every flag of the JAX
+    package's, in the port's terms (--impl names the walker's routes,
+    --device a torch device)."""
+    stm = sub.add_parser(
+        "stream",
+        help="constant-memory streaming tile engine: run a pipeline over an image of "
+        "any height (or a video frame sequence) as fixed-height row bands with "
+        "seam-stitched halos, byte-equal to the whole-image path, with peak resident "
+        "bytes set by --tile-rows/--inflight, never by image size (stream/)",
+    )
+    stm.add_argument(
+        "--input", default=None,
+        help="input image path (ppm/pgm read by seeking, png by the scanline decoder; "
+        "other formats fall back to a whole-image decode with a warning)",
+    )
+    stm.add_argument(
+        "--synthetic", default=None, metavar="HxW[xC]",
+        help="process a deterministic synthetic image of this shape instead of --input "
+        "(generated band by band: a 100000x4096 scan never exists whole on the host)",
+    )
+    stm.add_argument(
+        "--output", default=None,
+        help="output path, encoded incrementally (png: one IDAT chunk a band; ppm/pgm: "
+        "appended raw rows, the resumable container)",
+    )
+    stm.add_argument(
+        "--video-frames", default=None, metavar="GLOB",
+        help="video mode: process this ordered frame glob instead of one image; "
+        "temporal ops (framediff, tdenoise:K) may lead --ops and read a bounded "
+        "frame-history ring (ops/temporal.py)",
+    )
+    stm.add_argument("--output-dir", default=None,
+                     help="video mode: directory for per-frame outputs (basename kept, "
+                     "extension from --out-ext)")
+    stm.add_argument("--out-ext", default=".png",
+                     help="video mode: output frame container extension")
+    stm.add_argument("--ops", default=REFERENCE_PIPELINE_SPEC)
+    stm.add_argument(
+        "--impl", choices=("auto", "torch", "mxu"), default="torch",
+        help="tile compute: torch (the golden accumulators, default), mxu (the whole-op "
+        "banded products for eligible stencils, byte-identical), auto (what torch runs: "
+        "no banded-product record steers the walker)",
+    )
+    stm.add_argument(
+        "--plan", choices=PLAN_MODES, default="auto",
+        help="fusion-planner stage structure of each tile's walk (byte-identical in "
+        "every mode; fused-pallas[-mxu] keep their partition and walk it)",
+    )
+    stm.add_argument(
+        "--tile-rows", type=int, default=None,
+        help="row-band height, the memory budget knob (default "
+        "MCIM_STREAM_TILE_ROWS=512); at least the chain halo",
+    )
+    stm.add_argument(
+        "--inflight", type=int, default=None,
+        help="tile dispatches kept outstanding (default MCIM_STREAM_INFLIGHT=2): >= 2 "
+        "overlaps tile k+1's H2D with tile k's compute and k-1's encode",
+    )
+    stm.add_argument("--io-threads", type=int, default=2,
+                     help="engine encode workers (writes are delivered in tile order)")
+    stm.add_argument("--device", default="cuda",
+                     help="torch device (default cuda; cpu runs on the host)")
+    stm.add_argument(
+        "--resume", action="store_true",
+        help="skip tiles (or video frames) journaled ok by a killed earlier run; "
+        "image-mode resume needs a ppm/pgm output (a PNG compressor's state does not "
+        "survive a kill)",
+    )
+    stm.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="stream journal path (default <output>.journal.jsonl, or "
+        "<output-dir>/.mcim_stream_journal.jsonl for video)",
+    )
+    stm.add_argument("--no-journal", action="store_true",
+                     help="disable the journal (no kill-mid-stream resume)")
+    stm.add_argument("--show-timing", action="store_true",
+                     help="print end-to-end MP/s, tiles, peak resident bytes and the "
+                     "device's idle share")
+    stm.add_argument("--json-metrics", default=None,
+                     help="write the stream summary record to this path ('-' = stdout)")
+    stm.add_argument(
+        "--metrics-out", default=None, metavar="PATH",
+        help="write a Prometheus snapshot of the stream registry (mcim_stream_* with "
+        "the peak-resident-bytes gauge, and the engine families) at exit",
+    )
+    _add_failpoint_flags(stm)
+    _add_trace_flags(stm)
 
 
 def image_runner(pipe, *, impl: str, device, block_h=None, gray_output=False,
@@ -1041,11 +1143,6 @@ def cmd_batch(args: argparse.Namespace) -> int:
     from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import pad_stack
     from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
 
-    if args.stream_rows:
-        raise ValueError(
-            "--stream-rows needs the streaming tile engine (stream/), which the port "
-            "does not have yet (ROADMAP.md queue 1 item 4, the streaming half)"
-        )
     _arm_failpoints(args)
     _configure_tracing(args)
     log = get_logger()
@@ -1096,6 +1193,11 @@ def cmd_batch(args: argparse.Namespace) -> int:
     stack = max(1, args.stack)
     n_r, n_c = pmesh.parse_shards(args.shards)
     n_flat = n_r * (n_c or 1)
+    if args.stream_rows:
+        if stack > 1 or n_flat > 1:
+            raise ValueError("--stream-rows streams each input through the tile engine and is "
+                             "incompatible with --stack/--shards")
+        return _batch_stream(args, paths, rels, resumed, journal, digest, pipe, log, dev)
     if args.inflight is not None:
         inflight = args.inflight
     elif args.window is not None:
@@ -1288,6 +1390,303 @@ def cmd_batch(args: argparse.Namespace) -> int:
     return 0 if done + len(resumed) == len(paths) else 1
 
 
+def _stream_inflight(args) -> int:
+    """The in-flight tile dispatches of both stream entry points (`stream`
+    and `batch --stream-rows`): --inflight, else MCIM_STREAM_INFLIGHT."""
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
+
+    return max(1, args.inflight or env_registry.get_int("MCIM_STREAM_INFLIGHT") or 2)
+
+
+def _batch_stream(args, paths, rels, resumed, journal, digest_fn, pipe, log, dev) -> int:
+    """cmd_batch's streaming lane (--stream-rows): every input runs through
+    the tile engine with its output encoded incrementally, so a gigapixel
+    input in a batch directory costs band memory, not frame memory. One
+    ordered engine serves every input; each input's pinned staging buffers
+    are released when its stream ends. The journal keeps one record per
+    input (digest-verified), so --resume composes as in the whole-image
+    lane."""
+    from mpi_cuda_imagemanipulation_tpu_torch.engine import Engine, EngineMetrics
+    from mpi_cuda_imagemanipulation_tpu_torch.io.stream_codec import (
+        open_tile_reader,
+        open_tile_writer,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_op
+    from mpi_cuda_imagemanipulation_tpu_torch.stream import StreamMetrics, stream_pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.stream.runner import TileStager
+    from mpi_cuda_imagemanipulation_tpu_torch.stream.tiles import out_channels
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
+
+    if args.impl not in ("auto", "torch", "mxu"):
+        raise ValueError(
+            "--stream-rows computes tiles with the stage walker (--impl torch, mxu or "
+            f"auto; the stream has no kernel route, as in the JAX package); got {args.impl!r}"
+        )
+    metrics = StreamMetrics()
+    inflight = _stream_inflight(args)
+    engine = Engine(
+        inflight=inflight,
+        io_threads=max(1, args.io_threads),
+        stage=TileStager(dev, inflight=inflight, metrics=metrics),
+        metrics=EngineMetrics(registry=metrics.registry),
+        ordered_done=True,
+        name="batch-stream",
+    )
+    done = 0
+    failed: dict[int, str] = {}
+    total_mp = 0.0
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(paths):
+            if i in resumed:
+                continue
+            rel = rels[i]
+            try:
+                reader = open_tile_reader(p)
+                ops = pipe.ops
+                if not args.gray_output and out_channels(ops, reader.channels) == 1:
+                    # the batch lane's gray -> RGB replication contract
+                    ops = (*ops, make_op("gray2rgb"))
+                base, ext = os.path.splitext(rel)
+                if ext.lower() not in (".png", ".ppm", ".pgm", ".pnm"):
+                    log.info("%s: no incremental encoder for %r; writing .png", rel, ext)
+                    rel = base + ".png"
+                dst = os.path.join(args.output_dir, rel)
+                os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+                writer = open_tile_writer(dst, reader.height, reader.width,
+                                          out_channels(ops, reader.channels))
+                total_mp += reader.height * reader.width / 1e6
+                stream_pipeline(reader, writer, ops, tile_rows=args.stream_rows, impl=args.impl,
+                                plan=args.plan, device=dev, metrics=metrics, engine=engine)
+                writer.close()
+            except Exception as e:  # noqa: BLE001 - fails this input only, exit 1
+                failed[i] = f"{type(e).__name__}: {e}"
+                log.error("failed %s: %s", rels[i], failed[i])
+                if journal is not None:
+                    journal.record_failed(rels[i], digest_fn(i), failed[i])
+                continue
+            if journal is not None:
+                journal.record_ok(rels[i], digest_fn(i), rel)
+            done += 1
+    finally:
+        engine.close()
+    wall = time.perf_counter() - t0
+    log.info("streamed %d/%d inputs (%.1f MP) in %.2fs, peak resident %.1f MiB", done,
+             len(paths), total_mp, wall, metrics.peak_resident_bytes / 2**20)
+    eng = engine.metrics.snapshot()
+    if args.show_timing:
+        idle = eng["device_idle_frac"]
+        print(f"batch [{pipe.name}] impl={args.impl} plan={args.plan} device={dev} "
+              f"stream-rows {args.stream_rows}: {done}/{len(paths)} images, {total_mp:.1f} MP in "
+              f"{wall:.2f}s ({total_mp / wall:.1f} MP/s end-to-end; peak resident "
+              f"{metrics.peak_resident_bytes / 2**20:.2f} MiB"
+              + (f", device idle {idle * 100:.0f}%" if idle is not None else "") + ")")
+    if args.json_metrics:
+        emit_json_metrics(
+            {
+                "event": "batch",
+                "mode": "stream",
+                "ops": pipe.name,
+                "impl": args.impl,
+                "stream_rows": args.stream_rows,
+                "inputs": len(paths),
+                "processed": done,
+                "resumed": len(resumed),
+                "failed": {rels[i]: m for i, m in sorted(failed.items())},
+                "total_mp": total_mp,
+                "wall_s": wall,
+                "peak_resident_bytes": metrics.peak_resident_bytes,
+                "engine": eng,
+            },
+            None if args.json_metrics == "-" else args.json_metrics,
+        )
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(metrics.registry.render())
+    _export_trace(args, log)
+    return 0 if done + len(resumed) == len(paths) else 1
+
+
+def cmd_stream(args: argparse.Namespace) -> int:
+    """`stream`: one image of any height (or a video frame sequence) through
+    the tile engine, the JAX package's ``cmd_stream`` in the port's terms:
+    fixed-shape row bands, pinned H2D staging, seam-stitched halos, ordered
+    incremental encode. Byte-equal to the whole-image golden path; peak
+    resident bytes follow --tile-rows/--inflight, not image size. Exit 1
+    when a tile failed (the durable prefix is journaled; --resume), 3 when
+    no video frame matches."""
+    from mpi_cuda_imagemanipulation_tpu_torch.io.stream_codec import (
+        PNMTileWriter,
+        SyntheticTileReader,
+        open_tile_reader,
+        open_tile_writer,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience.journal import BatchJournal
+    from mpi_cuda_imagemanipulation_tpu_torch.stream import (
+        DEFAULT_TILE_ROWS,
+        StreamMetrics,
+        plan_tiles,
+        resumable_tiles,
+        stream_fingerprint,
+        stream_pipeline,
+        stream_video,
+        validate_stream_ops,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.stream.tiles import out_channels
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
+
+    dev = resolve_device(args.device)
+    _arm_failpoints(args)
+    _configure_tracing(args)
+    log = get_logger()
+    tile_rows = (args.tile_rows or env_registry.get_int("MCIM_STREAM_TILE_ROWS")
+                 or DEFAULT_TILE_ROWS)
+    inflight = _stream_inflight(args)
+    metrics = StreamMetrics()
+
+    # -- video mode ---------------------------------------------------------
+    if args.video_frames:
+        import glob as globmod
+
+        if not args.output_dir:
+            raise ValueError("--video-frames needs --output-dir")
+        frames = sorted(p for p in globmod.glob(args.video_frames) if os.path.isfile(p))
+        if not frames:
+            log.error("no frames match %s", args.video_frames)
+            return 3
+        journal = None
+        if not args.no_journal:
+            journal = BatchJournal(args.journal or os.path.join(args.output_dir,
+                                                                ".mcim_stream_journal.jsonl"))
+        rec = stream_video(frames, args.output_dir, args.ops, tile_rows=tile_rows,
+                           inflight=inflight, io_threads=max(1, args.io_threads), impl=args.impl,
+                           plan=args.plan, device=dev, out_ext=args.out_ext, metrics=metrics,
+                           journal=journal, resume=args.resume)
+        log.info("video: %d/%d frames (%d resumed) in %.2fs (%.1f fps), peak resident %.1f MiB",
+                 rec["frames_done"], rec["frames"], rec["frames_resumed"], rec["wall_s"],
+                 rec["fps"] or 0.0, rec["peak_resident_bytes"] / 2**20)
+        if args.show_timing:
+            idle = rec["engine"]["device_idle_frac"]
+            print(f"video [{args.ops}] impl={args.impl} device={dev}: {rec['frames_done']}/"
+                  f"{rec['frames']} frames in {rec['wall_s']:.2f}s ({rec['fps'] or 0.0:.1f} fps, "
+                  f"tile_rows {tile_rows}, inflight {inflight}, peak resident "
+                  f"{rec['peak_resident_bytes'] / 2**20:.1f} MiB"
+                  + (f", device idle {idle * 100:.0f}%" if idle is not None else "") + ")")
+        if args.json_metrics:
+            emit_json_metrics({"event": "stream", "mode": "video", "ops": args.ops, **rec},
+                              None if args.json_metrics == "-" else args.json_metrics)
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                f.write(metrics.registry.render())
+        _export_trace(args, log)
+        return 0
+
+    # -- single-image mode --------------------------------------------------
+    if bool(args.input) == bool(args.synthetic):
+        raise ValueError("stream needs exactly one of --input/--synthetic")
+    if not args.output:
+        raise ValueError("stream needs --output")
+    if args.synthetic:
+        dims = [int(v) for v in args.synthetic.lower().split("x")]
+        if len(dims) not in (2, 3):
+            raise ValueError("--synthetic wants HxW or HxWxC")
+        reader = SyntheticTileReader(dims[0], dims[1], channels=dims[2] if len(dims) == 3 else 3,
+                                     seed=0)
+    else:
+        reader = open_tile_reader(args.input)
+
+    pipe = Pipeline.parse(args.ops)
+    halo = validate_stream_ops(pipe.ops)
+    out_c = out_channels(pipe.ops, reader.channels)
+    tiles = plan_tiles(reader.height, tile_rows, halo)
+    fingerprint = stream_fingerprint(pipe.name, reader.height, reader.width, reader.channels,
+                                     tile_rows, args.impl)
+    journal = None
+    if not args.no_journal:
+        journal = BatchJournal(args.journal or args.output + ".journal.jsonl")
+
+    resume_tiles = 0
+    if args.resume:
+        if journal is None:
+            raise ValueError("--resume needs the journal (drop --no-journal)")
+        if os.path.splitext(args.output)[1].lower() not in (".ppm", ".pgm", ".pnm"):
+            raise ValueError(
+                "image-mode --resume needs a ppm/pgm output (a PNG compressor's state does not "
+                "survive a kill); video-mode resume works per frame with any container"
+            )
+        resume_tiles = resumable_tiles(journal, "stream", fingerprint, len(tiles))
+    if resume_tiles and os.path.exists(args.output):
+        writer = PNMTileWriter.resume(args.output, reader.height, reader.width, out_c,
+                                      tiles[resume_tiles - 1].out_hi)
+    else:
+        resume_tiles = 0
+        writer = open_tile_writer(args.output, reader.height, reader.width, out_c)
+
+    root = obs_trace.start_trace("stream", ops=pipe.name, impl=args.impl, h=reader.height,
+                                 w=reader.width, tile_rows=tile_rows)
+    t0 = time.perf_counter()
+    with root:
+        try:
+            res = stream_pipeline(
+                reader, writer, pipe.ops, tile_rows=tile_rows, inflight=inflight,
+                io_threads=max(1, args.io_threads), impl=args.impl, plan=args.plan, device=dev,
+                metrics=metrics, journal=journal, resume_tiles=resume_tiles,
+                trace_parent=root.context() if root is not obs_trace.NOOP_SPAN else None,
+            )
+        except RuntimeError as e:
+            # completed tiles are durable and journaled: exit 1 so that a
+            # scripted caller retries with --resume; closing the writer is
+            # what makes the journaled prefix durable
+            writer.close()
+            log.error("%s", e)
+            root.set(error="StreamError")
+            _export_trace(args, log)
+            return 1
+        writer.close()
+    wall = time.perf_counter() - t0
+    mp = reader.height * reader.width / 1e6
+    log.info("streamed %dx%d (%.1f MP) as %d tiles (%d resumed) in %.2fs, peak resident %.1f MiB "
+             "vs %.1f MiB whole-image", reader.height, reader.width, mp, res.tiles,
+             res.tiles_resumed, wall, res.peak_resident_bytes / 2**20,
+             reader.height * reader.width * reader.channels / 2**20)
+    if args.show_timing:
+        idle = res.engine.get("device_idle_frac")
+        print(f"stream [{pipe.name}] impl={args.impl} device={dev}: {mp:.1f} MP in {wall:.2f}s "
+              f"({mp / wall:.1f} MP/s end-to-end; tile_rows {tile_rows}, inflight {inflight}, "
+              f"{res.tiles} tiles, {res.compiles} tile functions, peak resident "
+              f"{res.peak_resident_bytes / 2**20:.2f} MiB"
+              + (f", device idle {idle * 100:.0f}%" if idle is not None else "") + ")")
+    if args.json_metrics:
+        emit_json_metrics(
+            {
+                "event": "stream",
+                "mode": "image",
+                "ops": pipe.name,
+                "impl": args.impl,
+                "height": reader.height,
+                "width": reader.width,
+                "channels": reader.channels,
+                "tile_rows": tile_rows,
+                "inflight": inflight,
+                "halo": halo,
+                "mp": mp,
+                "mp_per_s": mp / wall if wall > 0 else None,
+                **res.as_dict(),
+            },
+            None if args.json_metrics == "-" else args.json_metrics,
+        )
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(metrics.registry.render())
+        log.info("metrics snapshot -> %s", args.metrics_out)
+    _export_trace(args, log)
+    return 0
+
+
 def cmd_info(args: argparse.Namespace) -> int:
     import torch
 
@@ -1370,8 +1769,8 @@ def _print_calibration(device) -> None:
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
-        return {"run": cmd_run, "batch": cmd_batch, "autotune": cmd_autotune,
-                "info": cmd_info}[args.cmd](args)
+        return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream,
+                "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -118,15 +118,34 @@ class PinnedPool:
         e[1].synchronize()
         return e
 
+    def nbytes(self) -> int:
+        """The bytes of every buffer the pool holds."""
+        with self._lock:
+            return sum(e[0].nbytes for entries in self._bufs.values() for e in entries)
+
+    def clear(self) -> None:
+        """Drop every buffer, once its last copy has finished."""
+        with self._lock:
+            held = [e for entries in self._bufs.values() for e in entries]
+            self._bufs.clear()
+        for e in held:
+            if e[1] is not None:
+                e[1].synchronize()
+
 
 def device_stager(device, *, inflight: int = DEFAULT_INFLIGHT) -> Callable[[Any], torch.Tensor]:
     """The engine's ``stage`` for `device`: a host array (numpy or CPU
     tensor) -> a tensor on `device` whose copy is ordered before any work
     the calling thread's current stream enqueues after it (module
-    docstring). On the CPU a plain copy."""
+    docstring). On the CPU a plain copy. The function's `pool` attribute is
+    its PinnedPool (None on the CPU)."""
     device = torch.device(device)
     if device.type != "cuda":
-        return lambda x: torch.as_tensor(x).clone()
+        def copy(x) -> torch.Tensor:
+            return torch.as_tensor(x).clone()
+
+        copy.pool = None
+        return copy
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     pool = PinnedPool(inflight + 1)
@@ -147,6 +166,7 @@ def device_stager(device, *, inflight: int = DEFAULT_INFLIGHT) -> Callable[[Any]
         staged.record_stream(compute)
         return staged
 
+    stage.pool = pool
     return stage
 
 
@@ -210,9 +230,8 @@ class Engine:
         self._pool: ThreadPoolExecutor | None = None
         # encode backlog bound: a slow writer blocks the completion thread
         # (and transitively the submitter) instead of buffering results
-        self._encode_slots = threading.BoundedSemaphore(
-            max(2 * io_threads, inflight)
-        )
+        self.encode_backlog = max(2 * io_threads, inflight)
+        self._encode_slots = threading.BoundedSemaphore(self.encode_backlog)
         self._outstanding = 0  # submitted, not yet fully resolved
         self._cond = threading.Condition()
         self._thread: threading.Thread | None = None
@@ -236,6 +255,11 @@ class Engine:
     @property
     def closed(self) -> bool:
         return self._closed
+
+    @property
+    def stage(self) -> Callable[[Any], Any] | None:
+        """The H2D staging hook this engine was built with (None: none)."""
+        return self._stage
 
     def _ensure_started(self) -> None:
         with self._cond:

@@ -53,10 +53,12 @@ Every combination gives the same u8 bytes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import partial
 
 import torch
 
+from mpi_cuda_imagemanipulation_tpu_torch.obs import cost as obs_cost
 from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
 from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import (
     REFERENCE_CPU_PIPELINE_SPEC,
@@ -128,7 +130,9 @@ class Pipeline:
         plan) for images `width` columns wide on `device`, every decision
         that reads the environment or the calibration store made here: each
         kernel group one launch over the stack, the golden ops and the
-        walker per image. One image runs as a stack of one (`one_image`)."""
+        walker per image. One image runs as a stack of one (`one_image`).
+        Returns ``(function, built plan)``, the plan None where the
+        resolution says per-op."""
         mode = resolve_plan_mode(self.ops, plan, backend=backend, width=width, device=device)
         if mode != "off":
             built = build_plan(self.ops, mode)
@@ -136,9 +140,13 @@ class Pipeline:
             if mode in ("fused-pallas", "fused-pallas-mxu") and backend != "torch":
                 impl = "mxu" if backend == "mxu" else "cuda"
                 return plan_callable_cuda(built, block_h=block_h, mxu_stage=mxu_stage, impl=impl,
-                                          batched=True)
+                                          batched=True), built
             impl = "mxu" if backend == "mxu" else "torch"
-            return partial(per_image, plan_callable(built, impl=impl, mxu_stage=mxu_stage))
+            return partial(per_image, plan_callable(built, impl=impl, mxu_stage=mxu_stage)), built
+        return self._build_per_op(backend, block_h, width, device, swar), None
+
+    def _build_per_op(self, backend: str, block_h: int | None, width: int, device, swar: bool):
+        """`_build`'s stack function where the plan resolves to per-op."""
         if backend == "torch":
             return partial(per_image, self.apply)
         if backend == "mxu":
@@ -186,12 +194,28 @@ class Pipeline:
         staged buffer into the next. The caller must not read the input
         again: a tensor passed in is left empty. The port has no
         input-output aliasing: the output is a new tensor, and no byte
-        changes."""
+        changes.
+
+        Where the plan resolves to other than 'off', the first call for
+        each image shape is attributed by the cost ledger (obs/cost.py,
+        site 'plan'; MCIM_COST_ATTRIB=0 turns it off): its boundary bytes
+        against one u8 image in and one out, and on a card its temporary
+        bytes, at the price of one synchronise."""
         dev = resolve_device(device)
         check_plan(plan, backend)
         swar = backend == "auto" and prefer_swar()
-        fn = per_shape(lambda img: one_image(
-            self._build(backend, block_h, plan, img.shape[1], img.device, swar)))
+
+        def build(img):
+            stack_fn, built = self._build(backend, block_h, plan, img.shape[1], img.device, swar)
+            if built is None:
+                return one_image(stack_fn)
+            return obs_cost.wrap_cache_fn(
+                "plan", built.fingerprint, one_image(stack_fn),
+                modeled_fn=lambda args: float(
+                    args[0].numel() + math.prod(obs_cost.modeled_shape(self.ops, args[0].shape))),
+            )
+
+        fn = per_shape(build)
 
         def run(img) -> torch.Tensor:
             x = as_image_tensor(img, dev)
@@ -234,7 +258,7 @@ class Pipeline:
         check_plan(plan, backend)
         swar = backend == "auto" and prefer_swar()
         fn = per_shape(
-            lambda st: self._build(backend, None, plan, st.shape[2], st.device, swar),
+            lambda st: self._build(backend, None, plan, st.shape[2], st.device, swar)[0],
             key=lambda st: st.shape[1:],
         )
 

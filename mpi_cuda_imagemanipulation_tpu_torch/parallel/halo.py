@@ -18,10 +18,15 @@ port sends nothing there: the leading strip of a shard with no
 predecessor along the axis, and the trailing strip of one with no
 successor, are zeros, which the callers overwrite the same way
 (``parallel.api._fix_edge_strips`` / ``_fix_edge_axis``).
+
+`host_edge_strips` and `stitch_tile` are the same strip logic on host
+numpy arrays, across the row bands of the streaming tile engine (stream/)
+instead of across shards.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -151,3 +156,29 @@ def exchange_halo(tiles: list[torch.Tensor], halo: int, mesh: Mesh | Mesh2D,
         return list(tiles)
     befores, afters = exchange_halo_strips(tiles, halo, mesh, axis)
     return [torch.cat([b, t, a], dim=axis) for b, t, a in zip(befores, tiles, afters)]
+
+
+def host_edge_strips(tile: np.ndarray, halo: int, *, axis: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(leading, trailing) `halo`-thick strips of a host tile along `axis`.
+    The streaming tile engine keeps band k's trailing strip to extend band
+    k + 1 instead of reading those rows again. The strips are copies, not
+    views, so that the band they came from can be released while a strip
+    is still held."""
+    n = tile.shape[axis]
+    lead = np.take(tile, range(halo), axis=axis)
+    tail = np.take(tile, range(n - halo, n), axis=axis)
+    return np.ascontiguousarray(lead), np.ascontiguousarray(tail)
+
+
+def stitch_tile(
+    before: np.ndarray | None, tile: np.ndarray, after: np.ndarray | None, *, axis: int = 0
+) -> np.ndarray:
+    """A host tile with its neighbours' seam strips on either side along
+    `axis` (the host counterpart of `exchange_halo`'s extended tile). A
+    strip that is None is the image's edge: nothing is stitched there, and
+    each op pads there by its own edge mode. With no strip, `tile` itself
+    is returned."""
+    parts = [p for p in (before, tile, after) if p is not None]
+    if len(parts) == 1:
+        return tile
+    return np.concatenate(parts, axis=axis)

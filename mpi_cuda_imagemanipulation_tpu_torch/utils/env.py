@@ -104,6 +104,29 @@ _VARS = (
     EnvVar("MCIM_PLAN_COMMUTE", "1", "plan/planner.py",
            "=0 disables hoisting rot180/flips out of pointwise runs "
            "before stage partitioning; byte-identical either way."),
+    # -- cost attribution (obs/cost.py) ---------------------------------------
+    EnvVar("MCIM_COST_ATTRIB", "1", "obs/cost.py",
+           "=0 disables cost attribution: the boundary bytes of each "
+           "built function's first call at every cache insertion site, "
+           "and the mcim_cost_* families."),
+    EnvVar("MCIM_COST_CAP", "64", "obs/cost.py",
+           "Cost-ledger LRU capacity: attributions are keyed by (site, "
+           "fingerprint, stage), which is unbounded in principle; metric "
+           "label sets must not be."),
+    EnvVar("MCIM_COST_DRIFT_MIN", "0.8", "obs/cost.py",
+           "Lower edge of the acceptable drift band: a measured/modelled "
+           "boundary-byte ratio below this trips "
+           "mcim_cost_drift_alerts_total."),
+    EnvVar("MCIM_COST_DRIFT_MAX", "1.25", "obs/cost.py",
+           "Upper edge of the acceptable drift band."),
+    # -- streaming tile engine (stream/) -------------------------------------
+    EnvVar("MCIM_STREAM_TILE_ROWS", "512", "cli.py",
+           "Default row-band height for the `stream` subcommand "
+           "(--tile-rows overrides); the constant-memory budget knob."),
+    EnvVar("MCIM_STREAM_INFLIGHT", "2", "cli.py",
+           "Default in-flight tile dispatches for `stream` and `batch "
+           "--stream-rows` (--inflight overrides); >= 2 overlaps the H2D "
+           "of tile k+1 with tile k's compute."),
 )
 
 REGISTRY: dict[str, EnvVar] = {v.name: v for v in _VARS}

@@ -7,7 +7,7 @@ and the shape-change flushes padded, in order; a corrupt input in the
 skipped list and the journal; ``batch.interrupt`` then ``--resume`` with
 no duplicate and no lost output, an edited input reprocessed; ``--window``;
 the metrics and trace outputs; ``--json-metrics``'s keys; the
-``--stream-rows`` refusal.
+``--stream-rows`` refusals (--stack, --shards).
 """
 
 import json
@@ -233,9 +233,11 @@ def test_show_timing_prints_the_idle_share(corpus, tmp_path, capsys):
 
 
 def test_stream_rows_is_refused_by_name(corpus, tmp_path, capsys):
-    assert _port(corpus[0], tmp_path / "out", "--stream-rows", "8") == 2
-    assert "streaming" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 4"):
+    """--stream-rows streams (tests/test_torch_stream.py); what it refuses,
+    as the JAX package does, is --stack and --shards."""
+    assert _port(corpus[0], tmp_path / "out", "--stream-rows", "8", "--stack", "2") == 2
+    assert "tile engine" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="incompatible with --stack/--shards"):
         cli.cmd_batch(cli._build_parser().parse_args(
             ["batch", "--input-dir", corpus[0], "--output-dir", str(tmp_path / "o"),
-             "--stream-rows", "8"]))
+             "--stream-rows", "8", "--shards", "2", "--device", "cpu"]))
