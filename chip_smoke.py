@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-eighteen phases; any failure raises and the script exits non-zero without
+nineteen phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -262,6 +262,27 @@ printing a result:
    ``temp_bytes`` beside the torch walker's); a ``stream`` killed by the
    ``stream.tile`` failpoint at tile 5, then ``--resume``: the file equal
    to golden with only the missing tiles run.
+
+19. Online serving (serve/), which runs no kernel of its own (the
+   bucket-padded executor is the golden ops' gathers, as in the JAX
+   package): (a) ``make_serving_fn`` under backends torch, mxu and auto x
+   plans off, fused-pallas-mxu and auto, on the reference, megakernel_ab
+   and ``grayscale,equalize,gaussian:5`` chains (RGB) and one stencil per
+   edge mode (gray), each on a batch of 8 images of 8 true shapes in the
+   2048 and 4096 buckets: every crop equal to the golden ops on the card,
+   which ``Pipeline.jit(backend='cuda')`` also equals (but on the zero-mode
+   stencil, which K2 does not take); (b) a ServeApp at the
+   JAX package's hardware serve_loadgen settings (reference, buckets
+   512/1024/2048, max_batch 8, max_delay_ms 4, queue_depth 256) under 64,
+   256 and 1024 requests/s offered open-loop for 4 s each over 48
+   mixed_shapes images: every completed response equal to its golden, no
+   first call after warmup, and per rate the completed and shed counts,
+   e2e p50/p95/p99, occupancy, the device's idle share and MP/s, then the
+   devmem gauges; (c) ``serve`` in a subprocess with its default buckets
+   (512-4096): PNG requests equal to golden, ``/healthz``, ``/stats``,
+   ``/metrics``, SIGTERM drains and exits 0; (d) a transient
+   ``serve.dispatch`` fault rate (retried responses equal to golden) and an
+   open breaker's degraded golden fallback.
 
 The native codec is built from the checkout like the kernels, and a kernel
 or the codec that fails to build or launch fails its phase: nothing falls
@@ -4905,6 +4926,413 @@ def phase18_stream(device) -> None:
     print(f"phase 18: the streaming tile engine, {time.perf_counter() - t0:.1f} s in all")
 
 
+# --------------------------------------------------------------------------
+# phase 19: online serving (serve/)
+# --------------------------------------------------------------------------
+
+# (a) the padded executor: the chains, then one stencil per edge mode on
+# gray stacks ('zero': box:3 with its edge mode set, as no registry op
+# extends with zeros)
+SERVE_SPECS = {
+    "reference": SPECS["reference"],
+    "megakernel_ab": SPECS["megakernel_ab"],
+    "global": "grayscale,equalize,gaussian:5",
+    "interior": "emboss:3",
+    "reflect101": "gaussian:5",
+    "edge": "erode:3",
+    "zero": "box:3",
+}
+SERVE_GRAY = ("interior", "reflect101", "edge", "zero")
+# eight true shapes a bucket, every one different, exact fits and 1 past
+# the next bucket down among them
+SERVE_SHAPES = {
+    2048: [(2048, 2048), (1999, 1500), (1100, 2048), (1025, 1300), (1777, 1111),
+           (2047, 1025), (1300, 1950), (1050, 1050)],
+    4096: [(4096, 4096), (4000, 3001), (3100, 4096), (2049, 2500), (3333, 2222),
+           (4095, 2049), (2600, 3900), (2100, 2100)],
+}
+SERVE_ROUTES = [(b, p) for b in ("torch", "mxu", "auto")
+                for p in ("off", "fused-pallas-mxu", "auto")]
+# (b) the JAX package's hardware serve_loadgen lane (bench_suite.py:2463-2480)
+SERVE_LANE = dict(buckets=((512, 512), (1024, 1024), (2048, 2048)), max_batch=8,
+                  max_delay_ms=4.0, queue_depth=256, channels=(3,))
+SERVE_RATES = (64.0, 256.0, 1024.0)
+SERVE_RATE_S = 4.0
+SERVE_IMAGES = 48
+# (c) CLI serve requests: (height, width) of RGB PNGs
+SERVE_CLI_SHAPES = ((300, 500), (2000, 1500), (4096, 3000))
+SERVE_CLI_BUCKETS = "512,1024,2048,4096"  # serve's default
+SERVE_WAIT_S = 120
+
+
+def phase19_padded(device, gpu: str) -> None:
+    """serve/padded.make_serving_fn on the card for every SERVE_SPECS chain
+    x SERVE_ROUTES, on a batch of 8 images of 8 true shapes in the 2048 and
+    4096 buckets: each crop byte-equal to the golden torch ops on the card,
+    which `Pipeline.jit(backend='cuda')` (the kernels) also equals, but on
+    the zero-mode stencil, which K2 does not take."""
+    import dataclasses
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import bucketing
+
+    for name, spec in SERVE_SPECS.items():
+        pipe = Pipeline.parse(spec)
+        if name == "zero":
+            pipe = Pipeline(tuple(dataclasses.replace(op, edge_mode="zero") for op in pipe.ops))
+        ch = 1 if name in SERVE_GRAY else 3
+        # K2 takes no zero-mode stencil (none is in the registry): that
+        # chain is held to the golden ops alone
+        kernels = None if name == "zero" else pipe.jit("cuda", device=device)
+        for bucket, shapes in SERVE_SHAPES.items():
+            imgs = [synthetic_image(h, w, channels=ch, seed=19 + k)
+                    for k, (h, w) in enumerate(shapes)]
+            stack = bucketing.pad_stack(
+                [bucketing.pad_to_bucket(i, bucket, bucket) for i in imgs], len(imgs))
+            stack = torch.from_numpy(stack).to(device)
+            th = torch.tensor([h for h, _ in shapes], dtype=torch.int32, device=device)
+            tw = torch.tensor([w for _, w in shapes], dtype=torch.int32, device=device)
+            wants = []
+            for k, img in enumerate(imgs):
+                x = torch.from_numpy(img).to(device)
+                want = pipe(x)
+                if kernels is not None:
+                    check_equal(f"phase 19 {name} {bucket} image {k}: Pipeline.jit('cuda') vs "
+                                "golden", kernels(x), want)
+                wants.append(want)
+            del imgs
+            times = []
+            for backend, plan in SERVE_ROUTES:
+                fn = pipe.serving(bucket, bucket, ch, len(shapes), backend=backend, plan=plan,
+                                  device=device)
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                out = fn(stack, th, tw)
+                torch.cuda.synchronize(device)
+                times.append((time.perf_counter() - t) * 1e3)
+                for k, (h, w) in enumerate(shapes):
+                    check_equal(f"phase 19 serve {name} bucket {bucket} {backend} {plan} "
+                                f"image {k} ({h}x{w})", out[k, :h, :w], wants[k])
+                del out
+            print(f"phase 19: padded [{name}: {spec}] bucket {bucket} x 8 true shapes, "
+                  f"{'gray' if ch == 1 else 'RGB'}: {len(SERVE_ROUTES)} routes (torch/mxu/auto x "
+                  f"off/fused-pallas-mxu/auto) == golden"
+                  f"{'' if kernels is None else ' == Pipeline.jit(cuda)'}; first call "
+                  f"{min(times):.1f}-{max(times):.1f} ms a batch of 8 ({gpu})")
+            del stack, wants
+
+
+class _CheckedClient:
+    """A serve Client whose every completed response a verifier thread
+    holds to its golden (in submission order) and then drops, so that a
+    sweep keeps no result buffers alive; `close()` raises on a mismatch."""
+
+    def __init__(self, app, golden: dict):
+        import queue
+        import threading
+
+        from mpi_cuda_imagemanipulation_tpu_torch.serve.server import Client
+
+        self._client = Client(app)
+        self._golden = golden
+        self._q = queue.Queue()
+        self.checked = 0
+        self.pixels = 0
+        self.errors: list[str] = []
+        self._thread = threading.Thread(target=self._verify, daemon=True)
+        self._thread.start()
+
+    def submit(self, img, *, deadline_ms=None):
+        r = self._client.submit(img, deadline_ms=deadline_ms)
+        self._q.put((img, r))
+        return r
+
+    def _verify(self) -> None:
+        import numpy as np
+
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            img, r = item
+            r.done.wait(SERVE_WAIT_S)
+            if r.status == "ok":
+                if not np.array_equal(r.result, self._golden[id(img)]):
+                    self.errors.append(f"{img.shape}: response != golden")
+                self.checked += 1
+                self.pixels += img.shape[0] * img.shape[1]
+                r.result = None
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join(SERVE_WAIT_S)
+        if self._thread.is_alive() or self.errors:
+            raise AssertionError(f"phase 19 sweep: {self.errors[:3] or 'verifier stuck'}")
+
+
+def phase19_lane(device, gpu: str) -> None:
+    """A ServeApp at the JAX hardware lane's settings (SERVE_LANE) on the
+    reference pipeline: warmup, then SERVE_RATES offered open-loop for
+    SERVE_RATE_S each over SERVE_IMAGES mixed_shapes images; every
+    completed response byte-equal to its golden, no first call after
+    warmup; per rate the completed and shed counts, e2e percentiles, mean
+    batch occupancy, the device's idle share and MP/s; the devmem gauges
+    (the allocator peak reset before the app starts)."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.padded import min_true_dim
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.server import ServeApp, ServeConfig
+
+    spec = SPECS["reference"]
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    app = ServeApp(ServeConfig(ops=spec, device=str(device), **SERVE_LANE)).start()
+    try:
+        cache = app.cache.stats()
+        print(f"phase 19: lane app warm: {cache['compiled']} functions (buckets "
+              f"{'/'.join(str(h) for h, _ in app.cache.buckets)} x batches "
+              f"{list(app.cache.batch_buckets)}) in {cache['warmup_s']:.3f} s ({gpu})")
+        images = loadgen.mixed_shapes(app.cache.buckets, SERVE_IMAGES, channels=3, seed=7,
+                                      min_dim=min_true_dim(app.pipe))
+        golden = {id(img): Pipeline.parse(spec)(torch.from_numpy(img).to(device)).cpu().numpy()
+                  for img in images}
+        stages = app.registry.get("mcim_engine_stage_seconds")
+
+        def stage_totals():
+            return {st: (stages.sum(stage=st), stages.count(stage=st))
+                    for st in ("h2d", "enqueue", "force", "encode")}
+
+        for rps in SERVE_RATES:
+            client = _CheckedClient(app, golden)
+            m0 = app.metrics.snapshot()
+            idle0 = app.scheduler.engine.metrics.snapshot()["idle_s"]
+            st0 = stage_totals()
+            rec = loadgen.run_offered_load(client, images, rps, SERVE_RATE_S)
+            client.close()
+            m1 = app.metrics.snapshot()
+            idle = (app.scheduler.engine.metrics.snapshot()["idle_s"] - idle0) / rec["wall_s"]
+            # each engine stage's mean ms a dispatch over this rate's dispatches
+            st_ms = {st: (s1 - st0[st][0]) / max(n1 - st0[st][1], 1) * 1e3
+                     for st, (s1, n1) in stage_totals().items()}
+            dispatches = m1["dispatches"] - m0["dispatches"]
+            occ = (m1["completed"] - m0["completed"]) / dispatches if dispatches else None
+            if client.checked != rec["completed"]:
+                raise AssertionError(f"phase 19 sweep {rps}: {client.checked} checked of "
+                                     f"{rec['completed']} completed")
+            print(f"phase 19: lane offered {rps:.0f} rps x {SERVE_RATE_S:.0f} s: submitted "
+                  f"{rec['submitted']}, completed {rec['completed']} (all == golden), shed "
+                  f"{rec['shed']}, e2e p50/p95/p99 {rec.get('e2e_p50_ms', float('nan')):.3f}/"
+                  f"{rec.get('e2e_p95_ms', float('nan')):.3f}/"
+                  f"{rec.get('e2e_p99_ms', float('nan')):.3f} ms, achieved "
+                  f"{rec['achieved_rps']:.3f} rps, {client.pixels / rec['wall_s'] / 1e6:.3f} MP/s, "
+                  f"mean batch occupancy {occ if occ is None else round(occ, 3)}, "
+                  f"device_idle_frac {idle:.4f}; engine mean ms a dispatch "
+                  + ", ".join(f"{st} {v:.3f}" for st, v in st_ms.items()) + f" ({gpu})")
+        stats = app.cache.stats()
+        if stats["traces_since_warmup"] or stats["misses"]:
+            raise AssertionError(f"phase 19 lane: {stats}")
+        mem = app.devmem.snapshot()
+        print(f"phase 19: lane traces_since_warmup 0, misses 0; devmem {json.dumps(mem)} ({gpu})")
+    finally:
+        app.stop()
+
+
+def phase19_cli(device, gpu: str, tmp: str) -> None:
+    """`serve` in a subprocess on a free port with its default buckets
+    (512-4096) and channels 1,3: PNG requests == golden, /healthz, /stats,
+    /metrics; SIGTERM drains and exits 0."""
+    import re
+    import signal
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+        decode_image_bytes,
+        encode_image_bytes,
+        synthetic_image,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import parse_exposition
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    metrics = os.path.join(tmp, "serve.json")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "mpi_cuda_imagemanipulation_tpu_torch", "serve", "--host",
+         "127.0.0.1", "--port", str(port), "--device", str(device), "--buckets",
+         SERVE_CLI_BUCKETS, "--json-metrics", metrics],
+        cwd=root, env=env, stderr=subprocess.PIPE, text=True,
+    )
+    lines: list[str] = []
+    up = threading.Event()
+
+    def read():
+        for line in p.stderr:
+            lines.append(line)
+            if re.search(r"serving \[.*\] on ", line):
+                up.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not up.wait(SERVE_WAIT_S):
+            raise AssertionError("phase 19 cli: serve did not come up:\n" + "".join(lines[-20:]))
+        t_up = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        ref = Pipeline.parse(SPECS["reference"])
+        for k, (h, w) in enumerate(SERVE_CLI_SHAPES):
+            img = synthetic_image(h, w, channels=3, seed=190 + k)
+            req = urllib.request.Request(f"{base}/v1/process", data=encode_image_bytes(img),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+                if r.status != 200 or r.headers["Content-Type"] != "image/png":
+                    raise AssertionError(f"phase 19 cli: {r.status} {r.headers}")
+                got = decode_image_bytes(r.read())
+            want = ref(torch.from_numpy(img).to(device)).cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"phase 19 cli: response {h}x{w} != golden")
+        with urllib.request.urlopen(f"{base}/healthz", timeout=SERVE_WAIT_S) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/stats", timeout=SERVE_WAIT_S) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/metrics", timeout=SERVE_WAIT_S) as r:
+            fams = parse_exposition(r.read().decode())
+        if (health["state"] != "serving" or stats["completed"] != len(SERVE_CLI_SHAPES)
+                or stats["cache"]["traces_since_warmup"] != 0):
+            raise AssertionError(f"phase 19 cli: health {health}, stats {stats['cache']}")
+        devmem = fams["mcim_devmem_peak_bytes_in_use"]["samples"]
+        if "mcim_plan_builds_total" not in fams or (device.type == "cuda" and not devmem):
+            raise AssertionError(f"phase 19 cli: /metrics lacks plan or devmem: {sorted(fams)}")
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(SERVE_WAIT_S)
+        reader.join(SERVE_WAIT_S)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    log = "".join(lines)
+    if rc != 0 or "graceful drain" not in log:
+        raise AssertionError(f"phase 19 cli: exit {rc}\n{log[-2000:]}")
+    with open(metrics) as f:
+        rec = json.loads(f.read())
+    warm = re.search(r"function cache warm: (\d+) functions in ([\d.]+)s", log)
+    print(f"phase 19: CLI serve up in {t_up:.1f} s (warm: {warm.group(1)} functions in "
+          f"{warm.group(2)} s, buckets {SERVE_CLI_BUCKETS} x batches 1-8, channels 3 of 1,3); "
+          f"{len(SERVE_CLI_SHAPES)} PNG requests == golden; /healthz serving, /stats, /metrics "
+          f"(mcim_plan_*, peak {dict(devmem)}); SIGTERM: drained, exit 0, record "
+          f"completed {rec['completed']}, health {rec['health']['state']} ({gpu})")
+
+
+def phase19_faults(device, gpu: str) -> None:
+    """The fault lane: a 0.3 transient `serve.dispatch` fault rate under
+    concurrent mixed shapes (retries; every completed response == golden),
+    then `always` with a one-failure breaker: the first request
+    quarantined, the next ones through the degraded golden fallback ==
+    golden, and after the fault clears the half-open probe restores the
+    fast path."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.resilience import failpoints
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.server import Client, ServeApp, ServeConfig
+
+    spec = SPECS["reference"]
+    ref = Pipeline.parse(spec)
+    base = dict(ops=spec, device=str(device), buckets=((512, 512), (1024, 1024)), max_batch=8,
+                max_delay_ms=4.0, queue_depth=256, channels=(3,))
+    images = loadgen.mixed_shapes(base["buckets"], 16, channels=3, seed=3, min_dim=2)
+    golden = [ref(torch.from_numpy(img).to(device)).cpu().numpy() for img in images]
+    try:
+        failpoints.configure("serve.dispatch=0.3", seed=7)
+        app = ServeApp(ServeConfig(**base, retry_attempts=4, retry_base_delay_ms=1.0)).start()
+        try:
+            client = Client(app)
+            reqs = [(k % 16, client.submit(images[k % 16])) for k in range(64)]
+            ok = 0
+            for k, r in reqs:
+                r.done.wait(SERVE_WAIT_S)
+                if r.status == "ok":
+                    ok += 1
+                    if not np.array_equal(r.result, golden[k]):
+                        raise AssertionError("phase 19 faults: a retried response != golden")
+                elif r.status != "quarantined":
+                    raise AssertionError(f"phase 19 faults: status {r.status}: {r.error}")
+            m = app.metrics.snapshot()
+        finally:
+            app.stop()
+        if not ok or not m["retries"]:
+            raise AssertionError(f"phase 19 faults: {ok} ok, {m['retries']} retries")
+        failpoints.configure("serve.dispatch=always")
+        app = ServeApp(ServeConfig(**{**base, "buckets": ((512, 512),)}, retry_attempts=2,
+                                   retry_base_delay_ms=1.0, breaker_threshold=1,
+                                   breaker_reset_s=1.0)).start()
+        try:
+            client = Client(app)
+            small = [k for k, img in enumerate(images) if max(img.shape[:2]) <= 512]
+            first = client.submit(images[small[0]])
+            first.done.wait(SERVE_WAIT_S)
+            if first.status != "quarantined" or app.health.state != "degraded":
+                raise AssertionError(f"phase 19 faults: {first.status}, {app.health.state}")
+            for k in small:
+                out = client.process(images[k], timeout=SERVE_WAIT_S)
+                if not np.array_equal(out, golden[k]):
+                    raise AssertionError("phase 19 faults: a degraded response != golden")
+            degraded = app.metrics.snapshot()["degraded"]
+            failpoints.clear()
+            time.sleep(1.1)
+            out = client.process(images[small[0]], timeout=SERVE_WAIT_S)
+            if not np.array_equal(out, golden[small[0]]) or app.health.state != "serving":
+                raise AssertionError(f"phase 19 faults: probe, health {app.health.state}")
+        finally:
+            app.stop()
+    finally:
+        failpoints.clear()
+    print(f"phase 19: faults: serve.dispatch=0.3: {ok}/64 ok (all == golden), {m['retries']} "
+          f"retries, {m['quarantined']} quarantined; always + breaker 1: quarantined, "
+          f"{degraded} degraded responses == golden, probe restored serving ({gpu})")
+
+
+def phase19_serve(device) -> None:
+    """Online serving on the card (module docstring, phase 19)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    gpu = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="mcim_serve_")
+    try:
+        t = time.perf_counter()
+        phase19_padded(device, gpu)
+        print(f"phase 19: (a) padded executor {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase19_lane(device, gpu)
+        print(f"phase 19: (b) lane sweep {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase19_cli(device, gpu, tmp)
+        print(f"phase 19: (c) CLI serve {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase19_faults(device, gpu)
+        print(f"phase 19: (d) faults {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 19: online serving, {time.perf_counter() - t0:.1f} s in all")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -5059,6 +5487,7 @@ def main() -> int:
     phase16_engine(device)
     phase17_batch_cli(device)
     phase18_stream(device)
+    phase19_serve(device)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

@@ -1,5 +1,5 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
-run|batch|stream|autotune|info``.
+run|batch|stream|serve|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl auto``, the default, routes
@@ -28,6 +28,11 @@ the tile engine instead.
 engine (stream/): decode, stitch, compute and encode overlap, and the host
 holds a few bands whatever the image height; ``--resume`` finishes a
 killed run from its journal.
+``serve`` is the online front door (serve/): a micro-batching scheduler
+over a shape-bucket function cache warmed on the card at start, answering
+``POST /v1/process`` (image bytes in, PNG out), ``GET /healthz``,
+``/stats`` and ``/metrics``, byte-equal to ``run`` per request; SIGTERM or
+SIGINT drains what was admitted under ``--drain-deadline-s``.
 ``autotune`` measures the routes of one choice on the card and records
 the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
@@ -225,6 +230,7 @@ def _build_parser() -> argparse.ArgumentParser:
 
     _add_batch_parser(sub)
     _add_stream_parser(sub)
+    _add_serve_parser(sub)
 
     tune = sub.add_parser(
         "autotune",
@@ -470,6 +476,98 @@ def _add_stream_parser(sub) -> None:
     )
     _add_failpoint_flags(stm)
     _add_trace_flags(stm)
+
+
+def _add_serve_parser(sub) -> None:
+    """The ``serve`` subcommand's arguments: the JAX package's flags and
+    defaults, in the port's terms (--impl names the padded executor's
+    accumulations, --device a torch device)."""
+    srv = sub.add_parser(
+        "serve",
+        help="online micro-batching server: POST /v1/process (image bytes in, PNG out), "
+        "GET /healthz, /stats, /metrics: bounded queue, shape buckets warmed on the "
+        "device at start, byte-identical to per-request `run` output (serve/)",
+    )
+    srv.add_argument("--ops", default=REFERENCE_PIPELINE_SPEC)
+    srv.add_argument(
+        "--impl", choices=("auto", "torch", "mxu", "cuda", "swar"), default="torch",
+        help="the bucket-padded executor rebuilds each op's border at each request's true "
+        "shape with the golden torch ops (torch, default); mxu contracts eligible stencil "
+        "families as banded products inside the same executor (byte-identical); auto is "
+        "torch. cuda and swar are refused: the hand-written kernels extend edges at the "
+        "bucket border",
+    )
+    srv.add_argument(
+        "--shards", type=int, default=1,
+        help="data-parallel serving over N devices: each dispatch's stack splits over the "
+        "mesh's slots (batch sizes are rounded to multiples of N); 1 = one device",
+    )
+    srv.add_argument(
+        "--buckets", default="512,1024,2048,4096",
+        help="comma-separated shape buckets, N (square) or RxC; requests pad up to the "
+        "smallest fitting bucket so every function is built at start; larger images are "
+        "rejected",
+    )
+    srv.add_argument("--max-batch", type=int, default=8,
+                     help="requests coalesced per dispatch (a multiple of --shards)")
+    srv.add_argument(
+        "--max-delay-ms", type=float, default=5.0,
+        help="longest a request waits for batch-mates before a partial dispatch ships",
+    )
+    srv.add_argument(
+        "--queue-depth", type=int, default=64,
+        help="admission bound: submissions beyond this many queued requests are shed "
+        "with the 'overloaded' status (HTTP 429) instead of buffering without bound",
+    )
+    srv.add_argument(
+        "--deadline-ms", type=float, default=None,
+        help="per-request deadline; requests that expire while queued are answered "
+        "'deadline_expired' (HTTP 504) and never take a device slot",
+    )
+    srv.add_argument("--channels", default="1,3",
+                     help="channel counts to warm (and admit), comma-separated")
+    srv.add_argument("--host", default="", help="bind address")
+    srv.add_argument("--port", type=int, default=8000, help="port (0 picks a free one)")
+    srv.add_argument("--device", default="cuda",
+                     help="torch device (default cuda; cpu runs on the host)")
+    srv.add_argument("--json-metrics", default=None,
+                     help="write the shutdown stats record to this path ('-' = stdout)")
+    srv.add_argument(
+        "--retry-attempts", type=int, default=3,
+        help="dispatch attempts per micro-batch (1 = no retry); transient failures back "
+        "off exponentially with jitter",
+    )
+    srv.add_argument(
+        "--breaker-threshold", type=int, default=5,
+        help="consecutive dispatch failures that trip a bucket's circuit breaker open "
+        "(its traffic then degrades to the golden per-request path until a half-open "
+        "probe succeeds)",
+    )
+    srv.add_argument("--breaker-reset-s", type=float, default=30.0,
+                     help="quiet seconds an open breaker waits before a half-open probe")
+    srv.add_argument(
+        "--inflight", type=int, default=2,
+        help="micro-batch dispatches kept outstanding through the async engine "
+        "(engine/core.py): >= 2 keeps the device busy while results copy back and "
+        "responses encode; 1 = serial dispatch-then-drain",
+    )
+    srv.add_argument("--io-threads", type=int, default=4,
+                     help="completion worker threads cropping results and resolving responses")
+    srv.add_argument(
+        "--drain-deadline-s", type=float, default=30.0,
+        help="SIGTERM graceful-drain budget: admission stops at once, queued + in-flight "
+        "work gets this long to flush before the scheduler stops",
+    )
+    srv.add_argument(
+        "--replicas", type=int, default=1,
+        help="N > 1 is the JAX package's pod mode (a front-door router over N replica "
+        "workers), which waits for the fabric (ROADMAP queue 1, item 7): refused here",
+    )
+    srv.add_argument("--plan", choices=PLAN_MODES, default="auto",
+                     help="fusion-planner stage structure of the padded executor "
+                     "(byte-identical in every mode)")
+    _add_failpoint_flags(srv)
+    _add_trace_flags(srv)
 
 
 def image_runner(pipe, *, impl: str, device, block_h=None, gray_output=False,
@@ -1687,6 +1785,98 @@ def cmd_stream(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Online serving: warm the shape-bucket function cache on the device,
+    start the micro-batching scheduler, serve HTTP until SIGTERM/SIGINT,
+    then drain (admission stops, queued + in-flight work flushes under
+    --drain-deadline-s), dump the flight recorder and write the stats
+    record. The JAX package's ``cmd_serve``; its pod mode (--replicas > 1)
+    is refused, never run as one replica."""
+    import signal
+    import threading
+
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import recorder
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import parse_buckets
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.server import ServeConfig, Server
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
+
+    if args.replicas > 1:
+        raise ValueError(
+            f"serve --replicas {args.replicas}: pod mode (a front-door router over "
+            "replica workers) needs the fabric, which is not in the port yet (ROADMAP "
+            "queue 1, item 7); run one replica per process"
+        )
+    if args.impl in ("cuda", "swar"):
+        raise ValueError(
+            f"serve --impl {args.impl}: the hand-written kernels extend edges at the "
+            "bucket border, and a bucket-padded request needs its border rebuilt at its "
+            "own true shape; serve with --impl torch, mxu or auto"
+        )
+    _arm_failpoints(args)
+    _configure_tracing(args)
+    log = get_logger()
+    try:
+        channels = tuple(sorted({int(c) for c in args.channels.split(",") if c.strip()}))
+    except ValueError:
+        raise ValueError(f"--channels must be comma-separated ints: {args.channels!r}") from None
+    if not channels or not set(channels) <= {1, 3}:
+        raise ValueError(f"--channels entries must be 1 and/or 3, got {channels}")
+    cfg = ServeConfig(
+        ops=args.ops,
+        buckets=parse_buckets(args.buckets),
+        max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms,
+        queue_depth=args.queue_depth,
+        channels=channels,
+        shards=args.shards,
+        backend="torch" if args.impl == "auto" else args.impl,
+        plan=args.plan,
+        default_deadline_ms=args.deadline_ms,
+        device=args.device,
+        retry_attempts=args.retry_attempts,
+        breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset_s,
+        inflight=args.inflight,
+        io_threads=args.io_threads,
+    )
+    stop_evt = threading.Event()
+
+    def _on_signal(signum, frame):
+        log.info("signal %s: graceful drain (deadline %.0fs)",
+                 signal.Signals(signum).name, args.drain_deadline_s)
+        stop_evt.set()
+
+    srv = Server(cfg, args.host, args.port)  # raises before any handler is set
+    prev_handlers = {s: signal.signal(s, _on_signal) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        srv.start()
+        log.info(
+            "serving [%s] on %s:%d (buckets %s, max_batch %d, max_delay %.1fms, "
+            "queue_depth %d, shards %d, device %s): POST /v1/process, GET /healthz, "
+            "/stats, /metrics",
+            srv.app.pipe.name, args.host or "0.0.0.0", srv.address[1], args.buckets,
+            args.max_batch, args.max_delay_ms, args.queue_depth, args.shards,
+            srv.app.cache.device,
+        )
+        stop_evt.wait()
+    except KeyboardInterrupt:
+        log.info("interrupt: draining and shutting down")
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        srv.close(drain=True, deadline_s=args.drain_deadline_s)
+        # the drain is a flight-recorder dump trigger: the ring's serving
+        # facts (hot buckets, breaker and failpoint history) become the
+        # shutdown post-mortem (obs/recorder.py)
+        dump_path = recorder.dump("sigterm_drain", extra={"entry": "serve"})
+        if dump_path:
+            log.info("recorder dump -> %s", dump_path)
+        if args.json_metrics:
+            emit_json_metrics({"event": "serve", **srv.app.stats()}, args.json_metrics)
+        _export_trace(args, log)
+    return 0
+
+
 def cmd_info(args: argparse.Namespace) -> int:
     import torch
 
@@ -1769,7 +1959,7 @@ def _print_calibration(device) -> None:
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
-        return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream,
+        return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream, "serve": cmd_serve,
                 "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)

@@ -275,6 +275,37 @@ class Pipeline:
 
         return run
 
+    def serving(
+        self,
+        bucket_h: int,
+        bucket_w: int,
+        channels: int,
+        batch: int,
+        *,
+        backend: str = "torch",
+        mesh=None,
+        on_trace=None,
+        plan: str = "auto",
+        device: str | torch.device | None = None,
+    ):
+        """The bucket-padded serving function of one (bucket, channels,
+        batch) cell on `device` (default CUDA), the counterpart of the JAX
+        package's ``Pipeline.serving``:
+
+            fn(imgs_u8[B, Hb, Wb(, C)], true_h[B], true_w[B]) -> out[B, ...]
+
+        Image b cropped to [:true_h[b], :true_w[b]] is byte-equal to this
+        pipeline on the unpadded request. `backend` is 'torch', 'mxu' or
+        'auto' (the JAX package's 'xla', 'mxu', 'auto'); the hand-written
+        kernels extend edges at the bucket border and are refused. See
+        serve/padded.make_serving_fn."""
+        from mpi_cuda_imagemanipulation_tpu_torch.serve.padded import make_serving_fn
+
+        return make_serving_fn(
+            self, bucket_h, bucket_w, channels, batch,
+            backend=backend, mesh=mesh, on_trace=on_trace, plan=plan, device=device,
+        )
+
     def data_parallel(self, mesh, backend: str = "cuda", plan: str = "auto"):
         """An (N, H, W[, C]) -> (N, ...) function with the stack split over
         `mesh`'s slots (parallel/mesh.make_mesh or make_mesh_2d, in slot

@@ -126,6 +126,12 @@ class _Metric:
         with self._lock:
             return dict(self._values)
 
+    def clear(self) -> None:
+        """Drop every value: the tally starts again from nothing (the
+        planner's per-run reset, plan/metrics.py)."""
+        with self._lock:
+            self._values.clear()
+
     def render(self) -> list[str]:
         lines = [
             f"# HELP {self.name} {_escape_help(self.help)}",

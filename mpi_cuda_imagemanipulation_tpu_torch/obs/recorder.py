@@ -19,10 +19,10 @@ CPython's deque append is atomic under the GIL, so no lock) of recent
 vocabulary is CLOSED: `KNOWN_TRIGGERS` is the JAX package's tuple as it
 is, and the repository's static check (`tools/mcim_check.py`, rules
 `obs-recorder-trigger-*`) holds every literal `dump("...")` in the
-repository to it. The port has no serving, fabric or profiling layer yet,
-so of its callers only ``manual`` (operator- or test-initiated) fires
-here; the others name the JAX package's failure paths (breaker_open,
-quarantine, sigterm_drain, replica_death, autoscale, preempt,
+repository to it. In the port ``manual`` (operator- or test-initiated)
+and the serving layer's ``breaker_open``, ``quarantine`` and
+``sigterm_drain`` fire; the others name the JAX package's fabric and
+profiling failure paths (replica_death, autoscale, preempt,
 canary_rollback, systolic_fallback, profile_capture).
 
 Dumps are rate-limited per trigger (`MCIM_RECORDER_MIN_INTERVAL_S`) so a

@@ -127,6 +127,11 @@ _VARS = (
            "Default in-flight tile dispatches for `stream` and `batch "
            "--stream-rows` (--inflight overrides); >= 2 overlaps the H2D "
            "of tile k+1 with tile k's compute."),
+    # -- serving admission (graph/tenancy.py) -------------------------------
+    EnvVar("MCIM_GRAPH_QOS_SHED_FRAC", "0.5", "graph/tenancy.py",
+           "Load fraction past which batch-class traffic sheds (standard "
+           "sheds halfway between this and 1; interactive rides to full "
+           "capacity): the serving scheduler's qos= admission."),
 )
 
 REGISTRY: dict[str, EnvVar] = {v.name: v for v in _VARS}
