@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-nineteen phases; any failure raises and the script exits non-zero without
+twenty phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -283,6 +283,27 @@ printing a result:
    ``/metrics``, SIGTERM drains and exits 0; (d) a transient
    ``serve.dispatch`` fault rate (retried responses equal to golden) and an
    open breaker's degraded golden fallback.
+
+20. The pipeline-graph service, the systolic runner and profiling, which
+   run no kernel of their own (graph segments and systolic groups run the
+   stage walker, as the JAX package's run XLA): (a) an unsharp DAG (a
+   gaussian tap read twice, subtract and blend merges, histogram and stats
+   outputs) on the 8K RGB frame under impl torch and mxu, equal to the
+   golden ops composed by hand, and the reference chain as a linear DAG
+   equal to ``Pipeline.jit(backend='cuda')`` byte for byte, timed beside
+   the chain's cuda and torch routes; (b) ``parallel/systolic.py`` with
+   megakernel_ab's chain after its grayscale on the 8K gray plane over 2
+   and 4 slots of the one card (tile_rows 540), equal to the unsharded
+   cuda route, one band copy per stage boundary and tile, timed beside it;
+   (c) a ``Server`` with the graph service: two tenants (interactive,
+   batch) on the unsharp DAG, ``multi_tenant_run`` at 64 requests/s for 4
+   s over mixed_shapes up to 512 x 512, every ok response equal to its
+   golden, the per-tenant ok, shed and p99, the service's dispatch time
+   and sheds by reason, the engine's stage means; (d) under that traffic
+   ``POST /control/profile`` (started on a handler thread): the summary's
+   device kernels and DMA share, and a second call answered 429; then
+   ``run --profile-dir`` on the 8K frame, whose trace holds the card's
+   kernels.
 
 The native codec is built from the checkout like the kernels, and a kernel
 or the codec that fails to build or launch fails its phase: nothing falls
@@ -5333,6 +5354,359 @@ def phase19_serve(device) -> None:
     print(f"phase 19: online serving, {time.perf_counter() - t0:.1f} s in all")
 
 
+# --------------------------------------------------------------------------
+# phase 20: the pipeline-graph service, the systolic runner, profiling
+# --------------------------------------------------------------------------
+
+# (a) an unsharp DAG on the RGB frame: a gaussian tap read twice, a subtract
+# and a blend merge, histogram and stats side outputs of the result
+GRAPH_UNSHARP = {
+    "version": 1,
+    "name": "unsharp-blend",
+    "nodes": [
+        {"id": "src", "kind": "source"},
+        {"id": "blur", "kind": "op", "op": "gaussian:5", "input": "src"},
+        {"id": "mask", "kind": "merge", "merge": "subtract", "inputs": ["src", "blur"]},
+        {"id": "out", "kind": "merge", "merge": "blend", "inputs": ["src", "mask"]},
+    ],
+    "outputs": {"image": "out", "histogram": "out", "stats": "out"},
+}
+# the stats mean against float64 by hand: the port's float32 sum of 256
+# products in a fixed order, relative tolerance
+GRAPH_MEAN_RTOL = 1e-5
+# (b) megakernel_ab's chain after its grayscale (a channel-changing op the
+# stage mesh refuses, as the JAX package's does), on the 8K gray plane
+SYSTOLIC_OPS = "contrast:3.5,gaussian:5,sharpen,quantize:6"
+SYSTOLIC_TILE_ROWS = 540
+SYSTOLIC_SLOTS = (2, 4)
+# (c)/(d) the multi-tenant lane: two tenants on one pipeline, open loop;
+# images up to 512 x 512 (PNG decode and encode of each request run on the
+# host, under the interpreter lock)
+GRAPH_LANE_BUCKETS = ((256, 256), (512, 512))
+GRAPH_LANE_IMAGES = 32
+GRAPH_LANE_RPS = 64.0
+GRAPH_LANE_S = 4.0
+GRAPH_LANE_JITTER = 0.5  # each arrival within half a period of its slot, seeded
+GRAPH_PROFILE_S = 1.0
+
+
+def unsharp_golden(x):
+    """GRAPH_UNSHARP composed by hand from the golden torch ops and the
+    merges' formulas: (image, histogram)."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+
+    blur = Pipeline.parse("gaussian:5")(x)
+    mask = (x.int() - blur.int()).clamp(0, 255)  # subtract: clamp(a - b)
+    out = torch.round((x.float() + mask.float()) * 0.5).clamp(0, 255).to(torch.uint8)  # blend
+    return out, torch.bincount(out.reshape(-1), minlength=256)
+
+
+def check_graph_outputs(name, out, want_img, want_hist):
+    """A graph call's image and histogram byte-equal to the hand-composed
+    golden; its stats equal to the image's count/min/max and its float32
+    mean within GRAPH_MEAN_RTOL of the float64 mean."""
+    import torch
+
+    check_equal(f"{name} image", out["image"], want_img)
+    check_equal(f"{name} histogram", out["histogram"].long(), want_hist.long())
+    s = out["stats"]
+    mean64 = want_img.double().mean().item()
+    if (int(s["count"]) != want_img.numel() or int(s["min"]) != int(want_img.min())
+            or int(s["max"]) != int(want_img.max())
+            or abs(float(s["mean"]) - mean64) > GRAPH_MEAN_RTOL * mean64
+            or s["mean"].dtype != torch.float32):
+        raise AssertionError(f"{name} stats {dict((k, v.item()) for k, v in s.items())} "
+                             f"vs mean {mean64}")
+
+
+def host_ms(fn, device, reps: int = 5) -> float:
+    """Milliseconds of one synchronised call of `fn` on the host clock,
+    the median of `reps` (the walker and the stage-mesh runner enqueue
+    many small operations: their wall time, not their kernels', is what a
+    caller waits for)."""
+    import statistics
+
+    import torch
+
+    fn()
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        samples.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(samples)
+
+
+def phase20_graph(device, x8k, gpu: str) -> None:
+    """(a) GRAPH_UNSHARP on the 8K RGB frame under impl torch and mxu, equal
+    to the golden ops composed by hand (image, histogram, stats); the
+    reference chain as a linear DAG equal to Pipeline.jit(backend='cuda')
+    byte for byte; no hand kernel launched by the graph path (it runs the
+    stage walker, as the JAX package's runs XLA); times beside the chain's
+    cuda and torch routes."""
+    from mpi_cuda_imagemanipulation_tpu_torch.graph import compile_graph, graph_callable, parse_spec
+    from mpi_cuda_imagemanipulation_tpu_torch.graph.spec import chain_as_spec
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+
+    width = x8k.shape[1]
+    want_img, want_hist = unsharp_golden(x8k)
+    times = {}
+    for impl in ("torch", "mxu"):
+        fn = graph_callable(compile_graph(parse_spec(GRAPH_UNSHARP), backend=impl, width=width,
+                                          device=device), impl=impl)
+        ck.reset_launch_counts()
+        out = fn(x8k)
+        launched = {k: v for k, v in ck.launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"phase 20 graph {impl}: launched {launched}")
+        check_graph_outputs(f"phase 20 graph unsharp {impl}", out, want_img, want_hist)
+        times[f"unsharp/{impl}"] = (padded_device_ms(lambda: fn(x8k)),
+                                    host_ms(lambda: fn(x8k), device))
+        del out
+    ref = SPECS["reference"]
+    lin = graph_callable(compile_graph(parse_spec(chain_as_spec(ref)), width=width,
+                                       device=device))
+    ck.reset_launch_counts()
+    got = lin(x8k)["image"]
+    if any(ck.launch_counts().values()):
+        raise AssertionError("phase 20 graph linear DAG launched a kernel")
+    cuda = Pipeline.parse(ref).jit("cuda", device=device, plan="off")
+    torch_chain = Pipeline.parse(ref).jit("torch", device=device, plan="off")
+    ck.reset_launch_counts()
+    check_equal("phase 20 graph linear DAG vs Pipeline.jit(cuda)", got, cuda(x8k))
+    check_launches = {k: v for k, v in ck.launch_counts().items() if v}
+    check_equal("phase 20 graph linear DAG vs torch chain", got, torch_chain(x8k))
+    for name, fn in (("linear DAG", lambda: lin(x8k)), ("chain cuda", lambda: cuda(x8k)),
+                     ("chain torch", lambda: torch_chain(x8k))):
+        times[name] = (padded_device_ms(fn), host_ms(fn, device))
+    print(f"phase 20: graph [{GRAPH_UNSHARP['name']}] on the 8K RGB frame under torch and mxu "
+          "== the golden ops composed by hand (image, histogram; stats count/min/max exact, "
+          f"mean within {GRAPH_MEAN_RTOL:g}); the reference as a linear DAG == "
+          f"Pipeline.jit(cuda) (its launches {check_launches}) == the torch chain; no kernel "
+          f"launched by the graph path ({gpu})")
+    for name, (dev_ms, wall_ms) in times.items():
+        print(f"phase 20: graph time {name}: {dev_ms:.4f} ms device (padded CUDA events), "
+              f"{wall_ms:.4f} ms host a synchronised call ({gpu})")
+
+
+def phase20_systolic(device, gray8k, gpu: str) -> None:
+    """(b) parallel/systolic.py on 2 and 4 slots of the one card, tile_rows
+    540 over the 8K gray plane: the output equal to the unsharded cuda
+    route, and the copies that ran equal to one band per stage boundary
+    (tiles_forwarded == n_tiles * (n - 1)), beside the unsharded times."""
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel.systolic import (
+        make_stage_mesh,
+        systolic_callable,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan
+
+    h, w = gray8k.shape
+    cuda = Pipeline.parse(SYSTOLIC_OPS).jit("cuda", device=device, plan="off")
+    want = cuda(gray8k)
+    plan = build_plan(make_pipeline_ops(SYSTOLIC_OPS), "off")
+    rows = []
+    for n in SYSTOLIC_SLOTS:
+        build = systolic_callable(plan, height=h, width=w, channels=1,
+                                  tile_rows=SYSTOLIC_TILE_ROWS,
+                                  mesh=make_stage_mesh(n, devices=[device] * n))
+        ck.reset_launch_counts()
+        out = build.fn(gray8k)
+        if any(ck.launch_counts().values()):
+            raise AssertionError("phase 20 systolic launched a kernel")
+        check_equal(f"phase 20 systolic {n} slots vs Pipeline.jit(cuda)", out, want)
+        last = build.last
+        if (last.tiles_forwarded != build.n_tiles * (n - 1)
+                or (last.tiles_forwarded, last.exchange_bytes, last.n_exchanges)
+                != (build.tiles_forwarded, build.exchange_bytes, build.n_exchanges)):
+            raise AssertionError(f"phase 20 systolic {n} slots: counts {last} vs {build}")
+        rows.append((n, build, padded_device_ms(lambda: build.fn(gray8k), reps=3),
+                     host_ms(lambda: build.fn(gray8k), device, reps=3)))
+    unsharded = (padded_device_ms(lambda: cuda(gray8k)), host_ms(lambda: cuda(gray8k), device))
+    for n, b, dev_ms, wall_ms in rows:
+        print(f"phase 20: systolic [{SYSTOLIC_OPS}] 8K gray, {n} slots of one card, tile_rows "
+              f"{SYSTOLIC_TILE_ROWS}: == Pipeline.jit(cuda); groups {list(b.ranges)}, "
+              f"{b.n_tiles} tiles, {b.n_steps} steps, tiles_forwarded {b.last.tiles_forwarded} "
+              f"(= n_tiles x (n - 1)), exchange_bytes {b.last.exchange_bytes}, exchanges "
+              f"{b.last.n_exchanges}; {dev_ms:.4f} ms device (padded events), {wall_ms:.4f} "
+              f"ms host a call; unsharded cuda {unsharded[0]:.4f} / {unsharded[1]:.4f} ms "
+              f"({gpu})")
+
+
+def phase20_service(device, gpu: str, tmp: str) -> None:
+    """(c) a Server with the graph service: two tenants (interactive and
+    batch) registering GRAPH_UNSHARP, loadgen.multi_tenant_run at 64 rps
+    for 4 s over mixed_shapes, every ok response (image, histogram and
+    stats headers) equal to its hand-composed golden, per-tenant ok, shed
+    and p99; (d) POST /control/profile under that traffic: device kernel
+    events and a DMA share in the summary, a second call inside the
+    interval answered 429."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import decode_image_bytes
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.server import ServeConfig, Server
+
+    def post(base, path, body, headers=None):
+        req = urllib.request.Request(base + path, data=body, headers=headers or {},
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+                return r.status, dict(r.headers), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read()
+
+    images = loadgen.mixed_shapes(GRAPH_LANE_BUCKETS, GRAPH_LANE_IMAGES, channels=3, seed=20,
+                                  min_dim=3)
+    blobs = [loadgen.encode_blob(img) for img in images]
+    golden = []
+    for img in images:
+        want, hist = unsharp_golden(torch.from_numpy(img).to(device))
+        golden.append((want.cpu().numpy(), hist.cpu().tolist()))
+    os.environ["MCIM_PROFILE_DIR"] = os.path.join(tmp, "profile")
+    os.environ["MCIM_PROFILE_MIN_INTERVAL_S"] = "60"
+    cfg = ServeConfig(ops=SPECS["reference"], buckets=GRAPH_LANE_BUCKETS, channels=(3,),
+                      max_batch=8, max_delay_ms=4.0, queue_depth=256, device=str(device))
+    with Server(cfg, host="127.0.0.1", port=0) as srv:
+        base = f"http://127.0.0.1:{srv.address[1]}"
+        lanes = []
+        for tenant, qos in (("interactive", "interactive"), ("bulk", "batch")):
+            code, _, out = post(base, "/v1/tenants",
+                                json.dumps({"tenant": tenant, "qos": qos}).encode())
+            if code != 200:
+                raise AssertionError(f"phase 20 tenants: {code} {out[:200]}")
+            code, _, out = post(base, "/v1/pipelines",
+                                json.dumps({"tenant": tenant, "spec": GRAPH_UNSHARP}).encode())
+            if code != 200:
+                raise AssertionError(f"phase 20 register: {code} {out[:200]}")
+            pid = json.loads(out)["pipeline"]
+            lanes.append({"tenant": tenant, "blobs": blobs,
+                          "headers": {"X-MCIM-Tenant": tenant, "X-MCIM-Pipeline": pid}})
+        profile: dict = {}
+
+        def capture():
+            time.sleep(GRAPH_LANE_S / 4)
+            profile["first"] = post(base, "/control/profile",
+                                    json.dumps({"seconds": GRAPH_PROFILE_S}).encode())
+            profile["second"] = post(base, "/control/profile", b"{}")
+
+        t = threading.Thread(target=capture)
+        t.start()
+        rec = loadgen.multi_tenant_run(base, lanes, GRAPH_LANE_RPS, GRAPH_LANE_S,
+                                       timeout_s=SERVE_WAIT_S, jitter_frac=GRAPH_LANE_JITTER,
+                                       seed=20)
+        t.join(SERVE_WAIT_S)
+        svc = srv.app.graph_service
+        coalesced = (svc._m_coalesced.value(outcome="batched"),
+                     svc._m_coalesced.value(outcome="fallback"))
+        sheds = {r: svc._m_shed.value(reason=r) for r in ("quota", "qos", "inflight")}
+        disp = svc._m_dispatch_s
+        stages = srv.app.registry.get("mcim_engine_stage_seconds")
+        st_ms = {st: stages.sum(stage=st) / max(stages.count(stage=st), 1) * 1e3
+                 for st in ("h2d", "enqueue", "force", "encode")}
+        idle = srv.app.scheduler.engine.metrics.snapshot()
+    print(f"phase 20: lane service: graph dispatch mean {disp.sum() / max(disp.count(), 1) * 1e3:.3f}"
+          f" ms over {disp.count()} (admission to result on the host), sheds by reason {sheds}, "
+          f"group lane batched/fallback {coalesced}; engine mean ms a dispatch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st_ms.items())
+          + f"; device_idle_frac {idle.get('device_idle_frac')} ({gpu})")
+    checked = 0
+    for tenant, r in rec.items():
+        if r["unavailable"]:
+            raise AssertionError(f"phase 20 lane {tenant}: {r['unavailable']} unavailable")
+        for k, res in r["results"]:
+            if res["code"] != 200:
+                continue
+            want, hist = golden[k]
+            if not np.array_equal(decode_image_bytes(res["body"]), want):
+                raise AssertionError(f"phase 20 lane {tenant}: response {k} != golden")
+            checked += 1
+        print(f"phase 20: lane tenant {tenant}: submitted {r['submitted']}, ok {r['ok']} (all "
+              f"== golden), shed {r['shed']}, ok_frac {r['ok_frac']:.3f}, e2e p50/p99 "
+              f"{r.get('e2e_p50_ms', float('nan')):.3f}/{r.get('e2e_p99_ms', float('nan')):.3f} "
+              f"ms, achieved {r['achieved_rps']:.3f} rps ({gpu})")
+    if not checked:
+        raise AssertionError("phase 20 lane: no ok response")
+    code, _, body = profile["first"]
+    if code != 200:
+        raise AssertionError(f"phase 20 profile: {code} {body[:300]}")
+    res = json.loads(body)
+    summ = res["summary"]
+    if res["device_events"] <= 0 or summ["device_compute_us"] <= 0 or summ["device_dma_us"] <= 0:
+        raise AssertionError(f"phase 20 profile: no device kernels or copies: {summ}")
+    code2 = profile["second"][0]
+    if code2 != 429:
+        raise AssertionError(f"phase 20 profile: second capture answered {code2}, not 429")
+    dma, comp = summ["device_dma_us"], summ["device_compute_us"]
+    top = [(e["process"], e["name"][:40], e["total_us"]) for e in summ["top_events"][:6]]
+    print(f"phase 20: /control/profile {res['seconds']} s under the lane: {res['device_events']} "
+          f"device-trace events, {res['host_events']} host spans; DMA {dma} us / compute "
+          f"{comp} us (DMA share {dma / (dma + comp):.3f}); processes {summ['processes']}; "
+          f"top {top}; second call 429 ({gpu})")
+
+
+def phase20_run_profile(device, gpu: str, tmp: str) -> None:
+    """(d) `run --profile-dir` on the 8K frame (a PPM: the native codec)
+    in-process: the trace holds the card's kernels and copies."""
+    from mpi_cuda_imagemanipulation_tpu_torch.cli import main as cli_main
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import save_image, synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import profile as obs_profile
+
+    src = os.path.join(tmp, "frame8k.ppm")
+    save_image(src, synthetic_image(MAIN_H, MAIN_W, seed=0))
+    prof_dir = os.path.join(tmp, "run_profile")
+    rc = cli_main(["run", "--input", src, "--output", os.path.join(tmp, "out8k.ppm"),
+                   "--device", str(device), "--impl", "cuda", "--plan", "off",
+                   "--profile-dir", prof_dir, "--show-timing"])
+    events = obs_profile.load_device_trace(prof_dir)
+    kernels = sum(1 for e in events if e.get("cat") in obs_profile.TORCH_COMPUTE_CATS)
+    if rc != 0 or not kernels:
+        raise AssertionError(f"phase 20 run --profile-dir: exit {rc}, {kernels} kernel events")
+    s = obs_profile.summarize(events)
+    print(f"phase 20: run --profile-dir on the 8K reference: {os.listdir(prof_dir)}, "
+          f"{len(events)} events, {kernels} kernel events; DMA {s['device_dma_us']} us / compute "
+          f"{s['device_compute_us']} us ({gpu})")
+
+
+def phase20_graph_service(device, x8k) -> None:
+    """The pipeline-graph service, the systolic runner and profiling on the
+    card (module docstring, phase 20)."""
+    import shutil
+
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+
+    t0 = time.perf_counter()
+    gpu = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="mcim_graph_")
+    try:
+        t = time.perf_counter()
+        phase20_graph(device, x8k, gpu)
+        print(f"phase 20: (a) graph {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        gray8k = Pipeline.parse("grayscale").jit("torch", device=device, plan="off")(x8k)
+        phase20_systolic(device, gray8k, gpu)
+        print(f"phase 20: (b) systolic {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase20_service(device, gpu, tmp)
+        phase20_run_profile(device, gpu, tmp)
+        print(f"phase 20: (c, d) graph service lane and profiling {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 20: graph, systolic and profiling, {time.perf_counter() - t0:.1f} s in all")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -5488,6 +5862,7 @@ def main() -> int:
     phase17_batch_cli(device)
     phase18_stream(device)
     phase19_serve(device)
+    phase20_graph_service(device, x8k)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

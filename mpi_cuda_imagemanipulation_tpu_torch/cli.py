@@ -1,5 +1,5 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
-run|batch|stream|serve|autotune|info``.
+run|batch|stream|serve|graph|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl auto``, the default, routes
@@ -32,13 +32,18 @@ killed run from its journal.
 over a shape-bucket function cache warmed on the card at start, answering
 ``POST /v1/process`` (image bytes in, PNG out), ``GET /healthz``,
 ``/stats`` and ``/metrics``, byte-equal to ``run`` per request; SIGTERM or
-SIGINT drains what was admitted under ``--drain-deadline-s``.
+SIGINT drains what was admitted under ``--drain-deadline-s``; it also
+answers the pipeline service's routes (graph specs per tenant, the
+replica half of systolic execution) and ``POST /control/profile``.
+``graph`` validates a pipeline-spec DAG from a file and runs it on one
+image (graph/), with its histogram and stats side outputs.
 ``autotune`` measures the routes of one choice on the card and records
 the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
 records for a pipeline (``--online``: with the online tuning store's, and
 the plan the newest-wins rule picks). ``run --trace-out`` writes the run's
-trace spans as Chrome/Perfetto JSON (obs/trace.py). ``info`` prints the
+trace spans as Chrome/Perfetto JSON (obs/trace.py), ``run --profile-dir``
+a ``torch.profiler`` trace of its calls (obs/profile.py). ``info`` prints the
 toolchain, the devices, the backends, the kernels and the calibration
 records for the device.
 """
@@ -225,12 +230,20 @@ def _build_parser() -> argparse.ArgumentParser:
         "--json-metrics", default=None,
         help="write a JSON metrics line to this path ('-' = stdout)",
     )
+    run.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="record a torch.profiler trace (CPU operators; on a card also its "
+        "kernels and copies) over the first and the steady call, written to "
+        "DIR as Chrome JSON (chrome://tracing, ui.perfetto.dev; "
+        "obs/profile.summarize reads it). Ignored under --device-timeout",
+    )
     _add_failpoint_flags(run)
     _add_trace_flags(run)
 
     _add_batch_parser(sub)
     _add_stream_parser(sub)
     _add_serve_parser(sub)
+    _add_graph_parser(sub)
 
     tune = sub.add_parser(
         "autotune",
@@ -570,6 +583,57 @@ def _add_serve_parser(sub) -> None:
     _add_trace_flags(srv)
 
 
+def _add_graph_parser(sub) -> None:
+    """The ``graph`` subcommand's arguments: the JAX package's flags, in
+    the port's terms (--impl names the walker's accumulations, --device a
+    torch device)."""
+    gph = sub.add_parser(
+        "graph",
+        help="validate/run a pipeline-spec DAG (graph/): branch taps, merge combinators, "
+        "side outputs; the file form of what POST /v1/pipelines registers",
+    )
+    gph.add_argument(
+        "--spec", required=True, metavar="PATH",
+        help="pipeline spec JSON (graph/spec.py schema; a refusal prints its "
+        "closed-taxonomy code and exits 2)",
+    )
+    gph.add_argument("--input", default=None, help="image to run the graph on")
+    gph.add_argument(
+        "--synthetic", default=None, metavar="HxW[xC]",
+        help="run on a deterministic synthetic image of this shape instead of --input",
+    )
+    gph.add_argument("--output", default=None, help="write the image output here")
+    gph.add_argument(
+        "--histogram-out", default=None, metavar="PATH",
+        help="write the histogram side output (JSON int[256]); needs a spec with "
+        "outputs.histogram",
+    )
+    gph.add_argument(
+        "--stats-out", default=None, metavar="PATH",
+        help="write the stats side output (JSON count/min/max/mean); needs a spec with "
+        "outputs.stats",
+    )
+    gph.add_argument(
+        "--impl", choices=("torch", "mxu", "auto"), default="torch",
+        help="stencil accumulation of the graph's segments, which run the stage walker "
+        "(the JAX package's plan-executor impls): torch (the golden ops; the JAX "
+        "package's xla), mxu (banded products for eligible stencils), auto (the banded "
+        "products where the calibration store or MCIM_PREFER_MXU routes them on a card)",
+    )
+    gph.add_argument(
+        "--validate-only", action="store_true",
+        help="parse + compile-plan the spec and print its structure without running "
+        "anything (no device touch)",
+    )
+    gph.add_argument("--device", default="cuda",
+                     help="torch device (default cuda; cpu runs on the host)")
+    gph.add_argument("--json-metrics", default=None,
+                     help="write the run record ('-' = stdout)")
+    gph.add_argument("--plan", choices=PLAN_MODES, default="auto",
+                     help="fusion-planner stage structure of each segment "
+                     "(byte-identical in every mode)")
+
+
 def image_runner(pipe, *, impl: str, device, block_h=None, gray_output=False,
                  plan: str = "auto", mesh=None, halo_mode: str = "serial"):
     """The `run` computation as an image -> image function on `device`: the
@@ -655,7 +719,7 @@ def _run(args: argparse.Namespace, root) -> int:
     from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo, mesh as pmesh
     from mpi_cuda_imagemanipulation_tpu_torch.plan.metrics import plan_metrics
     from mpi_cuda_imagemanipulation_tpu_torch.utils.device import as_image_tensor
-    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
     from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
 
     if args.device_timeout is not None:  # the child process owns the device
@@ -689,6 +753,12 @@ def _run(args: argparse.Namespace, root) -> int:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
+    prof = None
+    if args.profile_dir:
+        from mpi_cuda_imagemanipulation_tpu_torch.obs.profile import profiler
+
+        prof = profiler(dev)
+        prof.start()
     t0 = time.perf_counter()
     with obs_trace.span("run.compile_and_run", parent=root.context()):
         out = once()
@@ -716,6 +786,12 @@ def _run(args: argparse.Namespace, root) -> int:
                 once()
                 steady_ms = (time.perf_counter() - t0) * 1e3
             steady.set(call_ms=call_ms, steady_ms=steady_ms)
+    if prof is not None:
+        prof.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, f"run_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        get_logger().info("profile written to %s", path)
     if writes:
         with obs_trace.span("run.save", parent=root.context(), path=args.output):
             save_image(args.output, out.cpu().numpy())
@@ -784,6 +860,8 @@ def _run_guarded(args: argparse.Namespace, root) -> int:
             "2-D sharding (--shards RxC) computes tiles with the torch ops; use "
             f"--impl torch or auto (got {args.impl!r})"
         )
+    if args.profile_dir:
+        log.warning("--profile-dir is not supported in guarded mode (--device-timeout); ignored")
     with obs_trace.span("run.load", parent=root.context(), path=args.input):
         img = load_image(args.input)
     timings: dict = {}
@@ -1877,6 +1955,113 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_graph(args: argparse.Namespace) -> int:
+    """`graph`: validate (and optionally run) a pipeline-spec DAG from a
+    file, the offline form of the pipeline service's POST surface. A
+    refusal prints its taxonomy code and exits 2; --validate-only plans on
+    the host and touches no device."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.graph import (
+        compile_graph,
+        dag_fingerprint,
+        graph_callable,
+        parse_spec,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.graph.spec import SpecError
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+        load_image,
+        save_image,
+        synthetic_image,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.device import as_image_tensor, resolve_device
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
+
+    try:
+        with open(args.spec, "rb") as f:
+            raw = f.read()
+    except OSError as e:
+        raise FileNotFoundError(f"cannot read --spec: {e}") from None
+    try:
+        graph = parse_spec(raw)
+    except SpecError as e:
+        print(f"spec rejected [{e.code}]: {e}", file=sys.stderr)
+        return 2
+    if args.validate_only:
+        program = compile_graph(graph, plan=args.plan, backend=args.impl, device="cpu")
+        print(graph.describe())
+        print(program.describe())
+        print(f"pipeline id: {dag_fingerprint(graph)}")
+        return 0
+    if bool(args.input) == bool(args.synthetic):
+        raise ValueError("graph needs exactly one of --input/--synthetic")
+    dev = resolve_device(args.device)
+    if args.synthetic:
+        dims = [int(v) for v in args.synthetic.lower().split("x")]
+        if len(dims) not in (2, 3):
+            raise ValueError("--synthetic wants HxW or HxWxC")
+        img = synthetic_image(dims[0], dims[1], channels=dims[2] if len(dims) == 3 else 3,
+                              seed=0)
+    else:
+        img = load_image(args.input)
+    try:
+        graph.check_channels(img.shape[2] if img.ndim == 3 else 1)
+    except SpecError as e:
+        print(f"request rejected [{e.code}]: {e}", file=sys.stderr)
+        return 2
+    program = compile_graph(graph, plan=args.plan, backend=args.impl, width=img.shape[1],
+                            device=dev)
+    print(graph.describe())
+    print(program.describe())
+    print(f"pipeline id: {dag_fingerprint(graph)}")
+    fn = graph_callable(program, impl=args.impl)
+    x = as_image_tensor(img, dev)
+    t0 = time.perf_counter()
+    out = fn(x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0  # the first call, on the host clock
+    print(f"ran {len(program.steps)} steps in {wall * 1e3:.1f} ms (first call, host clock; "
+          f"outputs: {sorted(out)})")
+    if args.output:
+        save_image(args.output, out["image"].cpu().numpy())
+        print(f"image -> {args.output}")
+    if args.histogram_out:
+        if "histogram" not in out:
+            raise ValueError("--histogram-out needs a spec with outputs.histogram")
+        with open(args.histogram_out, "w") as f:
+            json.dump([int(v) for v in out["histogram"].cpu()], f)
+        print(f"histogram -> {args.histogram_out}")
+    if args.stats_out:
+        if "stats" not in out:
+            raise ValueError("--stats-out needs a spec with outputs.stats")
+        s = out["stats"]
+        stats = {"count": int(s["count"]), "min": int(s["min"]), "max": int(s["max"]),
+                 "mean": round(float(s["mean"]), 4)}
+        with open(args.stats_out, "w") as f:
+            json.dump(stats, f)
+        print(f"stats -> {args.stats_out}")
+    if args.json_metrics:
+        emit_json_metrics(
+            {
+                "event": "graph",
+                "spec": args.spec,
+                "pipeline_id": dag_fingerprint(graph),
+                "nodes": len(graph.nodes),
+                "segments": program.n_segments,
+                "merges": program.n_merges,
+                "mode": program.mode,
+                "impl": args.impl,
+                "device": str(dev),
+                "clock": "host",
+                "wall_ms": wall * 1e3,
+                "outputs": sorted(out),
+            },
+            None if args.json_metrics == "-" else args.json_metrics,
+        )
+    return 0
+
+
 def cmd_info(args: argparse.Namespace) -> int:
     import torch
 
@@ -1960,7 +2145,7 @@ def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
         return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream, "serve": cmd_serve,
-                "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
+                "graph": cmd_graph, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -9,6 +9,10 @@ of the JAX package's ``obs/``.
                         registry with Prometheus text exposition.
   * `obs/recorder.py` - the always-on flight recorder: a bounded ring of
                         recent facts, dumped to JSON post-mortems.
+  * `obs/profile.py`  - torch.profiler captures (``run --profile-dir``,
+                        ``POST /control/profile``), Chrome trace parsing,
+                        the DMA/compute split, host spans merged onto the
+                        device timeline.
 
 The JAX package's ``fleet`` (metrics federation) and ``slo`` (burn-rate
 SLOs) serve its fabric and federation layers and come with them; its

@@ -267,8 +267,11 @@ cost_ledger = CostLedger()
 
 
 def _tensors(obj) -> list[torch.Tensor]:
+    """The tensor leaves of a result tree (tuples, lists, dict values)."""
     if isinstance(obj, torch.Tensor):
         return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
     if isinstance(obj, (tuple, list)):
         return [t for o in obj for t in _tensors(o)]
     return []

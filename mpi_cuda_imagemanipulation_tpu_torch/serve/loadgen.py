@@ -1,8 +1,7 @@
 """Open-loop load generator: throughput vs latency under offered load.
 The counterpart of the JAX package's ``serve/loadgen.py`` (jax-free there;
-copied, with the imports pointed at the port), less its multi-tenant and
-churn lanes, which drive the pipeline service and the fabric (ROADMAP
-queue 1, items 6-7).
+copied, with the imports pointed at the port), less its churn lane, which
+drives the fabric (ROADMAP queue 1, item 7).
 
 Open-loop means arrivals are scheduled by the offered rate alone, never
 gated on completions (a closed loop self-throttles and hides queueing
@@ -22,7 +21,10 @@ records also report AVAILABILITY under injected transient faults: success
 The HTTP generator (`http_run_offered_load`) fires the same open-loop clock
 at `POST /v1/process` through a worker pool; `summarize_http_results`
 keeps a 503 with Retry-After (an explicit shed, "come back later") apart
-from unavailability (transport failures, a bare 503).
+from unavailability (transport failures, a bare 503). `multi_tenant_run`
+fires one such clock round-robin over tenant lanes (the pipeline
+service's quota and QoS ladder act on each lane's slice) and reports per
+tenant.
 
 With tracing armed (obs/trace.py, e.g. MCIM_TRACE_SAMPLE=1) every request
 carries a trace id and each per-rate record names its slowest completions
@@ -349,6 +351,71 @@ def summarize_http_results(
         p = percentiles(lat, PERCENTILES)
         rec.update({f"e2e_p{int(q)}_ms": p[q] * 1e3 for q in PERCENTILES})
     return rec
+
+
+def multi_tenant_run(
+    url: str,
+    lanes: list[dict],
+    offered_rps: float,
+    duration_s: float,
+    *,
+    timeout_s: float = 30.0,
+    max_workers: int = 32,
+    clock=time.monotonic,
+    sleep=time.sleep,
+    jitter_frac: float = 0.0,
+    seed: int = 0,
+) -> dict:
+    """The multi-tenant offered-load mix: ONE open-loop arrival clock at
+    `offered_rps` total, arrivals round-robined across the tenant lanes,
+    per-tenant accounting out. Each lane is
+
+        {"tenant": <id>, "blobs": [...], "headers": {...}}
+
+    where `headers` carries the lane's identity (X-MCIM-Tenant, and
+    X-MCIM-Pipeline for graph lanes), so each tenant's quota window and
+    QoS class act on exactly its slice of the offered load. With
+    `jitter_frac` > 0 each arrival moves by up to that fraction of the
+    period either way, drawn from a generator seeded with `seed` (0, the
+    default, is the JAX package's exact clock). Returns {tenant: phase
+    record} with the shared shed-vs-unavailable accounting per tenant,
+    each record with its `results` ([(blob index, response)], in arrival
+    order) for the caller's byte checks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    period = 1.0 / offered_rps
+    rng = np.random.default_rng(seed)
+    futures: list[tuple[str, int, object]] = []
+    with ThreadPoolExecutor(max_workers=max_workers) as pool:
+        t0 = clock()
+        i = 0
+        while True:
+            due = t0 + i * period
+            if due - t0 >= duration_s:
+                break
+            if jitter_frac:
+                due += float(rng.uniform(-jitter_frac, jitter_frac)) * period
+            now = clock()
+            if due > now:
+                sleep(due - now)
+            lane = lanes[i % len(lanes)]
+            blobs = lane["blobs"]
+            k = (i // len(lanes)) % len(blobs)
+            futures.append((lane["tenant"], k, pool.submit(
+                http_post_image, url, blobs[k], timeout_s=timeout_s,
+                headers=lane.get("headers"),
+            )))
+            i += 1
+        by_tenant: dict[str, list[tuple[int, dict]]] = {lane["tenant"]: [] for lane in lanes}
+        for tenant, k, f in futures:
+            by_tenant[tenant].append((k, f.result()))
+        wall = clock() - t0
+    share = offered_rps / len(lanes)
+    out = {}
+    for tenant, results in by_tenant.items():
+        out[tenant] = summarize_http_results(results, wall, share)
+        out[tenant]["results"] = results
+    return out
 
 
 def sweep(

@@ -1,6 +1,8 @@
 """Serving front ends: ServeApp (wiring), in-process Client, HTTP server.
-The counterpart of the JAX package's ``serve/server.py``: the chain path
-(``POST /v1/process``) and the health, stats and metrics endpoints.
+The counterpart of the JAX package's ``serve/server.py``: the chain path,
+the pipeline service's graph lane, the replica half of systolic
+execution, on-demand profiling, and the health, stats and metrics
+endpoints.
 
 `ServeApp` assembles the subsystem from a `ServeConfig`: parse the
 pipeline, warm the shape-bucket function cache on the device, start the
@@ -13,7 +15,24 @@ scheduler. Two front doors share it:
     (exception mid-start included), so repeated runs cannot hit
     EADDRINUSE.
         POST /v1/process   PNG (or any PIL-decodable) bytes in, PNG out
-                           (X-Trace-Id response header when traced)
+                           (X-Trace-Id response header when traced).
+                           With X-MCIM-Pipeline/?pipeline=: the graph
+                           lane, a tenant-admitted DAG dispatch with the
+                           side outputs in X-MCIM-Histogram/-Stats
+                           headers (graph/service.py); with the
+                           X-MCIM-Systolic-Plan placement header on a
+                           systolic replica, this replica runs the first
+                           step range and relays the chain's answer
+        POST /v1/pipelines register a pipeline spec for a tenant
+                           (graph/spec.py schema; refusals are 4xx
+                           structured JSON with the taxonomy code)
+        GET  /v1/pipelines the pipeline service's tenants and specs
+        POST /v1/tenants   tenant QoS class + quota configuration
+        POST /v1/systolic  one interior/final stage of a placed program
+                           (graph/systolic.py handoff frame)
+        POST /control/profile  one rate-limited torch.profiler capture
+                           under live traffic (obs/profile.py; 429 while
+                           one runs or within the rate limit)
         GET  /healthz      health state machine (resilience/health.py):
                            200 serving/degraded, 503 otherwise
         GET  /stats        metrics snapshot: a JSON view over the app's
@@ -25,12 +44,13 @@ scheduler. Two front doors share it:
     Status mapping: 200 ok, 400 rejected (undecodable/out-of-range),
     422 quarantined (poison request: failed solo after batch bisection),
     429 overloaded (shed, with Retry-After), 503 shutting down,
-    504 deadline_expired, 500 error.
-    The JAX package's other routes (sessions, /v1/pipelines, /v1/tenants,
-    /v1/systolic, /control/profile, /fleet/snapshot) and pipeline-tagged
-    /v1/process requests answer its own ``unknown-route`` 404 here: they
-    come with the pipeline service and the fabric (ROADMAP queue 1, items
-    6-7).
+    504 deadline_expired, 500 error; the graph lane's refusals are 404
+    (unknown pipeline or tenant), 400 (bad image or JSON) or 422 (any
+    other taxonomy code), its sheds 503 with Retry-After, a broken
+    systolic chain 424.
+    The JAX package's other routes (the session routes, /fleet/snapshot)
+    answer its own ``unknown-route`` 404 here: they come with the fabric
+    (ROADMAP queue 1, item 7).
 
 Fault tolerance: ServeApp owns the HealthState machine and a per-bucket
 BreakerBoard; dispatch runs under the retrying executor and degrades to
@@ -52,8 +72,20 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from mpi_cuda_imagemanipulation_tpu_torch.graph.compile import GRAPH_IMPLS
+from mpi_cuda_imagemanipulation_tpu_torch.graph.service import (
+    HDR_HISTOGRAM,
+    HDR_PIPELINE,
+    HDR_STATS,
+    HDR_TENANT,
+    PIPELINES_PATH,
+    TENANTS_PATH,
+    GraphService,
+)
+from mpi_cuda_imagemanipulation_tpu_torch.graph.spec import SpecError
 from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
 from mpi_cuda_imagemanipulation_tpu_torch.obs import metrics as obs_metrics
+from mpi_cuda_imagemanipulation_tpu_torch.obs import trace as obs_trace
 from mpi_cuda_imagemanipulation_tpu_torch.obs.cost import cost_ledger
 from mpi_cuda_imagemanipulation_tpu_torch.obs.devmem import DevMemGauges
 from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import Registry
@@ -82,6 +114,7 @@ from mpi_cuda_imagemanipulation_tpu_torch.serve.scheduler import (
     MicroBatchScheduler,
     Request,
 )
+from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
 from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
 from mpi_cuda_imagemanipulation_tpu_torch.utils.log import get_logger
 
@@ -92,9 +125,6 @@ _HTTP_STATUS = {
     STATUS_SHUTDOWN: 503,
     STATUS_DEADLINE: 504,
 }
-
-# request headers that tag the JAX package's graph lane (graph/service.py)
-_HDR_PIPELINE = "X-MCIM-Pipeline"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +143,10 @@ class ServeConfig:
     # PLAN_MODES); the cache keys functions by the RESOLVED plan's
     # fingerprint, so a calibration flip rebuilds instead of serving stale
     plan: str = "auto"
+    # systolic execution (graph/systolic.py): accept stage-sharded graph
+    # dispatches, run a placed step range and forward the live env to the
+    # next stage owner instead of running whole programs
+    systolic: bool = False
     default_deadline_ms: float | None = None
     # the torch device (default CUDA; 'cpu' runs the plain ops on the host)
     device: str | None = None
@@ -199,6 +233,11 @@ class ServeApp:
         # device-memory observability (obs/devmem.py): live/peak allocator
         # and headroom gauges on the app registry
         self.devmem = DevMemGauges(self.registry)
+        # the pipeline service (graph/service.py): created on the first
+        # spec registration, so a server of the configured chain alone
+        # pays nothing
+        self._graph_service = None
+        self._graph_lock = threading.Lock()
         self._log = get_logger()
 
     def _register_state_gauges(self) -> None:
@@ -250,6 +289,75 @@ class ServeApp:
             fn=lambda: float(self.cache.stats()["misses"]),
         )
 
+    @property
+    def graph_service(self):
+        """The multi-tenant pipeline service (lazy; POST /v1/pipelines and
+        pipeline-tagged /v1/process requests land here), on the app's
+        device and registry, so the mcim_graph_* families render in the
+        same /metrics scrape. Graph segments run the stage walker, so the
+        backend is the configured one when the walker takes it ('torch',
+        'mxu', 'auto'), else 'torch' (as the JAX package pins 'xla')."""
+        with self._graph_lock:
+            if self._graph_service is None:
+                backend = self.config.backend
+                if backend not in GRAPH_IMPLS:
+                    backend = "torch"
+                self._graph_service = GraphService(
+                    registry=self.registry,
+                    backend=backend,
+                    plan=self.config.plan,
+                    systolic=self.config.systolic,
+                    # the QoS ladder sheds on the WORSE of the graph
+                    # service's own inflight fraction and the chain
+                    # scheduler's queue fill: one load signal for both
+                    # traffic classes
+                    load_frac=self.scheduler.queue_fill_frac,
+                    # admitted graph dispatches coalesce through the chain
+                    # scheduler's group lanes keyed (dag fingerprint, true
+                    # shape); MCIM_GRAPH_COALESCE=0 keeps the per-request
+                    # path
+                    coalescer=(self.scheduler if env_registry.get_bool("MCIM_GRAPH_COALESCE")
+                               else None),
+                    device=self.device,
+                )
+            return self._graph_service
+
+    def graph_pipeline_ids(self) -> list[str]:
+        """Registered pipeline ids, [] when the service was never touched
+        (must not instantiate anything)."""
+        with self._graph_lock:
+            svc = self._graph_service
+        return svc.pipeline_ids() if svc is not None else []
+
+    def tenant_qos(self, tenant_id: str | None) -> str:
+        """The admission class chain traffic from `tenant_id` submits
+        under: the tenant's configured QoS when the pipeline service knows
+        it, the full-depth default otherwise (an unknown tenant on the
+        chain path is ordinary anonymous traffic, not an error)."""
+        with self._graph_lock:
+            svc = self._graph_service
+        if not tenant_id or svc is None:
+            return "interactive"
+        try:
+            return svc.tenants.get(tenant_id).config.qos
+        except Exception:
+            return "interactive"
+
+    def profile_capture(self, payload: dict) -> tuple[int, dict]:
+        """One on-demand profiler capture UNDER LIVE TRAFFIC on the app's
+        device (obs/profile.capture_live). Rate-limited per process; the
+        merged host+device artifact path and summary ride back."""
+        from mpi_cuda_imagemanipulation_tpu_torch.obs import profile as obs_profile
+
+        try:
+            result = obs_profile.capture_live(payload.get("seconds"), device=self.device)
+        except obs_profile.ProfileUnavailable as e:
+            return 429, {"status": "unavailable", "error": e.reason,
+                         "retry_after_s": e.retry_after_s}
+        except Exception as e:
+            return 500, {"status": "error", "error": f"profile capture failed: {e}"}
+        return 200, {"status": "ok", **result}
+
     def render_metrics(self) -> str:
         """The `GET /metrics` body: Prometheus text exposition over the
         app's registry (serving + engine + health/breaker/cache/devmem
@@ -260,6 +368,13 @@ class ServeApp:
                 + cost_ledger.registry.render())
 
     def start(self) -> "ServeApp":
+        if self.device.type == "cuda":
+            # the profiler's set-up must happen on this (the importing)
+            # thread for POST /control/profile's captures, which start on
+            # handler threads, to record the card (obs/profile.py)
+            from mpi_cuda_imagemanipulation_tpu_torch.obs.profile import init_profiler
+
+            init_profiler(self.device)
         warm_s = self.cache.warmup()
         self._log.info(
             "function cache warm: %d functions in %.1fs (%s buckets x channels %s x "
@@ -299,6 +414,8 @@ class ServeApp:
             "breakers": self.breakers.snapshot(),
             "cache": self.cache.stats(),
             "devmem": self.devmem.snapshot(),
+            "graph": (self._graph_service.stats() if self._graph_service is not None
+                      else None),
             "engine": (
                 self.scheduler.engine.metrics.snapshot()
                 if self.scheduler.engine is not None
@@ -370,12 +487,326 @@ def _make_handler(app: ServeApp):
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
+            elif self.path == PIPELINES_PATH:
+                # the pipeline service's registry view (tenants, specs,
+                # cache namespaces); an empty shape until the first
+                # registration
+                svc = app._graph_service
+                self._send_json(200, svc.stats() if svc is not None else {"tenants": {}})
             else:
                 self._unknown_route(self.path)
+
+        # -- the graph lane (graph/service.py) ---------------------------
+
+        def _graph_refusal(self, e, trace_id: str) -> None:
+            """One closed-taxonomy refusal (graph/spec.SpecError) as
+            structured JSON {status, code, error, trace_id}: 404 for an
+            unknown pipeline or tenant, 400 for a bad image or JSON body,
+            422 for every other code."""
+            http = (404 if e.code in ("unknown-pipeline", "unknown-tenant")
+                    else 400 if e.code in ("bad-image", "bad-json") else 422)
+            self._send_json(
+                http,
+                {"status": "rejected", "code": e.code, "error": str(e),
+                 **({"trace_id": trace_id} if trace_id else {})},
+                [("X-Trace-Id", trace_id)] if trace_id else [],
+            )
+
+        def _handle_graph_register(self) -> None:
+            """POST /v1/pipelines: {"tenant": ..., "spec": {...}} (or the
+            spec itself with the tenant in X-MCIM-Tenant). Malformed specs
+            are ALWAYS 4xx with a taxonomy code, never 500."""
+            data = self._read_body()
+            with obs_trace.start_trace("graph.register") as root:
+                tid = root.trace_id
+                try:
+                    try:
+                        payload = json.loads(data or b"null")
+                    except ValueError as e:
+                        raise SpecError("bad-json", f"body is not JSON: {e}") from None
+                    if not isinstance(payload, dict):
+                        raise SpecError("bad-root", "registration body must be an object")
+                    spec = payload.get("spec", payload)
+                    tenant = payload.get("tenant") or self.headers.get(HDR_TENANT) or "default"
+                    result = app.graph_service.register(tenant, spec)
+                except SpecError as e:
+                    root.set(code=e.code)
+                    self._graph_refusal(e, tid)
+                    return
+                self._send_json(200, {**result, **({"trace_id": tid} if tid else {})},
+                                [("X-Trace-Id", tid)] if tid else [])
+
+        def _handle_tenant_config(self) -> None:
+            """POST /v1/tenants: QoS class + quota configuration."""
+            data = self._read_body()
+            try:
+                try:
+                    payload = json.loads(data or b"null")
+                except ValueError as e:
+                    raise SpecError("bad-json", f"body is not JSON: {e}") from None
+                result = app.graph_service.configure_tenant(payload)
+            except SpecError as e:
+                self._graph_refusal(e, "")
+                return
+            self._send_json(200, result)
+
+        def _handle_graph_process(self, tenant: str, pipeline_id: str) -> None:
+            """One pipeline-tagged /v1/process request: a tenant-admitted
+            graph dispatch, image + side outputs in ONE response (the side
+            outputs ride X-MCIM-Histogram / X-MCIM-Stats JSON headers)."""
+            from mpi_cuda_imagemanipulation_tpu_torch.graph.systolic import (
+                HDR_PLAN,
+                decode_placement,
+            )
+            from mpi_cuda_imagemanipulation_tpu_torch.graph.tenancy import GraphShed
+            from mpi_cuda_imagemanipulation_tpu_torch.io.image import decode_image_bytes
+
+            data = self._read_body()
+            if not app.health.is_admitting():
+                self._send_json(503, {"status": app.health.state, "error": "not admitting"},
+                                [("Retry-After", "1")])
+                return
+            # the propagated deadline: dead on arrival answers 504 before
+            # the tenant ladder or the DAG dispatch see the request
+            dl = deadline_mod.from_headers(self.headers)
+            if dl is not None and dl.expired():
+                deadline_mod.count_expired(app.metrics.deadline_tiers, "replica")
+                self._send_json(504, deadline_mod.expired_response_body())
+                return
+            root = obs_trace.start_trace(
+                "graph.request", tenant=tenant, pipeline=pipeline_id,
+                trace_id=self.headers.get("X-Trace-Id") or None,
+            )
+            tid = root.trace_id
+            trace_hdr = [("X-Trace-Id", tid)] if tid else []
+            try:
+                try:
+                    img = decode_image_bytes(data)
+                except Exception as e:
+                    app.graph_service.on_reject("bad-image")
+                    raise SpecError("bad-image", f"undecodable image: {e}") from None
+                plan_hdr = self.headers.get(HDR_PLAN)
+                if plan_hdr and app.graph_service.systolic:
+                    # the stage-0 owner of a placed program: run our range,
+                    # forward the live env down the chain, relay the final
+                    # owner's response (with the knob off the whole program
+                    # runs here: never a wrong answer)
+                    try:
+                        placement = decode_placement(plan_hdr)
+                    except ValueError as e:
+                        raise SpecError("bad-json", f"bad placement header: {e}") from None
+                    kind, val = app.graph_service.systolic_process(
+                        placement, 0, img, nbytes=len(data), trace_id=tid,
+                    )
+                    if kind == "env":
+                        self._systolic_forward_and_relay(placement, 1, val, tid, trace_hdr,
+                                                         deadline=dl)
+                        return
+                    out = val
+                else:
+                    out = app.graph_service.process(
+                        tenant, pipeline_id, img, nbytes=len(data), trace_id=tid, deadline=dl,
+                    )
+            except deadline_mod.DeadlineExpired:
+                # the graph service found the budget dead at dispatch time
+                # (tier "graph" counted there); 504 is the verdict
+                root.set(status="deadline_expired")
+                self._send_json(504, deadline_mod.expired_response_body(), trace_hdr)
+                return
+            except SpecError as e:
+                root.set(status="rejected", code=e.code)
+                self._graph_refusal(e, tid)
+                return
+            except GraphShed as e:
+                # an explicit shed, "come back later", never an error: 503
+                # + Retry-After, which the loadgen accounting reads as shed
+                root.set(status="shed", reason=e.reason)
+                self._send_json(
+                    503,
+                    {"status": "shed", "reason": e.reason, "error": str(e),
+                     **({"trace_id": tid} if tid else {})},
+                    [("Retry-After", str(max(1, int(round(e.retry_after_s)))))] + trace_hdr,
+                )
+                return
+            except Exception as e:
+                root.set(status="error")
+                self._send_json(
+                    500,
+                    {"status": "error", "error": f"graph dispatch failed: {e}",
+                     **({"trace_id": tid} if tid else {})},
+                    trace_hdr,
+                )
+                return
+            finally:
+                root.end()
+            self._send_graph_result(out, trace_hdr)
+
+        def _send_graph_result(self, out: dict, trace_hdr) -> None:
+            """The graph dispatch's success response: PNG body, side
+            outputs in X-MCIM-Histogram / X-MCIM-Stats JSON headers."""
+            from mpi_cuda_imagemanipulation_tpu_torch.io.image import encode_image_bytes
+
+            png = encode_image_bytes(out["image"])
+            self.send_response(200)
+            self.send_header("Content-Type", "image/png")
+            self.send_header("Content-Length", str(len(png)))
+            if "histogram" in out:
+                self.send_header(HDR_HISTOGRAM, json.dumps(out["histogram"]))
+            if "stats" in out:
+                self.send_header(HDR_STATS, json.dumps(out["stats"]))
+            for k, v in trace_hdr:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(png)
+
+        # -- the replica half of systolic execution (graph/systolic.py) ---
+
+        def _systolic_post(self, addr: str, body: bytes):
+            """POST a handoff frame to a peer stage owner's /v1/systolic.
+            Returns (status, headers, body), or None on a transport
+            failure."""
+            import http.client
+
+            from mpi_cuda_imagemanipulation_tpu_torch.graph.systolic import SYSTOLIC_PATH
+
+            host, _, port = addr.rpartition(":")
+            try:
+                conn = http.client.HTTPConnection(host, int(port), timeout=30)
+                try:
+                    conn.request("POST", SYSTOLIC_PATH, body,
+                                 {"Content-Type": "application/octet-stream"})
+                    r = conn.getresponse()
+                    return r.status, dict(r.getheaders()), r.read()
+                finally:
+                    conn.close()
+            except (OSError, ValueError, http.client.HTTPException):
+                return None
+
+        def _relay(self, code: int, headers: dict, body: bytes, names, trace_hdr) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", headers.get("Content-Type", "application/json"))
+            self.send_header("Content-Length", str(len(body)))
+            for h in names:
+                if headers.get(h):
+                    self.send_header(h, headers[h])
+            for k, v in trace_hdr:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _systolic_forward_and_relay(self, placement: dict, next_idx: int, env: dict,
+                                        tid: str, trace_hdr, deadline=None) -> None:
+            """Hand the live env to stage owner `next_idx` and relay its
+            (eventually the final owner's) response verbatim: success
+            replies chain back through the nested forwards, so one POST per
+            stage boundary is the whole transport story. Any downstream
+            failure becomes 424 systolic-broken (a caller reruns the
+            request on the pinned lane: idempotent compute, so a broken
+            chain can delay an answer but never wrong it)."""
+            from mpi_cuda_imagemanipulation_tpu_torch.graph.systolic import encode_handoff
+
+            meta = {"placement": placement, "idx": next_idx, "trace_id": tid}
+            if deadline is not None:
+                # the chain carries the REMAINING budget in the frame; each
+                # owner re-anchors and re-checks
+                meta["deadline_ms"] = deadline.remaining_ms()
+            body = encode_handoff(meta, env)
+            resp = self._systolic_post(placement["addrs"][next_idx], body)
+            if resp is not None and resp[0] == 504:
+                # a downstream stage found the deadline dead: relay the
+                # verdict, not a broken chain (a 424 would rerun abandoned
+                # work)
+                self._relay(504, resp[1], resp[2], (), trace_hdr)
+                return
+            if resp is None or resp[0] != 200:
+                status = "unreachable" if resp is None else resp[0]
+                self._send_json(
+                    424,
+                    {"status": "systolic-broken",
+                     "error": f"stage owner {next_idx} failed ({status})",
+                     **({"trace_id": tid} if tid else {})},
+                    trace_hdr,
+                )
+                return
+            app.graph_service.count_forward(len(body))
+            _, headers, rbody = resp
+            self._relay(200, {"Content-Type": "image/png", **headers}, rbody,
+                        (HDR_HISTOGRAM, HDR_STATS), trace_hdr)
+
+        def _handle_systolic_hop(self) -> None:
+            """POST /v1/systolic: one interior/final stage of a placed
+            program. The request was admitted at the entry owner; here the
+            live env is decoded, this replica's range runs, and the result
+            is forwarded to the next owner or rendered as the answer."""
+            from mpi_cuda_imagemanipulation_tpu_torch.graph.systolic import decode_handoff
+
+            data = self._read_body()
+            if not app.graph_service.systolic:
+                self._send_json(409, {"status": "systolic-broken",
+                                      "error": "systolic mode disabled on this replica"})
+                return
+            try:
+                meta, env = decode_handoff(data)
+                placement = meta["placement"]
+                idx = int(meta["idx"])
+                tid = str(meta.get("trace_id") or "")
+                if not isinstance(placement, dict):
+                    raise ValueError("placement must be an object")
+            except (KeyError, TypeError, ValueError) as e:
+                self._send_json(400, {"status": "rejected", "code": "bad-json",
+                                      "error": f"bad handoff frame: {e}"})
+                return
+            trace_hdr = [("X-Trace-Id", tid)] if tid else []
+            dl = None
+            raw_dl = meta.get("deadline_ms")
+            if raw_dl is not None:
+                try:
+                    dl = deadline_mod.Deadline(float(raw_dl))
+                except (TypeError, ValueError):
+                    dl = None  # a garbled budget degrades to none
+            if dl is not None and dl.expired():
+                # the budget died in transit between stage owners: stop the
+                # chain here; upstream relays the 504 verbatim
+                deadline_mod.count_expired(app.metrics.deadline_tiers, "replica")
+                self._send_json(504, deadline_mod.expired_response_body(), trace_hdr)
+                return
+            try:
+                kind, val = app.graph_service.systolic_process(placement, idx, env, trace_id=tid)
+            except Exception as e:
+                # a SpecError included: an admitted request failing at a
+                # hop is a broken chain, not a client refusal; the 5xx
+                # propagates up and the entry owner answers 424
+                self._send_json(
+                    500,
+                    {"status": "error", "error": f"systolic stage failed: {e}",
+                     **({"trace_id": tid} if tid else {})},
+                    trace_hdr,
+                )
+                return
+            if kind == "env":
+                self._systolic_forward_and_relay(placement, idx + 1, val, tid, trace_hdr,
+                                                 deadline=dl)
+                return
+            self._send_graph_result(val, trace_hdr)
+
+        def _handle_profile(self) -> None:
+            """POST /control/profile: one on-demand capture under live
+            traffic (obs/profile.capture_live); 429 + Retry-After while
+            one runs or inside the rate limit."""
+            data = self._read_body()
+            try:
+                payload = json.loads(data or b"{}")
+            except ValueError:
+                payload = {}
+            code, resp = app.profile_capture(payload if isinstance(payload, dict) else {})
+            extra = ([("Retry-After", str(int(resp.get("retry_after_s", 1))))]
+                     if code == 429 else [])
+            self._send_json(code, resp, extra)
 
         def do_POST(self):  # noqa: N802
             from urllib.parse import parse_qs, urlsplit
 
+            from mpi_cuda_imagemanipulation_tpu_torch.graph.systolic import SYSTOLIC_PATH
             from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
                 decode_image_bytes,
                 encode_image_bytes,
@@ -384,15 +815,27 @@ def _make_handler(app: ServeApp):
             split = urlsplit(self.path)
             path = split.path
             query = parse_qs(split.query)
-            if path != "/v1/process" or (
-                self.headers.get(_HDR_PIPELINE) or (query.get("pipeline") or [""])[0]
-            ):
-                # the JAX package's other POST routes and its graph lane
-                # (a pipeline-tagged request) come with the pipeline
-                # service and the fabric; the body is read so that the
-                # persistent connection stays in step
+            routes = {
+                PIPELINES_PATH: self._handle_graph_register,
+                TENANTS_PATH: self._handle_tenant_config,
+                SYSTOLIC_PATH: self._handle_systolic_hop,
+                "/control/profile": self._handle_profile,
+            }
+            if path in routes:
+                routes[path]()
+                return
+            if path != "/v1/process":
+                # the JAX package's session routes come with the fabric;
+                # the body is read so that the persistent connection stays
+                # in step
                 self._read_body()
-                self._unknown_route(self.path)
+                self._unknown_route(path)
+                return
+            tenant = self.headers.get(HDR_TENANT) or (query.get("tenant") or [""])[0]
+            pipeline = self.headers.get(HDR_PIPELINE) or (query.get("pipeline") or [""])[0]
+            if pipeline:
+                # pipeline-tagged: the graph service's dispatch path
+                self._handle_graph_process(tenant or "default", pipeline)
                 return
             if not app.health.is_admitting():
                 # draining/stopped: an explicit retry-later, never admission
@@ -426,6 +869,9 @@ def _make_handler(app: ServeApp):
                 deadline_ms=(dl.remaining_ms() if dl is not None
                              else app.config.default_deadline_ms),
                 trace_id=self.headers.get("X-Trace-Id") or None,
+                # a known tenant's chain traffic admits under its QoS class
+                # (graph/tenancy's ladder: low classes shed first)
+                qos=app.tenant_qos(tenant),
             )
             req.done.wait()
             trace_hdr = [("X-Trace-Id", req.trace_id)] if req.trace_id else []

@@ -127,11 +127,45 @@ _VARS = (
            "Default in-flight tile dispatches for `stream` and `batch "
            "--stream-rows` (--inflight overrides); >= 2 overlaps the H2D "
            "of tile k+1 with tile k's compute."),
-    # -- serving admission (graph/tenancy.py) -------------------------------
+    # -- on-demand profiling (obs/profile.py) --------------------------------
+    EnvVar("MCIM_PROFILE_DIR", None, "obs/profile.py",
+           "Directory on-demand profile captures write their device trace "
+           "and merged artifact under (default artifacts/profile/)."),
+    EnvVar("MCIM_PROFILE_MIN_INTERVAL_S", "30", "obs/profile.py",
+           "Per-process rate limit between live profile captures: a "
+           "control plane cannot stack captures on a serving replica."),
+    EnvVar("MCIM_PROFILE_MAX_S", "10", "obs/profile.py",
+           "Capture-window ceiling in seconds (the HTTP caller blocks for "
+           "the capture)."),
+    EnvVar("MCIM_PROFILE_DEFAULT_S", "2", "obs/profile.py",
+           "Capture window when POST /control/profile names none."),
+    # -- pipeline service (graph/) -------------------------------------------
+    EnvVar("MCIM_GRAPH_MAX_NODES", "64", "graph/spec.py",
+           "Node-count cap on POSTed pipeline specs (a hostile spec is "
+           "refused with the closed `too-large` taxonomy code, never "
+           "built)."),
+    EnvVar("MCIM_GRAPH_MAX_TENANTS", "64", "graph/tenancy.py",
+           "Tenant-registry cap: tenant ids are metric labels, so the "
+           "tenant set must be bounded (`tenant-limit` refusal past it)."),
+    EnvVar("MCIM_GRAPH_CACHE_CAP", "8", "graph/tenancy.py",
+           "Per-tenant function-cache namespace cap (LRU entries): a "
+           "tenant registering pipelines without bound recycles its own "
+           "slots."),
     EnvVar("MCIM_GRAPH_QOS_SHED_FRAC", "0.5", "graph/tenancy.py",
            "Load fraction past which batch-class traffic sheds (standard "
            "sheds halfway between this and 1; interactive rides to full "
-           "capacity): the serving scheduler's qos= admission."),
+           "capacity): the graph service's and the serving scheduler's "
+           "qos= admission."),
+    EnvVar("MCIM_GRAPH_QUOTA_WINDOW_S", "1.0", "graph/tenancy.py",
+           "Default fixed quota window in seconds for per-tenant "
+           "request/byte budgets (tenant config can override per tenant)."),
+    EnvVar("MCIM_GRAPH_MAX_INFLIGHT", "8", "graph/service.py",
+           "Concurrent graph dispatches per replica; past it even "
+           "interactive traffic sheds with 503 + Retry-After."),
+    EnvVar("MCIM_GRAPH_COALESCE", "1", "serve/server.py",
+           "=0 disables graph micro-batch coalescing (per-request dispatch "
+           "instead of the scheduler's (dag_fingerprint, true shape) group "
+           "lanes; batched functions are byte-equal to solo ones)."),
 )
 
 REGISTRY: dict[str, EnvVar] = {v.name: v for v in _VARS}

@@ -11,13 +11,16 @@ gather crossing a process boundary. The rendezvous comes from the torchrun
 environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE).
 
     python tests/_torch_mp_worker.py SLOTS_PER_RANK [cpu|cuda] [HEIGHTxWIDTH]
-    python tests/_torch_mp_worker.py 2d|dp [cpu|cuda]
+    python tests/_torch_mp_worker.py 2d|dp|systolic [cpu|cuda]
 
 The second form holds two slots per rank and runs the 2-D tile-sharded
 runner over a 2 x (ranks) mesh (parallel/api2d: both exchange phases, the
 histograms' all_reduce and the root's geometric ops crossing ranks), or
 ``Pipeline.data_parallel`` over a 5-image stack (uneven over the slots;
-the gather crossing ranks).
+the gather crossing ranks), or the systolic runner (parallel/systolic.py)
+over a stage mesh of one and of two slots per rank (bands sent between
+ranks, the result sent to slot 0's rank, which prints its SHA-256 for the
+caller to hold against the JAX package's bytes).
 
 On a host with one card per rank, the NCCL form is
 
@@ -50,6 +53,11 @@ from mpi_cuda_imagemanipulation_tpu_torch.parallel.mesh import (  # noqa: E402
     make_mesh_2d,
     rank_device,
 )
+
+# the systolic form's chain and image (tests/test_torch_systolic.py holds
+# the printed SHA-256 against the JAX package's plan_callable bytes)
+SYSTOLIC_SPEC = "invert,gaussian:3,sharpen,box:3,quantize:6,median"
+SYSTOLIC_SHAPE = (97, 64)
 
 LANES = [("torch", "off", "serial"), ("torch", "fused", "serial"), ("cuda", "off", "serial"),
          ("cuda", "fused-pallas", "serial"), ("cuda", "off", "overlap"),
@@ -84,6 +92,40 @@ def main_form(form: str) -> int:
                 if rank == 0 and not torch.equal(out, golden):
                     print(f"TORCH_MULTIPROC_MISMATCH 2d {spec} {plan}/{halo_mode}", flush=True)
                     bad += 1
+    elif form == "systolic":
+        import hashlib
+
+        from mpi_cuda_imagemanipulation_tpu_torch.ops.registry import make_pipeline_ops
+        from mpi_cuda_imagemanipulation_tpu_torch.parallel.systolic import (
+            make_stage_mesh,
+            systolic_callable,
+        )
+        from mpi_cuda_imagemanipulation_tpu_torch.plan import build_plan
+
+        h, w = SYSTOLIC_SHAPE
+        img = synthetic_image(h, w, channels=3, seed=13)
+        plan = build_plan(make_pipeline_ops(SYSTOLIC_SPEC), "off")
+        golden = Pipeline.parse(SYSTOLIC_SPEC)(torch.from_numpy(img).to(dev))
+        for per_rank, tile_rows in ((1, 32), (2, 24)):
+            mesh = make_stage_mesh(world * per_rank, devices=[dev] * per_rank)
+            assert mesh.distributed
+            build = systolic_callable(plan, height=h, width=w, tile_rows=tile_rows, mesh=mesh)
+            out = build.fn(img)
+            # every band crossed every boundary once, whichever rank sent it
+            counts = torch.tensor([build.last.tiles_forwarded, build.last.exchange_bytes])
+            dist.all_reduce(counts)
+            if counts.tolist() != [build.tiles_forwarded, build.exchange_bytes]:
+                print(f"TORCH_MULTIPROC_MISMATCH systolic counts {counts.tolist()}", flush=True)
+                bad += 1
+            if rank != 0:
+                bad += out is not None
+                continue
+            if not torch.equal(out, golden):
+                print(f"TORCH_MULTIPROC_MISMATCH systolic {per_rank}/{tile_rows}", flush=True)
+                bad += 1
+            sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+            print(f"TORCH_MULTIPROC_SHA systolic {world * per_rank} {tile_rows} {sha}",
+                  flush=True)
     else:
         mesh = make_mesh(devices=[dev] * 2)
         n, per = 5, -(-5 // (2 * world))
@@ -110,7 +152,7 @@ def main_form(form: str) -> int:
 
 
 def main() -> int:
-    if sys.argv[1] in ("2d", "dp"):
+    if sys.argv[1] in ("2d", "dp", "systolic"):
         return main_form(sys.argv[1])
     slots = int(sys.argv[1])
     kind = sys.argv[2] if len(sys.argv) > 2 else "cpu"

@@ -1,8 +1,9 @@
 """The port's HTTP front door and CLI ``serve`` on the CPU: a round trip
 through the context-manager ``Server`` on port 0 (POST /v1/process held to
 the JAX package's golden, 400, 504, the JAX package's unknown-route 404 for
-the routes that come with the pipeline service and the fabric, /healthz,
-/stats, /metrics), the HTTP open-loop generator, and ``serve --device cpu``
+the routes that come with the fabric, the pipeline service's routes
+answering before any registration, /healthz, /stats, /metrics), the HTTP
+open-loop generator, and ``serve --device cpu``
 in a subprocess stopped by SIGTERM: a clean drain and exit 0, with the
 stats record written. The refusals (--impl cuda/swar, --replicas > 1, the
 default CUDA device without one) exit 2 with their reason.
@@ -76,14 +77,23 @@ def test_http_roundtrip_health_stats_metrics_and_refusals():
         assert code == 400 and "undecodable" in json.loads(body)["error"]
         code, _, body = _post(base, encode_image_bytes(img), headers={"X-MCIM-Deadline-Ms": "0"})
         assert code == 504
-        for path in ("/fleet/snapshot", "/v1/pipelines"):
-            code, body = _get(base, path)
-            assert code == 404 and json.loads(body)["code"] == "unknown-route"
-        for path, headers in (("/v1/tenants", None), ("/v1/systolic", None),
-                              ("/control/profile", None), ("/v1/process?pipeline=p1", None),
+        code, body = _get(base, "/fleet/snapshot")
+        assert code == 404 and json.loads(body)["code"] == "unknown-route"
+        code, _, body = _post(base, b"{}", path="/v1/sessions/s1/frame")
+        assert code == 404 and json.loads(body)["code"] == "unknown-route"
+        # the pipeline service's routes, before any registration: an empty
+        # registry, the taxonomy's refusals, a systolic hop refused by a
+        # replica that is not systolic
+        code, body = _get(base, "/v1/pipelines")
+        assert code == 200 and json.loads(body) == {"tenants": {}}
+        code, _, body = _post(base, b"{}", path="/v1/tenants")
+        assert code == 422 and json.loads(body)["code"] == "bad-tenant-id"
+        code, _, body = _post(base, b"{}", path="/v1/systolic")
+        assert code == 409 and json.loads(body)["status"] == "systolic-broken"
+        for path, headers in (("/v1/process?pipeline=p1", None),
                               ("/v1/process", {"X-MCIM-Pipeline": "p1"})):
-            code, _, body = _post(base, b"{}", path=path, headers=headers)
-            assert code == 404 and json.loads(body)["code"] == "unknown-route", path
+            code, _, body = _post(base, encode_image_bytes(img), path=path, headers=headers)
+            assert code == 404 and json.loads(body)["code"] == "unknown-tenant", path
         code, body = _get(base, "/stats")
         stats = json.loads(body)
         assert stats["completed"] == 1 and stats["rejected"] == 1
