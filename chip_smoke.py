@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-twenty phases; any failure raises and the script exits non-zero without
+twenty-one phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -305,6 +305,35 @@ printing a result:
    ``run --profile-dir`` on the 8K frame, whose trace holds the card's
    kernels.
 
+21. The serving fabric (fabric/), whose replicas serve the padded
+    executor's golden ops (JAX's serve XLA) and whose mesh lane runs the
+    ghost-mode kernels: (a) ``MeshLane`` on the 8K RGB reference frame over
+    4 slots of the card under backends cuda (K2g serial; K1 and three K3 a
+    shard under overlap, counted) and torch, each equal to
+    ``Pipeline.jit(backend='cuda')``, host and device ms; (b) ``Fabric``
+    with 3 replica processes on the card (buckets 512-4096, channels 1,3)
+    and the mesh lane (cuda, serial): each replica's seconds from spawn to
+    its first heartbeat and its device memory; 16 mixed-shape requests over
+    the whole bucket grid and the 8K frame (as PPM, answered by "mesh")
+    through the router, every response equal to ``Pipeline.jit(backend=
+    'cuda')``, the launches of that run; a live video session
+    (``tdenoise:3,grayscale,contrast:3.5``) whose replica a churn run
+    SIGKILLs: ok fractions before, during and after, the respawn's seconds,
+    the ``replica_death`` dump, the session's second half failed over and
+    every frame equal to the rings + cuda golden; the federated /metrics
+    against the sum of the replicas' ``/fleet/snapshot`` with their
+    ``mcim_devmem_*`` gauges, ``/slo``, and one ``POST /control/profile``
+    through the router under load; (c) then, with (b)'s pod idle, the
+    throughput lane: ``fabric --replicas 1`` and ``serve --replicas 3``,
+    each a process group of its own started beside (b)'s pod, on the JAX
+    fabric_loadgen lane's settings (five bucket keys up to 512, shed
+    fraction 0.25), loaded from three client processes (``chip_smoke.py
+    --fabric-client``) at 96 and 128 rps for 4 s: ok, shed, p50/p99,
+    achieved rps, requests by replica, CPU cores by process, each replica
+    engine's idle share and the card's, each replica's dispatches and
+    p50s; SIGTERM drains each pod to exit 0; (d) the ``kernels`` rows of
+    the mesh lane's K2g, K1 and K3 at its shard shapes.
+
 The native codec is built from the checkout like the kernels, and a kernel
 or the codec that fails to build or launch fails its phase: nothing falls
 back. It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -435,6 +464,20 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip().splitlines()[0]
+
+
+def gpu_utilization() -> float | None:
+    """The card's utilization.gpu percentage as nvidia-smi reads it (the
+    share of the last sample period in which a kernel ran, from any
+    process), or None where nvidia-smi cannot answer."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=10, check=True,
+        ).stdout
+        return float(out.splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
 
 
 def split_group(spec):
@@ -5707,6 +5750,818 @@ def phase20_graph_service(device, x8k) -> None:
     print(f"phase 20: graph, systolic and profiling, {time.perf_counter() - t0:.1f} s in all")
 
 
+# --------------------------------------------------------------------------
+# phase 21: the serving fabric
+# --------------------------------------------------------------------------
+
+FABRIC_BUCKETS = "512,1024,2048,4096"  # serve's default grid
+FABRIC_CHANNELS = "1,3"
+FABRIC_REPLICAS = 3
+# the mixed-shape byte check: 12 images over the whole grid, 16 requests
+FABRIC_CHECK_IMAGES = 12
+FABRIC_CHECK_RPS = 8.0
+FABRIC_CHECK_S = 2.0
+# the in-process pod's churn and profile load: images up to 512 x 512
+FABRIC_LOAD_BUCKETS = ((256, 256), (512, 512))
+FABRIC_LOAD_IMAGES = 32
+FABRIC_CHURN_RPS = 64.0
+FABRIC_CHURN_S = 1.0
+FABRIC_SESSION_OPS = "tdenoise:3,grayscale,contrast:3.5"
+FABRIC_SESSION_SHAPE = (480, 640)
+FABRIC_SESSION_FRAMES = 8
+FABRIC_WAIT_S = 180.0  # JAX's wait_ready timeout
+FABRIC_PROFILE_S = 1.0
+# the throughput lane, on pods of their own (`fabric --replicas 1` and
+# `serve --replicas 3`, each a process group apart from this one) under
+# client processes of their own: the JAX package's fabric_loadgen lane
+# (bench_suite.fabric_loadgen_params, _FabricProc): its ops, five bucket
+# keys to spread sticky affinity, MCIM_FABRIC_SHED_FRAC 0.25, max batch 8,
+# 4 ms, queue 256, 24 images, 4 s windows, heartbeat 0.25 s, stale 1 s.
+# Its grid (512-2048) is scaled to 128-512 so that the offered bodies stay
+# near 0.1 GB/s and the clients' uploads do not set the ceiling.
+FABRIC_LANE_OPS = "grayscale,gaussian:5,contrast:3.5"
+FABRIC_LANE_BUCKETS = "128,192,256,384,512"
+FABRIC_LANE_IMAGES = 24
+# offered rates near one replica's ceiling: far past it (8x) one replica
+# collapsed (429s, queues of seconds) and the windows drained for tens of s
+FABRIC_LANE_RATES = (96.0, 128.0)
+FABRIC_LANE_S = 4.0
+FABRIC_LANE_GATE_RPS = 48.0  # the 24 images once, every response checked, before timing
+FABRIC_LANE_CLIENTS = 3  # load-generator processes, each offering a third
+FABRIC_LANE_WORKERS = 128  # request threads a client
+FABRIC_LANE_SERVE = ("--ops", FABRIC_LANE_OPS, "--buckets", FABRIC_LANE_BUCKETS, "--channels", "3",
+                     "--max-batch", "8", "--max-delay-ms", "4", "--queue-depth", "256")
+FABRIC_LANE_ENV = {"MCIM_FABRIC_SHED_FRAC": "0.25", "MCIM_FABRIC_HEARTBEAT_S": "0.25",
+                   "MCIM_FABRIC_STALE_S": "1.0"}
+
+
+def phase21_fabric(device, x8k, rows) -> None:
+    """The serving fabric on the card (module docstring, phase 21)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    gpu = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="mcim_fabric_")
+    try:
+        # no calibration record steers plan='auto' (the mesh lane's
+        # sharded function resolves it to 'off': K2g, or K1 + K3 under
+        # overlap); the replicas inherit the environment at spawn
+        with knobs(MCIM_NO_CALIB="1", MCIM_PROFILE_DIR=os.path.join(tmp, "profile"),
+                   MCIM_PROFILE_MIN_INTERVAL_S="60"):
+            t = time.perf_counter()
+            counts = phase21_mesh_lane(device, x8k, gpu)
+            print(f"phase 21: (a) mesh lane {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            lane = phase21_lane_start(device, tmp)
+            try:
+                counts["fabric"] = phase21_pod(
+                    device, x8k, gpu, after_ready=lambda: phase21_lane_run(lane, gpu))
+            finally:
+                phase21_lane_stop(lane)
+            print(f"phase 21: (b, c) the pods {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase21_rows(device, x8k, counts, rows)
+        print(f"phase 21: (d) the mesh lane's kernel rows {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 21: the serving fabric, {time.perf_counter() - t0:.1f} s in all")
+
+
+def phase21_mesh_lane(device, x8k, gpu: str) -> dict:
+    """(a) `fabric.mesh.MeshLane` on the 8K RGB frame over N_SHARDS slots of
+    the card, the reference pipeline under backend 'cuda' and 'torch' in
+    both halo modes: each output byte-equal to ``Pipeline.jit(backend=
+    'cuda')``, the cuda lanes' launches as `expected_sharded` implies for
+    plan 'off' (no record: 'auto' resolves to it), none under torch; the
+    host ms of one `process` call (numpy in and out: H2D and D2H included)
+    and the device ms of the sharded function on the resident frame.
+    Returns the cuda lanes' launches by halo mode."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.fabric.mesh import MeshLane
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.parallel import halo
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    spec = SPECS["reference"]
+    img = x8k.cpu().numpy()
+    want = Pipeline.parse(spec).jit("cuda", device=device)(x8k)
+    counts_by_mode = {}
+    for backend in ("torch", "cuda"):
+        for mode in HALO_MODES:
+            lane = MeshLane(spec, N_SHARDS, halo_mode=mode, backend=backend, device=device)
+            lane.process(img)  # first call: allocations, not timed
+            ck.reset_launch_counts()
+            halo.exchanges.reset()
+            t = time.perf_counter()
+            out = lane.process(img)
+            host_ms = (time.perf_counter() - t) * 1e3
+            counts = ck.launch_counts()
+            rounds = halo.exchanges.rounds
+            tag = f"phase 21: mesh lane backend={backend} halo_mode={mode}"
+            check_equal(tag, torch.from_numpy(out).to(device), want)
+            used = {k: v for k, v in counts.items() if v}
+            expect = ({k: v for k, v in expected_sharded(lane.pipe.ops, "off", mode)[0].items()
+                       if v} if backend == "cuda" else {})
+            if used != expect:
+                raise AssertionError(f"{tag}: launches {used}, expected {expect}")
+            dev_ms = device_time_ms(lambda: lane._fn(x8k), reps=5, inner=2)
+            if backend == "cuda":
+                counts_by_mode[mode] = counts
+            print(f"{tag}: {MAIN_H}x{MAIN_W} RGB over {N_SHARDS} slots of {lane.device} == "
+                  f"Pipeline.jit('cuda'), launches {used}, {rounds} exchange round(s); "
+                  f"process() {host_ms:.3f} ms host clock (numpy in/out, H2D + D2H), sharded "
+                  f"function {dev_ms:.4f} ms device ({gpu})")
+    return counts_by_mode
+
+
+def _get_json(url: str, timeout_s: float = 30.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout_s) as r:
+        return json.loads(r.read())
+
+
+def _replica_stats(fab) -> dict:
+    """Each routable replica's own /stats, by replica id."""
+    return {v.replica_id: _get_json(f"http://127.0.0.1:{v.hb.port}/stats")
+            for v in fab.router._routable()}
+
+
+def _check_responses(tag: str, rec: dict, golden: list) -> int:
+    """Every ok response of an HTTP lane record equal to its golden;
+    returns how many were checked."""
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import decode_image_bytes
+
+    checked = 0
+    for k, r in rec["results"]:
+        if r["code"] != 200:
+            continue
+        if not np.array_equal(decode_image_bytes(r["body"]), golden[k]):
+            raise AssertionError(f"{tag}: response {k} from {r['replica']} != golden")
+        checked += 1
+    return checked
+
+
+def phase21_pod(device, x8k, gpu: str, after_ready=None) -> dict:
+    """(b) `Fabric` with FABRIC_REPLICAS replica processes on the card and
+    the mesh lane (backend 'cuda', serial, N_SHARDS slots) in the router:
+    each replica's seconds from spawn to its first heartbeat and its
+    device memory; a mixed-shape load over the whole bucket grid and the
+    8K frame through the router, every response byte-equal to
+    ``Pipeline.jit(backend='cuda')`` (the 8K one answered by "mesh"), the
+    launches of that run; a live session, and the churn run whose kill
+    takes the session's replica
+    (ok fraction before, during and after, the respawn's seconds, the
+    replica_death dump), the session's second half replayed onto a
+    survivor, all frames equal to the offline rings + cuda golden; the
+    federated /metrics against the sum of the replicas' /fleet/snapshot,
+    /slo; one POST /control/profile through the router under load.
+    `after_ready` runs last, with this pod idle (the throughput lane on the
+    CLI pods, whose start-up overlaps all of the above). Returns the
+    launches of the mixed-shape and 8K run."""
+    import collections
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.fabric.router import RouterConfig
+    from mpi_cuda_imagemanipulation_tpu_torch.fabric.supervisor import Fabric, FabricConfig
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+        decode_image_bytes,
+        encode_image_bytes,
+        synthetic_image,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import parse_exposition
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.ops.temporal import split_temporal
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import parse_buckets
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.padded import min_true_dim
+    from mpi_cuda_imagemanipulation_tpu_torch.stream.video import (
+        FrameRings,
+        stream_video_session,
+    )
+
+    spec = SPECS["reference"]
+    pipe = Pipeline.parse(spec)
+    golden_fn = pipe.jit("cuda", device=device)
+
+    def golden(img):
+        return golden_fn(torch.from_numpy(img).to(device)).cpu().numpy()
+
+    check_imgs = loadgen.mixed_shapes(parse_buckets(FABRIC_BUCKETS), FABRIC_CHECK_IMAGES,
+                                      channels=3, seed=21, min_dim=min_true_dim(pipe))
+    check_blobs = [encode_image_bytes(im) for im in check_imgs]
+    check_gold = [golden(im) for im in check_imgs]
+    # the 8K request as PPM (PIL reads it in the router; a PNG encode of
+    # the frame costs seconds); the answer comes back as PNG
+    blob8k = encode_image_bytes(x8k.cpu().numpy(), format="PPM")
+    want8k = golden_fn(x8k).cpu().numpy()
+    load_imgs = loadgen.mixed_shapes(FABRIC_LOAD_BUCKETS, FABRIC_LOAD_IMAGES, channels=3,
+                                     seed=7, min_dim=min_true_dim(pipe))
+    load_blobs = [encode_image_bytes(im) for im in load_imgs]
+    load_gold = [golden(im) for im in load_imgs]
+    frames = [synthetic_image(*FABRIC_SESSION_SHAPE, channels=3, seed=300 + i)
+              for i in range(FABRIC_SESSION_FRAMES)]
+    temporal, rest = split_temporal(FABRIC_SESSION_OPS)
+    rings = FrameRings(temporal)
+    session_fn = Pipeline.parse(rest).jit("cuda", device=device)
+    session_gold = [session_fn(torch.from_numpy(rings.push(f)).to(device)).cpu().numpy()
+                    for f in frames]
+
+    cfg = FabricConfig(
+        replicas=FABRIC_REPLICAS, ops=spec, buckets=FABRIC_BUCKETS, channels=FABRIC_CHANNELS,
+        device=str(device), mesh_shards=N_SHARDS, heartbeat_s=0.25,
+        router=RouterConfig(buckets=parse_buckets(FABRIC_BUCKETS), stale_s=1.0,
+                            forward_attempts=3, breaker_threshold=2, breaker_reset_s=0.5),
+        supervisor_backoff_s=0.25,
+    )
+    fab = Fabric(cfg)
+    # the router-side arrival of each incarnation's first heartbeat
+    first_beat: dict = {}
+    watching = threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            for v in fab.router.table.views():
+                first_beat.setdefault((v.replica_id, v.hb.incarnation), time.monotonic())
+            watching.wait(0.02)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    t_start = time.monotonic()
+    try:
+        fab.start(ready_timeout_s=FABRIC_WAIT_S)
+        ready_s = time.monotonic() - t_start
+        for v in fab.router.table.views():  # a beat the watcher has not polled yet
+            first_beat.setdefault((v.replica_id, v.hb.incarnation), time.monotonic())
+        spawned = {rid: m.spawned_at for rid, m in fab.supervisor._managed.items()}
+        startup = {rid: round(min(t for (r, _i), t in first_beat.items() if r == rid)
+                              - spawned[rid], 3) for rid in spawned}
+        print(f"phase 21: pod of {FABRIC_REPLICAS} replicas (buckets {FABRIC_BUCKETS}, channels "
+              f"{FABRIC_CHANNELS}, impl torch) + mesh lane ({N_SHARDS} slots, cuda) serving in "
+              f"{ready_s:.3f} s; seconds from spawn to first heartbeat by replica {startup} "
+              f"({gpu})")
+        stats = _replica_stats(fab)
+        mem = {rid: {dev: (d["bytes_in_use"], d["peak_bytes_in_use"])
+                     for dev, d in s["devmem"].items()} for rid, s in stats.items()}
+        print(f"phase 21: device memory by replica after warmup (bytes in use, peak) {mem}; "
+              f"functions warmed {[s['cache']['compiled'] for s in stats.values()]} ({gpu})")
+        # -- bytes: the mixed-shape load and the 8K frame, launches counted
+        ck.reset_launch_counts()
+        rec = loadgen.http_run_offered_load(fab.url, check_blobs, FABRIC_CHECK_RPS,
+                                            FABRIC_CHECK_S, timeout_s=120.0)
+        t = time.perf_counter()
+        r8k = loadgen.http_post_image(fab.url, blob8k, timeout_s=120.0)
+        t8k = time.perf_counter() - t
+        counts = ck.launch_counts()
+        checked = _check_responses("phase 21 mixed-shape check", rec, check_gold)
+        if checked != rec["submitted"]:
+            raise AssertionError(f"phase 21 mixed-shape check: {checked} ok of "
+                                 f"{rec['submitted']}: {rec}")
+        if r8k["code"] != 200 or r8k["replica"] != "mesh":
+            raise AssertionError(f"phase 21 8K via the router: {r8k['code']} from "
+                                 f"{r8k['replica']!r}: {r8k['body'][:200]}")
+        if not np.array_equal(decode_image_bytes(r8k["body"]), want8k):
+            raise AssertionError("phase 21 8K via the mesh lane != Pipeline.jit('cuda')")
+        used = {k: v for k, v in counts.items() if v}
+        expect = {k: v for k, v in expected_sharded(pipe.ops, "off", "serial")[0].items() if v}
+        if used != expect:
+            raise AssertionError(f"phase 21 pod run: launches {used}, expected {expect}")
+        print(f"phase 21: {checked} mixed-shape responses (every bucket) == Pipeline.jit('cuda') "
+              f"from {sorted({r['replica'] for _k, r in rec['results']})}; the 8K frame via "
+              f"{r8k['replica']} == golden in {t8k:.3f} s host clock (PPM in, PNG out); launches "
+              f"{used} ({gpu})")
+
+        # -- fleet: the federated /metrics against the replicas' snapshots
+        # (before any replica dies: a dead incarnation's counters stay
+        # banked in the router's view and are in no live snapshot)
+        def replica_ok() -> float:
+            total = 0.0
+            for v in fab.router._routable():
+                snap = _get_json(f"http://127.0.0.1:{v.hb.port}/fleet/snapshot")
+                for key, val in snap["metrics"]["mcim_serve_requests_total"]["series"]:
+                    if key == ["ok"]:
+                        total += val
+            return total
+
+        deadline = time.monotonic() + 20.0
+        while True:
+            want_ok = replica_ok()
+            fams = parse_exposition(fab.scrape())
+            got_ok = sum(v for (_n, labels), v in
+                         fams["mcim_serve_requests_total"]["samples"].items()
+                         if 'status="ok"' in labels)
+            if got_ok == want_ok:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 21 federation: /metrics ok {got_ok} != replicas' "
+                                     f"snapshots {want_ok}")
+            time.sleep(0.2)
+        devmem = {labels: v for (_n, labels), v in
+                  fams["mcim_devmem_bytes_in_use"]["samples"].items()}
+        peak = {labels: v for (_n, labels), v in
+                fams["mcim_devmem_peak_bytes_in_use"]["samples"].items()}
+        print(f"phase 21: federated /metrics ok {got_ok:.0f} == sum of the replicas' "
+              f"/fleet/snapshot; mcim_devmem_bytes_in_use {devmem}; peak {peak} ({gpu})")
+
+        # -- a live session, then the churn run whose kill takes its replica
+        half = FABRIC_SESSION_FRAMES // 2
+        first = stream_video_session(frames[:half], fab.url, FABRIC_SESSION_OPS,
+                                     session_id="live-21")
+        victim = fab.router.sessions.get("live-21").replica_id
+        victim_inc = fab.router.table.get(victim).hb.incarnation
+        killed: list = []
+        second: dict = {}
+
+        def kill():
+            killed.append(time.monotonic())
+            fab.kill_replica(victim)
+
+        def session_rest_then_ready():
+            # the victim is down: the session's next frame fails over
+            second.update(stream_video_session(frames[half:], fab.url, FABRIC_SESSION_OPS,
+                                               session_id="live-21", start_seq=half))
+            # the victim's new incarnation serving (wait_ready alone may
+            # still count the dead one's last heartbeat, fresh for stale_s)
+            fab._wait_incarnation_change(victim, victim_inc, timeout_s=FABRIC_WAIT_S)
+            fab.wait_ready(FABRIC_REPLICAS, timeout_s=FABRIC_WAIT_S)
+
+        restarts0 = fab.supervisor.restarts(victim)
+        phases = loadgen.churn_run(fab.url, load_blobs, offered_rps=FABRIC_CHURN_RPS,
+                                   phase_s=FABRIC_CHURN_S, kill=kill,
+                                   before_after=session_rest_then_ready, timeout_s=60.0)
+        if not killed:
+            raise AssertionError("phase 21 churn: the kill never fired")
+        for name, ph in phases.items():
+            n_ok = _check_responses(f"phase 21 churn {name}", ph, load_gold)
+            print(f"phase 21: churn {name}: submitted {ph['submitted']}, ok {n_ok} (all == "
+                  f"golden), ok_frac {ph['ok_frac']:.4f}, retried {ph['retried']}, shed "
+                  f"{ph['shed']}, unavailable {ph['unavailable']}, e2e p99 "
+                  f"{ph.get('e2e_p99_ms', float('nan')):.3f} ms ({gpu})")
+            if ph["ok_frac"] != 1.0:
+                raise AssertionError(f"phase 21 churn {name}: {ph['submitted'] - ph['ok']} of "
+                                     f"{ph['submitted']} not ok")
+        if fab.supervisor.restarts(victim) <= restarts0:
+            raise AssertionError(f"phase 21 churn: {victim} was not restarted")
+        back = [t for (r, _i), t in first_beat.items() if r == victim and t > killed[0]]
+        if not back:
+            raise AssertionError(f"phase 21 churn: no new incarnation of {victim} heartbeated")
+        rec_dir = os.environ["MCIM_RECORDER_DIR"]
+        dumps = []
+        for p in sorted(os.listdir(rec_dir)):
+            if p.startswith("recorder_replica_death"):
+                with open(os.path.join(rec_dir, p)) as f:
+                    dump = json.load(f)
+                if dump["extra"].get("replica") == victim:
+                    dumps.append((p, dump))
+        if not dumps or not dumps[-1][1]["extra"].get("warm_buckets"):
+            raise AssertionError(f"phase 21 churn: no replica_death dump naming {victim}'s warm "
+                                 f"buckets in {rec_dir}")
+        print(f"phase 21: churn killed {victim} (SIGKILL) mid-phase, restarted and heartbeating "
+              f"{min(back) - killed[0]:.3f} s after the kill; dump {dumps[-1][0]} names its warm "
+              f"buckets {dumps[-1][1]['extra']['warm_buckets']} ({gpu})")
+        outs = first["outputs"] + second["outputs"]
+        for k, (got, want) in enumerate(zip(outs, session_gold)):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"phase 21 session frame {k} != offline rings + golden")
+        sess = fab.router.sessions.stats()["by_id"]["live-21"]
+        if sess["replica"] == victim or sess["failovers"] < 1:
+            raise AssertionError(f"phase 21 session: never failed over: {sess}")
+        print(f"phase 21: session live-21 ({FABRIC_SESSION_OPS}, {len(outs)} frames "
+              f"{FABRIC_SESSION_SHAPE[0]}x{FABRIC_SESSION_SHAPE[1]}) == offline rings + "
+              f"Pipeline.jit('cuda') across the kill: replicas {first['replicas']} then "
+              f"{second['replicas']}, failovers {sess['failovers']}, retried "
+              f"{first['retried'] + second['retried']} ({gpu})")
+
+        slo_view = _get_json(fab.url + "/slo")
+        print(f"phase 21: /slo " + json.dumps({
+            name: {k: s.get(k) for k in ("alert", "burn_fast", "burn_slow", "good", "total")}
+            for name, s in slo_view["slos"].items()}) + f", p99 {slo_view.get('p99')} ({gpu})")
+        # -- one profile capture through the router, under load, on the
+        # replica that served most of the churn run's last phase (the
+        # load's sticky target: the router's default, the least loaded
+        # replica, may see none of it)
+        hot = collections.Counter(r["replica"] for _k, r in phases["after"]["results"]
+                                  if r["code"] == 200).most_common(1)[0][0]
+        req = urllib.request.Request(fab.url + "/control/profile",
+                                     data=json.dumps({"seconds": FABRIC_PROFILE_S,
+                                                      "replica": hot}).encode(),
+                                     method="POST")
+        loader = threading.Thread(target=loadgen.http_run_offered_load,
+                                  args=(fab.url, load_blobs, FABRIC_CHURN_RPS, 2.0))
+        loader.start()
+        try:
+            with urllib.request.urlopen(req, timeout=60.0) as r:
+                prof = json.loads(r.read())
+        finally:
+            loader.join(120.0)
+        summ = prof["summary"]
+        if prof["device_events"] <= 0 or summ["device_compute_us"] <= 0:
+            raise AssertionError(f"phase 21 profile via the router: no device kernels: {prof}")
+        print(f"phase 21: POST /control/profile via the router -> {prof.get('replica')}: "
+              f"{prof['device_events']} device events, compute {summ['device_compute_us']:.1f} "
+              f"us, DMA {summ.get('device_dma_us', 0.0):.1f} us ({gpu})")
+        if after_ready is not None:
+            after_ready()
+    finally:
+        watching.set()
+        fab.close(drain=True)
+    return counts
+
+
+def _cli_pod(command: str, replicas: int, device) -> dict:
+    """``python -m mpi_cuda_imagemanipulation_tpu_torch <command> --replicas
+    N`` on a free port with the throughput lane's settings, in its own
+    process group (so that on a failure here the replicas it spawned go
+    down with it); a reader thread watches its log for the pod's "fabric
+    serving" line."""
+    import re
+    import socket
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, **FABRIC_LANE_ENV}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pod = {"command": command, "replicas": replicas, "url": f"http://127.0.0.1:{port}",
+           "lines": [], "up": threading.Event(), "t0": time.perf_counter()}
+    pod["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "mpi_cuda_imagemanipulation_tpu_torch", command, "--replicas",
+         str(replicas), "--host", "127.0.0.1", "--port", str(port), "--device", str(device),
+         *FABRIC_LANE_SERVE],
+        cwd=root, env=env, stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+
+    def read():
+        for line in pod["proc"].stderr:
+            pod["lines"].append(line)
+            if re.search(r"fabric serving \[.*\] on ", line):
+                pod["t_up"] = time.perf_counter() - pod["t0"]
+                pod["up"].set()
+
+    pod["reader"] = threading.Thread(target=read, daemon=True)
+    pod["reader"].start()
+    return pod
+
+
+def phase21_lane_start(device, tmp: str) -> dict:
+    """(c) The throughput lane's pods, `fabric --replicas 1` and `serve
+    --replicas 3` (the CLI hands it to `cmd_fabric`), and
+    FABRIC_LANE_CLIENTS load-generator processes (``chip_smoke.py
+    --fabric-client``) holding the lane's PNG blobs and their goldens
+    (``Pipeline.jit(backend='cuda')``), all started beside (b)'s pod so
+    that the start-ups overlap."""
+    import pickle
+
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import encode_image_bytes
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import parse_buckets
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.padded import min_true_dim
+
+    lane = {"pods": {}, "clients": []}
+    for command, n in (("fabric", 1), ("serve", FABRIC_REPLICAS)):
+        lane["pods"][n] = _cli_pod(command, n, device)
+    pipe = Pipeline.parse(FABRIC_LANE_OPS)
+    imgs = loadgen.mixed_shapes(parse_buckets(FABRIC_LANE_BUCKETS), FABRIC_LANE_IMAGES,
+                                channels=3, seed=7, min_dim=min_true_dim(pipe))
+    fn = pipe.jit("cuda", device=device)
+    golden = [fn(torch.from_numpy(im).to(device)).cpu().numpy() for im in imgs]
+    blobs = [encode_image_bytes(im) for im in imgs]
+    lane["mbytes"] = sum(len(b) for b in blobs) / len(blobs) / 1e6
+    data = os.path.join(tmp, "lane.pkl")
+    with open(data, "wb") as f:
+        pickle.dump((blobs, golden), f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    for _ in range(FABRIC_LANE_CLIENTS):
+        lane["clients"].append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fabric-client", data], cwd=root,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, start_new_session=True))
+    return lane
+
+
+def _client_line(p) -> dict:
+    line = p.stdout.readline()
+    if not line:
+        raise RuntimeError(f"phase 21 lane: client {p.pid} exited with {p.wait(10)}")
+    msg = json.loads(line)
+    if "error" in msg:
+        raise AssertionError(f"phase 21 lane: client {p.pid}: {msg['error']}")
+    return msg
+
+
+def _fresh_replicas(pod: dict) -> dict:
+    return {rid: r for rid, r in _get_json(pod["url"] + "/stats")["replicas"].items()
+            if r["fresh"] and r["state"] in ("serving", "degraded")}
+
+
+def _proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of a process, from /proc/<pid>/stat."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _engine_idle_s(stats: dict) -> float:
+    """A replica engine's idle seconds so far, the wait in progress
+    included, from its /stats."""
+    return stats["engine"]["idle_s"] + stats["engine"]["idle_open_s"]
+
+
+def _lane_window(clients: list, pod: dict, rps: float, duration_s: float, tag: str,
+                 gpu: str | None = None) -> dict:
+    """One open-loop window of the lane at `rps` against `pod`, split
+    evenly over `clients` that start together, each on its own rotation
+    of the images: every ok response byte-equal to its golden (checked in
+    the client). With `gpu`, printed with its readings over the bracket
+    from before the clients start to after the last response (their 0.2 s
+    lead and the drain included): the card's idle share (1 - mean
+    nvidia-smi utilization.gpu), each replica engine's idle share (raw:
+    outside [0, 1] the accounting is wrong, and it raises), and the CPU
+    cores used by the pod's router process, each replica process and the
+    clients."""
+    import collections
+    import threading
+
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+
+    reps = _fresh_replicas(pod)
+    pids = {"router": pod["proc"].pid, **{rid: r["pid"] for rid, r in reps.items()}}
+    util: list = []
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.25):
+            util.append(gpu_utilization())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    if gpu is not None:
+        sampler.start()
+    t0 = time.monotonic()
+    cpu0 = {k: _proc_cpu_s(pid) for k, pid in pids.items()}
+    st0 = {rid: _get_json(f"http://{r['addr']}:{r['port']}/stats") for rid, r in reps.items()}
+    start_at = time.monotonic() + 0.2
+    for j, p in enumerate(clients):
+        p.stdin.write(json.dumps({
+            "url": pod["url"], "rps": rps / len(clients), "duration_s": duration_s,
+            "start_at": start_at, "offset": j * FABRIC_LANE_IMAGES // len(clients),
+            "max_workers": FABRIC_LANE_WORKERS}) + "\n")
+        p.stdin.flush()
+    ends = [_client_line(p) for p in clients]
+    st1 = {rid: _get_json(f"http://{r['addr']}:{r['port']}/stats") for rid, r in reps.items()}
+    cpu1 = {k: _proc_cpu_s(pid) for k, pid in pids.items()}
+    window = time.monotonic() - t0
+    done.set()
+    outs = [_client_line(p) for p in clients]
+    results = [(k, {"code": code, "replica": rep, "attempts": att, "retry_after": ra, "e2e_s": e})
+               for o in outs for k, code, rep, att, ra, e in o["results"]]
+    rec = loadgen.summarize_http_results(results, max(e["wall_s"] for e in ends), rps)
+    checked = sum(o["checked"] for o in outs)
+    if rec["unavailable"] or not rec["ok"] or checked != rec["ok"]:
+        raise AssertionError(f"phase 21 lane {tag}: {rec['unavailable']} unavailable, "
+                             f"{rec['ok']} ok, {checked} checked")
+    if gpu is None:
+        return rec
+    sampler.join()
+    idle, inside = {}, {}
+    for rid in reps:
+        share = (_engine_idle_s(st1[rid]) - _engine_idle_s(st0[rid])) / window
+        if not -1e-6 <= share <= 1.0 + 1e-6:
+            raise AssertionError(f"phase 21 lane {tag}: replica {rid}'s engine idle share "
+                                 f"{share} lies outside [0, 1]")
+        idle[rid] = round(share, 4)
+        a, b = st0[rid], st1[rid]
+        inside[rid] = {
+            "dispatches": b["dispatches"] - a["dispatches"],
+            "completed": b["completed"] - a["completed"],
+            "occupancy": round((b["completed"] - a["completed"])
+                               / max(b["dispatches"] - a["dispatches"], 1), 3),
+            **{f"{k}_p50_ms": round((b[k] or {}).get("p50_ms", float("nan")), 3)
+               for k in ("queue_wait", "device_per_dispatch", "e2e_latency")},
+        }
+    cores = {k: round((cpu1[k] - cpu0[k]) / window, 3) for k in pids}
+    cores["clients"] = round(sum(e["cpu_s"] for e in ends) / window, 3)
+    util = [u for u in util if u is not None]
+    card_idle = round(1.0 - sum(util) / len(util) / 100.0, 4) if util else None
+    by_replica = dict(sorted(collections.Counter(
+        r["replica"] or "direct" for _k, r in results if r["code"] == 200).items()))
+    print(f"phase 21: lane {tag} offered {rps:.0f} rps x {duration_s} s from {len(clients)} "
+          f"client processes: submitted {rec['submitted']}, ok {rec['ok']} (all == golden), "
+          f"shed {rec['shed']}, overloaded {rec['overloaded']}, retried {rec['retried']}, e2e "
+          f"p50/p99 {rec.get('e2e_p50_ms', float('nan')):.3f}/"
+          f"{rec.get('e2e_p99_ms', float('nan')):.3f} ms, achieved {rec['achieved_rps']:.3f} "
+          f"rps (ok over {rec['wall_s']:.3f} s, the drain included); ok by replica "
+          f"{by_replica}; over the {window:.3f} s bracket: card idle share {card_idle} (1 - "
+          f"mean nvidia-smi utilization.gpu, {len(util)} samples), engine idle share by "
+          f"replica {idle}, CPU cores by process {cores}; inside each replica (its /stats: "
+          f"dispatches and requests over the bracket, p50s of its recent samples) {inside} "
+          f"({gpu})")
+    rec.update(cores=cores, engine_idle=idle, card_idle=card_idle, by_replica=by_replica)
+    return rec
+
+
+def phase21_lane_run(lane: dict, gpu: str) -> None:
+    """(c) Once (b)'s pod is done, with it idle: the clients ready; both CLI
+    pods up (seconds from spawn to their "fabric serving" line, every
+    replica fresh in /stats); for each, the 24 images once (every response
+    checked, untimed), then each of FABRIC_LANE_RATES for FABRIC_LANE_S
+    from the clients, the pods in turn (1, 3 at the first rate, 3, 1 at the
+    next); the ratio of the best achieved rps of 3 replicas to 1. Then
+    SIGTERM drains each pod to exit 0."""
+    import signal
+
+    clients = lane["clients"]
+    for p in clients:
+        if not _client_line(p).get("ready"):
+            raise AssertionError(f"phase 21 lane: client {p.pid} not ready")
+    for n, pod in sorted(lane["pods"].items()):
+        if not pod["up"].wait(FABRIC_WAIT_S):
+            raise AssertionError(f"phase 21 {pod['command']} --replicas {n}: not up:\n"
+                                 + "".join(pod["lines"][-20:]))
+        deadline = time.monotonic() + 30.0
+        while len(_fresh_replicas(pod)) != n:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 21 {pod['command']} --replicas {n}: replicas "
+                                     f"{_get_json(pod['url'] + '/stats')['replicas']}")
+            time.sleep(0.1)
+        print(f"phase 21: {pod['command']} --replicas {n} (ops {FABRIC_LANE_OPS}, buckets "
+              f"{FABRIC_LANE_BUCKETS}, channels 3, {FABRIC_LANE_ENV}) serving {pod['t_up']:.3f} "
+              f"s after its spawn (beside (b)'s pod), every replica fresh ({gpu})")
+    for n, pod in sorted(lane["pods"].items()):
+        _lane_window(clients[:1], pod, FABRIC_LANE_GATE_RPS,
+                     FABRIC_LANE_IMAGES / FABRIC_LANE_GATE_RPS, f"{n} gate")
+    best = {n: 0.0 for n in lane["pods"]}
+    for i, rps in enumerate(FABRIC_LANE_RATES):
+        for n in sorted(lane["pods"], reverse=bool(i % 2)):
+            pod = lane["pods"][n]
+            rec = _lane_window(clients, pod, rps, FABRIC_LANE_S,
+                               f"{n} replica(s) via the router", gpu)
+            best[n] = max(best[n], rec["achieved_rps"])
+    a1, a3 = best[1], best[FABRIC_REPLICAS]
+    print(f"phase 21: lane {FABRIC_REPLICAS} replicas / 1 replica = {a3 / a1:.3f} (the best "
+          f"achieved rps of each, {a3:.3f} / {a1:.3f}; {lane['mbytes']:.4f} MB a request body; "
+          f"{os.cpu_count()} CPU cores on the host) ({gpu})")
+    for pod in lane["pods"].values():
+        pod["proc"].send_signal(signal.SIGTERM)
+    for n, pod in sorted(lane["pods"].items()):
+        p = pod["proc"]
+        rc = p.wait(timeout=90)
+        pod["reader"].join(10)
+        if rc != 0:
+            raise AssertionError(f"phase 21 {pod['command']} --replicas {n}: exit {rc}:\n"
+                                 + "".join(pod["lines"][-20:]))
+        print(f"phase 21: {pod['command']} --replicas {n}: SIGTERM, exit 0 after "
+              f"{time.perf_counter() - pod['t0']:.3f} s in all")
+
+
+def phase21_lane_stop(lane: dict) -> None:
+    """Whatever is left of the lane's clients and pods (nothing of the pods
+    after a clean drain)."""
+    import signal
+
+    for p in lane["clients"]:
+        with contextlib.suppress(OSError):
+            p.stdin.close()
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    for pod in lane["pods"].values():
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(pod["proc"].pid, signal.SIGKILL)
+        pod["proc"].wait()
+
+
+def fabric_client(data_path: str) -> int:
+    """``chip_smoke.py --fabric-client DATA``: one load-generator process
+    of phase 21's throughput lane. DATA holds the lane's blobs and their
+    goldens. It reads one JSON command a line on stdin (url, rps,
+    duration_s, start_at on the monotonic clock, offset, max_workers),
+    runs that open-loop window from `start_at` on its rotation of the
+    blobs, and answers with two lines: its wall and CPU seconds as soon as
+    the last response is in, then each request's (image, code, replica,
+    attempts, retry-after, e2e seconds) after it has checked every ok
+    response against its golden. It needs no card."""
+    import pickle
+
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import decode_image_bytes
+    from mpi_cuda_imagemanipulation_tpu_torch.serve import loadgen
+
+    def say(msg: dict) -> None:
+        sys.stdout.write(json.dumps(msg) + "\n")
+        sys.stdout.flush()
+
+    try:
+        with open(data_path, "rb") as f:
+            blobs, golden = pickle.load(f)
+        say({"ready": True})
+        for line in sys.stdin:
+            cmd = json.loads(line)
+            n, off = len(blobs), cmd["offset"]
+            mine = blobs[off:] + blobs[:off]
+            time.sleep(max(cmd["start_at"] - time.monotonic(), 0.0))
+            c0 = os.times()
+            rec = loadgen.http_run_offered_load(cmd["url"], mine, cmd["rps"], cmd["duration_s"],
+                                                timeout_s=60.0, max_workers=cmd["max_workers"])
+            c1 = os.times()
+            say({"wall_s": rec["wall_s"],
+                 "cpu_s": (c1.user + c1.system) - (c0.user + c0.system)})
+            out, checked = [], 0
+            for k, r in rec["results"]:
+                k = (k + off) % n
+                if r["code"] == 200:
+                    if not np.array_equal(decode_image_bytes(r["body"]), golden[k]):
+                        raise AssertionError(f"response for image {k} from {r['replica']!r} "
+                                             f"!= golden")
+                    checked += 1
+                out.append([k, r["code"], r["replica"], r["attempts"], r["retry_after"],
+                            r["e2e_s"]])
+            say({"checked": checked, "results": out})
+    except Exception as e:  # noqa: BLE001 - reported to the parent, which raises
+        say({"error": f"{type(e).__name__}: {e}"})
+        return 1
+    return 0
+
+
+def phase21_rows(device, x8k, counts, rows) -> None:
+    """(d) The `kernels` rows of the mesh lane's launches: K2g on the
+    reference group over a middle 1080 x 7680 shard (the fabric's 8K run,
+    serial), and under overlap K1 on the shard's prologue and K3 on the
+    gray interior and one boundary band; each against its plain version,
+    CUDA-event times, the bound from bytes and operations."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
+
+    k1 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/pointwise.cu"
+    k2 = "mpi_cuda_imagemanipulation_tpu_torch/ops/csrc/stream_stencil.cu"
+    pk = "mpi_cuda_imagemanipulation_tpu/ops/pallas_kernels.py"
+    local_h = MAIN_H // N_SHARDS
+    y0 = local_h  # the second of four shards: neither edge
+    pw, st = split_group(SPECS["reference"])
+    h = st.halo
+    tile = x8k[y0:y0 + local_h].contiguous()
+    top, bottom = x8k[y0 - h:y0].contiguous(), x8k[y0 + local_h:y0 + local_h + h].contiguous()
+    gray = ck.pointwise_group(pw, tile)
+    band = torch.cat([ck.pointwise_group(pw, top), gray[:2 * h]]).contiguous()
+
+    def record(name, source, replaces, launches, fn, plain, c_in, c_out, ops, n_pix,
+               strip_bytes=0, library=None):
+        got, want = fn(), plain()
+        err = int((got.int() - want.int()).abs().max().item())
+        if err:
+            raise AssertionError(f"{name}: kernel != plain, max abs err {err}")
+        if not launches:
+            raise AssertionError(f"{name}: the fabric's paths never launched it")
+        ms = device_time_ms(fn, reps=7)
+        plain_ms = device_time_ms(plain, reps=3, inner=2)
+        library_ms = device_time_ms(library, reps=7) if library is not None else None
+        bound_ms, bound_by = bound((c_in + c_out) * n_pix + strip_bytes,
+                                   op_count(ops, n_pix, c_in))
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+        print(f"kernel {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, library {library_ms}, "
+              f"launches {launches}")
+
+    kw = dict(y0=y0, image_h=MAIN_H, image_w=MAIN_W)
+    names = ",".join(op.name for op in pw + [st])
+    record(f"K2g stream_stencil_ghost [{names}] fabric mesh lane", k2, f"{pk}:377",
+           counts["fabric"]["K2g"], lambda: ck.stream_stencil_ghost(pw, st, tile, top, bottom, **kw),
+           lambda: ck.stream_stencil_ghost_plain(pw, st, tile, top, bottom, **kw),
+           3, 1, pw + [st], local_h * MAIN_W, strip_bytes=2 * h * MAIN_W * 3)
+    record(f"K1 pointwise_group [{','.join(op.name for op in pw)}] mesh lane overlap", k1,
+           f"{pk}:540", counts["overlap"]["K1"], lambda: ck.pointwise_group(pw, tile),
+           lambda: ck.pointwise_group_plain(pw, tile), 3, 1, pw, local_h * MAIN_W)
+    record(f"K3 stencil_tile [{st.name}] gray mesh lane overlap interior", k2, f"{pk}:787",
+           counts["overlap"]["K3"], lambda: ck.stencil_tile(st, gray),
+           lambda: ck.stencil_tile_plain(st, gray), 1, 1, [st], (local_h - 2 * h) * MAIN_W,
+           strip_bytes=2 * h * MAIN_W, library=conv_library(st, gray, pad_rows=False))
+    record(f"K3 stencil_tile [{st.name}] gray mesh lane overlap band", k2, f"{pk}:787",
+           counts["overlap"]["K3"], lambda: ck.stencil_tile(st, band),
+           lambda: ck.stencil_tile_plain(st, band), 1, 1, [st], h * MAIN_W,
+           strip_bytes=2 * h * MAIN_W, library=conv_library(st, band, pad_rows=False))
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -5863,6 +6718,7 @@ def main() -> int:
     phase18_stream(device)
     phase19_serve(device)
     phase20_graph_service(device, x8k)
+    phase21_fabric(device, x8k, rows)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")
@@ -5879,4 +6735,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fabric-client"]:
+        sys.exit(fabric_client(sys.argv[2]))
     sys.exit(main())

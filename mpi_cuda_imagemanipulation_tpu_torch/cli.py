@@ -1,5 +1,5 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
-run|batch|stream|serve|graph|autotune|info``.
+run|batch|stream|serve|fabric|graph|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl auto``, the default, routes
@@ -35,6 +35,13 @@ over a shape-bucket function cache warmed on the card at start, answering
 SIGINT drains what was admitted under ``--drain-deadline-s``; it also
 answers the pipeline service's routes (graph specs per tenant, the
 replica half of systolic execution) and ``POST /control/profile``.
+``serve --replicas N`` (N > 1) hands over to ``fabric``.
+``fabric`` is the pod-scale front door (fabric/): a router over N
+supervised replica processes, each the ``serve`` stack on its own device
+context (``--device``, default cuda), with heartbeat-driven affinity
+routing, rerouting retries, restart with backoff, an optional oversize
+mesh lane (``--mesh-shards``), the autoscaler, the tune controller and
+the SLO burn-rate engine.
 ``graph`` validates a pipeline-spec DAG from a file and runs it on one
 image (graph/), with its histogram and stats side outputs.
 ``autotune`` measures the routes of one choice on the card and records
@@ -243,6 +250,7 @@ def _build_parser() -> argparse.ArgumentParser:
     _add_batch_parser(sub)
     _add_stream_parser(sub)
     _add_serve_parser(sub)
+    _add_fabric_parser(sub)
     _add_graph_parser(sub)
 
     tune = sub.add_parser(
@@ -573,14 +581,116 @@ def _add_serve_parser(sub) -> None:
     )
     srv.add_argument(
         "--replicas", type=int, default=1,
-        help="N > 1 is the JAX package's pod mode (a front-door router over N replica "
-        "workers), which waits for the fabric (ROADMAP queue 1, item 7): refused here",
+        help="N > 1: pod mode, the `fabric` front-door router over N supervised replica "
+        "processes with these serve flags (the fabric subcommand exposes the router's own "
+        "knobs)",
     )
     srv.add_argument("--plan", choices=PLAN_MODES, default="auto",
                      help="fusion-planner stage structure of the padded executor "
                      "(byte-identical in every mode)")
     _add_failpoint_flags(srv)
     _add_trace_flags(srv)
+
+
+def _add_fabric_parser(sub) -> None:
+    """The ``fabric`` subcommand's arguments: the JAX package's flags, in
+    the port's terms (--impl names the replicas' padded-executor
+    accumulations, --device a torch device)."""
+    fab = sub.add_parser(
+        "fabric",
+        help="pod-scale serving fabric: front-door router + N supervised replica worker "
+        "processes (each the full serve stack on its own device context), heartbeat-driven "
+        "health/affinity routing, rerouting retries, restart-with-backoff; an optional mesh "
+        "lane for requests too large for any replica bucket (fabric/)",
+    )
+    fab.add_argument("--replicas", type=int, default=3)
+    fab.add_argument("--ops", default=REFERENCE_PIPELINE_SPEC)
+    fab.add_argument("--buckets", default="512,1024,2048,4096")
+    fab.add_argument("--channels", default="1,3")
+    fab.add_argument("--max-batch", type=int, default=8)
+    fab.add_argument("--max-delay-ms", type=float, default=5.0)
+    fab.add_argument("--queue-depth", type=int, default=64)
+    fab.add_argument(
+        "--impl", choices=("auto", "torch", "mxu"), default="torch",
+        help="every replica's padded executor: the golden torch ops (torch, default; the "
+        "JAX package's xla), banded products for eligible stencils (mxu); auto is torch",
+    )
+    fab.add_argument("--host", default="", help="router bind address")
+    fab.add_argument("--port", type=int, default=8000)
+    fab.add_argument("--device", default="cuda",
+                     help="torch device of every replica and of the mesh lane (default cuda; "
+                     "cpu runs on the host)")
+    fab.add_argument(
+        "--heartbeat-s", type=float, default=None,
+        help="replica heartbeat period (default: MCIM_FABRIC_HEARTBEAT_S); the router marks "
+        "a replica stale after --stale-s without one",
+    )
+    fab.add_argument(
+        "--stale-s", type=float, default=None,
+        help="router freshness window: replicas silent this long are routed around "
+        "(default: MCIM_FABRIC_STALE_S)",
+    )
+    fab.add_argument(
+        "--forward-attempts", type=int, default=None,
+        help="distinct replicas tried per request before 503 (default: "
+        "MCIM_FABRIC_FORWARD_ATTEMPTS); attempt 2+ counts as retried",
+    )
+    fab.add_argument(
+        "--mesh-shards", type=int, default=0,
+        help="N > 0 arms the oversize mesh lane: requests exceeding every replica bucket run "
+        "ONE row-sharded dispatch over an N-slot mesh in the router process (the cards in "
+        "turn, or N CPU slots with --device cpu) instead of being rejected",
+    )
+    fab.add_argument(
+        "--autoscale", action="store_true",
+        help="arm the elastic control loop (fabric/autoscaler.py): replica count follows "
+        "queue-fill/p99 pressure between --min-replicas and --max-replicas with hysteresis; "
+        "scale-down is drain-before-kill (routing stops, the queue empties, THEN SIGTERM). "
+        "--replicas is the starting count",
+    )
+    fab.add_argument("--min-replicas", type=int, default=None,
+                     help="autoscaler floor (default MCIM_FABRIC_MIN_REPLICAS)")
+    fab.add_argument(
+        "--systolic", action="store_true", default=None,
+        help="pod-level systolic execution (graph/systolic.py): the router stage-shards "
+        "registered DAG pipelines across replicas and the live env streams replica-to-replica "
+        "at each stage boundary; any fallback is the pinned single-replica path, never a "
+        "wrong answer (default MCIM_SYSTOLIC)",
+    )
+    fab.add_argument(
+        "--tune", action="store_true",
+        help="arm the continuous autotuning loop (tune/): replicas persist serve-path "
+        "observations to the calibration store and the router's tune controller proposes "
+        "config flips from them, deploying each through the canary gate and promoting "
+        "fleet-wide or rolling back (MCIM_TUNE_* env tunes the cadence/thresholds)",
+    )
+    fab.add_argument(
+        "--tune-arms", default=None,
+        help="comma-separated candidate arms the controller may propose (e.g. "
+        "plan:off,plan:fused; default MCIM_TUNE_ARMS or plan:off,plan:fused)",
+    )
+    fab.add_argument("--max-replicas", type=int, default=None,
+                     help="autoscaler ceiling (default MCIM_FABRIC_MAX_REPLICAS)")
+    fab.add_argument("--plan", choices=PLAN_MODES, default="auto",
+                     help="fusion-planner stage structure of every replica's padded executor "
+                     "(byte-identical in every mode)")
+    fab.add_argument(
+        "--slo", default=None, metavar="SPECS",
+        help="SLO specs the router's burn-rate engine evaluates over the federated fleet "
+        "metrics: comma-separated avail:<pct> and latency:<le_seconds>:<pct> entries "
+        "(default MCIM_SLO_SPECS; served at GET /slo and as mcim_slo_* gauges)",
+    )
+    fab.add_argument("--json-metrics", default=None,
+                     help="write the shutdown fabric stats record to this path ('-' = stdout)")
+    fab.add_argument(
+        "--federate", default=None, metavar="URL",
+        help="federation front-door URL: this pod's router pushes pod-aggregate heartbeats "
+        "there and applies tenant quota-share leases from the acks",
+    )
+    fab.add_argument("--pod-id", default=None,
+                     help="stable pod identity at the federation tier (default pod-<pid>)")
+    _add_failpoint_flags(fab)
+    _add_trace_flags(fab)
 
 
 def _add_graph_parser(sub) -> None:
@@ -1869,7 +1979,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     then drain (admission stops, queued + in-flight work flushes under
     --drain-deadline-s), dump the flight recorder and write the stats
     record. The JAX package's ``cmd_serve``; its pod mode (--replicas > 1)
-    is refused, never run as one replica."""
+    hands over to `cmd_fabric` with the same flags."""
     import signal
     import threading
 
@@ -1878,18 +1988,26 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from mpi_cuda_imagemanipulation_tpu_torch.serve.server import ServeConfig, Server
     from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
 
-    if args.replicas > 1:
-        raise ValueError(
-            f"serve --replicas {args.replicas}: pod mode (a front-door router over "
-            "replica workers) needs the fabric, which is not in the port yet (ROADMAP "
-            "queue 1, item 7); run one replica per process"
-        )
     if args.impl in ("cuda", "swar"):
         raise ValueError(
             f"serve --impl {args.impl}: the hand-written kernels extend edges at the "
             "bucket border, and a bucket-padded request needs its border rebuilt at its "
             "own true shape; serve with --impl torch, mxu or auto"
         )
+    if args.replicas > 1:
+        # pod mode: same flags, but the process becomes the front-door
+        # router over N supervised replica workers (fabric/); the `fabric`
+        # subcommand exposes the router's own knobs
+        for name, default in (
+            ("heartbeat_s", None), ("stale_s", None), ("forward_attempts", None),
+            ("mesh_shards", 0), ("slo", None),
+            ("autoscale", False), ("min_replicas", None), ("max_replicas", None),
+            ("systolic", None), ("tune", False), ("tune_arms", None),
+            ("federate", None), ("pod_id", None),
+        ):
+            if not hasattr(args, name):
+                setattr(args, name, default)
+        return cmd_fabric(args)
     _arm_failpoints(args)
     _configure_tracing(args)
     log = get_logger()
@@ -1951,6 +2069,93 @@ def cmd_serve(args: argparse.Namespace) -> int:
             log.info("recorder dump -> %s", dump_path)
         if args.json_metrics:
             emit_json_metrics({"event": "serve", **srv.app.stats()}, args.json_metrics)
+        _export_trace(args, log)
+    return 0
+
+
+def cmd_fabric(args: argparse.Namespace) -> int:
+    """Pod-scale serving: front-door router + N supervised replica worker
+    processes (fabric/), each serving on `--device` in its own process.
+    The router owns --port; replicas bind ephemeral ports and register via
+    heartbeat. SIGTERM/SIGINT drains the whole pod (replicas flush
+    in-flight work, then the router stops). The JAX package's
+    ``cmd_fabric``."""
+    import signal
+    import threading
+
+    from mpi_cuda_imagemanipulation_tpu_torch.fabric.control import default_heartbeat_s
+    from mpi_cuda_imagemanipulation_tpu_torch.fabric.router import RouterConfig
+    from mpi_cuda_imagemanipulation_tpu_torch.fabric.supervisor import Fabric, FabricConfig
+    from mpi_cuda_imagemanipulation_tpu_torch.graph.systolic import ENV_SYSTOLIC
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import parse_buckets
+    from mpi_cuda_imagemanipulation_tpu_torch.utils import env as env_registry
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics, get_logger
+
+    # the replicas would each raise at start; refuse here, before any spawn
+    resolve_device(args.device)
+    _arm_failpoints(args)
+    _configure_tracing(args)
+    log = get_logger()
+    systolic = (args.systolic if args.systolic is not None
+                else env_registry.get_bool(ENV_SYSTOLIC))
+    cfg = FabricConfig(
+        replicas=args.replicas,
+        ops=args.ops,
+        buckets=args.buckets,
+        channels=args.channels,
+        max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms,
+        queue_depth=args.queue_depth,
+        impl="torch" if args.impl == "auto" else args.impl,
+        device=args.device,
+        plan=args.plan,
+        tune=args.tune,
+        tune_arms=args.tune_arms,
+        heartbeat_s=args.heartbeat_s,
+        router=RouterConfig(
+            buckets=parse_buckets(args.buckets),
+            stale_s=args.stale_s,
+            forward_attempts=args.forward_attempts,
+            slo_specs=args.slo,
+        ),
+        mesh_shards=args.mesh_shards,
+        autoscale=args.autoscale,
+        min_replicas=args.min_replicas,
+        max_replicas=args.max_replicas,
+        systolic=systolic,
+        federate=args.federate,
+        pod_id=args.pod_id,
+    )
+    stop_evt = threading.Event()
+
+    def _on_signal(signum, frame):
+        log.info("signal %s: draining the fabric", signal.Signals(signum).name)
+        stop_evt.set()
+
+    prev_handlers = {s: signal.signal(s, _on_signal) for s in (signal.SIGTERM, signal.SIGINT)}
+    fab = Fabric(cfg)
+    try:
+        fab.start(args.host, args.port)
+        log.info(
+            "fabric serving [%s] on %s:%d: router over %d replicas on %s (buckets %s, "
+            "heartbeat %.2fs%s): POST /v1/process, GET /healthz, /stats, /metrics, /slo",
+            args.ops, args.host or "0.0.0.0", fab.router.address[1], args.replicas,
+            args.device, args.buckets,
+            cfg.heartbeat_s if cfg.heartbeat_s is not None else default_heartbeat_s(),
+            f", mesh lane {args.mesh_shards} shards"
+            if args.mesh_shards else "",
+        )
+        stop_evt.wait()
+    except KeyboardInterrupt:
+        log.info("interrupt: draining the fabric")
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        stats = fab.stats() if fab.supervisor is not None else None
+        fab.close(drain=True)
+        if args.json_metrics and stats is not None:
+            emit_json_metrics({"event": "fabric", **stats}, args.json_metrics)
         _export_trace(args, log)
     return 0
 
@@ -2145,7 +2350,7 @@ def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
         return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream, "serve": cmd_serve,
-                "graph": cmd_graph, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
+                "fabric": cmd_fabric, "graph": cmd_graph, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

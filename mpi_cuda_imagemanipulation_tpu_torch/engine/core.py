@@ -392,14 +392,17 @@ class Engine:
                 if self.metrics.unforced() == 0
                 else None
             )
+            if idle_from is not None:
+                self.metrics.idle_open(idle_from)
             item = self._q.get()
             if item is _SENTINEL:
                 return
-            if idle_from is not None and self.metrics.submitted > 0:
+            if idle_from is not None:
                 # nothing was enqueued on the device while we waited: that
                 # whole wait is device-idle time (the serial loop's decode
                 # and encode stalls show up exactly here)
-                self.metrics.on_idle(time.perf_counter() - idle_from)
+                self.metrics.idle_close(time.perf_counter(),
+                                        count=self.metrics.submitted > 0)
             self._complete_one(item)
 
     def _complete_one(self, item: _InFlight) -> None:

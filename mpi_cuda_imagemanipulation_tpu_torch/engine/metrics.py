@@ -27,6 +27,7 @@ stage a label of one histogram): ``batch --metrics-out`` renders it, and
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 
 from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import Registry
@@ -42,6 +43,10 @@ class EngineMetrics:
         self.registry = registry or Registry()
         r = self.registry
         self._lock = threading.Lock()
+        # start of the completion thread's current idle wait (None when it
+        # is not waiting idle): `idle_parts()` reads it, so that two reads
+        # bracket exactly the idle time between them
+        self._idle_from: float | None = None
         self._submitted = r.counter(
             "mcim_engine_submitted_total", "Batches submitted to the engine."
         )
@@ -114,6 +119,27 @@ class EngineMetrics:
 
     def on_idle(self, seconds: float) -> None:
         self._idle.inc(seconds)
+
+    def idle_open(self, since: float) -> None:
+        """An idle wait began at `since` (perf_counter)."""
+        with self._lock:
+            self._idle_from = since
+
+    def idle_close(self, now: float, count: bool) -> None:
+        """The idle wait ended at `now`; `count` adds it to the idle total,
+        in the same step that closes it."""
+        with self._lock:
+            if count and self._idle_from is not None:
+                self._idle.inc(now - self._idle_from)
+            self._idle_from = None
+
+    def idle_parts(self) -> tuple[float, float]:
+        """(idle seconds counted, seconds of the idle wait in progress), read
+        together: their sum, read twice, differs by the idle time between
+        the two reads."""
+        with self._lock:
+            return self._idle.value(), (time.perf_counter() - self._idle_from
+                                        if self._idle_from is not None else 0.0)
 
     def on_complete(self, now: float) -> None:
         with self._lock:

@@ -5,9 +5,9 @@ that a port replica and a JAX replica agree on the wire byte for byte).
 
 The replica form of parallel/systolic.py: instead of slots of one mesh,
 the stage owners are REPLICAS, and the band copy is an HTTP hop
-replica-to-replica carrying the live environment slice at a step cut. A
-placing front door computes a `graph.compile.place_steps` placement and
-forwards the request to the stage-0 owner with the placement map in a
+replica-to-replica carrying the live environment slice at a step cut. The
+fabric router (fabric/router.py) computes a `graph.compile.place_steps`
+placement and forwards the request to the stage-0 owner with the placement map in a
 header; each owner runs its contiguous step range (`graph_sub_callable`)
 then forwards the live env to the next owner's ``/v1/systolic``
 endpoint. The final owner renders the response (PNG + side-output
@@ -27,7 +27,7 @@ import json
 import numpy as np
 
 # ---------------------------------------------------------------------------
-# Closed vocabularies + header surface
+# Closed vocabularies + env/header surface
 # ---------------------------------------------------------------------------
 
 # Why a request fell back to the pinned-replica lane (never a wrong
@@ -50,6 +50,9 @@ FALLBACK_REASONS = (
     "owner_down",
     "forward_failed",
 )
+
+ENV_SYSTOLIC = "MCIM_SYSTOLIC"
+ENV_MIN_STEPS = "MCIM_SYSTOLIC_MIN_STEPS"
 
 HDR_PLAN = "X-MCIM-Systolic-Plan"
 SYSTOLIC_PATH = "/v1/systolic"

@@ -13,14 +13,19 @@ of the JAX package's ``obs/``.
                         ``POST /control/profile``), Chrome trace parsing,
                         the DMA/compute split, host spans merged onto the
                         device timeline.
+  * `obs/fleet.py`    - metrics federation: heartbeat delta snapshots,
+                        restart-safe counter folding, bucket-merged fleet
+                        histograms, the fabric router's one-pod view.
+  * `obs/slo.py`      - declarative SLOs evaluated as multi-window burn
+                        rates over the federated view (``GET /slo``).
 
-The JAX package's ``fleet`` (metrics federation) and ``slo`` (burn-rate
-SLOs) serve its fabric and federation layers and come with them; its
-``cost``, ``devmem`` and ``profile`` are rewritten for the card with the
-engine, streaming and serving layers that read them.
+The JAX package's ``cost``, ``devmem`` and ``profile`` are rewritten for
+the card with the engine, streaming and serving layers that read them.
 """
 
+from mpi_cuda_imagemanipulation_tpu_torch.obs import fleet  # noqa: F401
 from mpi_cuda_imagemanipulation_tpu_torch.obs import recorder  # noqa: F401
+from mpi_cuda_imagemanipulation_tpu_torch.obs import slo  # noqa: F401
 from mpi_cuda_imagemanipulation_tpu_torch.obs import trace  # noqa: F401
 from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import (  # noqa: F401
     CONTENT_TYPE,
@@ -55,8 +60,10 @@ __all__ = [
     "current_context",
     "current_trace_id",
     "event",
+    "fleet",
     "parse_exposition",
     "recorder",
+    "slo",
     "span",
     "start_trace",
     "trace",

@@ -50,9 +50,9 @@ sites, callers must pass literal members, and mcim-check
 (analysis/rules_obs.py) statically rejects unknown reasons, dynamic
 reason expressions, and vocabulary entries nothing uses.
 
-The port has no front door, router or scheduler yet: the ``MCIM_*``
-knobs named above (and the JAX module's ``ENV_*`` names for them) come
-with the slice that ports their readers.
+The fabric router (fabric/router.py) reads the retry-budget and hedge
+knobs through the ``ENV_*`` names below; ``MCIM_FED_DEADLINE_MS`` is the
+federation front door's, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -63,6 +63,11 @@ import time
 # The wire header: REMAINING milliseconds of budget (float text). Each
 # hop re-anchors on its own monotonic clock, so skew never corrupts it.
 HEADER = "X-MCIM-Deadline-Ms"
+
+ENV_BUDGET_FRAC = "MCIM_RETRY_BUDGET_FRAC"
+ENV_BUDGET_RESERVE = "MCIM_RETRY_BUDGET_RESERVE"
+ENV_HEDGE_DELAY_FRAC = "MCIM_HEDGE_DELAY_FRAC"
+ENV_HEDGE_MAX_FRAC = "MCIM_HEDGE_MAX_FRAC"
 
 # The CLOSED vocabulary of places a deadline can be found already dead.
 # Every 504-answered-locally increments mcim_deadline_expired_total with

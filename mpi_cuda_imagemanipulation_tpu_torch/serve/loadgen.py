@@ -1,7 +1,6 @@
 """Open-loop load generator: throughput vs latency under offered load.
 The counterpart of the JAX package's ``serve/loadgen.py`` (jax-free there;
-copied, with the imports pointed at the port), less its churn lane, which
-drives the fabric (ROADMAP queue 1, item 7).
+copied, with the imports pointed at the port).
 
 Open-loop means arrivals are scheduled by the offered rate alone, never
 gated on completions (a closed loop self-throttles and hides queueing
@@ -26,6 +25,12 @@ fires one such clock round-robin over tenant lanes (the pipeline
 service's quota and QoS ladder act on each lane's slice) and reports per
 tenant.
 
+The churn mode (`churn_run`) drives the serving fabric over HTTP: the same
+open-loop clock fires at the fabric router, a replica is SIGKILLed
+mid-sweep, and the record reports ok% / retried% (router rerouting, from
+the X-Fabric-Attempts response header) / p99 for the before, during and
+after phases: availability under churn as three numbers.
+
 With tracing armed (obs/trace.py, e.g. MCIM_TRACE_SAMPLE=1) every request
 carries a trace id and each per-rate record names its slowest completions
 (`slowest_traces`) and failures (`failed_traces`) by id.
@@ -33,6 +38,7 @@ carries a trace id and each per-rate record names its slowest completions
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -477,3 +483,42 @@ def sweep(
         if fault_rate > 0.0:
             failpoints.clear()
     return records
+
+
+def churn_run(
+    url: str,
+    blobs: list[bytes],
+    *,
+    offered_rps: float,
+    phase_s: float,
+    kill,
+    before_after=None,
+    timeout_s: float = 30.0,
+) -> dict:
+    """Availability under churn, in three measured phases:
+
+        before   steady state, every replica up
+        during   `kill()` fires at the phase midpoint (SIGKILL one
+                 replica) while the offered load keeps arriving: the
+                 in-flight forwards to the dead replica must resolve via
+                 router rerouting, not hang or error
+        after    `before_after()` (e.g. wait for the supervisor restart
+                 to rejoin) runs first, then steady state again
+
+    Each phase reports ok% / retried% / p99; `results` ride along for
+    byte-exactness checks. During-phase ok_frac stays 1.0 when rerouting
+    works."""
+    phases: dict[str, dict] = {}
+    phases["before"] = http_run_offered_load(url, blobs, offered_rps, phase_s, timeout_s=timeout_s)
+    killer = threading.Timer(phase_s / 2.0, kill)
+    killer.start()
+    try:
+        phases["during"] = http_run_offered_load(
+            url, blobs, offered_rps, phase_s, timeout_s=timeout_s)
+    finally:
+        killer.cancel()  # no-op if it already fired
+        killer.join()
+    if before_after is not None:
+        before_after()
+    phases["after"] = http_run_offered_load(url, blobs, offered_rps, phase_s, timeout_s=timeout_s)
+    return phases

@@ -48,9 +48,14 @@ scheduler. Two front doors share it:
     (unknown pipeline or tenant), 400 (bad image or JSON) or 422 (any
     other taxonomy code), its sheds 503 with Retry-After, a broken
     systolic chain 424.
-    The JAX package's other routes (the session routes, /fleet/snapshot)
-    answer its own ``unknown-route`` 404 here: they come with the fabric
-    (ROADMAP queue 1, item 7).
+        GET  /fleet/snapshot  a full metrics-federation snapshot of this
+                           replica's registries (obs/fleet.py): the fabric
+                           router's heartbeat-gap fallback reads it
+        POST /v1/session/<id>/frame  one live video-session frame
+                           (fabric/session.py protocol; stream/video.py
+                           VideoSessionHost): 200 PNG for a live frame,
+                           204 for a replayed or duplicate one, 409 on a
+                           sequence gap
 
 Fault tolerance: ServeApp owns the HealthState machine and a per-bucket
 BreakerBoard; dispatch runs under the retrying executor and degrades to
@@ -233,6 +238,11 @@ class ServeApp:
         # device-memory observability (obs/devmem.py): live/peak allocator
         # and headroom gauges on the app registry
         self.devmem = DevMemGauges(self.registry)
+        # live video sessions (stream/video.VideoSessionHost): created on
+        # the first session frame, so a server carrying no video pays
+        # nothing
+        self._session_host = None
+        self._session_lock = threading.Lock()
         # the pipeline service (graph/service.py): created on the first
         # spec registration, so a server of the configured chain alone
         # pays nothing
@@ -288,6 +298,19 @@ class ServeApp:
             "Function-cache misses (off-grid keys: a scheduler bug).",
             fn=lambda: float(self.cache.stats()["misses"]),
         )
+
+    @property
+    def session_host(self):
+        """The per-session temporal-ring host (lazy; the fabric router's
+        session routes land here through the HTTP handler), running the
+        sessions' spatial ops on the app's device."""
+        with self._session_lock:
+            if self._session_host is None:
+                from mpi_cuda_imagemanipulation_tpu_torch.stream.video import VideoSessionHost
+
+                self._session_host = VideoSessionHost(registry=self.registry,
+                                                      device=self.device)
+            return self._session_host
 
     @property
     def graph_service(self):
@@ -367,6 +390,29 @@ class ServeApp:
         return (self.registry.render() + plan_metrics.registry.render()
                 + cost_ledger.registry.render())
 
+    def fleet_registries(self) -> list[Registry]:
+        """The registries this process federates to the fabric router
+        (obs/fleet.py): the app registry (serve + engine + gauges, devmem
+        included), the planner's (serving rebuilds on calibration flips
+        are fleet-relevant), the cost ledger's and the online tuning
+        registry (tune/metrics.py: the control loop's inputs arriving)."""
+        from mpi_cuda_imagemanipulation_tpu_torch.tune.metrics import tune_metrics
+
+        return [
+            self.registry,
+            plan_metrics.registry,
+            cost_ledger.registry,
+            tune_metrics.registry,
+        ]
+
+    def fleet_snapshot(self) -> dict:
+        """A full federation snapshot (the `GET /fleet/snapshot` body: the
+        router's heartbeat-gap fallback and the federation equality check
+        read it)."""
+        from mpi_cuda_imagemanipulation_tpu_torch.obs import fleet
+
+        return fleet.snapshot_registries(self.fleet_registries())
+
     def start(self) -> "ServeApp":
         if self.device.type == "cuda":
             # the profiler's set-up must happen on this (the importing)
@@ -399,6 +445,15 @@ class ServeApp:
         self.health.to(STOPPED)
         self._log.info("serve shutdown: %s", self.metrics.summary_line())
 
+    def _engine_stats(self) -> dict:
+        """The engine's snapshot, with its idle seconds and the idle wait
+        in progress (`idle_open_s`) read together: the idle time between
+        two reads of /stats is the difference of their sums."""
+        m = self.scheduler.engine.metrics
+        out = m.snapshot()
+        out["idle_s"], out["idle_open_s"] = m.idle_parts()
+        return out
+
     def stats(self) -> dict:
         return {
             "pipeline": self.pipe.name,
@@ -414,10 +469,12 @@ class ServeApp:
             "breakers": self.breakers.snapshot(),
             "cache": self.cache.stats(),
             "devmem": self.devmem.snapshot(),
+            "sessions": (self._session_host.stats() if self._session_host is not None
+                         else None),
             "graph": (self._graph_service.stats() if self._graph_service is not None
                       else None),
             "engine": (
-                self.scheduler.engine.metrics.snapshot()
+                self._engine_stats()
                 if self.scheduler.engine is not None
                 else None
             ),
@@ -487,6 +544,10 @@ def _make_handler(app: ServeApp):
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
+            elif self.path == "/fleet/snapshot":
+                # full federation snapshot (obs/fleet.py): the router's
+                # heartbeat-gap full-scrape fallback reads it
+                self._send_json(200, app.fleet_snapshot())
             elif self.path == PIPELINES_PATH:
                 # the pipeline service's registry view (tenants, specs,
                 # cache namespaces); an empty shape until the first
@@ -803,6 +864,63 @@ def _make_handler(app: ServeApp):
                      if code == 429 else [])
             self._send_json(code, resp, extra)
 
+        def _handle_session_frame(self, sid: str) -> None:
+            """One live-session frame (fabric/session.py protocol): push
+            the temporal rings, return the processed frame (200 PNG) for
+            live traffic or an empty 204 for replays and duplicates. 409 on
+            a sequence gap tells the router to rebind with a replay."""
+            # lazy imports: the protocol constants live with the router's
+            # session table, and a bare Server must not drag the pod stack
+            # in at import
+            from mpi_cuda_imagemanipulation_tpu_torch.fabric import session as fabric_session
+            from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+                decode_image_bytes,
+                encode_image_bytes,
+            )
+            from mpi_cuda_imagemanipulation_tpu_torch.stream.video import SessionGapError
+
+            # drain the body first: an early 400 that leaves it unread
+            # would desync the router's keep-alive connection
+            data = self._read_body()
+            ops = self.headers.get(fabric_session.HDR_OPS) or ""
+            raw_seq = self.headers.get(fabric_session.HDR_SEQ)
+            try:
+                seq = int(raw_seq)
+            except (TypeError, ValueError):
+                self._send_json(400, {"error": f"bad {fabric_session.HDR_SEQ} {raw_seq!r}"})
+                return
+            if not ops:
+                self._send_json(400, {"error": f"missing {fabric_session.HDR_OPS} header"})
+                return
+            try:
+                frame = decode_image_bytes(data)
+            except Exception as e:
+                self._send_json(400, {"error": f"undecodable frame: {e}"})
+                return
+            try:
+                out = app.session_host.process_frame(
+                    sid, ops, seq, frame,
+                    replay=bool(self.headers.get(fabric_session.HDR_REPLAY)),
+                    reset=bool(self.headers.get(fabric_session.HDR_RESET)),
+                )
+            except SessionGapError as e:
+                self._send_json(409, {"error": str(e)})
+                return
+            except Exception as e:
+                self._send_json(500, {"error": f"session frame failed: {e}"})
+                return
+            if out is None:  # replay or duplicate: rings advanced, no pixels
+                self.send_response(204)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            png = encode_image_bytes(out)
+            self.send_response(200)
+            self.send_header("Content-Type", "image/png")
+            self.send_header("Content-Length", str(len(png)))
+            self.end_headers()
+            self.wfile.write(png)
+
         def do_POST(self):  # noqa: N802
             from urllib.parse import parse_qs, urlsplit
 
@@ -825,9 +943,14 @@ def _make_handler(app: ServeApp):
                 routes[path]()
                 return
             if path != "/v1/process":
-                # the JAX package's session routes come with the fabric;
-                # the body is read so that the persistent connection stays
-                # in step
+                from mpi_cuda_imagemanipulation_tpu_torch.fabric import session as fabric_session
+
+                route = fabric_session.parse_session_path(path)
+                if route is not None:
+                    self._handle_session_frame(route[0])
+                    return
+                # the body is read so that the persistent connection
+                # stays in step
                 self._read_body()
                 self._unknown_route(path)
                 return

@@ -2,8 +2,8 @@
 row-band streams through the engine (engine/core.py), with fixed-shape
 tiles, seam-stitched halos (parallel/halo host strips) and incremental
 decode and encode (io/stream_codec). The counterpart of the JAX package's
-``stream/``, without its live video sessions (they serve frames behind the
-fabric front door)."""
+``stream/``; its live video sessions (stream/video.py VideoSessionHost)
+serve frames behind the fabric router."""
 
 from mpi_cuda_imagemanipulation_tpu_torch.stream.metrics import StreamMetrics
 from mpi_cuda_imagemanipulation_tpu_torch.stream.runner import (

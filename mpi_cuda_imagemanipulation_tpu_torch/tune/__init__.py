@@ -6,9 +6,10 @@
                 `effective_plan_choice`, the newest-wins rule between an
                 offline ``plan_choice`` record and an online promotion
                 that ``plan='auto'`` follows;
+  * `controller` - a UCB-style explore/exploit engine on the fabric
+                router's tick that ranks candidate config flips from those
+                observations and deploys winners through the canary gate
+                (fabric/canary.py), promoting them pod-wide or rolling
+                them back; one digest mismatch quarantines the candidate;
   * `metrics` - the `mcim_tune_*` metric family.
-
-The JAX package's ``controller`` (the explore/exploit engine that deploys
-winners through the canary gate) imports its fabric layer and comes with
-the port's.
 """

@@ -166,6 +166,151 @@ _VARS = (
            "=0 disables graph micro-batch coalescing (per-request dispatch "
            "instead of the scheduler's (dag_fingerprint, true shape) group "
            "lanes; batched functions are byte-equal to solo ones)."),
+    # -- serving fabric (fabric/, federation/control.py, obs/slo.py,
+    # tune/controller.py, graph/systolic.py) --------------------------------
+    EnvVar("MCIM_FABRIC_HEARTBEAT_S", "0.5", "fabric/control.py",
+           "Replica heartbeat period in seconds (replica -> router push "
+           "over HTTP)."),
+    EnvVar("MCIM_FABRIC_STALE_S", "2.0", "fabric/router.py",
+           "Router freshness window: a replica whose last heartbeat is "
+           "older than this is routed around until it beats again."),
+    EnvVar("MCIM_FABRIC_FORWARD_TIMEOUT_S", "30", "fabric/router.py",
+           "Per-attempt router -> replica proxy timeout (connect + full "
+           "response read)."),
+    EnvVar("MCIM_FABRIC_FORWARD_ATTEMPTS", "3", "fabric/router.py",
+           "Forward attempts per request across DISTINCT replicas before "
+           "the router answers 503 (attempt 2+ counts as retried)."),
+    EnvVar("MCIM_FABRIC_SHED_FRAC", "0.8", "fabric/router.py",
+           "Queue-fill fraction (queued/queue_depth from the heartbeat) "
+           "past which the sticky target is skipped for the least-loaded "
+           "healthy replica."),
+    EnvVar("MCIM_FABRIC_MIN_REPLICAS", "1", "fabric/autoscaler.py",
+           "Autoscaler floor: the control loop never drains the replica "
+           "set below this count."),
+    EnvVar("MCIM_FABRIC_MAX_REPLICAS", "8", "fabric/autoscaler.py",
+           "Autoscaler ceiling: scale-up stops here regardless of "
+           "pressure."),
+    EnvVar("MCIM_FABRIC_SCALE_UP_FRAC", "0.75", "fabric/autoscaler.py",
+           "Mean queue-fill fraction across routable replicas that, "
+           "sustained for MCIM_FABRIC_SCALE_SUSTAIN_S, triggers a "
+           "scale-up."),
+    EnvVar("MCIM_FABRIC_SCALE_DOWN_FRAC", "0.15", "fabric/autoscaler.py",
+           "Mean queue-fill fraction BELOW which (sustained, and with a "
+           "majority of replicas idle) the autoscaler drains one "
+           "replica."),
+    EnvVar("MCIM_FABRIC_SCALE_SUSTAIN_S", "3", "fabric/autoscaler.py",
+           "How long a pressure signal must persist before the "
+           "autoscaler acts on it (the hysteresis window — a blip "
+           "scales nothing)."),
+    EnvVar("MCIM_FABRIC_SCALE_COOLDOWN_S", "5", "fabric/autoscaler.py",
+           "Quiet period after any scale action before the next one "
+           "(lets the new replica set settle before re-evaluating)."),
+    EnvVar("MCIM_FABRIC_SCALE_TICK_S", "0.5", "fabric/autoscaler.py",
+           "Autoscaler evaluation period in seconds."),
+    EnvVar("MCIM_FABRIC_SCALE_P99_TARGET_S", None, "fabric/autoscaler.py",
+           "Optional latency up-signal: a federated p99 above this "
+           "(sustained) also triggers scale-up, independent of queue "
+           "fill."),
+    EnvVar("MCIM_FABRIC_SCALE_DRAIN_DEADLINE_S", "30",
+           "fabric/autoscaler.py",
+           "Drain-before-kill budget: a draining replica whose queue "
+           "has not emptied by then is SIGTERMed anyway (the replica's "
+           "own drain deadline still flushes in-flight work)."),
+    EnvVar("MCIM_FABRIC_CANARY_FRAC", "0.05", "fabric/canary.py",
+           "Fraction of front-door traffic routed to the canary replica "
+           "while a config flip is under evaluation."),
+    EnvVar("MCIM_FABRIC_CANARY_MIN_REQUESTS", "40", "fabric/canary.py",
+           "Canary outcomes the rollback gate needs before it may "
+           "decide (breach can fire earlier on shadow digest "
+           "mismatches, which are individually damning)."),
+    EnvVar("MCIM_FABRIC_CANARY_SHADOW_EVERY", "5", "fabric/canary.py",
+           "Every k-th canary-routed request is ALSO forwarded to a "
+           "stable replica and the response digests compared (the "
+           "bit-exactness spot check; the client gets the stable "
+           "answer)."),
+    EnvVar("MCIM_FABRIC_CANARY_BAD_FRAC", "0.10", "fabric/canary.py",
+           "Absolute canary bad-outcome fraction past which the gate "
+           "rolls back."),
+    EnvVar("MCIM_FABRIC_CANARY_BURN_RATIO", "3", "fabric/canary.py",
+           "Relative breach: canary bad rate must stay under this "
+           "multiple of the stable lanes' bad rate over the gate "
+           "window (the canary-vs-stable burn-rate comparison)."),
+    EnvVar("MCIM_FABRIC_CANARY_PROMOTE_REQUESTS", "400",
+           "fabric/canary.py",
+           "Canary outcomes without a breach after which the gate "
+           "reports the flip promotable."),
+    EnvVar("MCIM_FABRIC_SESSION_TAIL", "0", "fabric/session.py",
+           "Frames of journal tail the router retains per live video "
+           "session for failover replay; 0 = sized automatically from "
+           "the session pipeline's temporal windows (sum of windows)."),
+    EnvVar("MCIM_SLO_SPECS", "avail:99.5,latency:1.0:99", "obs/slo.py",
+           "Default SLO spec list for the fabric router's /slo engine: "
+           "comma-separated avail:<pct> and latency:<le_seconds>:<pct> "
+           "entries (docs/design.md \"Fleet observability\")."),
+    EnvVar("MCIM_SLO_FAST_S", "300", "obs/slo.py",
+           "Fast burn-rate window in seconds (the 5m page window; an "
+           "alert fires only when fast AND slow burn exceed the "
+           "threshold)."),
+    EnvVar("MCIM_SLO_SLOW_S", "3600", "obs/slo.py",
+           "Slow burn-rate window in seconds (the 1h confirmation "
+           "window)."),
+    EnvVar("MCIM_SLO_TICK_S", "5", "obs/slo.py",
+           "SLO engine evaluation period in seconds (each tick samples "
+           "the federated counters into the window ring)."),
+    EnvVar("MCIM_SLO_BURN_THRESHOLD", "10", "obs/slo.py",
+           "Burn-rate alert threshold: error-budget consumption rate "
+           "(1 = exactly on budget) both windows must exceed to fire."),
+    EnvVar("MCIM_SYSTOLIC", "0", "fabric/replica.py",
+           "Default for --systolic: accept stage-sharded graph "
+           "dispatches (run a placed step range, forward the live env "
+           "to the next stage owner) and advertise it in heartbeats."),
+    EnvVar("MCIM_SYSTOLIC_MIN_STEPS", "4", "fabric/router.py",
+           "Smallest program (compiled step count) the router will "
+           "stage-shard; shorter programs stay on the pinned lane "
+           "(counted as fallback reason 'ineligible')."),
+    EnvVar("MCIM_FED_HEARTBEAT_S", "1.0", "federation/control.py",
+           "Pod -> front-door heartbeat interval (the pod router pushes "
+           "aggregate PodHeartbeats; liveness at the federation tier is "
+           "the absence of beats)."),
+    EnvVar("MCIM_RETRY_BUDGET_FRAC", "0.1", "resilience/deadline.py",
+           "Retry-budget deposit per accepted request at the door and "
+           "router: retries/reroutes/hedges each withdraw one token, "
+           "bounding attempt amplification at 1+frac asymptotically."),
+    EnvVar("MCIM_RETRY_BUDGET_RESERVE", "8", "resilience/deadline.py",
+           "Retry-budget starting balance (tokens): cold-start failover "
+           "headroom before any deposits have banked (the breaker board "
+           "trips within ~2 failures, so this covers the first probes)."),
+    EnvVar("MCIM_HEDGE_DELAY_FRAC", "0", "fabric/router.py",
+           "Hedged requests: a chain forward still pending past this "
+           "fraction of the router's federated p99 gets ONE secondary "
+           "forward to a different replica, first response wins; 0 "
+           "disables hedging."),
+    EnvVar("MCIM_HEDGE_MAX_FRAC", "0.05", "fabric/router.py",
+           "Cap on hedges as a fraction of accepted requests (on top of "
+           "the retry-budget withdrawal each hedge makes)."),
+    EnvVar("MCIM_TUNE_TICK_S", "1.0", "tune/controller.py",
+           "Tune controller decision-tick period (seconds)."),
+    EnvVar("MCIM_TUNE_MIN_SAMPLES", "8", "tune/controller.py",
+           "Effective observations an arm needs before the controller "
+           "will exploit against it (below this: insufficient_data / "
+           "explore)."),
+    EnvVar("MCIM_TUNE_EXPLORE_C", "0.35", "tune/controller.py",
+           "UCB exploration coefficient — widens the optimistic lower "
+           "confidence bound on under-sampled arms; 0 = pure greedy."),
+    EnvVar("MCIM_TUNE_MIN_GAIN", "1.05", "tune/controller.py",
+           "Measured speedup a candidate must hold over the current arm "
+           "to be proposed/promoted (1.05 = 5% — flips below this are "
+           "churn, not wins)."),
+    EnvVar("MCIM_TUNE_FLIP_TIMEOUT_S", "300", "tune/controller.py",
+           "A promoted-by-the-gate flip that has produced no canary "
+           "measurements after this long is reverted (rollback decision)."),
+    EnvVar("MCIM_TUNE_CANARY_FRAC", None, "tune/controller.py",
+           "Traffic fraction routed to a tuner-proposed canary replica "
+           "(overrides the pod's CanaryConfig.frac for tuner flips only)."),
+    EnvVar("MCIM_TUNE_ARMS", None, "fabric/supervisor.py",
+           "Comma-separated candidate arms the controller may propose "
+           "(e.g. plan:off,plan:fused); default: every plan mode the "
+           "pipeline supports."),
 )
 
 REGISTRY: dict[str, EnvVar] = {v.name: v for v in _VARS}

@@ -353,3 +353,37 @@ def test_pinned_stager_and_d2h_on_the_card():
     for k, img in enumerate(imgs):
         want = Pipeline.parse(REFERENCE_OPS)(torch.from_numpy(img)).numpy()
         np.testing.assert_array_equal(got[k], want)
+
+
+def test_idle_parts_bracket_the_idle_time_between_two_reads():
+    """The idle wait in progress shows in `idle_parts()`, so that the idle
+    seconds between two reads (the sums of the parts) lie between 0 and
+    the time between them, also when a wait began before the first; the
+    snapshot keeps the JAX package's keys."""
+    eng = Engine(inflight=2, io_threads=1, name="t-idle")
+    x = torch.zeros(4)
+
+    def idle_now():
+        return sum(eng.metrics.idle_parts())
+
+    try:
+        eng.submit(0, lambda: x, lambda v: v + 1, on_done=lambda k, out, info: None,
+                   on_error=lambda k, e: pytest.fail(str(e)))
+        assert eng.flush(timeout=WAIT_S)
+        time.sleep(0.05)  # the completion thread waits idle from here on
+        t0 = time.perf_counter()
+        first = idle_now()
+        assert eng.metrics.idle_parts()[1] > 0.0
+        time.sleep(0.1)
+        second = idle_now()
+        window = time.perf_counter() - t0
+        assert 0.1 <= second - first <= window
+        eng.submit(1, lambda: x, lambda v: v + 1, on_done=lambda k, out, info: None,
+                   on_error=lambda k, e: pytest.fail(str(e)))
+        assert eng.flush(timeout=WAIT_S)
+        # the wait closed into the counted seconds, none of it lost or
+        # counted twice
+        assert eng.metrics.idle_parts()[0] >= second - 1e-9
+        assert "idle_open_s" not in eng.metrics.snapshot()
+    finally:
+        eng.close(timeout=WAIT_S)

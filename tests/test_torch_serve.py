@@ -436,9 +436,9 @@ def test_metrics_exposition_carries_plan_and_devmem_families(jax_app):
         assert _families(jax_plan_metrics.registry.render()) <= fams
         parsed = parse_exposition(app.render_metrics())
         assert parsed["mcim_devmem_devices"]["samples"][("mcim_devmem_devices", "")] == 0.0
-        # the stats schema: JAX's keys less the sessions (they come with
-        # the fabric), plus the device
-        assert set(app.stats()) == (set(jax_app.stats()) - {"sessions"}) | {"device"}
+        # the stats schema: JAX's keys (the live sessions' block too),
+        # plus the device
+        assert set(app.stats()) == set(jax_app.stats()) | {"device"}
     finally:
         app.stop()
 

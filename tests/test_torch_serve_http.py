@@ -1,12 +1,13 @@
 """The port's HTTP front door and CLI ``serve`` on the CPU: a round trip
 through the context-manager ``Server`` on port 0 (POST /v1/process held to
-the JAX package's golden, 400, 504, the JAX package's unknown-route 404 for
-the routes that come with the fabric, the pipeline service's routes
-answering before any registration, /healthz, /stats, /metrics), the HTTP
-open-loop generator, and ``serve --device cpu``
-in a subprocess stopped by SIGTERM: a clean drain and exit 0, with the
-stats record written. The refusals (--impl cuda/swar, --replicas > 1, the
-default CUDA device without one) exit 2 with their reason.
+the JAX package's golden, 400, 504, the replica's fleet routes (the
+/fleet/snapshot federation snapshot, a session frame's refusals and an
+unknown route's 404), the pipeline service's routes answering before any
+registration, /healthz, /stats, /metrics), the HTTP open-loop generator,
+and ``serve --device cpu`` in a subprocess stopped by SIGTERM: a clean
+drain and exit 0, with the stats record written. The refusals (--impl
+cuda/swar, also with --replicas > 1, and the default CUDA device without
+one) exit 2 with their reason.
 """
 
 import json
@@ -78,7 +79,11 @@ def test_http_roundtrip_health_stats_metrics_and_refusals():
         code, _, body = _post(base, encode_image_bytes(img), headers={"X-MCIM-Deadline-Ms": "0"})
         assert code == 504
         code, body = _get(base, "/fleet/snapshot")
-        assert code == 404 and json.loads(body)["code"] == "unknown-route"
+        snap = json.loads(body)
+        assert code == 200 and snap["full"]
+        assert "mcim_serve_requests_total" in snap["metrics"]
+        code, _, body = _post(base, b"{}", path="/v1/session/s1/frame")
+        assert code == 400 and "X-Session-Seq" in json.loads(body)["error"]
         code, _, body = _post(base, b"{}", path="/v1/sessions/s1/frame")
         assert code == 404 and json.loads(body)["code"] == "unknown-route"
         # the pipeline service's routes, before any registration: an empty
@@ -183,7 +188,7 @@ def test_cli_serve_drains_on_sigterm_and_exits_zero(tmp_path):
 @pytest.mark.parametrize("argv,reason", [
     (["--impl", "cuda"], "bucket border"),
     (["--impl", "swar"], "bucket border"),
-    (["--replicas", "2"], "item 7"),
+    (["--replicas", "2", "--impl", "cuda"], "bucket border"),
 ])
 def test_cli_serve_refusals_exit_nonzero_with_reason(argv, reason, capsys):
     assert cli.main(["serve", "--device", "cpu", "--port", "0", *argv]) == 2
