@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``mpi_cuda_imagemanipulation_tpu_torch/
 ops/csrc`` with nvcc (one process per source, all at once), then runs
-twenty-one phases; any failure raises and the script exits non-zero without
+twenty-two phases; any failure raises and the script exits non-zero without
 printing a result:
 
 1. Kernel against plain version on the card. K1 (pointwise group), K2
@@ -334,6 +334,30 @@ printing a result:
     p50s; SIGTERM drains each pod to exit 0; (d) the ``kernels`` rows of
     the mesh lane's K2g, K1 and K3 at its shard shapes.
 
+22. The benchmark suite (bench_suite.py) and the federation front door
+    (federation/), which add no kernel: (a) ``run_suite`` on the JAX
+    suite's 12 configs at torch and cuda (the sharded two on 4 slots of the
+    card), on ``utils/timing.device_throughput`` (the padded clock): every
+    (config, impl) record present, each config's cuda output byte-equal to
+    its torch output with the kernel BENCH_KERNELS names launched (none
+    under torch), the headline record and ``roofline_frac`` against the
+    card's data-sheet rate, ``device_throughput`` within 10% of
+    ``padded_device_ms`` and of CUPTI's kernel time on gaussian5_8k calls;
+    (b) the lanes plan_ab, megakernel_ab, mxu_fused_ab (K4, K5 at 8K),
+    stream_ab, engine_ab and systolic_ab (two pods of two replicas), each
+    with its gate, no lane or stage failed, each kernel lane's launches
+    (K4; K5 bf16 and int8), every megakernel stage on K4 and the stream's
+    resident peak below the whole frame's; (c) a CLI ``federation`` door and two CLI pods
+    (``fabric --replicas 1 --federate URL --pod-id NAME``, each its own
+    process group, started before (b)): a spec registered once byte-equal
+    to the graph executor through the door and straight at each pod; a
+    quota tenant driving both pods within one global budget; the door's
+    /metrics; the door restarted (SIGTERM, then an in-process ``FrontDoor``
+    on its port and registry) rehydrating and re-pushing before its first
+    forward; then ``run_federation_loadgen`` over that door and the same
+    pods, a whole pod SIGKILLed mid-traffic with every accepted request ok
+    and byte-equal and the reroutes under ``REROUTE_REASONS`` only.
+
 The native codec is built from the checkout like the kernels, and a kernel
 or the codec that fails to build or launch fails its phase: nothing falls
 back. It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -349,6 +373,15 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# the padded device clock (CUDA events around one call queued behind a spin
+# kernel), the host enqueue time and their split: the clock of every kernel
+# row below and of the benchmark suite
+from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import (  # noqa: E402
+    host_enqueue_ms,
+    padded_device_ms,
+    split_ms,
+)
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -2971,66 +3004,6 @@ def phase3_k5(device, x8k, mxu_launches, record):
             used = {k: v for k, v in mxu_launches[key, impl, plan].items() if v}
             print(f"path {key} [{spec}] impl={impl} plan={plan} {MAIN_H}x{MAIN_W} RGB in, RGB "
                   f"out: {t:.4f} ms ({mp / t * 1e3:.1f} MP/s), launches {used}")
-
-
-def host_enqueue_ms(fn, reps: int = 7) -> float:
-    """Host milliseconds one call of `fn` takes to enqueue its work (no
-    synchronise inside the timed region; the device is idle when it starts):
-    the median of `reps` samples. Not a device time."""
-    import statistics
-
-    import torch
-
-    samples = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        samples.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return statistics.median(samples)
-
-
-# cycles of the spin kernel that keeps the stream busy while the host
-# enqueues a timed call (about 2.5 ms at the H100's clock, longer than any
-# wrapper's host time)
-SPIN_CYCLES = 5_000_000
-
-
-def padded_device_ms(fn, reps: int = 7) -> float:
-    """Device milliseconds of one call of `fn`: CUDA events around it, the
-    stream held busy beforehand by a spin kernel (`torch.cuda._sleep`) so
-    that the call's kernels are queued before the start event runs and no
-    host time falls between the events; the median of `reps`."""
-    import statistics
-
-    import torch
-
-    fn()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end))
-    return statistics.median(samples)
-
-
-def split_ms(fn) -> dict:
-    """One call of `fn` three ways: the device time its kernels take
-    (`padded_device_ms`), the host time it takes to enqueue
-    (`host_enqueue_ms`), and CUDA events around calls back to back
-    (`device_time_ms`, which reads host time where a call's host work is
-    longer than its kernels)."""
-    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_time_ms
-
-    return {"device_ms": padded_device_ms(fn), "host_ms": host_enqueue_ms(fn),
-            "b2b_ms": device_time_ms(fn, reps=7)}
 
 
 def phase3_sharded(device, x8k, gray8k, sharded_launches, record):
@@ -6562,6 +6535,504 @@ def phase21_rows(device, x8k, counts, rows) -> None:
            strip_bytes=2 * h * MAIN_W, library=conv_library(st, band, pad_rows=False))
 
 
+# the kernel each bench config's cuda run must launch (ops/cuda_kernels.py
+# and parallel/api.py's routing of the config's groups)
+BENCH_KERNELS = {
+    "grayscale_1080p": "K1", "gaussian3_4k": "K2", "sobel_4k": "K2", "gaussian5_8k": "K2",
+    "gaussian7_8k": "K2", "reference_pipeline_4k": "K2", "gaussian5_8k_sharded": "K2g",
+    "gaussian5_8k_sharded_overlap": "K3", "reference_1080p_batch8": "K2", "median3_4k": "K2",
+    "erode5_4k": "K2", "gaussian5_8k_batch2": "K2",
+}
+BENCH_CLOCK_RTOL = 0.10  # device_throughput against padded_device_ms and CUPTI
+BENCH_CUPTI_CALLS = 20
+BENCH_LANES = ("plan_ab", "megakernel_ab", "mxu_fused_ab", "stream_ab", "engine_ab",
+               "systolic_ab")
+# the lanes' knobs where their card defaults would not fit the phase's time:
+# systolic_ab 16 requests an arm of 512 x 512 (JAX: 64 of 1024 x 1024),
+# engine_ab 16 images (32), stream_ab two 4096 x 2048 frames (8192 x 2048)
+# in 128-row bands (512), so that the stream's bound on resident bytes
+# (stream/runner.resident_bound, 21 MB) sits below one whole frame's 36 MB
+BENCH_LANE_KNOBS = {"MCIM_SYSTOLIC_AB_REQUESTS": "16", "MCIM_SYSTOLIC_AB_HEIGHT": "512",
+                    "MCIM_ENGINE_AB_IMAGES": "16", "MCIM_STREAM_AB_HEIGHT": "4096",
+                    "MCIM_STREAM_AB_TILE_ROWS": "128"}
+# the kernels each kernel lane's timed calls must launch at the lane's size
+# (a lane that fell back to a plain path launches none)
+BENCH_LANE_KERNELS = {
+    "plan_ab": {"fused_pallas": ("K4",)},
+    "megakernel_ab": {"fused_pallas": ("K4",)},
+    "mxu_fused_ab": {"fused_vpu": ("K4",), "fused_mxu": ("K4", "K5-bf16"),
+                     "fused_mxu_int8": ("K4", "K5-int8")},
+}
+# federation: two CLI pods of one replica each (the throughput lane's bucket
+# keys), 64 rps offered through the door, 16 rps under the whole-pod kill
+FED_BUCKETS = "128,192,256,384,512"
+FED_RPS = 64.0
+FED_PHASE_S = 2.0
+FED_HEARTBEAT_S = 0.25
+FED_STALE_S = 1.0
+FED_SPEC = {
+    "version": 1,
+    "name": "unsharp",
+    "nodes": [
+        {"id": "src", "kind": "source"},
+        {"id": "g", "kind": "op", "op": "grayscale", "input": "src"},
+        {"id": "blur", "kind": "op", "op": "gaussian:5", "input": "g"},
+        {"id": "mask", "kind": "merge", "merge": "subtract", "inputs": ["g", "blur"]},
+    ],
+    "outputs": {"image": "mask"},
+}
+FED_FAMILIES = ("mcim_fed_requests_total", "mcim_fed_forwards_total", "mcim_fed_reroutes_total",
+                "mcim_fed_heartbeats_total", "mcim_fed_lease_grants_total", "mcim_fed_pods",
+                "mcim_fed_tenants", "mcim_fed_specs")
+
+
+def phase22_suite(device, gpu: str) -> list:
+    """(a) `bench_suite.run_suite` on all 12 configs at torch and cuda, the
+    sharded two on N_SHARDS slots of the card: every (config, impl) record
+    present; each config's cuda output byte-equal to its torch output on the
+    config's image, with the kernel BENCH_KERNELS names launched (and none
+    under torch); the headline record; device_throughput against
+    padded_device_ms on one gaussian5_8k call."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch import bench_suite as bs
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import cost as obs_cost
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.timing import device_throughput
+
+    records = bs.run_suite(impl="both", device=device, n_shards=N_SHARDS,
+                           printer=lambda s: print(f"  {s}"))
+    got = {(r["config"], r["impl"]) for r in records}
+    missing = sorted({(n, i) for n in bs.CONFIGS for i in ("torch", "cuda")} - got)
+    if missing:
+        raise AssertionError(f"phase 22: bench records missing for {missing}")
+    for r in records:
+        print("phase 22 bench record: " + json.dumps(
+            {k: r[k] for k in ("config", "impl", "ms_per_iter", "mp_per_s_per_chip",
+                               "roofline_frac", "host_enqueue_ms", "host_bound", "chips",
+                               "hbm_bytes_model", "hbm_bytes_hlo", "hlo_temp_bytes", "slots")
+             if k in r}) + (" " + json.dumps(r["halo_ab"]) if "halo_ab" in r else ""))
+    mesh = bs.bench_mesh(N_SHARDS, device)
+    for name, cfg in bs.CONFIGS.items():
+        img = bs.config_image(cfg, device)
+        outs, used = {}, {}
+        for impl in ("torch", "cuda"):
+            fn = bs.config_fn(cfg, impl, device, mesh if cfg.sharded else None)
+            fn(img)
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            outs[impl] = fn(img)
+            torch.cuda.synchronize()
+            used[impl] = {k: v for k, v in ck.launch_counts().items() if v}
+        check_equal(f"phase 22: {name} cuda vs torch", outs["cuda"], outs["torch"])
+        if used["torch"] or not used["cuda"].get(BENCH_KERNELS[name]):
+            raise AssertionError(f"phase 22: {name} launched {used}, expected "
+                                 f"{BENCH_KERNELS[name]} under cuda and nothing under torch")
+        print(f"phase 22: {name} cuda == torch ({tuple(outs['cuda'].shape)}), cuda launches "
+              f"{used['cuda']}")
+        del img, outs
+    head = bs.headline_record(records)
+    print(f"phase 22 headline: {json.dumps(head)} against {obs_cost.peak_gb_s():.0f} GB/s "
+          f"({gpu})")
+    cfg = bs.CONFIGS["gaussian5_8k"]
+    img = bs.config_image(cfg, device)
+    fn = bs.config_fn(cfg, "cuda", device)
+    clock: dict = {}
+    dt_ms = device_throughput(fn, [img], record=clock) * 1e3
+    pad_ms = padded_device_ms(lambda: fn(img))
+    gap = abs(dt_ms - pad_ms) / pad_ms
+    print(f"phase 22: gaussian5_8k cuda device_throughput {dt_ms:.4f} ms (host enqueue "
+          f"{clock['host_enqueue_ms']:.4f} ms) against padded_device_ms {pad_ms:.4f} ms: "
+          f"{gap * 100:.2f}% ({gpu})")
+    if gap > BENCH_CLOCK_RTOL:
+        raise AssertionError(f"phase 22: device_throughput {dt_ms:.4f} ms is {gap:.1%} off "
+                             f"padded_device_ms {pad_ms:.4f} ms")
+    # both clocks above are CUDA events behind a spin kernel; CUPTI's kernel
+    # records of the same call are a reading independent of them. The call
+    # is one K2 launch (checked above), so its device time is one K2's
+    cupti_ms, n_kernels = cupti_kernel_ms(lambda: fn(img), BENCH_CUPTI_CALLS, device, "K2",
+                                          "stream_stencil_kernel")
+    gap = abs(dt_ms - cupti_ms) / cupti_ms
+    print(f"phase 22: gaussian5_8k cuda device_throughput {dt_ms:.4f} ms against CUPTI's "
+          f"kernel time {cupti_ms:.4f} ms a call ({n_kernels} K2 kernels recorded of "
+          f"{BENCH_CUPTI_CALLS} calls): {gap * 100:.2f}% ({gpu})")
+    if gap > BENCH_CLOCK_RTOL:
+        raise AssertionError(f"phase 22: device_throughput {dt_ms:.4f} ms is {gap:.1%} off "
+                             f"CUPTI's {cupti_ms:.4f} ms")
+    for r in records:
+        if "roofline_frac" not in r or (r["config"] in ("gaussian5_8k_sharded",
+                                                        "gaussian5_8k_sharded_overlap")
+                                        and "halo_ab" not in r):
+            raise AssertionError(f"phase 22: record {r['config']}/{r['impl']} lacks its "
+                                 f"roofline_frac or halo_ab")
+    return records
+
+
+def cupti_kernel_ms(call, n: int, device, kernel: str, symbol: str) -> tuple[float, int]:
+    """The card's time a call of `call` spends in `kernel` (a KERNEL_WRAPPERS
+    key, whose CUDA function's name holds `symbol`), as CUPTI records it
+    (torch.profiler on the main thread, `n` calls after one warm one): the
+    mean duration of the recorded kernels times the launches a call makes
+    (the wrapper's count), and how many were recorded. A session after
+    earlier ones in the same process has recorded only some of a run's
+    kernels (7 of 20 after phases 20-21), so the mean of those recorded is
+    used; none recorded raises."""
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.obs import profile as obs_profile
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+
+    call()
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    prof = obs_profile.profiler(device)
+    with prof:
+        time.sleep(0.1)  # let the profiler's start settle before the first launch
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    per_call = ck.launch_counts()[kernel] / n
+    with tempfile.TemporaryDirectory(prefix="mcim_cupti_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = obs_profile.load_device_trace(path)
+    durs = [float(e["dur"]) for e in events
+            if e.get("cat") in obs_profile.TORCH_COMPUTE_CATS and symbol in e.get("name", "")]
+    if not durs or not per_call:
+        raise AssertionError(f"phase 22: CUPTI recorded no {kernel} kernel ({symbol}) in {n} "
+                             f"calls ({per_call} launches a call)")
+    return sum(durs) / len(durs) / 1e3 * per_call, len(durs)
+
+
+def phase22_lanes(device, gpu: str) -> dict:
+    """(b) The lanes BENCH_LANES on the card at their card sizes, cut by
+    BENCH_LANE_KNOBS, each with its gate, its record summarized and the
+    launches it made."""
+    from mpi_cuda_imagemanipulation_tpu_torch import bench_suite as bs
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+
+    recs = {}
+    with knobs(**BENCH_LANE_KNOBS):
+        for name in BENCH_LANES:
+            t = time.perf_counter()
+            ck.reset_launch_counts()
+            rec = bs._LANE_RUNNERS[name](device=device, printer=lambda s: print(f"  {s}"))
+            used = {k: v for k, v in ck.launch_counts().items() if v}
+            recs[name] = rec
+            summary = {k: v for k, v in rec.items()
+                       if k not in ("lanes", "fused_stage_breakdown", "placement")}
+            print(f"phase 22 lane {name}: {time.perf_counter() - t:.1f} s, launches {used} "
+                  f"({gpu}): {json.dumps(summary)}")
+            if "lanes" in rec:
+                print(f"phase 22 lane {name} lanes: {json.dumps(rec['lanes'])}")
+            check_lane(name, rec)
+    return recs
+
+
+def _errors(rec, path: str = "") -> list[str]:
+    """Every `error` a lane record holds, at any depth: a lane or a stage
+    whose timing raised (bench_suite._time_lanes and run_plan_ab keep the
+    CLI's suite going past one)."""
+    if isinstance(rec, dict):
+        out = [f"{path}: {rec['error']}"] if "error" in rec else []
+        for k, v in rec.items():
+            out += _errors(v, f"{path}/{k}")
+        return out
+    if isinstance(rec, list):
+        return [e for i, v in enumerate(rec) for e in _errors(v, f"{path}[{i}]")]
+    return []
+
+
+def check_lane(name: str, rec: dict) -> None:
+    """A lane record at its card size: no lane or stage failed, each kernel
+    lane launched the kernels BENCH_LANE_KERNELS names, megakernel_ab ran
+    every fused stage as K4, and the streaming lanes held their outputs and
+    stream_ab its bounded memory."""
+    errors = _errors(rec)
+    if errors:
+        raise AssertionError(f"phase 22: lane {name} failed in {errors}")
+    for lane, kernels in BENCH_LANE_KERNELS.get(name, {}).items():
+        got = rec["lanes"][lane]["launches"]
+        if not all(got.get(k) for k in kernels):
+            raise AssertionError(f"phase 22: lane {name}/{lane} launched {got}, not {kernels}")
+    if name == "megakernel_ab" and rec["megakernel_stages"] != len(rec["stage_eligibility"]):
+        raise AssertionError(f"phase 22: megakernel_ab stages fell back: "
+                             f"{rec['stage_eligibility']}")
+    if name in ("stream_ab", "engine_ab") and not rec["bit_identical"]:
+        raise AssertionError(f"phase 22: {name} outputs differ between its lanes")
+    if name == "stream_ab" and not rec["memory_ratio"] > 1.0:
+        raise AssertionError(f"phase 22: stream_ab held {rec['stream']['peak_resident_bytes']} "
+                             f"bytes, not fewer than the whole frame's "
+                             f"{rec['serial']['peak_resident_bytes']}")
+
+
+def _fed_post(url: str, path: str, data: bytes, headers=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=data, headers=headers or {}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _fed_post_retry(url, path, data, headers=None, deadline_s=60.0):
+    """Retry explicit sheds (503 + Retry-After): a pod converging is not a
+    failure; anything else is returned."""
+    t_end = time.monotonic() + deadline_s
+    while True:
+        code, hdrs, body = _fed_post(url, path, data, headers)
+        if code != 503 or not hdrs.get("Retry-After") or time.monotonic() > t_end:
+            return code, hdrs, body
+        time.sleep(0.2)
+
+
+def _fed_wait_pods(url: str, want: set, deadline_s: float = 180.0) -> float:
+    """Seconds until every wanted pod is fresh at the front door at `url`
+    with its replica routable."""
+    t0 = time.monotonic()
+    pods: dict = {}
+    while time.monotonic() < t0 + deadline_s:
+        with contextlib.suppress(Exception):
+            pods = _get_json(url + "/stats", 10)["pods"]
+        if want <= {p for p, v in pods.items() if v["fresh"] and v["routable"] >= 1}:
+            return time.monotonic() - t0
+        time.sleep(0.2)
+    raise TimeoutError(f"phase 22: pods {sorted(want)} never joined the front door ({pods})")
+
+
+def phase22_fed_start(device, tmp: str) -> dict:
+    """(c)'s processes, started before (b) so that their start-ups overlap
+    it: the front door (`python -m ... federation`) and two pods (`fabric
+    --replicas 1 --federate URL --pod-id podN`), each in a process group of
+    its own."""
+    import re
+    import socket
+    import threading
+
+    from mpi_cuda_imagemanipulation_tpu_torch import bench_suite as bs
+
+    p = bs.federation_loadgen_params(device)
+    p.update(buckets=FED_BUCKETS, replicas=1, offered_rps=FED_RPS, churn_rps=FED_RPS / 4,
+             phase_s=FED_PHASE_S, heartbeat_s=FED_HEARTBEAT_S)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    fed = {"params": p, "port": port, "url": f"http://127.0.0.1:{port}",
+           "registry": os.path.join(tmp, "fed_registry.jsonl"), "up": threading.Event(),
+           "lines": [], "t0": time.perf_counter()}
+    fed["door"] = subprocess.Popen(
+        [sys.executable, "-m", "mpi_cuda_imagemanipulation_tpu_torch", "federation",
+         "--host", "127.0.0.1", "--port", str(port), "--registry", fed["registry"],
+         "--stale-s", str(FED_STALE_S)],
+        cwd=root, env=env, stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+    def read():
+        for line in fed["door"].stderr:
+            fed["lines"].append(line)
+            if re.search(r"federation front door on ", line):
+                fed["up"].set()
+
+    threading.Thread(target=read, daemon=True).start()
+    if not fed["up"].wait(120):
+        raise RuntimeError("phase 22: the front door did not start:\n" + "".join(fed["lines"]))
+    fed["pods"] = {
+        f"pod{i}": bs._FabricProc(p, 1, extra_args=["--federate", fed["url"], "--pod-id",
+                                                    f"pod{i}"],
+                                  extra_env={"MCIM_FED_HEARTBEAT_S": str(FED_HEARTBEAT_S)})
+        for i in range(2)
+    }
+    return fed
+
+
+def phase22_federation(device, fed: dict, gpu: str) -> None:
+    """(c) The steps of the JAX package's tools/federation_smoke.py through
+    the CLI front door over the two CLI pods, the whole-pod kill inside
+    `run_federation_loadgen`: 1. a spec registered once at the door serves
+    byte-equal to the graph executor on the card, through the door and
+    straight at each pod; 2. a quota tenant driving both pods stays within
+    one global budget; 4. the door's /metrics parses with the mcim_fed_*
+    families; 5. the door restarted (SIGTERM, then an in-process FrontDoor
+    on the same port and registry) rehydrates and re-pushes before its
+    first forward; 3. `run_federation_loadgen` over that door and the same
+    pods: its gate, two pods steady, and a whole pod SIGKILLed mid-traffic
+    with every accepted request ok and byte-equal, the reroutes under
+    REROUTE_REASONS only."""
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch import bench_suite as bs
+    from mpi_cuda_imagemanipulation_tpu_torch.federation.frontdoor import (
+        FrontDoor,
+        FrontDoorConfig,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.graph import compile_graph, graph_callable, parse_spec
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import (
+        decode_image_bytes,
+        encode_image_bytes,
+        synthetic_image,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.obs.metrics import parse_exposition
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.bucketing import parse_buckets
+
+    url, pods = fed["url"], fed["pods"]
+    t_join = _fed_wait_pods(url, set(pods))
+    print(f"phase 22: front door and two pods up {time.perf_counter() - fed['t0']:.1f} s after "
+          f"spawn (joined {t_join:.1f} s after (b))")
+    graph = graph_callable(compile_graph(parse_spec(FED_SPEC)))
+    imgs = [synthetic_image(40, 44, channels=3, seed=50), synthetic_image(80, 72, channels=3,
+                                                                          seed=51)]
+    blobs = [encode_image_bytes(im) for im in imgs]
+    golden = [graph(torch.from_numpy(im).to(device))["image"].cpu().numpy() for im in imgs]
+    # 1. one registration, served from both pods
+    code, _h, out = _fed_post(url, "/v1/tenants",
+                              json.dumps({"tenant": "acme", "qos": "interactive"}).encode())
+    if code != 200:
+        raise AssertionError(f"phase 22: tenant registration {code} {out[:200]!r}")
+    code, _h, out = _fed_post(url, "/v1/pipelines",
+                              json.dumps({"tenant": "acme", "spec": FED_SPEC}).encode())
+    reg = json.loads(out)
+    if code != 200 or not reg.get("persisted") or set(reg["pods"]) != set(pods):
+        raise AssertionError(f"phase 22: spec registration {code} {reg}")
+    pid = reg["pipeline"]
+    acme = {"X-MCIM-Tenant": "acme", "X-MCIM-Pipeline": pid}
+    picks = set()
+    for blob, want in zip(blobs, golden):
+        targets = [("door", url)] + [(name, fab.url) for name, fab in pods.items()]
+        for where, target in targets:
+            code, hdrs, out = _fed_post_retry(target, "/v1/process", blob, acme)
+            if code != 200 or not np.array_equal(decode_image_bytes(out), want):
+                raise AssertionError(f"phase 22: spec {pid} via {where}: {code}, or bytes differ")
+            if where == "door":
+                picks.add(hdrs.get("X-Fed-Pod"))
+    print(f"phase 22: (c1) spec {pid} registered once, byte-equal through the door (pods "
+          f"{sorted(picks)}) and straight at both pods")
+    # 2. one global quota budget across both pods
+    code, _h, out = _fed_post(url, "/v1/tenants", json.dumps({
+        "tenant": "metered", "qos": "interactive", "quota_requests": 6,
+        "window_s": 3600.0}).encode())
+    code2, _h, out2 = _fed_post(url, "/v1/pipelines",
+                                json.dumps({"tenant": "metered", "spec": FED_SPEC}).encode())
+    if code != 200 or code2 != 200:
+        raise AssertionError(f"phase 22: metered tenant {code} {out[:200]!r} {code2}")
+    leases = _get_json(url + "/stats")["leases"]
+    shares = [g["quota_requests"] for w in leases.get("windows", []) if w["tenant"] == "metered"
+              for g in w["pods"].values()]
+    if sum(s or 0 for s in shares) > 6:
+        raise AssertionError(f"phase 22: granted shares {shares} exceed the budget 6")
+    metered = {"X-MCIM-Tenant": "metered", "X-MCIM-Pipeline": pid}
+    oks = sheds = 0
+    for fab in pods.values():
+        for _ in range(6):
+            code, hdrs, out = _fed_post(fab.url, "/v1/process", blobs[0], metered)
+            if code == 200:
+                oks += 1
+            elif code == 503 and hdrs.get("Retry-After"):
+                sheds += 1
+            else:
+                raise AssertionError(f"phase 22: metered request answered {code} {out[:200]!r}")
+    if not 1 <= oks <= 6:
+        raise AssertionError(f"phase 22: global budget 6 violated: {oks} accepted, {sheds} "
+                             f"shed, leases {shares}")
+    print(f"phase 22: (c2) the metered tenant drove both pods: {oks}/12 accepted <= the global "
+          f"budget 6 ({sheds} shed with Retry-After; leases {shares})")
+    # 4. the door's exposition
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        fams = parse_exposition(r.read().decode())
+    absent = [f for f in FED_FAMILIES if f not in fams]
+    if absent:
+        raise AssertionError(f"phase 22: the door's /metrics lacks {absent}")
+    print(f"phase 22: (c4) the door's /metrics parses: {len(fams)} families, the mcim_fed_* "
+          f"ones present")
+    # 5. restart: SIGTERM the CLI door, an in-process door on its port and registry
+    fed["door"].send_signal(signal.SIGTERM)
+    rc = fed["door"].wait(timeout=60)
+    if rc != 0:
+        raise AssertionError(f"phase 22: the front door exited {rc} on SIGTERM")
+    t = time.monotonic()
+    door = fed["inproc"] = FrontDoor(FrontDoorConfig(
+        registry_path=fed["registry"], buckets=tuple(parse_buckets(FED_BUCKETS)),
+        stale_s=FED_STALE_S, forward_timeout_s=60.0, forward_attempts=3,
+    )).start(host="127.0.0.1", port=fed["port"])
+    st = _get_json(url + "/stats")
+    if not ({"acme", "metered"} <= set(st["tenants"]) and f"acme/{pid}" in st["specs"]
+            and st["registry"]["loaded_records"] >= 4 and st["registry"]["skipped_lines"] == 0):
+        raise AssertionError(f"phase 22: the restarted door did not rehydrate: {st['registry']}")
+    rejoin = _fed_wait_pods(url, set(pods), deadline_s=30.0)
+    code, _h, out = _fed_post_retry(url, "/v1/process", blobs[0], acme)
+    first_ok = time.monotonic() - t
+    if code != 200 or not np.array_equal(decode_image_bytes(out), golden[0]):
+        raise AssertionError(f"phase 22: after the restart: {code}, or bytes differ")
+    pushes = sum(parse_exposition(door.registry.render())["mcim_fed_pushes_total"]["samples"]
+                 .values())
+    if pushes < 1:
+        raise AssertionError("phase 22: the restarted door re-pushed no tenant state")
+    print(f"phase 22: (c5) door restarted: {st['registry']['loaded_records']} records "
+          f"rehydrated, pods fresh again after {rejoin:.3f} s, first forward ok {first_ok:.3f} s "
+          f"after the start, {pushes:.0f} state push(es) ({gpu})")
+    # 3. the lane over the same door and pods: the whole-pod kill
+    t = time.perf_counter()
+    rec = bs.run_federation_loadgen(device=device, params=fed["params"], door=door, pods=pods,
+                                    printer=lambda s: print(f"  {s}"))
+    churn = rec["lanes"]["pod_churn"]
+    print(f"phase 22: (c3) federation_loadgen {time.perf_counter() - t:.1f} s ({gpu}): "
+          f"{rec['bit_exact_gate']}; pods_2 {json.dumps(rec['lanes']['pods_2'])}; churn "
+          f"{json.dumps({k: v for k, v in churn.items()})}")
+
+
+def phase22_fed_stop(fed: dict) -> None:
+    """Whatever is left of (c)'s door and pods."""
+    import signal
+
+    if fed.get("inproc") is not None:
+        fed["inproc"].close()
+    if fed["door"].poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(fed["door"].pid, signal.SIGKILL)
+    fed["door"].wait()
+    for fab in fed.get("pods", {}).values():
+        fab.close()
+
+
+def phase22_bench(device) -> None:
+    """The benchmark suite and the federation front door on the card
+    (module docstring, phase 22)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    gpu = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="mcim_bench_")
+    try:
+        # no calibration record steers plan='auto' (every config's cuda
+        # route is the K1/K2 group runner); pods inherit the environment
+        with knobs(MCIM_NO_CALIB="1"):
+            t = time.perf_counter()
+            phase22_suite(device, gpu)
+            print(f"phase 22: (a) the suite {time.perf_counter() - t:.1f} s")
+            fed = phase22_fed_start(device, tmp)
+            try:
+                t = time.perf_counter()
+                phase22_lanes(device, gpu)
+                print(f"phase 22: (b) the lanes {time.perf_counter() - t:.1f} s")
+                t = time.perf_counter()
+                phase22_federation(device, fed, gpu)
+                print(f"phase 22: (c) the federation {time.perf_counter() - t:.1f} s")
+            finally:
+                phase22_fed_stop(fed)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 22: the benchmark suite and the federation, {time.perf_counter() - t0:.1f} s "
+          "in all")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -6719,6 +7190,7 @@ def main() -> int:
     phase19_serve(device)
     phase20_graph_service(device, x8k)
     phase21_fabric(device, x8k, rows)
+    phase22_bench(device)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

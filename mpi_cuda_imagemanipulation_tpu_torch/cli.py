@@ -1,5 +1,5 @@
 """Command line: ``python -m mpi_cuda_imagemanipulation_tpu_torch
-run|batch|stream|serve|fabric|graph|autotune|info``.
+run|batch|stream|serve|fabric|federation|graph|bench|autotune|info``.
 
 ``run`` applies a pipeline to one image, on the CUDA device by default,
 through the hand-written kernels (``--impl auto``, the default, routes
@@ -42,8 +42,16 @@ context (``--device``, default cuda), with heartbeat-driven affinity
 routing, rerouting retries, restart with backoff, an optional oversize
 mesh lane (``--mesh-shards``), the autoscaler, the tune controller and
 the SLO burn-rate engine.
+``federation`` is the multi-pod front door (federation/): it routes
+``/v1/*`` across pods that join with ``fabric --federate URL --pod-id
+NAME`` (rendezvous affinity, per-pod breakers, whole-pod failover), keeps
+tenant configs and pipeline specs in an fsync'd registry that survives
+its restarts, and leases each pod a share of a tenant's global quota.
 ``graph`` validates a pipeline-spec DAG from a file and runs it on one
 image (graph/), with its histogram and stats side outputs.
+``bench`` runs the benchmark suite (bench_suite.py): the twelve configs
+at ``--impl torch|cuda|swar|mxu|auto|both`` on the padded device clock
+(utils/timing.device_throughput), and its lanes by name.
 ``autotune`` measures the routes of one choice on the card and records
 the fastest in the calibration store (utils/calibration.py), which
 ``--impl auto --plan auto`` then follows; ``autotune info`` prints the
@@ -251,7 +259,9 @@ def _build_parser() -> argparse.ArgumentParser:
     _add_stream_parser(sub)
     _add_serve_parser(sub)
     _add_fabric_parser(sub)
+    _add_federation_parser(sub)
     _add_graph_parser(sub)
+    _add_bench_parser(sub)
 
     tune = sub.add_parser(
         "autotune",
@@ -691,6 +701,47 @@ def _add_fabric_parser(sub) -> None:
                      help="stable pod identity at the federation tier (default pod-<pid>)")
     _add_failpoint_flags(fab)
     _add_trace_flags(fab)
+
+
+def _add_federation_parser(sub) -> None:
+    """The ``federation`` subcommand's arguments: the JAX package's flags."""
+    fed = sub.add_parser(
+        "federation",
+        help="multi-pod federation front door (federation/): routes /v1/* across registered "
+        "pods (rendezvous affinity, per-pod breakers, whole-pod failover), persists tenant "
+        "configs + pipeline specs in an fsync'd registry that survives restarts, and leases "
+        "per-pod shares of each tenant's global fixed-window quota; pods join with `fabric "
+        "--federate URL --pod-id NAME`",
+    )
+    fed.add_argument("--host", default="", help="front-door bind address")
+    fed.add_argument("--port", type=int, default=8100)
+    fed.add_argument("--registry", default=None,
+                     help="durable tenant/spec/session registry path (default: "
+                     "MCIM_FED_REGISTRY)")
+    fed.add_argument("--stale-s", type=float, default=None,
+                     help="pod freshness window: pods silent this long are routed around "
+                     "(default: MCIM_FED_STALE_S)")
+    fed.add_argument("--shed-frac", type=float, default=0.9,
+                     help="pod queue-fill fraction past which a pod loses sticky preference "
+                     "(counted reroute reason 'overloaded')")
+    _add_failpoint_flags(fed)
+    _add_trace_flags(fed)
+
+
+def _add_bench_parser(sub) -> None:
+    """The ``bench`` subcommand's arguments: the JAX package's flags, with
+    its impl names mapped (xla -> torch, pallas -> cuda)."""
+    bench = sub.add_parser("bench", help="run the benchmark suite")
+    bench.add_argument("--configs", default=None, help="subset, comma-separated")
+    bench.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; cpu times the plain versions on the "
+                       "host clock)")
+    bench.add_argument("--impl", choices=("torch", "cuda", "swar", "mxu", "auto", "both"),
+                       default="both")
+    bench.add_argument("--halo-mode", choices=("serial", "overlap"), default=None,
+                       help="override the sharded configs' halo execution mode "
+                       "(default: each config's own setting)")
+    bench.add_argument("--json-metrics", default=None)
 
 
 def _add_graph_parser(sub) -> None:
@@ -2160,6 +2211,70 @@ def cmd_fabric(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_federation(args: argparse.Namespace) -> int:
+    """Multi-pod federation front door (federation/): a meta-router over
+    whole fabric pods. Pods join by heartbeating (`fabric --federate`);
+    tenant/spec registrations persist in the durable registry across
+    restarts. SIGTERM/SIGINT stops the listener (pods serve on). The JAX
+    package's ``cmd_federation``."""
+    _arm_failpoints(args)
+    _configure_tracing(args)
+    import signal
+    import threading
+
+    from mpi_cuda_imagemanipulation_tpu_torch.federation.frontdoor import (
+        FrontDoor,
+        FrontDoorConfig,
+    )
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import get_logger
+
+    log = get_logger()
+    door = FrontDoor(
+        FrontDoorConfig(
+            registry_path=args.registry,
+            stale_s=args.stale_s,
+            shed_frac=args.shed_frac,
+        )
+    )
+    stop_evt = threading.Event()
+
+    def _on_signal(signum, frame):
+        log.info("signal %s: stopping the front door", signal.Signals(signum).name)
+        stop_evt.set()
+
+    prev_handlers = {s: signal.signal(s, _on_signal) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        door.start(args.host, args.port)
+        log.info(
+            "federation front door on %s:%d (registry %s: %d records rehydrated, %d lines "
+            "skipped) — pods join via `fabric --federate http://HOST:%d --pod-id NAME`",
+            args.host or "0.0.0.0", door.address[1], door.durable.path,
+            door.durable.loaded_records, door.durable.skipped_lines, door.address[1],
+        )
+        stop_evt.wait()
+    except KeyboardInterrupt:
+        log.info("interrupt: stopping the front door")
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        door.close()
+        _export_trace(args, log)
+    return 0
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    """The benchmark suite (bench_suite.run_suite) on `--device`. The JAX
+    package's ``cmd_bench``."""
+    from mpi_cuda_imagemanipulation_tpu_torch.bench_suite import run_suite
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    names = args.configs.split(",") if args.configs else None
+    run_suite(names=names, impl=args.impl, json_path=args.json_metrics,
+              halo_mode=args.halo_mode, device=device)
+    return 0
+
+
 def cmd_graph(args: argparse.Namespace) -> int:
     """`graph`: validate (and optionally run) a pipeline-spec DAG from a
     file, the offline form of the pipeline service's POST surface. A
@@ -2350,7 +2465,8 @@ def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     try:
         return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream, "serve": cmd_serve,
-                "fabric": cmd_fabric, "graph": cmd_graph, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
+                "fabric": cmd_fabric, "federation": cmd_federation, "graph": cmd_graph,
+                "bench": cmd_bench, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -39,6 +39,11 @@ each accepted stage on the megakernel K4 with ``pallas=True``.
 bare callable). Measuring cannot fail apart from the call itself (whose
 exception propagates, and the next call is measured instead), so
 ``mcim_cost_extract_failures_total`` is registered with no samples too.
+
+The measured roofline (`peak_gb_s`, `measured_gb_s`,
+`measured_roofline_frac`) divides a byte rate by the card's data-sheet
+memory rate, keyed by `utils.platform.device_kind`, or by
+``MCIM_COST_PEAK_GBS`` where set; a kind the table does not hold raises.
 """
 
 from __future__ import annotations
@@ -59,6 +64,11 @@ ENV_ATTRIB = "MCIM_COST_ATTRIB"
 ENV_CAP = "MCIM_COST_CAP"
 ENV_DRIFT_MIN = "MCIM_COST_DRIFT_MIN"
 ENV_DRIFT_MAX = "MCIM_COST_DRIFT_MAX"
+ENV_PEAK_GBS = "MCIM_COST_PEAK_GBS"
+
+# data-sheet memory rate in GB/s by `utils.platform.device_kind`: the H100
+# SXM5's HBM3 (NVIDIA H100 Tensor Core GPU data sheet)
+PEAK_GB_S = {"NVIDIA H100 80GB HBM3": 3350.0}
 
 # the bounded attribution-site label set (one per cache kind), the JAX
 # package's; the port fills 'plan' and 'stream' so far
@@ -440,3 +450,38 @@ def attribute_plan(
                                       stage=label),
         })
     return out
+
+
+# --------------------------------------------------------------------------
+# measured roofline helpers
+# --------------------------------------------------------------------------
+
+
+def peak_gb_s(kind: str | None = None) -> float:
+    """The roofline denominator: MCIM_COST_PEAK_GBS when set, else the
+    data-sheet rate of `kind` (`utils.platform.device_kind`; None: the
+    current CUDA device's). Raises for a kind the table does not hold."""
+    override = env_registry.get(ENV_PEAK_GBS)
+    if override:
+        return float(override)
+    if kind is None:
+        from mpi_cuda_imagemanipulation_tpu_torch.utils.platform import device_kind
+
+        kind = device_kind(None)
+    try:
+        return PEAK_GB_S[kind]
+    except KeyError:
+        raise ValueError(
+            f"no data-sheet memory rate for device kind {kind!r} (known: {sorted(PEAK_GB_S)}); "
+            f"set {ENV_PEAK_GBS}"
+        ) from None
+
+
+def measured_gb_s(nbytes: float, seconds: float, chips: int = 1) -> float:
+    return nbytes / max(seconds, 1e-12) / max(chips, 1) / 1e9
+
+
+def measured_roofline_frac(
+    nbytes: float, seconds: float, *, chips: int = 1, kind: str | None = None,
+) -> float:
+    return measured_gb_s(nbytes, seconds, chips) / peak_gb_s(kind)

@@ -220,3 +220,17 @@ def plan_callable(plan: Plan, *, impl: str = "torch", mxu_stage: str | None = No
         return img
 
     return run
+
+
+def unfused_callables(ops) -> list:
+    """One callable per op, the op-at-a-time execution model (each op a
+    whole-image pass of its golden version, like the reference's sequential
+    kernel launches): the per-op lane of the bench suite's plan_ab. The
+    counterpart of the JAX package's ``unfused_callables``."""
+    return [lambda x, o=op: o(x) for op in ops]
+
+
+def run_unfused(fns, img):
+    for f in fns:
+        img = f(img)
+    return img

@@ -13,10 +13,9 @@
   * `chaos`      - seeded chaos schedules over the failpoint sites.
 
 Each module behaves as the JAX package's, and each is
-tested against its JAX twin. Their users in the JAX package are its
-serving scheduler and server, its batch command, its fabric router and
-its federation front door; the port's versions of those come later, and
-until then the port itself calls only the failpoints.
+tested against its JAX twin. Their users are the serving scheduler and
+server, the batch command, the fabric router and the federation front
+door, as in the JAX package.
 """
 
 from mpi_cuda_imagemanipulation_tpu_torch.resilience.breaker import (  # noqa: F401

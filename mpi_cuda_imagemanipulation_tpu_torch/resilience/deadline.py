@@ -51,8 +51,8 @@ sites, callers must pass literal members, and mcim-check
 reason expressions, and vocabulary entries nothing uses.
 
 The fabric router (fabric/router.py) reads the retry-budget and hedge
-knobs through the ``ENV_*`` names below; ``MCIM_FED_DEADLINE_MS`` is the
-federation front door's, which the port does not have yet.
+knobs through the ``ENV_*`` names below, the federation front door
+(federation/frontdoor.py) ``MCIM_FED_DEADLINE_MS``.
 """
 
 from __future__ import annotations
@@ -64,6 +64,7 @@ import time
 # hop re-anchors on its own monotonic clock, so skew never corrupts it.
 HEADER = "X-MCIM-Deadline-Ms"
 
+ENV_DEADLINE_MS = "MCIM_FED_DEADLINE_MS"
 ENV_BUDGET_FRAC = "MCIM_RETRY_BUDGET_FRAC"
 ENV_BUDGET_RESERVE = "MCIM_RETRY_BUDGET_RESERVE"
 ENV_HEDGE_DELAY_FRAC = "MCIM_HEDGE_DELAY_FRAC"

@@ -311,6 +311,109 @@ _VARS = (
            "Comma-separated candidate arms the controller may propose "
            "(e.g. plan:off,plan:fused); default: every plan mode the "
            "pipeline supports."),
+    # -- the federation front door (federation/frontdoor.py) ----------------
+    EnvVar("MCIM_FED_STALE_S", "4.0", "federation/frontdoor.py",
+           "Beat absence past which the front door treats a pod as dead "
+           "and reroutes only that pod's affinity slice."),
+    EnvVar("MCIM_FED_REGISTRY", ".mcim_fed_registry.jsonl", "federation/frontdoor.py",
+           "Path of the front door's durable tenant/spec/session registry "
+           "(fsync'd JSONL; rehydrated on restart so clients never "
+           "re-register)."),
+    EnvVar("MCIM_FED_FORWARD_TIMEOUT_S", "30.0", "federation/frontdoor.py",
+           "Per-attempt front-door -> pod proxy timeout."),
+    EnvVar("MCIM_FED_FORWARD_ATTEMPTS", "3", "federation/frontdoor.py",
+           "Pod candidates tried per request before 503 (pod-level "
+           "admission sheds are FINAL and never retried — the "
+           "lease-not-budget-times-pods invariant)."),
+    EnvVar("MCIM_FED_DEADLINE_MS", "0", "federation/frontdoor.py",
+           "Default end-to-end deadline budget (ms) the front door stamps "
+           "on requests that arrive without X-MCIM-Deadline-Ms; 0 = no "
+           "default (only client-set budgets propagate)."),
+    EnvVar("MCIM_COST_PEAK_GBS", None, "obs/cost.py",
+           "Roofline denominator override in GB/s (obs/cost.peak_gb_s); "
+           "unset: the data-sheet rate of the card's kind."),
+    # -- the benchmark suite (bench_suite.py) --------------------------------
+    EnvVar("MCIM_ENGINE_AB_DECODE_MS", None, "bench_suite.py",
+           "engine_ab lane: per-image synthetic decode delay override."),
+    EnvVar("MCIM_ENGINE_AB_ENCODE_MS", None, "bench_suite.py",
+           "engine_ab lane: per-image synthetic encode delay override."),
+    EnvVar("MCIM_ENGINE_AB_IMAGES", None, "bench_suite.py",
+           "engine_ab lane: synthetic corpus size override."),
+    EnvVar("MCIM_ENGINE_AB_INFLIGHT", None, "bench_suite.py",
+           "engine_ab lane: overlapped-lane dispatch depth override."),
+    EnvVar("MCIM_FABRIC_DURATION_S", None, "bench_suite.py",
+           "fabric_loadgen lane: per-phase sweep duration override."),
+    EnvVar("MCIM_FABRIC_REPLICAS", None, "bench_suite.py",
+           "fabric_loadgen lane: scaled-lane replica count override "
+           "(default 3; the baseline lane is always 1)."),
+    EnvVar("MCIM_FABRIC_RPS", None, "bench_suite.py",
+           "fabric_loadgen lane: offered-rate override (single float)."),
+    EnvVar("MCIM_GRAPH_TENANTS", None, "bench_suite.py",
+           "graph_loadgen lane: tenant-count override (--tenants flag "
+           "works too)."),
+    EnvVar("MCIM_HALO_AB", None, "bench_suite.py",
+           "=1 forces the sharded serial-vs-overlap halo A/B on, =0 off; "
+           "default: on for a CUDA device, off on the CPU."),
+    EnvVar("MCIM_MEGAKERNEL_AB_HEIGHT", None, "bench_suite.py",
+           "megakernel_ab lane: image height override."),
+    EnvVar("MCIM_MEGAKERNEL_AB_OPS", None, "bench_suite.py",
+           "megakernel_ab lane: pipeline override (default the two-stencil "
+           "grayscale,contrast,gaussian:5,sharpen,quantize chain — one "
+           "temporally-blocked stage)."),
+    EnvVar("MCIM_MEGAKERNEL_AB_WIDTH", None, "bench_suite.py",
+           "megakernel_ab lane: image width override."),
+    EnvVar("MCIM_MXU_AB_HEIGHT", None, "bench_suite.py",
+           "mxu_ab lane: image height override."),
+    EnvVar("MCIM_MXU_AB_OPS", None, "bench_suite.py",
+           "mxu_ab lane: pipeline override (default gaussian:5)."),
+    EnvVar("MCIM_MXU_AB_WIDTH", None, "bench_suite.py",
+           "mxu_ab lane: image width override."),
+    EnvVar("MCIM_MXU_FUSED_AB_HEIGHT", None, "bench_suite.py",
+           "mxu_fused_ab lane: image height override."),
+    EnvVar("MCIM_MXU_FUSED_AB_OPS", None, "bench_suite.py",
+           "mxu_fused_ab lane: pipeline override (default "
+           "gaussian:5,sharpen,box:5)."),
+    EnvVar("MCIM_MXU_FUSED_AB_WIDTH", None, "bench_suite.py",
+           "mxu_fused_ab lane: image width override."),
+    EnvVar("MCIM_PLAN_AB_HEIGHT", None, "bench_suite.py",
+           "plan_ab lane: image height override."),
+    EnvVar("MCIM_PLAN_AB_OPS", None, "bench_suite.py",
+           "plan_ab lane: pipeline override (default the pointwise-heavy "
+           "grayscale,contrast,gaussian:5,quantize headline chain)."),
+    EnvVar("MCIM_PLAN_AB_WIDTH", None, "bench_suite.py",
+           "plan_ab lane: image width override."),
+    EnvVar("MCIM_SERVE_DURATION_S", None, "bench_suite.py",
+           "serve_loadgen lane: per-rate sweep duration override."),
+    EnvVar("MCIM_SERVE_FAULT_RATE", None, "bench_suite.py",
+           "serve_loadgen lane: injected transient dispatch-failure rate "
+           "(availability columns)."),
+    EnvVar("MCIM_SERVE_RPS", None, "bench_suite.py",
+           "serve_loadgen lane: offered-rate sweep override (comma list)."),
+    EnvVar("MCIM_STREAM_AB_HEIGHT", None, "bench_suite.py",
+           "stream_ab lane: image height override."),
+    EnvVar("MCIM_STREAM_AB_TILE_ROWS", None, "bench_suite.py",
+           "stream_ab lane: streamed-lane tile height override."),
+    EnvVar("MCIM_STREAM_AB_WIDTH", None, "bench_suite.py",
+           "stream_ab lane: image width override."),
+    EnvVar("MCIM_SYSTOLIC_AB_HEIGHT", None, "bench_suite.py",
+           "systolic_ab lane: image height override."),
+    EnvVar("MCIM_SYSTOLIC_AB_OPS", None, "bench_suite.py",
+           "systolic_ab lane: op-chain override for the >=8-stage DAG "
+           "(must stay systolic-eligible: pointwise/stencil, "
+           "channel-preserving)."),
+    EnvVar("MCIM_SYSTOLIC_AB_REQUESTS", None, "bench_suite.py",
+           "systolic_ab lane: requests per arm."),
+    EnvVar("MCIM_TRACE_OUT", None, "bench_suite.py",
+           "serve_loadgen lane: export the sweep's span timeline to this "
+           "path (Chrome/Perfetto JSON)."),
+    EnvVar("MCIM_TUNE_CONV_HEIGHT", None, "bench_suite.py",
+           "tune_convergence lane: bucket height override."),
+    EnvVar("MCIM_TUNE_CONV_OPS", None, "bench_suite.py",
+           "tune_convergence lane: pipeline override (default the "
+           "pointwise-heavy headline chain, where fused-vs-off is the "
+           "measured spread the controller must find)."),
+    EnvVar("MCIM_TUNE_CONV_WIDTH", None, "bench_suite.py",
+           "tune_convergence lane: bucket width override."),
 )
 
 REGISTRY: dict[str, EnvVar] = {v.name: v for v in _VARS}
