@@ -358,6 +358,25 @@ printing a result:
     pods, a whole pod SIGKILLed mid-traffic with every accepted request ok
     and byte-equal and the reroutes under ``REROUTE_REASONS`` only.
 
+23. The static-analysis gate and its lock recorder (analysis/), CLI
+    ``diff`` and ``run --show``, which add no kernel: (a) ``run --impl
+    cuda --plan off`` (K2, then K1 for gray -> RGB, counted) and ``run
+    --impl torch`` of the reference on the 8K RGB frame as a PNG: ``diff``
+    of the two outputs exits 0 with ``identical``; the cuda output with one
+    byte flipped exits 1 with one differing value and ``psnr_db`` equal to
+    10 log10(255^2 / mse); a cropped copy exits 2; ``run --show`` on this
+    headless machine exits 0 and writes the same bytes; (b) under
+    ``lockcheck.recording()``, the engine on 16 1080p RGB frames with
+    ``Pipeline.jit(backend='cuda', donate=True)`` at inflight 2 (completion
+    threads waiting on CUDA events), outputs byte-equal to the golden ops,
+    then a ServeApp on the card answering 12 client threads of three
+    shapes, each response equal to golden: observed graphs acyclic, nesting
+    seen in serving, the merge with the port's static ``lock_graph``
+    acyclic; edge counts and sites printed; (c) the gate itself, ``python
+    -m mpi_cuda_imagemanipulation_tpu_torch.tools.mcim_check --format json``
+    over this checkout on this machine's Python (started first, in its own
+    process, and waited for last): exit 0, files analysed and seconds.
+
 The native codec is built from the checkout like the kernels, and a kernel
 or the codec that fails to build or launch fails its phase: nothing falls
 back. It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -7033,6 +7052,254 @@ def phase22_bench(device) -> None:
           "in all")
 
 
+LOCK_SHAPES = ((33, 47), (48, 48), (60, 64))  # phase 23 (b): serving's three shapes
+
+
+def _diff(a: str, b: str, tmp: str, tag: str) -> tuple[int, dict]:
+    """`diff a b --json-metrics FILE` through the port's CLI: its exit code
+    and record."""
+    from mpi_cuda_imagemanipulation_tpu_torch import cli
+
+    out = os.path.join(tmp, f"diff_{tag}.json")
+    rc = cli.main(["diff", a, b, "--json-metrics", out])
+    with open(out) as f:
+        return rc, json.loads(f.read())
+
+
+def phase23_diff_show(device, tmp: str, gpu: str) -> None:
+    """Phase 23 (a): `run` at cuda and torch on the 8K PNG, `diff` of the
+    outputs, a flipped byte, a cropped copy, `run --show` (module
+    docstring)."""
+    import numpy as np
+    from PIL import ImageShow
+
+    from mpi_cuda_imagemanipulation_tpu_torch import cli
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import load_image, save_image, synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+
+    src = os.path.join(tmp, "in8k.png")
+    save_image(src, synthetic_image(MAIN_H, MAIN_W, seed=0))
+    outs = {}
+    for impl in ("cuda", "torch"):
+        outs[impl] = os.path.join(tmp, f"out_{impl}.ppm")
+        argv = ["run", "--input", src, "--output", outs[impl], "--ops", SPECS["reference"],
+                "--impl", impl, "--plan", "off", "--device", str(device)]
+        ck.reset_launch_counts()
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        if rc != 0:
+            raise AssertionError(f"phase 23: run --impl {impl} exited {rc}")
+        want = {"K2": 1, "K1": 1} if impl == "cuda" else {}
+        if counts != want:
+            raise AssertionError(f"phase 23: run --impl {impl} launched {counts}, want {want}")
+        print(f"phase 23: run --impl {impl} on the 8K PNG: {time.perf_counter() - t:.2f} s, "
+              f"launches {counts}")
+    rc, rec = _diff(outs["cuda"], outs["torch"], tmp, "same")
+    if rc != 0 or not rec["identical"] or rec["psnr_db"] != float("inf"):
+        raise AssertionError(f"phase 23: diff cuda torch: rc {rc}, {rec}")
+    arr = load_image(outs["cuda"])
+    flipped = arr.copy()
+    flipped[MAIN_H // 2, MAIN_W // 3, 1] ^= 0x40
+    save_image(os.path.join(tmp, "flip.ppm"), flipped)
+    rc1, rec1 = _diff(outs["cuda"], os.path.join(tmp, "flip.ppm"), tmp, "flip")
+    psnr = 10.0 * np.log10(255.0**2 / rec1["mse"]) if rec1["mse"] else None
+    if (rc1 != 1 or rec1["differing_pixels"] != 1 or rec1["max_abs_diff"] != 0x40
+            or rec1["psnr_db"] != psnr):
+        raise AssertionError(f"phase 23: diff of one flipped byte: rc {rc1}, {rec1}")
+    save_image(os.path.join(tmp, "crop.ppm"), arr[:-8])
+    rc2, rec2 = _diff(outs["cuda"], os.path.join(tmp, "crop.ppm"), tmp, "crop")
+    if rc2 != 2 or rec2.get("error") != "shape mismatch":
+        raise AssertionError(f"phase 23: diff of a cropped copy: rc {rc2}, {rec2}")
+    print(f"phase 23: diff cuda == torch (rc 0, identical); one flipped byte rc 1, "
+          f"differing_pixels 1, mse {rec1['mse']!r}, psnr_db {rec1['psnr_db']!r}; "
+          f"cropped rc 2 ({gpu})")
+    shown = os.path.join(tmp, "shown.ppm")
+    viewers = [type(v).__name__ for v in ImageShow._viewers]
+    t = time.perf_counter()
+    rc = cli.main(["run", "--input", src, "--output", shown, "--ops", SPECS["reference"],
+                   "--impl", "cuda", "--plan", "off", "--device", str(device), "--show"])
+    with open(shown, "rb") as f1, open(outs["cuda"], "rb") as f2:
+        same = f1.read() == f2.read()
+    if rc != 0 or not same:
+        raise AssertionError(f"phase 23: run --show: rc {rc}, bytes equal {same}")
+    print(f"phase 23: run --show exit 0, bytes equal to the run without it, "
+          f"{time.perf_counter() - t:.2f} s (PIL viewers here: {viewers or 'none'})")
+
+
+def phase23_locks(device, root: str, gpu: str) -> None:
+    """Phase 23 (b): the engine and a ServeApp on the card under the
+    port's lock-order recorder (module docstring)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_imagemanipulation_tpu_torch.analysis import lockcheck
+    from mpi_cuda_imagemanipulation_tpu_torch.analysis.rules_concurrency import lock_graph
+    from mpi_cuda_imagemanipulation_tpu_torch.engine import Engine, device_stager
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import synthetic_image
+    from mpi_cuda_imagemanipulation_tpu_torch.models.pipeline import Pipeline
+    from mpi_cuda_imagemanipulation_tpu_torch.ops import cuda_kernels as ck
+    from mpi_cuda_imagemanipulation_tpu_torch.serve.server import Client, ServeApp, ServeConfig
+
+    spec = SPECS["reference"]
+    gold = Pipeline.parse(spec)
+    t = time.perf_counter()
+    static = lock_graph(root)
+
+    def site(node):
+        return "/".join(node[0].split("/")[-2:]) + ":" + node[1]
+
+    static_edges = [(site(a), site(b)) for (a, b) in static]
+    print(f"phase 23: static lock graph {len(static_edges)} edges {static_edges} "
+          f"({time.perf_counter() - t:.2f} s)")
+    frames = [synthetic_image(1080, 1920, seed=40 + k) for k in range(16)]
+    want = [gold(torch.from_numpy(f).to(device)).cpu().numpy() for f in frames]
+    torch.cuda.synchronize(device)
+    rec = lockcheck.recorder()
+    before = rec.snapshot_edges()
+    with lockcheck.recording():
+        fn = Pipeline.parse(spec).jit("cuda", device=device, plan="off", donate=True)
+        got, bad = {}, []
+        lock = threading.Lock()
+
+        def on_done(k, out, info):
+            with lock:
+                got[k] = out
+
+        def on_error(k, e):
+            with lock:
+                bad.append((k, repr(e)))
+
+        ck.reset_launch_counts()
+        t = time.perf_counter()
+        with Engine(inflight=2, io_threads=2, stage=device_stager(device, inflight=2),
+                    name="chip-locks") as eng:
+            for k, f in enumerate(frames):
+                eng.submit(k, lambda f=f: f, fn, on_done=on_done, on_error=on_error)
+            if not eng.flush(timeout=300):
+                raise AssertionError("phase 23: engine did not drain in 300 s")
+        wall = time.perf_counter() - t
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        if bad or sorted(got) != list(range(16)):
+            raise AssertionError(f"phase 23: engine failures {bad[:3]}, got {sorted(got)}")
+        wrong = [k for k in range(16) if not np.array_equal(got[k], want[k])]
+        if wrong or counts != {"K2": 16}:
+            raise AssertionError(f"phase 23: engine outputs differ at {wrong}, launches {counts}")
+    # the edges this run recorded (new, or counted again)
+    engine_edges = {e: n for e, n in rec.snapshot_edges().items() if before.get(e) != n}
+    rec.assert_acyclic(extra_edges=static_edges)
+    print(f"phase 23: engine under the recorder: 16 1080p frames == golden in {wall:.2f} s, "
+          f"launches {counts}; edges recorded {len(engine_edges)}: "
+          f"{sorted(f'{a} -> {b} x{n}' for (a, b), n in engine_edges.items())} ({gpu})")
+    before = rec.snapshot_edges()
+    with lockcheck.recording():
+        t = time.perf_counter()
+        app = ServeApp(ServeConfig(ops=spec, buckets=((48, 48), (64, 64)), max_batch=4,
+                                   max_delay_ms=10.0, channels=(3,), device=str(device))).start()
+        warm = time.perf_counter() - t
+        errs, results = [], []
+        try:
+            client = Client(app)
+            lock = threading.Lock()
+
+            def worker(seed: int):
+                try:
+                    h, w = LOCK_SHAPES[seed % 3]
+                    img = synthetic_image(h, w, channels=3, seed=seed)
+                    out = client.process(img, timeout=120)
+                    with lock:
+                        results.append((img, out))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    with lock:
+                        errs.append(repr(e))
+
+            ck.reset_launch_counts()
+            t = time.perf_counter()
+            threads = [threading.Thread(target=worker, args=(k,)) for k in range(12)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(180)
+            wall = time.perf_counter() - t
+            counts = {k: v for k, v in ck.launch_counts().items() if v}
+        finally:
+            app.stop()
+        if errs or len(results) != 12:
+            raise AssertionError(f"phase 23: serving errors {errs[:3]}, {len(results)} of 12")
+        for img, out in results:
+            ref = gold(torch.from_numpy(img).to(device)).cpu().numpy()
+            if not np.array_equal(out, ref):
+                raise AssertionError(f"phase 23: a {img.shape} response differs from golden")
+    serve_edges = {e: n for e, n in rec.snapshot_edges().items() if before.get(e) != n}
+    if not serve_edges:
+        raise AssertionError("phase 23: no lock nesting observed in serving")
+    rec.assert_acyclic(extra_edges=static_edges)
+    launched = counts or "none: the padded executor runs the golden ops"
+    print(f"phase 23: ServeApp under the recorder: warm {warm:.2f} s, 12 requests of 3 shapes "
+          f"== golden in {wall:.2f} s (launches {launched}); edges recorded {len(serve_edges)}: "
+          f"{sorted(f'{a} -> {b} x{n}' for (a, b), n in serve_edges.items())}; observed graph "
+          f"({len(rec.snapshot_edges())} edges, {len(rec.sites)} lock sites) merged with the "
+          f"static one acyclic ({gpu})")
+
+
+def phase23_gate_start(root: str, tmp: str) -> tuple:
+    """Phase 23 (c), started: the gate over `root` in a process of its own,
+    its report written under `tmp`."""
+    out = os.path.join(tmp, "gate.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mpi_cuda_imagemanipulation_tpu_torch.tools.mcim_check",
+         "--format", "json", "--root", root, "--out", out],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def phase23_gate_wait(gate: tuple) -> None:
+    proc, out, t0 = gate
+    try:
+        _stdout, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        report = json.loads(f.read())
+    if proc.returncode != 0 or report["counts"]["errors"]:
+        raise AssertionError(f"phase 23: the gate exited {proc.returncode}: "
+                             f"{report['findings'][:5]} {err[-2000:]}")
+    print(f"phase 23: the gate (mcim_check --format json) exit 0 on this machine's Python "
+          f"{sys.version.split()[0]}: {report['files_analyzed']} files analysed, "
+          f"{len(report['rules'])} rules, 0 findings, {seconds:.1f} s (beside (a) and (b))")
+
+
+def phase23_analysis(device) -> None:
+    """The static gate, its lock recorder, `diff` and `run --show` on the
+    card (module docstring, phase 23)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    gpu = nvidia_smi()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mcim_analysis_")
+    try:
+        gate = phase23_gate_start(root, tmp)
+        try:
+            t = time.perf_counter()
+            phase23_diff_show(device, tmp, gpu)
+            print(f"phase 23: (a) diff and --show {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            phase23_locks(device, root, gpu)
+            print(f"phase 23: (b) the lock recorder {time.perf_counter() - t:.1f} s")
+        finally:
+            phase23_gate_wait(gate)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 23: the gate, the lock recorder, diff and --show, "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
 def ptxas_summary(name: str, lines: list[str]) -> str:
     """One line of a source's `-Xptxas -v` report: its kernel
     instantiations, the most registers one uses and the spilled bytes
@@ -7191,6 +7458,7 @@ def main() -> int:
     phase20_graph_service(device, x8k)
     phase21_fabric(device, x8k, rows)
     phase22_bench(device)
+    phase23_analysis(device)
     torch.cuda.synchronize()
 
     print(f"gpu: {nvidia_smi()}")

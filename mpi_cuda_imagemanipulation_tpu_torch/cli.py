@@ -242,6 +242,12 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument("--show-timing", action="store_true", help="print timing")
     run.add_argument(
+        "--show", action="store_true",
+        help="open the saved result in the system image viewer (the reference's "
+        "imshow/waitKey, kernel.cu:233-235); where none opens (a headless host) a "
+        "warning is logged and the run still succeeds",
+    )
+    run.add_argument(
         "--json-metrics", default=None,
         help="write a JSON metrics line to this path ('-' = stdout)",
     )
@@ -262,6 +268,7 @@ def _build_parser() -> argparse.ArgumentParser:
     _add_federation_parser(sub)
     _add_graph_parser(sub)
     _add_bench_parser(sub)
+    _add_diff_parser(sub)
 
     tune = sub.add_parser(
         "autotune",
@@ -744,6 +751,18 @@ def _add_bench_parser(sub) -> None:
     bench.add_argument("--json-metrics", default=None)
 
 
+def _add_diff_parser(sub) -> None:
+    """The ``diff`` subcommand's arguments: the JAX package's."""
+    diff = sub.add_parser(
+        "diff",
+        help="compare two images: max abs diff, differing pixels, PSNR; exit 0 iff "
+        "bit-identical, 1 when they differ, 2 on a shape mismatch",
+    )
+    diff.add_argument("a", help="first image path")
+    diff.add_argument("b", help="second image path")
+    diff.add_argument("--json-metrics", default=None, help="write the record ('-' = stdout)")
+
+
 def _add_graph_parser(sub) -> None:
     """The ``graph`` subcommand's arguments: the JAX package's flags, in
     the port's terms (--impl names the walker's accumulations, --device a
@@ -954,8 +973,11 @@ def _run(args: argparse.Namespace, root) -> int:
         prof.export_chrome_trace(path)
         get_logger().info("profile written to %s", path)
     if writes:
+        saved = out.cpu().numpy()
         with obs_trace.span("run.save", parent=root.context(), path=args.output):
-            save_image(args.output, out.cpu().numpy())
+            save_image(args.output, saved)
+        if args.show:
+            _show(saved, args.output)
 
     mp = img.shape[0] * img.shape[1] / 1e6
     clock = "device (CUDA events)" if dev.type == "cuda" else "host"
@@ -992,6 +1014,19 @@ def _run(args: argparse.Namespace, root) -> int:
         }
         emit_json_metrics(rec, args.json_metrics)
     return 0
+
+
+def _show(arr, title: str) -> None:
+    """`run --show`: the saved array in the system image viewer. Where none
+    opens (a headless host) the failure is a logged warning, not the run's."""
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import get_logger
+
+    try:
+        from PIL import Image
+
+        Image.fromarray(arr).show(title=title)
+    except Exception as e:  # noqa: BLE001 - headless host: keep the run's exit clean
+        get_logger().warning("--show failed (headless?): %s", e)
 
 
 def _run_guarded(args: argparse.Namespace, root) -> int:
@@ -1046,6 +1081,8 @@ def _run_guarded(args: argparse.Namespace, root) -> int:
     if writes:
         with obs_trace.span("run.save", parent=root.context(), path=args.output):
             save_image(args.output, out)
+        if args.show:
+            _show(out, args.output)
     mp = img.shape[0] * img.shape[1] / 1e6
     if args.show_timing and writes:
         steady = (f"steady-state {steady_s * 1e3:.4f} ms host ({mp / steady_s:.1f} MP/s)"
@@ -2382,6 +2419,56 @@ def cmd_graph(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_diff(args: argparse.Namespace) -> int:
+    """`diff`: bit-exactness and PSNR of two images, as the JAX package's
+    ``cmd_diff`` computes them (numpy int64), decoded by the port's
+    ``io/image.load_image`` (PPM/PGM through the native codec). Exit 0 when
+    identical, 1 when they differ, 2 on a shape mismatch."""
+    import numpy as np
+
+    from mpi_cuda_imagemanipulation_tpu_torch.io.image import load_image
+    from mpi_cuda_imagemanipulation_tpu_torch.utils.log import emit_json_metrics
+
+    a = np.asarray(load_image(args.a)).astype(np.int64)
+    b = np.asarray(load_image(args.b)).astype(np.int64)
+    if a.shape != b.shape:
+        print(f"shape mismatch: {a.shape} vs {b.shape}")
+        if args.json_metrics:
+            emit_json_metrics(
+                {
+                    "event": "diff",
+                    "shape_a": list(a.shape),
+                    "shape_b": list(b.shape),
+                    "identical": False,
+                    "error": "shape mismatch",
+                },
+                args.json_metrics,
+            )
+        return 2
+    d = np.abs(a - b)
+    ndiff = int(np.count_nonzero(d))
+    mse = float((d.astype(np.float64) ** 2).mean())
+    psnr = float("inf") if mse == 0 else 10.0 * np.log10(255.0**2 / mse)
+    rec = {
+        "event": "diff",
+        "shape": list(a.shape),
+        "max_abs_diff": int(d.max()),
+        "differing_pixels": ndiff,
+        "total_pixels": int(d.size),
+        "mse": mse,
+        "psnr_db": psnr,
+        "identical": ndiff == 0,
+    }
+    print(
+        f"{'identical' if ndiff == 0 else 'DIFFERENT'}: maxdiff {rec['max_abs_diff']}, "
+        f"{ndiff}/{d.size} values differ, PSNR "
+        + ("inf" if mse == 0 else f"{psnr:.2f} dB")
+    )
+    if args.json_metrics:
+        emit_json_metrics(rec, args.json_metrics)
+    return 0 if ndiff == 0 else 1
+
+
 def cmd_info(args: argparse.Namespace) -> int:
     import torch
 
@@ -2466,7 +2553,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         return {"run": cmd_run, "batch": cmd_batch, "stream": cmd_stream, "serve": cmd_serve,
                 "fabric": cmd_fabric, "federation": cmd_federation, "graph": cmd_graph,
-                "bench": cmd_bench, "autotune": cmd_autotune, "info": cmd_info}[args.cmd](args)
+                "bench": cmd_bench, "autotune": cmd_autotune, "diff": cmd_diff,
+                "info": cmd_info}[args.cmd](args)
     except (ValueError, RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -342,6 +342,8 @@ class LazyAttributedFn:
                 modeled = None if self._modeled_fn is None else self._modeled_fn(args)
             except Exception:  # noqa: BLE001 - no model: record without a drift check
                 modeled = None
+            # the lock holds concurrent first calls until one is attributed
+            # mcim-torch: allow(lock-blocking-call: temp is False on this call, so no synchronize)
             out, cost = measured_call(self._fn, args)
             self._done = True
         self._ledger.record(self._site, self._key, cost, modeled_bytes=modeled, stage=self._stage)

@@ -45,7 +45,8 @@ class LabelCounts(MutableMapping):
 
     def __init__(self, counter: Counter | None = None):
         if counter is None:
-            counter = Registry().counter("mcim_counts_total", "Counts by key.", labels=("key",))
+            counter = Registry().counter("mcim_plan_counts_total", "Counts by key.",
+                                         labels=("key",))
         self._counter = counter
         self._label = counter.label_names[0]
 

@@ -11,7 +11,9 @@ defaults: both packages may run in one process (the tests do) and read
 one environment, and the repository's static check
 (``tools/mcim_check.py``, rule ``env-unregistered``) holds every
 ``MCIM_*`` literal in the repository to the JAX registry. A knob only the
-port has cannot take an ``MCIM_`` name.
+port has cannot take an ``MCIM_`` name. The port's own gate
+(``python -m mpi_cuda_imagemanipulation_tpu_torch.tools.mcim_check``)
+holds the port's literals to this registry.
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ _VARS = (
     EnvVar("MCIM_LOG_LEVEL", None, "utils/log.py",
            "Logger verbosity: level name or number (DEBUG..CRITICAL or "
            "10..50); default INFO."),
+    # -- lock-order recorder (analysis/lockcheck.py) -------------------------
+    EnvVar("MCIM_LOCK_CHECK", None, "analysis/lockcheck.py",
+           "=1 asks for the lock-order recorder (lockcheck.enabled()): "
+           "threading.Lock/RLock/Condition instrumented and the observed "
+           "acquisition graph asserted cycle-free."),
     # -- tracing (obs/trace.py) ----------------------------------------------
     EnvVar("MCIM_TRACE_SAMPLE", None, "obs/trace.py",
            "Arm request-scoped tracing at this sample fraction "

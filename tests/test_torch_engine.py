@@ -387,3 +387,43 @@ def test_idle_parts_bracket_the_idle_time_between_two_reads():
         assert "idle_open_s" not in eng.metrics.snapshot()
     finally:
         eng.close(timeout=WAIT_S)
+
+
+# --------------------------------------------------------------------------
+# the runtime lock-order recorder (analysis/lockcheck.py)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_engine_lock_order_recorder_acyclic(donate):
+    """The engine's completion thread and encode pool under the port's
+    lock-order recorder (the counterpart of the JAX package's
+    test_engine_lock_order_recorder_acyclic): every output equals the JAX
+    pipeline's, and the observed acquisition graph (engine _cond, metrics
+    locks, queue internals) is cycle-free."""
+    from mpi_cuda_imagemanipulation_tpu_torch.analysis import lockcheck
+
+    fn = Pipeline.parse(REFERENCE_OPS).jit("cuda", device="cpu", plan="off", donate=donate)
+    imgs = [synthetic_image(40 + (k % 3), 40, channels=3, seed=k) for k in range(10)]
+    with lockcheck.recording():
+        outs: dict[int, np.ndarray] = {}
+        errs: list[BaseException] = []
+        done_lock = threading.Lock()
+
+        def on_done(key, out, info):
+            with done_lock:
+                outs[key] = np.asarray(out)
+
+        def on_error(key, exc):
+            with done_lock:
+                errs.append(exc)
+
+        eng = Engine(inflight=2, io_threads=2, stage=device_stager("cpu"), name="t-lockcheck")
+        for k, img in enumerate(imgs):
+            eng.submit(k, lambda img=img: img, fn, on_done=on_done, on_error=on_error)
+        _drain(eng)
+        assert not errs, errs
+        assert sorted(outs) == list(range(10))
+        for k, img in enumerate(imgs):
+            np.testing.assert_array_equal(outs[k], _jax(REFERENCE_OPS, img), err_msg=f"image {k}")
+    # recording().__exit__ asserted the observed graph acyclic

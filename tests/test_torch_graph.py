@@ -777,3 +777,44 @@ def test_service_defaults_to_cuda_and_raises_without_it():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="cuda"):
         GraphService()
+
+
+# --------------------------------------------------------------------------
+# the graph-taxonomy analysis rule (analysis/rules_obs.py)
+# --------------------------------------------------------------------------
+
+
+def test_graph_taxonomy_rule_flags_unknown_and_dynamic(tmp_path):
+    """The port's analyzer on the JAX package's taxonomy fixture, written
+    under the port's package name."""
+    import textwrap
+
+    from mpi_cuda_imagemanipulation_tpu_torch.analysis import core
+
+    files = {
+        f"{core.PACKAGE}/graph/spec.py": """
+            TAXONOMY = {"bad-json": "x", "never-raised": "y"}
+            class SpecError(ValueError):
+                def __init__(self, code, message):
+                    super().__init__(message)
+                    self.code = code
+        """,
+        f"{core.PACKAGE}/graph/other.py": f"""
+            from {core.PACKAGE}.graph.spec import SpecError
+            def a():
+                raise SpecError("bad-json", "fine")
+            def b():
+                raise SpecError("not-registered", "unknown code")
+            def c(code):
+                raise SpecError(code, "dynamic code")
+        """,
+    }
+    for rel, src in files.items():
+        p = tmp_path / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(textwrap.dedent(src))
+    findings, _repo = core.run(str(tmp_path), families=["obs"])
+    rules = {f.rule for f in findings}
+    assert "graph-taxonomy-unknown" in rules
+    assert "graph-taxonomy-dynamic" in rules
+    assert "graph-taxonomy-unused" in rules  # 'never-raised'

@@ -507,3 +507,63 @@ def test_serving_defaults_to_cuda_and_raises_without_it():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         ServeApp(ServeConfig(buckets=((32, 32),)))
+
+
+# --------------------------------------------------------------------------
+# the runtime lock-order recorder (analysis/lockcheck.py)
+# --------------------------------------------------------------------------
+
+
+def test_serve_lock_order_recorder_acyclic():
+    """Concurrent mixed-shape load with every scheduler, engine, cache,
+    breaker and metrics lock instrumented by the port's recorder (the
+    counterpart of the JAX package's test_serve_lock_order_recorder_acyclic):
+    responses equal the JAX golden, the observed graph has nesting and is
+    acyclic, and so is its merge with the port's static lock graph."""
+    import os
+
+    from mpi_cuda_imagemanipulation_tpu_torch.analysis import lockcheck
+    from mpi_cuda_imagemanipulation_tpu_torch.analysis.rules_concurrency import lock_graph
+
+    with lockcheck.recording() as rec:
+        app = _app()
+        try:
+            client = Client(app)
+            errs: list[Exception] = []
+            results = []
+            lock = threading.Lock()
+
+            def worker(seed: int):
+                try:
+                    h, w = [(33, 47), (48, 48), (60, 64)][seed % 3]
+                    img = synthetic_image(h, w, channels=3, seed=seed)
+                    out = client.process(img, timeout=WAIT_S)
+                    with lock:
+                        results.append((img, out))
+                except Exception as e:  # pragma: no cover - reporting
+                    with lock:
+                        errs.append(e)
+
+            threads = [threading.Thread(target=worker, args=(k,)) for k in range(12)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(WAIT_S)
+            assert not errs, errs
+            assert len(results) == 12
+            for img, out in results:
+                np.testing.assert_array_equal(out, _jax_golden(REFERENCE_OPS, img))
+        finally:
+            app.stop()
+        # the instrumented app really nested locks (scheduler._cond over the
+        # metrics and cache locks at least)
+        edges = rec.snapshot_edges()
+        assert edges, "no lock nesting observed"
+        assert any(a == "serve/scheduler.py:_cond" for a, _b in edges), sorted(edges)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        static = lock_graph(root)
+
+        def site(node):
+            return "/".join(node[0].split("/")[-2:]) + ":" + node[1]
+
+        rec.assert_acyclic(extra_edges=[(site(a), site(b)) for (a, b) in static])
